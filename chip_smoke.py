@@ -4,24 +4,42 @@
     python3 chip_smoke.py
 
 Drives the port (``kubeinfer_tpu_torch``; nothing of JAX) through the
-placement solve's entry points, builds its CUDA kernel from this checkout,
-holds the kernel against its plain PyTorch version, checks the solve's
-hard guarantees, and times it. Phases:
+placement solve's entry points, builds its CUDA kernels from this
+checkout, holds each kernel against its plain PyTorch version, checks the
+solve's hard guarantees, and times it. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
-  (1) the nvcc build of every kernel of the path;
+  (1) the nvcc build of every kernel of the solve, one nvcc per source,
+      started together: mega_solve.cu and round_ops.cu;
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
       bitwise equal;
-  (3) the main path: ``get_backend("jax-greedy").solve`` at 10k jobs x 1k
+  (3) the mega path: ``get_backend("jax-greedy").solve`` at 10k jobs x 1k
       nodes and the ``/solve`` handler at 32 x 8 and 1k x 128, with the
       launch counts reset just before and read just after; no overcommit,
       gangs all-or-nothing, a fixpoint, 10000 placed, and the assignment
-      equal to the port's own device="cpu" solve;
-  (4) times: p50 pack + solve at 10k x 1k and 50k x 1k, the kernel and
-      its plain version (CUDA events), and the serial native baseline;
-  (5) the ``kernels`` JSON line.
+      equal to the port's own device="cpu" solve. The 32 x 8 call pads to
+      a 64 x 64 bucket, which is not 128-aligned: it runs the pipelined
+      loop (round kernels), as the reference routes it;
+  (4) times of the mega path: p50 pack + solve at 10k x 1k and 50k x 1k,
+      the kernel and its plain version (CUDA events), and the serial
+      native baseline;
+  (5) fence, bid and accept vs fence_minrank, round_bids and dense_accept,
+      bitwise, on the inputs of the first rounds of a real 10k jobs x 20k
+      nodes solve (J=12288, N=24576, both accept passes; no mega window
+      fits) and on every round of a 700 x 60 solve with 25% gangs (N=64,
+      the halves group rule);
+  (6) the pipelined path: ``get_backend("jax-greedy").solve`` at 10k x 20k
+      fresh, with 25% gangs, and a 10% churn re-solve (seeded, with the
+      preemption repair), launch counts reset just before and read just
+      after; the same guarantees, and the card's solve equal to the
+      device="cpu" solve at 1k x 20k, at 700 x 60 with 25% gangs, and at
+      an overloaded 1000 x 60 with 25% gangs (gang repair + fill);
+  (7) times of the pipelined path: p50 pack + solve at 10k x 20k, rounds,
+      ms per round, launches and host syncs per solve, and each round
+      kernel beside its plain version and its bound;
+  (8) the ``kernels`` JSON line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Full numbers go to chiprun_out/chip_smoke.json.
@@ -29,16 +47,20 @@ phase fails. Full numbers go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+ROUND_KERNELS = ("fence", "bid", "accept")
 
 
 def build_request(J, N, seed=0, gang_fraction=0.0):
@@ -50,8 +72,10 @@ def build_request(J, N, seed=0, gang_fraction=0.0):
     gang = np.full(J, -1, np.int32)
     if gang_fraction > 0:
         n_gang_jobs = int(J * gang_fraction)
+        # gangs of 4; the last one shorter when the count is not a
+        # multiple of 4 (bench.py's generator takes only multiples)
         gang[:n_gang_jobs] = np.repeat(
-            np.arange(max(n_gang_jobs // 4, 1)), 4
+            np.arange(max(-(-n_gang_jobs // 4), 1)), 4
         )[:n_gang_jobs]
     return SolveRequest(
         job_gpu=rng.integers(1, 8, J).astype(np.float32),
@@ -170,6 +194,299 @@ def handler_body(J, N, seed, fractional):
     }
 
 
+def reset_counts(kernels):
+    """Set every kernel wrapper's launch count to 0."""
+    for name in ("mega_solve", *ROUND_KERNELS):
+        getattr(kernels, name).launches = 0
+
+
+def round_counts(kernels):
+    return {name: getattr(kernels, name).launches for name in ROUND_KERNELS}
+
+
+class CheckedOps:
+    """Round ops for ``core.run_rounds`` that run each kernel and its plain
+    version on the same inputs, hold every output bitwise equal, and hand
+    the kernel's result on. The inputs of each op's first call are kept
+    for the timings."""
+
+    def __init__(self, kernels):
+        self.k = kernels
+        self.calls = dict.fromkeys(ROUND_KERNELS, 0)
+        self.max_err = dict.fromkeys(ROUND_KERNELS, 0.0)
+        self.first = {}
+
+    def _held(self, name, kern, plain, args, kw):
+        self.first.setdefault(name, (args, kw))
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            err = float((g.double() - w.double()).abs().max())
+            self.max_err[name] = max(self.max_err[name], err)
+            check(torch_equal(g, w),
+                  f"{name}: kernel != plain version, call {self.calls[name]}")
+        self.calls[name] += 1
+        return got if len(got) > 1 else got[0]
+
+    def ops(self):
+        from kubeinfer_tpu_torch.solver.core import RoundOps
+
+        k = self.k
+        return RoundOps(
+            lambda *a, **kw: self._held("fence", k.fence, k.fence_minrank, a, kw),
+            lambda *a, **kw: self._held("bid", k.bid, k.round_bids, a, kw),
+            lambda *a, **kw: self._held(
+                "accept", k.accept, k.dense_accept, a, kw),
+        )
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def count_syncs(fn):
+    """Run ``fn`` under torch's CUDA sync debug mode; returns its result
+    and its synchronising calls, counted by source line."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)
+    )
+    return out, sites
+
+
+def churned(req, assignment, seed):
+    """A 10% churn re-solve request (bench.py's churn cell): incumbents
+    from a previous assignment, departed jobs replaced by new demands."""
+    from kubeinfer_tpu_torch.scheduler import SolveRequest
+
+    rng = np.random.default_rng(seed)
+    current = np.asarray(assignment, np.int32).copy()
+    departed = rng.random(req.num_jobs) < 0.1
+    current[departed] = -1
+    gpu = req.job_gpu.copy()
+    gpu[departed] = rng.integers(1, 8, int(departed.sum()))
+    return SolveRequest(**{**req.__dict__, "job_gpu": gpu,
+                           "job_current_node": current})
+
+
+def pipelined_phases(dev, backend, cpu_backend, kernels, record, card,
+                     big=(10000, 20000), cpu_big=(1000, 20000), reps=10):
+    """Phases (5)-(7): the round kernels against their plain versions, the
+    pipelined path driven through the backend, and its times. Returns the
+    round kernels' entries of the ``kernels`` line."""
+    import torch
+
+    from kubeinfer_tpu_torch.solver.core import (
+        ScoreWeights,
+        cost_field,
+        run_rounds,
+        seed_incumbents,
+    )
+    from kubeinfer_tpu_torch.solver.kernels import RANK_INF, mega_window
+
+    w = ScoreWeights()
+    Jb, Nb = big
+    req20 = build_request(Jb, Nb, seed=5)
+    p20, _ = problem_of(req20, dev)
+    J, N = p20.jobs.valid.shape[0], p20.nodes.valid.shape[0]
+    check(mega_window(N, J) is None, f"{J}x{N} has a mega window")
+
+    # (5) kernel vs plain: every round of the main loop of a fresh solve
+    # at the full width, and of a 700 x 60 solve with 25% gangs (N=64)
+    f20 = cost_field(p20, w)
+    a0, g0, m0, _ = seed_incumbents(p20, False)
+    chk = CheckedOps(kernels)
+    _, _, _, r20 = run_rounds(f20, p20.jobs, a0, g0, m0, 0, f20.rankf, 64,
+                              ops=chk.ops())
+    print(f"[5] {J}x{N}: fence/bid/accept bitwise equal to their plain "
+          f"versions over {r20} rounds ({chk.calls})")
+    req700 = build_request(700, 60, seed=6, gang_fraction=0.25)
+    p7, _ = problem_of(req700, dev)
+    check(p7.nodes.valid.shape[0] == 64, "700x60 does not pad to N=64")
+    f7 = cost_field(p7, w)
+    a7, g7, m7, _ = seed_incumbents(p7, False)
+    chk64 = CheckedOps(kernels)
+    _, _, _, r7 = run_rounds(f7, p7.jobs, a7, g7, m7, 0, f7.rankf, 64,
+                             ops=chk64.ops())
+    print(f"[5] {p7.jobs.valid.shape[0]}x64 (halves group rule): bitwise "
+          f"equal over {r7} rounds ({chk64.calls})")
+    max_err = {k: max(chk.max_err[k], chk64.max_err[k]) for k in ROUND_KERNELS}
+    record["round_checks"] = {"rounds_full": r20, "rounds_n64": r7,
+                              "calls_full": chk.calls,
+                              "calls_n64": chk64.calls}
+
+    # (6) the pipelined path through the backend, counted
+    req20g = build_request(Jb, Nb, seed=1, gang_fraction=0.25)
+    reset_counts(kernels)
+    res20 = backend.solve(req20)
+    res20g = backend.solve(req20g)
+    req20c = churned(req20, res20.assignment, seed=9)
+    res20c = backend.solve(req20c)
+    counts = round_counts(kernels)
+    check(all(counts.values()), f"the pipelined path skipped a kernel: {counts}")
+    check(kernels.mega_solve.launches == 0, "a no-window solve ran mega")
+    placed = check_assignment(req20, res20.assignment, "10kx20k", True)
+    placed_g = check_assignment(req20g, res20g.assignment, "10kx20k gang")
+    placed_c = check_assignment(req20c, res20c.assignment, "10kx20k churn")
+    stay = req20c.job_current_node >= 0
+    moved = float((res20c.assignment[stay] != req20c.job_current_node[stay]).mean())
+    print(f"[6] pipelined path, {Jb}x{Nb}: fresh placed {placed} rounds "
+          f"{res20.rounds}; 25% gangs placed {placed_g} rounds {res20g.rounds};"
+          f" 10% churn placed {placed_c} rounds {res20c.rounds}, survivors "
+          f"moved {moved:.4f}; launches {counts}")
+    for label, (jn, nn, kw) in {
+        f"{cpu_big[0]}x{cpu_big[1]}": (*cpu_big, {"seed": 8}),
+        "700x60 gang 0.25": (700, 60, {"seed": 6, "gang_fraction": 0.25}),
+        # more demand than capacity: gangs end incomplete, so the gang
+        # repair and the fill through run_rounds run on the card too
+        "1000x60 gang 0.25": (1000, 60, {"seed": 6, "gang_fraction": 0.25}),
+    }.items():
+        req = build_request(jn, nn, **kw)
+        card_res = backend.solve(req)
+        t_cpu = time.perf_counter()
+        cpu_res = cpu_backend.solve(req)
+        cpu_s = time.perf_counter() - t_cpu
+        check_assignment(req, card_res.assignment, label)
+        check(np.array_equal(card_res.assignment, cpu_res.assignment)
+              and card_res.rounds == cpu_res.rounds,
+              f"{label}: card and CPU solves differ")
+        print(f"[6] {label}: placed {card_res.placed} rounds "
+              f"{card_res.rounds}, equal to the device='cpu' solve "
+              f"({cpu_s:.1f} s on the host)")
+        record[f"cpu_equal_{label}"] = {"placed": card_res.placed,
+                                        "rounds": card_res.rounds,
+                                        "cpu_s": cpu_s}
+    record["pipelined_main_path"] = {
+        "launches": counts, "placed": placed, "rounds": res20.rounds,
+        "placed_gang": placed_g, "rounds_gang": res20g.rounds,
+        "placed_churn": placed_c, "rounds_churn": res20c.rounds,
+        "churn_moved": moved,
+    }
+
+    # (7) times
+    for _ in range(2):
+        backend.solve(req20)
+    runs = [backend.solve(req20) for _ in range(reps)]
+    p50 = statistics.median(r.solve_ms for r in runs)
+    enc = statistics.median(r.extras["encode_ms"] for r in runs)
+    reset_counts(kernels)
+    _, sync_sites = count_syncs(lambda: backend.solve(req20))
+    syncs = sum(sync_sites.values())
+    per_solve = round_counts(kernels)
+    # per-layer split of one solve: pack (host, above), one host-to-device
+    # copy + views, the cost field, the round loop
+    from kubeinfer_tpu_torch.scheduler.backends import _descending_stable_perm
+    from kubeinfer_tpu_torch.solver.problem import (
+        pack_problem_arrays,
+        unpack_problem,
+    )
+
+    buf, _, _, Jp, Np = pack_problem_arrays(
+        **req20.__dict__, job_perm=_descending_stable_perm(req20.job_priority)
+    )
+    unpack_ms = cuda_ms(lambda: unpack_problem(buf, Jp, Np, dev), reps=10)
+    field_ms = cuda_ms(lambda: cost_field(p20, w), reps=5)
+
+    def loop():
+        run_rounds(f20, p20.jobs, a0, g0, m0, 0, f20.rankf, 64)
+
+    loop_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        loop_ms.append((time.perf_counter() - t0) * 1e3)
+    loop_p50 = statistics.median(loop_ms)
+    torch.cuda.reset_peak_memory_stats()
+    backend.solve(req20)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # each kernel on the inputs of its first call (round 1), and its bound
+    plain = {"fence": kernels.fence_minrank, "bid": kernels.round_bids,
+             "accept": kernels.dense_accept}
+    entries = []
+    sources = {"fence": 587, "bid": 275, "accept": 420}
+    also = {"fence": None, "bid": 513, "accept": 1125}
+    for name in ROUND_KERNELS:
+        args, kw = chk.first[name]
+        ms = cuda_ms(lambda: getattr(kernels, name)(*args, **kw), reps=20)
+        pms = cuda_ms(lambda: plain[name](*args, **kw), reps=3)
+        if name == "fence":
+            gf, mf, d, md, rank = args
+            pairs = N * int((rank < RANK_INF).sum())
+            moved_b = N * 12 + J * 12
+            bound_ms = max(pairs / F32_OPS_PER_S,
+                           moved_b / HBM_BYTES_PER_S) * 1e3
+            bound_by = ("operations" if pairs / F32_OPS_PER_S
+                        > moved_b / HBM_BYTES_PER_S else "bytes")
+            note = f"{pairs} compare-selects (N x unplaced jobs) at 67 TFLOP/s"
+        elif name == "bid":
+            S, u, gf, mf, d, md, rank, minrank, cur = args
+            finite = minrank < RANK_INF * 0.5
+            max_mr = torch.where(finite, minrank, -1.0).max()
+            active = (rank < RANK_INF * 0.5) & ((rank <= max_mr) | (cur >= 0))
+            cols = int(active.sum())
+            moved_b = cols * N * 4 + N * 16 + J * 16 + J * 8
+            bound_ms = moved_b / HBM_BYTES_PER_S * 1e3
+            bound_by = "bytes"
+            note = f"S of {cols} active columns ({cols * N * 4} bytes)"
+        else:
+            moved_b = J * 16 + N * 8 + J + N * 8
+            bound_ms = moved_b / HBM_BYTES_PER_S * 1e3
+            bound_by = "bytes"
+            note = "O(N + J) bytes; launch and barrier latency set the pace"
+        print(f"[7] {card}: {name} {ms:.4f} ms/launch, plain {pms:.3f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}: {note}), "
+              f"{per_solve[name]} launches per {Jb}x{Nb} solve")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "kubeinfer_tpu_torch/solver/csrc/round_ops.cu",
+            "replaces": f"kubeinfer_tpu/solver/pallas_kernels.py:{sources[name]}",
+            **({"also_replaces":
+                f"kubeinfer_tpu/solver/pallas_kernels.py:{also[name]}"}
+               if also[name] else {}),
+            "launches": counts[name],
+            "max_abs_err": max_err[name],
+            "ms": ms,
+            "plain_ms": pms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "check": f"bitwise equal to its plain version at {J}x{N} "
+                     "and at N=64",
+        })
+    print(f"[7] {card}: p50 pack+solve {Jb}x{Nb} {p50:.3f} ms (pack "
+          f"{enc:.3f} ms), {res20.rounds} rounds, main loop {loop_p50:.3f} ms"
+          f" = {loop_p50 / max(r20, 1):.3f} ms/round over {r20} rounds; per "
+          f"solve: launches {per_solve}, {syncs} synchronising calls "
+          f"{dict(sync_sites)}; layers: copy+unpack {unpack_ms:.3f} ms, cost "
+          f"field {field_ms:.3f} ms; peak device memory {peak_gb:.2f} GB")
+    record["pipelined_times"] = {
+        "p50_ms": p50, "pack_ms": enc, "rounds": res20.rounds,
+        "loop_ms": loop_p50, "loop_rounds": r20,
+        "ms_per_round": loop_p50 / max(r20, 1),
+        "launches_per_solve": per_solve, "syncs_per_solve": syncs,
+        "sync_sites": dict(sync_sites), "unpack_ms": unpack_ms,
+        "cost_field_ms": field_ms, "peak_gb": peak_gb,
+    }
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -205,13 +522,17 @@ def main() -> int:
 
     # (1) the build, from this checkout's sources
     t0 = time.perf_counter()
-    lib_path, report = _build.build("mega_solve")
-    kernels_lib = _build.load_kernel_library("mega_solve")
-    check(kernels_lib is not None, "mega_solve library did not load")
+    built = _build.build_all(["mega_solve", "round_ops"])
+    for name in built:
+        check(_build.load_kernel_library(name) is not None,
+              f"{name} library did not load")
     build_s = time.perf_counter() - t0
     record["build_s"] = build_s
-    ptxas = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-    print(f"[1] built {lib_path.name} in {build_s:.2f} s; ptxas: {ptxas}")
+    for name, (lib_path, report) in built.items():
+        ptxas = [ln.strip() for ln in report.splitlines()
+                 if "registers" in ln or "Compiling entry" in ln]
+        print(f"[1] built {lib_path.name}; ptxas: {ptxas}")
+    print(f"[1] both libraries built in parallel in {build_s:.2f} s")
 
     # (2) kernel vs plain at the headline shape, three cases
     w = ScoreWeights()
@@ -291,7 +612,7 @@ def main() -> int:
     # (3) the main path, counted
     backend = get_backend("jax-greedy")
     cpu_backend = get_backend("jax-greedy", "cpu")
-    kernels.mega_solve.launches = 0
+    reset_counts(kernels)
     res = backend.solve(req10)
     res_g = backend.solve(req_g)
     bodies = {
@@ -301,6 +622,9 @@ def main() -> int:
     handled = {k: solve_service_handler(b) for k, b in bodies.items()}
     launches = kernels.mega_solve.launches
     check(launches > 0, "the main path never launched mega_solve")
+    round_on_32 = {k: getattr(kernels, k).launches for k in ROUND_KERNELS}
+    check(all(round_on_32.values()),
+          "/solve 32x8 (a 64x64 bucket) did not run the pipelined loop")
     placed = check_assignment(req10, res.assignment, "10kx1k", True)
     check_assignment(req_g, res_g.assignment, "10kx1k gang 0.25")
     for k, out in handled.items():
@@ -319,8 +643,10 @@ def main() -> int:
         cpu_out = solve_service_handler(b, device="cpu")
         check(cpu_out["assignment"] == out["assignment"],
               f"/solve {k}: card and CPU assignments differ")
+        path = "pipelined loop" if k == "32x8" else "mega"
         print(f"[3] /solve {k}: placed {out['placed']}/{len(out['assignment'])}"
-              f" rounds {out['rounds']}, equal to the CPU solve")
+              f" rounds {out['rounds']}, equal to the CPU solve ({path})")
+    print(f"[3] /solve 32x8 ran the pipelined loop: launches {round_on_32}")
     t_cpu = time.perf_counter()
     res_cpu = cpu_backend.solve(req10)
     cpu_s = time.perf_counter() - t_cpu
@@ -395,7 +721,10 @@ def main() -> int:
         "cost_field_10k_ms": field_ms,
     }
 
-    # (5) the kernels line
+    round_entries = pipelined_phases(dev, backend, cpu_backend, kernels,
+                                     record, card)
+
+    # (8) the kernels line
     kline = {"kernels": [{
         "name": "mega_solve",
         "route": "cuda",
@@ -409,7 +738,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
-    }]}
+    }, *round_entries]}
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -1,5 +1,7 @@
-"""The placement solver, ported to PyTorch with a hand-written CUDA kernel
-for its main loop (``kernels.mega_solve``)."""
+"""The placement solver, ported to PyTorch with hand-written CUDA kernels
+for its two main loops: the class-serialised loop (``kernels.mega_solve``)
+and the pipelined round loop's fence, bid and accept
+(``kernels.fence``, ``kernels.bid``, ``kernels.accept``)."""
 
 from kubeinfer_tpu_torch.solver.core import (
     Assignment,

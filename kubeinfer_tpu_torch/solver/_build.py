@@ -51,24 +51,41 @@ def nvcc_path() -> str:
 def build(name: str) -> tuple[pathlib.Path, str]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
     Returns the library's path and nvcc's report (empty when cached)."""
-    src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: a concurrent builder never
-    # sees (or loads) a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"{' '.join(cmd)} exited {proc.returncode}\n{proc.stderr}"
+    return build_all([name])[name]
+
+
+def build_all(names: list[str]) -> dict[str, tuple[pathlib.Path, str]]:
+    """``build`` for several sources, with one nvcc per stale source, all
+    started together."""
+    done, running = {}, {}
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        out = BUILD_DIR / f"lib{name}.so"
+        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+            done[name] = (out, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # compile to a private name and rename: a concurrent build never
+        # sees (or loads) a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+        running[name] = (cmd, proc, tmp, out)
+    failed = []
+    for name, (cmd, proc, tmp, out) in running.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{' '.join(cmd)} exited {proc.returncode}\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        done[name] = (out, stdout + stderr)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return done
 
 
 def load_kernel_library(name: str = "mega_solve") -> ctypes.CDLL:
@@ -84,11 +101,28 @@ def load_kernel_library(name: str = "mega_solve") -> ctypes.CDLL:
         return lib
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# argument types of each library's launchers; every launcher returns a
+# cudaError_t as int and takes the stream last
+_SIGNATURES = {
+    "mega_solve": {
+        "mega_solve_launch": [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _I, _P],
+    },
+    "round_ops": {
+        "fence_launch": [_P] * 6 + [_I, _I, _P],
+        "bid_launch": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _P],
+        "accept_launch": [_P] * 11 + [_I, _I, _P],
+    },
+}
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    if name != "mega_solve":
+    if name not in _SIGNATURES:
         raise ValueError(f"unknown kernel library {name!r}")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mega_solve_launch.restype = ctypes.c_int
-    lib.mega_solve_launch.argtypes = [p] * 18 + [i, i, i, i, f, f, f, i, p]
-    lib.mega_solve_error_string.restype = ctypes.c_char_p
-    lib.mega_solve_error_string.argtypes = [i]
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = argtypes
+    err = getattr(lib, f"{name}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [_I]

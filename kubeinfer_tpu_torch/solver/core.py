@@ -1,18 +1,31 @@
-"""The ``jax-greedy`` placement solve in PyTorch (mega path).
+"""The ``jax-greedy`` placement solve in PyTorch.
 
 Counterpart of the greedy half of ``kubeinfer_tpu/solver/core.py``: the
 resident node-major [N, J] cost field S (static cost + integer-hash tie
 noise + rank-1 fit term), the dense priority rank and its four-class
-fence, the packed accept key, incumbent seeding, the class-serialised
-mega loop (``kernels.mega_solve``), the preemption repair, the gang
-repair and the fill. The reference's ``lax.while_loop``/``lax.cond``
-become Python control flow; each branch on a device value is a host sync,
-and the solve has few of them:
+fence, the packed accept key, incumbent seeding, one of the two main
+loops, the preemption repair, the gang repair and the fill. The main
+loop is, as the reference routes it on its accelerator
+(``resolve_accel``):
+
+- ``"mega"``, the class-serialised loop (``kernels.mega_solve``, one
+  launch for every round), when both axes are 128-aligned and a mega
+  window fits;
+- ``"pallas"``, the pipelined round loop (``run_rounds``: fence, bid and
+  two accept passes per round, ``kernels.fence``/``bid``/``accept``),
+  otherwise — small clusters, clusters too wide for a window, and any
+  solve that asks for it.
+
+The reference's ``lax.while_loop``/``lax.cond`` become Python control
+flow; each branch on a device value is a host sync:
 
 - the sortedness check that picks the dense-rank algorithm;
+- on the pipelined loop, one per round (its loop condition) and one when
+  it starts;
 - per preemption-repair iteration (seeded solves with a squatting seat):
   its loop condition and whether any node is reclaimable;
-- whether the gang repair + fill runs.
+- whether the gang repair + fill runs, and on the pipelined loop the
+  fill's round cap.
 
 The mega loop itself runs on the device with no host sync. Where the
 reference avoided a gather or a scatter for the TPU's sake (the one-hot
@@ -23,6 +36,7 @@ uses PyTorch's own form, whose result is identical.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -60,7 +74,8 @@ class Assignment:
     node: torch.Tensor  # i32[J]
     gpu_free: torch.Tensor  # f32[N] capacity remaining after placement
     mem_free: torch.Tensor  # f32[N]
-    rounds: torch.Tensor  # i32 0-d, settlement rounds summed over windows
+    rounds: torch.Tensor  # i32 0-d, settlement rounds, summed over mega
+    # windows or pipelined-loop invocations
     placed: torch.Tensor  # i32 0-d, placed valid jobs
 
 
@@ -213,6 +228,100 @@ class CostField:
         )
 
 
+class RoundOps(NamedTuple):
+    """The three round ops ``run_rounds`` calls, with the signatures of
+    ``kernels.fence``, ``kernels.bid`` and ``kernels.accept`` (the
+    default); a caller may pass others, e.g. ones that also check each
+    kernel against its plain version."""
+
+    fence: Callable
+    bid: Callable
+    accept: Callable
+
+
+def run_rounds(
+    f: CostField,
+    jobs,
+    assigned: torch.Tensor,
+    gpu_free: torch.Tensor,
+    mem_free: torch.Tensor,
+    rounds0: int,
+    rankf_base: torch.Tensor,
+    round_cap: int,
+    ops: RoundOps | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """The pipelined greedy loop (kubeinfer_tpu/solver/core.py:693-799):
+    rounds to a fixpoint from the given state, counting on from
+    ``rounds0`` up to the absolute ``round_cap``. Jobs whose
+    ``rankf_base`` is RANK_INF never bid (the fill fences unwound gang
+    members this way). ``gpu_free`` arrives with invalid nodes folded to
+    -1. Returns ``(assigned, gpu_free, mem_free, rounds)``.
+
+    A round: fence minimum, bids, a first accept pass on the primary
+    bids, then a second-chance pass in which the first pass's losers bid
+    their alternate node against the updated capacities — except
+    incumbents whose primary was their home. The loop condition is one
+    host sync per round."""
+    ops = ops or RoundOps(kernels.fence, kernels.bid, kernels.accept)
+    N = gpu_free.shape[0]
+    d, md, cur = jobs.gpu_demand, jobs.mem_demand, jobs.current_node
+    node_mask = (1 << f.node_idx_bits) - 1
+    rounds = rounds0
+    progress = bool(((assigned < 0) & jobs.valid).any())  # host sync
+    while progress and rounds < round_cap:
+        rankf_eff = torch.where(assigned < 0, rankf_base, RANK_INF)
+        u = f.v_g * gpu_free + f.v_m * mem_free
+        minrank = ops.fence(gpu_free, mem_free, d, md, rankf_eff)
+        prim, alt = ops.bid(
+            f.S, u, gpu_free, mem_free, d, md, rankf_eff, minrank, cur,
+            q_lo=f.q_lo, q_scale=f.q_scale, q_max=f.q_max,
+            node_idx_bits=f.node_idx_bits,
+        )
+        has1 = prim != _I32MAX
+        choice1 = torch.where(has1, prim & node_mask, N)
+        accept1, used_g, used_m = ops.accept(
+            choice1, f.key, d, md, gpu_free, mem_free
+        )
+        assigned = torch.where(accept1, choice1, assigned)
+        gpu_free = gpu_free - used_g
+        mem_free = mem_free - used_m
+        home_bid = (cur >= 0) & (choice1 == cur)
+        retry = has1 & ~accept1 & (alt != _I32MAX) & ~home_bid
+        choice2 = torch.where(retry, alt & node_mask, N)
+        accept2, used_g, used_m = ops.accept(
+            choice2, f.key, d, md, gpu_free, mem_free
+        )
+        assigned = torch.where(accept2, choice2, assigned)
+        gpu_free = gpu_free - used_g
+        mem_free = mem_free - used_m
+        rounds += 1
+        # any bid implies an accept (a contested node's winner fits the
+        # capacities it bid against), so no accept means a fixpoint
+        progress = bool(  # host sync
+            (accept1.any() | accept2.any())
+            & ((assigned < 0) & jobs.valid).any()
+        )
+    return assigned, gpu_free, mem_free, rounds
+
+
+ACCELS = ("auto", "mega", "pallas")
+
+
+def resolve_accel(accel: str, J: int, N: int) -> str:
+    """The main loop for a (J, N) bucket, as the reference routes it on its
+    accelerator (kubeinfer_tpu/solver/core.py:437-461): ``"auto"`` is
+    ``"mega"`` iff both axes are 128-aligned and a mega window fits, else
+    ``"pallas"`` (the pipelined loop). Whether the kernels or their plain
+    versions run is decided by the tensors' device, not here."""
+    if accel not in ACCELS:
+        raise ValueError(f"unknown accel {accel!r}; want one of {ACCELS}")
+    if accel != "auto":
+        return accel
+    if J % 128 == 0 and N % 128 == 0 and mega_window(N, J) is not None:
+        return "mega"
+    return "pallas"
+
+
 def cost_field(p: Problem, weights: ScoreWeights) -> CostField:
     """Build the round-invariant state of a solve
     (kubeinfer_tpu/solver/core.py:498-629): dense priority rank and
@@ -295,23 +404,24 @@ def solve_greedy(
     max_rounds: int = 64,
     seeded: bool = True,
     device: str | torch.device | None = None,
+    accel: str = "auto",
 ) -> Assignment:
-    """Parallel greedy with conflict resolution (policy ``jax-greedy``), on
-    the mega path: every settlement round of every priority window runs
-    in ``kernels.mega_solve`` (one launch on the card). ``max_rounds`` is
-    a per-window budget. ``seeded`` turns on incumbent seeding and the
+    """Parallel greedy with conflict resolution (policy ``jax-greedy``).
+    ``accel`` picks the main loop (``resolve_accel``): on ``"mega"`` every
+    settlement round of every priority window runs in
+    ``kernels.mega_solve`` and ``max_rounds`` is a per-window budget; on
+    ``"pallas"`` the rounds run in ``run_rounds`` and ``max_rounds`` bounds
+    each invocation. ``seeded`` turns on incumbent seeding and the
     preemption repair; it is inert without incumbents."""
     dev = resolve_device(device)
     p = p.to(dev)
     jobs, nodes = p.jobs, p.nodes
     J = jobs.valid.shape[0]
     N = nodes.valid.shape[0]
+    accel = resolve_accel(accel, J, N)
     W = mega_window(N, J)
-    if W is None:
-        raise NotImplementedError(
-            f"no mega window for N={N} J={J}: the pipelined round kernels "
-            "are not ported yet (ROADMAP.md Queue 1, 'pipelined path')"
-        )
+    if accel == "mega" and W is None:
+        raise ValueError(f"accel='mega' but no mega window for N={N} J={J}")
     f = cost_field(p, weights)
     S, key, rankf = f.S, f.key, f.rankf
     asg_init, gf_seed, mf_seed, seated = seed_incumbents(p, seeded)
@@ -321,8 +431,20 @@ def solve_greedy(
             kernels.mega_solve, jobs, asg, rank_, may, gf_eff, mf_, rounds_cap
         )
 
-    def resolve_fn(asg, gf_eff, mf_):
-        return mega(asg, rankf, jobs.valid, gf_eff, mf_, max_rounds)
+    if accel == "mega":
+
+        def resolve_fn(asg, gf_eff, mf_):
+            return mega(asg, rankf, jobs.valid, gf_eff, mf_, max_rounds)
+
+    else:
+
+        def resolve_fn(asg, gf_eff, mf_):
+            # one global loop: budget exhaustion is the round counter
+            # reaching the cap
+            a2, g2, m2, r2 = run_rounds(
+                f, jobs, asg, gf_eff, mf_, 0, rankf, max_rounds
+            )
+            return a2, g2, m2, r2, r2 >= max_rounds
 
     assigned, gpu_free, mem_free, rounds, capped = resolve_fn(
         asg_init, gf_seed, mf_seed
@@ -380,16 +502,29 @@ def solve_greedy(
             (jobs.gang_id >= 0) & (assigned < 0), RANK_INF, rankf
         )
         fillable = (assigned < 0) & jobs.valid & (jobs.gang_id < 0)
-        # the per-window cap W + 1 lets every window reach its fixpoint
-        # (each progress round places >= 1 job); seeded with the current
-        # assignment, so the output IS the merged result
-        assigned, gpu_free, mem_free, r_f, _ = mega(
-            assigned, rankf_fill, fillable,
-            torch.where(nodes.valid, gpu_free, -1.0), mem_free, W + 1,
-        )
-        rounds = rounds + r_f
+        gf_fill = torch.where(nodes.valid, gpu_free, -1.0)
+        if accel == "mega":
+            # the per-window cap W + 1 lets every window reach its
+            # fixpoint (each progress round places >= 1 job); seeded with
+            # the current assignment, so the output IS the merged result
+            assigned, gpu_free, mem_free, r_f, _ = mega(
+                assigned, rankf_fill, fillable, gf_fill, mem_free, W + 1
+            )
+            rounds = rounds + r_f
+        else:
+            # one round per fillable job plus one: every progress round
+            # places >= 1 job, so the fixpoint comes before the cap
+            cap = int(rounds) + int(fillable.sum()) + 1  # host sync
+            assigned, gpu_free, mem_free, rounds = run_rounds(
+                f, jobs, assigned, gf_fill, mem_free, int(rounds),
+                rankf_fill, cap,
+            )
     gpu_free = torch.where(nodes.valid, gpu_free, 0.0)
     placed = ((assigned >= 0) & jobs.valid).sum().to(torch.int32)
+    if not isinstance(rounds, torch.Tensor):
+        # the pipelined loop counts on the host; a fill kernel writes the
+        # count where a copy of a host int would sync
+        rounds = torch.full((), rounds, dtype=torch.int32, device=dev)
     return Assignment(assigned, gpu_free, mem_free, rounds, placed)
 
 
@@ -399,14 +534,17 @@ def solve(
     weights: ScoreWeights = ScoreWeights(),
     seeded: bool = True,
     device: str | torch.device | None = None,
+    accel: str = "auto",
 ) -> Assignment:
     """Dispatch by schedulerPolicy value (the batched policies only)."""
     if policy == "jax-greedy":
-        return solve_greedy(p, weights, seeded=seeded, device=device)
+        return solve_greedy(
+            p, weights, seeded=seeded, device=device, accel=accel
+        )
     if policy == "jax-auction":
         raise NotImplementedError(
-            "jax-auction is not ported yet (ROADMAP.md Queue 1, "
-            "'solve_auction')"
+            "jax-auction is not ported yet: it is the next slice "
+            "(ROADMAP.md Queue 1 item 11, 'solve_auction' with kernel #7)"
         )
     raise ValueError(
         f"unknown solver policy {policy!r}; 'native-greedy' is dispatched "

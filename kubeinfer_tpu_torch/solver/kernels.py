@@ -1,19 +1,31 @@
-"""The class-serialised greedy ("mega") loop: plain PyTorch and CUDA.
+"""The greedy solve's device work: plain PyTorch and CUDA.
 
-Counterpart of the mega section of ``kubeinfer_tpu/solver/pallas_kernels.py``
-(``mega_window``, ``_mega_round_math``, ``mega_solve_pallas``,
-``mega_rounds_jnp``). The job axis arrives priority-sorted and is cut
-into W-wide windows; each window runs settlement rounds to a fixpoint —
-in-window per-node priority fence, packed ``(quantized cost << bits) |
-node`` min bid per job, per-node joint-fit/winner accept, capacity
-update — while the capacity vectors carry from one window to the next.
+Two algorithms, as in ``kubeinfer_tpu/solver``:
 
-``mega_rounds`` is the plain version; ``mega_solve`` launches the
-hand-written kernel in ``csrc/mega_solve.cu`` for a CUDA tensor and
-takes the plain version only for a CPU tensor. The two are bit-identical
-as long as the demand sums are exact (small dyadic demands — integers,
-halves, quarters), the same premise the reference's kernel/twin parity
-rests on.
+- The class-serialised ("mega") loop, counterpart of the mega section of
+  ``pallas_kernels.py`` (``mega_window``, ``_mega_round_math``,
+  ``mega_solve_pallas``, ``mega_rounds_jnp``). The job axis arrives
+  priority-sorted and is cut into W-wide windows; each window runs
+  settlement rounds to a fixpoint — in-window per-node priority fence,
+  packed ``(quantized cost << bits) | node`` min bid per job, per-node
+  joint-fit/winner accept, capacity update — while the capacity vectors
+  carry from one window to the next. ``mega_rounds`` is the plain
+  version; ``mega_solve`` launches ``csrc/mega_solve.cu``.
+- The round ops of the pipelined loop (``core.run_rounds``), counterparts
+  of ``core._fence_minrank``, ``core._round_bids_jnp`` and
+  ``core._dense_accept`` and of the Pallas kernels that replace them on
+  the TPU (``fence_minrank_pallas``, ``bid_reduce_pallas`` →
+  ``bid_select_pallas``, ``accept_phase_pallas`` →
+  ``accept_flags_pallas``). ``fence_minrank``, ``round_bids`` and
+  ``dense_accept`` are the plain versions; ``fence``, ``bid`` and
+  ``accept`` launch the kernels of ``csrc/round_ops.cu``.
+
+Each wrapper takes its plain version only for a CPU tensor; for a CUDA
+tensor it launches its kernel or raises. Kernel and plain version are
+bit-identical as long as the demand sums are exact (small dyadic demands
+— integers, halves, quarters), the same premise the reference's
+kernel/twin parity rests on. Each wrapper's ``launches`` attribute counts
+its kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -258,3 +270,259 @@ def mega_solve(
 
 
 mega_solve.launches = 0
+
+
+# --- the pipelined loop's round ops ----------------------------------------
+
+
+def _feasible(gf, mf, d, md):
+    """[N, J] joint fit of every job on every node, with the f32 slack."""
+    return (d[None, :] <= (gf + _EPS)[:, None]) & (
+        md[None, :] <= (mf + _EPS)[:, None]
+    )
+
+
+def fence_minrank(
+    gf: torch.Tensor,  # f32[N] gpu free (invalid nodes folded to -1)
+    mf: torch.Tensor,  # f32[N]
+    d: torch.Tensor,  # f32[J]
+    md: torch.Tensor,  # f32[J]
+    rankf_eff: torch.Tensor,  # f32[J] fence rank, RANK_INF = may not bid
+) -> torch.Tensor:
+    """f32[N] per-node fence minimum: the lowest rank among the jobs that
+    find the node feasible (``core._fence_minrank``)."""
+    return torch.where(
+        _feasible(gf, mf, d, md), rankf_eff[None, :], RANK_INF
+    ).amin(dim=1)
+
+
+def bid_group_size(N: int) -> int:
+    """Nodes per bid group (``core._round_bids_jnp``'s rule): 16 when N is
+    128-aligned (the Pallas kernel's output), halves when N is even, and
+    single nodes — the exact second-smallest bid — when N is odd."""
+    if N % 128 == 0:
+        return 16
+    if N % 2 == 0:
+        return N // 2
+    return 1
+
+
+def round_bids(
+    S: torch.Tensor,  # f32[N, J] resident cost field
+    u: torch.Tensor,  # f32[N] live best-fit pressure
+    gf: torch.Tensor,  # f32[N] (invalid nodes folded to -1)
+    mf: torch.Tensor,  # f32[N]
+    d: torch.Tensor,  # f32[J]
+    md: torch.Tensor,  # f32[J]
+    rankf_eff: torch.Tensor,  # f32[J] fence rank, RANK_INF = may not bid
+    minrank: torch.Tensor,  # f32[N] fence minimum
+    current_node: torch.Tensor,  # i32[J] incumbent node, -1 = none
+    *,
+    q_lo: float,
+    q_scale: float,
+    q_max: float,
+    node_idx_bits: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pass over S -> (primary, alternate) packed i32 bids per job
+    (``core._round_bids_jnp``). The primary is the job's least packed
+    ``(quantized cost << node_idx_bits) | node`` over the nodes it may
+    bid; the alternate is the least bid outside the primary's node group
+    (``bid_group_size``). BIG (i32 max) means no bid."""
+    N, J = S.shape
+    dev = S.device
+    big = torch.tensor(_I32MAX, dtype=torch.int32, device=dev)
+    n_col = torch.arange(N, dtype=torch.int32, device=dev)[:, None]
+    # home-bid fence exemption: an incumbent may always bid its own node
+    allowed = (
+        _feasible(gf, mf, d, md)
+        & (
+            (rankf_eff[None, :] <= minrank[:, None])
+            | (current_node[None, :] == n_col)
+        )
+        & (rankf_eff[None, :] < RANK_INF * 0.5)
+    )
+    q = torch.clamp((S + u[:, None] - q_lo) * q_scale, 0.0, q_max)
+    packed = torch.where(allowed, (q.to(torch.int32) << node_idx_bits) | n_col, big)
+    groups = N // bid_group_size(N)
+    if groups == N:  # odd N: exclude the primary itself
+        prim = packed.amin(dim=0)
+        alt = torch.where(packed == prim[None, :], big, packed).amin(dim=0)
+        return prim, alt
+    per_group = packed.view(groups, N // groups, J).amin(dim=1)
+    prim = per_group.amin(dim=0)
+    prim_group = per_group.argmin(dim=0)
+    g_iota = torch.arange(groups, device=dev)[:, None]
+    alt = torch.where(g_iota == prim_group[None, :], big, per_group).amin(dim=0)
+    return prim, alt
+
+
+def accept_reduce(
+    choice: torch.Tensor,  # i32[J] node index, or N = no bid
+    key: torch.Tensor,  # i32[J] accept key (low bits: job index)
+    d: torch.Tensor,  # f32[J]
+    md: torch.Tensor,  # f32[J]
+    N: int,
+) -> tuple[torch.Tensor, ...]:
+    """Per-node ``(gpu total, mem total, winner key, winner gpu, winner
+    mem)`` over the node's bidders (``core._accept_reduce_jnp``). The
+    winner's demand is gathered through the job index in the winner key's
+    low bits, clamped into range as JAX's gather clamps."""
+    J = choice.shape[0]
+    dev = choice.device
+    idx_mask = (1 << max((J - 1).bit_length(), 1)) - 1
+    mine = choice[None, :] == torch.arange(N, dtype=torch.int32, device=dev)[:, None]
+    tot_gpu = torch.where(mine, d[None, :], 0.0).sum(dim=1)
+    tot_mem = torch.where(mine, md[None, :], 0.0).sum(dim=1)
+    big = torch.tensor(_I32MAX, dtype=torch.int32, device=dev)
+    win_key = torch.where(mine, key[None, :], big).amin(dim=1)
+    has_win = win_key != big
+    win_j = torch.where(has_win, win_key & idx_mask, J - 1).clamp(0, J - 1).long()
+    win_gpu = torch.where(has_win, d[win_j], 0.0)
+    win_mem = torch.where(has_win, md[win_j], 0.0)
+    return tot_gpu, tot_mem, win_key, win_gpu, win_mem
+
+
+def dense_accept(
+    choice: torch.Tensor,  # i32[J] node index, or N = no bid
+    key: torch.Tensor,  # i32[J]
+    d: torch.Tensor,  # f32[J]
+    md: torch.Tensor,  # f32[J]
+    gf: torch.Tensor,  # f32[N] the capacities the bids must fit
+    mf: torch.Tensor,  # f32[N]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One accept pass -> ``(accept bool[J], used_gpu f32[N], used_mem
+    f32[N])`` (``core._dense_accept``): a node whose bidders jointly fit
+    accepts them all, else only its least-key bidder, if that one fits."""
+    N = gf.shape[0]
+    tot_g, tot_m, win_key, win_g, win_m = accept_reduce(choice, key, d, md, N)
+    fits_all = (tot_g <= gf + _EPS) & (tot_m <= mf + _EPS)
+    fits_win = (win_key != _I32MAX) & (win_g <= gf + _EPS) & (win_m <= mf + _EPS)
+    used_g = torch.where(fits_all, tot_g, torch.where(fits_win, win_g, 0.0))
+    used_m = torch.where(fits_all, tot_m, torch.where(fits_win, win_m, 0.0))
+    mine = choice[None, :] == torch.arange(N, dtype=torch.int32, device=gf.device)[:, None]
+    accept = (
+        mine
+        & (fits_all[:, None] | (fits_win[:, None] & (win_key[:, None] == key[None, :])))
+    ).any(dim=0)
+    return accept, used_g, used_m
+
+
+def _launch(lib, fn: str, *args) -> None:
+    """Call one launcher of the round-ops library; pointers and the stream
+    are passed as c_void_p, floats as c_float, the rest as c_int."""
+    conv = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            conv.append(ctypes.c_void_p(a.data_ptr()))
+        elif isinstance(a, float):
+            conv.append(ctypes.c_float(a))
+        else:
+            conv.append(int(a))
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    err = getattr(lib, fn)(
+        *conv, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    )
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: {lib.round_ops_error_string(err)}")
+
+
+def _round_ops_lib(t: torch.Tensor, name: str):
+    """The round-ops library for a CUDA tensor; None for a CPU tensor (the
+    caller takes its plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    from kubeinfer_tpu_torch.solver._build import load_kernel_library
+
+    return load_kernel_library("round_ops")
+
+
+def fence(gf, mf, d, md, rankf_eff):
+    """``fence_minrank`` on the tensors' device: for CUDA tensors one
+    launch of the fence kernel of ``csrc/round_ops.cu``."""
+    lib = _round_ops_lib(gf, "fence")
+    if lib is None:
+        return fence_minrank(gf, mf, d, md, rankf_eff)
+    N, J = gf.shape[0], d.shape[0]
+    for name, t in (("gf", gf), ("mf", mf)):
+        _check(name, t, torch.float32, (N,), gf.device)
+    for name, t in (("d", d), ("md", md), ("rankf_eff", rankf_eff)):
+        _check(name, t, torch.float32, (J,), gf.device)
+    out = torch.full((N,), RANK_INF, dtype=torch.float32, device=gf.device)
+    _launch(lib, "fence_launch", gf, mf, d, md, rankf_eff, out, N, J)
+    fence.launches += 1
+    return out
+
+
+fence.launches = 0
+
+
+def bid(
+    S, u, gf, mf, d, md, rankf_eff, minrank, current_node, *,
+    q_lo, q_scale, q_max, node_idx_bits,
+):
+    """``round_bids`` on the tensors' device: for CUDA tensors one launch
+    of the bid kernel of ``csrc/round_ops.cu``, which reads each allowed
+    S entry once and keeps a running top-2 of group minima per job."""
+    lib = _round_ops_lib(S, "bid")
+    if lib is None:
+        return round_bids(
+            S, u, gf, mf, d, md, rankf_eff, minrank, current_node,
+            q_lo=q_lo, q_scale=q_scale, q_max=q_max,
+            node_idx_bits=node_idx_bits,
+        )
+    N, J = S.shape
+    dev = S.device
+    _check("S", S, torch.float32, (N, J), dev)
+    for name, t in (("u", u), ("gf", gf), ("mf", mf), ("minrank", minrank)):
+        _check(name, t, torch.float32, (N,), dev)
+    for name, t in (("d", d), ("md", md), ("rankf_eff", rankf_eff)):
+        _check(name, t, torch.float32, (J,), dev)
+    _check("current_node", current_node, torch.int32, (J,), dev)
+    if node_idx_bits < (N - 1).bit_length() or node_idx_bits > 30:
+        raise ValueError(f"node_idx_bits={node_idx_bits} cannot index N={N}")
+    prim = torch.empty(J, dtype=torch.int32, device=dev)
+    alt = torch.empty(J, dtype=torch.int32, device=dev)
+    _launch(
+        lib, "bid_launch", S, u, gf, mf, d, md, rankf_eff, minrank,
+        current_node, prim, alt, N, J, bid_group_size(N), int(node_idx_bits),
+        float(q_lo), float(q_scale), float(q_max),
+    )
+    bid.launches += 1
+    return prim, alt
+
+
+bid.launches = 0
+
+
+def accept(choice, key, d, md, gf, mf):
+    """``dense_accept`` on the tensors' device: for CUDA tensors one
+    cooperative launch of the accept kernel of ``csrc/round_ops.cu``
+    (bidder totals and winner by atomics, then the node verdicts and the
+    per-job flag, a gather through ``choice``)."""
+    lib = _round_ops_lib(choice, "accept")
+    if lib is None:
+        return dense_accept(choice, key, d, md, gf, mf)
+    N, J = gf.shape[0], choice.shape[0]
+    dev = choice.device
+    for name, t, dt in (
+        ("choice", choice, torch.int32), ("key", key, torch.int32),
+        ("d", d, torch.float32), ("md", md, torch.float32),
+    ):
+        _check(name, t, dt, (J,), dev)
+    for name, t in (("gf", gf), ("mf", mf)):
+        _check(name, t, torch.float32, (N,), dev)
+    flags = torch.empty(J, dtype=torch.bool, device=dev)
+    used = torch.empty(2, N, dtype=torch.float32, device=dev)
+    ws_f = torch.empty(2 * N, dtype=torch.float32, device=dev)
+    ws_i = torch.empty(N, dtype=torch.int32, device=dev)
+    _launch(
+        lib, "accept_launch", choice, key, d, md, gf, mf, flags, used[0],
+        used[1], ws_f, ws_i, N, J,
+    )
+    accept.launches += 1
+    return flags, used[0], used[1]
+
+
+accept.launches = 0

@@ -1,9 +1,12 @@
 """The port's scheduler backend and package boundary.
 
 ``TorchBackend(device="cpu")`` is held against the JAX package's packed
-solve with ``accel="mega-jnp"`` (``JaxBackend`` itself runs the pipelined
-jnp loop on the CPU, which is not the mega algorithm): same priority sort,
-same packed buffer, same seeded rule, same assignment and rounds.
+solve under the reference's own routing on its accelerator
+(``core._resolve_accel``): ``accel="mega-jnp"`` when both bucket axes are
+128-aligned and a mega window fits, else ``accel="jnp"``, the pipelined
+loop (``JaxBackend`` itself takes jnp for every shape on the CPU): same
+priority sort, same packed buffer, same seeded rule, same assignment and
+rounds.
 """
 
 from __future__ import annotations
@@ -43,9 +46,19 @@ def make_request(J, N, seed, gang_frac=0.0, inc_frac=0.0):
     )
 
 
-def jax_mega_solve(req):
-    """The JAX package's packed solve on the mega path, with the same
-    priority sort and un-permute JaxBackend applies."""
+def reference_accel(J, N):
+    """``core._resolve_accel("auto")`` on the reference's accelerator, with
+    the jnp twins standing in for the TPU kernels."""
+    from kubeinfer_tpu.solver import pallas_kernels as pk
+
+    if J % 128 == 0 and N % 128 == 0 and pk.mega_window(N, J) is not None:
+        return "mega-jnp"
+    return "jnp"
+
+
+def jax_packed_solve(req):
+    """The JAX package's packed solve as its accelerator routes it, with
+    the same priority sort and un-permute JaxBackend applies."""
     from kubeinfer_tpu.solver.problem import pack_problem_arrays
 
     perm = None
@@ -56,7 +69,7 @@ def jax_mega_solve(req):
         **{k: v for k, v in req.__dict__.items()}, job_perm=perm
     )
     out = jb._packed_solver()(
-        buf, J=J, N=N, policy="jax-greedy", accel="mega-jnp",
+        buf, J=J, N=N, policy="jax-greedy", accel=reference_accel(J, N),
         seeded=jb.request_has_incumbents(req.job_current_node),
     )
     node = np.asarray(out.node)[: req.num_jobs]
@@ -70,16 +83,21 @@ def jax_mega_solve(req):
 @pytest.mark.parametrize(
     "J,N,seed,gang_frac,inc_frac",
     [(300, 40, 0, 0.0, 0.0), (700, 60, 1, 0.25, 0.0),
-     (500, 50, 2, 0.0, 0.3), (1000, 100, 3, 0.2, 0.2)],
+     (500, 50, 2, 0.0, 0.3), (32, 8, 3, 0.0, 0.0),
+     (1000, 100, 3, 0.2, 0.2), (1500, 200, 6, 0.1, 0.2)],
 )
 def test_backend_matches_jax_packed_mega(J, N, seed, gang_frac, inc_frac):
+    """The first four buckets are unaligned (N pads to 64: the pipelined
+    loop); the last two are 128-aligned with a window (mega)."""
     req = make_request(J, N, seed, gang_frac, inc_frac)
     res = tb.TorchBackend(device="cpu").solve(req)
-    node, rounds = jax_mega_solve(req)
+    node, rounds = jax_packed_solve(req)
     np.testing.assert_array_equal(res.assignment, node)
     assert res.rounds == rounds
     assert res.placed == int((node >= 0).sum())
     assert res.policy == "jax-greedy" and res.extras["encode_ms"] >= 0
+    if (J, N) == (700, 60):
+        assert res.placed == 601
 
 
 def test_solve_service_handler_json_round_trip():
@@ -107,7 +125,7 @@ def test_solve_service_handler_json_round_trip():
         node_gpu_free=np.full(N, 4.0, np.float32),
         node_mem_free_gib=np.full(N, 64.0, np.float32),
     )
-    node, rounds = jax_mega_solve(req)
+    node, rounds = jax_packed_solve(req)
     assert out["assignment"] == node.tolist()
     assert out["rounds"] == rounds and out["placed"] == int((node >= 0).sum())
 
@@ -151,7 +169,7 @@ def test_auction_policy_falls_back_or_raises():
         node_gpu_free=np.full(8, 8.0, np.float32),
         node_mem_free_gib=np.full(8, 64.0, np.float32),
     )
-    with pytest.raises(NotImplementedError, match="jax-auction"):
+    with pytest.raises(NotImplementedError, match="jax-auction.*next slice"):
         backend.solve(whole)
 
 

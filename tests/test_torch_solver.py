@@ -2,7 +2,9 @@
 
 The same problems (made from a seed with numpy) go through
 ``kubeinfer_tpu.solver.core.solve_greedy(accel="mega-jnp")`` and
-``kubeinfer_tpu_torch.solver.solve_greedy(device="cpu")``; the pieces
+``kubeinfer_tpu_torch.solver.solve_greedy(device="cpu", accel="mega")``
+(explicit, since ``auto`` takes the pipelined loop at unaligned shapes;
+that loop is tested in ``test_torch_rounds.py``); the pieces
 with a JAX counterpart (tie-noise hash, dense ranks, accept key, static
 cost, gang repair) are checked bit for bit on their own.
 
@@ -109,7 +111,7 @@ def check_invariants(kw, node, gpu_free, mem_free):
 def compare_solves(p, kw, seeded, weights=jc.ScoreWeights()):
     ref = jc.solve_greedy(p, weights, accel="mega-jnp", seeded=seeded)
     tp_, tw = to_port(p, weights)
-    got = tc.solve_greedy(tp_, tw, seeded=seeded, device="cpu")
+    got = tc.solve_greedy(tp_, tw, seeded=seeded, device="cpu", accel="mega")
     same = (
         np.array_equal(np.asarray(ref.node), got.node.numpy())
         and int(ref.placed) == int(got.placed)
@@ -274,17 +276,28 @@ def test_gang_repair_bitwise(seed):
 
 
 def test_no_mega_window_raises(monkeypatch):
+    """With no mega window the solve no longer raises: ``auto`` takes the
+    pipelined loop, equal to the reference's jnp loop. Only an explicit
+    ``accel="mega"`` raises there."""
     monkeypatch.setattr(tk, "_MEGA_S_BYTES", 4)
-    p, _ = instance(0)
+    p, _ = instance(0, tight=True, gang_frac=0.2, inc_frac=0.3)
     tp_, tw = to_port(p)
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        tc.solve_greedy(tp_, tw, device="cpu")
+    assert tk.mega_window(128, 384) is None
+    ref = jc.solve_greedy(p, accel="jnp")
+    got = tc.solve_greedy(tp_, tw, device="cpu")
+    np.testing.assert_array_equal(got.node.numpy(), np.asarray(ref.node))
+    assert int(got.rounds) == int(ref.rounds)
+    assert int(got.placed) == int(ref.placed)
+    np.testing.assert_array_equal(got.gpu_free.numpy(), np.asarray(ref.gpu_free))
+    np.testing.assert_array_equal(got.mem_free.numpy(), np.asarray(ref.mem_free))
+    with pytest.raises(ValueError, match="no mega window"):
+        tc.solve_greedy(tp_, tw, device="cpu", accel="mega")
 
 
 def test_auction_policy_not_ported():
     p, _ = instance(0)
     tp_, _ = to_port(p)
-    with pytest.raises(NotImplementedError, match="jax-auction"):
+    with pytest.raises(NotImplementedError, match="jax-auction.*next slice"):
         tc.solve(tp_, policy="jax-auction", device="cpu")
     with pytest.raises(ValueError, match="native-greedy"):
         tc.solve(tp_, policy="native-greedy", device="cpu")
