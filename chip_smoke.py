@@ -4,13 +4,13 @@
     python3 chip_smoke.py
 
 Drives the port (``kubeinfer_tpu_torch``; nothing of JAX) through the
-placement solve's entry points, builds its CUDA kernels from this
-checkout, holds each kernel against its plain PyTorch version, checks the
-solve's hard guarantees, and times it. Phases:
+placement solve's and the route solve's entry points, builds its CUDA
+kernels from this checkout, holds each kernel against its plain PyTorch
+version, checks the solves' hard guarantees, and times them. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
-  (1) the nvcc build of every kernel of the solve, one nvcc per source,
-      started together: mega_solve.cu and round_ops.cu;
+  (1) the nvcc build of every kernel, one nvcc per source, started
+      together: mega_solve.cu, round_ops.cu, auction.cu, route_pick.cu;
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -39,7 +39,25 @@ solve's hard guarantees, and times it. Phases:
   (7) times of the pipelined path: p50 pack + solve at 10k x 20k, rounds,
       ms per round, launches and host syncs per solve, and each round
       kernel beside its plain version and its bound;
-  (8) the ``kernels`` JSON line.
+  (9) auction_solve vs auction_rounds, bitwise (assigned, iterations), on
+      the benefit fields of bench.py's whole-node auction request
+      (J = N = 1024), of 256 identical jobs, of a random 64 x 64 field
+      (25% infeasible, 10% invalid rows) and of a 4096 x 4096 whole-node
+      request (beyond L2);
+  (10) the jax-auction path: ``get_backend("jax-auction").solve`` on the
+      1k x 1k request and on 960 jobs with 25% gangs on a fleet where
+      100 nodes cannot host a job (gangs unwind, the fill runs mega), and
+      the ``/solve`` handler at 32 x 64; launch counts reset before and
+      read after each; one job per node, no overcommit, gangs
+      all-or-nothing, a fixpoint, and equality with device="cpu";
+  (11) times of the auction path: p50 pack + solve, the kernel per launch
+      and per iteration, its plain version, its bound, and 4096 x 4096;
+  (12) route_pick vs route_pick_plain, bitwise, on every call of
+      solved_affinity at 10k jobs x 1k nodes (12288 x 1024) and of the
+      route solve's three modes on a fleet-storm batch (bench.py's
+      fleet_storm_bench: 256 requests x 100 replicas), and at 256 x 128;
+      those solves against device="cpu", their launch counts, and times;
+  (8) the ``kernels`` JSON line, printed last of all phases.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Full numbers go to chiprun_out/chip_smoke.json.
@@ -196,7 +214,7 @@ def handler_body(J, N, seed, fractional):
 
 def reset_counts(kernels):
     """Set every kernel wrapper's launch count to 0."""
-    for name in ("mega_solve", *ROUND_KERNELS):
+    for name in ("mega_solve", *ROUND_KERNELS, "auction_solve", "route_pick"):
         getattr(kernels, name).launches = 0
 
 
@@ -487,6 +505,507 @@ def pipelined_phases(dev, backend, cpu_backend, kernels, record, card,
     return entries
 
 
+def whole_node_request(J, N, seed=3):
+    """bench.py's whole-node auction request (bench.py:2901-2912: 64 GPUs
+    a job on 64-GPU, 512 GiB nodes, 2% cache density), at J x N."""
+    from kubeinfer_tpu_torch.scheduler import SolveRequest
+
+    rng = np.random.default_rng(seed)
+    return SolveRequest(
+        job_gpu=np.full(J, 64.0, np.float32),
+        job_mem_gib=rng.integers(64, 512, J).astype(np.float32),
+        job_priority=rng.integers(0, 8, J).astype(np.float32),
+        job_model=rng.integers(0, 256, J).astype(np.int32),
+        node_gpu_free=np.full(N, 64.0, np.float32),
+        node_mem_free_gib=np.full(N, 512.0, np.float32),
+        node_cached=(rng.random((N, 256)) < 0.02).astype(np.uint8),
+    )
+
+
+def auction_inputs(req, dev):
+    """The auction loop's inputs for a request, as the backend builds them:
+    priority sort, pack, unpack, benefit field, tie-break."""
+    from kubeinfer_tpu_torch.solver.core import (
+        ScoreWeights,
+        auction_benefit,
+        auction_tiebreak,
+    )
+
+    p, _ = problem_of(req, dev)
+    J, N = p.jobs.valid.shape[0], p.nodes.valid.shape[0]
+    return (auction_benefit(p, ScoreWeights()), auction_tiebreak(J, N, dev),
+            p.jobs.valid)
+
+
+def auction_phases(dev, kernels, record, card):
+    """Phases (9)-(11): the auction kernel against its plain version, the
+    jax-auction path through the backend and the /solve handler, and its
+    times. Returns the auction's entry of the ``kernels`` line."""
+    import torch
+
+    from kubeinfer_tpu_torch.scheduler import (
+        SolveRequest,
+        get_backend,
+        solve_service_handler,
+    )
+    from kubeinfer_tpu_torch.solver.core import auction_tiebreak
+
+    # (9) kernel vs plain, bitwise, on the same card tensors
+    req1k = whole_node_request(1000, 1000)
+    req4k = whole_node_request(4096, 4096)
+    identical = SolveRequest(  # TestAuction.test_identical_fleet_converges_fast
+        job_gpu=np.full(256, 8.0, np.float32),
+        job_mem_gib=np.full(256, 8.0, np.float32),
+        job_priority=np.zeros(256, np.float32),
+        node_gpu_free=np.full(256, 8.0, np.float32),
+        node_mem_free_gib=np.full(256, 64.0, np.float32),
+    )
+    rng = np.random.default_rng(0)
+    field = rng.normal(0.0, 3.0, (64, 64)).astype(np.float32)
+    field[rng.random((64, 64)) < 0.25] = -1e9
+    random64 = (torch.from_numpy(field).to(dev),
+                auction_tiebreak(64, 64, dev),
+                torch.from_numpy(rng.random(64) >= 0.1).to(dev))
+    cases = {
+        "1kx1k whole-node": auction_inputs(req1k, dev),
+        "256 identical": auction_inputs(identical, dev),
+        "64x64 random, 25% infeasible, 10% invalid": random64,
+        "4096x4096 whole-node": auction_inputs(req4k, dev),
+    }
+    max_err, checked = 0.0, {}
+    for label, (b, t, v) in cases.items():
+        active, near = [], []
+        ka, ki = kernels.auction_solve(b, t, v, 0.01, max_iters=512)
+        pa, pi = kernels.auction_rounds(b, t, v, 0.01, max_iters=512,
+                                        active_rows=active, near_entries=near)
+        torch.cuda.synchronize()
+        err = float((ka - pa).abs().max())
+        max_err = max(max_err, err)
+        same = torch.equal(ka, pa) and int(ki) == int(pi)
+        print(f"[9] {label} ({b.shape[0]}x{b.shape[1]}): kernel iters "
+              f"{int(ki)} placed {int((ka >= 0).sum())}, plain iters "
+              f"{int(pi)}; bitwise_equal={same} max_abs_err={err}")
+        check(same, f"auction_solve != auction_rounds on {label}")
+        # the bytes this run's data needs: the benefit row of every active
+        # job in every iteration, and the tie-break only at the near
+        # entries of the rows that bid (the kernel reads no other)
+        checked[label] = {"iters": int(ki), "active_rows": sum(active),
+                          "near_entries": sum(near),
+                          "bound_bytes": 4 * b.shape[1] * sum(active)
+                          + 4 * sum(near),
+                          "placed": int((ka >= 0).sum())}
+    record["auction_checks"] = checked
+
+    # (10) the auction path, counted
+    backend = get_backend("jax-auction")
+    cpu_backend = get_backend("jax-auction", "cpu")
+    gang = whole_node_request(960, 1000, seed=4)
+    gang.job_gang = np.where(
+        np.arange(960) < 240, np.arange(960) // 4, -1).astype(np.int32)
+    gang.node_gpu_free[rng.choice(1000, 100, replace=False)] = 32.0
+    body = {"policy": "jax-auction", "jobs": {
+        "gpu": [8.0] * 32, "memGib": [16.0] * 32,
+        "priority": [float(i % 3) for i in range(32)]},
+        "nodes": {"gpuFree": [8.0] * 64, "memFreeGib": [64.0] * 64}}
+    launches = collections.Counter()
+    results = {}
+    for label, req in (("1kx1k fresh", req1k), ("960x1k 25% gangs", gang)):
+        reset_counts(kernels)
+        results[label] = backend.solve(req)
+        counts = {"auction_solve": kernels.auction_solve.launches,
+                  "mega_solve": kernels.mega_solve.launches}
+        launches.update(counts)
+        check(counts["auction_solve"] == 1,
+              f"{label}: {counts['auction_solve']} auction launches")
+        res = results[label]
+        check(res.policy == "jax-auction", f"{label}: fell back to greedy")
+        placed = check_assignment(req, res.assignment, label,
+                                  expect_all=label == "1kx1k fresh")
+        hosts = res.assignment[res.assignment >= 0]
+        check(len(np.unique(hosts)) == len(hosts),
+              f"{label}: a node hosts two whole-node jobs")
+        cpu = cpu_backend.solve(req)
+        check(np.array_equal(cpu.assignment, res.assignment)
+              and cpu.rounds == res.rounds and cpu.placed == res.placed,
+              f"{label}: card and CPU auction solves differ")
+        print(f"[10] jax-auction {label}: placed {placed}, {res.rounds} "
+              f"iterations, launches {counts}; equal to the device='cpu' "
+              "solve")
+    check(launches["mega_solve"] >= 1 and
+          kernels.mega_solve.launches >= 1,
+          "the gang case's fill did not run mega")
+    reset_counts(kernels)
+    out = solve_service_handler(body)
+    handler_launches = kernels.auction_solve.launches
+    launches["auction_solve"] += handler_launches
+    check(handler_launches == 1 and out["policy"] == "jax-auction"
+          and out["placed"] == 32, f"/solve jax-auction 32x64: {out}")
+    check(out == {**solve_service_handler(body, device="cpu"),
+                  "solveMs": out["solveMs"]},
+          "/solve jax-auction 32x64: card and CPU differ")
+    print(f"[10] /solve jax-auction 32x64 (a 64x64 bucket): placed "
+          f"{out['placed']}, {out['rounds']} iterations, equal to the CPU")
+    record["auction_main_path"] = {
+        "launches": dict(launches),
+        **{label: {"placed": r.placed, "rounds": r.rounds}
+           for label, r in results.items()},
+        "handler": {"placed": out["placed"], "rounds": out["rounds"]},
+    }
+
+    # (11) times
+    for _ in range(2):
+        backend.solve(req1k)
+    host_ms, event_ms = [], []
+    for _ in range(25):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = backend.solve(req1k)
+        end.record()
+        end.synchronize()
+        host_ms.append(res.solve_ms)
+        event_ms.append(start.elapsed_time(end))
+    p50, p50_event = statistics.median(host_ms), statistics.median(event_ms)
+    pack = statistics.median(backend.solve(req1k).extras["encode_ms"]
+                             for _ in range(5))
+    _, sync_sites = count_syncs(lambda: backend.solve(req1k))
+    b, t, v = cases["1kx1k whole-node"]
+    iters = checked["1kx1k whole-node"]["iters"]
+    kernel_ms = cuda_ms(
+        lambda: kernels.auction_solve(b, t, v, 0.01, max_iters=512), reps=20)
+    plain_ms = cuda_ms(
+        lambda: kernels.auction_rounds(b, t, v, 0.01, max_iters=512), reps=3)
+    N = b.shape[1]
+    bound_bytes = checked["1kx1k whole-node"]["bound_bytes"]
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    # per-layer split of one solve: the benefit field and tie-break, the
+    # kernel, and solve_auction on the unpacked problem (the rest of it is
+    # the gang repair, the fill and their host syncs)
+    from kubeinfer_tpu_torch.solver.core import (
+        ScoreWeights,
+        auction_benefit,
+        solve_auction,
+    )
+
+    p1k, _ = problem_of(req1k, dev)
+    field_ms = cuda_ms(lambda: (auction_benefit(p1k, ScoreWeights()),
+                                auction_tiebreak(N, N, dev)), reps=20)
+    solve_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve_auction(p1k, device=dev)
+        torch.cuda.synchronize()
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+    solve_p50 = statistics.median(solve_ms)
+    b4, t4, v4 = cases["4096x4096 whole-node"]
+    k4_ms = cuda_ms(
+        lambda: kernels.auction_solve(b4, t4, v4, 0.01, max_iters=512), reps=5)
+    c4 = checked["4096x4096 whole-node"]
+    bound4_ms = c4["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"[11] {card}: jax-auction 1kx1k p50 pack+solve {p50:.3f} ms "
+          f"(CUDA events {p50_event:.3f} ms, pack {pack:.3f} ms), "
+          f"{sum(sync_sites.values())} synchronising calls "
+          f"{dict(sync_sites)}; layers: solve_auction on the unpacked "
+          f"problem {solve_p50:.3f} ms, of which benefit field + tie-break "
+          f"{field_ms:.3f} ms and the kernel; auction_solve {kernel_ms:.4f} ms/launch, "
+          f"{iters} iterations, {kernel_ms / iters * 1e3:.2f} us/iteration, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms (bytes: "
+          f"{bound_bytes} B: the benefit rows of "
+          f"{checked['1kx1k whole-node']['active_rows']} active rows and "
+          f"the tie-break at {checked['1kx1k whole-node']['near_entries']} "
+          f"near entries, over all iterations); 4096x4096 "
+          f"{k4_ms:.3f} ms/launch, {c4['iters']} iterations, bound "
+          f"{bound4_ms:.4f} ms")
+    record["auction_times"] = {
+        "p50_ms": p50, "p50_event_ms": p50_event, "pack_ms": pack,
+        "syncs_per_solve": sum(sync_sites.values()),
+        "sync_sites": dict(sync_sites), "solve_auction_ms": solve_p50,
+        "field_ms": field_ms, "kernel_ms": kernel_ms,
+        "iters": iters, "ms_per_iter": kernel_ms / iters,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "kernel_4096_ms": k4_ms, "iters_4096": c4["iters"],
+        "bound_4096_ms": bound4_ms,
+    }
+    return {
+        "name": "auction_solve",
+        "route": "cuda",
+        "source": "kubeinfer_tpu_torch/solver/csrc/auction.cu",
+        "replaces": "kubeinfer_tpu/solver/pallas_kernels.py:1306",
+        "launches": launches["auction_solve"],
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "check": "bitwise equal (assigned, iterations) to auction_rounds "
+                 "at 1024x1024, 256x256, 64x64 and 4096x4096",
+    }
+
+
+def storm_batch(n_replicas=100, families=32, block_size=32,
+                prefix_blocks=8, tail=8, batch=256, seed=23):
+    """bench.py:fleet_storm_bench's planted fleet and its first batch of
+    requests, with no router object: the planes FleetRouter.route_batch
+    hands the route solve (dead and draining replicas masked out, stale
+    ones flagged, pressure = queue depth / slots, KV headroom)."""
+    from kubeinfer_tpu_torch.solver.routing import build_match_plane
+
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, 50_000, prefix_blocks * block_size).tolist()
+                for _ in range(families)]
+    draining = set(rng.choice(n_replicas, 4, replace=False).tolist())
+    stale = set(rng.choice(n_replicas, 4, replace=False).tolist())
+    dead = set(rng.choice(n_replicas, 2, replace=False).tolist())
+    fp_sets = []
+    ok = np.zeros(n_replicas, bool)
+    st = np.zeros(n_replicas, bool)
+    pressure = np.zeros(n_replicas, np.float32)
+    slots = np.ones(n_replicas, np.float32)
+    headroom = np.ones(n_replicas, np.float32)
+    for i in range(n_replicas):
+        fps: set[int] = set()
+        for k in range(3):
+            fam = (i + k * 11) % families
+            depth = int(rng.integers(2, prefix_blocks + 1))
+            fps.update(prefix_fingerprints(
+                prefixes[fam][: depth * block_size], block_size))
+        fp_sets.append(frozenset(fps))
+        qd = int(rng.integers(0, 5))
+        free, used = int(rng.integers(8, 64)), int(rng.integers(0, 32))
+        if i in dead or i in draining:
+            continue
+        ok[i], st[i] = True, i in stale
+        pressure[i], slots[i] = qd / 2.0, 2.0
+        headroom[i] = free / (free + used)
+    requests = [prefixes[int(rng.integers(0, families))]
+                + rng.integers(0, 50_000, tail).tolist()
+                for _ in range(batch)]
+
+    def planes():
+        match = build_match_plane(requests, fp_sets,
+                                  [block_size] * n_replicas)
+        return np.where(ok[None, :], match, -1).astype(np.int32)
+
+    return planes, (pressure, st, slots, headroom)
+
+
+def prefix_fingerprints(tokens, block_size):
+    """Per-request fingerprint chain (the reference's
+    kv_blocks.prefix_fingerprints), through the port's batched form."""
+    from kubeinfer_tpu_torch.solver.routing import batched_prefix_fingerprints
+
+    fps = batched_prefix_fingerprints([tokens], block_size, 1 << 30)[0]
+    return [int(x) for x in fps if x != -1]
+
+
+def affinity_inputs(J=10000, N=1000, seed=17):
+    """The reconciler's solved_affinity inputs for build_request(J, N):
+    its job models and cache bitmap, seeded queue depths over slots in
+    {1, 2, 4}, alpha and cutoff at the router's defaults (4 and 1)."""
+    req = build_request(J, N)
+    rng = np.random.default_rng(seed)
+    slots = rng.choice([1.0, 2.0, 4.0], N).astype(np.float32)
+    pressure = (rng.integers(0, 9, N) / slots).astype(np.float32)
+    return req.job_model, req.node_cached, pressure, slots
+
+
+class CheckedPick:
+    """A stand-in for ``kernels.route_pick`` that runs the kernel and its
+    plain version on the same inputs, holds them bitwise equal, and hands
+    the kernel's result on. Keeps the largest inputs it saw. While it
+    stands in, the wrapper's ``route_pick.launches += 1`` resolves to this
+    object's ``launches``, so the checking launches stay off the
+    wrapper's own count."""
+
+    def __init__(self, kernels):
+        self.kernel, self.plain = kernels.route_pick, kernels.route_pick_plain
+        self.launches = 0
+        self.calls = 0
+        self.max_err = 0.0
+        self.largest = None
+
+    def __call__(self, match, bias, active):
+        got = self.kernel(match, bias, active)
+        want = self.plain(match, bias, active)
+        for g, w in zip(got, want):
+            check(torch_equal(g, w),
+                  f"route_pick != route_pick_plain at {tuple(match.shape)}, "
+                  f"call {self.calls}")
+            self.max_err = max(self.max_err, float(
+                (g.double() - w.double()).abs().max()))
+        if self.largest is None or match.numel() > self.largest[0].numel():
+            self.largest = (match, bias, active)
+        self.calls += 1
+        return got
+
+
+def route_phases(dev, kernels, record, card):
+    """Phase (12): the route pick against its plain version, the route
+    solve and solved_affinity on the card against device="cpu", launch
+    counts and times. Returns the route pick's entry of the ``kernels``
+    line."""
+    import torch
+
+    from kubeinfer_tpu_torch.solver import routing
+
+    planes, vectors = storm_batch()
+    match = planes()
+    B = match.shape[0]
+    model, cached, pressure, slots = affinity_inputs()
+    aff_kw = dict(alpha=4.0, cutoff=1.0)
+
+    # the pick, bitwise, on every call of a solved_affinity solve at 10k x
+    # 1k (12288 x 1024) and of the storm solves, and at 256 x 128 with
+    # ties, inactive rows and an active row with no candidate
+    chk = CheckedPick(kernels)
+    orig = kernels.route_pick
+    kernels.route_pick = chk
+    try:
+        routing.solved_affinity(model, cached, pressure, slots, device=dev,
+                                **aff_kw)
+        big = chk.largest
+        rp, _, _ = routing.pack_route_arrays(match, *vectors, device=dev)
+        for mode in ("parity", "greedy", "auction"):
+            routing.solve_routes(rp, mode=mode)
+        rng = np.random.default_rng(2)
+        small = rng.integers(-1, 4, (256, 128)).astype(np.int32)
+        small[128] = -1
+        chk(torch.from_numpy(small).to(dev),
+            torch.from_numpy((rng.integers(-8, 8, 128) / 2.0)
+                             .astype(np.float32)).to(dev),
+            torch.from_numpy(rng.random(256) < 0.9).to(dev))
+    finally:
+        kernels.route_pick = orig
+    check(tuple(big[0].shape) == (12288, 1024),
+          f"solved_affinity plane {tuple(big[0].shape)}")
+    print(f"[12] route_pick bitwise equal to route_pick_plain on {chk.calls} "
+          f"calls (solved_affinity 12288x1024, storm {rp.match.shape[0]}x"
+          f"{rp.match.shape[1]} in three modes, 256x128 with ties and dead "
+          "rows)")
+
+    # the route solve through its entry points, counted
+    route_launches = 0
+    for mode, per_round in (("parity", 0), ("greedy", 1), ("auction", 2)):
+        reset_counts(kernels)
+        rp, _, _ = routing.pack_route_arrays(match, *vectors, device=dev)
+        out = routing.solve_routes(rp, mode=mode)
+        picks = routing.decode_routes(out, B)
+        n = kernels.route_pick.launches
+        route_launches += n
+        cpu_rp, _, _ = routing.pack_route_arrays(match, *vectors, device="cpu")
+        ref = routing.solve_routes(cpu_rp, mode=mode)
+        check(torch.equal(out.replica.cpu(), ref.replica)
+              and torch.equal(out.score.cpu(), ref.score)
+              and int(out.rounds) == int(ref.rounds),
+              f"solve_routes {mode}: card and CPU differ")
+        check(n == per_round * int(out.rounds) + 1,
+              f"solve_routes {mode}: {n} launches for {int(out.rounds)} rounds")
+        check((picks >= 0).all(), f"solve_routes {mode}: a request unrouted")
+        print(f"[12] solve_routes {mode} on the storm batch ({B} requests x "
+              f"100 replicas): {int(out.rounds)} rounds, {n} route_pick "
+              f"launches, {len(np.unique(picks))} replicas used; equal to "
+              "the device='cpu' solve")
+    reset_counts(kernels)
+    aff = routing.solved_affinity(model, cached, pressure, slots, device=dev,
+                                  **aff_kw)
+    n_aff = kernels.route_pick.launches
+    route_launches += n_aff
+    t0 = time.perf_counter()
+    aff_cpu = routing.solved_affinity(model, cached, pressure, slots,
+                                      device="cpu", **aff_kw)
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(aff, aff_cpu), "solved_affinity: card and CPU differ")
+    check(n_aff >= 2, f"solved_affinity: {n_aff} route_pick launches")
+    print(f"[12] solved_affinity 10kx1k: {int(aff.sum())} affinity bits, "
+          f"{n_aff} route_pick launches; equal to the device='cpu' solve "
+          f"({cpu_s:.1f} s on the host)")
+
+    # times at the solved_affinity plane
+    m, bias, act = big
+    Bb, R = m.shape
+    kernel_ms = cuda_ms(lambda: kernels.route_pick(m, bias, act), reps=50)
+    plain_ms = cuda_ms(lambda: kernels.route_pick_plain(m, bias, act), reps=10)
+    s = torch.where((m >= 0) & act[:, None], m.float() + bias[None, :],
+                    torch.tensor(kernels.ROUTE_NEG, device=dev))
+    library_ms = cuda_ms(lambda: torch.max(s, dim=1), reps=50)
+    # the kernel reads no match row of an inactive request
+    n_act = int(act.sum())
+    bound_bytes = 4 * n_act * R + 4 * R + Bb + 8 * Bb
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+
+    def p50_ms(fn, reps):
+        fn()
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    def storm_once():
+        rp_, _, _ = routing.pack_route_arrays(planes(), *vectors, device=dev)
+        return routing.decode_routes(routing.solve_routes(rp_), B)
+
+    storm_p50 = p50_ms(storm_once, 20)
+    plane_p50 = p50_ms(planes, 20)
+    aff_p50 = p50_ms(lambda: routing.solved_affinity(
+        model, cached, pressure, slots, device=dev, **aff_kw), 10)
+    # its layers: the pack (host padding + the copy of the 50 MB plane)
+    # and the greedy solve + readback on the packed problem
+    aff_match = np.where(cached[:, model].T.astype(bool), 4, 0).astype(np.int32)
+    aff_vectors = (pressure, np.zeros(len(slots), bool), slots,
+                   np.ones(len(slots), np.float32))
+    aff_pack_p50 = p50_ms(lambda: routing.pack_route_arrays(
+        aff_match, *aff_vectors, device=dev), 10)
+    aff_rp, _, _ = routing.pack_route_arrays(aff_match, *aff_vectors,
+                                             device=dev)
+    aff_solve_p50 = p50_ms(lambda: routing.decode_routes(routing.solve_routes(
+        aff_rp, alpha=4.0, stale_penalty=0.0, mode="greedy"), len(model)), 10)
+    print(f"[12] {card}: route_pick {kernel_ms:.4f} ms/launch at {Bb}x{R}, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes: "
+          f"{n_act} active rows), "
+          f"torch.max over a precomputed masked plane {library_ms:.4f} ms "
+          f"(a lower yardstick: no mask, no add); p50 match plane + pack + "
+          f"parity solve + decode at B={B}: {storm_p50:.3f} ms "
+          f"({storm_p50 / B * 1e3:.2f} us/request; the host match plane "
+          f"{plane_p50:.3f} ms of it); p50 solved_affinity 10kx1k "
+          f"{aff_p50:.3f} ms (pack {aff_pack_p50:.3f} ms, greedy solve + "
+          f"readback {aff_solve_p50:.3f} ms)")
+    record["route"] = {
+        "launches": route_launches, "checked_calls": chk.calls,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_active_rows": n_act,
+        "storm_p50_ms": storm_p50, "storm_plane_ms": plane_p50,
+        "affinity_p50_ms": aff_p50, "affinity_pack_ms": aff_pack_p50,
+        "affinity_solve_ms": aff_solve_p50,
+        "affinity_launches": n_aff, "affinity_cpu_s": cpu_s,
+    }
+    return {
+        "name": "route_pick",
+        "route": "cuda",
+        "source": "kubeinfer_tpu_torch/solver/csrc/route_pick.cu",
+        "replaces": "kubeinfer_tpu/solver/pallas_kernels.py:1433",
+        "launches": route_launches,
+        "max_abs_err": chk.max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+        "library_call": "torch.max(s, dim=1) on a precomputed masked f32 "
+                        "plane (leaves out the mask and the add: a lower "
+                        "yardstick)",
+        "check": "bitwise equal to route_pick_plain on every call of "
+                 "solved_affinity at 12288x1024 and of the storm solves, "
+                 "and at 256x128",
+    }
+
+
 def main() -> int:
     import torch
 
@@ -522,7 +1041,8 @@ def main() -> int:
 
     # (1) the build, from this checkout's sources
     t0 = time.perf_counter()
-    built = _build.build_all(["mega_solve", "round_ops"])
+    built = _build.build_all(["mega_solve", "round_ops", "auction",
+                              "route_pick"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")
@@ -532,7 +1052,7 @@ def main() -> int:
         ptxas = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "Compiling entry" in ln]
         print(f"[1] built {lib_path.name}; ptxas: {ptxas}")
-    print(f"[1] both libraries built in parallel in {build_s:.2f} s")
+    print(f"[1] {len(built)} libraries built in parallel in {build_s:.2f} s")
 
     # (2) kernel vs plain at the headline shape, three cases
     w = ScoreWeights()
@@ -723,6 +1243,8 @@ def main() -> int:
 
     round_entries = pipelined_phases(dev, backend, cpu_backend, kernels,
                                      record, card)
+    auction_entry = auction_phases(dev, kernels, record, card)
+    route_entry = route_phases(dev, kernels, record, card)
 
     # (8) the kernels line
     kline = {"kernels": [{
@@ -738,7 +1260,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
-    }, *round_entries]}
+    }, *round_entries, auction_entry, route_entry]}
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -16,7 +16,7 @@ class SchedulerPolicy(str, Enum):
     ``NATIVE_GREEDY``: serial first-fit-decreasing scorer in C++ (the
     comparison baseline).
     ``JAX_GREEDY``: batched parallel greedy with conflict resolution.
-    ``JAX_AUCTION``: auction assignment (not ported yet).
+    ``JAX_AUCTION``: auction assignment, one replica per node.
     """
 
     NATIVE_GREEDY = "native-greedy"

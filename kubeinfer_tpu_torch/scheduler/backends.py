@@ -170,10 +170,17 @@ class TorchBackend(SchedulerBackend):
         self.device = resolve_device(device)
 
     def warmup(self, num_jobs: int = 1024, num_nodes: int = 128) -> None:
+        gpu, mem = 1.0, 1.0
+        if self._policy is SchedulerPolicy.JAX_AUCTION:
+            # a request the auction accepts (whole-node demands, jobs <=
+            # nodes): a shared-node one would fall back to greedy, and the
+            # first production auction solve would pay the auction
+            # kernel's build inside a tick
+            num_jobs, gpu, mem = min(num_jobs, num_nodes), 8.0, 64.0
         self.solve(
             SolveRequest(
-                job_gpu=np.ones(num_jobs, np.float32),
-                job_mem_gib=np.ones(num_jobs, np.float32),
+                job_gpu=np.full(num_jobs, gpu, np.float32),
+                job_mem_gib=np.full(num_jobs, mem, np.float32),
                 node_gpu_free=np.full(num_nodes, 8.0, np.float32),
                 node_mem_free_gib=np.full(num_nodes, 64.0, np.float32),
             )

@@ -114,6 +114,12 @@ _SIGNATURES = {
         "bid_launch": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _P],
         "accept_launch": [_P] * 11 + [_I, _I, _P],
     },
+    "auction": {
+        "auction_launch": [_P] * 6 + [_I, _I, _I, _F, _P],
+    },
+    "route_pick": {
+        "route_pick_launch": [_P] * 5 + [_I, _I, _P],
+    },
 }
 
 
@@ -126,3 +132,4 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     err = getattr(lib, f"{name}_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [_I]
+    lib.error_string = err  # what kernels._launch reports a failure with

@@ -1,6 +1,6 @@
-"""The ``jax-greedy`` placement solve in PyTorch.
+"""The ``jax-greedy`` and ``jax-auction`` placement solves in PyTorch.
 
-Counterpart of the greedy half of ``kubeinfer_tpu/solver/core.py``: the
+Counterpart of ``kubeinfer_tpu/solver/core.py``. The greedy solve: the
 resident node-major [N, J] cost field S (static cost + integer-hash tie
 noise + rank-1 fit term), the dense priority rank and its four-class
 fence, the packed accept key, incumbent seeding, one of the two main
@@ -31,18 +31,24 @@ The mega loop itself runs on the device with no host sync. Where the
 reference avoided a gather or a scatter for the TPU's sake (the one-hot
 matmul for cache hits, the one-hot sandwich of the gang repair), the port
 uses PyTorch's own form, whose result is identical.
+
+The auction solve (``solve_auction``): a job-major [J, N] benefit field,
+the Jacobi auction loop (``kernels.auction_solve``, one launch for every
+iteration, with no host sync inside), then the gang repair and, when a
+valid job is left unplaced, a greedy fill through ``solve_greedy``. Its
+host syncs: whether the fill runs, and the fill's own.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple
 
 import torch
 
 from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.solver import kernels
-from kubeinfer_tpu_torch.solver.kernels import RANK_INF, mega_window
+from kubeinfer_tpu_torch.solver.kernels import INFEASIBLE, RANK_INF, mega_window
 from kubeinfer_tpu_torch.solver.problem import Problem
 
 _EPS = 1e-4  # capacity comparison slack for f32 fractional demands
@@ -97,6 +103,30 @@ def _static_cost_t(p: Problem, w: ScoreWeights) -> torch.Tensor:
     return cost + w.topology * topo_miss.to(torch.float32)
 
 
+def _inv_capacity(nodes) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32[N] 1 / capacity normalizers of the fit terms (capacity floored
+    at 1)."""
+    return (
+        torch.ones_like(nodes.gpu_capacity) / nodes.gpu_capacity.clamp_min(1.0),
+        torch.ones_like(nodes.mem_capacity) / nodes.mem_capacity.clamp_min(1.0),
+    )
+
+
+def _fit_cost(p: Problem, w: ScoreWeights) -> torch.Tensor:
+    """[J, N] best-fit pressure: normalized leftover capacity as cost
+    (the reference's ``_fit_cost`` scored against the free capacity)."""
+    jobs, nodes = p.jobs, p.nodes
+    inv_gpu_cap, inv_mem_cap = _inv_capacity(nodes)
+    cost = w.fit_gpu * (
+        (nodes.gpu_free[None, :] - jobs.gpu_demand[:, None])
+        * inv_gpu_cap[None, :]
+    )
+    return cost + w.fit_mem * (
+        (nodes.mem_free[None, :] - jobs.mem_demand[:, None])
+        * inv_mem_cap[None, :]
+    )
+
+
 def _prank_sorted(neg_p: torch.Tensor) -> torch.Tensor:
     """Dense rank of a NON-DECREASING key vector: cumsum over new-distinct
     markers. Only valid on sorted input (checked by the caller)."""
@@ -129,6 +159,13 @@ def tie_noise_hash(N: int, J: int, device: torch.device) -> torch.Tensor:
     h = h ^ (h >> 13)
     h = h * -1274126529
     return h ^ (h >> 16)
+
+
+def auction_tiebreak(J: int, N: int, device: torch.device) -> torch.Tensor:
+    """The auction's per-(job, node) i31 selection tie-break: the tie-noise
+    hash with the axes swapped, masked to 31 bits (the reference's
+    ``_auction_tiebreak``)."""
+    return tie_noise_hash(J, N, device) & _I32MAX
 
 
 def quant_constants(N: int, weights: ScoreWeights) -> tuple[int, float, float, float]:
@@ -331,8 +368,7 @@ def cost_field(p: Problem, weights: ScoreWeights) -> CostField:
     J = jobs.valid.shape[0]
     N = nodes.valid.shape[0]
     static_cost = _static_cost_t(p, weights)
-    inv_gpu_cap = torch.ones_like(nodes.gpu_capacity) / nodes.gpu_capacity.clamp_min(1.0)
-    inv_mem_cap = torch.ones_like(nodes.mem_capacity) / nodes.mem_capacity.clamp_min(1.0)
+    inv_gpu_cap, inv_mem_cap = _inv_capacity(nodes)
 
     neg_p = torch.where(jobs.valid, -jobs.priority, float("inf"))
     if bool((neg_p[1:] >= neg_p[:-1]).all()):  # host sync
@@ -528,6 +564,75 @@ def solve_greedy(
     return Assignment(assigned, gpu_free, mem_free, rounds, placed)
 
 
+def auction_benefit(p: Problem, weights: ScoreWeights) -> torch.Tensor:
+    """f32[J, N] auction benefit (higher is better): minus the static and
+    best-fit costs where the whole remaining node capacity fits the job,
+    ``-INFEASIBLE`` elsewhere (kubeinfer_tpu/solver/core.py:1346-1359)."""
+    jobs, nodes = p.jobs, p.nodes
+    feas = (
+        (jobs.gpu_demand[:, None] <= nodes.gpu_free[None, :] + _EPS)
+        & (jobs.mem_demand[:, None] <= nodes.mem_free[None, :] + _EPS)
+        & nodes.valid[None, :]
+        & jobs.valid[:, None]
+    )
+    cost = _static_cost_t(p, weights).T + _fit_cost(p, weights)
+    return torch.where(feas, -cost, -INFEASIBLE).contiguous()
+
+
+def solve_auction(
+    p: Problem,
+    weights: ScoreWeights = ScoreWeights(),
+    eps: float = 0.01,
+    max_iters: int = 512,
+    device: str | torch.device | None = None,
+    accel: str = "auto",
+) -> Assignment:
+    """Auction assignment (policy ``jax-auction``): one replica per node,
+    the placed jobs within ``J * (eps + kernels.TIE_TOL)`` of the optimal total
+    cost (kubeinfer_tpu/solver/core.py:1317-1442 explains the hash
+    tie-break and the stagnation exit). Priority does not move the result.
+
+    The loop is ``kernels.auction_solve``: one kernel launch for CUDA
+    tensors, whatever the shape. The reference runs its one-launch kernel
+    only where the TPU allows (J % 8, N % 128 and a VMEM-resident field,
+    ``_auction_accel``); that is a limit of the TPU, not of the card, and
+    since the kernel and its plain version are bitwise equal the choice
+    cannot change a result. ``accel`` steers only the greedy fill's main
+    loop (``resolve_accel``).
+
+    After the loop the gang repair runs always; when a valid job was left
+    unplaced (decided before the repair), the fill re-offers the repaired
+    capacity to the unplaced non-gang jobs through ``solve_greedy`` on a
+    sub-problem, and its placements are merged. ``rounds`` is the
+    auction's iteration count only. The free capacities come from the
+    gang repair without a fill, and from the fill's solve with one."""
+    dev = resolve_device(device)
+    p = p.to(dev)
+    jobs, nodes = p.jobs, p.nodes
+    J = jobs.valid.shape[0]
+    N = nodes.valid.shape[0]
+    resolve_accel(accel, J, N)  # an unknown accel fails before any work
+    benefit = auction_benefit(p, weights)
+    tiebreak = auction_tiebreak(J, N, dev)
+    assigned, iters = kernels.auction_solve(
+        benefit, tiebreak, jobs.valid, eps, max_iters=max_iters
+    )
+    del benefit, tiebreak
+    needs_fill = bool((jobs.valid & (assigned < 0)).any())  # host sync
+    assigned, gpu_free, mem_free = _gang_repair(p, assigned)
+    if needs_fill:
+        fillable = (assigned < 0) & jobs.valid & (jobs.gang_id < 0)
+        sub = Problem(
+            jobs=replace(jobs, valid=fillable),
+            nodes=replace(nodes, gpu_free=gpu_free, mem_free=mem_free),
+        )
+        out = solve_greedy(sub, weights, device=dev, accel=accel)
+        assigned = torch.where(fillable & (out.node >= 0), out.node, assigned)
+        gpu_free, mem_free = out.gpu_free, out.mem_free
+    placed = ((assigned >= 0) & jobs.valid).sum().to(torch.int32)
+    return Assignment(assigned, gpu_free, mem_free, iters, placed)
+
+
 def solve(
     p: Problem,
     policy: str = "jax-greedy",
@@ -536,16 +641,14 @@ def solve(
     device: str | torch.device | None = None,
     accel: str = "auto",
 ) -> Assignment:
-    """Dispatch by schedulerPolicy value (the batched policies only)."""
+    """Dispatch by schedulerPolicy value (the batched policies only);
+    ``seeded`` applies to the greedy solve, as in the reference."""
     if policy == "jax-greedy":
         return solve_greedy(
             p, weights, seeded=seeded, device=device, accel=accel
         )
     if policy == "jax-auction":
-        raise NotImplementedError(
-            "jax-auction is not ported yet: it is the next slice "
-            "(ROADMAP.md Queue 1 item 11, 'solve_auction' with kernel #7)"
-        )
+        return solve_auction(p, weights, device=device, accel=accel)
     raise ValueError(
         f"unknown solver policy {policy!r}; 'native-greedy' is dispatched "
         "by the SchedulerBackend layer, not the solver"

@@ -1,6 +1,6 @@
-"""The greedy solve's device work: plain PyTorch and CUDA.
+"""The solver's device work: plain PyTorch and CUDA.
 
-Two algorithms, as in ``kubeinfer_tpu/solver``:
+Four algorithms, as in ``kubeinfer_tpu/solver``:
 
 - The class-serialised ("mega") loop, counterpart of the mega section of
   ``pallas_kernels.py`` (``mega_window``, ``_mega_round_math``,
@@ -19,13 +19,22 @@ Two algorithms, as in ``kubeinfer_tpu/solver``:
   ``accept_flags_pallas``). ``fence_minrank``, ``round_bids`` and
   ``dense_accept`` are the plain versions; ``fence``, ``bid`` and
   ``accept`` launch the kernels of ``csrc/round_ops.cu``.
+- The Jacobi auction loop of the ``jax-auction`` policy, counterpart of
+  ``core._auction_loop_jnp`` and of ``pallas_kernels.auction_solve``:
+  ``auction_rounds`` is the plain version, ``auction_solve`` launches
+  ``csrc/auction.cu``.
+- The route solve's masked row argmax, counterpart of
+  ``pallas_kernels.route_pick_jnp``/``route_pick_pallas``:
+  ``route_pick_plain`` is the plain version, ``route_pick`` launches
+  ``csrc/route_pick.cu``.
 
 Each wrapper takes its plain version only for a CPU tensor; for a CUDA
 tensor it launches its kernel or raises. Kernel and plain version are
 bit-identical as long as the demand sums are exact (small dyadic demands
 — integers, halves, quarters), the same premise the reference's
-kernel/twin parity rests on. Each wrapper's ``launches`` attribute counts
-its kernel launches and nothing else.
+kernel/twin parity rests on; the auction and the route pick sum nothing,
+so they are bit-identical on any input. Each wrapper's ``launches``
+attribute counts its kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -37,6 +46,15 @@ import torch
 _I32MAX = 0x7FFFFFFF
 _EPS = 1e-4
 RANK_INF = 1e9
+# The auction's "infeasible" benefit magnitude; -INFEASIBLE is its NEG.
+INFEASIBLE = 1e9
+# Values within TIE_TOL of a job's best count as tied for the hash
+# tie-break; the loop stops after STALE_ITERS iterations without a net
+# placement (kubeinfer_tpu/solver/core.py:70-82 says why).
+TIE_TOL = 1e-5
+STALE_ITERS = 16
+# The route pick's finite "-inf" for masked entries.
+ROUTE_NEG = -3e38
 
 # Window budget: W is the widest 128-multiple dividing J whose [N, W] f32
 # slice of the cost field fits 8 MiB. This is an ALGORITHM constant, not a
@@ -201,6 +219,19 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous on {device}")
 
 
+def _kernel_lib(t: torch.Tensor, name: str, lib_name: str):
+    """The kernel library ``lib_name`` for a CUDA tensor (built at first
+    use); None for a CPU tensor, where the wrapper ``name`` takes its plain
+    version; raises for any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    from kubeinfer_tpu_torch.solver._build import load_kernel_library
+
+    return load_kernel_library(lib_name)
+
+
 def mega_solve(
     s_t, d, md, accept_key, rankf, current_node, asg_init, may_bid,
     gf_eff, mf, vg, vm, *, max_rounds, q_lo, q_scale, q_max, node_idx_bits,
@@ -211,16 +242,13 @@ def mega_solve(
     Same arguments and results as ``mega_rounds``.
 
     ``mega_solve.launches`` counts kernel launches (and nothing else)."""
-    if s_t.device.type == "cpu":
+    lib = _kernel_lib(s_t, "mega_solve", "mega_solve")
+    if lib is None:
         return mega_rounds(
             s_t, d, md, accept_key, rankf, current_node, asg_init, may_bid,
             gf_eff, mf, vg, vm, max_rounds=max_rounds, q_lo=q_lo,
             q_scale=q_scale, q_max=q_max, node_idx_bits=node_idx_bits,
         )
-    if s_t.device.type != "cuda":
-        raise ValueError(f"mega_solve: unsupported device {s_t.device}")
-    from kubeinfer_tpu_torch.solver._build import load_kernel_library
-
     N, J = s_t.shape
     W = mega_window(N, J)
     if W is None:
@@ -240,7 +268,6 @@ def mega_solve(
     if node_idx_bits < (N - 1).bit_length() or node_idx_bits > 30:
         raise ValueError(f"node_idx_bits={node_idx_bits} cannot index N={N}")
 
-    lib = load_kernel_library()
     asg = torch.empty(J, dtype=torch.int32, device=dev)
     gf_out = torch.empty(N, dtype=torch.float32, device=dev)
     mf_out = torch.empty(N, dtype=torch.float32, device=dev)
@@ -262,9 +289,7 @@ def mega_solve(
         p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(
-            f"mega_solve launch failed: {lib.mega_solve_error_string(err)}"
-        )
+        raise RuntimeError(f"mega_solve_launch failed: {lib.error_string(err)}")
     mega_solve.launches += 1
     return asg, gf_out, mf_out, stats[0], stats[1] != 0
 
@@ -408,8 +433,8 @@ def dense_accept(
 
 
 def _launch(lib, fn: str, *args) -> None:
-    """Call one launcher of the round-ops library; pointers and the stream
-    are passed as c_void_p, floats as c_float, the rest as c_int."""
+    """Call one launcher of a kernel library; pointers and the stream are
+    passed as c_void_p, floats as c_float, the rest as c_int."""
     conv = []
     for a in args:
         if isinstance(a, torch.Tensor):
@@ -423,25 +448,13 @@ def _launch(lib, fn: str, *args) -> None:
         *conv, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     )
     if err != 0:
-        raise RuntimeError(f"{fn} failed: {lib.round_ops_error_string(err)}")
-
-
-def _round_ops_lib(t: torch.Tensor, name: str):
-    """The round-ops library for a CUDA tensor; None for a CPU tensor (the
-    caller takes its plain version); raises for any other device."""
-    if t.device.type == "cpu":
-        return None
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    from kubeinfer_tpu_torch.solver._build import load_kernel_library
-
-    return load_kernel_library("round_ops")
+        raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
 
 
 def fence(gf, mf, d, md, rankf_eff):
     """``fence_minrank`` on the tensors' device: for CUDA tensors one
     launch of the fence kernel of ``csrc/round_ops.cu``."""
-    lib = _round_ops_lib(gf, "fence")
+    lib = _kernel_lib(gf, "fence", "round_ops")
     if lib is None:
         return fence_minrank(gf, mf, d, md, rankf_eff)
     N, J = gf.shape[0], d.shape[0]
@@ -465,7 +478,7 @@ def bid(
     """``round_bids`` on the tensors' device: for CUDA tensors one launch
     of the bid kernel of ``csrc/round_ops.cu``, which reads each allowed
     S entry once and keeps a running top-2 of group minima per job."""
-    lib = _round_ops_lib(S, "bid")
+    lib = _kernel_lib(S, "bid", "round_ops")
     if lib is None:
         return round_bids(
             S, u, gf, mf, d, md, rankf_eff, minrank, current_node,
@@ -501,7 +514,7 @@ def accept(choice, key, d, md, gf, mf):
     cooperative launch of the accept kernel of ``csrc/round_ops.cu``
     (bidder totals and winner by atomics, then the node verdicts and the
     per-job flag, a gather through ``choice``)."""
-    lib = _round_ops_lib(choice, "accept")
+    lib = _kernel_lib(choice, "accept", "round_ops")
     if lib is None:
         return dense_accept(choice, key, d, md, gf, mf)
     N, J = gf.shape[0], choice.shape[0]
@@ -526,3 +539,181 @@ def accept(choice, key, d, md, gf, mf):
 
 
 accept.launches = 0
+
+
+# --- the auction loop --------------------------------------------------------
+
+
+def auction_rounds(
+    benefit: torch.Tensor,  # f32[J, N]; -INFEASIBLE marks infeasible
+    tiebreak: torch.Tensor,  # i32[J, N] from core.auction_tiebreak
+    valid: torch.Tensor,  # bool[J]
+    eps: float,
+    *,
+    max_iters: int,
+    active_rows: list | None = None,
+    near_entries: list | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the Jacobi auction loop (``core._auction_loop_jnp``):
+    the same state, loop condition, stale counter and iteration count.
+    Returns ``(assigned i32[J], iters i32 0-d)``. When ``active_rows`` is
+    a list, the number of rows that take part in each iteration (the
+    unassigned valid jobs) is appended to it; when ``near_entries`` is a
+    list, the number of entries within TIE_TOL of their row's best value,
+    over the rows that bid (the tie-break entries the bid target needs).
+    Both feed the kernel's byte bound.
+
+    Each iteration: every unassigned job's values ``benefit - price``,
+    its best value, its bid target (the largest tie-break hash among the
+    values within TIE_TOL of the best, lowest node on equal hashes), the
+    best value off that target (floored at NEG, the masked slot's value)
+    and its bid ``(price[target] + (best - second)) + eps``; every node's
+    highest bid wins it, the lowest job on equal bids; the previous owner
+    is evicted. The per-node maximum and the winner are ``scatter_reduce``s
+    where the reference compares against an [N, J] broadcast; both select
+    the same values. The loop condition is one host sync per iteration."""
+    J, N = benefit.shape
+    dev = benefit.device
+    f32 = torch.float32
+    neg = torch.tensor(-INFEASIBLE, dtype=f32, device=dev)
+    tol = torch.tensor(TIE_TOL, dtype=f32, device=dev)
+    eps_t = torch.tensor(eps, dtype=f32, device=dev)
+    n_iota = torch.arange(N, dtype=torch.int32, device=dev)
+    j_iota = torch.arange(J, dtype=torch.int32, device=dev)
+    assigned = torch.full((J,), -1, dtype=torch.int32, device=dev)
+    owner = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    prices = torch.zeros(N, dtype=f32, device=dev)
+    it, progress, pending_best, stale = 0, True, J + 1, 0
+    n_pending = int(valid.sum())  # host sync
+    while progress and n_pending > 0 and it < max_iters and stale < STALE_ITERS:
+        if active_rows is not None:
+            active_rows.append(n_pending)
+        unassigned = (assigned < 0) & valid
+        value = torch.where(unassigned[:, None], benefit - prices[None, :], neg)
+        best_v = value.amax(dim=1)
+        near = value >= (best_v - tol)[:, None]
+        tb = torch.where(near, tiebreak, -1)
+        best_n = torch.where(
+            tb == tb.amax(dim=1, keepdim=True), n_iota[None, :], N
+        ).amin(dim=1)
+        second_v = torch.where(
+            n_iota[None, :] == best_n[:, None], neg, value
+        ).amax(dim=1)
+        can_bid = unassigned & (best_v > neg * 0.5)
+        if near_entries is not None:
+            near_entries.append(int((near & can_bid[:, None]).sum()))
+        bid = torch.where(
+            can_bid, prices[best_n.long()] + (best_v - second_v) + eps_t, neg
+        )
+        # per-node highest bid and its lowest bidder; slot N collects the
+        # rows that do not bid
+        tgt = torch.where(can_bid, best_n, N).long()
+        win_bid = torch.full((N + 1,), -INFEASIBLE, dtype=f32, device=dev)
+        win_bid = win_bid.scatter_reduce(0, tgt, bid, "amax")
+        top = can_bid & (bid == win_bid[tgt])
+        winner = torch.full((N + 1,), J, dtype=torch.int32, device=dev)
+        winner = winner.scatter_reduce(0, tgt, torch.where(top, j_iota, J), "amin")
+        has = win_bid[:N] > neg * 0.5
+        win_j = winner[:N]
+        # each owner owns one node and each winner bid on one node, so the
+        # evicted and the winning jobs are distinct; slot J is a sentinel
+        evict = torch.zeros(J + 1, dtype=torch.bool, device=dev)
+        evict[torch.where(has & (owner >= 0), owner, J).long()] = True
+        assigned = torch.where(evict[:J], -1, assigned)
+        owner = torch.where(has, win_j, owner)
+        prices = torch.where(has, win_bid[:N], prices)
+        won = torch.full((J + 1,), -1, dtype=torch.int32, device=dev)
+        won[torch.where(has, win_j, J).long()] = n_iota
+        assigned = torch.where(won[:J] >= 0, won[:J], assigned)
+        it += 1
+        # the stale counter follows the pending count: a war iteration
+        # evicts as many as it places
+        pend_t = ((assigned < 0) & valid).sum()
+        progress, n_pending = torch.stack(
+            [can_bid.any().to(pend_t.dtype), pend_t]
+        ).tolist()  # host sync: the loop condition
+        progress = bool(progress)
+        stale = 0 if n_pending < pending_best else stale + 1
+        pending_best = min(n_pending, pending_best)
+    return assigned, torch.tensor(it, dtype=torch.int32, device=dev)
+
+
+def auction_solve(benefit, tiebreak, valid, eps, *, max_iters):
+    """The auction loop on the device the tensors are on: for CUDA tensors
+    ONE cooperative launch of ``csrc/auction.cu`` that runs every
+    iteration; for CPU tensors the plain ``auction_rounds``. Same
+    arguments and results as ``auction_rounds`` (without
+    ``active_rows`` and ``near_entries``); any (J, N) is taken.
+
+    ``auction_solve.launches`` counts kernel launches (and nothing else)."""
+    lib = _kernel_lib(benefit, "auction_solve", "auction")
+    if lib is None:
+        return auction_rounds(benefit, tiebreak, valid, eps, max_iters=max_iters)
+    J, N = benefit.shape
+    dev = benefit.device
+    if J < 1 or N < 1:
+        raise ValueError(f"auction_solve: empty field {J}x{N}")
+    _check("benefit", benefit, torch.float32, (J, N), dev)
+    _check("tiebreak", tiebreak, torch.int32, (J, N), dev)
+    _check("valid", valid, torch.bool, (J,), dev)
+    asg = torch.empty(J, dtype=torch.int32, device=dev)
+    iters = torch.empty(1, dtype=torch.int32, device=dev)
+    # workspace, zeroed: key u64[N] (2N ints), price f32[N], owner i32[N],
+    # 8 counters
+    ws = torch.zeros(4 * N + 8, dtype=torch.int32, device=dev)
+    _launch(
+        lib, "auction_launch", benefit, tiebreak, valid, asg, iters, ws,
+        J, N, int(max_iters), float(eps),
+    )
+    auction_solve.launches += 1
+    return asg, iters[0]
+
+
+auction_solve.launches = 0
+
+
+# --- the route pick ----------------------------------------------------------
+
+
+def route_pick_plain(
+    match: torch.Tensor,  # i32[B, R] match depth in blocks; -1 = ineligible
+    bias: torch.Tensor,  # f32[R] per-replica bias
+    active: torch.Tensor,  # bool[B] row still unassigned
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked row argmax (``route_pick_jnp``): ``(row max f32[B], first
+    index of it i32[B])``; a row with no eligible replica gives
+    ``(ROUTE_NEG, -1)``. The only arithmetic is one f32 add per entry."""
+    B, R = match.shape
+    dev = match.device
+    neg = torch.tensor(ROUTE_NEG, dtype=torch.float32, device=dev)
+    ok = (match >= 0) & active[:, None]
+    s = torch.where(ok, match.to(torch.float32) + bias[None, :], neg)
+    v = s.amax(dim=1)
+    r_iota = torch.arange(R, dtype=torch.int32, device=dev)
+    idx = torch.where(s == v[:, None], r_iota[None, :], _I32MAX).amin(dim=1)
+    return v, torch.where(v > neg, idx, -1).to(torch.int32)
+
+
+def route_pick(match, bias, active):
+    """``route_pick_plain`` on the tensors' device: for CUDA tensors one
+    launch of ``csrc/route_pick.cu`` (one warp per row).
+
+    ``route_pick.launches`` counts kernel launches (and nothing else)."""
+    lib = _kernel_lib(match, "route_pick", "route_pick")
+    if lib is None:
+        return route_pick_plain(match, bias, active)
+    B, R = match.shape
+    dev = match.device
+    if B < 1 or R < 1:
+        raise ValueError(f"route_pick: empty plane {B}x{R}")
+    _check("match", match, torch.int32, (B, R), dev)
+    _check("bias", bias, torch.float32, (R,), dev)
+    _check("active", active, torch.bool, (B,), dev)
+    val = torch.empty(B, dtype=torch.float32, device=dev)
+    idx = torch.empty(B, dtype=torch.int32, device=dev)
+    _launch(lib, "route_pick_launch", match, bias, active, val, idx, B, R)
+    route_pick.launches += 1
+    return val, idx
+
+
+route_pick.launches = 0

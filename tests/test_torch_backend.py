@@ -160,7 +160,8 @@ def test_get_backend_registry():
 
 def test_auction_policy_falls_back_or_raises():
     """An unsuitable auction request falls back to greedy (as JaxBackend
-    does); a suitable one reaches the unported auction and says so."""
+    does); a suitable one is solved by the auction, equal to the
+    reference's packed auction solve."""
     backend = tb.TorchBackend(tb.SchedulerPolicy.JAX_AUCTION, device="cpu")
     res = backend.solve(make_request(200, 20, 4))
     assert res.policy == "jax-greedy" and res.extras["auction_fallback"] == 1.0
@@ -169,8 +170,17 @@ def test_auction_policy_falls_back_or_raises():
         node_gpu_free=np.full(8, 8.0, np.float32),
         node_mem_free_gib=np.full(8, 64.0, np.float32),
     )
-    with pytest.raises(NotImplementedError, match="jax-auction.*next slice"):
-        backend.solve(whole)
+    res = backend.solve(whole)
+    from kubeinfer_tpu.solver.problem import pack_problem_arrays
+
+    buf, _, _, J, N = pack_problem_arrays(**whole.__dict__)
+    ref = jb._packed_solver()(
+        buf, J=J, N=N, policy="jax-auction", accel=reference_accel(J, N),
+        seeded=False,
+    )
+    np.testing.assert_array_equal(res.assignment, np.asarray(ref.node)[:8])
+    assert res.rounds == int(ref.rounds) and res.placed == 8
+    assert res.policy == "jax-auction" and "auction_fallback" not in res.extras
 
 
 def test_descending_perm_and_incumbents_match():

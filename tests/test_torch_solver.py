@@ -295,10 +295,19 @@ def test_no_mega_window_raises(monkeypatch):
 
 
 def test_auction_policy_not_ported():
-    p, _ = instance(0)
-    tp_, _ = to_port(p)
-    with pytest.raises(NotImplementedError, match="jax-auction.*next slice"):
-        tc.solve(tp_, policy="jax-auction", device="cpu")
+    """Named for the stub it replaced: ``solve`` now dispatches
+    ``jax-auction`` to ``solve_auction`` (equal to the reference's
+    ``solve(policy="jax-auction")``), and still refuses the serial
+    policy."""
+    p, _ = instance(0, J=96, N=128)
+    tp_, tw = to_port(p)
+    got = tc.solve(tp_, policy="jax-auction", device="cpu")
+    want = tc.solve_auction(tp_, tw, device="cpu")
+    ref = jc.solve(p, policy="jax-auction", accel="jnp")
+    for g, w in ((got.node, want.node), (got.rounds, want.rounds)):
+        assert torch.equal(g, w)
+    np.testing.assert_array_equal(got.node.numpy(), np.asarray(ref.node))
+    assert int(got.rounds) == int(ref.rounds)
     with pytest.raises(ValueError, match="native-greedy"):
         tc.solve(tp_, policy="native-greedy", device="cpu")
 
