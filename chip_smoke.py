@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Drives the port (``kubeinfer_tpu_torch``; nothing of JAX) through the
-placement solve's and the route solve's entry points, builds its CUDA
+placement solve's and the route solve's entry points and through the
+serving path (``/v1/completions`` on llama-3-8b), builds its CUDA
 kernels from this checkout, holds each kernel against its plain PyTorch
-version, checks the solves' hard guarantees, and times them. Phases:
+version, checks the solves' hard guarantees and the served tokens, and
+times them. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
-      together: mega_solve.cu, round_ops.cu, auction.cu, route_pick.cu;
+      together: mega_solve.cu, round_ops.cu, auction.cu, route_pick.cu,
+      decode_attention.cu, flash_prefill.cu;
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -57,7 +60,30 @@ version, checks the solves' hard guarantees, and times them. Phases:
       route solve's three modes on a fleet-storm batch (bench.py's
       fleet_storm_bench: 256 requests x 100 replicas), and at 256 x 128;
       those solves against device="cpu", their launch counts, and times;
-  (8) the ``kernels`` JSON line, printed last of all phases.
+  (13) the serving path at full width: ``server.build_server`` with
+      ``--model llama-3-8b --random-init --batch-slots 8`` (bf16 weights
+      from init_params, a 4096-wide slot row, a 513-block pool of 128);
+      decode_attention_blocks (#11), flash_attention_ragged (#9) and
+      decode_attention (#10) each against its plain version, within the
+      stated tolerance, on every layer's call of the continuous engine's
+      decode windows (8 requests of 512 tokens) and of an Engine
+      generate with a 4100-token prompt (4 prefill chunks of 2048, one
+      decode step);
+  (14) /v1/completions over HTTP: 4 greedy 512-token prompts (two share
+      256 tokens) and 1 sampled, 64 new tokens each, on the continuous
+      route, and a 4100-token prompt on the engine route, concurrently;
+      the three launch counts reset before and read after (all > 0),
+      the routes, tokens in the vocabulary, finite logits, and the host
+      syncs of one decode window (1: its readback);
+  (15) the port on the card against the port on the CPU: llama-3-8b
+      widths cut to 2 layers (1 if the host run exceeds 20 s), f32,
+      Engine and ContinuousEngine, greedy and sampled, equal streams;
+  (16) times: TTFT of a 512-token prompt on the continuous route, decode
+      ms per token at 8 live slots, the engine route's prefill chunks,
+      and each attention kernel against its bound, its plain version
+      and scaled_dot_product_attention on the path's heaviest call;
+  (8) the ``kernels`` JSON line (nine entries), printed last of all
+      phases.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Full numbers go to chiprun_out/chip_smoke.json.
@@ -1006,6 +1032,525 @@ def route_phases(dev, kernels, record, card):
     }
 
 
+# --- the serving path: phases (13)-(16) ---------------------------------------
+
+SERVE_KERNELS = ("flash_attention_ragged", "decode_attention",
+                 "decode_attention_blocks")
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+BF16_REL = 2.0 ** -6  # 2 bf16 ulps of a row's magnitude
+
+
+def reset_serve_counts(fa):
+    for name in SERVE_KERNELS:
+        getattr(fa, name).launches = 0
+
+
+def attn_err(got, want, live):
+    """(largest |kernel - plain| over the live rows, within tolerance):
+    f32 1e-5; bf16 2**-6 of each live row's largest |plain value|; every
+    row finite."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf"), False
+    B = g.shape[0]
+    row_err = (g - w).abs().reshape(B, -1).amax(dim=1)[live]
+    row_mag = w.abs().reshape(B, -1).amax(dim=1)[live]
+    if row_err.numel() == 0:
+        return 0.0, True
+    if got.dtype == torch.float32:
+        ok = bool((row_err <= 1e-5).all())
+    else:
+        ok = bool((row_err <= BF16_REL * row_mag).all())
+    return float(row_err.max()), ok
+
+
+class CheckedAttention:
+    """A stand-in for one attention wrapper of ``inference.flash_attention``
+    that runs the kernel and its plain version on the same inputs, holds
+    them within the stated tolerance and hands the kernel's result on.
+    Keeps the call with the most work (``weight``) for the times. While it
+    stands in, the wrapper's ``<name>.launches += 1`` resolves to this
+    object's ``launches``, so the checking launches stay off the
+    wrapper's own count."""
+
+    def __init__(self, fa, name, plain, live, weight):
+        self.fa, self.name = fa, name
+        self.kernel, self.plain = getattr(fa, name), plain
+        self.live, self.weight = live, weight
+        self.launches = self.calls = 0
+        self.max_err = 0.0
+        self.heaviest = None
+        self.error = None  # a failure on the scheduler thread, kept here
+
+    def __enter__(self):
+        setattr(self.fa, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.fa, self.name, self.kernel)
+
+    def __call__(self, *args):
+        got = self.kernel(*args)
+        want = self.plain(*args)
+        err, ok = attn_err(got, want, self.live(*args))
+        if not ok:
+            self.error = (f"{self.name}: kernel vs plain out of tolerance "
+                          f"on call {self.calls} (max err {err})")
+            raise AssertionError(self.error)
+        self.max_err = max(self.max_err, err)
+        if self.heaviest is None or \
+                self.weight(*args) > self.weight(*self.heaviest):
+            # copies of the small operands (q, tables, lengths): the slot
+            # state's tables change in place as rows retire; the caches
+            # and pools are kept by reference
+            self.heaviest = tuple(
+                a.clone() if hasattr(a, "clone") and a.numel() < 1 << 22
+                else a for a in args)
+        self.calls += 1
+        return got
+
+
+def post_json(port, body, timeout=900):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def get_status(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.status
+
+
+def in_threads(fn, items):
+    """fn over items, one thread each, all started together."""
+    import threading
+
+    out = [None] * len(items)
+    errs = []
+
+    def go(i):
+        try:
+            out[i] = fn(items[i])
+        except Exception as e:  # re-raised below, on the main thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(items))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def device_profile(fn):
+    """Run ``fn`` under torch.profiler (CPU + CUDA). Returns (host wall ms
+    until the device is done, device busy ms = the kernels' summed time
+    on the one stream, the top kernels as (name, ms, count)). A trace
+    with no device time gives busy 0: not measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, sum(r[1] for r in rows), rows
+
+
+def card_vs_cpu(dev, record):
+    """Phase (15): the port's engines on the card and on the CPU, same
+    f32 weights at llama-3-8b widths cut to 2 layers: equal greedy and
+    sampled token streams."""
+    import dataclasses
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.engine import Engine
+    from kubeinfer_tpu_torch.inference.model import init_params, params_to
+
+    rng = np.random.default_rng(15)
+    kw_sets = ({}, dict(temperature=0.8, top_k=50, top_p=0.9,
+                        repetition_penalty=1.2, seed=3))
+
+    def run(cfg, params, device):
+        eng = Engine(params, cfg, max_cache_len=512, device=device)
+        cont = ContinuousEngine(params, cfg, n_slots=2, cache_len=128,
+                                device=device).start()
+        try:
+            out = []
+            for kw in kw_sets:
+                out.append(eng.generate(prompts, 16, **kw).tokens.tolist())
+                # both rows in one decode batch: half the forwards (the
+                # host run is bound by streaming the f32 vocab head)
+                out.append(in_threads(lambda p: cont.generate(p, 16, **kw),
+                                      prompts))
+            return out
+        finally:
+            cont.stop()
+
+    for layers in (2, 1):
+        cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                                  num_hidden_layers=layers)
+        prompts = [rng.integers(1, cfg.vocab_size, 64).tolist()
+                   for _ in range(2)]
+        p_cpu = init_params(cfg, seed=15, dtype=torch.float32, device="cpu")
+        t0 = time.perf_counter()
+        want = run(cfg, p_cpu, "cpu")
+        host_s = time.perf_counter() - t0
+        if host_s <= 20.0 or layers == 1:
+            break
+        print(f"[15] the host run took {host_s:.1f} s at 2 layers: cut to "
+              "1 layer")
+    p_card = params_to(p_cpu, dev)
+    t0 = time.perf_counter()
+    got = run(cfg, p_card, dev)
+    card_s = time.perf_counter() - t0
+    names = ("Engine greedy", "ContinuousEngine greedy", "Engine sampled",
+             "ContinuousEngine sampled")
+    for name, g, w in zip(names, got, want):
+        check(g == w, f"[15] {name}: card {g} != CPU {w}")
+    print(f"[15] llama-3-8b widths, {layers} layers, f32, 2 prompts of 64 "
+          f"tokens, 16 new: {', '.join(names)} on the card equal to "
+          f"device='cpu' (host {host_s:.1f} s, card {card_s:.1f} s)")
+    record["card_vs_cpu"] = {"layers": layers, "host_s": host_s,
+                             "card_s": card_s, "streams": got}
+    del p_card, p_cpu
+
+
+def serving_phases(dev, record, card):
+    """Phases (13)-(16): the serving path at full width (llama-3-8b, bf16,
+    random weights from a seed) through the port's InferenceServer; the
+    three attention kernels against their plain versions on inputs
+    captured from it; the card against the CPU; times. Returns the
+    kernels' entries of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import model as tm
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference.engine import (
+        chunked_prefill,
+        make_caches,
+        prefill_attn,
+    )
+    from kubeinfer_tpu_torch.inference.stepper import RowFlags, decode_window
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    # the user's entry point: flags as for the command line, on the card
+    t0 = time.perf_counter()
+    srv, cont = server.build_server(
+        ["--model", "llama-3-8b", "--random-init", "--port", "0",
+         "--host", "127.0.0.1", "--batch-slots", "8"])
+    torch.cuda.synchronize()
+    engine = srv.engine
+    cfg = engine.cfg
+    V = cfg.vocab_size
+    build_s = time.perf_counter() - t0
+    check(cont.cache_len == 4096 and cont.block_size == 128
+          and cont._pool.num_blocks == 513,
+          f"slot geometry {cont.cache_len} {cont.block_size} "
+          f"{cont._pool.num_blocks}")
+    print(f"[13] llama-3-8b (H {cfg.hidden_size}, {cfg.num_hidden_layers} "
+          f"layers, {cfg.num_attention_heads} heads, "
+          f"{cfg.num_key_value_heads} kv heads, D {cfg.head_dim}, vocab {V})"
+          f" bf16 from init_params(seed=0): "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card "
+          f"with the 513-block pool, built in {build_s:.1f} s")
+    cont.start()
+
+    # (13) each kernel vs its plain version on the path's own calls
+    rng = np.random.default_rng(13)
+    layers = cfg.num_hidden_layers
+    chk11 = CheckedAttention(
+        fa, "decode_attention_blocks", fa.decode_attention_blocks_plain,
+        live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
+                                         & (ln >= q.shape[1])),
+        weight=lambda q, kp, vp, tbl, ln: (int((tbl[:, 0] != 0).sum()),
+                                           int(ln.sum())))
+    with torch.inference_mode(), chk11:
+        prompts = [rng.integers(1, V, 512).tolist() for _ in range(8)]
+        try:
+            in_threads(lambda p: cont.generate(p, 4, timeout=180), prompts)
+        finally:
+            check(chk11.error is None, str(chk11.error))
+    check(chk11.calls >= layers and chk11.calls % layers == 0,
+          f"#11 checked on {chk11.calls} calls")
+    chk9 = CheckedAttention(
+        fa, "flash_attention_ragged", fa.flash_attention_ragged_plain,
+        live=lambda q, k, v, off, ln: torch.ones(q.shape[0], dtype=torch.bool,
+                                                 device=q.device),
+        weight=lambda q, k, v, off, ln: off)
+    chk10 = CheckedAttention(
+        fa, "decode_attention", fa.decode_attention_plain,
+        live=lambda q, k, v, ln: ln > 0,
+        weight=lambda q, k, v, ln: 0)
+    long_prompt = rng.integers(1, V, 4100).tolist()
+    with torch.inference_mode(), chk9, chk10:
+        engine.generate([long_prompt], 2)
+    check(chk9.calls == 4 * layers and chk10.calls == layers,
+          f"#9 {chk9.calls} calls, #10 {chk10.calls}")
+    for chk, what in ((chk11, "every layer of the continuous engine's decode "
+                              "windows (8 requests of 512 tokens, 4 new)"),
+                      (chk9, "the 4 chunks of 2048 of a 4100-token prompt, "
+                             "every layer"),
+                      (chk10, "one decode step of Engine, every layer")):
+        print(f"[13] {chk.name}: {chk.calls} calls on {what}, within "
+              f"tolerance; max |kernel - plain| {chk.max_err:.3e} (bf16)")
+
+    # (14) the main path over HTTP, counted
+    srv.start()
+    check(get_status(srv.port, "/health") == 200
+          and get_status(srv.port, "/v1/models") == 200, "read endpoints")
+    shared = rng.integers(1, V, 256).tolist()
+    bodies = [dict(prompt=shared + rng.integers(1, V, 256).tolist(),
+                   max_tokens=64) for _ in range(2)]
+    bodies += [dict(prompt=rng.integers(1, V, 512).tolist(), max_tokens=64)
+               for _ in range(2)]
+    bodies.append(dict(prompt=rng.integers(1, V, 512).tolist(),
+                       max_tokens=64, temperature=0.8, top_k=50, top_p=0.9,
+                       seed=7))
+    bodies.append(dict(prompt=rng.integers(1, V, 4100).tolist(),
+                       max_tokens=16))
+    reset_serve_counts(fa)
+    t0 = time.perf_counter()
+    resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+    http_s = time.perf_counter() - t0
+    counts = {name: getattr(fa, name).launches for name in SERVE_KERNELS}
+    check(all(counts.values()), f"a serving kernel never launched: {counts}")
+    routes = [r["kubeinfer"]["route"] for r in resps]
+    check(routes == ["continuous"] * 5 + ["engine"], f"routes {routes}")
+    for b, r in zip(bodies, resps):
+        toks = r["choices"][0]["tokens"]
+        check(len(toks) == b["max_tokens"]
+              and all(0 <= x < V for x in toks), "tokens out of range")
+    with torch.inference_mode():
+        lg, _ = tm.forward(engine.params, torch.tensor(
+            [bodies[0]["prompt"][:64]], device=dev), cfg)
+    check(bool(torch.isfinite(lg).all()), "NaN/inf logits")
+    stats = cont.kv_cache_stats()
+    print(f"[14] /v1/completions over HTTP: 4 greedy + 1 sampled 512-token "
+          f"prompts (64 new) on route continuous, 1 of 4100 tokens (16 new)"
+          f" on route engine, {http_s:.1f} s; launches {counts}; radix "
+          f"hits {stats['hits']} misses {stats['misses']}, blocks in use "
+          f"{stats['blocks_in_use']}; logits finite")
+    # the scheduler is idle (nothing submitted): one decode window of its
+    # slot state, every sampling gate on, plus the readback
+    flags = RowFlags(sampled=True, top_k=True, top_p=True, penalty=True)
+    with torch.inference_mode():
+        _, sites = count_syncs(lambda: decode_window(
+            cont.params, cont._state, cfg, 4, flags)[1].cpu())
+    n_sync = sum(sites.values())
+    check(n_sync == 1, f"decode window host syncs {dict(sites)}")
+    print(f"[14] host syncs in one decode window (K=4, sampling gates on) "
+          f"+ its readback: {n_sync} ({dict(sites)})")
+    record["serving"] = {"launches": counts, "http_s": http_s,
+                         "window_syncs": n_sync, "radix": stats}
+
+    # (15) the card against the CPU
+    card_vs_cpu(dev, record)
+
+    # (16) times
+    def p50(xs):
+        return statistics.median(xs)
+
+    ttft = []
+    for _ in range(5):
+        req = cont.serve(rng.integers(1, V, 512).tolist(), 1)
+        ttft.append((req.t_first - req.t_submit) * 1e3)
+    reqs = in_threads(lambda p: cont.serve(p, 64),
+                      [rng.integers(1, V, 512).tolist() for _ in range(8)])
+    t_all = max(r.t_first for r in reqs)
+    gaps = []
+    for r in reqs:
+        times = [x for x in r.token_times if x > t_all]
+        gaps += list(np.diff(times) * 1e3)
+    decode_ms = p50(gaps)
+    # the engine route's prefill chunks, each timed with CUDA events
+    lens = torch.tensor([4100], dtype=torch.int32, device=dev)
+    prompt = torch.zeros((1, 8192), dtype=torch.int64, device=dev)
+    prompt[0, :4100] = torch.tensor(long_prompt, device=dev)
+    chunk_ms = []
+    with torch.inference_mode():
+        caches = make_caches(cfg, 1, 8192, torch.bfloat16, dev)
+        for _ in range(2):
+            for c0 in range(0, 8192, 2048):
+                ms = cuda_ms(lambda c0=c0: tm.forward(
+                    engine.params, prompt[:, c0:c0 + 2048], cfg,
+                    kv_caches=caches, cache_offset=c0,
+                    attn_fn=prefill_attn(c0, lens), return_hidden=True),
+                    reps=1, warmup=0)
+                chunk_ms.append(ms)
+        whole_ms = cuda_ms(lambda: chunked_prefill(
+            engine.params, prompt, lens, cfg, caches, 2048), reps=1)
+    del caches
+    # where the time goes: one admit, and a decode run of 8 slots
+    adm_wall, adm_busy, adm_top = device_profile(
+        lambda: cont.serve(rng.integers(1, V, 512).tolist(), 1))
+    dec_wall, dec_busy, dec_top = device_profile(
+        lambda: in_threads(lambda p: cont.serve(p, 32), [
+            rng.integers(1, V, 512).tolist() for _ in range(8)]))
+    for what, wall, busy, top in (
+            ("one 512-token admit (TTFT)", adm_wall, adm_busy, adm_top),
+            ("8 requests of 512 + 32 new", dec_wall, dec_busy, dec_top)):
+        print(f"[16] profile, {what}: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms ({100 * busy / wall:.1f}%); top kernels "
+              + "; ".join(f"{n[:60]} {ms:.1f} ms x{c}"
+                          for n, ms, c in top[:6]))
+    record["profile"] = {
+        "admit": {"wall_ms": adm_wall, "busy_ms": adm_busy,
+                  "top": adm_top[:12]},
+        "decode_8x32": {"wall_ms": dec_wall, "busy_ms": dec_busy,
+                        "top": dec_top[:12]},
+    }
+    print(f"[16] {card}: TTFT of a 512-token prompt on the continuous route "
+          f"p50 {p50(ttft):.2f} ms ({[round(x, 2) for x in ttft]}); decode "
+          f"at 8 live slots p50 {decode_ms:.3f} ms per token per slot, "
+          f"{8e3 / decode_ms:.1f} tokens/s; engine route prefill chunk "
+          f"(2048 queries, 8192-wide cache) p50 {p50(chunk_ms):.2f} ms "
+          f"({[round(x, 2) for x in chunk_ms[4:]]}), whole 4100-token "
+          f"prefill {whole_ms:.2f} ms")
+
+    entries = []
+    with torch.inference_mode():
+        entries.append(time_kernel(
+            dev, fa, chk9, card, "flash_attention_ragged",
+            "kubeinfer_tpu_torch/inference/csrc/flash_prefill.cu",
+            "kubeinfer_tpu/inference/flash_attention.py:288",
+            counts["flash_attention_ragged"], F))
+        entries.append(time_kernel(
+            dev, fa, chk10, card, "decode_attention",
+            "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
+            "kubeinfer_tpu/inference/flash_attention.py:504",
+            counts["decode_attention"], F))
+        entries.append(time_kernel(
+            dev, fa, chk11, card, "decode_attention_blocks",
+            "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
+            "kubeinfer_tpu/inference/flash_attention.py:779",
+            counts["decode_attention_blocks"], F))
+    srv.stop()
+    cont.stop()
+    record["serving_times"] = {
+        "ttft_ms": ttft, "decode_ms_per_token": decode_ms,
+        "tokens_per_s": 8e3 / decode_ms, "prefill_chunk_ms": chunk_ms,
+        "prefill_4100_ms": whole_ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    return entries
+
+
+def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F):
+    """One kernel's entry of the ``kernels`` line: its time per launch on
+    the heaviest captured call, its plain version's, the
+    scaled_dot_product_attention yardstick's on the same q/k/v, and its
+    bound from this call's data."""
+    import torch
+
+    args = chk.heaviest
+    q = args[0]
+    B, T, H, D = q.shape
+    elt = q.element_size()
+    kernel = getattr(fa, name)
+    ms = cuda_ms(lambda: kernel(*args), reps=20)
+    plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
+    if name == "flash_attention_ragged":
+        _, k, v, off, lens = args
+        S, n_kv = k.shape[1], k.shape[2]
+        t = torch.arange(T, device=dev)
+        s = torch.arange(S, device=dev)
+        keys = torch.where(lens[:, None] == 0, S, torch.minimum(
+            off + t[None, :] + 1, lens[:, None].long()).clamp(max=S))
+        ops = 4 * D * H * int(keys.sum())
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+        mask = ((s[None, None, None, :] <= off + t[None, None, :, None])
+                & (s[None, None, None, :] < lens[:, None, None, None]))
+        kk, vv = k, v
+        what = (f"q [{B}, {T}, {H}, {D}] at offset {off}, keys [{B}, {S}], "
+                f"row_len {int(lens[0])}")
+    else:
+        if name == "decode_attention":
+            _, k, v, lens = args
+            kk, vv = k, v
+            live = lens > 0
+        else:
+            _, kp, vp, tbl, lens = args
+            M, bs = tbl.shape[1], kp.shape[1]
+            kk = kp[tbl.long()].reshape(B, M * bs, *kp.shape[2:])
+            vv = vp[tbl.long()].reshape(B, M * bs, *vp.shape[2:])
+            live = (tbl[:, 0] != 0) & (lens >= T)
+        S, n_kv = kk.shape[1], kk.shape[2]
+        live_len = torch.where(live, lens.long(), 0)
+        ops = 4 * D * H * T * int(live_len.sum())
+        nbytes = (2 * n_kv * D * int(live_len.sum()) + 2 * q.numel()) * elt
+        s = torch.arange(S, device=dev)
+        t = torch.arange(T, device=dev)
+        mask = s[None, None, None, :] <= (lens[:, None, None, None] - T
+                                          + t[None, None, :, None])
+        what = (f"q [{B}, {T}, {H}, {D}], {int(live.sum())} live rows, "
+                f"lengths {lens.tolist()}")
+    qs, ks_, vs_ = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks_, vs_, attn_mask=mask, enable_gqa=True), reps=10)
+    op_ms = ops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(op_ms, byte_ms)
+    bound_by = "operations" if op_ms >= byte_ms else "bytes"
+    print(f"[16] {card}: {name} {ms:.4f} ms/launch on {what}; plain "
+          f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f}"
+          f" ms; bound {bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": chk.max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                        "(enable_gqa, boolean mask) on the same q/k/v"
+                        + (", K/V gathered through the table beforehand"
+                           if name == "decode_attention_blocks" else ""),
+        "check": f"within tolerance of its plain version (bf16: 2**-6 of "
+                 f"each live row's magnitude) on {chk.calls} calls of the "
+                 "full-width path",
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1018,7 +1563,8 @@ def main() -> int:
         get_backend,
         solve_service_handler,
     )
-    from kubeinfer_tpu_torch.solver import _build, kernels
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.solver import kernels
     from kubeinfer_tpu_torch.solver.core import (
         ScoreWeights,
         _gang_repair,
@@ -1042,7 +1588,8 @@ def main() -> int:
     # (1) the build, from this checkout's sources
     t0 = time.perf_counter()
     built = _build.build_all(["mega_solve", "round_ops", "auction",
-                              "route_pick"])
+                              "route_pick", "decode_attention",
+                              "flash_prefill"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")
@@ -1245,6 +1792,7 @@ def main() -> int:
                                      record, card)
     auction_entry = auction_phases(dev, kernels, record, card)
     route_entry = route_phases(dev, kernels, record, card)
+    serve_entries = serving_phases(dev, record, card)
 
     # (8) the kernels line
     kline = {"kernels": [{
@@ -1260,7 +1808,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
-    }, *round_entries, auction_entry, route_entry]}
+    }, *round_entries, auction_entry, route_entry, *serve_entries]}
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -1,10 +1,11 @@
 """Builds and loads the port's CUDA kernels.
 
-Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, at first use, into the git-ignored
-``build/`` directory beside this file, and loaded with ctypes; every
-pointer and the stream cross as ``c_void_p``. A failed build raises: there
-is no fallback. Nothing here runs at import time.
+Each ``solver/csrc/*.cu`` and ``inference/csrc/*.cu`` is compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+at first use, into the git-ignored ``build/`` directory beside this
+file, and loaded with ctypes; every pointer and the stream cross as
+``c_void_p``. A failed build raises: there is no fallback. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -18,16 +19,24 @@ import tempfile
 import threading
 
 _HERE = pathlib.Path(__file__).resolve().parent
-CSRC = _HERE / "csrc"
+CSRC_DIRS = (_HERE / "solver" / "csrc", _HERE / "inference" / "csrc")
 BUILD_DIR = _HERE / "build"
 
-# -fmad=false: the plain PyTorch version rounds every multiply and add on
-# its own, so the kernel must not fuse them (the source uses __fmul_rn /
-# __fadd_rn on its bid arithmetic as well, which nvcc never contracts).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# -fmad=false for the solver's kernels: their plain PyTorch versions round
+# every multiply and add on its own and the kernels are held to them
+# bitwise, so nvcc must not fuse them (the sources use __fmul_rn /
+# __fadd_rn on the bid arithmetic as well, which nvcc never contracts).
+# The attention kernels are held to a stated tolerance and may fuse.
+_BITWISE = ("mega_solve", "round_ops", "auction", "route_pick")
+
+
+def nvcc_flags(name: str) -> list[str]:
+    return NVCC_FLAGS + (["-fmad=false"] if name in _BITWISE else [])
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,8 +57,17 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found on PATH or under CUDA_HOME")
 
 
+def source(name: str) -> pathlib.Path:
+    """``<name>.cu`` in one of the csrc directories."""
+    for d in CSRC_DIRS:
+        src = d / f"{name}.cu"
+        if src.exists():
+            return src
+    raise ValueError(f"no kernel source {name}.cu under {CSRC_DIRS}")
+
+
 def build(name: str) -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+    """Compile ``<name>.cu`` unless an up-to-date library exists.
     Returns the library's path and nvcc's report (empty when cached)."""
     return build_all([name])[name]
 
@@ -59,7 +77,7 @@ def build_all(names: list[str]) -> dict[str, tuple[pathlib.Path, str]]:
     started together."""
     done, running = {}, {}
     for name in names:
-        src = CSRC / f"{name}.cu"
+        src = source(name)
         out = BUILD_DIR / f"lib{name}.so"
         if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
             done[name] = (out, "")
@@ -69,7 +87,7 @@ def build_all(names: list[str]) -> dict[str, tuple[pathlib.Path, str]]:
         # sees (or loads) a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, str(src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
@@ -120,6 +138,17 @@ _SIGNATURES = {
     "route_pick": {
         "route_pick_launch": [_P] * 5 + [_I, _I, _P],
     },
+    "decode_attention": {
+        # q, k, v, lengths, out, B, H, n_kv, D, S, scale, dtype
+        "decode_attention_launch": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+        # q, k_pool, v_pool, tables, lengths, out, B, T, H, n_kv, D, bs, M,
+        # scale, dtype
+        "decode_attention_blocks_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    },
+    "flash_prefill": {
+        # q, k, v, row_lens, out, B, T, S, H, n_kv, D, q_offset, scale, dtype
+        "flash_prefill_launch": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+    },
 }
 
 
@@ -132,4 +161,4 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     err = getattr(lib, f"{name}_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [_I]
-    lib.error_string = err  # what kernels._launch reports a failure with
+    lib.error_string = err  # what the wrappers report a failure with

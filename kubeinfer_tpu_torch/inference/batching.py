@@ -1,0 +1,776 @@
+"""Continuous batching: requests join and leave a shared decode batch.
+
+Counterpart of ``kubeinfer_tpu/inference/batching.py``, restricted to the
+bf16, tp=1, non-speculative engine:
+
+- A fixed pool of B decode **slots** over a shared PAGED KV pool
+  (per-layer ``[num_blocks, block_size, n_kv, D]`` tensors and an
+  ``i32[B, max_blocks]`` block table per slot). Every allocation,
+  refcount and free is host-side (``kv_blocks``), between device steps.
+- ``stepper.decode_window`` advances every active slot K tokens per
+  scheduler pass; attention reads the pool through the tables with
+  kernel #11 (``flash_attention.decode_attention_blocks``). The window's
+  token readback is its one host sync.
+- New requests prefill into a free slot while other slots keep
+  decoding. The radix cache matches the longest full-block prompt
+  prefix already in the pool; matched blocks join the slot's table by
+  refcount and the prefill starts at the matched offset. Long novel
+  suffixes may prefill in fixed chunks (``prefill_chunk_blocks``), one
+  chunk per scheduler pass.
+
+The admit and chunk prefills gather the row's logical view through its
+table, run the dense ``model.attention`` forward over it (as the
+reference does on every backend: no kernel runs there), and write back
+only the blocks the admit owns, in place.
+
+Waiting (each named where it raises): speculative decoding, preemption,
+a sharded layout, the int8 KV and weight axes, drain/migration,
+prefix import and KV export; and the flight recorder, SLO monitor, step
+profiler and racecheck wrappers of the reference.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from kubeinfer_tpu_torch.device import resolve_device
+from kubeinfer_tpu_torch.inference import prng
+from kubeinfer_tpu_torch.inference.config import ModelConfig
+from kubeinfer_tpu_torch.inference.engine import _bucket, record_seen
+from kubeinfer_tpu_torch.inference.kv_blocks import BlockPool, RadixCache
+from kubeinfer_tpu_torch.inference.model import (
+    Params,
+    forward,
+    params_dtype,
+    params_to,
+)
+from kubeinfer_tpu_torch.inference.stepper import (
+    WINDOW_BUCKETS,
+    RowFlags,
+    SlotState,
+    decode_window,
+    init_slot_state,
+    sample_rows,
+)
+
+# pool block width (tokens), as in the reference; engines whose
+# cache_len is smaller clamp down
+DEFAULT_BLOCK_SIZE = 128
+
+_WAITS = {
+    "speculative": "ROADMAP Queue 1, speculative decoding (speculative.py)",
+    "spec_draft": "ROADMAP Queue 1, speculative decoding (verify_window, "
+                  "DraftState)",
+    "preemption": "ROADMAP Queue 1, preemption, drain and migration",
+    "layout": "ROADMAP Queue 1, slice 6: sharding.py / tp",
+    "kv_dtype": "ROADMAP Queue 1, int8 KV (#12)",
+    "weight_dtype": "ROADMAP Queue 1, int8 weights (#15)",
+    "drain": "ROADMAP Queue 1, preemption, drain and migration",
+    "import_prefix": "ROADMAP Queue 1, disagg import/export",
+    "export_kv": "ROADMAP Queue 1, disagg import/export",
+}
+
+
+def _gather_view(state: SlotState, table_row: torch.Tensor):
+    """Per-layer (k, v) logical views ``[1, S, n_kv, D]`` of one row,
+    gathered through its table (a copy: the forward writes into it)."""
+    nb, bs, n_kv, D = state.caches_k[0].shape
+    S = table_row.shape[0] * bs
+    return [
+        (ck[table_row].reshape(1, S, n_kv, D),
+         cv[table_row].reshape(1, S, n_kv, D))
+        for ck, cv in zip(state.caches_k, state.caches_v)
+    ]
+
+
+def _put_owned(state: SlotState, caches, table_row: torch.Tensor,
+               own_idx: torch.Tensor) -> None:
+    """Write the row's updated view back into the pool, IN PLACE, for
+    the blocks this admit owns only: shared prefix blocks are never
+    rewritten (copy-on-write), the null padding is left alone."""
+    nb, bs, n_kv, D = state.caches_k[0].shape
+    M = table_row.shape[0]
+    blocks = table_row[own_idx]
+    for ck, cv, (vk, vv) in zip(state.caches_k, state.caches_v, caches):
+        ck[blocks] = vk.reshape(M, bs, n_kv, D)[own_idx]  # in place
+        cv[blocks] = vv.reshape(M, bs, n_kv, D)[own_idx]  # in place
+
+
+def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
+                suffix_len: int, start: int, prompt_len: int,
+                cfg: ModelConfig, slot: int, table_row: torch.Tensor,
+                own_idx: torch.Tensor, temperature: float, top_k: int,
+                top_p: float, rep_penalty: float, key_data: torch.Tensor,
+                seen_row: torch.Tensor) -> SlotState:
+    """Prefill one request's novel suffix (``suffix`` [1, T_bucket], from
+    logical position ``start``) into the blocks of ``table_row``, sample
+    its first token with the key ``fold_in(key_data, prompt_len)``, and
+    install the slot. The dense forward masks key slots past
+    ``prompt_len``; masked slots add exactly 0."""
+    T = suffix.shape[1]
+    dev = suffix.device
+    bs = state.caches_k[0].shape[1]
+    S = table_row.shape[0] * bs
+    q_pos = start + torch.arange(T, device=dev)
+    cache_pos = torch.arange(S, device=dev)
+    mask = ((cache_pos[None, None, :] <= q_pos[None, :, None])
+            & (cache_pos[None, None, :] < prompt_len))
+    caches = _gather_view(state, table_row)
+    logits, caches = forward(
+        params, suffix, cfg, positions=q_pos[None, :], attn_mask=mask,
+        kv_caches=caches, cache_offset=start,
+    )
+    last = min(max(suffix_len - 1, 0), T - 1)
+    flags = RowFlags.of(temperature, top_k, top_p, rep_penalty)
+
+    def row(x, dt):
+        return torch.full((1,), x, dtype=dt, device=dev)
+
+    first = sample_rows(
+        logits[:, last], row(temperature, torch.float32),
+        row(top_k, torch.int32), row(top_p, torch.float32),
+        row(rep_penalty, torch.float32), seen_row, key_data[None],
+        row(prompt_len, torch.int64), flags,
+    )[0]
+    record_seen(seen_row, first[None], flags.penalty)
+    _put_owned(state, caches, table_row, own_idx)
+    # the slot's row of every field, in place
+    state.tables[slot] = table_row
+    state.last_token[slot] = first
+    state.offset[slot] = prompt_len
+    state.active[slot] = True
+    state.temperature[slot] = temperature
+    state.top_k[slot] = top_k
+    state.top_p[slot] = top_p
+    state.rep_penalty[slot] = rep_penalty
+    state.seen[slot] = seen_row[0]
+    state.rng[slot] = key_data
+    return state
+
+
+def _prefill_chunk(params: Params, state: SlotState, window: torch.Tensor,
+                   pos: int, cfg: ModelConfig, table_row: torch.Tensor,
+                   own_idx: torch.Tensor) -> SlotState:
+    """Commit ONE fixed-size prefill chunk's KV (``window`` [1, C] at
+    logical position ``pos``) into the owned blocks of ``table_row``: no
+    sampling, and the slot stays inactive with an all-null table until
+    ``_admit_slot`` finishes the tail. The window lies inside the prompt,
+    so the plain causal mask over logical positions is the admit's."""
+    T = window.shape[1]
+    dev = window.device
+    bs = state.caches_k[0].shape[1]
+    S = table_row.shape[0] * bs
+    q_pos = pos + torch.arange(T, device=dev)
+    mask = torch.arange(S, device=dev)[None, None, :] <= q_pos[None, :, None]
+    caches = _gather_view(state, table_row)
+    _, caches = forward(
+        params, window, cfg, positions=q_pos[None, :], attn_mask=mask,
+        kv_caches=caches, cache_offset=pos, return_hidden=True,
+    )
+    _put_owned(state, caches, table_row, own_idx)
+    return state
+
+
+# process-wide request ids, as the reference's
+_REQ_IDS = itertools.count()
+
+
+@dataclass
+class _Request:
+    prompt: list[int]
+    max_new: int
+    eos_id: int
+    rid: int = field(default_factory=lambda: next(_REQ_IDS))
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    rep_penalty: float = 1.0
+    seed: int = 0
+    out_tokens: list[int] = field(default_factory=list)
+    done: threading.Event = field(default_factory=threading.Event)
+    cancelled: threading.Event = field(default_factory=threading.Event)
+    # set instead of a normal completion when the engine shut down
+    # mid-flight: truncated output must not look like success
+    failed: str = ""
+    # request timeline (time.perf_counter seconds), written by the
+    # scheduler and read after ``done`` is set
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    token_times: list[float] = field(default_factory=list)
+
+    def cancel(self) -> None:
+        """Abandon the request: dropped before admission or retired at
+        the next step."""
+        self.cancelled.set()
+
+
+@dataclass
+class _PrefillTask:
+    """One in-progress chunked prefill: the slot is reserved (its
+    ``_slot_req`` entry set, blocks held) but the row stays inactive.
+    ``pos`` is the next logical position to prefill."""
+
+    req: _Request
+    slot: int
+    table_row: np.ndarray  # i32[max_blocks]
+    own_mask: np.ndarray  # bool[max_blocks]
+    reuse: int  # radix-matched full blocks
+    total: int  # blocks held by the slot (prompt + decode horizon)
+    pos: int
+    tokens: list[int]
+
+
+class ContinuousEngine:
+    """Slot-scheduled generation on one device (``device=None``: the CUDA
+    card, raising when there is none): ``submit()`` from any thread; a
+    single scheduler thread admits requests into free slots and steps the
+    shared decode batch."""
+
+    def __init__(self, params: Params, cfg: ModelConfig,
+                 n_slots: int = 8, cache_len: int = 1024,
+                 speculative=None, block_size: int | None = None,
+                 num_blocks: int | None = None,
+                 prefill_chunk_blocks: int = 0,
+                 preemption=None,
+                 max_window: int = 8,
+                 layout=None,
+                 spec_draft=None,
+                 kv_dtype: str = "bf16",
+                 weight_dtype: str = "bf16",
+                 device=None) -> None:
+        for name, value, default in (
+            ("speculative", speculative, None),
+            ("spec_draft", spec_draft, None),
+            ("preemption", preemption, None),
+            ("layout", layout, None),
+            ("kv_dtype", kv_dtype, "bf16"),
+            ("weight_dtype", weight_dtype, "bf16"),
+        ):
+            if value != default:
+                raise ValueError(f"{name}={value!r} waits: {_WAITS[name]}")
+        self.device = resolve_device(device)
+        self.params = params_to(params, self.device)
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.cache_len = cache_len
+        self.block_size = block_size if block_size is not None else min(
+            DEFAULT_BLOCK_SIZE, cache_len)
+        if cache_len % self.block_size:
+            raise ValueError(
+                f"cache_len {cache_len} must be a multiple of block_size "
+                f"{self.block_size}")
+        self.max_blocks = cache_len // self.block_size
+        if num_blocks is None:
+            # 2x slot capacity (+ the null block): the surplus is what the
+            # radix cache retains between requests
+            num_blocks = 1 + 2 * n_slots * self.max_blocks
+        if num_blocks < 1 + n_slots * self.max_blocks:
+            raise ValueError(
+                f"num_blocks {num_blocks} < 1 + n_slots * max_blocks "
+                f"({1 + n_slots * self.max_blocks}): a request could "
+                "never admit")
+        self._pool = BlockPool(num_blocks, self.block_size)
+        self._radix = RadixCache(self._pool)
+        if prefill_chunk_blocks < 0:
+            raise ValueError(f"prefill_chunk_blocks must be >= 0, got "
+                             f"{prefill_chunk_blocks}")
+        self.chunk_tokens = prefill_chunk_blocks * self.block_size
+        if max_window < 1:
+            raise ValueError(f"max_window must be >= 1, got {max_window}")
+        self.max_window = max_window
+        self._window_buckets = tuple(b for b in WINDOW_BUCKETS
+                                     if b <= max_window)
+        self.chunks_total = 0  # telemetry: intermediate chunk dispatches
+        # admissions planned while a decode window is in flight
+        # (host-side radix match + block alloc only), admitted at the
+        # next window boundary
+        self._staged: list[tuple[_Request, int, tuple, list[int]]] = []
+        self._prefills: list[_PrefillTask] = []
+        self._holdover: "collections.deque[_Request]" = collections.deque()
+        self._slot_blocks: list[list[int]] = [[] for _ in range(n_slots)]
+        # the host's copy of each slot's sampling settings (the device
+        # keeps them in the SlotState): the sampling gates branch on it
+        self._slot_cfg = {
+            "temperature": np.zeros(n_slots, np.float32),
+            "top_k": np.zeros(n_slots, np.int32),
+            "top_p": np.ones(n_slots, np.float32),
+            "rep_penalty": np.ones(n_slots, np.float32),
+        }
+        self.kv_dtype = kv_dtype
+        self._state = init_slot_state(
+            cfg, n_slots, cache_len, params_dtype(self.params), num_blocks,
+            self.block_size, kv_dtype=kv_dtype, device=self.device)
+        st = self._state
+        self.kv_pool_bytes = int(sum(
+            x.numel() * x.element_size() for x in (*st.caches_k,
+                                                   *st.caches_v)))
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._slot_req: list[_Request | None] = [None] * n_slots
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        # guards _slot_req and request results between the scheduler loop
+        # and stop()'s cleanup
+        self._lock = threading.Lock()
+
+    # -- public API -------------------------------------------------------
+
+    def fits(self, prompt_len: int, max_new_tokens: int) -> bool:
+        """Can this request ride a slot? (callers fall back to the
+        per-request engine when not)"""
+        return (
+            prompt_len > 0
+            and prompt_len + max_new_tokens <= self.cache_len
+            and _bucket(prompt_len) <= self.cache_len
+        )
+
+    def submit(self, prompt: list[int], max_new_tokens: int = 32,
+               eos_id: int = -1, temperature: float = 0.0,
+               seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+               repetition_penalty: float = 1.0,
+               export_kv: bool = False) -> _Request:
+        if export_kv:
+            raise ValueError(f"export_kv waits: {_WAITS['export_kv']}")
+        if not prompt:
+            raise ValueError("empty prompt")
+        if not self.fits(len(prompt), max_new_tokens):
+            raise ValueError(
+                f"request (prompt {len(prompt)} + new {max_new_tokens}, "
+                f"prefill bucket {_bucket(len(prompt))}) exceeds slot "
+                f"capacity ({self.cache_len})")
+        req = _Request(list(prompt), max_new_tokens, eos_id,
+                       temperature=temperature, top_k=top_k, top_p=top_p,
+                       rep_penalty=repetition_penalty, seed=seed)
+        req.t_submit = time.perf_counter()
+        self._queue.put(req)
+        return req
+
+    def serve(self, prompt: list[int], max_new_tokens: int = 32,
+              eos_id: int = -1, temperature: float = 0.0,
+              seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+              repetition_penalty: float = 1.0,
+              timeout: float = 300.0,
+              export_kv: bool = False) -> _Request:
+        """submit() + wait; returns the completed request (tokens and
+        timeline)."""
+        req = self.submit(prompt, max_new_tokens, eos_id,
+                          temperature=temperature, seed=seed, top_k=top_k,
+                          top_p=top_p, repetition_penalty=repetition_penalty,
+                          export_kv=export_kv)
+        if not req.done.wait(timeout):
+            req.cancel()
+            raise TimeoutError("generation timed out")
+        if req.failed:
+            raise RuntimeError(req.failed)
+        return req
+
+    def generate(self, prompt: list[int], max_new_tokens: int = 32,
+                 eos_id: int = -1, temperature: float = 0.0,
+                 seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+                 repetition_penalty: float = 1.0,
+                 timeout: float = 300.0) -> list[int]:
+        return self.serve(
+            prompt, max_new_tokens, eos_id, temperature=temperature,
+            seed=seed, top_k=top_k, top_p=top_p,
+            repetition_penalty=repetition_penalty, timeout=timeout,
+        ).out_tokens
+
+    def drain(self) -> None:
+        raise ValueError(f"drain waits: {_WAITS['drain']}")
+
+    def import_prefix(self, *args, **kwargs) -> None:
+        raise ValueError(f"import_prefix waits: {_WAITS['import_prefix']}")
+
+    def kv_cache_stats(self) -> dict:
+        """Pool occupancy plus the radix cache's counters."""
+        stats = self._radix.stats()
+        stats["blocks_in_use"] = self._pool.used_blocks
+        stats["blocks_free"] = self._pool.free_blocks
+        stats["pool_bytes"] = self.kv_pool_bytes
+        return stats
+
+    def cache_summary(self) -> dict:
+        """Capped radix-summary advertisement for the fleet router."""
+        return self._radix.summary()
+
+    def start(self) -> "ContinuousEngine":
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="continuous-batcher")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        # release every waiter AS FAILURES
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            req.failed = "engine stopped before the request was served"
+            req.done.set()
+        self._fail_inflight()
+
+    def _fail_inflight(self) -> None:
+        """Fail every published in-flight request (slots, holdover,
+        staged plans, chunked prefills); shared by stop() and the
+        scheduler loop's epilogue."""
+        with self._lock:
+            held = list(self._holdover)
+            self._holdover.clear()
+            staged, self._staged = self._staged, []
+            self._prefills.clear()
+            for slot, req in enumerate(self._slot_req):
+                if req is not None:
+                    self._slot_req[slot] = None
+                    req.failed = "engine stopped mid-generation"
+                    req.done.set()
+        for req in held:
+            req.failed = "engine stopped before the request was served"
+            req.done.set()
+        for req, _slot, kv_plan, _tokens in staged:
+            table_row, _own, _reuse, total = kv_plan
+            self._pool.unref([int(b) for b in table_row[:total]])
+            req.failed = "engine stopped before the request was served"
+            req.done.set()
+
+    # -- scheduler --------------------------------------------------------
+
+    def _plan_kv(self, tokens: list[int], max_new: int):
+        """Host-side paged-admit plan: radix match -> capacity clamp ->
+        evict/alloc. Returns ``(table_row, own_mask, reuse, total)`` or
+        None when the pool cannot supply the fresh blocks. On success the
+        slot holds one reference per block in ``table_row[:total]``."""
+        p = len(tokens)
+        bs = self.block_size
+        matched = self._radix.match(tokens)  # +1 ref each, ours now
+        # full blocks only, and never the whole prompt: the last token is
+        # recomputed so the admit has logits to sample from
+        reuse = min(len(matched), (p - 1) // bs)
+        # the suffix pads to a bucket that must fit the logical row
+        while reuse > 0 and reuse * bs + _bucket(p - reuse * bs) > \
+                self.cache_len:
+            reuse -= 1
+        if reuse < len(matched):
+            self._pool.unref(matched[reuse:])
+        shared = matched[:reuse]
+        total = -(-(p + max_new) // bs)
+        if not self._radix.ensure_free(total - reuse):
+            if shared:
+                self._pool.unref(shared)
+            return None
+        fresh = self._pool.alloc(total - reuse)
+        self._radix.note_result(reuse)
+        table_row = np.zeros(self.max_blocks, np.int32)
+        table_row[:reuse] = shared
+        table_row[reuse:total] = fresh
+        own_mask = np.zeros(self.max_blocks, bool)
+        own_mask[reuse:total] = True
+        return table_row, own_mask, reuse, total
+
+    def _admit(self, slot: int, req: _Request, kv_plan,
+               tokens: list[int]) -> None:
+        """Reserve ``slot`` for ``req`` and start its prefill: a chunked
+        task when chunking applies, else the whole suffix at once."""
+        table_row, own_mask, reuse, total = kv_plan
+        self._slot_req[slot] = req
+        self._slot_blocks[slot] = [int(b) for b in table_row[:total]]
+        task = _PrefillTask(
+            req=req, slot=slot, table_row=table_row, own_mask=own_mask,
+            reuse=reuse, total=total, pos=reuse * self.block_size,
+            tokens=tokens,
+        )
+        if self._next_chunk_len(task) is not None:
+            self._prefills.append(task)
+            return
+        self._finalize_admit(task)
+
+    def _next_chunk_len(self, task: _PrefillTask) -> int | None:
+        """Chunk width for ``task``'s next dispatch, or None when the
+        remaining suffix should finalize through ``_admit_slot``."""
+        C = self.chunk_tokens
+        if not C:
+            return None
+        rem = len(task.tokens) - task.pos
+        if rem <= C:
+            return None
+        if task.pos + C + _bucket(rem - C) > self.cache_len:
+            return None
+        return C
+
+    def _row_operands(self, task: _PrefillTask):
+        dev = self.device
+        table_row = torch.from_numpy(task.table_row).to(dev).long()
+        own_idx = torch.from_numpy(np.nonzero(task.own_mask)[0]).to(dev)
+        return table_row, own_idx
+
+    def _step_prefill(self) -> None:
+        """Advance the oldest chunked prefill by at most one dispatch."""
+        with self._lock:
+            task = self._prefills[0] if self._prefills else None
+        if task is None:
+            return
+        if task.req.cancelled.is_set():
+            with self._lock:
+                if self._prefills and self._prefills[0] is task:
+                    self._prefills.pop(0)
+                    self._abort_prefill(task)
+            return
+        C = self._next_chunk_len(task)
+        if C is None:
+            with self._lock:
+                if not self._prefills or self._prefills[0] is not task:
+                    return  # stop() cleared the queue mid-pass
+                self._prefills.pop(0)
+                self._finalize_admit(task)
+            return
+        window = torch.tensor([task.tokens[task.pos:task.pos + C]],
+                              dtype=torch.int64, device=self.device)
+        table_row, own_idx = self._row_operands(task)
+        with torch.inference_mode():
+            self._state = _prefill_chunk(self.params, self._state, window,
+                                         task.pos, self.cfg, table_row,
+                                         own_idx)
+        task.pos += C
+        self.chunks_total += 1
+
+    def _abort_prefill(self, task: _PrefillTask) -> None:
+        """Drop a cancelled mid-chunk prefill (caller holds the lock): the
+        row was never activated, so releasing its blocks is the cleanup."""
+        slot, req = task.slot, task.req
+        self._slot_req[slot] = None
+        blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
+        if blocks:
+            self._pool.unref(blocks)
+        req.done.set()
+
+    def _finalize_admit(self, task: _PrefillTask) -> None:
+        """Prefill the remaining suffix, sample the next token, and flip
+        the slot live (caller holds the lock)."""
+        req, slot, tokens = task.req, task.slot, task.tokens
+        p = len(tokens)
+        start = task.pos
+        suffix_len = p - start
+        T = _bucket(suffix_len)
+        padded = np.zeros((1, T), np.int64)
+        padded[0, :suffix_len] = tokens[start:]
+        dev = self.device
+        # the full effective prompt's id set, built on the host: the
+        # forward sees only the suffix
+        seen_row = np.zeros((1, self.cfg.vocab_size), bool)
+        seen_row[0, np.asarray(tokens, np.int64)] = True
+        key_data = prng.key_data(prng.key(req.seed, impl="threefry2x32",
+                                          device=dev))
+        table_row, own_idx = self._row_operands(task)
+        with torch.inference_mode():
+            self._state = _admit_slot(
+                self.params, self._state, torch.from_numpy(padded).to(dev),
+                suffix_len, start, p, self.cfg, slot, table_row, own_idx,
+                float(req.temperature), int(req.top_k), float(req.top_p),
+                float(req.rep_penalty), key_data,
+                torch.from_numpy(seen_row).to(dev),
+            )
+        for name, value in (("temperature", req.temperature),
+                            ("top_k", req.top_k), ("top_p", req.top_p),
+                            ("rep_penalty", req.rep_penalty)):
+            self._slot_cfg[name][slot] = value
+        # cache the prompt's FULL blocks for later admits, this admit's
+        # fresh ones included (the partial tail block stays private)
+        full = p // self.block_size
+        if full:
+            self._radix.insert(tokens, [int(b) for b in task.table_row[:full]])
+        # admission boundary: the first token reaches the request now
+        first = int(self._state.last_token[slot])
+        now = time.perf_counter()
+        if req.max_new > 0:
+            req.out_tokens.append(first)
+            req.token_times.append(now)
+        if not req.t_first:
+            req.t_first = now
+        self._maybe_retire(slot)
+
+    def _maybe_retire(self, slot: int) -> None:
+        req = self._slot_req[slot]
+        if req is None:
+            return
+        finished = (
+            req.cancelled.is_set()
+            or len(req.out_tokens) >= req.max_new
+            or (req.eos_id >= 0 and req.out_tokens
+                and req.out_tokens[-1] == req.eos_id)
+        )
+        if not finished:
+            return
+        self._slot_req[slot] = None
+        blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
+        if blocks:
+            # blocks also cached in the trie keep its reference
+            self._pool.unref(blocks)
+        # the row goes inactive and its table all-null BEFORE its next
+        # decode write: freed blocks may be re-issued to another slot
+        self._state.active[slot] = False
+        self._state.tables[slot] = 0
+        req.done.set()
+
+    def _place(self, req: _Request) -> bool:
+        """Admit one pending request into a free slot; False puts it back
+        at the front of the holdover (all slots busy or pool short)."""
+        if req.cancelled.is_set():
+            req.done.set()
+            return True
+        with self._lock:
+            for slot in range(self.n_slots):
+                if self._slot_req[slot] is None:
+                    tokens = req.prompt + req.out_tokens
+                    kv_plan = self._plan_kv(
+                        tokens, req.max_new - len(req.out_tokens))
+                    if kv_plan is None:
+                        break  # pool backpressure: hold until a retire
+                    self._admit(slot, req, kv_plan, tokens)
+                    return True
+            self._holdover.appendleft(req)
+        return False
+
+    def _pop_pending(self) -> _Request | None:
+        """Oldest pending request: the holdover first, then the queue."""
+        with self._lock:
+            if not self._holdover:
+                try:
+                    self._holdover.append(self._queue.get_nowait())
+                except queue.Empty:
+                    pass
+            return self._holdover.popleft() if self._holdover else None
+
+    def _admit_pending(self) -> None:
+        """Admit the plans staged during the last window, then place
+        pending requests until something has to wait."""
+        with self._lock:
+            staged, self._staged = self._staged, []
+        for req, slot, kv_plan, tokens in staged:
+            with self._lock:
+                if req.cancelled.is_set() or \
+                        self._slot_req[slot] is not None:
+                    table_row, _own, _reuse, total = kv_plan
+                    self._pool.unref([int(b) for b in table_row[:total]])
+                    if req.cancelled.is_set():
+                        req.done.set()
+                    else:
+                        self._holdover.appendleft(req)
+                    continue
+                self._admit(slot, req, kv_plan, tokens)
+        while True:
+            req = self._pop_pending()
+            if req is None:
+                return
+            if not self._place(req):
+                return
+
+    def _plan_admissions(self) -> None:
+        """The host half of admission, overlapped with the in-flight
+        decode window: radix match + block alloc for pending requests,
+        staged for the next window boundary. No device work here."""
+        while True:
+            with self._lock:
+                taken = {s for _r, s, _p, _t in self._staged}
+                free = [s for s in range(self.n_slots)
+                        if self._slot_req[s] is None and s not in taken]
+            if not free:
+                return
+            req = self._pop_pending()
+            if req is None:
+                return
+            if req.cancelled.is_set():
+                req.done.set()
+                continue
+            with self._lock:
+                tokens = req.prompt + req.out_tokens
+                kv_plan = self._plan_kv(tokens,
+                                        req.max_new - len(req.out_tokens))
+                if kv_plan is None:
+                    self._holdover.appendleft(req)
+                    return
+                self._staged.append((req, free[0], kv_plan, tokens))
+
+    def _pick_horizon(self, budgets: list[int], host_work: bool) -> int:
+        """Window length: 1 whenever the host has competing work, else the
+        largest bucket no row can overshoot (min remaining budget)."""
+        if host_work or not budgets:
+            return 1
+        lim = min(min(budgets), self.max_window)
+        k = 1
+        for b in self._window_buckets:
+            if b <= lim:
+                k = b
+        return k
+
+    def _flags(self) -> RowFlags:
+        c = self._slot_cfg
+        return RowFlags.of(c["temperature"], c["top_k"], c["top_p"],
+                           c["rep_penalty"])
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            with self._lock:
+                busy = any(r is not None for r in self._slot_req)
+                have_holdover = bool(self._holdover)
+            if not busy:
+                # idle: block briefly for the next arrival
+                if not have_holdover:
+                    try:
+                        nxt = self._queue.get(timeout=0.05)
+                    except queue.Empty:
+                        continue
+                    with self._lock:
+                        self._holdover.append(nxt)
+                self._admit_pending()
+                continue
+            self._admit_pending()
+            with self._lock:
+                # mid-prefill rows are reserved but not decoding
+                prefilling = {t.slot for t in self._prefills}
+                budgets = [
+                    r.max_new - len(r.out_tokens)
+                    for s, r in enumerate(self._slot_req)
+                    if r is not None and s not in prefilling
+                ]
+                host_work = (
+                    bool(self._holdover) or bool(self._prefills)
+                    or any(r is not None and r.cancelled.is_set()
+                           for r in self._slot_req)
+                )
+            host_work = host_work or not self._queue.empty()
+            if budgets:
+                k = self._pick_horizon(budgets, host_work)
+                step_t0 = time.perf_counter()
+                with torch.inference_mode():
+                    self._state, tokens = decode_window(
+                        self.params, self._state, self.cfg, k, self._flags())
+                # host work overlapped with the device's window, then the
+                # window's one readback
+                self._plan_admissions()
+                toks = tokens.cpu().numpy()
+                step_t = time.perf_counter()
+                with self._lock:
+                    for j in range(k):
+                        t_j = step_t0 + (j + 1) * (step_t - step_t0) / k
+                        for slot in range(self.n_slots):
+                            # a row retired at an earlier token of this
+                            # window is None here: its tail is masked
+                            req = self._slot_req[slot]
+                            if req is None or toks[slot, j] < 0:
+                                continue
+                            req.out_tokens.append(int(toks[slot, j]))
+                            req.token_times.append(t_j)
+                            self._maybe_retire(slot)
+            self._step_prefill()  # at most one chunk per pass
+        if self._stop.is_set():
+            self._fail_inflight()

@@ -1,0 +1,360 @@
+"""Attention kernels of the serving path: plain PyTorch versions, the
+wrappers that launch the hand-written CUDA kernels, and the routers.
+
+Three TPU kernels of ``kubeinfer_tpu/inference/flash_attention.py`` have
+counterparts here:
+
+- #9 ``flash_attention_ragged`` (``_run_flash`` + ``_flash_ragged_kernel``):
+  prefill attention with the causal + length mask ``(s <= q_offset + t)
+  & (s < row_lens[b])`` derived from two scalars. Plain version
+  ``flash_attention_ragged_plain``; kernel ``csrc/flash_prefill.cu``.
+- #10 ``decode_attention``: T == 1 GQA decode over dense per-row caches,
+  reading only each row's live positions. Plain version
+  ``decode_attention_plain``; kernel ``csrc/decode_attention.cu``.
+- #11 ``decode_attention_blocks``: paged GQA decode through block tables,
+  T >= 1 (query t attends positions <= lengths[b] - T + t). Plain version
+  ``decode_attention_blocks_plain``; kernel ``csrc/decode_attention.cu``.
+
+Every plain version folds key tiles with ``fold_tile_math``, the
+reference's online-softmax step (running max m, normaliser l,
+accumulator acc; f32 scores times 1/sqrt(D) plus an additive -1e30
+penalty; p rounded to v's dtype before P.V; output acc / max(l, 1e-30)).
+They are vectorised over (B, n_kv) and fold EVERY tile: the reference
+kernels skip tiles past a row's live length, which is exact (such a
+tile adds exactly 0 once the running max is finite), except for rows
+that have no live position at all (row_len == 0, or lengths < T), whose
+defined output is the uniform average over every tile they name.
+
+Each wrapper takes its plain version only for a CPU tensor; for a CUDA
+tensor it launches its kernel or raises (no fallback). ``<wrapper>.launches``
+counts kernel launches and nothing else. The routers
+(``decode_attention_auto``, ``decode_attention_blocks_auto``) bind the
+wrappers with the reference's signatures; their ``mask`` operand is the
+reference's dense-fallback operand and is not read.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+TILE_S = 512  # the reference's key tile
+# shapes the kernels take: head width a multiple of 16 up to 256, f32 or
+# bf16 operands, and at most this much shared memory per block
+KERNEL_MAX_D = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232448
+
+
+# --- plain versions ----------------------------------------------------------
+
+
+def fold_tile_math(q, k, v, pen, m_prev, l_prev, acc_prev, *, groups: int,
+                   scale: float):
+    """One online-softmax fold over a batch of grid instances.
+
+    q [N, Tq*G, D] folded (t, g) query rows; k, v [N, Sk, D]; pen
+    f32[N, Tq, Sk] (0 = attend, -1e30 = masked), broadcast over the G
+    sub-rows of each query; m_prev, l_prev f32[N, Tq*G, 1]; acc_prev
+    f32[N, Tq*G, D]. Returns (m, l, acc)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    n, tq, sk = pen.shape
+    s = (s.reshape(n, tq, groups, sk) + pen[:, :, None, :]).reshape(
+        n, tq * groups, sk)
+    m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m_prev - m_new)
+    p = torch.exp(s - m_new)
+    l_new = alpha * l_prev + p.sum(dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(v.dtype).float(), v.float())
+    return m_new, l_new, acc_prev * alpha + pv
+
+
+def _fold_rows(qf, tiles, groups: int, scale: float):
+    """Run ``fold_tile_math`` over ``tiles`` (an iterable of (k, v, pen))
+    from the reference's initial state; returns acc / max(l, 1e-30)."""
+    N, R, D = qf.shape
+    m = torch.full((N, R, 1), -1e30, dtype=torch.float32, device=qf.device)
+    l = torch.zeros((N, R, 1), dtype=torch.float32, device=qf.device)
+    acc = torch.zeros((N, R, D), dtype=torch.float32, device=qf.device)
+    for k_t, v_t, pen in tiles:
+        m, l, acc = fold_tile_math(qf, k_t, v_t, pen, m, l, acc,
+                                   groups=groups, scale=scale)
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def _fold_q(q, n_kv):
+    """[B, T, H, D] -> [B*n_kv, T*G, D], (t, g) rows with t outer."""
+    B, T, H, D = q.shape
+    G = H // n_kv
+    return q.reshape(B, T, n_kv, G, D).transpose(1, 2).reshape(
+        B * n_kv, T * G, D)
+
+
+def _unfold_q(out, B, T, H, n_kv):
+    G = H // n_kv
+    D = out.shape[-1]
+    return out.reshape(B, n_kv, T, G, D).transpose(1, 2).reshape(B, T, H, D)
+
+
+def _linear_kv(k, n_kv):
+    """[B, S, n_kv, D] -> [B*n_kv, S, D]."""
+    B, S, _, D = k.shape
+    return k.transpose(1, 2).reshape(B * n_kv, S, D)
+
+
+def flash_attention_ragged_plain(q, k, v, q_offset, row_lens, *,
+                                 tile_s: int = TILE_S):
+    """The chunked-prefill attention: query t of row b (global position
+    q_offset + t) attends key s iff s <= q_offset + t and s < row_lens[b].
+    q [B, T, H, D], k/v [B, S, n_kv, D], q_offset an int, row_lens i32[B].
+    The query tile of the reference kernel does not change any row's
+    arithmetic, so all T rows fold together."""
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    G = H // n_kv
+    dev = q.device
+    qf = _fold_q(q, n_kv)
+    kf, vf = _linear_kv(k, n_kv), _linear_kv(v, n_kv)
+    lens = row_lens.to(device=dev, dtype=torch.int64).repeat_interleave(n_kv)
+    q_pos = int(q_offset) + torch.arange(T, device=dev)
+
+    def tiles():
+        for s0 in range(0, S, tile_s):
+            s_pos = torch.arange(s0, min(s0 + tile_s, S), device=dev)
+            ok = (s_pos[None, None, :] <= q_pos[None, :, None]) & (
+                s_pos[None, None, :] < lens[:, None, None])
+            pen = torch.where(ok, 0.0, -1e30).float()
+            yield kf[:, s0:s0 + tile_s], vf[:, s0:s0 + tile_s], pen
+
+    out = _fold_rows(qf, tiles(), G, 1.0 / float(D) ** 0.5)
+    return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
+
+
+def decode_attention_plain(q, k, v, lengths, *, tile_s: int = TILE_S):
+    """T == 1 decode: row b attends its first ``lengths[b]`` positions.
+    q [B, 1, H, D], k/v [B, S, n_kv, D], lengths i32[B]."""
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError(f"decode_attention is T == 1 only; got T={T}")
+    S, n_kv = k.shape[1], k.shape[2]
+    dev = q.device
+    qf = _fold_q(q, n_kv)
+    kf, vf = _linear_kv(k, n_kv), _linear_kv(v, n_kv)
+    lens = lengths.to(device=dev, dtype=torch.int64).repeat_interleave(n_kv)
+    tile_s = min(tile_s, S)
+
+    def tiles():
+        for s0 in range(0, S, tile_s):
+            s_pos = torch.arange(s0, min(s0 + tile_s, S), device=dev)
+            pen = torch.where(s_pos[None, None, :] < lens[:, None, None],
+                              0.0, -1e30).float()
+            yield kf[:, s0:s0 + tile_s], vf[:, s0:s0 + tile_s], pen
+
+    out = _fold_rows(qf, tiles(), H // n_kv, 1.0 / float(D) ** 0.5)
+    return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
+
+
+def decode_attention_blocks_plain(q, k_pool, v_pool, block_tables, lengths):
+    """Paged decode: row b's logical position p lives in pool block
+    ``block_tables[b, p // bs]`` at slot ``p % bs``; query t attends
+    positions <= lengths[b] - T + t. q [B, T, H, D], pools [NB, bs, n_kv,
+    D], block_tables i32[B, M] (every entry a valid pool index), lengths
+    i32[B]. One tile per table entry, gathered as the reference's twin
+    gathers it."""
+    B, T, H, D = q.shape
+    bs, n_kv = k_pool.shape[1], k_pool.shape[2]
+    M = block_tables.shape[1]
+    dev = q.device
+    qf = _fold_q(q, n_kv)
+    tbl = block_tables.to(device=dev, dtype=torch.int64)
+    lens = lengths.to(device=dev, dtype=torch.int64).repeat_interleave(n_kv)
+    q_pos = lens[:, None] - T + torch.arange(T, device=dev)[None, :]
+
+    def tiles():
+        for j in range(M):
+            blk = tbl[:, j]
+            k_t = k_pool[blk].transpose(1, 2).reshape(B * n_kv, bs, D)
+            v_t = v_pool[blk].transpose(1, 2).reshape(B * n_kv, bs, D)
+            s_pos = j * bs + torch.arange(bs, device=dev)
+            pen = torch.where(s_pos[None, None, :] <= q_pos[:, :, None],
+                              0.0, -1e30).float()
+            yield k_t, v_t, pen
+
+    out = _fold_rows(qf, tiles(), H // n_kv, 1.0 / float(D) ** 0.5)
+    return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
+
+
+# --- kernel wrappers ---------------------------------------------------------
+
+
+def _kernel_lib(t: torch.Tensor, name: str, lib_name: str):
+    """The kernel library for a CUDA tensor (built at first use); None for
+    a CPU tensor, where the wrapper ``name`` takes its plain version."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    from kubeinfer_tpu_torch._build import load_kernel_library
+
+    return load_kernel_library(lib_name)
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _check_head(name, q, D):
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
+                         f"not {q.dtype}")
+    if D % 16 or D > KERNEL_MAX_D:
+        raise ValueError(f"{name}: the kernel takes head widths D % 16 == 0 "
+                         f"and D <= {KERNEL_MAX_D}; got D={D} for q "
+                         f"{tuple(q.shape)}")
+
+
+def _launch(lib, fn: str, *args) -> None:
+    """Call one launcher; tensors and the stream cross as c_void_p,
+    floats as c_float, ints as c_int. A nonzero cudaError_t raises."""
+    conv = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            conv.append(ctypes.c_void_p(a.data_ptr()))
+        elif isinstance(a, float):
+            conv.append(ctypes.c_float(a))
+        else:
+            conv.append(int(a))
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    err = getattr(lib, fn)(
+        *conv, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
+
+
+def decode_smem_bytes(rows: int, D: int) -> int:
+    """Shared memory of one decode block (csrc/decode_attention.cu): the
+    block's T*G query rows and accumulators, a 32-key K (padded) and V
+    tile, the score tile and the per-row softmax state."""
+    kt = 32
+    return 4 * (2 * rows * D + kt * (D + 1) + kt * D + rows * kt + 3 * rows)
+
+
+def decode_attention(q, k, v, lengths):
+    """#10 on the tensors' device: for CUDA tensors one launch of
+    ``decode_attention_launch`` (one block per (row, kv head), live
+    positions only); for CPU tensors ``decode_attention_plain``."""
+    lib = _kernel_lib(q, "decode_attention", "decode_attention")
+    if lib is None:
+        return decode_attention_plain(q, k, v, lengths)
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    if T != 1:
+        raise ValueError(f"decode_attention is T == 1 only; got q "
+                         f"{tuple(q.shape)}")
+    _check_head("decode_attention", q, D)
+    if H % n_kv or decode_smem_bytes(H // n_kv, D) > _SMEM_LIMIT:
+        raise ValueError(f"decode_attention: no kernel for q {tuple(q.shape)}"
+                         f" with {n_kv} kv heads")
+    dev = q.device
+    _check("q", q, q.dtype, (B, 1, H, D), dev)
+    _check("k", k, q.dtype, (B, S, n_kv, D), dev)
+    _check("v", v, q.dtype, (B, S, n_kv, D), dev)
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    _launch(lib, "decode_attention_launch", q, k, v, lengths, out, B, H,
+            n_kv, D, S, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def decode_attention_blocks(q, k_pool, v_pool, block_tables, lengths):
+    """#11 on the tensors' device: for CUDA tensors one launch of
+    ``decode_attention_blocks_launch``; for CPU tensors
+    ``decode_attention_blocks_plain``."""
+    lib = _kernel_lib(q, "decode_attention_blocks", "decode_attention")
+    if lib is None:
+        return decode_attention_blocks_plain(q, k_pool, v_pool, block_tables,
+                                             lengths)
+    B, T, H, D = q.shape
+    NB, bs, n_kv = k_pool.shape[:3]
+    M = block_tables.shape[1]
+    _check_head("decode_attention_blocks", q, D)
+    if H % n_kv or decode_smem_bytes(T * (H // n_kv), D) > _SMEM_LIMIT:
+        raise ValueError(f"decode_attention_blocks: no kernel for q "
+                         f"{tuple(q.shape)} with {n_kv} kv heads")
+    dev = q.device
+    _check("q", q, q.dtype, (B, T, H, D), dev)
+    _check("k_pool", k_pool, q.dtype, (NB, bs, n_kv, D), dev)
+    _check("v_pool", v_pool, q.dtype, (NB, bs, n_kv, D), dev)
+    _check("block_tables", block_tables, torch.int32, (B, M), dev)
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    _launch(lib, "decode_attention_blocks_launch", q, k_pool, v_pool,
+            block_tables, lengths, out, B, T, H, n_kv, D, bs, M,
+            1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
+    decode_attention_blocks.launches += 1
+    return out
+
+
+decode_attention_blocks.launches = 0
+
+
+def flash_attention_ragged(q, k, v, q_offset, row_lens):
+    """#9 on the tensors' device: for CUDA tensors one launch of
+    ``flash_prefill_launch`` (grid of (B*n_kv, query-row tiles), walking
+    only the key tiles the causal + length rule admits); for CPU tensors
+    ``flash_attention_ragged_plain``. ``q_offset`` is a host int."""
+    lib = _kernel_lib(q, "flash_attention_ragged", "flash_prefill")
+    if lib is None:
+        return flash_attention_ragged_plain(q, k, v, q_offset, row_lens)
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    _check_head("flash_attention_ragged", q, D)
+    if H % n_kv:
+        raise ValueError(f"flash_attention_ragged: {H} heads over {n_kv} "
+                         "kv heads")
+    dev = q.device
+    _check("q", q, q.dtype, (B, T, H, D), dev)
+    _check("k", k, q.dtype, (B, S, n_kv, D), dev)
+    _check("v", v, q.dtype, (B, S, n_kv, D), dev)
+    _check("row_lens", row_lens, torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    _launch(lib, "flash_prefill_launch", q, k, v, row_lens, out, B, T, S, H,
+            n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
+    flash_attention_ragged.launches += 1
+    return out
+
+
+flash_attention_ragged.launches = 0
+
+
+# --- routers -----------------------------------------------------------------
+
+
+def decode_attention_auto(q, k, v, lengths, mask=None):
+    """Decode-step attention with the reference router's signature: the
+    #10 wrapper (kernel on CUDA, plain version on the CPU). ``lengths``
+    must be the live set the reference's ``mask`` describes."""
+    del mask  # the reference's dense-fallback operand
+    return decode_attention(q, k, v, lengths)
+
+
+def decode_attention_blocks_auto(q, k_pool, v_pool, block_tables, lengths,
+                                 mask=None):
+    """Paged decode-step attention with the reference router's signature:
+    the #11 wrapper for any T >= 1. The reference's tp>1 route (table
+    gather + dense, ``gspmd=True``) waits with sharding.py."""
+    del mask
+    return decode_attention_blocks(q, k_pool, v_pool, block_tables, lengths)

@@ -1,0 +1,344 @@
+"""Decoder-only transformer (llama family) in PyTorch.
+
+Counterpart of ``kubeinfer_tpu/inference/model.py``. Parameters are a
+plain dict of tensors with the reference's tree names and its ``[in,
+out]`` projection layout, so ``x @ W`` needs no transpose and weights
+carry across as a rename-free copy (``weights.params_from_reference``).
+
+The reference's dtype casts stay where they are, so bf16 rounds at the
+same places: f32 norm statistics, cos/sin cast to the activation dtype
+before the rotation, f32 attention scores and softmax, probabilities
+cast to the value dtype before the PV product.
+
+KV-cache writes are IN PLACE (``index_put_`` / slice assignment): the
+reference's ``.at[...].set(...)`` is functional and XLA makes it in
+place under donation, but eager PyTorch would copy the whole cache (or
+the whole paged pool) on every step.
+
+Not ported here (each raises ``NotImplementedError`` naming the ROADMAP
+entry that ports it): mixture-of-experts layers, int8 (quantized)
+weight leaves, the int8 KV tail branch and manual tensor parallelism.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from kubeinfer_tpu_torch.device import resolve_device
+from kubeinfer_tpu_torch.inference.config import ModelConfig
+
+Params = dict[str, Any]
+
+_MOE = "ROADMAP Queue 1, slice 6: moe.py"
+_WQ = "ROADMAP Queue 1, int8 weights (#15, weight_quant.py)"
+_KVQ = "ROADMAP Queue 1, int8 KV (#12, _commit_full_tails, quantize_blocks)"
+_TP = "ROADMAP Queue 1, slice 6: sharding.py / tp"
+
+
+# --- initialization --------------------------------------------------------
+
+
+def init_params(
+    cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None,
+) -> Params:
+    """Random init (normal, 0.02 std, HF default) with the reference's
+    tree layout, drawn from an explicit ``torch.Generator`` on
+    ``device``. Its numbers differ from the reference's ``init_params``
+    (which draws from ``jax.random``): the tests carry the reference's
+    trees over with ``weights.params_from_reference`` instead."""
+    if cfg.num_local_experts > 0:
+        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def dense(shape):
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
+        w.normal_(0.0, 0.02, generator=gen)
+        return w.to(dtype)
+
+    H, Fd, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv_dim = cfg.num_key_value_heads * cfg.head_dim
+    q_dim = cfg.num_attention_heads * cfg.head_dim
+    norm_init = torch.zeros if cfg.rmsnorm_offset else torch.ones
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        layer = {
+            "input_layernorm": norm_init((H,), dtype=dtype, device=dev),
+            "post_attention_layernorm": norm_init((H,), dtype=dtype,
+                                                  device=dev),
+            "q_proj": dense((H, q_dim)),
+            "k_proj": dense((H, kv_dim)),
+            "v_proj": dense((H, kv_dim)),
+            "o_proj": dense((q_dim, H)),
+            "gate_proj": dense((H, Fd)),
+            "up_proj": dense((H, Fd)),
+            "down_proj": dense((Fd, H)),
+        }
+        if cfg.qkv_bias:  # Qwen2 family
+            layer["q_bias"] = torch.zeros((q_dim,), dtype=dtype, device=dev)
+            layer["k_bias"] = torch.zeros((kv_dim,), dtype=dtype, device=dev)
+            layer["v_bias"] = torch.zeros((kv_dim,), dtype=dtype, device=dev)
+        layers.append(layer)
+    params: Params = {
+        "embed_tokens": dense((V, H)),
+        "layers": layers,
+        "norm": norm_init((H,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense((H, V))
+    return params
+
+
+def params_to(params: Params, device) -> Params:
+    """The same tree with every tensor on ``device`` (no copy where it
+    already lives there)."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, device) for v in params]
+    return params.to(device)
+
+
+def params_dtype(params: Params) -> torch.dtype:
+    return params["norm"].dtype
+
+
+# --- building blocks -------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             offset: bool = False) -> torch.Tensor:
+    """RMSNorm with f32 statistics regardless of activation dtype;
+    ``offset`` is the Gemma (1 + w) gain convention."""
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    w = weight.float()
+    if offset:
+        w = 1.0 + w
+    return ((xf * scale) * w).to(x.dtype)
+
+
+def _mlp_act(cfg: ModelConfig):
+    """SwiGLU (silu) for llama/qwen2, tanh-approximate GeGLU for gemma."""
+    if cfg.hidden_act == "silu":
+        return F.silu
+    if cfg.hidden_act == "gelu_pytorch_tanh":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unsupported hidden_act {cfg.hidden_act!r}")
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) f32 tables for rotary embeddings at positions [B, T]."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    # device scalars made with full(): no host-to-device copy (a copy
+    # from pageable memory would synchronise the host)
+    inv_freq = 1.0 / torch.pow(
+        torch.full((), theta, dtype=torch.float32, device=positions.device),
+        exps,
+    )
+    angles = positions[..., None].float() * inv_freq  # [B, T, D/2]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate [B, T, heads, D] by [B, T, D/2] tables, HF llama halves."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def attention(
+    q: torch.Tensor,  # [B, T, n_heads, D]
+    k: torch.Tensor,  # [B, S, n_kv, D]
+    v: torch.Tensor,  # [B, S, n_kv, D]
+    mask: torch.Tensor,  # bool[B, T, S] True = attend
+) -> torch.Tensor:
+    """GQA scaled-dot-product attention, f32 scores and softmax,
+    probabilities cast to v's dtype before the PV product."""
+    B, T, n_heads, D = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(B, T, n_kv, n_heads // n_kv, D)
+    # f32 operands: exact products, f32 accumulation (the reference's
+    # preferred_element_type=f32)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    # a divisor on the scores' device: true division, as the reference
+    # (a CPU scalar would let the CUDA kernel multiply by a reciprocal)
+    scores = scores / torch.sqrt(
+        torch.full((), float(D), dtype=torch.float32, device=q.device))
+    scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(B, T, n_heads, D)
+
+
+def _write_cache(ck: torch.Tensor, new: torch.Tensor, cache_offset,
+                 block_tables: torch.Tensor | None) -> None:
+    """Write the step's K (or V) ``new`` [B, T, n_kv, D] into the cache
+    IN PLACE: paged (through ``block_tables``), per-row offsets, or one
+    scalar offset. The reference's dynamic_update_slice clamps the start
+    so the update fits; so do the dense branches here."""
+    B, T = new.shape[:2]
+    rows = torch.arange(B, device=new.device)
+    if block_tables is not None:
+        if getattr(cache_offset, "ndim", 0) != 1:
+            raise ValueError(
+                "block_tables requires per-row cache_offset (prefill "
+                "writes go through the engine's paged admit, not "
+                "decoder_layer)"
+            )
+        bs = ck.shape[1]
+        # rows of a retired slot carry an all-null table, so their write
+        # lands in the sacrificial block 0, read by nobody (duplicate
+        # indices there leave it nondeterministic, as in the reference)
+        pos = cache_offset[:, None] + torch.arange(T, device=new.device)
+        blk = block_tables[rows[:, None], pos // bs]
+        ck.index_put_((blk, pos % bs), new)  # in place
+    elif getattr(cache_offset, "ndim", 0) == 1:
+        S = ck.shape[1]
+        start = cache_offset.clamp(0, S - T)
+        pos = start[:, None] + torch.arange(T, device=new.device)
+        ck.index_put_((rows[:, None], pos), new)  # in place
+    else:
+        S = ck.shape[1]
+        start = min(max(int(cache_offset), 0), S - T)
+        ck[:, start:start + T] = new  # in place
+
+
+def decoder_layer(
+    layer: Params,
+    x: torch.Tensor,  # [B, T, H]
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask,
+    cfg: ModelConfig,
+    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache_offset=0,
+    attn_fn=attention,
+    tp_axis: str | None = None,
+    block_tables: torch.Tensor | None = None,
+):
+    """One pre-norm block; returns (x, kv cache or None). With a cache,
+    the step's K/V are written into it in place (see ``_write_cache``)
+    and attention reads the whole cache."""
+    if tp_axis is not None:
+        raise NotImplementedError(f"manual tensor parallelism: {_TP}")
+    if "moe" in layer:
+        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
+    if isinstance(layer["q_proj"], dict):
+        raise NotImplementedError(f"int8 weight leaves: {_WQ}")
+    B, T, _ = x.shape
+    D = cfg.head_dim
+    n_q = cfg.num_attention_heads
+    n_kv = cfg.num_key_value_heads
+    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps,
+                 offset=cfg.rmsnorm_offset)
+    q = h @ layer["q_proj"]
+    k = h @ layer["k_proj"]
+    v = h @ layer["v_proj"]
+    if cfg.qkv_bias:  # Qwen2 family; o_proj stays bias-free
+        q = q + layer["q_bias"]
+        k = k + layer["k_bias"]
+        v = v + layer["v_bias"]
+    q = apply_rope(q.reshape(B, T, n_q, D), cos, sin)
+    k = apply_rope(k.reshape(B, T, n_kv, D), cos, sin)
+    v = v.reshape(B, T, n_kv, D)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        if isinstance(ck, tuple):
+            raise NotImplementedError(f"the int8 KV pool: {_KVQ}")
+        _write_cache(ck, k, cache_offset, block_tables)
+        _write_cache(cv, v, cache_offset, block_tables)
+        k, v = ck, cv
+
+    attn = attn_fn(q, k, v, mask)
+    x = x + attn.reshape(B, T, n_q * D) @ layer["o_proj"]
+    h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps,
+                 offset=cfg.rmsnorm_offset)
+    gate = _mlp_act(cfg)(h @ layer["gate_proj"])
+    x = x + (gate * (h @ layer["up_proj"])) @ layer["down_proj"]
+    return x, kv_cache
+
+
+# --- full forward ----------------------------------------------------------
+
+
+def causal_mask(T: int, device=None) -> torch.Tensor:
+    return torch.tril(torch.ones((T, T), dtype=torch.bool, device=device))
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,  # i64/i32[B, T]
+    cfg: ModelConfig,
+    positions: torch.Tensor | None = None,  # [B, T]; default arange
+    attn_mask: torch.Tensor | None = None,  # bool[B, T, S]
+    kv_caches: list | None = None,
+    cache_offset=0,
+    attn_fn=None,
+    tp_axis: str | None = None,
+    return_hidden: bool = False,
+    block_tables: torch.Tensor | None = None,
+):
+    """Logits [B, T, V] f32 (or post-norm hidden states with
+    ``return_hidden``) and the caches, written in place.
+
+    ``attn_fn=None`` is the dense ``attention`` over ``attn_mask`` (the
+    causal mask when there are no caches). A caller that binds an
+    ``attn_fn`` which derives its own mask (the kernel routers) may pass
+    ``attn_mask=None`` with caches; the reference builds the dense mask
+    there and lets XLA drop it."""
+    B, T = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        base = torch.arange(T, dtype=torch.int64, device=dev)[None, :]
+        if getattr(cache_offset, "ndim", 0) == 1:
+            positions = base + cache_offset[:, None]
+        else:
+            positions = (base + int(cache_offset)).expand(B, T)
+    if attn_mask is None:
+        if kv_caches is not None and attn_fn is None:
+            raise ValueError("decode with kv_caches requires attn_mask")
+        if kv_caches is None:
+            attn_mask = causal_mask(T, dev)[None].expand(B, T, T)
+    if attn_fn is None:
+        attn_fn = attention
+
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = params["embed_tokens"][tokens]
+    if cfg.scale_embeddings:
+        # Gemma: the sqrt(H) normalizer is cast to the activation dtype
+        # before the multiply, as in the HF reference
+        x = x * float(torch.tensor(float(cfg.hidden_size) ** 0.5,
+                                   dtype=x.dtype))
+    new_caches = [] if kv_caches is not None else None
+    for i, layer in enumerate(params["layers"]):
+        cache = kv_caches[i] if kv_caches is not None else None
+        x, cache = decoder_layer(
+            layer, x, cos, sin, attn_mask, cfg, kv_cache=cache,
+            cache_offset=cache_offset, attn_fn=attn_fn, tp_axis=tp_axis,
+            block_tables=block_tables,
+        )
+        if new_caches is not None:
+            new_caches.append(cache)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps,
+                 offset=cfg.rmsnorm_offset)
+    if return_hidden:
+        return x, new_caches
+    return (x @ lm_head_matrix(params, cfg)).float(), new_caches
+
+
+def lm_head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The [H, V] output projection (tied or separate)."""
+    if cfg.tie_word_embeddings:
+        return params["embed_tokens"].T
+    return params["lm_head"]

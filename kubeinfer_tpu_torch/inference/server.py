@@ -1,0 +1,325 @@
+"""OpenAI-style completions server over the port's engines.
+
+Counterpart of ``kubeinfer_tpu/inference/server.py`` for the bf16
+serving path: ``GET /health``, ``GET /v1/models`` and ``POST
+/v1/completions``. A request that fits the continuous batcher's slot
+width rides its shared slots (route "continuous"); a longer one, or any
+request when ``--batch-slots 0``, goes to the per-request engine (route
+"engine"). Prompts are token ids (no tokenizer). Routes whose engines
+wait answer 400 with the reason.
+
+    python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
+
+``main(argv, device="cpu")`` runs the same server on the CPU (a
+rehearsal with ``--model tiny``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import signal
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch
+
+from kubeinfer_tpu_torch.device import resolve_device
+
+log = logging.getLogger(__name__)
+
+_WAITING_BODY = {
+    "kubeinfer_resume": "live-session resume waits: ROADMAP Queue 1, "
+                        "preemption, drain and migration",
+    "kubeinfer_kv_source": "KV import waits: ROADMAP Queue 1, disagg "
+                           "import/export",
+}
+
+
+class InferenceServer:
+    def __init__(self, engine, model_id: str, host: str = "127.0.0.1",
+                 port: int = 8000, continuous=None, device=None) -> None:
+        self.device = resolve_device(device)
+        for e in (engine, continuous):
+            if e is not None and e.device != self.device:
+                raise ValueError(f"engine on {e.device}, server on "
+                                 f"{self.device}")
+        self.engine = engine
+        self.continuous = continuous  # ContinuousEngine | None
+        self.model_id = model_id
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):  # no per-request stderr
+                return
+
+            def respond(self, code: int, ctype: str, body: str) -> None:
+                data = body.encode()
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                path = self.path.split("?", 1)[0]
+                if path == "/health":
+                    self.respond(200, "text/plain", "OK")
+                elif path == "/v1/models":
+                    self.respond(200, "application/json", json.dumps({
+                        "object": "list",
+                        "data": [{"id": server.model_id, "object": "model",
+                                  "owned_by": "kubeinfer-tpu"}],
+                    }))
+                else:
+                    self.respond(404, "text/plain", "not found\n")
+
+            def do_POST(self):
+                path = self.path.split("?", 1)[0]
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n)
+                if path != "/v1/completions":
+                    self.respond(404, "text/plain", "not found\n")
+                    return
+                try:
+                    resp = server.complete(json.loads(raw or b"{}"))
+                    self.respond(200, "application/json", json.dumps(resp))
+                except ValueError as e:
+                    self.respond(400, "application/json", json.dumps(
+                        {"error": {"message": str(e),
+                                   "type": "invalid_request_error"}}))
+                except Exception as e:  # keep the serving thread alive
+                    log.exception("completion failed")
+                    self.respond(500, "application/json", json.dumps(
+                        {"error": {"message": str(e),
+                                   "type": "server_error"}}))
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self._thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    # -- request handling --------------------------------------------------
+
+    def _encode(self, prompt) -> list[int]:
+        if isinstance(prompt, list):
+            if not all(isinstance(t, int) for t in prompt):
+                raise ValueError("prompt list must contain token ids (ints)")
+            return prompt
+        if isinstance(prompt, str):
+            raise ValueError(
+                "string prompts require tokenizer files next to the model "
+                "weights; this server was started without them — send "
+                "token ids instead")
+        raise ValueError("prompt must be a string or a list of token ids")
+
+    def _decode(self, ids: list[int]) -> str:
+        return " ".join(str(i) for i in ids)
+
+    def complete(self, body: dict) -> dict:
+        if not isinstance(body, dict):
+            raise ValueError("request body must be a JSON object")
+        t0 = time.perf_counter()
+        route, gen, req = self._complete(body)
+        ext = {"route": route,
+               "latency_ms": (time.perf_counter() - t0) * 1e3}
+        if req is not None:
+            ext["ttft_ms"] = (req.t_first - req.t_submit) * 1e3
+        ids_len = len(body["prompt"])
+        return {
+            "id": "cmpl-kubeinfer" if req is None
+            else f"cmpl-kubeinfer-{req.rid}",
+            "object": "text_completion",
+            "model": self.model_id,
+            "choices": [{
+                "index": 0,
+                "text": self._decode(gen),
+                "tokens": gen,
+                # no tokenizer, so no EOS: every completion runs to length
+                "finish_reason": "length",
+            }],
+            "usage": {
+                "prompt_tokens": ids_len,
+                "completion_tokens": len(gen),
+                "total_tokens": ids_len + len(gen),
+            },
+            "kubeinfer": ext,
+        }
+
+    def _complete(self, body: dict):
+        prompt = body.get("prompt")
+        if prompt is None:
+            raise ValueError("'prompt' is required")
+        ids = self._encode(prompt)
+        max_tokens = int(body.get("max_tokens", 16))
+        if not (0 <= max_tokens <= 4096):
+            raise ValueError(
+                "max_tokens must be in [0, 4096] (0 = prefill-only)")
+        temperature = float(body.get("temperature", 0.0))
+        top_k = int(body.get("top_k", 0))
+        top_p = float(body.get("top_p", 1.0))
+        rep_penalty = float(body.get("repetition_penalty", 1.0))
+        if top_k < 0:
+            raise ValueError("top_k must be >= 0 (0 disables)")
+        if not (0.0 < top_p <= 1.0):
+            raise ValueError("top_p must be in (0, 1]")
+        if rep_penalty <= 0.0:
+            raise ValueError("repetition_penalty must be > 0")
+        seed = int(body.get("seed", 0))
+        eos_id = -1
+        for key, reason in _WAITING_BODY.items():
+            if body.get(key) is not None:
+                raise ValueError(reason)
+        if max_tokens == 0:
+            raise ValueError(
+                "max_tokens=0 (prefill-only, the disaggregated prefill "
+                "role) waits: ROADMAP Queue 1, disagg import/export")
+        kw = dict(eos_id=eos_id, temperature=temperature, seed=seed,
+                  top_k=top_k, top_p=top_p, repetition_penalty=rep_penalty)
+        if self.continuous is not None and self.continuous.fits(
+                len(ids), max_tokens):
+            req = self.continuous.serve(ids, max_new_tokens=max_tokens, **kw)
+            return "continuous", list(req.out_tokens), req
+        out = self.engine.generate([ids], max_new_tokens=max_tokens, **kw)
+        return "engine", out.tokens[0, : out.lengths[0]].tolist(), None
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "InferenceServer":
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name=f"inference-server-{self.port}")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._httpd.shutdown()
+        self._httpd.server_close()
+
+
+# the reference's other flags, their defaults, and the ROADMAP entry that
+# ports each; a non-default value exits naming it
+_WAITING_FLAGS = {
+    "tensor_parallel_size": (1, "slice 6: sharding.py / tp"),
+    "sequence_parallel_size": (1, "slice 6: sp_engine.py + ring_attention.py"),
+    "sp_min_prompt": (1024, "slice 6: sp_engine.py + ring_attention.py"),
+    "migration_chunk_blocks": (4, "preemption, drain and migration"),
+    "kv_export_budget_mb": (0.0, "disagg import/export"),
+    "kv_dtype": ("bf16", "int8 KV (#12)"),
+    "weight_dtype": ("bf16", "int8 weights (#15)"),
+    "queue_depth_limit": (0, "preemption, drain and migration (load "
+                             "shedding)"),
+    "preemption_slo": ("", "preemption, drain and migration"),
+    "draft_model": ("", "speculative decoding"),
+    "speculation_depth": (4, "speculative decoding"),
+    "speculative_draft": (False, "speculative decoding"),
+    "prewarm_spec": ("", "speculative decoding"),
+    "tls_cert_file": ("", "/metrics and the debug endpoints (TLS)"),
+    "tls_key_file": ("", "/metrics and the debug endpoints (TLS)"),
+    "debug_token_file": ("", "/metrics and the debug endpoints"),
+    "flight_capacity": (512, "/metrics and the debug endpoints"),
+    "span_sample_every": (1, "/metrics and the debug endpoints"),
+    "slo": ([], "/metrics and the debug endpoints"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="kubeinfer-torch-inference-server")
+    p.add_argument("--model", required=True,
+                   help="preset name (with --random-init)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--dtype", default="auto",
+                   choices=["auto", "bfloat16", "float32"])
+    p.add_argument("--max-model-len", type=int, default=0)
+    p.add_argument("--random-init", action="store_true",
+                   help="serve a randomly initialized --model preset")
+    p.add_argument("--batch-slots", type=int, default=8,
+                   help="continuous-batching decode slots (0 disables; "
+                        "over-slot-width requests use the per-request "
+                        "engine)")
+    p.add_argument("--prefill-chunk-blocks", type=int, default=4,
+                   help="split each slot prefill into chunks of this many "
+                        "KV blocks interleaved with decode (0 = whole "
+                        "suffix)")
+    # accepted and unused, as in the reference (vLLM flag parity)
+    p.add_argument("--gpu-memory-utilization", type=float, default=0.9)
+    for name, (default, _entry) in _WAITING_FLAGS.items():
+        flag = "--" + name.replace("_", "-")
+        if isinstance(default, bool):
+            p.add_argument(flag, action="store_true")
+        elif isinstance(default, list):
+            p.add_argument(flag, action="append", default=[])
+        else:
+            p.add_argument(flag, type=type(default), default=default)
+    return p
+
+
+def build_server(argv: list[str] | None = None, device=None):
+    """Parse flags, build the engines and the server (not started).
+    Returns (server, continuous engine or None)."""
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.engine import Engine
+    from kubeinfer_tpu_torch.inference.model import init_params
+
+    args = build_parser().parse_args(argv)
+    for name, (default, entry) in _WAITING_FLAGS.items():
+        if getattr(args, name) != default:
+            raise SystemExit(f"--{name.replace('_', '-')} waits: ROADMAP "
+                             f"Queue 1, {entry}")
+    if not args.random_init:
+        raise SystemExit("loading a checkpoint waits: ROADMAP Queue 1, "
+                         "checkpoint.py and load_pretrained; pass "
+                         "--random-init with a preset --model")
+    cfg = PRESETS.get(args.model)
+    if cfg is None:
+        raise SystemExit(f"--model {args.model!r} is not a preset "
+                         f"({', '.join(PRESETS)})")
+    dev = resolve_device(device)
+    dtype = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
+             "float32": torch.float32}[args.dtype]
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    max_cache = args.max_model_len or cfg.max_position_embeddings
+    engine = Engine(params, cfg, max_cache_len=max_cache, device=dev)
+    continuous = None
+    if args.batch_slots > 0:
+        continuous = ContinuousEngine(
+            params, cfg, n_slots=args.batch_slots,
+            cache_len=min(max_cache, 4096),
+            prefill_chunk_blocks=args.prefill_chunk_blocks, device=dev,
+        )
+    srv = InferenceServer(engine, model_id=args.model, host=args.host,
+                          port=args.port, continuous=continuous, device=dev)
+    return srv, continuous
+
+
+def main(argv: list[str] | None = None, device=None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    srv, continuous = build_server(argv, device)
+    if continuous is not None:
+        continuous.start()
+    srv.start()
+    log.info("inference server on port %d (model %s, %s)", srv.port,
+             srv.model_id, srv.device)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    while not stop.is_set():
+        stop.wait(0.5)
+    srv.stop()
+    if continuous is not None:
+        continuous.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

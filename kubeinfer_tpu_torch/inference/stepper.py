@@ -1,0 +1,271 @@
+"""The decode stepper shared by the serving paths.
+
+Counterpart of ``kubeinfer_tpu/inference/stepper.py`` (bf16 pool, tp=1,
+no speculative verify):
+
+- :func:`step_forward` is the one-token forward of a length-ragged batch.
+  The dense route (per-row ``[B, S, ...]`` caches, the per-request
+  engine) reads through kernel #10, the paged route (shared block pool +
+  ``i32[B, max_blocks]`` tables, the continuous batcher) through #11.
+- :func:`decode_window` is the continuous batcher's K-step window: K
+  :func:`decode_body` steps in a Python loop over the slot state, whose
+  pool is written in place; it returns the ``[n_slots, K]`` tokens
+  without reading them back (the caller's readback is the window's one
+  host sync).
+- :func:`decode_scan` is the per-request engine's loop.
+
+Sampling keys are position-folded as in the reference (``sample_rows``
+folds ``offset + 1``; the admit folds ``prompt_len``), so a K-step window
+draws exactly the noise K single steps would. The reference's
+``lax.cond`` gates (any row sampled, top-k, top-p, repetition penalty)
+are host flags here (:class:`RowFlags`), built from the host's copy of
+the slots' settings.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from kubeinfer_tpu_torch.inference import flash_attention as fa
+from kubeinfer_tpu_torch.inference import prng
+from kubeinfer_tpu_torch.inference.config import ModelConfig
+from kubeinfer_tpu_torch.inference.engine import (
+    apply_repetition_penalty,
+    filter_logits,
+    gumbel_pick,
+    gumbel_sample,
+    record_seen,
+    seen_from_prompt,
+)
+from kubeinfer_tpu_torch.inference.model import Params, forward
+
+__all__ = [
+    "SlotState", "init_slot_state", "sample_rows", "step_forward",
+    "decode_body", "decode_window", "decode_scan", "WINDOW_BUCKETS",
+    "RowFlags",
+]
+
+# Decode-window horizons: the reference compiles one shape per bucket;
+# here they bound the window the scheduler picks, as there.
+WINDOW_BUCKETS = (1, 2, 4, 8)
+
+_KVQ = "ROADMAP Queue 1, int8 KV (#12, _commit_full_tails, quantize_blocks)"
+
+
+@dataclass
+class SlotState:
+    """All device-resident decode state. The KV pool is SHARED across
+    slots: row b's logical position p lives in
+    ``caches_k[l][tables[b, p // bs], p % bs]``; block 0 is the reserved
+    null block. The four int8-pool lists stay empty (bf16 pool)."""
+
+    caches_k: list[torch.Tensor]  # L x [num_blocks, block_size, n_kv, D]
+    caches_v: list[torch.Tensor]
+    tables: torch.Tensor  # i32[B, max_blocks]
+    last_token: torch.Tensor  # i64[B]
+    offset: torch.Tensor  # i32[B] next cache position (= current length)
+    active: torch.Tensor  # bool[B]
+    temperature: torch.Tensor  # f32[B]; <=0 = greedy
+    top_k: torch.Tensor  # i32[B]; <1 = disabled
+    top_p: torch.Tensor  # f32[B]; >=1 = disabled
+    rep_penalty: torch.Tensor  # f32[B]; 1.0 = disabled
+    seen: torch.Tensor  # bool[B, V]
+    rng: torch.Tensor  # i64[B, 2] per-slot threefry key data (u32 words)
+    scales_k: list = dataclasses.field(default_factory=list)
+    scales_v: list = dataclasses.field(default_factory=list)
+    tails_k: list = dataclasses.field(default_factory=list)
+    tails_v: list = dataclasses.field(default_factory=list)
+
+
+def init_slot_state(cfg: ModelConfig, n_slots: int, cache_len: int, dtype,
+                    num_blocks: int, block_size: int, kv_dtype: str = "bf16",
+                    device=None) -> SlotState:
+    """``kv_dtype="bf16"`` stores pool pages in the compute ``dtype`` (the
+    name is the CLI axis, as in the reference: f32 test engines stay
+    f32). ``"int8"`` waits."""
+    if kv_dtype == "int8":
+        raise NotImplementedError(f"kv_dtype='int8': {_KVQ}")
+    if kv_dtype != "bf16":
+        raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+    L = cfg.num_hidden_layers
+    shape = (num_blocks, block_size, cfg.num_key_value_heads, cfg.head_dim)
+
+    def z(shape_, dt):
+        return torch.zeros(shape_, dtype=dt, device=device)
+
+    return SlotState(
+        caches_k=[z(shape, dtype) for _ in range(L)],
+        caches_v=[z(shape, dtype) for _ in range(L)],
+        tables=z((n_slots, cache_len // block_size), torch.int32),
+        last_token=z((n_slots,), torch.int64),
+        offset=z((n_slots,), torch.int32),
+        active=z((n_slots,), torch.bool),
+        temperature=z((n_slots,), torch.float32),
+        top_k=z((n_slots,), torch.int32),
+        top_p=torch.ones((n_slots,), dtype=torch.float32, device=device),
+        rep_penalty=torch.ones((n_slots,), dtype=torch.float32,
+                               device=device),
+        seen=z((n_slots, cfg.vocab_size), torch.bool),
+        rng=z((n_slots, 2), torch.int64),
+    )
+
+
+@dataclass(frozen=True)
+class RowFlags:
+    """Host copies of the reference's "any row ..." ``lax.cond`` gates
+    over a batch's sampling settings."""
+
+    sampled: bool  # any temperature > 0
+    top_k: bool  # any top_k >= 1
+    top_p: bool  # any top_p < 1
+    penalty: bool  # any repetition penalty != 1
+
+    @classmethod
+    def of(cls, temperature, top_k, top_p, rep_penalty) -> "RowFlags":
+        return cls(
+            sampled=bool(np.any(np.asarray(temperature) > 0)),
+            top_k=bool(np.any(np.asarray(top_k) >= 1)),
+            top_p=bool(np.any(np.asarray(top_p) < 1.0)),
+            penalty=bool(np.any(np.asarray(rep_penalty) != 1.0)),
+        )
+
+
+def sample_rows(logits, temperature, top_k, top_p, rep_penalty, seen, rng,
+                counter, flags: RowFlags) -> torch.Tensor:
+    """Per-row sampling for the slot path: repetition penalty on the raw
+    logits, then greedy rows take the argmax and sampled rows the
+    gumbel-argmax of their filtered, tempered logits under the key
+    ``fold_in(rng[b], counter[b])``. All-greedy batches draw no noise."""
+    logits = apply_repetition_penalty(logits, seen, rep_penalty,
+                                      flags.penalty)
+    if not flags.sampled:
+        return torch.argmax(logits, dim=-1)
+    scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    filtered = filter_logits(scaled, top_k, top_p, topk_on=flags.top_k,
+                             topp_on=flags.top_p)
+    keys = prng.fold_in(prng.wrap_key_data(rng, impl="threefry2x32"),
+                        counter)
+    return gumbel_pick(logits, filtered, keys, temperature)
+
+
+# --- the shared single-token forward ---------------------------------------
+
+
+def step_forward(params: Params, cfg: ModelConfig, tok: torch.Tensor,
+                 offset: torch.Tensor, kv_caches, cache_len: int,
+                 block_tables: torch.Tensor | None = None):
+    """One decode token for a length-ragged batch; returns (logits
+    f32[B, V], kv_caches written in place). Both routes write the step's
+    K/V at each row's own offset and attend positions < offset + 1."""
+    lengths = (offset + 1).to(torch.int32)
+    if block_tables is None:
+        def attn_fn(q, k, v, _mask):
+            return fa.decode_attention_auto(q, k, v, lengths)
+    else:
+        if kv_caches and isinstance(kv_caches[0][0], tuple):
+            raise NotImplementedError(f"the int8 KV pool: {_KVQ}")
+
+        def attn_fn(q, kc, vc, _mask):
+            return fa.decode_attention_blocks_auto(q, kc, vc, block_tables,
+                                                   lengths)
+    logits, kv_caches = forward(
+        params, tok[:, None], cfg, positions=offset[:, None].long(),
+        kv_caches=kv_caches, cache_offset=offset.long(),
+        block_tables=block_tables, attn_fn=attn_fn,
+    )
+    return logits[:, 0], kv_caches
+
+
+# --- the continuous batcher's window ---------------------------------------
+
+
+def decode_body(params: Params, state: SlotState, cfg: ModelConfig,
+                flags: RowFlags) -> tuple[SlotState, torch.Tensor]:
+    """One token for every active slot; returns (state, tokens, -1 for
+    inactive rows). Inactive rows flow through the math with their state
+    kept; their pool write lands in the null block (all-null table)."""
+    block_size = state.caches_k[0].shape[1]
+    S = state.tables.shape[1] * block_size
+    logits, _ = step_forward(
+        params, cfg, state.last_token, state.offset,
+        list(zip(state.caches_k, state.caches_v)), S,
+        block_tables=state.tables,
+    )
+    # counter offset + 1: the admit folded prompt_len (== the first
+    # decode offset), so the bare offset would reuse its draw
+    nxt = sample_rows(
+        logits, state.temperature, state.top_k, state.top_p,
+        state.rep_penalty, state.seen, state.rng, state.offset + 1, flags,
+    )
+    keep = state.active
+    record_seen(state.seen, nxt, flags.penalty, keep=keep)
+    new_state = dataclasses.replace(
+        state,
+        last_token=torch.where(keep, nxt, state.last_token),
+        offset=torch.where(keep, state.offset + 1, state.offset),
+    )
+    return new_state, torch.where(keep, nxt, -1)
+
+
+def decode_window(params: Params, state: SlotState, cfg: ModelConfig,
+                  k: int, flags: RowFlags) -> tuple[SlotState, torch.Tensor]:
+    """K decode steps; returns (state, i64[B, K]) without a readback.
+    ``active`` never changes mid-window (retirement is host work): a row
+    whose EOS lands mid-window keeps stepping inside its own blocks, and
+    the host masks its tail tokens."""
+    toks = []
+    for _ in range(k):
+        state, t = decode_body(params, state, cfg, flags)
+        toks.append(t)
+    return state, torch.stack(toks, dim=1)
+
+
+# --- the per-request loop --------------------------------------------------
+
+
+def decode_scan(params: Params, cfg: ModelConfig, caches,
+                next_logits: torch.Tensor, prompt: torch.Tensor,
+                prompt_len: torch.Tensor, max_new: int, cache_len: int,
+                eos_id: int, temperature: float, top_k: int, top_p: float,
+                rep_penalty: float, rng_key: torch.Tensor):
+    """The per-request engine's decode loop: sample from ``next_logits``,
+    then single-token steps against the dense caches, each row at its own
+    offset. The key schedule is the reference's: split the call's key
+    into (k0, rest), then split rest into max_new - 1 step keys. Returns
+    (tokens i64[B, max_new], generated lengths i64[B]) on the device."""
+    penalty_on = rep_penalty != 1.0
+
+    def sample(logits, key, seen):
+        logits = apply_repetition_penalty(logits, seen, rep_penalty,
+                                          penalty_on)
+        return gumbel_sample(logits, key, temperature, top_k, top_p)
+
+    seen = seen_from_prompt(prompt, prompt_len, cfg.vocab_size)
+    k0, krest = prng.split(rng_key)
+    first = sample(next_logits, k0, seen)
+    record_seen(seen, first, penalty_on)
+    eos_on = eos_id >= 0
+    done = (first == eos_id) & eos_on
+    toks = [first]
+    if max_new > 1:
+        keys = prng.split(krest, max_new - 1)
+        tok, offset = first, prompt_len.to(torch.int32)
+        for i in range(max_new - 1):
+            logits, caches = step_forward(params, cfg, tok, offset, caches,
+                                          cache_len)
+            nxt = sample(logits, keys[i], seen)
+            record_seen(seen, nxt, penalty_on)
+            newly_done = (nxt == eos_id) & eos_on
+            nxt = torch.where(done, eos_id, nxt)
+            done = done | newly_done
+            toks.append(nxt)
+            tok, offset = nxt, offset + 1
+    out = torch.stack(toks, dim=1)
+    is_eos = (out == eos_id) & eos_on
+    first_eos = torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1) + 1,
+                            max_new)
+    return out, first_eos

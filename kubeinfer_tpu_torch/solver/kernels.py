@@ -227,7 +227,7 @@ def _kernel_lib(t: torch.Tensor, name: str, lib_name: str):
         return None
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
-    from kubeinfer_tpu_torch.solver._build import load_kernel_library
+    from kubeinfer_tpu_torch._build import load_kernel_library
 
     return load_kernel_library(lib_name)
 

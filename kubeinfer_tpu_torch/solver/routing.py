@@ -43,6 +43,14 @@ import numpy as np
 import torch
 
 from kubeinfer_tpu_torch.device import resolve_device
+# FNV-1a over tokens, chained per block and masked to 63 bits: the one
+# definition lives with the radix cache whose fingerprints replicas
+# advertise, so the request side's chains equal theirs
+from kubeinfer_tpu_torch.inference.kv_blocks import (
+    _FP_MASK,
+    _FP_PRIME,
+    _FP_SEED,
+)
 from kubeinfer_tpu_torch.solver import kernels
 from kubeinfer_tpu_torch.solver.kernels import ROUTE_NEG
 from kubeinfer_tpu_torch.solver.problem import bucket_size
@@ -56,13 +64,6 @@ MATCH_CLIP = 4096
 # its replica's price by eps.
 _AUCTION_EPS = 0.0625
 
-# FNV-1a over tokens, chained per block and masked to 63 bits: a copy of
-# kubeinfer_tpu/inference/kv_blocks.py:69-71 (the port imports nothing of
-# the reference). Replicas advertise fingerprints made with these values,
-# so they must stay equal to the reference's.
-_FP_SEED = 0xCBF29CE484222325 & ((1 << 63) - 1)  # FNV-1a offset basis
-_FP_PRIME = 0x100000001B3
-_FP_MASK = (1 << 63) - 1
 
 
 @dataclass

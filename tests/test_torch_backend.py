@@ -209,7 +209,10 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys, kubeinfer_tpu_torch, kubeinfer_tpu_torch.solver, "
         "kubeinfer_tpu_torch.scheduler, kubeinfer_tpu_torch.native, "
-        "kubeinfer_tpu_torch.solver._build\n"
+        "kubeinfer_tpu_torch._build\n"
+        "from kubeinfer_tpu_torch.inference import batching, config, "
+        "engine, flash_attention, kv_blocks, model, prng, server, "
+        "stepper, weights\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubeinfer_tpu')]\n"
         "print(','.join(bad))\n"

@@ -1,0 +1,139 @@
+"""The port's ``ContinuousEngine(device="cpu")`` against the JAX
+package's on the same parameters, 4 slots, ``block_size=16`` (the plain
+version of kernel #11 reads the pool): four concurrent requests, two of
+which share a prefix longer than a block (a radix hit when the first
+prefills whole), submitted before the scheduler starts so that both
+engines admit them in the same order. Token streams EQUAL, greedy and
+sampled, with whole-suffix and chunked (``prefill_chunk_blocks=1``)
+prefill; after retirement the free-block, trie-node and hit/miss counts
+are equal."""
+
+from __future__ import annotations
+
+import sys
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kubeinfer_tpu.inference import PRESETS as JP
+from kubeinfer_tpu.inference import init_params as j_init
+from kubeinfer_tpu.inference.batching import ContinuousEngine as JC
+from kubeinfer_tpu_torch.inference import weights as tw
+from kubeinfer_tpu_torch.inference.batching import ContinuousEngine as TC
+from kubeinfer_tpu_torch.inference.config import PRESETS as TP
+
+SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9, repetition_penalty=1.3)
+STATS = ("hits", "misses", "nodes", "leaves", "blocks_free",
+         "blocks_in_use")
+
+rng = np.random.default_rng(1)
+SHARED = rng.integers(1, 256, 40).tolist()  # 2.5 blocks of 16
+PROMPTS = [SHARED + [5, 6, 7], SHARED + [9, 10, 11, 12],
+           rng.integers(1, 256, 20).tolist(), rng.integers(1, 256, 7).tolist()]
+
+
+@pytest.fixture(scope="module")
+def params():
+    p = j_init(JP["tiny"], jax.random.PRNGKey(6))
+    return p, tw.params_from_reference(jax.tree.map(np.asarray, p), "cpu")
+
+
+def serve(eng, kw):
+    """The four requests in flight together; returns their streams."""
+    reqs = [eng.submit(p, 10 + i, seed=i, **kw)
+            for i, p in enumerate(PROMPTS)]
+    eng.start()
+    for r in reqs:
+        assert r.done.wait(120) and not r.failed
+    return [r.out_tokens for r in reqs]
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+@pytest.mark.parametrize("kw", [{}, SAMPLED], ids=["greedy", "sampled"])
+def test_streams_and_pool_match_reference(params, chunk, kw):
+    jp, tp = params
+    cfg = dict(n_slots=4, cache_len=128, block_size=16,
+               prefill_chunk_blocks=chunk)
+    je = JC(jp, JP["tiny"], **cfg)
+    te = TC(tp, TP["tiny"], device="cpu", **cfg)
+    try:
+        want, got = serve(je, kw), serve(te, kw)
+        assert got == want
+        js, ts = je.kv_cache_stats(), te.kv_cache_stats()
+        assert {k: ts[k] for k in STATS} == {k: js[k] for k in STATS}
+        if not chunk:
+            assert ts["hits"] >= 1  # the shared prefix was reused
+        assert ts["blocks_in_use"] == ts["nodes"]  # only the trie holds
+        assert te.cache_summary()["fingerprints"] == \
+            je.cache_summary()["fingerprints"]
+        if chunk:
+            assert te.chunks_total > 0
+    finally:
+        je.stop()
+        te.stop()
+
+
+def test_waiting_features_raise(params):
+    _, tp = params
+    for kw, name in ((dict(speculative=object()), "speculative"),
+                     (dict(preemption=object()), "preemption"),
+                     (dict(kv_dtype="int8"), "kv_dtype"),
+                     (dict(weight_dtype="int8"), "weight_dtype"),
+                     (dict(layout=object()), "layout")):
+        with pytest.raises(ValueError, match=name):
+            TC(tp, TP["tiny"], cache_len=64, device="cpu", **kw)
+    eng = TC(tp, TP["tiny"], n_slots=2, cache_len=64, device="cpu")
+    for fn in (eng.drain, eng.import_prefix):
+        with pytest.raises(ValueError, match="waits"):
+            fn()
+    with pytest.raises(ValueError, match="export_kv"):
+        eng.serve([1, 2], 2, export_kv=True)
+    assert not eng.fits(60, 10) and eng.fits(10, 10)
+
+
+def test_stop_fails_queued_requests(params):
+    _, tp = params
+    eng = TC(tp, TP["tiny"], n_slots=2, cache_len=64, device="cpu")
+    req = eng.submit([1, 2, 3], 4)  # never started
+    eng.stop()
+    assert req.done.is_set() and "stopped" in req.failed
+
+
+def test_continuous_needs_cuda_by_default(params, monkeypatch):
+    _, tp = params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TC(tp, TP["tiny"], cache_len=64)
+
+
+def test_threads_submitting_together(params):
+    """Eight threads against two slots with a short switch interval: every
+    request completes with its full budget, every admit is counted once,
+    and every block goes back to the pool or the trie."""
+    _, tp = params
+    eng = TC(tp, TP["tiny"], n_slots=2, cache_len=64, block_size=16,
+             device="cpu").start()
+    prompts = [np.random.default_rng(i).integers(1, 256, 5 + 3 * i).tolist()
+               for i in range(8)]
+    out = [None] * 8
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, eng.generate(prompts[i], 6, seed=i, timeout=120)))
+            for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+        eng.stop()
+    assert all(len(o) == 6 and all(0 <= t < 256 for t in o) for o in out)
+    st = eng.kv_cache_stats()
+    assert st["hits"] + st["misses"] == 8
+    assert st["blocks_in_use"] == st["nodes"]

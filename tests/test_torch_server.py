@@ -1,0 +1,125 @@
+"""The port's ``InferenceServer`` on an ephemeral port with
+``device="cpu"``, serving ``tiny``: the read endpoints answer, a fitting
+request rides the continuous batcher and an over-slot-width one the
+per-request engine, each returning its engine's own tokens; routes and
+flags that wait answer 400 or exit with the ROADMAP entry."""
+
+from __future__ import annotations
+
+import json
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from kubeinfer_tpu_torch.inference import server as ts
+from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+from kubeinfer_tpu_torch.inference.config import PRESETS
+from kubeinfer_tpu_torch.inference.engine import Engine
+from kubeinfer_tpu_torch.inference.model import init_params
+
+CFG = PRESETS["tiny"]
+
+
+@pytest.fixture(scope="module")
+def served():
+    params = init_params(CFG, seed=3, device="cpu")
+    engine = Engine(params, CFG, max_cache_len=256, device="cpu")
+    cont = ContinuousEngine(params, CFG, n_slots=2, cache_len=64,
+                            device="cpu").start()
+    srv = ts.InferenceServer(engine, "tiny", port=0, continuous=cont,
+                             device="cpu").start()
+    yield srv, engine, cont
+    srv.stop()
+    cont.stop()
+
+
+def call(srv, path, body=None):
+    url = f"http://127.0.0.1:{srv.port}{path}"
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urllib.request.urlopen(url, data=data, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_read_endpoints(served):
+    srv, *_ = served
+    assert call(srv, "/health") == (200, "OK")
+    code, body = call(srv, "/v1/models")
+    assert code == 200 and json.loads(body)["data"][0]["id"] == "tiny"
+    assert call(srv, "/metrics")[0] == 404
+
+
+@pytest.mark.parametrize("kw", [{}, dict(temperature=0.7, top_k=5, seed=4)])
+def test_routes_return_their_engines_tokens(served, kw):
+    srv, engine, cont = served
+    short = [3, 1, 4, 1, 5, 9, 2, 6]
+    code, body = call(srv, "/v1/completions",
+                      dict(prompt=short, max_tokens=6, **kw))
+    resp = json.loads(body)
+    assert code == 200 and resp["kubeinfer"]["route"] == "continuous"
+    toks = resp["choices"][0]["tokens"]
+    assert toks == cont.generate(short, 6, **kw)
+    assert resp["usage"] == {"prompt_tokens": 8, "completion_tokens": 6,
+                             "total_tokens": 14}
+    long = list(range(1, 61))  # 60 + 8 > the 64-wide slots
+    code, body = call(srv, "/v1/completions",
+                      dict(prompt=long, max_tokens=8, **kw))
+    resp = json.loads(body)
+    assert code == 200 and resp["kubeinfer"]["route"] == "engine"
+    out = engine.generate([long], 8, **kw)
+    assert resp["choices"][0]["tokens"] == out.tokens[0].tolist()
+
+
+@pytest.mark.parametrize("body,msg", [
+    (dict(prompt=[1, 2], max_tokens=0), "prefill-only"),
+    (dict(prompt=[1, 2], kubeinfer_resume={"tokens": [3]}), "resume"),
+    (dict(prompt=[1, 2], kubeinfer_kv_source="http://x"), "KV import"),
+    (dict(prompt="hello"), "tokenizer"),
+    (dict(prompt=[1, 2], top_p=0.0), "top_p"),
+    (dict(max_tokens=3), "prompt"),
+])
+def test_waiting_and_invalid_bodies_answer_400(served, body, msg):
+    srv, *_ = served
+    code, text = call(srv, "/v1/completions", body)
+    assert code == 400 and msg in json.loads(text)["error"]["message"]
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--kv-dtype", "int8"], "int8 KV"),
+    (["--weight-dtype", "int8"], "int8 weights"),
+    (["--draft-model", "tiny"], "speculative"),
+    (["--tensor-parallel-size", "2"], "sharding.py"),
+    (["--preemption-slo", "1.0"], "preemption"),
+    (["--slo", "ttft:0.5:0.99"], "debug endpoints"),
+])
+def test_main_refuses_waiting_flags(flags, msg):
+    with pytest.raises(SystemExit, match=msg):
+        ts.build_server(["--model", "tiny", "--random-init", *flags],
+                        device="cpu")
+
+
+def test_main_builds_the_cpu_rehearsal():
+    with pytest.raises(SystemExit, match="load_pretrained"):
+        ts.build_server(["--model", "tiny"], device="cpu")
+    srv, cont = ts.build_server(
+        ["--model", "tiny", "--random-init", "--port", "0",
+         "--batch-slots", "2", "--dtype", "float32"], device="cpu")
+    try:
+        assert cont.n_slots == 2 and cont.cache_len == 512
+        assert cont.chunk_tokens == 4 * 128
+        assert srv.engine.max_cache_len == CFG.max_position_embeddings
+    finally:
+        srv.stop()
+
+
+def test_server_needs_cuda_by_default(served, monkeypatch):
+    _, engine, _ = served
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ts.InferenceServer(engine, "tiny", port=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ts.build_server(["--model", "tiny", "--random-init", "--port", "0"])
