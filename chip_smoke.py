@@ -13,7 +13,7 @@ times them. Phases:
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
       together: mega_solve.cu, round_ops.cu, auction.cu, route_pick.cu,
-      decode_attention.cu, flash_prefill.cu;
+      decode_attention.cu, flash_prefill.cu, quant_matmul.cu;
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -82,7 +82,29 @@ times them. Phases:
       ms per token at 8 live slots, the engine route's prefill chunks,
       and each attention kernel against its bound, its plain version
       and scaled_dot_product_attention on the path's heaviest call;
-  (8) the ``kernels`` JSON line (nine entries), printed last of all
+  (17) the int8 serving path at full width: ``server.build_server``
+      with ``--kv-dtype int8 --weight-dtype int8`` (the bf16 server
+      stopped and freed first): the GiB on the card, model_param_bytes
+      and kv_pool_bytes beside the bf16 server's;
+      decode_attention_blocks_q8 (#12) on every layer's call of 8
+      requests of 512 tokens (4 new) and quant_matmul (#15) on every
+      projection of those and of a 4100-token Engine generate (M = 8,
+      512 and 2048), each against its plain version within the stated
+      tolerance; #11 never launched;
+  (18) /v1/completions over HTTP on the int8 server, the bodies of
+      (14): #12, #15, #9 and #10 launched, #11 not; routes, tokens,
+      finite logits, one host sync per decode window, quant_blocks_total;
+  (19) int8 on the card against the CPU at llama-3-8b widths cut to 2
+      layers, f32: the weight codes and scales bitwise equal, the
+      Engine and the int8-pool ContinuousEngine (block 16, a block edge
+      crossed while decoding) giving equal streams, the count of pool
+      codes that differ;
+  (20) times of the int8 path: TTFT, decode ms per token at 8 slots,
+      the engine route's prefill chunks, a torch.profiler split of one
+      admit and of a decode run, device launches per decode step
+      against bf16, and #12 and #15 against their bounds, plain
+      versions and library yardsticks;
+  (8) the ``kernels`` JSON line (eleven entries), printed last of all
       phases.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -1375,7 +1397,9 @@ def serving_phases(dev, record, card):
     print(f"[14] host syncs in one decode window (K=4, sampling gates on) "
           f"+ its readback: {n_sync} ({dict(sites)})")
     record["serving"] = {"launches": counts, "http_s": http_s,
-                         "window_syncs": n_sync, "radix": stats}
+                         "window_syncs": n_sync, "radix": stats,
+                         "model_param_bytes": cont.model_param_bytes,
+                         "kv_pool_bytes": cont.kv_pool_bytes}
 
     # (15) the card against the CPU
     card_vs_cpu(dev, record)
@@ -1427,11 +1451,14 @@ def serving_phases(dev, record, card):
               f"{busy:.1f} ms ({100 * busy / wall:.1f}%); top kernels "
               + "; ".join(f"{n[:60]} {ms:.1f} ms x{c}"
                           for n, ms, c in top[:6]))
+    step = launches_per_step(cont, cfg)
     record["profile"] = {
         "admit": {"wall_ms": adm_wall, "busy_ms": adm_busy,
                   "top": adm_top[:12]},
         "decode_8x32": {"wall_ms": dec_wall, "busy_ms": dec_busy,
                         "top": dec_top[:12]},
+        "decode_step": {"launches": step[0], "busy_ms": step[1],
+                        "wall_ms": step[2]},
     }
     print(f"[16] {card}: TTFT of a 512-token prompt on the continuous route "
           f"p50 {p50(ttft):.2f} ms ({[round(x, 2) for x in ttft]}); decode "
@@ -1551,6 +1578,538 @@ def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F):
     }
 
 
+# --- the int8 serving path: phases (17)-(20) ----------------------------------
+
+Q8_REPLACES = "kubeinfer_tpu/inference/flash_attention.py:1115"
+QMM_REPLACES = "kubeinfer_tpu/inference/weight_quant.py:222"
+
+
+def launches_per_step(cont, cfg, commit_steps=None, k=4):
+    """Device kernels and device-busy ms per decode step: one K-step
+    window of the engine's slot state under torch.profiler (greedy gates;
+    rows flow through the same math active or not)."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference.stepper import RowFlags, decode_window
+
+    flags = RowFlags(sampled=False, top_k=False, top_p=False, penalty=False)
+    with torch.inference_mode():
+        decode_window(cont.params, cont._state, cfg, k, flags, commit_steps)
+        wall, busy, rows = device_profile(lambda: decode_window(
+            cont.params, cont._state, cfg, k, flags, commit_steps))
+    return sum(c for _, _, c in rows) / k, busy / k, wall / k
+
+
+def matmul_err(got, want):
+    """(largest |kernel - plain|, within tolerance): f32 1e-5 and bf16
+    2**-6 (2 bf16 ulps) of each output row's largest |plain value|;
+    every value finite."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not bool(g.isfinite().all()):
+        return float("inf"), False
+    err = (g - w).abs().reshape(-1, g.shape[-1])
+    mag = w.abs().reshape(-1, g.shape[-1]).amax(dim=1, keepdim=True)
+    rel = 1e-5 if got.dtype == torch.float32 else BF16_REL
+    return float(err.max()), bool((err <= rel * mag).all())
+
+
+class CheckedMatmul:
+    """A stand-in for ``weight_quant.quant_matmul`` that runs the kernel
+    and its plain version on the same inputs, holds them within the
+    stated tolerance and hands the kernel's result on. Keeps the call
+    with the most operations and the heaviest decode-sized call (M <= 16)
+    for the times. While it stands in, the wrapper's ``launches += 1``
+    resolves to this object's ``launches``, off the wrapper's own count."""
+
+    def __init__(self, wq):
+        self.wq = wq
+        self.kernel, self.plain = wq.quant_matmul, wq.quant_matmul_plain
+        self.launches = self.calls = 0
+        self.max_err = 0.0
+        self.m_values = set()
+        self.heaviest = self.decode = None
+        self.error = None
+
+    def __enter__(self):
+        self.wq.quant_matmul = self
+        return self
+
+    def __exit__(self, *exc):
+        self.wq.quant_matmul = self.kernel
+
+    def __call__(self, x, qw, scale):
+        got = self.kernel(x, qw, scale)
+        want = self.plain(x, qw, scale)
+        err, ok = matmul_err(got, want)
+        if not ok:
+            self.error = (f"quant_matmul: kernel vs plain out of tolerance on "
+                          f"call {self.calls}, x {tuple(x.shape)} @ "
+                          f"{tuple(qw.shape)} (max err {err})")
+            raise AssertionError(self.error)
+        self.max_err = max(self.max_err, err)
+        M = x.numel() // x.shape[-1]
+        K, N = qw.shape
+        self.m_values.add(M)
+        if self.heaviest is None or M * N * K > self.heaviest[0].shape[0] * \
+                self.heaviest[1].numel():
+            self.heaviest = (x.reshape(M, K).clone(), qw, scale)
+        if M <= 16 and (self.decode is None or
+                        qw.numel() > self.decode[1].numel()):
+            self.decode = (x.reshape(M, K).clone(), qw, scale)
+        self.calls += 1
+        return got
+
+
+def q8_live(q, kp, vp, ks, vs, kt, vt, tbl, ln):
+    return (tbl[:, 0] != 0) & (ln >= q.shape[1])
+
+
+def int8_phases(dev, record, card):
+    """Phases (17)-(20): the int8 serving path (``--kv-dtype int8
+    --weight-dtype int8``) at full width through the port's
+    InferenceServer; #12 and #15 against their plain versions on the
+    path's own calls; HTTP with the launch counts; the card against the
+    CPU; times. Returns the two kernels' entries of the ``kernels``
+    line."""
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import model as tm
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+    from kubeinfer_tpu_torch.inference.engine import make_caches, prefill_attn
+    from kubeinfer_tpu_torch.inference.stepper import RowFlags, decode_window
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    srv, cont = server.build_server(
+        ["--model", "llama-3-8b", "--random-init", "--port", "0",
+         "--host", "127.0.0.1", "--batch-slots", "8", "--kv-dtype", "int8",
+         "--weight-dtype", "int8"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine = srv.engine
+    cfg = engine.cfg
+    V, layers = cfg.vocab_size, cfg.num_hidden_layers
+    check(cont.cache_len == 4096 and cont.block_size == 128
+          and cont._pool.num_blocks == 513 and cont.kv_dtype == "int8"
+          and cont.weight_dtype == "int8" and engine.params is not None,
+          "int8 slot geometry")
+    bf16 = record["serving"]
+    gib = torch.cuda.memory_allocated() / 2**30
+    st = cont._state
+    sizes = {
+        "gib_on_card": gib, "gib_before_build": before_gib,
+        "model_param_bytes": cont.model_param_bytes,
+        "kv_pool_bytes": cont.kv_pool_bytes,
+        "pages_bytes": st.q8_pages.numel(),
+        "scales_bytes": st.q8_scales.numel() * 4,
+        "tails_bytes": st.q8_tails.numel() * st.q8_tails.element_size(),
+    }
+    print(f"[17] llama-3-8b int8 weights + int8 KV ({layers} layers, H "
+          f"{cfg.hidden_size}, vocab {V}) from init_params(seed=0, "
+          f"weight_dtype='int8'): {gib:.2f} GiB on the card ({before_gib:.2f}"
+          f" before the build), built in {build_s:.1f} s; model_param_bytes "
+          f"{cont.model_param_bytes / 2**30:.3f} GiB (bf16 "
+          f"{bf16['model_param_bytes'] / 2**30:.3f}); kv_pool_bytes "
+          f"{cont.kv_pool_bytes / 2**30:.3f} GiB = pages "
+          f"{sizes['pages_bytes'] / 2**30:.3f} + scales "
+          f"{sizes['scales_bytes'] / 2**20:.3f} MiB + tails "
+          f"{sizes['tails_bytes'] / 2**30:.3f} (bf16 "
+          f"{bf16['kv_pool_bytes'] / 2**30:.3f})")
+    record["int8_sizes"] = sizes
+    cont.start()
+
+    # (17) #12 and #15 against their plain versions on the path's calls
+    rng = np.random.default_rng(17)
+    chk12 = CheckedAttention(
+        fa, "decode_attention_blocks_q8", fa.decode_attention_blocks_q8_plain,
+        live=q8_live,
+        weight=lambda q, kp, vp, ks, vs, kt, vt, tbl, ln: (
+            int((tbl[:, 0] != 0).sum()), int(ln.sum())))
+    chk15 = CheckedMatmul(wq)
+    fa.decode_attention_blocks.launches = 0
+    with torch.inference_mode(), chk12, chk15:
+        prompts = [rng.integers(1, V, 512).tolist() for _ in range(8)]
+        try:
+            in_threads(lambda p: cont.generate(p, 4, timeout=180), prompts)
+            long_prompt = rng.integers(1, V, 4100).tolist()
+            engine.generate([long_prompt], 2)
+        finally:
+            check(chk12.error is None, str(chk12.error))
+            check(chk15.error is None, str(chk15.error))
+    check(chk12.calls >= layers and chk12.calls % layers == 0,
+          f"#12 checked on {chk12.calls} calls")
+    check({8, 512, 2048} <= chk15.m_values,
+          f"#15 saw M in {sorted(chk15.m_values)}")
+    check(fa.decode_attention_blocks.launches == 0,
+          "#11 launched on the int8 pool")
+    print(f"[17] decode_attention_blocks_q8: {chk12.calls} calls on every "
+          f"layer of the int8 continuous engine's decode windows (8 requests"
+          f" of 512 tokens, 4 new), within tolerance; max |kernel - plain| "
+          f"{chk12.max_err:.3e} (bf16)")
+    print(f"[17] quant_matmul: {chk15.calls} calls on every projection of "
+          f"those admits and windows and of an Engine generate with a "
+          f"4100-token prompt (M in {sorted(chk15.m_values)}), within tolerance; "
+          f"max |kernel - plain| {chk15.max_err:.3e} (bf16)")
+
+    # (18) the main path over HTTP, counted
+    srv.start()
+    shared = rng.integers(1, V, 256).tolist()
+    bodies = [dict(prompt=shared + rng.integers(1, V, 256).tolist(),
+                   max_tokens=64) for _ in range(2)]
+    bodies += [dict(prompt=rng.integers(1, V, 512).tolist(), max_tokens=64)
+               for _ in range(2)]
+    bodies.append(dict(prompt=rng.integers(1, V, 512).tolist(),
+                       max_tokens=64, temperature=0.8, top_k=50, top_p=0.9,
+                       seed=7))
+    bodies.append(dict(prompt=rng.integers(1, V, 4100).tolist(),
+                       max_tokens=16))
+    names = (*SERVE_KERNELS, "decode_attention_blocks_q8")
+    for name in names:
+        getattr(fa, name).launches = 0
+    wq.quant_matmul.launches = 0
+    qb0 = cont.quant_blocks_total
+    t0 = time.perf_counter()
+    resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+    http_s = time.perf_counter() - t0
+    counts = {name: getattr(fa, name).launches for name in names}
+    counts["quant_matmul"] = wq.quant_matmul.launches
+    check(counts["decode_attention_blocks_q8"] > 0
+          and counts["quant_matmul"] > 0
+          and counts["flash_attention_ragged"] > 0
+          and counts["decode_attention"] > 0
+          and counts["decode_attention_blocks"] == 0,
+          f"int8 path launches {counts}")
+    routes = [r["kubeinfer"]["route"] for r in resps]
+    check(routes == ["continuous"] * 5 + ["engine"], f"routes {routes}")
+    for b, r in zip(bodies, resps):
+        toks = r["choices"][0]["tokens"]
+        check(len(toks) == b["max_tokens"]
+              and all(0 <= x < V for x in toks), "tokens out of range")
+    with torch.inference_mode():
+        lg, _ = tm.forward(engine.params, torch.tensor(
+            [bodies[0]["prompt"][:64]], device=dev), cfg)
+    check(bool(torch.isfinite(lg).all()), "NaN/inf logits")
+    flags = RowFlags(sampled=True, top_k=True, top_p=True, penalty=True)
+    with torch.inference_mode():
+        _, sites = count_syncs(lambda: decode_window(
+            cont.params, cont._state, cfg, 4, flags)[1].cpu())
+    n_sync = sum(sites.values())
+    check(n_sync == 1, f"int8 decode window host syncs {dict(sites)}")
+    qb = cont.quant_blocks_total
+    print(f"[18] /v1/completions over HTTP on the int8 server: 4 greedy + 1 "
+          f"sampled 512-token prompts (64 new) on route continuous, 1 of "
+          f"4100 tokens (16 new) on route engine, {http_s:.1f} s; launches "
+          f"{counts}; host syncs in one decode window (K=4, gates on) + its "
+          f"readback: {n_sync}; quant_blocks_total {qb} ({qb - qb0} in this "
+          f"run); logits finite")
+    record["int8_serving"] = {"launches": counts, "http_s": http_s,
+                              "window_syncs": n_sync,
+                              "quant_blocks_total": qb}
+
+    # (19) the card against the CPU
+    card_vs_cpu_int8(dev, record)
+
+    # (20) times
+    ttft = []
+    for _ in range(5):
+        req = cont.serve(rng.integers(1, V, 512).tolist(), 1)
+        ttft.append((req.t_first - req.t_submit) * 1e3)
+    reqs = in_threads(lambda p: cont.serve(p, 64),
+                      [rng.integers(1, V, 512).tolist() for _ in range(8)])
+    t_all = max(r.t_first for r in reqs)
+    gaps = []
+    for r in reqs:
+        times = [x for x in r.token_times if x > t_all]
+        gaps += list(np.diff(times) * 1e3)
+    decode_ms = statistics.median(gaps)
+    lens = torch.tensor([4100], dtype=torch.int32, device=dev)
+    prompt = torch.zeros((1, 8192), dtype=torch.int64, device=dev)
+    prompt[0, :4100] = torch.tensor(long_prompt, device=dev)
+    chunk_ms = []
+    with torch.inference_mode():
+        caches = make_caches(cfg, 1, 8192, torch.bfloat16, dev)
+        for c0 in range(0, 8192, 2048):
+            chunk_ms.append(cuda_ms(lambda c0=c0: tm.forward(
+                engine.params, prompt[:, c0:c0 + 2048], cfg,
+                kv_caches=caches, cache_offset=c0,
+                attn_fn=prefill_attn(c0, lens), return_hidden=True),
+                reps=1, warmup=0))
+        del caches
+    adm_wall, adm_busy, adm_top = device_profile(
+        lambda: cont.serve(rng.integers(1, V, 512).tolist(), 1))
+    dec_wall, dec_busy, dec_top = device_profile(
+        lambda: in_threads(lambda p: cont.serve(p, 32), [
+            rng.integers(1, V, 512).tolist() for _ in range(8)]))
+    for what, wall, busy, top in (
+            ("one 512-token admit (TTFT)", adm_wall, adm_busy, adm_top),
+            ("8 requests of 512 + 32 new", dec_wall, dec_busy, dec_top)):
+        print(f"[20] int8 profile, {what}: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms ({100 * busy / wall:.1f}%); top kernels "
+              + "; ".join(f"{n[:60]} {ms:.1f} ms x{c}"
+                          for n, ms, c in top[:6]))
+    step = launches_per_step(cont, cfg, commit_steps=[False] * 4)
+    step_c = launches_per_step(cont, cfg)
+    bf = record["profile"]["decode_step"]
+    print(f"[20] per decode step (8 slots, one K=4 window profiled): bf16 "
+          f"{bf['launches']:.0f} device launches, {bf['busy_ms']:.2f} ms "
+          f"busy; int8 {step[0]:.0f} launches, {step[1]:.2f} ms busy "
+          f"(on a step with the tail commit: {step_c[0]:.0f}, "
+          f"{step_c[1]:.2f} ms)")
+    print(f"[20] {card}: int8 TTFT of a 512-token prompt p50 "
+          f"{statistics.median(ttft):.2f} ms ({[round(x, 2) for x in ttft]});"
+          f" decode at 8 live slots p50 {decode_ms:.3f} ms per token per "
+          f"slot, {8e3 / decode_ms:.1f} tokens/s; engine route prefill chunk"
+          f" (2048 queries, 8192-wide cache) p50 "
+          f"{statistics.median(chunk_ms):.2f} ms "
+          f"({[round(x, 2) for x in chunk_ms]})")
+    record["int8_profile"] = {
+        "admit": {"wall_ms": adm_wall, "busy_ms": adm_busy,
+                  "top": adm_top[:12]},
+        "decode_8x32": {"wall_ms": dec_wall, "busy_ms": dec_busy,
+                        "top": dec_top[:12]},
+        "decode_step": {"launches": step[0], "busy_ms": step[1],
+                        "wall_ms": step[2]},
+        "decode_step_commit": {"launches": step_c[0], "busy_ms": step_c[1],
+                               "wall_ms": step_c[2]},
+    }
+    record["int8_times"] = {
+        "ttft_ms": ttft, "decode_ms_per_token": decode_ms,
+        "tokens_per_s": 8e3 / decode_ms, "prefill_chunk_ms": chunk_ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    with torch.inference_mode():
+        entries = [time_q8(dev, fa, chk12, card, counts),
+                   time_qmm(dev, wq, chk15, card, counts)]
+    srv.stop()
+    cont.stop()
+    return entries
+
+
+def card_vs_cpu_int8(dev, record):
+    """Phase (19): int8 weights quantized on the card and on the CPU from
+    the same f32 draw at llama-3-8b widths cut to 2 layers: codes and
+    scales bitwise equal; then the Engine (greedy) and the int8-pool
+    ContinuousEngine (one greedy and one sampled row in one batch, block
+    16 so the decode crosses a block edge) on both: equal streams."""
+    import dataclasses
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.engine import Engine
+    from kubeinfer_tpu_torch.inference.model import init_params, params_to
+    from kubeinfer_tpu_torch.inference.weight_quant import (
+        QUANT_LEAVES,
+        quantize_params,
+    )
+
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(1, cfg.vocab_size, 60).tolist() for _ in range(2)]
+    kws = ({}, dict(temperature=0.8, top_k=50, top_p=0.9,
+                    repetition_penalty=1.2, seed=3))
+    p_cpu = init_params(cfg, seed=19, dtype=torch.float32, device="cpu")
+    q_cpu = quantize_params(p_cpu)
+    q_card = quantize_params(params_to(p_cpu, dev))
+    n_leaves = 0
+    for a, b in zip(q_card["layers"], q_cpu["layers"]):
+        for name in QUANT_LEAVES:
+            for part in ("qw", "scale"):
+                check(torch.equal(a[name][part].cpu(), b[name][part]),
+                      f"[19] int8 {name}.{part} differs between card and CPU")
+                n_leaves += 1
+    del p_cpu
+
+    def run(params, device):
+        eng = Engine(params, cfg, max_cache_len=256, device=device)
+        out = [eng.generate(prompts, 20).tokens.tolist()]
+        cont = ContinuousEngine(params, cfg, n_slots=2, cache_len=128,
+                                block_size=16, kv_dtype="int8",
+                                weight_dtype="int8", device=device).start()
+        try:
+            out.append(in_threads(lambda i: cont.generate(
+                prompts[i], 20, **kws[i]), [0, 1]))
+        finally:
+            cont.stop()
+        return out, cont
+
+    t0 = time.perf_counter()
+    want, c_cpu = run(q_cpu, "cpu")
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, c_card = run(q_card, dev)
+    card_s = time.perf_counter() - t0
+    pages = (c_card._state.q8_pages.cpu(), c_cpu._state.q8_pages)
+    diff = (pages[0].int() - pages[1].int()).abs()
+    n_diff = int((diff > 0).sum())
+    print(f"[19] int8 codes and scales of {n_leaves} leaves quantized on the "
+          f"card and on the CPU: bitwise equal; int8 pool codes that differ "
+          f"after the runs: {n_diff} of {diff.numel()} (max |diff| "
+          f"{int(diff.max())})")
+    for name, g, w in zip(("Engine greedy (int8 weights)",
+                           "ContinuousEngine greedy + sampled (int8 both)"),
+                          got, want):
+        if g != w:
+            first = next(i for i, (a, b) in enumerate(
+                zip(np.ravel(g), np.ravel(w))) if a != b)
+            print(f"[19] {name}: streams differ first at flat index {first}")
+        check(g == w, f"[19] {name}: card {g} != CPU {w}")
+    print(f"[19] llama-3-8b widths, 2 layers, f32, int8 weights + int8 KV "
+          f"(block 16), 2 prompts of 60, 20 new: Engine greedy and "
+          f"ContinuousEngine greedy + sampled on the card equal to "
+          f"device='cpu' (host {host_s:.1f} s, card {card_s:.1f} s)")
+    record["card_vs_cpu_int8"] = {"host_s": host_s, "card_s": card_s,
+                                  "pool_codes_differing": n_diff,
+                                  "streams": got}
+    del q_card, q_cpu, c_card, c_cpu
+
+
+def time_q8(dev, fa, chk, card, counts):
+    """#12's entry of the ``kernels`` line, as ``time_kernel``: its time
+    per launch on the heaviest captured call, its plain version's, SDPA on
+    the table-gathered, dequantized K/V with the tails overlaid, and its
+    bound from this call's data (int8 pages and scales of the blocks
+    before each row's tail base, tail positions in bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    args = chk.heaviest
+    q, kp, vp, ks, vs, kt, vt, tbl, lens = args
+    B, T, H, D = q.shape
+    NB, bs, n_kv = kp.shape[:3]
+    M = tbl.shape[1]
+    elt = q.element_size()
+    ms = cuda_ms(lambda: fa.decode_attention_blocks_q8(*args), reps=20)
+    plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
+    live = q8_live(*args)
+    ln = torch.where(live, lens.long(), 0)
+    tb = torch.clamp(ln - T, min=0) // bs
+    page_pos = torch.minimum(ln, tb * bs)
+    tail_pos = ln - page_pos
+    ops = 4 * D * H * T * int(ln.sum())
+    nbytes = (2 * n_kv * D * (int(page_pos.sum()) + elt * int(tail_pos.sum()))
+              + 2 * 4 * n_kv * int(tb.sum()) + 2 * q.numel() * elt)
+    # the reference's dequantize-gather view: pages x scales, tails at the
+    # tiles from the tail base on
+    tl = tbl.long()
+
+    def gathered(pool, scales, tail):
+        deq = pool[tl].float() * scales[tl][:, :, None, :, None]
+        rel = torch.arange(M, device=dev)[None, :] - (
+            torch.clamp(lens.long() - T, min=0) // bs)[:, None]
+        use = (rel >= 0) & (rel < 2)
+        tg = tail[torch.arange(B, device=dev)[:, None], rel.clamp(0, 1)]
+        out = torch.where(use[:, :, None, None, None], tg.float(), deq)
+        return out.to(q.dtype).reshape(B, M * bs, n_kv, D)
+
+    kk, vv = gathered(kp, ks, kt), gathered(vp, vs, vt)
+    s = torch.arange(M * bs, device=dev)
+    t = torch.arange(T, device=dev)
+    mask = s[None, None, None, :] <= (lens[:, None, None, None] - T
+                                      + t[None, None, :, None])
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True), reps=10)
+    op_ms = ops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(op_ms, byte_ms)
+    bound_by = "operations" if op_ms >= byte_ms else "bytes"
+    launches = counts["decode_attention_blocks_q8"]
+    print(f"[20] {card}: decode_attention_blocks_q8 {ms:.4f} ms/launch on q "
+          f"[{B}, {T}, {H}, {D}], {int(live.sum())} live rows, lengths "
+          f"{lens.tolist()}; plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention on the gathered, dequantized K/V "
+          f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); {launches} "
+          f"launches on the main path")
+    return {
+        "name": "decode_attention_blocks_q8", "route": "cuda",
+        "source": "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
+        "replaces": Q8_REPLACES, "launches": launches,
+        "max_abs_err": chk.max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                        "(enable_gqa, boolean mask) on K/V gathered through "
+                        "the table, dequantized, tails overlaid beforehand",
+        "check": f"within tolerance of its plain version (bf16: 2**-6 of "
+                 f"each live row's magnitude) on {chk.calls} calls of the "
+                 "full-width int8 path",
+    }
+
+
+def time_qmm(dev, wq, chk, card, counts):
+    """#15's entry of the ``kernels`` line: its time per launch on the
+    captured call with the most operations (and, printed, on the heaviest
+    decode-sized call), its plain version's, its bound from the shapes,
+    and the library yardstick: ``torch._weight_int8pack_mm`` where the
+    installed torch runs it on CUDA, else ``torch.matmul`` on the
+    pre-dequantized bf16 weight (a lower yardstick: it reads twice the
+    weight bytes and skips the conversion)."""
+    import torch
+
+    out = {}
+    for what, args in (("heaviest", chk.heaviest), ("decode", chk.decode)):
+        x, qw, scale = args
+        M, K = x.shape
+        N = qw.shape[1]
+        elt = x.element_size()
+        ms = cuda_ms(lambda: wq.quant_matmul(x, qw, scale), reps=20)
+        plain_ms = cuda_ms(lambda: chk.plain(x, qw, scale), reps=3)
+        ops = 2 * M * N * K
+        nbytes = M * K * elt + K * N + 4 * N + M * N * elt
+        library, label = None, None
+        try:
+            w_nk = qw.t().contiguous()
+            torch._weight_int8pack_mm(x, w_nk, scale.to(x.dtype))
+            torch.cuda.synchronize()
+            library = cuda_ms(lambda: torch._weight_int8pack_mm(
+                x, w_nk, scale.to(x.dtype)), reps=20)
+            label = "torch._weight_int8pack_mm (int8 weight [N, K])"
+        except (RuntimeError, NotImplementedError):
+            w16 = (qw.float() * scale).to(x.dtype)
+            library = cuda_ms(lambda: torch.matmul(x, w16), reps=20)
+            label = ("torch.matmul on the pre-dequantized bf16 weight (a "
+                     "lower yardstick: twice the weight bytes, no int8 "
+                     "conversion)")
+            del w16
+        op_ms = ops / BF16_OPS_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(op_ms, byte_ms)
+        bound_by = "operations" if op_ms >= byte_ms else "bytes"
+        print(f"[20] {card}: quant_matmul ({what}) {ms:.4f} ms/launch on x "
+              f"[{M}, {K}] @ int8 [{K}, {N}]; plain {plain_ms:.4f} ms; "
+              f"{label} {library:.4f} ms; bound {bound_ms:.5f} ms "
+              f"({bound_by}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; "
+              f"{ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s)")
+        out[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library,
+                         library_call=label, shape=[M, K, N])
+    h = out["heaviest"]
+    return {
+        "name": "quant_matmul", "route": "cuda",
+        "source": "kubeinfer_tpu_torch/inference/csrc/quant_matmul.cu",
+        "replaces": QMM_REPLACES, "launches": counts["quant_matmul"],
+        "max_abs_err": chk.max_err, "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"], "library_call": h["library_call"],
+        "shape_mkn": h["shape"], "decode": out["decode"],
+        "check": f"within tolerance of its plain version (bf16: 2**-6 of "
+                 f"each output row's magnitude) on {chk.calls} calls of the "
+                 "full-width int8 path",
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1589,7 +2148,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all(["mega_solve", "round_ops", "auction",
                               "route_pick", "decode_attention",
-                              "flash_prefill"])
+                              "flash_prefill", "quant_matmul"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")
@@ -1793,6 +2352,7 @@ def main() -> int:
     auction_entry = auction_phases(dev, kernels, record, card)
     route_entry = route_phases(dev, kernels, record, card)
     serve_entries = serving_phases(dev, record, card)
+    int8_entries = int8_phases(dev, record, card)
 
     # (8) the kernels line
     kline = {"kernels": [{
@@ -1808,7 +2368,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
-    }, *round_entries, auction_entry, route_entry, *serve_entries]}
+    }, *round_entries, auction_entry, route_entry, *serve_entries,
+        *int8_entries]}
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

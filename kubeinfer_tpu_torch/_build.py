@@ -144,10 +144,18 @@ _SIGNATURES = {
         # q, k_pool, v_pool, tables, lengths, out, B, T, H, n_kv, D, bs, M,
         # scale, dtype
         "decode_attention_blocks_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+        # q, k_pool, v_pool, k_scales, v_scales, k_tail, v_tail, tables,
+        # lengths, out, B, T, H, n_kv, D, bs, M, scale, dtype
+        "decode_attention_blocks_q8_launch":
+            [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     },
     "flash_prefill": {
         # q, k, v, row_lens, out, B, T, S, H, n_kv, D, q_offset, scale, dtype
         "flash_prefill_launch": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+    },
+    "quant_matmul": {
+        # x, qw, scale, out, workspace, M, N, K, splits, dtype
+        "quant_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
     },
 }
 

@@ -1,7 +1,7 @@
 """Continuous batching: requests join and leave a shared decode batch.
 
 Counterpart of ``kubeinfer_tpu/inference/batching.py``, restricted to the
-bf16, tp=1, non-speculative engine:
+tp=1, non-speculative engine:
 
 - A fixed pool of B decode **slots** over a shared PAGED KV pool
   (per-layer ``[num_blocks, block_size, n_kv, D]`` tensors and an
@@ -23,10 +23,19 @@ table, run the dense ``model.attention`` forward over it (as the
 reference does on every backend: no kernel runs there), and write back
 only the blocks the admit owns, in place.
 
+Precision axes, as in the reference: ``kv_dtype="int8"`` keeps the pool
+in int8 with per-(block, kv head) scales and a per-slot tail pair
+(``stepper.SlotState``): the admit gathers a dequantized view, quantizes
+its owned FULL prompt blocks into the pool and seeds the slot's tail
+with the partial block; a chunk quantizes every owned block; the decode
+window's commit quantizes each tail block as it fills (kernel #12 reads
+the pool). ``weight_dtype="int8"`` takes a quantized tree, or quantizes
+a plain one here (kernel #15 runs every projection).
+
 Waiting (each named where it raises): speculative decoding, preemption,
-a sharded layout, the int8 KV and weight axes, drain/migration,
-prefix import and KV export; and the flight recorder, SLO monitor, step
-profiler and racecheck wrappers of the reference.
+a sharded layout, drain/migration, prefix import and KV export; and the
+flight recorder, SLO monitor, step profiler and racecheck wrappers of
+the reference.
 """
 
 from __future__ import annotations
@@ -45,10 +54,16 @@ from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference import prng
 from kubeinfer_tpu_torch.inference.config import ModelConfig
 from kubeinfer_tpu_torch.inference.engine import _bucket, record_seen
-from kubeinfer_tpu_torch.inference.kv_blocks import BlockPool, RadixCache
+from kubeinfer_tpu_torch.inference.kv_blocks import (
+    BlockPool,
+    RadixCache,
+    dequantize_blocks,
+    quantize_blocks,
+)
 from kubeinfer_tpu_torch.inference.model import (
     Params,
     forward,
+    param_bytes,
     params_dtype,
     params_to,
 )
@@ -59,6 +74,10 @@ from kubeinfer_tpu_torch.inference.stepper import (
     decode_window,
     init_slot_state,
     sample_rows,
+)
+from kubeinfer_tpu_torch.inference.weight_quant import (
+    params_weight_dtype,
+    quantize_params,
 )
 
 # pool block width (tokens), as in the reference; engines whose
@@ -71,8 +90,6 @@ _WAITS = {
                   "DraftState)",
     "preemption": "ROADMAP Queue 1, preemption, drain and migration",
     "layout": "ROADMAP Queue 1, slice 6: sharding.py / tp",
-    "kv_dtype": "ROADMAP Queue 1, int8 KV (#12)",
-    "weight_dtype": "ROADMAP Queue 1, int8 weights (#15)",
     "drain": "ROADMAP Queue 1, preemption, drain and migration",
     "import_prefix": "ROADMAP Queue 1, disagg import/export",
     "export_kv": "ROADMAP Queue 1, disagg import/export",
@@ -81,14 +98,24 @@ _WAITS = {
 
 def _gather_view(state: SlotState, table_row: torch.Tensor):
     """Per-layer (k, v) logical views ``[1, S, n_kv, D]`` of one row,
-    gathered through its table (a copy: the forward writes into it)."""
+    gathered through its table (a copy: the forward writes into it).
+    Under the int8 pool the views dequantize the committed blocks into
+    the tails' dtype, and are slices of one [2, L, M, bs, n_kv, D]
+    tensor, returned second (None under the bf16 pool)."""
     nb, bs, n_kv, D = state.caches_k[0].shape
     S = table_row.shape[0] * bs
+    if state.quantized:
+        view = dequantize_blocks(state.q8_pages[:, :, table_row],
+                                 state.q8_scales[:, :, table_row],
+                                 state.q8_tails.dtype)
+        return [(view[0, l].reshape(1, S, n_kv, D),
+                 view[1, l].reshape(1, S, n_kv, D))
+                for l in range(view.shape[1])], view
     return [
         (ck[table_row].reshape(1, S, n_kv, D),
          cv[table_row].reshape(1, S, n_kv, D))
         for ck, cv in zip(state.caches_k, state.caches_v)
-    ]
+    ], None
 
 
 def _put_owned(state: SlotState, caches, table_row: torch.Tensor,
@@ -104,6 +131,18 @@ def _put_owned(state: SlotState, caches, table_row: torch.Tensor,
         cv[blocks] = vv.reshape(M, bs, n_kv, D)[own_idx]  # in place
 
 
+def _put_quantized(state: SlotState, view: torch.Tensor,
+                   table_row: torch.Tensor, own_idx: torch.Tensor) -> None:
+    """Quantize-on-commit of the int8 pool, IN PLACE: the blocks
+    ``table_row[own_idx]`` of the row's updated view [2, L, M, bs, n_kv,
+    D] are quantized (``quantize_blocks``, per block) into the pages and
+    scales of every layer at once."""
+    blocks = table_row[own_idx]
+    qv, sv = quantize_blocks(view[:, :, own_idx])
+    state.q8_pages[:, :, blocks] = qv
+    state.q8_scales[:, :, blocks] = sv
+
+
 def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
                 suffix_len: int, start: int, prompt_len: int,
                 cfg: ModelConfig, slot: int, table_row: torch.Tensor,
@@ -114,7 +153,12 @@ def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
     logical position ``start``) into the blocks of ``table_row``, sample
     its first token with the key ``fold_in(key_data, prompt_len)``, and
     install the slot. The dense forward masks key slots past
-    ``prompt_len``; masked slots add exactly 0."""
+    ``prompt_len``; masked slots add exactly 0.
+
+    Under the int8 pool ``own_idx`` names only the owned FULL blocks
+    (below ``prompt_len // bs``), which are quantized into the pool; the
+    partial block ``prompt_len // bs`` seeds the slot's tail slot 0 (slot
+    1 zeroed), so a partial block never round-trips through int8."""
     T = suffix.shape[1]
     dev = suffix.device
     bs = state.caches_k[0].shape[1]
@@ -123,7 +167,7 @@ def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
     cache_pos = torch.arange(S, device=dev)
     mask = ((cache_pos[None, None, :] <= q_pos[None, :, None])
             & (cache_pos[None, None, :] < prompt_len))
-    caches = _gather_view(state, table_row)
+    caches, view = _gather_view(state, table_row)
     logits, caches = forward(
         params, suffix, cfg, positions=q_pos[None, :], attn_mask=mask,
         kv_caches=caches, cache_offset=start,
@@ -141,7 +185,15 @@ def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
         row(prompt_len, torch.int64), flags,
     )[0]
     record_seen(seen_row, first[None], flags.penalty)
-    _put_owned(state, caches, table_row, own_idx)
+    if view is None:
+        _put_owned(state, caches, table_row, own_idx)
+    else:
+        _put_quantized(state, view, table_row, own_idx)
+        # the partial block (clipped: prompt_len // bs == M only for a row
+        # that fills its table and never decodes) and zeroed spill room
+        t0 = view[:, :, min(prompt_len // bs, table_row.shape[0] - 1)]
+        state.q8_tails[:, :, slot] = torch.stack(
+            [t0, torch.zeros_like(t0)], dim=2)
     # the slot's row of every field, in place
     state.tables[slot] = table_row
     state.last_token[slot] = first
@@ -163,19 +215,25 @@ def _prefill_chunk(params: Params, state: SlotState, window: torch.Tensor,
     logical position ``pos``) into the owned blocks of ``table_row``: no
     sampling, and the slot stays inactive with an all-null table until
     ``_admit_slot`` finishes the tail. The window lies inside the prompt,
-    so the plain causal mask over logical positions is the admit's."""
+    so the plain causal mask over logical positions is the admit's.
+    Under the int8 pool every owned block is quantized, as the reference
+    does (blocks past the chunk carry junk that later dispatches
+    rewrite)."""
     T = window.shape[1]
     dev = window.device
     bs = state.caches_k[0].shape[1]
     S = table_row.shape[0] * bs
     q_pos = pos + torch.arange(T, device=dev)
     mask = torch.arange(S, device=dev)[None, None, :] <= q_pos[None, :, None]
-    caches = _gather_view(state, table_row)
+    caches, view = _gather_view(state, table_row)
     _, caches = forward(
         params, window, cfg, positions=q_pos[None, :], attn_mask=mask,
         kv_caches=caches, cache_offset=pos, return_hidden=True,
     )
-    _put_owned(state, caches, table_row, own_idx)
+    if view is None:
+        _put_owned(state, caches, table_row, own_idx)
+    else:
+        _put_quantized(state, view, table_row, own_idx)
     return state
 
 
@@ -246,18 +304,30 @@ class ContinuousEngine:
                  kv_dtype: str = "bf16",
                  weight_dtype: str = "bf16",
                  device=None) -> None:
-        for name, value, default in (
-            ("speculative", speculative, None),
-            ("spec_draft", spec_draft, None),
-            ("preemption", preemption, None),
-            ("layout", layout, None),
-            ("kv_dtype", kv_dtype, "bf16"),
-            ("weight_dtype", weight_dtype, "bf16"),
-        ):
-            if value != default:
+        for name, value in (("speculative", speculative),
+                            ("spec_draft", spec_draft),
+                            ("preemption", preemption), ("layout", layout)):
+            if value is not None:
                 raise ValueError(f"{name}={value!r} waits: {_WAITS[name]}")
+        for name, value in (("kv_dtype", kv_dtype),
+                            ("weight_dtype", weight_dtype)):
+            if value not in ("bf16", "int8"):
+                raise ValueError(f"{name} must be 'bf16' or 'int8', got "
+                                 f"{value!r}")
+        # "int8" takes a quantized tree (init_params / params_from_state_
+        # dict quantized it layer by layer) or quantizes a plain one here;
+        # "bf16" with a quantized tree raises rather than dequantize
+        held = params_weight_dtype(params)
+        if weight_dtype == "int8" and held == "bf16":
+            params = quantize_params(params)
+        elif weight_dtype == "bf16" and held == "int8":
+            raise ValueError(
+                "weight_dtype='bf16' but params are weight-quantized "
+                "(dequantize_params first, or pass weight_dtype='int8')")
+        self.weight_dtype = weight_dtype
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
+        self.model_param_bytes = param_bytes(self.params)
         self.cfg = cfg
         self.n_slots = n_slots
         self.cache_len = cache_len
@@ -305,13 +375,18 @@ class ContinuousEngine:
             "rep_penalty": np.ones(n_slots, np.float32),
         }
         self.kv_dtype = kv_dtype
+        # int8 pool telemetry: logical blocks quantize-committed into the
+        # pool (the admit's full blocks and the decode windows' tail
+        # commits), counted on the host as the reference counts them
+        self.quant_blocks_total = 0
         self._state = init_slot_state(
             cfg, n_slots, cache_len, params_dtype(self.params), num_blocks,
             self.block_size, kv_dtype=kv_dtype, device=self.device)
         st = self._state
-        self.kv_pool_bytes = int(sum(
-            x.numel() * x.element_size() for x in (*st.caches_k,
-                                                   *st.caches_v)))
+        # pages, plus scales and tails under the int8 pool
+        self.kv_pool_bytes = param_bytes([
+            *st.caches_k, *st.caches_v, *st.scales_k, *st.scales_v,
+            *st.tails_k, *st.tails_v])
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._slot_req: list[_Request | None] = [None] * n_slots
         self._stop = threading.Event()
@@ -394,6 +469,7 @@ class ContinuousEngine:
         stats["blocks_in_use"] = self._pool.used_blocks
         stats["blocks_free"] = self._pool.free_blocks
         stats["pool_bytes"] = self.kv_pool_bytes
+        stats["quant_blocks"] = self.quant_blocks_total
         return stats
 
     def cache_summary(self) -> dict:
@@ -507,11 +583,16 @@ class ContinuousEngine:
             return None
         return C
 
-    def _row_operands(self, task: _PrefillTask):
+    def _row_operands(self, task: _PrefillTask, below: int | None = None):
+        """The task's table row and the indices of the owned blocks it
+        writes back, on the device; with ``below``, only those under it
+        (an int8 admit quantizes its full prompt blocks only)."""
         dev = self.device
         table_row = torch.from_numpy(task.table_row).to(dev).long()
-        own_idx = torch.from_numpy(np.nonzero(task.own_mask)[0]).to(dev)
-        return table_row, own_idx
+        own = task.own_mask
+        if below is not None:
+            own = own & (np.arange(self.max_blocks) < below)
+        return table_row, torch.from_numpy(np.nonzero(own)[0]).to(dev)
 
     def _step_prefill(self) -> None:
         """Advance the oldest chunked prefill by at most one dispatch."""
@@ -570,7 +651,9 @@ class ContinuousEngine:
         seen_row[0, np.asarray(tokens, np.int64)] = True
         key_data = prng.key_data(prng.key(req.seed, impl="threefry2x32",
                                           device=dev))
-        table_row, own_idx = self._row_operands(task)
+        full = p // self.block_size
+        table_row, own_idx = self._row_operands(
+            task, full if self.kv_dtype == "int8" else None)
         with torch.inference_mode():
             self._state = _admit_slot(
                 self.params, self._state, torch.from_numpy(padded).to(dev),
@@ -583,9 +666,12 @@ class ContinuousEngine:
                             ("top_k", req.top_k), ("top_p", req.top_p),
                             ("rep_penalty", req.rep_penalty)):
             self._slot_cfg[name][slot] = value
+        if self.kv_dtype == "int8":
+            # every owned full block was quantize-committed above (chunks
+            # requantize the same blocks: one logical commit, counted once)
+            self.quant_blocks_total += max(0, full - task.reuse)
         # cache the prompt's FULL blocks for later admits, this admit's
         # fresh ones included (the partial tail block stays private)
-        full = p // self.block_size
         if full:
             self._radix.insert(tokens, [int(b) for b in task.table_row[:full]])
         # admission boundary: the first token reaches the request now
@@ -712,6 +798,25 @@ class ContinuousEngine:
                 k = b
         return k
 
+    def _commit_steps(self, k: int, prefilling: set) -> list[bool]:
+        """The int8 pool's commit gate for a K-step window, from the
+        host's own offsets (no sync): step j commits iff some decoding
+        row's offset crosses a block edge there. Every decoding row sits
+        at offset ``len(prompt) + len(out_tokens) - 1`` and advances K
+        positions; each crossing is one quantize-committed block."""
+        bs = self.block_size
+        steps = [False] * k
+        with self._lock:
+            for s, r in enumerate(self._slot_req):
+                if r is None or s in prefilling:
+                    continue
+                old = len(r.prompt) + len(r.out_tokens) - 1
+                self.quant_blocks_total += (old + k) // bs - old // bs
+                for j in range(k):
+                    if (old + j + 1) % bs == 0:
+                        steps[j] = True
+        return steps
+
     def _flags(self) -> RowFlags:
         c = self._slot_cfg
         return RowFlags.of(c["temperature"], c["top_k"], c["top_p"],
@@ -750,10 +855,14 @@ class ContinuousEngine:
             host_work = host_work or not self._queue.empty()
             if budgets:
                 k = self._pick_horizon(budgets, host_work)
+                commit_steps = None
+                if self.kv_dtype == "int8":
+                    commit_steps = self._commit_steps(k, prefilling)
                 step_t0 = time.perf_counter()
                 with torch.inference_mode():
                     self._state, tokens = decode_window(
-                        self.params, self._state, self.cfg, k, self._flags())
+                        self.params, self._state, self.cfg, k, self._flags(),
+                        commit_steps)
                 # host work overlapped with the device's window, then the
                 # window's one readback
                 self._plan_admissions()

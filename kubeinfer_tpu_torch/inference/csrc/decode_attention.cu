@@ -1,11 +1,13 @@
-// GQA decode attention for Hopper (sm_90a): kernels #10 and #11.
+// GQA decode attention for Hopper (sm_90a): kernels #10, #11 and #12.
 //
 // Replaces kubeinfer_tpu/inference/flash_attention.py:decode_attention
-// (_decode_attn_kernel, dense per-row caches, T == 1) and
+// (_decode_attn_kernel, dense per-row caches, T == 1),
 // :decode_attention_blocks (_decode_blocks_kernel, a paged pool read
-// through block tables, T >= 1). Plain PyTorch versions:
-// kubeinfer_tpu_torch/inference/flash_attention.py:decode_attention_plain
-// and :decode_attention_blocks_plain, which this kernel matches within a
+// through block tables, T >= 1) and :decode_attention_blocks_q8
+// (_decode_blocks_q8_kernel, the same walk over an int8 pool). Plain
+// PyTorch versions: kubeinfer_tpu_torch/inference/flash_attention.py
+// :decode_attention_plain, :decode_attention_blocks_plain and
+// :decode_attention_blocks_q8_plain, which this kernel matches within a
 // stated tolerance (the sums run in another order).
 //
 // What it computes. For batch row b and kv head h, the T*G query rows
@@ -20,6 +22,18 @@
 // [num_blocks, bs, n_kv, D]; the table index is the block's own load, no
 // scalar prefetch).
 //
+// The int8 pool (#12). Pages are int8 [num_blocks, bs, n_kv, D] with one
+// f32 scale per (block, kv head) and a per-row tail [B, 2, bs, n_kv, D]
+// in q's dtype holding the row's current partial block and the one a
+// window may spill into. With ts = p / bs and the tail base
+// tb = max(len - T, 0) / bs (the window's start block, derived here from
+// lengths as the reference derives it), position p reads the tail
+// tail[b, min(ts - tb, 1), p % bs] verbatim when ts >= tb, else the page
+// of block tables[b, ts] times its scale in f32, rounded to q's dtype
+// before the fold (the reference's _dequant_tile cast). The walk, the
+// live-tile rule and the len < T rule are #11's: quantization changes the
+// tile values, never which tiles are folded.
+//
 // Which positions are walked. A row with len >= T walks only its live
 // positions [0, len): every later position is masked, and once the
 // running max is finite (position 0 is live for every query) a masked
@@ -30,15 +44,17 @@
 // all-null table) are computed and discarded by the caller.
 //
 // Bound on this card: bytes. Each block reads its row's live K and V for
-// one head once (2 * len * D * sizeof(T)), far below the bf16 ridge, so
-// the least time is the live K/V over 3.35 TB/s. Design: one block of 128
-// threads per (row, kv head); the T*G query rows and their f32
-// accumulators sit in shared memory; each 32-key tile of K and V is
-// loaded once with 16-byte vector loads (K padded to D+1 floats a row, so
-// the lanes of a warp, one key each, hit distinct banks), a warp scores
-// one query row against the tile (lane = key), reduces max and sum with
-// shuffles, and the block then folds P.V into the accumulators. No split
-// over the cache yet: a long row is walked by one block.
+// one head once (2 * len * D * sizeof(T); int8 pages a quarter of that
+// in f32 and half in bf16), far below the bf16 ridge, so the least time
+// is the live K/V over 3.35 TB/s. Design: one block of 128 threads per
+// (row, kv head); the T*G query rows and their f32 accumulators sit in
+// shared memory; each 32-key tile of K and V is loaded once with 16-byte
+// vector loads (16 int8 codes a load for the int8 pages, converted and
+// scaled in registers; K padded to D+1 floats a row, so the lanes of a
+// warp, one key each, hit distinct banks), a warp scores one query row
+// against the tile (lane = key), reduces max and sum with shuffles, and
+// the block then folds P.V into the accumulators. No split over the
+// cache yet: a long row is walked by one block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,10 +96,26 @@ struct Vec {
   }
 };
 
-template <typename T, bool kPaged>
+// 16 int8 codes times their f32 scale, each rounded to T, into f32
+template <typename T>
+__device__ __forceinline__ void load_q8(const int8_t* src, float sc,
+                                        float* dst) {
+  const int4 raw = __ldg(reinterpret_cast<const int4*>(src));
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    dst[i] = to_f(from_f<T>(static_cast<float>(e[i]) * sc));
+}
+
+// where key position p lives
+enum Src { kLinear = 0, kPaged = 1, kQ8 = 2 };
+
+template <typename T, int kSrc>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int* __restrict__ tables,
+    const T* __restrict__ q, const void* __restrict__ k_,
+    const void* __restrict__ v_, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const T* __restrict__ k_tail,
+    const T* __restrict__ v_tail, const int* __restrict__ tables,
     const int* __restrict__ lengths, T* __restrict__ out, int Tq, int H,
     int n_kv, int D, int width, int M, float scale) {
   // width: S of the linear cache, or the pool's block size bs
@@ -106,8 +138,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   float* a_s = l_s + R;               // [R] this tile's rescale
 
   const int len = lengths[b];
-  const int s_total = kPaged ? M * width : width;
+  const int s_total = kSrc == kLinear ? width : M * width;
   const int walk = len < Tq ? s_total : min(len, s_total);
+  const int tb = max(len - Tq, 0) / width;  // the int8 pool's tail base
 
   for (int i = tid; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -121,30 +154,52 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 
   constexpr int kVec = Vec<T>::N;
-  const int row_chunks = D / kVec;
+  // values per chunk: 16 int8 codes (one 16-byte load) for the int8 pool
+  constexpr int kChunk = kSrc == kQ8 ? 16 : kVec;
+  const int row_chunks = D / kChunk;
   for (int s0 = 0; s0 < walk; s0 += kKeys) {
     __syncthreads();  // the previous tile's P.V is done with ks/vs/ps
     for (int c = tid; c < kKeys * row_chunks; c += kThreads) {
       const int j = c / row_chunks;
-      const int d0 = (c % row_chunks) * kVec;
+      const int d0 = (c % row_chunks) * kChunk;
       const int p = s0 + j;
-      float kv[kVec], vv[kVec];
-      if (p < s_total) {
+      float kv[kChunk], vv[kChunk];
+      if (p >= s_total) {
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) kv[i] = vv[i] = 0.f;
+      } else if constexpr (kSrc == kQ8) {
+        const int ts = p / width;
+        if (ts >= tb) {
+          const size_t row =
+              (((size_t)b * 2 + min(ts - tb, 1)) * width + p % width) *
+                  n_kv + h;
+#pragma unroll
+          for (int i = 0; i < kChunk; i += kVec) {
+            Vec<T>::load(k_tail + row * D + d0 + i, kv + i);
+            Vec<T>::load(v_tail + row * D + d0 + i, vv + i);
+          }
+        } else {
+          const int blk = tables[(size_t)b * M + ts];
+          const size_t row = ((size_t)blk * width + p % width) * n_kv + h;
+          const size_t si = (size_t)blk * n_kv + h;
+          load_q8<T>(static_cast<const int8_t*>(k_) + row * D + d0,
+                     k_scales[si], kv);
+          load_q8<T>(static_cast<const int8_t*>(v_) + row * D + d0,
+                     v_scales[si], vv);
+        }
+      } else {
         size_t row;
-        if (kPaged) {
+        if constexpr (kSrc == kPaged) {
           const int blk = tables[(size_t)b * M + p / width];
           row = ((size_t)blk * width + p % width) * n_kv + h;
         } else {
           row = ((size_t)b * width + p) * n_kv + h;
         }
-        Vec<T>::load(k + row * D + d0, kv);
-        Vec<T>::load(v + row * D + d0, vv);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) kv[i] = vv[i] = 0.f;
+        Vec<T>::load(static_cast<const T*>(k_) + row * D + d0, kv);
+        Vec<T>::load(static_cast<const T*>(v_) + row * D + d0, vv);
       }
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
+      for (int i = 0; i < kChunk; ++i) {
         ks[j * (D + 1) + d0 + i] = kv[i];
         vs[j * D + d0 + i] = vv[i];
       }
@@ -210,8 +265,10 @@ size_t smem_bytes(int R, int D) {
                           (size_t)kKeys * D + (size_t)R * kKeys + 3 * R);
 }
 
-template <typename T, bool kPaged>
+template <typename T, int kSrc>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* k_scales, const void* v_scales,
+                   const void* k_tail, const void* v_tail,
                    const void* tables, const void* lengths, void* out, int B,
                    int Tq, int H, int n_kv, int D, int width, int M,
                    float scale, cudaStream_t stream) {
@@ -219,13 +276,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (Tq <= 0 || n_kv <= 0 || H % n_kv || D % 16 || D > 256 || width <= 0)
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(Tq * (H / n_kv), D);
-  auto kern = decode_kernel<T, kPaged>;
+  auto kern = decode_kernel<T, kSrc>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<B * n_kv, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
+      static_cast<const T*>(q), k, v, static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<const T*>(k_tail),
+      static_cast<const T*>(v_tail), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<T*>(out), Tq, H, n_kv,
       D, width, M, scale);
   return cudaGetLastError();
@@ -241,11 +299,13 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, false>(q, k, v, nullptr, lengths, out, B, 1, H,
-                                n_kv, D, S, 0, scale, st);
+    return launch<float, kLinear>(q, k, v, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, lengths, out, B, 1, H,
+                                  n_kv, D, S, 0, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(q, k, v, nullptr, lengths, out, B,
-                                        1, H, n_kv, D, S, 0, scale, st);
+    return launch<__nv_bfloat16, kLinear>(q, k, v, nullptr, nullptr, nullptr,
+                                          nullptr, nullptr, lengths, out, B,
+                                          1, H, n_kv, D, S, 0, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -255,12 +315,34 @@ extern "C" int decode_attention_blocks_launch(
     int n_kv, int D, int bs, int M, float scale, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, true>(q, k_pool, v_pool, tables, lengths, out, B,
-                               T, H, n_kv, D, bs, M, scale, st);
+    return launch<float, kPaged>(q, k_pool, v_pool, nullptr, nullptr,
+                                 nullptr, nullptr, tables, lengths, out, B, T,
+                                 H, n_kv, D, bs, M, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(q, k_pool, v_pool, tables, lengths,
-                                       out, B, T, H, n_kv, D, bs, M, scale,
-                                       st);
+    return launch<__nv_bfloat16, kPaged>(q, k_pool, v_pool, nullptr, nullptr,
+                                         nullptr, nullptr, tables, lengths,
+                                         out, B, T, H, n_kv, D, bs, M, scale,
+                                         st);
+  return cudaErrorInvalidValue;
+}
+
+// the int8 pool: int8 pages, f32 scales [num_blocks, n_kv], tails in q's
+// dtype [B, 2, bs, n_kv, D]
+extern "C" int decode_attention_blocks_q8_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scales, const void* v_scales, const void* k_tail,
+    const void* v_tail, const void* tables, const void* lengths, void* out,
+    int B, int T, int H, int n_kv, int D, int bs, int M, float scale,
+    int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, kQ8>(q, k_pool, v_pool, k_scales, v_scales, k_tail,
+                              v_tail, tables, lengths, out, B, T, H, n_kv, D,
+                              bs, M, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kQ8>(q, k_pool, v_pool, k_scales, v_scales,
+                                      k_tail, v_tail, tables, lengths, out, B,
+                                      T, H, n_kv, D, bs, M, scale, st);
   return cudaErrorInvalidValue;
 }
 

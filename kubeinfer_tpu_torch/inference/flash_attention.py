@@ -14,6 +14,13 @@ counterparts here:
 - #11 ``decode_attention_blocks``: paged GQA decode through block tables,
   T >= 1 (query t attends positions <= lengths[b] - T + t). Plain version
   ``decode_attention_blocks_plain``; kernel ``csrc/decode_attention.cu``.
+- #12 ``decode_attention_blocks_q8``: #11 over the int8 pool (int8 pages,
+  f32 per-(block, kv head) scales, per-row tails in the compute dtype);
+  a tile at or past the row's tail base reads the tail verbatim, any
+  other the dequantized page rounded to the compute dtype
+  (``_dequant_tile``). Plain version ``decode_attention_blocks_q8_plain``;
+  kernel ``csrc/decode_attention.cu`` (``decode_kernel`` with its q8
+  tile loader).
 
 Every plain version folds key tiles with ``fold_tile_math``, the
 reference's online-softmax step (running max m, normaliser l,
@@ -28,7 +35,8 @@ defined output is the uniform average over every tile they name.
 Each wrapper takes its plain version only for a CPU tensor; for a CUDA
 tensor it launches its kernel or raises (no fallback). ``<wrapper>.launches``
 counts kernel launches and nothing else. The routers
-(``decode_attention_auto``, ``decode_attention_blocks_auto``) bind the
+(``decode_attention_auto``, ``decode_attention_blocks_auto``,
+``decode_attention_blocks_q8_auto``) bind the
 wrappers with the reference's signatures; their ``mask`` operand is the
 reference's dense-fallback operand and is not read.
 """
@@ -185,6 +193,56 @@ def decode_attention_blocks_plain(q, k_pool, v_pool, block_tables, lengths):
     return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
 
 
+def _dequant_tile(kq, scale, tail, use_tail, out_dtype):
+    """One tile's effective K (or V) for a batch of rows: the int8 page
+    [B, bs, n_kv, D] dequantized in f32 with its [B, n_kv] scales, or the
+    tail tile verbatim where ``use_tail`` [B]; rounded to the compute
+    dtype before the fold (the reference's ``_dequant_tile``)."""
+    deq = kq.float() * scale[:, None, :, None]
+    return torch.where(use_tail[:, None, None, None], tail.float(),
+                       deq).to(out_dtype)
+
+
+def decode_attention_blocks_q8_plain(q, k_pool, v_pool, k_scales, v_scales,
+                                     k_tail, v_tail, block_tables, lengths):
+    """``decode_attention_blocks_plain`` over the int8 pool: int8 pages
+    [NB, bs, n_kv, D], f32 scales [NB, n_kv], per-row tails [B, 2, bs,
+    n_kv, D] in q's dtype. Tile j of row b reads tail slot
+    ``min(j - tb, 1)`` when ``j >= tb = max(lengths[b] - T, 0) // bs``
+    (the window's start block, derived here as the reference derives
+    it), else the dequantized page ``block_tables[b, j]``."""
+    B, T, H, D = q.shape
+    bs, n_kv = k_pool.shape[1], k_pool.shape[2]
+    M = block_tables.shape[1]
+    dev = q.device
+    qf = _fold_q(q, n_kv)
+    tbl = block_tables.to(device=dev, dtype=torch.int64)
+    lens_b = lengths.to(device=dev, dtype=torch.int64)
+    tb = torch.clamp(lens_b - T, min=0) // bs
+    lens = lens_b.repeat_interleave(n_kv)
+    q_pos = lens[:, None] - T + torch.arange(T, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)
+
+    def eff(pool, scales, tail, j, use_tail, rel):
+        blk = tbl[:, j]
+        t = _dequant_tile(pool[blk], scales[blk], tail[rows, rel], use_tail,
+                          q.dtype)
+        return t.transpose(1, 2).reshape(B * n_kv, bs, D)
+
+    def tiles():
+        for j in range(M):
+            use_tail = j >= tb
+            rel = torch.clamp(j - tb, 0, 1)
+            s_pos = j * bs + torch.arange(bs, device=dev)
+            pen = torch.where(s_pos[None, None, :] <= q_pos[:, :, None],
+                              0.0, -1e30).float()
+            yield (eff(k_pool, k_scales, k_tail, j, use_tail, rel),
+                   eff(v_pool, v_scales, v_tail, j, use_tail, rel), pen)
+
+    out = _fold_rows(qf, tiles(), H // n_kv, 1.0 / float(D) ** 0.5)
+    return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
+
+
 # --- kernel wrappers ---------------------------------------------------------
 
 
@@ -200,7 +258,7 @@ def _kernel_lib(t: torch.Tensor, name: str, lib_name: str):
     return load_kernel_library(lib_name)
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, align=16):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
@@ -208,8 +266,8 @@ def _check(name, t, dtype, shape, device):
         )
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: must be {align}-byte aligned")
 
 
 def _check_head(name, q, D):
@@ -311,6 +369,45 @@ def decode_attention_blocks(q, k_pool, v_pool, block_tables, lengths):
 decode_attention_blocks.launches = 0
 
 
+def decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales, k_tail,
+                               v_tail, block_tables, lengths):
+    """#12 on the tensors' device: for CUDA tensors one launch of
+    ``decode_attention_blocks_q8_launch`` (#11's walk with the
+    dequant-or-tail tile loader); for CPU tensors
+    ``decode_attention_blocks_q8_plain``."""
+    lib = _kernel_lib(q, "decode_attention_blocks_q8", "decode_attention")
+    if lib is None:
+        return decode_attention_blocks_q8_plain(
+            q, k_pool, v_pool, k_scales, v_scales, k_tail, v_tail,
+            block_tables, lengths)
+    B, T, H, D = q.shape
+    NB, bs, n_kv = k_pool.shape[:3]
+    M = block_tables.shape[1]
+    _check_head("decode_attention_blocks_q8", q, D)
+    if H % n_kv or decode_smem_bytes(T * (H // n_kv), D) > _SMEM_LIMIT:
+        raise ValueError(f"decode_attention_blocks_q8: no kernel for q "
+                         f"{tuple(q.shape)} with {n_kv} kv heads")
+    dev = q.device
+    _check("q", q, q.dtype, (B, T, H, D), dev)
+    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        _check(name, pool, torch.int8, (NB, bs, n_kv, D), dev)
+    for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+        _check(name, sc, torch.float32, (NB, n_kv), dev, align=4)
+    for name, tail in (("k_tail", k_tail), ("v_tail", v_tail)):
+        _check(name, tail, q.dtype, (B, 2, bs, n_kv, D), dev)
+    _check("block_tables", block_tables, torch.int32, (B, M), dev)
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    out = torch.empty_like(q)
+    _launch(lib, "decode_attention_blocks_q8_launch", q, k_pool, v_pool,
+            k_scales, v_scales, k_tail, v_tail, block_tables, lengths, out,
+            B, T, H, n_kv, D, bs, M, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
+    decode_attention_blocks_q8.launches += 1
+    return out
+
+
+decode_attention_blocks_q8.launches = 0
+
+
 def flash_attention_ragged(q, k, v, q_offset, row_lens):
     """#9 on the tensors' device: for CUDA tensors one launch of
     ``flash_prefill_launch`` (grid of (B*n_kv, query-row tiles), walking
@@ -358,3 +455,18 @@ def decode_attention_blocks_auto(q, k_pool, v_pool, block_tables, lengths,
     gather + dense, ``gspmd=True``) waits with sharding.py."""
     del mask
     return decode_attention_blocks(q, k_pool, v_pool, block_tables, lengths)
+
+
+def decode_attention_blocks_q8_auto(q, k_pool, v_pool, k_scales, v_scales,
+                                    k_tail, v_tail, block_tables, lengths,
+                                    mask=None, gspmd=False):
+    """Paged decode over the int8 pool with the reference router's
+    signature: the #12 wrapper for any T >= 1. The reference's
+    dequantize-gather + dense route (its CPU and tp>1 fallback) waits
+    with sharding.py, as #11's dense route does."""
+    del mask
+    if gspmd:
+        raise NotImplementedError(
+            "the GSPMD route: ROADMAP Queue 1, slice 6: sharding.py / tp")
+    return decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales,
+                                      k_tail, v_tail, block_tables, lengths)

@@ -25,14 +25,17 @@ Lock order (outermost first): ContinuousEngine._lock ->
 RadixCache._lock -> BlockPool._lock. The trie calls into the pool under
 its own lock; nothing here calls back out.
 
-The int8 pool's ``quantize_blocks``/``dequantize_blocks`` wait with the
-int8 KV axis (ROADMAP Queue 1).
+The int8 pool's ``quantize_blocks``/``dequantize_blocks`` (one f32 scale
+per (block, kv head)) sit at the end of the module; they are the only
+part that touches tensors.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Iterable, Sequence
+
+import torch
 
 NULL_BLOCK = 0
 
@@ -427,3 +430,41 @@ class RadixCache:
                 "truncated": len(entries) > budget,
                 "fingerprints": [fp for _, fp in entries[:budget]],
             }
+
+
+# -- int8 block quantization --------------------------------------------
+#
+# The kv_dtype="int8" pool stores committed blocks as int8 values plus ONE
+# f32 scale per (block, kv head): symmetric absmax over the block's
+# (block_size, head_dim) span, scale = absmax / 127. The arithmetic is the
+# reference's op for op: the codes multiply by the reciprocal of the
+# scale (not a division), round half to even (torch.round, as jnp.round),
+# and dequantization is int8 -> f32, times the scale, then the cast.
+
+
+def device_scalar(like: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-dim f32 tensor on ``like``'s device: PyTorch's CUDA
+    division by a Python (CPU) scalar multiplies by its reciprocal, which
+    is not the reference's amax / 127 (it can differ in the last bit)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def quantize_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., block_size, n_kv, D] float pages -> (int8 pages, f32[...,
+    n_kv] scales). An all-zero block (the null block, unwritten pool
+    space) gets scale 1.0, so it dequantizes to exactly 0."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-3, -1))  # [..., n_kv]
+    scale = torch.where(amax > 0, amax / device_scalar(amax, 127.0),
+                        torch.ones_like(amax))
+    inv = 1.0 / scale[..., None, :, None]
+    q = torch.clamp(torch.round(xf * inv), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Inverse of :func:`quantize_blocks`: int8 pages [..., bs, n_kv, D]
+    times f32 scales [..., n_kv] -> float pages (``dtype`` or f32)."""
+    out = q.float() * scale[..., None, :, None]
+    return out if dtype is None else out.to(dtype)

@@ -13,11 +13,16 @@ cast to the value dtype before the PV product.
 KV-cache writes are IN PLACE (``index_put_`` / slice assignment): the
 reference's ``.at[...].set(...)`` is functional and XLA makes it in
 place under donation, but eager PyTorch would copy the whole cache (or
-the whole paged pool) on every step.
+the whole paged pool) on every step. Under the int8 pool the step's K/V
+go to the slot's tail, never to the int8 pages.
+
+Every projection goes through ``weight_quant.wq_dot``: a plain leaf is
+``x @ w``, an int8 leaf (``init_params(weight_dtype="int8")``) kernel
+#15.
 
 Not ported here (each raises ``NotImplementedError`` naming the ROADMAP
-entry that ports it): mixture-of-experts layers, int8 (quantized)
-weight leaves, the int8 KV tail branch and manual tensor parallelism.
+entry that ports it): mixture-of-experts layers and manual tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -29,12 +34,11 @@ import torch.nn.functional as F
 
 from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference.config import ModelConfig
+from kubeinfer_tpu_torch.inference.weight_quant import quantize_layer, wq_dot
 
 Params = dict[str, Any]
 
 _MOE = "ROADMAP Queue 1, slice 6: moe.py"
-_WQ = "ROADMAP Queue 1, int8 weights (#15, weight_quant.py)"
-_KVQ = "ROADMAP Queue 1, int8 KV (#12, _commit_full_tails, quantize_blocks)"
 _TP = "ROADMAP Queue 1, slice 6: sharding.py / tp"
 
 
@@ -43,12 +47,21 @@ _TP = "ROADMAP Queue 1, slice 6: sharding.py / tp"
 
 def init_params(
     cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None,
+    weight_dtype: str = "bf16",
 ) -> Params:
     """Random init (normal, 0.02 std, HF default) with the reference's
     tree layout, drawn from an explicit ``torch.Generator`` on
     ``device``. Its numbers differ from the reference's ``init_params``
     (which draws from ``jax.random``): the tests carry the reference's
-    trees over with ``weights.params_from_reference`` instead."""
+    trees over with ``weights.params_from_reference`` instead.
+
+    ``weight_dtype="int8"`` quantizes each layer's projections as the
+    layer is built (``weight_quant.quantize_layer`` on the ``dtype``
+    weights), so the full-precision model never exists whole on the
+    device; ``"bf16"`` (the axis name: ``dtype`` sets the precision)
+    leaves the tree plain."""
+    if weight_dtype not in ("bf16", "int8"):
+        raise ValueError(f"weight_dtype must be bf16|int8: {weight_dtype!r}")
     if cfg.num_local_experts > 0:
         raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
     dev = resolve_device(device)
@@ -82,6 +95,8 @@ def init_params(
             layer["q_bias"] = torch.zeros((q_dim,), dtype=dtype, device=dev)
             layer["k_bias"] = torch.zeros((kv_dim,), dtype=dtype, device=dev)
             layer["v_bias"] = torch.zeros((kv_dim,), dtype=dtype, device=dev)
+        if weight_dtype == "int8":
+            layer = quantize_layer(layer)
         layers.append(layer)
     params: Params = {
         "embed_tokens": dense((V, H)),
@@ -91,6 +106,16 @@ def init_params(
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense((H, V))
     return params
+
+
+def param_bytes(params: Params) -> int:
+    """Bytes of every tensor in the tree (int8 codes and their scales
+    under weight quantization)."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(param_bytes(v) for v in params)
+    return params.numel() * params.element_size()
 
 
 def params_to(params: Params, device) -> Params:
@@ -180,6 +205,28 @@ def attention(
     return out.reshape(B, T, n_heads, D)
 
 
+def _write_tail(tail: torch.Tensor, new: torch.Tensor,
+                cache_offset: torch.Tensor) -> None:
+    """The int8 pool's decode write: the step's K (or V) ``new`` [B, T,
+    n_kv, D] into the slot's tail [B, 2, bs, n_kv, D], IN PLACE, at tail
+    slot ``rel = pos // bs - offset // bs`` (0, or 1 for a window that
+    crosses a block edge). A partial block never round-trips through
+    int8: the stepper quantizes the tail into the pool once it fills.
+    Inactive rows write into their own tails, which a (re)admit
+    rewrites."""
+    B, T = new.shape[:2]
+    bs = tail.shape[2]
+    rows = torch.arange(B, device=new.device)
+    if T == 1:
+        # rel is 0: the tail was pinned to offset // bs by the last commit
+        tail.index_put_((rows, torch.zeros_like(rows), cache_offset % bs),
+                        new[:, 0])
+        return
+    pos = cache_offset[:, None] + torch.arange(T, device=new.device)
+    rel = pos // bs - (cache_offset // bs)[:, None]
+    tail.index_put_((rows[:, None], rel, pos % bs), new)
+
+
 def _write_cache(ck: torch.Tensor, new: torch.Tensor, cache_offset,
                  block_tables: torch.Tensor | None) -> None:
     """Write the step's K (or V) ``new`` [B, T, n_kv, D] into the cache
@@ -233,17 +280,15 @@ def decoder_layer(
         raise NotImplementedError(f"manual tensor parallelism: {_TP}")
     if "moe" in layer:
         raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
-    if isinstance(layer["q_proj"], dict):
-        raise NotImplementedError(f"int8 weight leaves: {_WQ}")
     B, T, _ = x.shape
     D = cfg.head_dim
     n_q = cfg.num_attention_heads
     n_kv = cfg.num_key_value_heads
     h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps,
                  offset=cfg.rmsnorm_offset)
-    q = h @ layer["q_proj"]
-    k = h @ layer["k_proj"]
-    v = h @ layer["v_proj"]
+    q = wq_dot(h, layer["q_proj"])
+    k = wq_dot(h, layer["k_proj"])
+    v = wq_dot(h, layer["v_proj"])
     if cfg.qkv_bias:  # Qwen2 family; o_proj stays bias-free
         q = q + layer["q_bias"]
         k = k + layer["k_bias"]
@@ -255,17 +300,24 @@ def decoder_layer(
     if kv_cache is not None:
         ck, cv = kv_cache
         if isinstance(ck, tuple):
-            raise NotImplementedError(f"the int8 KV pool: {_KVQ}")
-        _write_cache(ck, k, cache_offset, block_tables)
-        _write_cache(cv, v, cache_offset, block_tables)
+            # the int8 pool: (pages, scales, tail) per side; the paired
+            # attn_fn unpacks the triples
+            if block_tables is None or getattr(cache_offset, "ndim", 0) != 1:
+                raise ValueError("the int8 pool is written through block "
+                                 "tables at per-row offsets")
+            _write_tail(ck[2], k, cache_offset)
+            _write_tail(cv[2], v, cache_offset)
+        else:
+            _write_cache(ck, k, cache_offset, block_tables)
+            _write_cache(cv, v, cache_offset, block_tables)
         k, v = ck, cv
 
     attn = attn_fn(q, k, v, mask)
-    x = x + attn.reshape(B, T, n_q * D) @ layer["o_proj"]
+    x = x + wq_dot(attn.reshape(B, T, n_q * D), layer["o_proj"])
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps,
                  offset=cfg.rmsnorm_offset)
-    gate = _mlp_act(cfg)(h @ layer["gate_proj"])
-    x = x + (gate * (h @ layer["up_proj"])) @ layer["down_proj"]
+    gate = _mlp_act(cfg)(wq_dot(h, layer["gate_proj"]))
+    x = x + wq_dot(gate * wq_dot(h, layer["up_proj"]), layer["down_proj"])
     return x, kv_cache
 
 

@@ -1,7 +1,8 @@
 """OpenAI-style completions server over the port's engines.
 
-Counterpart of ``kubeinfer_tpu/inference/server.py`` for the bf16
-serving path: ``GET /health``, ``GET /v1/models`` and ``POST
+Counterpart of ``kubeinfer_tpu/inference/server.py`` for the serving
+path (bf16, or int8 with ``--kv-dtype int8`` and ``--weight-dtype
+int8``): ``GET /health``, ``GET /v1/models`` and ``POST
 /v1/completions``. A request that fits the continuous batcher's slot
 width rides its shared slots (route "continuous"); a longer one, or any
 request when ``--batch-slots 0``, goes to the per-request engine (route
@@ -9,6 +10,8 @@ request when ``--batch-slots 0``, goes to the per-request engine (route
 wait answer 400 with the reason.
 
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
+    python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
+        --kv-dtype int8 --weight-dtype int8
 
 ``main(argv, device="cpu")`` runs the same server on the CPU (a
 rehearsal with ``--model tiny``).
@@ -213,8 +216,6 @@ _WAITING_FLAGS = {
     "sp_min_prompt": (1024, "slice 6: sp_engine.py + ring_attention.py"),
     "migration_chunk_blocks": (4, "preemption, drain and migration"),
     "kv_export_budget_mb": (0.0, "disagg import/export"),
-    "kv_dtype": ("bf16", "int8 KV (#12)"),
-    "weight_dtype": ("bf16", "int8 weights (#15)"),
     "queue_depth_limit": (0, "preemption, drain and migration (load "
                              "shedding)"),
     "preemption_slo": ("", "preemption, drain and migration"),
@@ -250,6 +251,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split each slot prefill into chunks of this many "
                         "KV blocks interleaved with decode (0 = whole "
                         "suffix)")
+    p.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
+                   help="paged KV pool precision: int8 pages with "
+                        "per-(block, kv head) scales hold twice the blocks "
+                        "of bf16 in the same memory")
+    p.add_argument("--weight-dtype", default="bf16", choices=("bf16", "int8"),
+                   help="projection weight precision: int8 quantizes each "
+                        "layer's projections as the layer is built")
     # accepted and unused, as in the reference (vLLM flag parity)
     p.add_argument("--gpu-memory-utilization", type=float, default=0.9)
     for name, (default, _entry) in _WAITING_FLAGS.items():
@@ -287,7 +295,8 @@ def build_server(argv: list[str] | None = None, device=None):
     dev = resolve_device(device)
     dtype = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
              "float32": torch.float32}[args.dtype]
-    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev,
+                         weight_dtype=args.weight_dtype)
     max_cache = args.max_model_len or cfg.max_position_embeddings
     engine = Engine(params, cfg, max_cache_len=max_cache, device=dev)
     continuous = None
@@ -295,7 +304,9 @@ def build_server(argv: list[str] | None = None, device=None):
         continuous = ContinuousEngine(
             params, cfg, n_slots=args.batch_slots,
             cache_len=min(max_cache, 4096),
-            prefill_chunk_blocks=args.prefill_chunk_blocks, device=dev,
+            prefill_chunk_blocks=args.prefill_chunk_blocks,
+            kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
+            device=dev,
         )
     srv = InferenceServer(engine, model_id=args.model, host=args.host,
                           port=args.port, continuous=continuous, device=dev)

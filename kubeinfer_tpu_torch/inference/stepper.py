@@ -1,12 +1,13 @@
 """The decode stepper shared by the serving paths.
 
-Counterpart of ``kubeinfer_tpu/inference/stepper.py`` (bf16 pool, tp=1,
-no speculative verify):
+Counterpart of ``kubeinfer_tpu/inference/stepper.py`` (tp=1, no
+speculative verify):
 
 - :func:`step_forward` is the one-token forward of a length-ragged batch.
   The dense route (per-row ``[B, S, ...]`` caches, the per-request
   engine) reads through kernel #10, the paged route (shared block pool +
-  ``i32[B, max_blocks]`` tables, the continuous batcher) through #11.
+  ``i32[B, max_blocks]`` tables, the continuous batcher) through #11, or
+  through #12 when the pool is int8 (``kv_dtype="int8"``).
 - :func:`decode_window` is the continuous batcher's K-step window: K
   :func:`decode_body` steps in a Python loop over the slot state, whose
   pool is written in place; it returns the ``[n_slots, K]`` tokens
@@ -41,6 +42,7 @@ from kubeinfer_tpu_torch.inference.engine import (
     record_seen,
     seen_from_prompt,
 )
+from kubeinfer_tpu_torch.inference.kv_blocks import quantize_blocks
 from kubeinfer_tpu_torch.inference.model import Params, forward
 
 __all__ = [
@@ -53,15 +55,25 @@ __all__ = [
 # here they bound the window the scheduler picks, as there.
 WINDOW_BUCKETS = (1, 2, 4, 8)
 
-_KVQ = "ROADMAP Queue 1, int8 KV (#12, _commit_full_tails, quantize_blocks)"
-
 
 @dataclass
 class SlotState:
     """All device-resident decode state. The KV pool is SHARED across
     slots: row b's logical position p lives in
     ``caches_k[l][tables[b, p // bs], p % bs]``; block 0 is the reserved
-    null block. The four int8-pool lists stay empty (bf16 pool)."""
+    null block.
+
+    ``kv_dtype="int8"`` pages are int8 with per-(block, kv head) f32
+    scales (``scales_k``/``scales_v``) and a per-slot TAIL [B, 2, bs,
+    n_kv, D] in the compute dtype (``tails_k``/``tails_v``): slot 0 is
+    the row's current partial block (logical block offset // bs), slot 1
+    the one a window may spill into. The step's K/V land in the tail,
+    attention reads the tail for tiles at or past the tail base, and
+    :func:`_commit_full_tails` quantizes a tail block into the pool once
+    it fills. Each int8 field is one tensor over (K/V, layer), ``q8_*``,
+    and the per-layer lists are views of it, so the commit is one set of
+    ops over every layer. Under the bf16 pool the int8 lists stay empty
+    and the ``q8_*`` fields None."""
 
     caches_k: list[torch.Tensor]  # L x [num_blocks, block_size, n_kv, D]
     caches_v: list[torch.Tensor]
@@ -79,6 +91,13 @@ class SlotState:
     scales_v: list = dataclasses.field(default_factory=list)
     tails_k: list = dataclasses.field(default_factory=list)
     tails_v: list = dataclasses.field(default_factory=list)
+    q8_pages: torch.Tensor | None = None  # int8[2, L, NB, bs, n_kv, D]
+    q8_scales: torch.Tensor | None = None  # f32[2, L, NB, n_kv]
+    q8_tails: torch.Tensor | None = None  # [2, L, B, 2, bs, n_kv, D]
+
+    @property
+    def quantized(self) -> bool:
+        return self.q8_pages is not None
 
 
 def init_slot_state(cfg: ModelConfig, n_slots: int, cache_len: int, dtype,
@@ -86,20 +105,32 @@ def init_slot_state(cfg: ModelConfig, n_slots: int, cache_len: int, dtype,
                     device=None) -> SlotState:
     """``kv_dtype="bf16"`` stores pool pages in the compute ``dtype`` (the
     name is the CLI axis, as in the reference: f32 test engines stay
-    f32). ``"int8"`` waits."""
-    if kv_dtype == "int8":
-        raise NotImplementedError(f"kv_dtype='int8': {_KVQ}")
-    if kv_dtype != "bf16":
+    f32); ``"int8"`` stores int8 pages, f32 scales starting at ONE (so
+    the null block dequantizes to exactly 0) and zeroed tails in
+    ``dtype``."""
+    if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
     L = cfg.num_hidden_layers
-    shape = (num_blocks, block_size, cfg.num_key_value_heads, cfg.head_dim)
+    n_kv, D = cfg.num_key_value_heads, cfg.head_dim
+    shape = (num_blocks, block_size, n_kv, D)
 
     def z(shape_, dt):
         return torch.zeros(shape_, dtype=dt, device=device)
 
+    if kv_dtype == "int8":
+        pages = z((2, L, *shape), torch.int8)
+        scales = torch.ones((2, L, num_blocks, n_kv), dtype=torch.float32,
+                            device=device)
+        tails = z((2, L, n_slots, 2, block_size, n_kv, D), dtype)
+        pool = dict(caches_k=list(pages[0]), caches_v=list(pages[1]),
+                    scales_k=list(scales[0]), scales_v=list(scales[1]),
+                    tails_k=list(tails[0]), tails_v=list(tails[1]),
+                    q8_pages=pages, q8_scales=scales, q8_tails=tails)
+    else:
+        pool = dict(caches_k=[z(shape, dtype) for _ in range(L)],
+                    caches_v=[z(shape, dtype) for _ in range(L)])
     return SlotState(
-        caches_k=[z(shape, dtype) for _ in range(L)],
-        caches_v=[z(shape, dtype) for _ in range(L)],
+        **pool,
         tables=z((n_slots, cache_len // block_size), torch.int32),
         last_token=z((n_slots,), torch.int64),
         offset=z((n_slots,), torch.int32),
@@ -166,10 +197,13 @@ def step_forward(params: Params, cfg: ModelConfig, tok: torch.Tensor,
         def attn_fn(q, k, v, _mask):
             return fa.decode_attention_auto(q, k, v, lengths)
     else:
-        if kv_caches and isinstance(kv_caches[0][0], tuple):
-            raise NotImplementedError(f"the int8 KV pool: {_KVQ}")
+        quantized = bool(kv_caches) and isinstance(kv_caches[0][0], tuple)
 
         def attn_fn(q, kc, vc, _mask):
+            if quantized:  # (pages, scales, tail) triples: #12
+                return fa.decode_attention_blocks_q8_auto(
+                    q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2],
+                    block_tables, lengths)
             return fa.decode_attention_blocks_auto(q, kc, vc, block_tables,
                                                    lengths)
     logits, kv_caches = forward(
@@ -183,16 +217,58 @@ def step_forward(params: Params, cfg: ModelConfig, tok: torch.Tensor,
 # --- the continuous batcher's window ---------------------------------------
 
 
+def _zip_kv(state: SlotState) -> list:
+    """Per-layer cache entries for ``forward``: (k, v) pool pairs, or
+    ((pages, scales, tail), (pages, scales, tail)) under the int8 pool."""
+    if state.quantized:
+        return [((pk, sk, tk), (pv, sv, tv)) for pk, sk, tk, pv, sv, tv in
+                zip(state.caches_k, state.scales_k, state.tails_k,
+                    state.caches_v, state.scales_v, state.tails_v)]
+    return list(zip(state.caches_k, state.caches_v))
+
+
+def _commit_full_tails(pages, scales, tails, tables, old_off, new_off, keep,
+                       block_size: int) -> None:
+    """Quantize-on-commit, IN PLACE: rows whose step moved ``offset``
+    across a block edge have just FILLED tail slot 0; it is quantized
+    (``quantize_blocks``) into the row's pool block and scale row, and the
+    tail shifts down a block (slot 0 <- slot 1, slot 1 <- zeros). Other
+    rows write their block's current value back at its own index, so the
+    duplicate indices of inactive rows (all naming null block 0) write
+    identical values. ``pages`` [..., NB, bs, n_kv, D], ``scales`` [...,
+    NB, n_kv] and ``tails`` [..., B, 2, bs, n_kv, D] share their leading
+    (K/V, layer) dims: one set of ops covers them all."""
+    B = old_off.shape[0]
+    M = tables.shape[1]
+    P = pages.view(-1, *pages.shape[-4:])
+    S = scales.view(-1, *scales.shape[-2:])
+    Tl = tails.view(-1, *tails.shape[-5:])
+    rows = torch.arange(B, device=old_off.device)
+    crossed = keep & (new_off // block_size > old_off // block_size)
+    blk = tables[rows, torch.clamp(old_off // block_size, 0, M - 1)].long()
+    qv, sv = quantize_blocks(Tl[:, :, 0])
+    P[:, blk] = torch.where(crossed[None, :, None, None, None], qv, P[:, blk])
+    S[:, blk] = torch.where(crossed[None, :, None], sv, S[:, blk])
+    shifted = torch.cat([Tl[:, :, 1:], torch.zeros_like(Tl[:, :, :1])], dim=2)
+    Tl.copy_(torch.where(crossed[None, :, None, None, None, None], shifted,
+                         Tl))
+
+
 def decode_body(params: Params, state: SlotState, cfg: ModelConfig,
-                flags: RowFlags) -> tuple[SlotState, torch.Tensor]:
+                flags: RowFlags,
+                commit: bool = True) -> tuple[SlotState, torch.Tensor]:
     """One token for every active slot; returns (state, tokens, -1 for
     inactive rows). Inactive rows flow through the math with their state
-    kept; their pool write lands in the null block (all-null table)."""
+    kept; their pool write lands in the null block (all-null table).
+
+    Under the int8 pool the step's K/V land in the tails and the step
+    ends with the commit. ``commit=False`` skips it on a step where the
+    caller's host offsets say that no active row crosses a block edge;
+    there the commit would change nothing."""
     block_size = state.caches_k[0].shape[1]
     S = state.tables.shape[1] * block_size
     logits, _ = step_forward(
-        params, cfg, state.last_token, state.offset,
-        list(zip(state.caches_k, state.caches_v)), S,
+        params, cfg, state.last_token, state.offset, _zip_kv(state), S,
         block_tables=state.tables,
     )
     # counter offset + 1: the admit folded prompt_len (== the first
@@ -203,23 +279,31 @@ def decode_body(params: Params, state: SlotState, cfg: ModelConfig,
     )
     keep = state.active
     record_seen(state.seen, nxt, flags.penalty, keep=keep)
+    new_off = torch.where(keep, state.offset + 1, state.offset)
+    if state.quantized and commit:
+        _commit_full_tails(state.q8_pages, state.q8_scales, state.q8_tails,
+                           state.tables, state.offset, new_off, keep,
+                           block_size)
     new_state = dataclasses.replace(
         state,
         last_token=torch.where(keep, nxt, state.last_token),
-        offset=torch.where(keep, state.offset + 1, state.offset),
+        offset=new_off,
     )
     return new_state, torch.where(keep, nxt, -1)
 
 
 def decode_window(params: Params, state: SlotState, cfg: ModelConfig,
-                  k: int, flags: RowFlags) -> tuple[SlotState, torch.Tensor]:
+                  k: int, flags: RowFlags,
+                  commit_steps=None) -> tuple[SlotState, torch.Tensor]:
     """K decode steps; returns (state, i64[B, K]) without a readback.
     ``active`` never changes mid-window (retirement is host work): a row
     whose EOS lands mid-window keeps stepping inside its own blocks, and
-    the host masks its tail tokens."""
+    the host masks its tail tokens. ``commit_steps`` (K bools, default
+    all True) says on which steps the int8 pool's commit runs."""
     toks = []
-    for _ in range(k):
-        state, t = decode_body(params, state, cfg, flags)
+    for j in range(k):
+        commit = True if commit_steps is None else bool(commit_steps[j])
+        state, t = decode_body(params, state, cfg, flags, commit)
         toks.append(t)
     return state, torch.stack(toks, dim=1)
 

@@ -1,0 +1,202 @@
+"""Int8 weights: load-time per-tile quantization and the fused
+dequantizing matmul (kernel #15).
+
+Counterpart of ``kubeinfer_tpu/inference/weight_quant.py``. A quantized
+leaf is the dict ``{"qw": int8[in, out], "scale": f32[out]}`` in place of
+the plain ``[in, out]`` projection. Only the seven projections of a
+decoder layer quantize (``QUANT_LEAVES``); embeddings, norms, biases and
+the vocabulary head stay in the load dtype.
+
+Quantization is symmetric absmax per out-column tile of ``DEFAULT_TILE``
+columns (zero-padded, so a ragged last tile reduces over zeros that
+cannot raise its absmax): scale = amax / 127, 1.0 for an all-zero tile,
+repeated per column within its tile. The codes DIVIDE by the per-column
+scale (``round(wf / scol)``), as the reference writes it; the KV pool's
+``kv_blocks.quantize_blocks`` multiplies by the reciprocal instead. Each
+mirrors its reference op for op, so the codes are bitwise the same.
+
+Kernel #15 ``quant_matmul`` (reference ``quant_matmul`` :222, body
+``_quant_matmul_kernel`` :189): ``x [M, K] @ qw [K, N]`` with the int8
+codes converted to the activation type (exact: |q| <= 127), f32
+accumulation, and ``acc * scale[n]`` cast once to x's dtype. Its plain
+version ``quant_matmul_plain`` is the reference's CPU route
+(``quant_matmul_dense``): ``((x.float() @ qw.float()) * scale)`` in f32,
+cast once. The wrapper takes the plain version for a CPU tensor only;
+for a CUDA tensor it launches ``csrc/quant_matmul.cu`` or raises.
+``quant_matmul.launches`` counts its launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from kubeinfer_tpu_torch.inference import flash_attention as fa
+from kubeinfer_tpu_torch.inference.kv_blocks import device_scalar
+
+# the projections that route through the fused kernel
+QUANT_LEAVES = (
+    "q_proj", "k_proj", "v_proj", "o_proj",
+    "gate_proj", "up_proj", "down_proj",
+)
+
+DEFAULT_TILE = 128
+
+
+# --- quantization (load time) ------------------------------------------------
+
+
+def quantize_weight(w: torch.Tensor, tile: int = DEFAULT_TILE) -> dict:
+    """Per-out-tile symmetric absmax int8 of a 2-D ``[in, out]`` weight;
+    returns the quantized-leaf dict on ``w``'s device."""
+    if w.dim() != 2:
+        raise ValueError(f"quantize_weight expects 2-D, got {tuple(w.shape)}")
+    K, N = w.shape
+    wf = w.float()
+    nt = -(-N // tile)
+    wp = F.pad(wf, (0, nt * tile - N))
+    amax = wp.reshape(K, nt, tile).abs().amax(dim=(0, 2))
+    scale = torch.where(amax > 0, amax / device_scalar(amax, 127.0),
+                        torch.ones_like(amax))
+    scol = scale.repeat_interleave(tile)[:N].contiguous()
+    q = torch.clamp(torch.round(wf / scol[None, :]), -127.0, 127.0)
+    return {"qw": q.to(torch.int8).contiguous(), "scale": scol}
+
+
+def dequantize_weight(d: dict, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_weight`` (int8 -> f32, times the scale in
+    f32, cast last)."""
+    return (d["qw"].float() * d["scale"].float()[None, :]).to(dtype)
+
+
+def is_quant_leaf(v) -> bool:
+    return isinstance(v, dict) and "qw" in v and "scale" in v
+
+
+def quantize_layer(layer: dict, tile: int = DEFAULT_TILE) -> dict:
+    """A new layer dict with every ``QUANT_LEAVES`` member quantized;
+    norms and biases pass through."""
+    out = dict(layer)
+    for name in QUANT_LEAVES:
+        w = layer.get(name)
+        if w is not None and not is_quant_leaf(w):
+            out[name] = quantize_weight(w, tile=tile)
+    return out
+
+
+def params_weight_dtype(params: dict) -> str:
+    """``"int8"`` when any projection leaf is quantized, else ``"bf16"``
+    (the axis name, not a torch dtype)."""
+    for layer in params.get("layers", ()):
+        for name in QUANT_LEAVES:
+            if is_quant_leaf(layer.get(name)):
+                return "int8"
+    return "bf16"
+
+
+def quantize_params(params: dict, tile: int = DEFAULT_TILE) -> dict:
+    """Quantize the projection leaves of a whole tree. Raises on a tree
+    that is already quantized: scales re-derived from int8 codes would be
+    silently wrong."""
+    if params_weight_dtype(params) == "int8":
+        raise ValueError("params already weight-quantized "
+                         "(double-quantize guard)")
+    out = dict(params)
+    out["layers"] = [quantize_layer(l, tile=tile) for l in params["layers"]]
+    return out
+
+
+def dequantize_params(params: dict, dtype=None) -> dict:
+    """The plain tree of a quantized one (in ``dtype``, default the
+    norms' dtype)."""
+    if dtype is None:
+        dtype = params["norm"].dtype
+    out = dict(params)
+    out["layers"] = [
+        {k: dequantize_weight(v, dtype) if is_quant_leaf(v) else v
+         for k, v in layer.items()}
+        for layer in params["layers"]
+    ]
+    return out
+
+
+# --- the matmul ----------------------------------------------------------------
+
+
+def quant_matmul_plain(x: torch.Tensor, qw: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ qw [K, N]`` in f32 (exact products: int8, bf16 and
+    f32 values all fit f32), times the per-column scale, cast once to
+    x's dtype."""
+    acc = torch.matmul(x.float(), qw.float())
+    return (acc * scale.float()).to(x.dtype)
+
+
+# the card's count of blocks the bf16 instantiation aims for: four per SM
+# of an H100; K is split over blocks when the (M, N) tiles alone are fewer
+SPLIT_TARGET_BLOCKS = 528
+
+
+def mma_tiles(M: int) -> tuple[int, int, int]:
+    """(BM, BN, BK) of the bf16 instantiation (csrc/quant_matmul.cu's
+    launcher picks the same): a 16-row M tile for decode-sized M, so 8
+    rows pay 2x on padding, not 8-16x; 64 rows up to an admit's 512; 128
+    above."""
+    if M <= 16:
+        return 16, 128, 64
+    return (64, 128, 32) if M <= 512 else (128, 128, 32)
+
+
+def k_splits(M: int, N: int, K: int) -> int:
+    """Blocks along K for the bf16 instantiation: enough (M, N, K) blocks
+    to fill the card, each walking at least one K tile."""
+    BM, BN, BK = mma_tiles(M)
+    tiles = -(-N // BN) * -(-M // BM)
+    return max(1, min(-(-K // BK), SPLIT_TARGET_BLOCKS // tiles))
+
+
+def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """#15 on the tensors' device: leading dims of ``x`` fold into M (the
+    reference's ``quant_matmul_auto``). For CUDA tensors one launch of
+    ``quant_matmul_launch`` (bf16 on the tensor cores, f32 on the CUDA
+    cores); for CPU tensors ``quant_matmul_plain``."""
+    lib = fa._kernel_lib(x, "quant_matmul", "quant_matmul")
+    if lib is None:
+        return quant_matmul_plain(x, qw, scale)
+    if x.dtype not in fa._DTYPES:
+        raise ValueError(f"quant_matmul: the kernel takes float32 or "
+                         f"bfloat16 activations, not {x.dtype}")
+    K, N = qw.shape
+    lead = x.shape[:-1]
+    if x.shape[-1] != K:
+        raise ValueError(f"quant_matmul: x {tuple(x.shape)} @ qw "
+                         f"{tuple(qw.shape)}")
+    x2 = x.reshape(-1, K).contiguous()
+    if x2.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16 B
+        x2 = x2.clone()
+    M = x2.shape[0]
+    dev = x.device
+    fa._check("x", x2, x.dtype, (M, K), dev)
+    fa._check("qw", qw, torch.int8, (K, N), dev)
+    fa._check("scale", scale, torch.float32, (N,), dev, align=4)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    splits = k_splits(M, N, K) if x.dtype == torch.bfloat16 else 1
+    # the split-K partial sums, reduced in split order by a second pass
+    ws = torch.empty((splits, M, N) if splits > 1 else (1,),
+                     dtype=torch.float32, device=dev)
+    fa._launch(lib, "quant_matmul_launch", x2, qw, scale, out, ws, M, N, K,
+               splits, fa._DTYPES[x.dtype])
+    quant_matmul.launches += 1
+    return out.reshape(*lead, N)
+
+
+quant_matmul.launches = 0
+
+
+def wq_dot(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a projection leaf that may be plain or quantized:
+    the one call site of every projection in ``model.decoder_layer``."""
+    if is_quant_leaf(w):
+        return quant_matmul(x, w["qw"], w["scale"])
+    return x @ w

@@ -6,7 +6,11 @@ prefills whole), submitted before the scheduler starts so that both
 engines admit them in the same order. Token streams EQUAL, greedy and
 sampled, with whole-suffix and chunked (``prefill_chunk_blocks=1``)
 prefill; after retirement the free-block, trie-node and hit/miss counts
-are equal."""
+are equal. The int8 axes (``kv_dtype``, ``weight_dtype``; the plain
+versions of kernels #12 and #15) run the same way with the same flags on
+both engines, 40 new tokens crossing two 16-wide blocks: streams equal,
+and ``quant_blocks_total``, ``kv_pool_bytes`` and ``model_param_bytes``
+equal to the reference's."""
 
 from __future__ import annotations
 
@@ -41,9 +45,9 @@ def params():
     return p, tw.params_from_reference(jax.tree.map(np.asarray, p), "cpu")
 
 
-def serve(eng, kw):
+def serve(eng, kw, new=10):
     """The four requests in flight together; returns their streams."""
-    reqs = [eng.submit(p, 10 + i, seed=i, **kw)
+    reqs = [eng.submit(p, new + i, seed=i, **kw)
             for i, p in enumerate(PROMPTS)]
     eng.start()
     for r in reqs:
@@ -76,12 +80,75 @@ def test_streams_and_pool_match_reference(params, chunk, kw):
         te.stop()
 
 
+INT8 = [("int8", "bf16", 0, {}), ("bf16", "int8", 0, {}),
+        ("int8", "int8", 0, {}), ("int8", "int8", 0, SAMPLED),
+        ("int8", "int8", 1, {})]
+
+
+@pytest.mark.parametrize("kv,w,chunk,kw", INT8,
+                         ids=["kv8", "w8", "both", "both-sampled",
+                              "both-chunked"])
+def test_int8_axes_match_reference(params, kv, w, chunk, kw):
+    jp, tp = params
+    cfg = dict(n_slots=4, cache_len=128, block_size=16,
+               prefill_chunk_blocks=chunk, kv_dtype=kv, weight_dtype=w)
+    je = JC(jp, JP["tiny"], **cfg)
+    te = TC(tp, TP["tiny"], device="cpu", **cfg)
+    try:
+        want, got = serve(je, kw, 40), serve(te, kw, 40)
+        assert got == want
+        assert te.quant_blocks_total == je.quant_blocks_total
+        if kv == "int8":
+            assert te.quant_blocks_total > 0
+        assert te.kv_pool_bytes == je.kv_pool_bytes
+        assert te.model_param_bytes == je.model_param_bytes
+        assert te.kv_cache_stats()["quant_blocks"] == te.quant_blocks_total
+        if chunk:
+            assert te.chunks_total > 0
+    finally:
+        je.stop()
+        te.stop()
+
+
+def test_int8_warm_radix_admit(params):
+    """A prompt admitted twice on the int8 pool: the second admit reuses
+    the first one's quantized blocks (dequantized into its view), and
+    both engines give the same two streams."""
+    jp, tp = params
+    cfg = dict(n_slots=2, cache_len=128, block_size=16, kv_dtype="int8",
+               weight_dtype="int8")
+    prompt = PROMPTS[0] + PROMPTS[2]  # 63 tokens, 3 full blocks
+    out = []
+    for eng in (JC(jp, JP["tiny"], **cfg),
+                TC(tp, TP["tiny"], device="cpu", **cfg)):
+        eng.start()
+        try:
+            first = eng.generate(prompt, 24, timeout=120)
+            again = eng.generate(prompt, 24, timeout=120)
+            assert eng.kv_cache_stats()["hits"] == 1
+            out.append((first, again, eng.quant_blocks_total))
+        finally:
+            eng.stop()
+    assert out[1] == out[0]
+
+
+def test_weight_dtype_guard(params):
+    _, tp = params
+    from kubeinfer_tpu_torch.inference.weight_quant import quantize_params
+    with pytest.raises(ValueError, match="weight-quantized"):
+        TC(quantize_params(tp), TP["tiny"], cache_len=64, device="cpu")
+    eng = TC(quantize_params(tp), TP["tiny"], cache_len=64, device="cpu",
+             weight_dtype="int8")
+    assert eng.weight_dtype == "int8"
+    for kw in (dict(kv_dtype="fp8"), dict(weight_dtype="fp8")):
+        with pytest.raises(ValueError, match="'bf16' or 'int8'"):
+            TC(tp, TP["tiny"], cache_len=64, device="cpu", **kw)
+
+
 def test_waiting_features_raise(params):
     _, tp = params
     for kw, name in ((dict(speculative=object()), "speculative"),
                      (dict(preemption=object()), "preemption"),
-                     (dict(kv_dtype="int8"), "kv_dtype"),
-                     (dict(weight_dtype="int8"), "weight_dtype"),
                      (dict(layout=object()), "layout")):
         with pytest.raises(ValueError, match=name):
             TC(tp, TP["tiny"], cache_len=64, device="cpu", **kw)

@@ -112,6 +112,21 @@ def test_filter_logits_matches_reference():
         te.filter_logits(torch.from_numpy(x), torch.from_numpy(k), 1.0)
 
 
+@pytest.mark.parametrize("kw", [{}, SAMPLED], ids=["greedy", "sampled"])
+def test_generate_int8_weights(kw):
+    """The reference's ``init_params(weight_dtype="int8")`` tree on both
+    engines (every projection through #15's plain version on the CPU):
+    token streams equal."""
+    jcfg, tcfg = jc.ModelConfig(**D64), tc.ModelConfig(**D64)
+    p = jm.init_params(jcfg, jax.random.PRNGKey(4), weight_dtype="int8")
+    tp = tw.params_from_reference(jax.tree.map(np.asarray, p), "cpu")
+    want = je.Engine(p, jcfg, max_cache_len=128).generate(PROMPTS, 10, **kw)
+    got = te.Engine(tp, tcfg, max_cache_len=128, device="cpu").generate(
+        PROMPTS, 10, **kw)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
 def test_engine_needs_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

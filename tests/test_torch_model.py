@@ -162,6 +162,23 @@ def test_paged_write_and_read(name):
 
 
 @pytest.mark.parametrize("name", ["tiny", "qwen2"])
+def test_quantized_forward_matches_reference(name):
+    """The reference's ``quantize_params`` tree carried over as int8
+    codes and f32 scales: the forward (every projection through the
+    plain version of #15) and a dense-cache decode within 1e-5 (f32)."""
+    from kubeinfer_tpu.inference import weight_quant as jq
+
+    jcfg, tcfg, jp, _ = both_params(name, 8)
+    jq_p = jq.quantize_params(jp)
+    tq_p = tw.params_from_reference(jax.tree.map(np.asarray, jq_p), "cpu")
+    assert tq_p["layers"][0]["q_proj"]["qw"].dtype == torch.int8
+    toks = np.random.default_rng(9).integers(0, 256, (2, 7)).astype(np.int32)
+    want = jm.forward(jq_p, jnp.asarray(toks), jcfg)[0]
+    got = tm.forward(tq_p, torch.from_numpy(toks).long(), tcfg)[0]
+    close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["tiny", "qwen2"])
 def test_params_from_state_dict_matches_reference(name):
     jcfg, tcfg = configs(name)
     rng = np.random.default_rng(7)
@@ -205,12 +222,9 @@ def test_waiting_features_raise():
     moe = tc.ModelConfig(**dict(SMALL, num_local_experts=2))
     with pytest.raises(NotImplementedError, match="moe.py"):
         tm.init_params(moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 weights"):
+    with pytest.raises(ValueError, match="weight_dtype"):
         tw.params_from_state_dict({}, tc.PRESETS["tiny"],
-                                  weight_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 weights"):
-        tw.params_from_reference({"q": {"qw": np.zeros(1), "scale": 1}},
-                                 "cpu")
+                                  weight_dtype="fp8", device="cpu")
     tp = tm.init_params(tc.PRESETS["tiny"], device="cpu")
     with pytest.raises(NotImplementedError, match="sharding.py"):
         tm.forward(tp, torch.zeros((1, 2), dtype=torch.long),

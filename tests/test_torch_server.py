@@ -89,8 +89,6 @@ def test_waiting_and_invalid_bodies_answer_400(served, body, msg):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--kv-dtype", "int8"], "int8 KV"),
-    (["--weight-dtype", "int8"], "int8 weights"),
     (["--draft-model", "tiny"], "speculative"),
     (["--tensor-parallel-size", "2"], "sharding.py"),
     (["--preemption-slo", "1.0"], "preemption"),
@@ -100,6 +98,38 @@ def test_main_refuses_waiting_flags(flags, msg):
     with pytest.raises(SystemExit, match=msg):
         ts.build_server(["--model", "tiny", "--random-init", *flags],
                         device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kv-dtype", "int8"], ["--weight-dtype", "int8"],
+    ["--kv-dtype", "int8", "--weight-dtype", "int8"]],
+    ids=["kv", "weight", "both"])
+def test_main_builds_quantized(flags):
+    """The precision flags build their engines on the CPU, and a
+    completion rides the continuous route on them."""
+    srv, cont = ts.build_server(
+        ["--model", "tiny", "--random-init", "--port", "0",
+         "--batch-slots", "2", "--max-model-len", "128", *flags],
+        device="cpu")
+    kv = "int8" if "--kv-dtype" in flags else "bf16"
+    w = "int8" if "--weight-dtype" in flags else "bf16"
+    assert (cont.kv_dtype, cont.weight_dtype) == (kv, w)
+    assert isinstance(srv.engine.params["layers"][0]["q_proj"], dict) == (
+        w == "int8")
+    cont.start()
+    srv.start()
+    try:
+        code, body = call(srv, "/v1/completions",
+                          dict(prompt=[3, 1, 4, 1, 5], max_tokens=4))
+        resp = json.loads(body)
+        assert code == 200 and resp["kubeinfer"]["route"] == "continuous"
+        assert len(resp["choices"][0]["tokens"]) == 4
+    finally:
+        srv.stop()
+        cont.stop()
+    with pytest.raises(SystemExit):
+        ts.build_server(["--model", "tiny", "--random-init",
+                         "--kv-dtype", "fp8"], device="cpu")
 
 
 def test_main_builds_the_cpu_rehearsal():
