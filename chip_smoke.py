@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port (``kubeinfer_tpu_torch``; nothing of JAX) through the
-placement solve's and the route solve's entry points and through the
-serving path (``/v1/completions`` on llama-3-8b), builds its CUDA
+placement solve's and the route solve's entry points, through the
+serving path (``/v1/completions`` on llama-3-8b) and through the
+training step (``train.train_step`` on llama-3-8b), builds its CUDA
 kernels from this checkout, holds each kernel against its plain PyTorch
 version, checks the solves' hard guarantees and the served tokens, and
 times them. Phases:
@@ -13,7 +14,8 @@ times them. Phases:
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
       together: mega_solve.cu, round_ops.cu, auction.cu, route_pick.cu,
-      decode_attention.cu, flash_prefill.cu, quant_matmul.cu;
+      decode_attention.cu, flash_prefill.cu, quant_matmul.cu,
+      flash_backward.cu;
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -104,7 +106,22 @@ times them. Phases:
       admit and of a decode run, device launches per decode step
       against bf16, and #12 and #15 against their bounds, plain
       versions and library yardsticks;
-  (8) the ``kernels`` JSON line (eleven entries), printed last of all
+  (21) the training step at full width and depth: ``train.train_step``
+      on llama-3-8b (bf16 init_params(seed=0), the int8 server freed
+      first) over seeded tokens [1, 2049] (T = S = 2048, the flash
+      route), no attn_fn, lr 1e-3; on step 1 flash_ragged_lse (#13),
+      flash_bwd_dq and flash_bwd_dkv (#14) each against its plain version
+      within the stated tolerance on every layer's call, #13's o bitwise
+      #9's; steps 2-3 with the launch counts reset before and read after
+      (32 a step each, #9 none); finite losses, peak memory;
+  (23) times of the training step: its p50, and #13, dQ and dK/dV per
+      launch beside their bounds, their plain versions and
+      scaled_dot_product_attention (causal, GQA) forward and backward;
+  (22) the training step on the card (flash route) against the CPU
+      (dense route) at llama-3-8b widths cut to 2 layers, f32, tokens
+      [2, 513]: loss and every gradient leaf within tolerance; 8 steps
+      at lr 5e-2 lower the loss on both;
+  (8) the ``kernels`` JSON line (fourteen entries), printed last of all
       phases.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -2110,6 +2127,355 @@ def time_qmm(dev, wq, chk, card, counts):
     }
 
 
+# --- the training step: phases (21)-(23) --------------------------------------
+
+TRAIN_KERNELS = ("flash_ragged_lse", "flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_SOURCES = {
+    "flash_ragged_lse": ("kubeinfer_tpu_torch/inference/csrc/flash_prefill.cu",
+                         "kubeinfer_tpu/inference/flash_attention.py:1525"),
+    "flash_bwd_dq": ("kubeinfer_tpu_torch/inference/csrc/flash_backward.cu",
+                     "kubeinfer_tpu/inference/flash_attention.py:1590"),
+    "flash_bwd_dkv": ("kubeinfer_tpu_torch/inference/csrc/flash_backward.cu",
+                      "kubeinfer_tpu/inference/flash_attention.py:1617"),
+}
+# flops per live (head, query, key) pair and head width: #13 q.k and
+# P.v; #14's dQ recomputes q.k, dO.v and adds dS.K; dK/dV recomputes
+# both and adds P^T.dO and dS^T.Q
+TRAIN_FLOPS_PER_D = {"flash_ragged_lse": 4, "flash_bwd_dq": 6,
+                     "flash_bwd_dkv": 8}
+LSE_ABS = 1e-4  # f32 logsumexp, kernel vs plain (sums in another order)
+
+
+def grad_err(got, want):
+    """(largest |kernel - plain|, within tolerance): every value finite,
+    each row of the last axis within 1e-5 (f32) or 2**-6 (bf16, 2 ulps)
+    of that row's largest |plain value|."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not bool(g.isfinite().all()):
+        return float("inf"), False
+    g, w = g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])
+    err = (g - w).abs().amax(dim=1)
+    rel = 1e-5 if got.dtype == torch.float32 else BF16_REL
+    return float(err.max()), bool((err <= rel * w.abs().amax(dim=1)).all())
+
+
+class CheckedTrain:
+    """A stand-in for one of the training wrappers of
+    ``inference.flash_attention`` (#13 ``flash_ragged_lse``, #14
+    ``flash_bwd_dq`` / ``flash_bwd_dkv``): runs the kernel and its plain
+    version on the same inputs, holds every output within the stated
+    tolerance (the lse within LSE_ABS) and, for #13, its o bitwise equal
+    to #9's on the same inputs; hands the kernel's result on. Keeps the
+    first call's inputs for the times. Its ``launches`` takes the
+    wrapper's count while it stands in, and the #9 launch of the
+    comparison is taken off #9's count."""
+
+    def __init__(self, fa, name, plain):
+        self.fa, self.name = fa, name
+        self.kernel, self.plain = getattr(fa, name), plain
+        self.launches = self.calls = 0
+        self.max_err = 0.0
+        self.first = None
+
+    def __enter__(self):
+        setattr(self.fa, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.fa, self.name, self.kernel)
+
+    def __call__(self, *args):
+        import torch
+
+        got = self.kernel(*args)
+        want = self.plain(*args)
+        gs = got if isinstance(got, tuple) else (got,)
+        ws = want if isinstance(want, tuple) else (want,)
+        for i, (g, w) in enumerate(zip(gs, ws)):
+            if self.name == "flash_ragged_lse" and i == 1:
+                err = float((g - w).abs().max())
+                ok = bool(g.isfinite().all()) and err <= LSE_ABS
+            else:
+                err, ok = grad_err(g, w)
+            check(ok, f"{self.name}: kernel vs plain out of tolerance on "
+                      f"call {self.calls}, output {i} (max err {err})")
+            self.max_err = max(self.max_err, err)
+        if self.name == "flash_ragged_lse":
+            n9 = self.fa.flash_attention_ragged.launches
+            o9 = self.fa.flash_attention_ragged(*args)
+            self.fa.flash_attention_ragged.launches = n9
+            check(torch.equal(o9, gs[0]),
+                  f"#13's o differs from #9's on call {self.calls}")
+        if self.first is None:
+            self.first = args
+        self.calls += 1
+        return got
+
+
+def live_pairs(T, S, q_offset, row_lens):
+    """Live (query, key) pairs of the ragged causal mask, summed over the
+    rows: this run's data, not the worst case."""
+    t = np.arange(T)
+    total = 0
+    for n in row_lens:
+        total += int(np.minimum(q_offset + t + 1, n).clip(min=0).sum()) \
+            if n > 0 else 0
+    return total
+
+
+def train_phases(dev, record, card):
+    """Phases (21)-(23): ``train.train_step`` on llama-3-8b at full width
+    and depth (bf16, one sequence of 2048, no attn_fn, so forward's
+    default binding takes the flash route), #13 and both #14 kernels
+    against their plain versions on every layer's call of the first step,
+    the launch counts of two more steps; times; then the card against
+    the CPU at 2 layers in f32. Returns the three kernels' entries of the
+    ``kernels`` line."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import train
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.model import init_params, param_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = PRESETS["llama-3-8b"]
+    V, layers = cfg.vocab_size, cfg.num_hidden_layers
+    T = 2048
+    # outside inference_mode: the step saves these for the backward
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(1, V, (1, T + 1))).to(dev)
+    check(fa.flash_available(T, T, cfg.head_dim, dev),
+          "the flash route does not take T = S = 2048")
+    weights_gib = param_bytes(params) / 2**30
+
+    # (21) step 1 with every call of the three kernels checked
+    plains = {"flash_ragged_lse": fa.flash_ragged_lse_plain,
+              "flash_bwd_dq": fa.flash_bwd_dq_plain,
+              "flash_bwd_dkv": fa.flash_bwd_dkv_plain}
+    chks = {n: CheckedTrain(fa, n, p) for n, p in plains.items()}
+    fa.flash_attention_ragged.launches = 0
+    with chks["flash_ragged_lse"], chks["flash_bwd_dq"], \
+            chks["flash_bwd_dkv"]:
+        t0 = time.perf_counter()
+        _, loss1 = train.train_step(params, tokens, cfg, lr=1e-3)
+        loss1 = float(loss1)
+        first_s = time.perf_counter() - t0
+    for n, c in chks.items():
+        check(c.calls == layers, f"{n} checked on {c.calls} calls")
+    check(fa.flash_attention_ragged.launches == 0,
+          "#9 launched in the training step")
+    # the main path, counted: two more steps
+    for name in (*TRAIN_KERNELS, "flash_attention_ragged"):
+        getattr(fa, name).launches = 0
+    losses = [loss1]
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = train.train_step(params, tokens, cfg, lr=1e-3)
+        losses.append(float(loss))  # the readback ends the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {n: getattr(fa, n).launches
+              for n in (*TRAIN_KERNELS, "flash_attention_ragged")}
+    check(counts == {"flash_ragged_lse": 2 * layers,
+                     "flash_bwd_dq": 2 * layers,
+                     "flash_bwd_dkv": 2 * layers,
+                     "flash_attention_ragged": 0},
+          f"training launches over 2 steps {counts}")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[21] train_step on llama-3-8b (H {cfg.hidden_size}, {layers} "
+          f"layers, {cfg.num_attention_heads}/{cfg.num_key_value_heads} "
+          f"heads, D {cfg.head_dim}, vocab {V}), bf16 init_params(seed=0) "
+          f"({weights_gib:.2f} GiB), tokens [1, {T + 1}], lr 1e-3, no "
+          f"attn_fn: step 1 ({first_s:.1f} s) with "
+          + ", ".join(f"{n} on {c.calls} calls (max |kernel - plain| "
+                      f"{c.max_err:.3e})" for n, c in chks.items())
+          + f" within tolerance and #13's o bitwise #9's; losses {losses}; "
+          f"launches over steps 2-3 {counts}; peak "
+          f"{peak_gib:.2f} GiB")
+    record["train"] = {"losses": losses, "launches_2_steps": counts,
+                       "weights_gib": weights_gib, "peak_gib": peak_gib,
+                       "first_step_s": first_s}
+
+    # (23) times
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = train.train_step(params, tokens, cfg, lr=1e-3)
+        float(loss)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(step_ms)
+    tok_s = T / p50 * 1e3
+    print(f"[23] {card}: train_step p50 {p50:.1f} ms "
+          f"({[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    entries = [time_train_kernel(dev, fa, chks[n], card, n, counts[n], F)
+               for n in TRAIN_KERNELS]
+    record["train_times"] = {
+        "step_ms": step_ms, "step_p50_ms": p50, "tokens_per_s": tok_s,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, chks, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (22) the card against the CPU
+    train_card_vs_cpu(dev, record)
+    return entries
+
+
+def time_train_kernel(dev, fa, chk, card, name, launches, F):
+    """One training kernel's entry of the ``kernels`` line: its time per
+    launch on the first checked call (layer 0 of step 1), its plain
+    version's, its bound from this call's live pairs, and the library
+    yardstick: scaled_dot_product_attention (causal, GQA) forward for
+    #13, its backward alone (dq, dk, dv in one call) for #14."""
+    import torch
+
+    args = chk.first
+    q, k, v = args[:3]
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    elt = q.element_size()
+    off, lens = (args[3], args[4]) if name == "flash_ragged_lse" else \
+        (args[6], args[7])
+    kernel = getattr(fa, name)
+    ms = cuda_ms(lambda: kernel(*args), reps=20)
+    plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
+    pairs = live_pairs(T, S, int(off), lens.tolist()) * H
+    ops = TRAIN_FLOPS_PER_D[name] * D * pairs
+    rows = B * T * H * 4  # lse (and drow) f32 per folded row
+    qkv = q.numel() + k.numel() + v.numel()
+    if name == "flash_ragged_lse":
+        nbytes = (qkv + q.numel()) * elt + rows
+    elif name == "flash_bwd_dq":
+        nbytes = (qkv + 2 * q.numel()) * elt + 2 * rows
+    else:
+        nbytes = (qkv + q.numel() + k.numel() + v.numel()) * elt + 2 * rows
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    if name == "flash_ragged_lse":
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), reps=10)
+        label = ("torch.nn.functional.scaled_dot_product_attention "
+                 "(is_causal, enable_gqa) forward on the same q/k/v")
+    else:
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qs, ks, vs))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                 enable_gqa=True)
+            dout = args[3].transpose(1, 2)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), dout, retain_graph=True), reps=10)
+            both_ms = cuda_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                               enable_gqa=True),
+                (qg, kg, vg), dout), reps=10)
+        label = ("torch.nn.functional.scaled_dot_product_attention "
+                 "(is_causal, enable_gqa) backward alone: dq, dk and dv in "
+                 f"one call (forward + backward {both_ms:.4f} ms)")
+    op_ms = ops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(op_ms, byte_ms)
+    bound_by = "operations" if op_ms >= byte_ms else "bytes"
+    source, replaces = TRAIN_SOURCES[name]
+    print(f"[23] {card}: {name} {ms:.4f} ms/launch on q [{B}, {T}, {H}, "
+          f"{D}], k/v [{B}, {S}, {n_kv}, {D}], {pairs / 1e6:.1f} M live "
+          f"(head, pair)s; plain {plain_ms:.4f} ms; {label} "
+          f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; "
+          f"{ops / ms / 1e9:.1f} TFLOP/s, {ms / pairs * 1e9:.1f} ps a "
+          f"pair); {launches} launches on the main path")
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": chk.max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_call": label,
+        "check": f"within tolerance of its plain version (bf16: 2**-6 of "
+                 f"each row's magnitude; lse {LSE_ABS} absolute) on "
+                 f"{chk.calls} calls of the full-width training step"
+                 + (", o bitwise equal to #9's" if name == "flash_ragged_lse"
+                    else ""),
+    }
+
+
+def train_card_vs_cpu(dev, record):
+    """Phase (22): the same f32 weights at llama-3-8b widths cut to 2
+    layers, tokens [2, 513], on the card (the flash route: #13, #14) and
+    on the CPU (the dense route): the loss within 1e-5 relative and
+    every gradient leaf within 1e-4 of its largest |value| (two routes,
+    sums in another order); then 8 steps at lr 5e-2 on each side, which
+    must lower the loss on both."""
+    import dataclasses
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import train
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.model import init_params, params_to
+
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
+    rng = np.random.default_rng(22)
+    toks = rng.integers(1, cfg.vocab_size, (2, 513))
+    p_cpu = init_params(cfg, seed=22, dtype=torch.float32, device="cpu")
+    p_card = params_to(p_cpu, dev)
+    sides = {"card": (p_card, torch.from_numpy(toks).to(dev)),
+             "cpu": (p_cpu, torch.from_numpy(toks))}
+    out = {}
+    n13 = fa.flash_ragged_lse.launches
+    for side, (params, tk) in sides.items():
+        leaves = train._leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss = train.causal_lm_loss(params, tk, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        out[side] = (float(loss.detach()), [g.cpu() for g in grads])
+        for p in leaves:
+            p.requires_grad_(False)
+        out[side + "_s"] = time.perf_counter() - t0
+    check(fa.flash_ragged_lse.launches > n13,
+          "[22] the card's step did not take the flash route")
+    (lc, gc_), (lh, gh) = out["card"], out["cpu"]
+    rel_loss = abs(lc - lh) / abs(lh)
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(gc_, gh))
+    check(rel_loss <= 1e-5, f"[22] loss card {lc} CPU {lh}")
+    check(worst <= 1e-4, f"[22] a gradient leaf differs by {worst} of its "
+                         "largest value")
+    curves = {}
+    for side, (params, tk) in sides.items():
+        curve = []
+        t0 = time.perf_counter()
+        for _ in range(8):
+            _, loss = train.train_step(params, tk, cfg, lr=5e-2)
+            curve.append(float(loss))
+        curves[side] = curve
+        check(curve[-1] < curve[0], f"[22] {side}: loss did not fall {curve}")
+        out[side + "_steps_s"] = time.perf_counter() - t0
+    print(f"[22] llama-3-8b widths, 2 layers, f32, tokens [2, 513]: loss "
+          f"card (flash route) {lc:.6f}, CPU (dense route) {lh:.6f} (rel "
+          f"{rel_loss:.2e}); gradients within {worst:.2e} of each leaf's "
+          f"largest value; 8 steps at lr 5e-2: card {curves['card']}, CPU "
+          f"{curves['cpu']} (host {out['cpu_s'] + out['cpu_steps_s']:.1f} s)")
+    record["train_card_vs_cpu"] = {"loss_card": lc, "loss_cpu": lh,
+                                   "rel_loss": rel_loss,
+                                   "worst_leaf_rel": worst, "curves": curves}
+    del p_card, p_cpu, sides
+
+
 def main() -> int:
     import torch
 
@@ -2148,7 +2514,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all(["mega_solve", "round_ops", "auction",
                               "route_pick", "decode_attention",
-                              "flash_prefill", "quant_matmul"])
+                              "flash_prefill", "quant_matmul",
+                              "flash_backward"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")
@@ -2353,6 +2720,7 @@ def main() -> int:
     route_entry = route_phases(dev, kernels, record, card)
     serve_entries = serving_phases(dev, record, card)
     int8_entries = int8_phases(dev, record, card)
+    train_entries = train_phases(dev, record, card)
 
     # (8) the kernels line
     kline = {"kernels": [{
@@ -2369,7 +2737,7 @@ def main() -> int:
         "library_ms": None,
         "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
     }, *round_entries, auction_entry, route_entry, *serve_entries,
-        *int8_entries]}
+        *int8_entries, *train_entries]}
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -150,8 +150,16 @@ _SIGNATURES = {
             [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     },
     "flash_prefill": {
-        # q, k, v, row_lens, out, B, T, S, H, n_kv, D, q_offset, scale, dtype
-        "flash_prefill_launch": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, row_lens, out, lse (null for #9), B, T, S, H, n_kv, D,
+        # q_offset, scale, dtype
+        "flash_prefill_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    },
+    "flash_backward": {
+        # q, k, v, dO, lse, drow, row_lens, dq, B, T, S, H, n_kv, D,
+        # q_offset, scale, dtype
+        "flash_bwd_dq_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        # ... dk, dv, B, T, S, H, n_kv, D, q_offset, scale, dtype
+        "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     },
     "quant_matmul": {
         # x, qw, scale, out, workspace, M, N, K, splits, dtype

@@ -1,10 +1,20 @@
-// Chunked-prefill GQA flash attention for Hopper (sm_90a): kernel #9.
+// Chunked-prefill GQA flash attention for Hopper (sm_90a): kernels #9
+// and #13.
 //
 // Replaces kubeinfer_tpu/inference/flash_attention.py:_run_flash with
-// _flash_ragged_kernel (the path of flash_attention_ragged). Plain
-// PyTorch version: kubeinfer_tpu_torch/inference/flash_attention.py:
-// flash_attention_ragged_plain, which this kernel matches within a stated
-// tolerance (the sums run in another order).
+// _flash_ragged_kernel (#9, the path of flash_attention_ragged) and
+// _diff_fwd with _flash_ragged_lse_kernel (#13, the forward of the
+// differentiable flash_attention_causal_diff). Plain PyTorch versions:
+// kubeinfer_tpu_torch/inference/flash_attention.py:
+// flash_attention_ragged_plain and flash_ragged_lse_plain, which this
+// kernel matches within a stated tolerance (the sums run in another
+// order).
+//
+// #13 is #9 with one more output: given a non-null lse pointer, a block
+// writes each of its rows' logsumexp m + log(max(l, 1e-30)) (f32, the
+// folded [B * n_kv, T * G] layout) after the last key tile. The o
+// arithmetic is the same kernel on the same walk, so #13's o is bitwise
+// #9's on the same inputs: the custom_vjp contract of the reference.
 //
 // What it computes. q [B, T, H, D], k/v [B, S, n_kv, D]. Query t of row b
 // sits at global position q_offset + t and attends key s iff
@@ -89,8 +99,8 @@ template <typename T, int BR, int BC, int DMAX>
 __global__ void __launch_bounds__(kThreads) prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ row_lens,
-    T* __restrict__ out, int Tq, int S, int H, int n_kv, int D,
-    int q_offset, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, int Tq, int S, int H,
+    int n_kv, int D, int q_offset, float scale) {
   constexpr int RI = BR / 8;     // rows per thread
   constexpr int CJ = BC / 16;    // score columns per thread
   constexpr int DK = DMAX / 16;  // output columns per thread (at most)
@@ -246,13 +256,15 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
     for (int kk = 0; kk < DK; ++kk) {
       if (kk < dk) dst[tc + 16 * kk] = from_f<T>(o[i][kk] * inv_l);
     }
+    if (lse != nullptr && tc == 0)
+      lse[(size_t)blockIdx.x * R + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <typename T, int BR, int BC, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* row_lens, void* out, int B, int Tq, int S,
-                   int H, int n_kv, int D, int q_offset, float scale,
+                   const void* row_lens, void* out, void* lse, int B, int Tq,
+                   int S, int H, int n_kv, int D, int q_offset, float scale,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) *
                       ((size_t)BR * (D + 1) + (size_t)BC * (D + 1) +
@@ -266,40 +278,42 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(row_lens),
-      static_cast<T*>(out), Tq, S, H, n_kv, D, q_offset, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), Tq, S, H, n_kv, D,
+      q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* row_lens, void* out, int B, int Tq, int S,
-                     int H, int n_kv, int D, int q_offset, float scale,
-                     cudaStream_t stream) {
+                     const void* row_lens, void* out, void* lse, int B,
+                     int Tq, int S, int H, int n_kv, int D, int q_offset,
+                     float scale, cudaStream_t stream) {
   if (D <= 128)
-    return launch<T, 64, 64, 128>(q, k, v, row_lens, out, B, Tq, S, H, n_kv,
-                                  D, q_offset, scale, stream);
-  return launch<T, 32, 32, 256>(q, k, v, row_lens, out, B, Tq, S, H, n_kv, D,
-                                q_offset, scale, stream);
+    return launch<T, 64, 64, 128>(q, k, v, row_lens, out, lse, B, Tq, S, H,
+                                  n_kv, D, q_offset, scale, stream);
+  return launch<T, 32, 32, 256>(q, k, v, row_lens, out, lse, B, Tq, S, H,
+                                n_kv, D, q_offset, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16. lse: null for #9, an f32
+// [B * n_kv, T * G] buffer for #13.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, const void* row_lens,
-                                    void* out, int B, int T, int S, int H,
-                                    int n_kv, int D, int q_offset,
+                                    void* out, void* lse, int B, int T, int S,
+                                    int H, int n_kv, int D, int q_offset,
                                     float scale, int dtype, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (S <= 0 || n_kv <= 0 || H % n_kv || D % 16 || D > 256 || q_offset < 0)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, row_lens, out, B, T, S, H, n_kv, D,
+    return dispatch<float>(q, k, v, row_lens, out, lse, B, T, S, H, n_kv, D,
                            q_offset, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, row_lens, out, B, T, S, H, n_kv,
-                                   D, q_offset, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, row_lens, out, lse, B, T, S, H,
+                                   n_kv, D, q_offset, scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
-"""Attention kernels of the serving path: plain PyTorch versions, the
-wrappers that launch the hand-written CUDA kernels, and the routers.
+"""Attention kernels of the serving and training paths: plain PyTorch
+versions, the wrappers that launch the hand-written CUDA kernels, and
+the routers.
 
-Three TPU kernels of ``kubeinfer_tpu/inference/flash_attention.py`` have
+Six TPU kernels of ``kubeinfer_tpu/inference/flash_attention.py`` have
 counterparts here:
 
 - #9 ``flash_attention_ragged`` (``_run_flash`` + ``_flash_ragged_kernel``):
@@ -21,6 +22,14 @@ counterparts here:
   (``_dequant_tile``). Plain version ``decode_attention_blocks_q8_plain``;
   kernel ``csrc/decode_attention.cu`` (``decode_kernel`` with its q8
   tile loader).
+- #13 ``_diff_fwd`` (``_flash_ragged_lse_kernel``): #9's fold plus the
+  per-row logsumexp the backward needs. Plain version
+  ``flash_ragged_lse_plain``; kernel ``csrc/flash_prefill.cu`` with its
+  lse output, so its o is bitwise #9's.
+- #14 ``_diff_bwd``: dQ (``_flash_bwd_dq_kernel``) and dK/dV
+  (``_flash_bwd_dkv_kernel``), recomputing P from the saved lse. Plain
+  versions ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain`` (together
+  ``flash_bwd_plain``); kernels ``csrc/flash_backward.cu``.
 
 Every plain version folds key tiles with ``fold_tile_math``, the
 reference's online-softmax step (running max m, normaliser l,
@@ -39,6 +48,10 @@ counts kernel launches and nothing else. The routers
 ``decode_attention_blocks_q8_auto``) bind the
 wrappers with the reference's signatures; their ``mask`` operand is the
 reference's dense-fallback operand and is not read.
+``FlashCausalDiff`` (``flash_attention_causal_diff``) is the reference's
+custom_vjp: #9 as the primal, #13 forward and #14 backward under
+autograd; ``causal_attention_auto`` binds it for ``model.forward``'s
+no-cache path where ``flash_available`` holds.
 """
 
 from __future__ import annotations
@@ -47,7 +60,11 @@ import ctypes
 
 import torch
 
-TILE_S = 512  # the reference's key tile
+# the reference's tiles, read at call time (tests patch them): TILE_S
+# tiles the plain versions' key fold, and both set the shapes
+# flash_available and the differentiable route admit
+TILE_T = 256  # query positions per tile
+TILE_S = 512  # key positions per tile
 # shapes the kernels take: head width a multiple of 16 up to 256, f32 or
 # bf16 operands, and at most this much shared memory per block
 KERNEL_MAX_D = 256
@@ -78,9 +95,9 @@ def fold_tile_math(q, k, v, pen, m_prev, l_prev, acc_prev, *, groups: int,
     return m_new, l_new, acc_prev * alpha + pv
 
 
-def _fold_rows(qf, tiles, groups: int, scale: float):
+def _fold_state(qf, tiles, groups: int, scale: float):
     """Run ``fold_tile_math`` over ``tiles`` (an iterable of (k, v, pen))
-    from the reference's initial state; returns acc / max(l, 1e-30)."""
+    from the reference's initial state; returns (m, l, acc)."""
     N, R, D = qf.shape
     m = torch.full((N, R, 1), -1e30, dtype=torch.float32, device=qf.device)
     l = torch.zeros((N, R, 1), dtype=torch.float32, device=qf.device)
@@ -88,6 +105,12 @@ def _fold_rows(qf, tiles, groups: int, scale: float):
     for k_t, v_t, pen in tiles:
         m, l, acc = fold_tile_math(qf, k_t, v_t, pen, m, l, acc,
                                    groups=groups, scale=scale)
+    return m, l, acc
+
+
+def _fold_rows(qf, tiles, groups: int, scale: float):
+    """``_fold_state``'s acc / max(l, 1e-30)."""
+    _, l, acc = _fold_state(qf, tiles, groups, scale)
     return acc / torch.clamp(l, min=1e-30)
 
 
@@ -111,32 +134,145 @@ def _linear_kv(k, n_kv):
     return k.transpose(1, 2).reshape(B * n_kv, S, D)
 
 
-def flash_attention_ragged_plain(q, k, v, q_offset, row_lens, *,
-                                 tile_s: int = TILE_S):
-    """The chunked-prefill attention: query t of row b (global position
-    q_offset + t) attends key s iff s <= q_offset + t and s < row_lens[b].
-    q [B, T, H, D], k/v [B, S, n_kv, D], q_offset an int, row_lens i32[B].
-    The query tile of the reference kernel does not change any row's
-    arithmetic, so all T rows fold together."""
-    B, T, H, D = q.shape
+def _ragged_pen(q_pos, s_pos, lens):
+    """f32[B*n_kv, T, Sk] penalty of the ragged causal mask (the
+    reference's ``_ragged_pen``): 0 where key s_pos is live for query
+    position q_pos of a row of length lens, -1e30 elsewhere."""
+    ok = (s_pos[None, None, :] <= q_pos[None, :, None]) & (
+        s_pos[None, None, :] < lens[:, None, None])
+    return torch.where(ok, 0.0, -1e30).float()
+
+
+def _ragged_state(q, k, v, q_offset, row_lens, tile_s):
+    """(m, l, acc) of the ragged fold over the folded rows of q."""
+    T, D = q.shape[1], q.shape[3]
     S, n_kv = k.shape[1], k.shape[2]
-    G = H // n_kv
     dev = q.device
     qf = _fold_q(q, n_kv)
     kf, vf = _linear_kv(k, n_kv), _linear_kv(v, n_kv)
     lens = row_lens.to(device=dev, dtype=torch.int64).repeat_interleave(n_kv)
     q_pos = int(q_offset) + torch.arange(T, device=dev)
+    tile_s = min(TILE_S if tile_s is None else tile_s, S)
 
     def tiles():
         for s0 in range(0, S, tile_s):
             s_pos = torch.arange(s0, min(s0 + tile_s, S), device=dev)
-            ok = (s_pos[None, None, :] <= q_pos[None, :, None]) & (
-                s_pos[None, None, :] < lens[:, None, None])
-            pen = torch.where(ok, 0.0, -1e30).float()
-            yield kf[:, s0:s0 + tile_s], vf[:, s0:s0 + tile_s], pen
+            yield (kf[:, s0:s0 + tile_s], vf[:, s0:s0 + tile_s],
+                   _ragged_pen(q_pos, s_pos, lens))
 
-    out = _fold_rows(qf, tiles(), G, 1.0 / float(D) ** 0.5)
-    return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
+    return _fold_state(qf, tiles(), q.shape[2] // n_kv, 1.0 / float(D) ** 0.5)
+
+
+def flash_attention_ragged_plain(q, k, v, q_offset, row_lens, *,
+                                 tile_s: int | None = None):
+    """The chunked-prefill attention: query t of row b (global position
+    q_offset + t) attends key s iff s <= q_offset + t and s < row_lens[b].
+    q [B, T, H, D], k/v [B, S, n_kv, D], q_offset an int, row_lens i32[B].
+    The query tile of the reference kernel does not change any row's
+    arithmetic, so all T rows fold together; keys fold in tiles of
+    ``tile_s`` (default ``TILE_S`` at call time)."""
+    B, T, H, _ = q.shape
+    _, l, acc = _ragged_state(q, k, v, q_offset, row_lens, tile_s)
+    out = acc / torch.clamp(l, min=1e-30)
+    return _unfold_q(out.to(q.dtype), B, T, H, k.shape[2])
+
+
+def flash_ragged_lse_plain(q, k, v, q_offset, row_lens):
+    """#13's function: ``flash_attention_ragged_plain``'s o (the same
+    fold, so bitwise equal) and the f32 logsumexp [B*n_kv, T*G, 1] =
+    m + log(max(l, 1e-30)) of each folded row (the reference's
+    ``_flash_ragged_lse_kernel``)."""
+    B, T, H, _ = q.shape
+    m, l, acc = _ragged_state(q, k, v, q_offset, row_lens, None)
+    out = acc / torch.clamp(l, min=1e-30)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return _unfold_q(out.to(q.dtype), B, T, H, k.shape[2]), lse
+
+
+def _bwd_tiles(q, k, v, do, lse, drow, q_offset, row_lens):
+    """The backward's recompute, one reference key tile at a time:
+    yields (s0, kf tile, P, dS) with P = exp(q.k * scale + pen - lse),
+    gated to 0 on rows with row_len == 0 (the reference's
+    ``_recompute_p``), and dS = P * (dO.v - drow), all f32 [B*n_kv, T*G,
+    Sk]. Tiles no live pair reaches are skipped (they add exactly 0)."""
+    T, H, D = q.shape[1], q.shape[2], q.shape[3]
+    S, n_kv = k.shape[1], k.shape[2]
+    G = H // n_kv
+    dev = q.device
+    qf, dof = _fold_q(q, n_kv).float(), _fold_q(do, n_kv).float()
+    kf, vf = _linear_kv(k, n_kv), _linear_kv(v, n_kv)
+    lens = row_lens.to(device=dev, dtype=torch.int64).repeat_interleave(n_kv)
+    q_pos = int(q_offset) + torch.arange(T, device=dev)
+    scale = 1.0 / float(D) ** 0.5
+    tile_s = min(TILE_S, S)
+    live_row = (lens > 0)[:, None, None]
+    N = qf.shape[0]
+    for s0 in range(0, min(S, int(q_offset) + T), tile_s):
+        k_t, v_t = kf[:, s0:s0 + tile_s], vf[:, s0:s0 + tile_s]
+        sk = k_t.shape[1]
+        pen = _ragged_pen(q_pos, torch.arange(s0, s0 + sk, device=dev), lens)
+        s = torch.matmul(qf, k_t.float().transpose(-1, -2)) * scale
+        s = (s.reshape(N, T, G, sk) + pen[:, :, None, :]).reshape(
+            N, T * G, sk)
+        p = torch.where(live_row, torch.exp(s - lse), 0.0)
+        dp = torch.matmul(dof, v_t.float().transpose(-1, -2))
+        yield s0, k_t, p, p * (dp - drow)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, drow, q_offset, row_lens):
+    """#14's dQ: sum over key tiles of (dS rounded to k's dtype) . K,
+    times the scale, in f32; [B, T, H, D] in q's dtype. ``lse`` and
+    ``drow`` are f32 [B*n_kv, T*G, 1]."""
+    B, T, H, D = q.shape
+    n_kv = k.shape[2]
+    dq = torch.zeros(_fold_q(q, n_kv).shape, dtype=torch.float32,
+                     device=q.device)
+    scale = 1.0 / float(D) ** 0.5
+    for _, k_t, _, ds in _bwd_tiles(q, k, v, do, lse, drow, q_offset,
+                                    row_lens):
+        dq += torch.matmul(ds.to(k.dtype).float(), k_t.float()) * scale
+    return _unfold_q(dq.to(q.dtype), B, T, H, n_kv)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, drow, q_offset, row_lens):
+    """#14's dK and dV: per key tile, (dS rounded to q's dtype)^T . Q
+    times the scale and (P rounded to dO's dtype)^T . dO, in f32 over
+    every folded row (the GQA group sum); [B, S, n_kv, D] in k's and v's
+    dtypes."""
+    B, S, n_kv, D = k.shape
+    qf, dof = _fold_q(q, n_kv).float(), _fold_q(do, n_kv).float()
+    dk = torch.zeros((B * n_kv, S, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    scale = 1.0 / float(D) ** 0.5
+    for s0, k_t, p, ds in _bwd_tiles(q, k, v, do, lse, drow, q_offset,
+                                     row_lens):
+        sk = k_t.shape[1]
+        dv[:, s0:s0 + sk] = torch.matmul(
+            p.to(do.dtype).float().transpose(-1, -2), dof)
+        dk[:, s0:s0 + sk] = torch.matmul(
+            ds.to(q.dtype).float().transpose(-1, -2), qf) * scale
+
+    def unfold(x, dtype):
+        return x.reshape(B, n_kv, S, D).transpose(1, 2).to(dtype).contiguous()
+
+    return unfold(dk, k.dtype), unfold(dv, v.dtype)
+
+
+def flash_bwd_drow(o, do, n_kv):
+    """rowsum(dO * O) in f32, folded to [B*n_kv, T*G, 1]: the backward's
+    shared operand, computed outside the kernels as the reference does."""
+    return _fold_q((do.float() * o.float()).sum(-1, keepdim=True), n_kv)
+
+
+def flash_bwd_plain(q, k, v, q_offset, row_lens, o_folded, lse, do):
+    """#14 whole, on the reference's ``_diff_bwd`` residuals (o folded
+    [B*n_kv, T*G, D], lse f32 [B*n_kv, T*G, 1]): (dq, dk, dv)."""
+    n_kv = k.shape[2]
+    drow = (_fold_q(do, n_kv).float() * o_folded.float()).sum(
+        -1, keepdim=True)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, drow, q_offset, row_lens)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, drow, q_offset, row_lens)
+    return dq, dk, dv
 
 
 def decode_attention_plain(q, k, v, lengths, *, tile_s: int = TILE_S):
@@ -285,7 +421,9 @@ def _launch(lib, fn: str, *args) -> None:
     floats as c_float, ints as c_int. A nonzero cudaError_t raises."""
     conv = []
     for a in args:
-        if isinstance(a, torch.Tensor):
+        if a is None:  # a null pointer
+            conv.append(ctypes.c_void_p(None))
+        elif isinstance(a, torch.Tensor):
             conv.append(ctypes.c_void_p(a.data_ptr()))
         elif isinstance(a, float):
             conv.append(ctypes.c_float(a))
@@ -408,6 +546,24 @@ def decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales, k_tail,
 decode_attention_blocks_q8.launches = 0
 
 
+def _check_ragged(name, q, k, v, row_lens, extra=()):
+    """The shapes, types and layout the ragged kernels (#9, #13, #14)
+    take; ``extra`` holds (name, tensor, dtype, shape, alignment) of
+    further operands."""
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    _check_head(name, q, D)
+    if H % n_kv:
+        raise ValueError(f"{name}: {H} heads over {n_kv} kv heads")
+    dev = q.device
+    _check("q", q, q.dtype, (B, T, H, D), dev)
+    _check("k", k, q.dtype, (B, S, n_kv, D), dev)
+    _check("v", v, q.dtype, (B, S, n_kv, D), dev)
+    _check("row_lens", row_lens, torch.int32, (B,), dev, align=4)
+    for what, t, dtype, shape, align in extra:
+        _check(what, t, dtype, shape, dev, align=align)
+
+
 def flash_attention_ragged(q, k, v, q_offset, row_lens):
     """#9 on the tensors' device: for CUDA tensors one launch of
     ``flash_prefill_launch`` (grid of (B*n_kv, query-row tiles), walking
@@ -418,23 +574,94 @@ def flash_attention_ragged(q, k, v, q_offset, row_lens):
         return flash_attention_ragged_plain(q, k, v, q_offset, row_lens)
     B, T, H, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
-    _check_head("flash_attention_ragged", q, D)
-    if H % n_kv:
-        raise ValueError(f"flash_attention_ragged: {H} heads over {n_kv} "
-                         "kv heads")
-    dev = q.device
-    _check("q", q, q.dtype, (B, T, H, D), dev)
-    _check("k", k, q.dtype, (B, S, n_kv, D), dev)
-    _check("v", v, q.dtype, (B, S, n_kv, D), dev)
-    _check("row_lens", row_lens, torch.int32, (B,), dev)
+    _check_ragged("flash_attention_ragged", q, k, v, row_lens)
     out = torch.empty_like(q)
-    _launch(lib, "flash_prefill_launch", q, k, v, row_lens, out, B, T, S, H,
-            n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
+    _launch(lib, "flash_prefill_launch", q, k, v, row_lens, out, None, B, T,
+            S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
+            _DTYPES[q.dtype])
     flash_attention_ragged.launches += 1
     return out
 
 
 flash_attention_ragged.launches = 0
+
+
+def flash_ragged_lse(q, k, v, q_offset, row_lens):
+    """#13 on the tensors' device: (o, lse) as ``flash_ragged_lse_plain``.
+    For CUDA tensors one launch of ``flash_prefill_launch`` with its lse
+    output (#9's kernel and walk, so o is bitwise #9's); for CPU tensors
+    the plain version."""
+    lib = _kernel_lib(q, "flash_ragged_lse", "flash_prefill")
+    if lib is None:
+        return flash_ragged_lse_plain(q, k, v, q_offset, row_lens)
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    _check_ragged("flash_ragged_lse", q, k, v, row_lens)
+    out = torch.empty_like(q)
+    lse = torch.empty((B * n_kv, T * (H // n_kv), 1), dtype=torch.float32,
+                      device=q.device)
+    _launch(lib, "flash_prefill_launch", q, k, v, row_lens, out, lse, B, T,
+            S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
+            _DTYPES[q.dtype])
+    flash_ragged_lse.launches += 1
+    return out, lse
+
+
+flash_ragged_lse.launches = 0
+
+
+def _bwd_operands(name, q, k, v, do, lse, drow, row_lens):
+    B, T, H, _ = q.shape
+    R = T * (H // k.shape[2])
+    N = B * k.shape[2]
+    _check_ragged(name, q, k, v, row_lens, extra=(
+        ("do", do, q.dtype, tuple(q.shape), 16),
+        ("lse", lse, torch.float32, (N, R, 1), 4),
+        ("drow", drow, torch.float32, (N, R, 1), 4)))
+
+
+def flash_bwd_dq(q, k, v, do, lse, drow, q_offset, row_lens):
+    """#14's dQ on the tensors' device: for CUDA tensors one launch of
+    ``flash_bwd_dq_launch`` (a block per folded query-row tile, walking
+    the live key tiles); for CPU tensors ``flash_bwd_dq_plain``."""
+    lib = _kernel_lib(q, "flash_bwd_dq", "flash_backward")
+    if lib is None:
+        return flash_bwd_dq_plain(q, k, v, do, lse, drow, q_offset, row_lens)
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    _bwd_operands("flash_bwd_dq", q, k, v, do, lse, drow, row_lens)
+    dq = torch.empty_like(q)
+    _launch(lib, "flash_bwd_dq_launch", q, k, v, do, lse, drow, row_lens, dq,
+            B, T, S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
+            _DTYPES[q.dtype])
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, drow, q_offset, row_lens):
+    """#14's dK and dV on the tensors' device: for CUDA tensors one launch
+    of ``flash_bwd_dkv_launch`` (a block per key tile, walking the
+    query-row tiles that see it); for CPU tensors
+    ``flash_bwd_dkv_plain``."""
+    lib = _kernel_lib(q, "flash_bwd_dkv", "flash_backward")
+    if lib is None:
+        return flash_bwd_dkv_plain(q, k, v, do, lse, drow, q_offset,
+                                   row_lens)
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    _bwd_operands("flash_bwd_dkv", q, k, v, do, lse, drow, row_lens)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(lib, "flash_bwd_dkv_launch", q, k, v, do, lse, drow, row_lens,
+            dk, dv, B, T, S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
+            _DTYPES[q.dtype])
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
 
 
 # --- routers -----------------------------------------------------------------
@@ -470,3 +697,91 @@ def decode_attention_blocks_q8_auto(q, k_pool, v_pool, k_scales, v_scales,
             "the GSPMD route: ROADMAP Queue 1, slice 6: sharding.py / tp")
     return decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales,
                                       k_tail, v_tail, block_tables, lengths)
+
+
+# --- the differentiable causal route (training) -------------------------------
+
+
+def _check_diff_tiles(T, S, tile_t, tile_s):
+    if T % tile_t or S % tile_s:
+        raise ValueError(
+            f"flash_attention_causal_diff needs T divisible by {tile_t} "
+            f"and S by {tile_s}; got T={T} S={S} (use the dense path for "
+            "unaligned shapes)"
+        )
+
+
+class FlashCausalDiff(torch.autograd.Function):
+    """The reference's ``flash_attention_causal_diff`` custom_vjp under
+    autograd: the forward is #13 (o and the per-row lse), the backward
+    the two #14 kernels on the saved (q, k, v, o, lse), with drow =
+    rowsum(dO * O) computed between them in torch. ``q_offset`` and
+    ``row_lens`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, row_lens):
+        o, lse = flash_ragged_lse(q, k, v, q_offset, row_lens)
+        ctx.save_for_backward(q, k, v, o, lse, row_lens)
+        ctx.q_offset = int(q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, row_lens = ctx.saved_tensors
+        do = do.contiguous()  # autograd may hand in a strided gradient
+        drow = flash_bwd_drow(o, do, k.shape[2])
+        dq = flash_bwd_dq(q, k, v, do, lse, drow, ctx.q_offset, row_lens)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, drow, ctx.q_offset,
+                               row_lens)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_causal_diff(q, k, v, q_offset, row_lens):
+    """Differentiable ragged-causal flash attention (the reference's
+    ``flash_attention_causal_diff`` without its ``interpret`` switch).
+    Under autograd (grad enabled and an input that requires it) it is
+    ``FlashCausalDiff``; otherwise the primal, #9's
+    ``flash_attention_ragged``, whose o #13 reproduces bitwise. T and S
+    must divide by ``TILE_T`` and ``TILE_S`` (or be smaller), as in the
+    reference."""
+    T, S = q.shape[1], k.shape[1]
+    _check_diff_tiles(T, S, min(TILE_T, T), min(TILE_S, S))
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashCausalDiff.apply(q, k, v, q_offset, row_lens)
+    return flash_attention_ragged(q, k, v, q_offset, row_lens)
+
+
+def flash_available(T: int, S: int, D: int, device) -> bool:
+    """The reference's guard on the shapes its flash route takes, word for
+    word, with its accelerator test read as "``device`` is CUDA": the
+    kernels' tile alignment and the production head widths (64/128/256).
+    Tiny test models (D = 16) and every CPU tensor take the dense path."""
+    return (
+        torch.device(device).type == "cuda"
+        and T % 8 == 0
+        and T % min(TILE_T, T) == 0
+        and S % min(TILE_S, S) == 0
+        and S % 128 == 0
+        and T >= 8
+        and S >= 128
+        and D % 64 == 0
+    )
+
+
+def causal_attention_auto(q, k, v, mask):
+    """Plain causal self-attention (T == S) with the mask derived
+    in-kernel: ``model.forward``'s no-cache binding, so training and
+    full-sequence prefill never build [T, T] scores where the flash route
+    is available. ``mask`` is the dense fallback's operand and the flash
+    branch does not read it. Differentiable through ``FlashCausalDiff``."""
+    B, T = q.shape[0], q.shape[1]
+    S, D = k.shape[1], q.shape[3]
+    if T == S and flash_available(T, S, D, q.device):
+        # filled on the device: torch.tensor would be a pageable copy
+        # that synchronises the host
+        lens = torch.full((B,), S, dtype=torch.int32, device=q.device)
+        return flash_attention_causal_diff(q, k, v, 0, lens)
+    from kubeinfer_tpu_torch.inference.model import attention
+
+    return attention(q, k, v, mask)

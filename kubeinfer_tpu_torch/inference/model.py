@@ -344,11 +344,16 @@ def forward(
     """Logits [B, T, V] f32 (or post-norm hidden states with
     ``return_hidden``) and the caches, written in place.
 
-    ``attn_fn=None`` is the dense ``attention`` over ``attn_mask`` (the
-    causal mask when there are no caches). A caller that binds an
-    ``attn_fn`` which derives its own mask (the kernel routers) may pass
-    ``attn_mask=None`` with caches; the reference builds the dense mask
-    there and lets XLA drop it."""
+    ``attn_fn=None`` means auto, as in the reference: the plain causal
+    no-cache path (training, full-sequence prefill) binds
+    ``flash_attention.causal_attention_auto``, which takes the
+    differentiable flash route (#9, or #13/#14 under autograd) where
+    ``flash_available`` holds and the dense ``attention`` over the causal
+    mask otherwise; every other path gets the dense ``attention`` over
+    ``attn_mask``. A caller that binds an ``attn_fn`` which derives its
+    own mask (the kernel routers) may pass ``attn_mask=None`` with
+    caches; the reference builds the dense mask there and lets XLA drop
+    it."""
     B, T = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -361,7 +366,16 @@ def forward(
         if kv_caches is not None and attn_fn is None:
             raise ValueError("decode with kv_caches requires attn_mask")
         if kv_caches is None:
+            # the dense fallback operand of the auto route below
             attn_mask = causal_mask(T, dev)[None].expand(B, T, T)
+            if attn_fn is None:
+                # lazy import: flash_attention's dense fallback is this
+                # module's ``attention``
+                from kubeinfer_tpu_torch.inference.flash_attention import (
+                    causal_attention_auto,
+                )
+
+                attn_fn = causal_attention_auto
     if attn_fn is None:
         attn_fn = attention
 

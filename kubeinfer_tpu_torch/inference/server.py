@@ -288,10 +288,14 @@ def build_server(argv: list[str] | None = None, device=None):
         raise SystemExit("loading a checkpoint waits: ROADMAP Queue 1, "
                          "checkpoint.py and load_pretrained; pass "
                          "--random-init with a preset --model")
+    # --model may be a preset name or, when the agent passes its model
+    # cache directory, any path: the reference falls back to the CI-sized
+    # preset there
     cfg = PRESETS.get(args.model)
     if cfg is None:
-        raise SystemExit(f"--model {args.model!r} is not a preset "
-                         f"({', '.join(PRESETS)})")
+        log.info("--random-init: %r is not a preset; using 'tiny'",
+                 args.model)
+        cfg = PRESETS["tiny"]
     dev = resolve_device(device)
     dtype = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
              "float32": torch.float32}[args.dtype]

@@ -146,6 +146,20 @@ def test_main_builds_the_cpu_rehearsal():
         srv.stop()
 
 
+def test_random_init_falls_back_to_tiny():
+    """``--random-init`` with a ``--model`` that is not a preset (the
+    agent passes its model cache directory) serves ``tiny``, as the
+    reference does."""
+    srv, cont = ts.build_server(
+        ["--model", "/tmp/model-cache-dir", "--random-init", "--port", "0",
+         "--batch-slots", "0"], device="cpu")
+    try:
+        assert cont is None and srv.engine.cfg == PRESETS["tiny"]
+        assert srv.model_id == "/tmp/model-cache-dir"
+    finally:
+        srv.stop()
+
+
 def test_server_needs_cuda_by_default(served, monkeypatch):
     _, engine, _ = served
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
