@@ -5,8 +5,9 @@
 
 Drives the port (``kubeinfer_tpu_torch``; nothing of JAX) through the
 placement solve's and the route solve's entry points, through the
-serving path (``/v1/completions`` on llama-3-8b) and through the
-training step (``train.train_step`` on llama-3-8b), builds its CUDA
+serving path (``/v1/completions`` on llama-3-8b), through the training
+step (``train.train_step`` on llama-3-8b), through a dense-mask forward
+(``attention_auto``) and through speculative decoding, builds its CUDA
 kernels from this checkout, holds each kernel against its plain PyTorch
 version, checks the solves' hard guarantees and the served tokens, and
 times them. Phases:
@@ -121,7 +122,44 @@ times them. Phases:
       (dense route) at llama-3-8b widths cut to 2 layers, f32, tokens
       [2, 513]: loss and every gradient leaf within tolerance; 8 steps
       at lr 5e-2 lower the loss on both;
-  (8) the ``kernels`` JSON line (fourteen entries), printed last of all
+  (24) #9b on its entry: ``forward(params, tokens [1, 2048], cfg,
+      attn_mask=packed, attn_fn=attention_auto)`` on llama-3-8b bf16 at
+      full width and depth, a block-diagonal causal mask over documents
+      of 512, 1024 and 384 tokens and 128 rows that see nothing:
+      flash_attention against its plain version on all 32 layer calls,
+      the all-False rows equal to the mean of v, 32 launches in a counted
+      forward, the live rows' hidden states against attn_fn=
+      model.attention; then 2 layers in f32, the card (#9b) against
+      device="cpu" (dense);
+  (25) verify windows at 8 slots: (a) a library ContinuousEngine whose
+      draft is the target itself (acceptance near 1), (b) the server with
+      ``--draft-model llama-3-8b --speculative-draft`` (a seed-1 draft:
+      every window rolls back) over HTTP; #11 at T = 5 and #10 on the
+      draft steps against their plain versions on every call, one host
+      sync per verify window; greedy streams equal to the plain engine's
+      up to a near-tie (the two tokens' logits under a teacher-forced f32
+      forward of the same weights closer than twice the bf16 forward's
+      error on them, plus an ulp), and for every token, beside the plain
+      engine's, whether it is that forward's argmax; the verify counters
+      against the emitted lengths; then 2 layers in f32 with block 16 and
+      a bigram draft, card (#11) against the CPU: equal streams and
+      counters; (25c) full width and depth in f32, the plain engine, a
+      self draft and a bigram draft: every speculative token within
+      2**-10 of a teacher-forced f32 forward's argmax on its own prefix,
+      the streams equal to the plain engine's up to such a tie;
+  (26) the same server without ``--speculative-draft``: four sampled
+      requests of one seed served by one draft group, a greedy one on a
+      slot, and a direct SpeculativeEngine.generate whose prefills launch
+      #9 once per chunk and layer, its greedy tokens checked as in (25);
+  (27) the int8 verify server (``--kv-dtype int8 --weight-dtype int8``):
+      #12 at T = 5 on every call, windows that spill into tail slot 1,
+      #11 never, #15 on every projection; then 2 layers in f32 with block
+      16 and a bigram draft, card against the CPU: equal streams and
+      counters;
+  (28) times: #9b against its bound and SDPA with the same mask, #11 and
+      #12 at T = 5, a verify window's ms and tokens a row in (a) and (b),
+      decode ms per emitted token per slot with and without a draft;
+  (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -343,9 +381,12 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    # the sync warnings themselves, not the note that the debug mode is a
+    # prototype (emitted once a process, on its first switch)
     sites = collections.Counter(
         f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message)
+        and "prototype" not in str(w.message)
     )
     return out, sites
 
@@ -1513,7 +1554,8 @@ def serving_phases(dev, record, card):
     return entries
 
 
-def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F):
+def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F,
+                tag="[16]"):
     """One kernel's entry of the ``kernels`` line: its time per launch on
     the heaviest captured call, its plain version's, the
     scaled_dot_product_attention yardstick's on the same q/k/v, and its
@@ -1569,7 +1611,7 @@ def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(op_ms, byte_ms)
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
-    print(f"[16] {card}: {name} {ms:.4f} ms/launch on {what}; plain "
+    print(f"{tag} {card}: {name} {ms:.4f} ms/launch on {what}; plain "
           f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f}"
           f" ms; bound {bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path")
@@ -1991,7 +2033,7 @@ def card_vs_cpu_int8(dev, record):
     del q_card, q_cpu, c_card, c_cpu
 
 
-def time_q8(dev, fa, chk, card, counts):
+def time_q8(dev, fa, chk, card, counts, tag="[20]"):
     """#12's entry of the ``kernels`` line, as ``time_kernel``: its time
     per launch on the heaviest captured call, its plain version's, SDPA on
     the table-gathered, dequantized K/V with the tails overlaid, and its
@@ -2042,7 +2084,7 @@ def time_q8(dev, fa, chk, card, counts):
     bound_ms = max(op_ms, byte_ms)
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
     launches = counts["decode_attention_blocks_q8"]
-    print(f"[20] {card}: decode_attention_blocks_q8 {ms:.4f} ms/launch on q "
+    print(f"{tag} {card}: decode_attention_blocks_q8 {ms:.4f} ms/launch on q "
           f"[{B}, {T}, {H}, {D}], {int(live.sum())} live rows, lengths "
           f"{lens.tolist()}; plain {plain_ms:.4f} ms; "
           f"scaled_dot_product_attention on the gathered, dequantized K/V "
@@ -2476,6 +2518,961 @@ def train_card_vs_cpu(dev, record):
     del p_card, p_cpu, sides
 
 
+# --- #9b and speculative decoding: phases (24)-(28) ---------------------------
+
+MASK_REPLACES = "kubeinfer_tpu/inference/flash_attention.py:323"
+# a greedy stream may leave the plain engine's only at a near-tie of the
+# bf16 model: where the two tokens' logits under an f32 forward of the
+# same weights (the exact model) differ by no more than two bf16 paths'
+# errors can swap, 2 x the bf16 forward's own error on those two logits,
+# plus one bf16 ulp of the head's output at the top logits (about 5,
+# where an ulp is 2**-5). The verify forward runs T = k + 1 rows through
+# the projections where plain decode runs T = 1, and cuBLAS rounds the
+# two differently; at full depth the bf16 hidden states sit about 9% off
+# the f32 forward's ([24]), so the top logits move by up to ~0.25
+GAP_ULP = 2.0 ** -5
+# the same in f32 at full depth (phase 25c): two f32 routes' logits differ
+# by about the bf16 error scaled by the unit roundoffs' ratio (2**-24 /
+# 2**-8 of ~0.2, a few 1e-6; TF32 is off), so a tie is a gap within
+# 2**-10, some 300x that and some 200x below the median top-2 gap (~0.19)
+F32_TIE = 2.0 ** -10
+# the final hidden states of the live rows, bf16 at full depth: the #9b
+# route's relative L2 error against an f32 forward of the same weights
+# (dense route) may be at most this multiple of the bf16 dense route's
+# (max and mean over the rows): the two bf16 routes round P at different
+# places, and 32 layers of residual stream carry it
+HIDDEN_RATIO = 2.0
+HIDDEN_F32_ABS = 1e-4  # the same at 2 layers in f32, card against the CPU
+
+
+def packed_mask(T, docs, pad):
+    """bool [T, T]: block-diagonal causal over documents of the given
+    lengths, then ``pad`` rows (and columns) that see nothing."""
+    m = np.zeros((T, T), bool)
+    s = 0
+    for n in docs:
+        m[s:s + n, s:s + n] = np.tril(np.ones((n, n), bool))
+        s += n
+    check(s + pad == T, "packed mask lengths")
+    return m
+
+
+class CheckedMasked(CheckedAttention):
+    """``CheckedAttention`` for #9b that also holds every all-False mask
+    row to the uniform mean of v over all S keys (bf16: 2**-6 of the
+    row's largest |mean|)."""
+
+    def __call__(self, q, k, v, mask):
+        import torch
+
+        got = super().__call__(q, k, v, mask)
+        dead = ~mask.any(dim=2)  # [B, T]
+        G = q.shape[2] // k.shape[2]
+        mean = v.float().mean(dim=1).repeat_interleave(G, dim=1)  # [B, H, D]
+        for b in range(q.shape[0]):
+            rows = got[b][dead[b]].float()  # [n, H, D]
+            if rows.numel():
+                want = mean[b][None].expand_as(rows)
+                err = (rows - want).abs().amax(dim=-1)  # [n, H]
+                tol = BF16_REL * want.abs().amax(dim=-1)
+                if got.dtype == torch.float32:
+                    tol = torch.full_like(tol, 1e-5)
+                if not bool((err <= tol).all()):
+                    self.error = (f"flash_attention: all-False rows differ "
+                                  f"from the mean of v by {float(err.max())}")
+                    raise AssertionError(self.error)
+        return got
+
+
+def cast_tree(params, dtype):
+    """The parameter tree with every tensor cast to ``dtype`` (a copy)."""
+    if isinstance(params, dict):
+        return {key: cast_tree(x, dtype) for key, x in params.items()}
+    if isinstance(params, list):
+        return [cast_tree(x, dtype) for x in params]
+    return params.to(dtype)
+
+
+def forced_logits(params, cfg, prompt, out, dev, served=True):
+    """Teacher-forced logits of every token of ``out`` after ``prompt``,
+    (served [n, V] or None, f32 [n, V]) as f32 tensors: the tree as it
+    serves (no cache; skipped unless ``served``), and the same weights
+    cast to f32 one layer at a time (dense attention). Row i is the
+    distribution ``out[i]`` was drawn from, on the stream's own
+    prefix."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference import model as tm
+
+    toks = torch.tensor([list(prompt) + list(out[:-1])], device=dev)
+    T, first = toks.shape[1], len(prompt) - 1
+    head = tm.lm_head_matrix(params, cfg)
+    lg16 = None
+    with torch.inference_mode():
+        if served:
+            h16, _ = tm.forward(params, toks, cfg, return_hidden=True)
+            lg16 = (h16[0, first:] @ head).float()
+        cos, sin = tm.rope_tables(torch.arange(T, device=dev)[None],
+                                  cfg.head_dim, cfg.rope_theta)
+        check(not cfg.scale_embeddings, "f32 logits: an unscaled embedding")
+        x = params["embed_tokens"][toks].float()
+        mask = tm.causal_mask(T, dev)[None]
+        for layer in params["layers"]:
+            x, _ = tm.decoder_layer(cast_tree(layer, torch.float32), x, cos,
+                                    sin, mask, cfg)
+        x = tm.rms_norm(x[0, first:], params["norm"].float(),
+                        cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
+        lg32 = x @ head.float()
+    return lg16, lg32
+
+
+def token_gaps(stream, lg32, lg16=None):
+    """Per position of ``stream``: (the f32 argmax's logit minus the
+    token's, or minus the runner-up's where the token is the argmax;
+    whether the token is the argmax; the bf16 allowance 2 x the served
+    forward's largest error on those two logits + GAP_ULP, or None)."""
+    import torch
+
+    top2 = lg32.topk(2, dim=-1).indices
+    toks = torch.tensor(stream, device=lg32.device)
+    rows = torch.arange(len(stream), device=lg32.device)
+    a = top2[:, 0]
+    b = torch.where(toks == a, top2[:, 1], toks)
+    gap = lg32[rows, a] - lg32[rows, b]
+    allow = None
+    if lg16 is not None:
+        err = (lg16 - lg32).abs()
+        allow = 2 * torch.maximum(err[rows, a], err[rows, b]) + GAP_ULP
+    return gap, toks == a, allow
+
+
+def held_streams(label, got, want, prompts, params, cfg, dev):
+    """Greedy bf16 streams (``got``) equal to the plain engine's
+    (``want``), or leaving them first at a near-tie of the bf16 model:
+    the two tokens' logits under a teacher-forced f32 forward of the same
+    weights on the shared prefix differ by at most 2 x the bf16 forward's
+    largest error on them + GAP_ULP. Prints each divergence as (output
+    index, that f32 gap, that bf16 error), and for both sets of streams
+    how many tokens are not the f32 forward's argmax and how many lie
+    outside that allowance: a statistic of bf16 rounding, reported beside
+    the plain engine's as its control and not checked, since one bf16
+    forward's error does not bound another route's (phase 25c holds every
+    token in f32). Returns (the count of divergences, the per-token counts
+    [positions, not the argmax, outside] of both sets)."""
+    stats = {"speculative": [0, 0, 0], "plain": [0, 0, 0]}
+    divs = []
+    for g, w, p in zip(got, want, prompts):
+        rows = {}
+        for name, stream in (("speculative", g), ("plain", w)):
+            l16, l32 = forced_logits(params, cfg, p, stream, dev)
+            gap, is_top, allow = token_gaps(stream, l32, l16)
+            st = stats[name]
+            st[0] += len(stream)
+            st[1] += int((~is_top).sum())
+            st[2] += int((~is_top & (gap > allow)).sum())
+            rows[name] = (l16, l32)
+        if g == w:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+                 min(len(g), len(w)))
+        if i >= min(len(g), len(w)):
+            divs.append((i, float("inf"), float("inf")))  # lengths differ
+            continue
+        l16, l32 = rows["speculative"]  # the same prefix up to row i
+        x, y = g[i], w[i]
+        err = max(abs(float(l16[i, x] - l32[i, x])),
+                  abs(float(l16[i, y] - l32[i, y])))
+        divs.append((i, round(abs(float(l32[i, x] - l32[i, y])), 5),
+                     round(err, 5)))
+    print(f"{label} greedy divergences from the plain engine (output index,"
+          f" f32 logit gap of the two tokens, bf16 error on them): {divs}")
+    print(f"{label} every greedy token against a teacher-forced f32 forward "
+          f"on its own prefix (positions, not the f32 argmax, outside the "
+          f"bf16 allowance): speculative {stats['speculative']}, the plain "
+          f"engine {stats['plain']}")
+    check(all(gap <= 2 * err + GAP_ULP for _, gap, err in divs),
+          f"{label}: a stream leaves the plain engine's where the two "
+          f"tokens' f32 logits differ by more than the bf16 model's error "
+          f"can swap")
+    return len(divs), stats
+
+
+def f32_streams(label, got, want, prompts, params, cfg, dev):
+    """Greedy f32 streams: every token of ``got`` the argmax of a
+    teacher-forced f32 forward on its own prefix or within F32_TIE of
+    it, and each stream equal to the plain engine's (``want``) or leaving
+    it first where both tokens are such near-ties. Returns (divergences,
+    tokens not the argmax, positions whose f32 top-2 gap is within
+    F32_TIE: where the check cannot tell the top two apart)."""
+    excused = blind = 0
+    divs, bad = [], []
+    for g, w, p in zip(got, want, prompts):
+        _, l32 = forced_logits(params, cfg, p, g, dev, served=False)
+        gap, is_top, _ = token_gaps(g, l32)
+        excused += int((~is_top).sum())
+        blind += int((gap <= F32_TIE).sum())
+        bad += [(i, float(gap[i])) for i in range(len(g))
+                if not bool(is_top[i]) and float(gap[i]) > F32_TIE]
+        if g == w:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+                 min(len(g), len(w)))
+        if i >= min(len(g), len(w)):
+            divs.append((i, float("inf")))  # lengths differ
+            continue
+        divs.append((i, float(l32[i].max() - l32[i, w[i]])))
+    print(f"{label} every greedy token against a teacher-forced f32 forward "
+          f"on its own prefix: {sum(map(len, got))} positions, {excused} "
+          f"not its argmax, {blind} with a top-2 gap within {F32_TIE}; "
+          f"tokens outside it {bad}; divergences from the plain engine "
+          f"(output index, the plain token's gap to the argmax): {divs}")
+    check(not bad and all(gap <= F32_TIE for _, gap in divs),
+          f"{label}: an f32 greedy token is not the f32 forward's argmax "
+          f"within {F32_TIE}")
+    return len(divs), excused, blind
+
+
+def spec_counters(label, eng, reqs, before, k):
+    """The verify counters against the emitted lengths: every row-window
+    proposed k drafts, emitted n_dev = accepted + 1 device tokens, of which
+    the host kept all but a truncation (at most k per request, at its
+    end); accepted tokens never exceed proposals; the per-request sums
+    equal the engine's."""
+    st = eng.scheduler_stats()
+    d = {key: st[key] - before[key] for key in
+         ("spec_draft_tokens", "spec_accepted_tokens", "spec_rollbacks")}
+    row_windows = d["spec_draft_tokens"] // k
+    emitted = sum(len(r.out_tokens) - 1 for r in reqs)
+    check(d["spec_draft_tokens"] == k * row_windows
+          and d["spec_accepted_tokens"] <= d["spec_draft_tokens"]
+          and d["spec_rollbacks"] <= row_windows
+          and emitted <= d["spec_accepted_tokens"] + row_windows
+          <= emitted + k * len(reqs)
+          and sum(r.spec_accepted for r in reqs) == d["spec_accepted_tokens"]
+          and sum(r.spec_rollbacks for r in reqs) == d["spec_rollbacks"],
+          f"{label}: verify counters {d} against {emitted} emitted tokens "
+          f"over {len(reqs)} requests")
+    return d, row_windows, emitted
+
+
+def timed_windows(cont, prompts, new):
+    """Admit ``prompts`` into a scheduler that is not running, then run
+    verify windows by hand until every row retires: (ms per window, tokens
+    emitted per live row per window, windows)."""
+    reqs = [cont.submit(p, new) for p in prompts]
+    cont._admit_pending()
+    ms, per_row = [], []
+    while any(r is not None for r in cont._slot_req):
+        live = [r for r in cont._slot_req if r is not None]
+        n0 = sum(len(r.out_tokens) for r in live)
+        t0 = time.perf_counter()
+        cont._verify_pass()  # ends in the window's readback
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_row.append((sum(len(r.out_tokens) for r in live) - n0)
+                       / len(live))
+    check(all(r.done.is_set() and len(r.out_tokens) == new for r in reqs),
+          "timed verify windows left a request unfinished")
+    return statistics.median(ms), float(np.mean(per_row)), len(ms)
+
+
+def decode_ms_per_token(cont, prompts, new):
+    """Concurrent requests through the running scheduler: per request,
+    (last token - the moment every row is live) / tokens after it; the
+    median over requests (ms per emitted token per slot)."""
+    reqs = in_threads(lambda p: cont.serve(p, new, timeout=900), prompts)
+    t_all = max(r.t_first for r in reqs)
+    per = []
+    for r in reqs:
+        times = [x for x in r.token_times if x > t_all]
+        if len(times) > 1:
+            per.append((times[-1] - t_all) / len(times) * 1e3)
+    return statistics.median(per)
+
+
+def masked_phase(dev, record, card):
+    """Phase (24): #9b on its entry, ``forward(params, tokens, cfg,
+    attn_mask=packed, attn_fn=attention_auto)`` on llama-3-8b at full
+    width and depth (bf16), every layer's call checked; the launch count
+    of a second forward; the live rows' hidden states against the dense
+    route; 2 layers in f32 on the card against the CPU; #9b's times.
+    Returns the kernels-line entry."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import model as tm
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = PRESETS["llama-3-8b"]
+    V, layers, D = cfg.vocab_size, cfg.num_hidden_layers, cfg.head_dim
+    T, docs, pad = 2048, (512, 1024, 384), 128
+    params = tm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(24)
+    tokens = torch.from_numpy(rng.integers(1, V, (1, T))).to(dev)
+    mask = torch.from_numpy(packed_mask(T, docs, pad)[None]).to(dev)
+    live_pairs = int(mask.sum())
+    check(fa.flash_available(T, T, D, dev), "#9b's guard refuses T = 2048")
+
+    chk = CheckedMasked(
+        fa, "flash_attention", fa.flash_attention_plain,
+        live=lambda q, k, v, m: torch.ones(q.shape[0], dtype=torch.bool,
+                                           device=q.device),
+        weight=lambda q, k, v, m: 0)
+    with torch.inference_mode(), chk:
+        try:
+            tm.forward(params, tokens, cfg, attn_mask=mask,
+                       attn_fn=fa.attention_auto, return_hidden=True)
+        finally:
+            check(chk.error is None, str(chk.error))
+    check(chk.calls == layers, f"#9b checked on {chk.calls} calls")
+    # the main path, counted
+    fa.flash_attention.launches = 0
+    with torch.inference_mode():
+        hid, _ = tm.forward(params, tokens, cfg, attn_mask=mask,
+                            attn_fn=fa.attention_auto, return_hidden=True)
+    launches = fa.flash_attention.launches
+    check(launches == layers, f"#9b launched {launches} times in a forward")
+    with torch.inference_mode():
+        dense, _ = tm.forward(params, tokens, cfg, attn_mask=mask,
+                              attn_fn=tm.attention, return_hidden=True)
+        p32 = cast_tree(params, torch.float32)
+        h32, _ = tm.forward(p32, tokens, cfg, attn_mask=mask,
+                            attn_fn=tm.attention, return_hidden=True)
+        del p32
+    live = slice(0, T - pad)
+
+    def rel_rows(a, b):
+        a, b = a[0, live].float(), b[0, live].float()
+        return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+    rel = rel_rows(hid, dense)
+    rk, rd = rel_rows(hid, h32), rel_rows(dense, h32)
+    check(bool(torch.isfinite(hid).all())
+          and float(rk.max()) <= HIDDEN_RATIO * float(rd.max())
+          and float(rk.mean()) <= HIDDEN_RATIO * float(rd.mean()),
+          f"#9b route against the f32 forward: max {float(rk.max())}, mean "
+          f"{float(rk.mean())}; the dense bf16 route's max "
+          f"{float(rd.max())}, mean {float(rd.mean())}")
+    print(f"[24] forward(attn_mask=packed, attn_fn=attention_auto) on "
+          f"llama-3-8b bf16 (init_params(seed=0), {layers} layers), tokens "
+          f"[1, {T}], documents {docs} + {pad} rows that see nothing: "
+          f"flash_attention on {chk.calls} calls within tolerance of its "
+          f"plain version (max |kernel - plain| {chk.max_err:.3e}), the "
+          f"all-False rows equal to the mean of v over all {T} keys; "
+          f"{launches} launches in a counted forward; the {T - pad} live "
+          f"rows' hidden states against attn_fn=model.attention: relative "
+          f"L2 max {float(rel.max()):.3e}, mean {float(rel.mean()):.3e}; "
+          f"against an f32 forward of the same weights: #9b route max "
+          f"{float(rk.max()):.3e} mean {float(rk.mean()):.3e}, dense bf16 "
+          f"route max {float(rd.max()):.3e} mean {float(rd.mean()):.3e} "
+          f"(limit {HIDDEN_RATIO}x the dense route's)")
+
+    # #9b's times (phase 28) on the layer-0 call
+    args = chk.heaviest
+    q, k, v, m = args
+    H = q.shape[2]
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: fa.flash_attention(*args), reps=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(*args), reps=3)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=m[:, None], enable_gqa=True), reps=10)
+    elt = q.element_size()
+    # the work this mask needs: QK^T and PV over the live pairs of every
+    # head, and one mean of v over all S keys per kv head for the rows
+    # that see nothing (the kernel folds every tile regardless)
+    n_kv = k.shape[2]
+    ops = 4 * live_pairs * H * D + n_kv * T * D
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt + m.numel()
+    op_ms = ops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(op_ms, byte_ms)
+    bound_by = "operations" if op_ms >= byte_ms else "bytes"
+    print(f"[28] {card}: flash_attention {ms:.4f} ms/launch on q [1, {T}, "
+          f"{H}, {D}] with the packed mask ({live_pairs} live pairs a head, "
+          f"{100 * live_pairs / T / T:.1f}% of T x S); plain {plain_ms:.4f} "
+          f"ms; scaled_dot_product_attention (bool mask, GQA) "
+          f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{ops / 1e9:.3f} GFLOP over the live pairs, {nbytes / 1e6:.3f} "
+          f"MB); {launches} launches on the main path; "
+          f"{ms / (T * T * H) * 1e9:.1f} ps a (head, pair)")
+    entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "kubeinfer_tpu_torch/inference/csrc/flash_prefill.cu",
+        "replaces": MASK_REPLACES, "launches": launches,
+        "max_abs_err": chk.max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                        "(enable_gqa, the same boolean mask) on the same "
+                        "q/k/v",
+        "check": f"within tolerance of its plain version (bf16: 2**-6 of "
+                 f"each row's magnitude) on {chk.calls} calls, all-False "
+                 "rows equal to the mean of v",
+    }
+    record["masked"] = {"launches": launches, "live_pairs": live_pairs,
+                        "hidden_rel_max": float(rel.max()),
+                        "hidden_rel_mean": float(rel.mean()),
+                        "f32_rel_9b": [float(rk.max()), float(rk.mean())],
+                        "f32_rel_dense": [float(rd.max()), float(rd.mean())],
+                        "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms}
+    del chk, args, q, k, v, m, hid, dense, h32, rel, rk, rd
+    gc.collect()
+
+    # 2 layers in f32: the card (#9b) against the CPU (dense route)
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    p2 = tm.init_params(cfg2, seed=24, dtype=torch.float32, device=dev)
+    T2 = 512
+    tok2 = torch.from_numpy(rng.integers(1, V, (1, T2)))
+    m2 = torch.from_numpy(packed_mask(T2, (128, 256, 64), 64)[None])
+    fa.flash_attention.launches = 0
+    with torch.inference_mode():
+        h_card, _ = tm.forward(p2, tok2.to(dev), cfg2, attn_mask=m2.to(dev),
+                               attn_fn=fa.attention_auto, return_hidden=True)
+        n_card = fa.flash_attention.launches
+        p2c = tm.params_to(p2, "cpu")
+        del p2
+        t0 = time.perf_counter()
+        h_cpu, _ = tm.forward(p2c, tok2, cfg2, attn_mask=m2,
+                              attn_fn=fa.attention_auto, return_hidden=True)
+        host_s = time.perf_counter() - t0
+    err = float((h_card.cpu() - h_cpu).abs().max())
+    check(n_card == 2 and err <= HIDDEN_F32_ABS,
+          f"[24] 2 layers f32: #9b launches {n_card}, card vs CPU {err}")
+    print(f"[24] llama-3-8b widths cut to 2 layers, f32, tokens [1, {T2}] "
+          f"with a packed mask: the card (#9b, {n_card} launches) against "
+          f"device='cpu' (the dense route of attention_auto, {host_s:.1f} s):"
+          f" max |diff| of the hidden states {err:.3e} (limit "
+          f"{HIDDEN_F32_ABS})")
+    record["masked"]["f32_card_vs_cpu_abs"] = err
+    del p2c, h_card, h_cpu, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
+def spec_phases(dev, record, card):
+    """Phases (25)-(28): verify windows on llama-3-8b bf16 at 8 slots, a
+    self-draft library engine (a) and the server with a seed-1 draft (b);
+    the draft groups and the side-car (26); the int8 verify server (27);
+    times (28). Returns nothing: #10, #11 and #12 keep their kernels-line
+    entries from phases 16 and 20."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.model import init_params
+    from kubeinfer_tpu_torch.inference.stepper import RowFlags, verify_window
+
+    cfg = PRESETS["llama-3-8b"]
+    # the server's target: init_params(seed=0) in bf16
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    V, layers, k = cfg.vocab_size, cfg.num_hidden_layers, 4
+    rng = np.random.default_rng(25)
+    prompts_a = [rng.integers(1, V, 512).tolist() for _ in range(8)]
+    prompts_b = [rng.integers(1, V, 512).tolist() for _ in range(4)]
+    times = {}
+
+    def checkers():
+        return (
+            CheckedAttention(
+                fa, "decode_attention_blocks",
+                fa.decode_attention_blocks_plain,
+                live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
+                                                 & (ln >= q.shape[1])),
+                weight=lambda q, kp, vp, tbl, ln: (
+                    int((tbl[:, 0] != 0).sum()), int(ln.sum()))),
+            CheckedAttention(
+                fa, "decode_attention", fa.decode_attention_plain,
+                live=lambda q, kk, vv, ln: ln > 0, weight=lambda *a: 0))
+
+    def one_sync(cont):
+        flags = RowFlags(sampled=True, top_k=True, top_p=True, penalty=True)
+        with torch.inference_mode():
+            _, sites = count_syncs(lambda: verify_window(
+                cont.params, cont._state, cont._dparams, cont._dstate, cfg,
+                cont._dcfg, k, flags)[2].cpu())
+        n = sum(sites.values())
+        check(n == 1, f"verify window host syncs {dict(sites)}")
+        return n
+
+    # the plain engine's greedy streams (no draft) and its decode pace
+    e0 = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
+                          device=dev).start()
+    try:
+        with torch.inference_mode():
+            plain_a = in_threads(lambda p: e0.generate(p, 64, timeout=900),
+                                 prompts_a)
+            plain_b = in_threads(lambda p: e0.generate(p, 64, timeout=900),
+                                 prompts_b)
+            times["decode_plain_ms"] = decode_ms_per_token(
+                e0, [rng.integers(1, V, 512).tolist() for _ in range(8)], 64)
+    finally:
+        e0.stop()
+    del e0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (25a) a library engine whose draft is the target itself
+    ea = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
+                          spec_draft=(params, cfg), spec_k=k, device=dev)
+    with torch.inference_mode():
+        times["window_a"] = timed_windows(
+            ea, [rng.integers(1, V, 512).tolist() for _ in range(8)], 64)
+    ea.start()
+    chk11, chk10 = checkers()
+    sampled = [dict(temperature=0.8, top_k=50, top_p=0.9, seed=s)
+               for s in (3, 4)]
+    before = ea.scheduler_stats()
+    jobs = [(p, {}) for p in prompts_a] + [
+        (rng.integers(1, V, 512).tolist(), kw) for kw in sampled]
+    fa.decode_attention_blocks.launches = fa.decode_attention.launches = 0
+    with torch.inference_mode(), chk11, chk10:
+        try:
+            reqs = in_threads(lambda j: ea.serve(j[0], 64, timeout=900,
+                                                 **j[1]), jobs)
+        finally:
+            check(chk11.error is None and chk10.error is None,
+                  f"{chk11.error} {chk10.error}")
+    check(chk11.calls > 0 and chk11.calls % layers == 0
+          and chk10.calls == (k - 1) * chk11.calls
+          and fa.decode_attention_blocks.launches == 0,
+          f"(a) #11 {chk11.calls} calls, #10 {chk10.calls}")
+    for r in reqs:
+        check(len(r.out_tokens) == 64 and all(0 <= x < V
+                                              for x in r.out_tokens),
+              "(a) tokens")
+    cnt_a = spec_counters("[25a]", ea, reqs, before, k)
+    div_a, tok_a = held_streams("[25a]", [r.out_tokens for r in reqs[:8]], plain_a,
+                         prompts_a, params, cfg, dev)
+    sync_a = one_sync(ea)
+    print(f"[25a] ContinuousEngine(llama-3-8b bf16, 8 slots, cache 4096, "
+          f"spec_draft = the target itself, spec_k {k}): 8 greedy + 2 "
+          f"sampled 512-token prompts, 64 new: decode_attention_blocks at "
+          f"T = {k + 1} on {chk11.calls} calls and decode_attention on the "
+          f"draft steps' {chk10.calls} calls within tolerance (max "
+          f"|kernel - plain| {chk11.max_err:.3e}, {chk10.max_err:.3e}); "
+          f"counters {cnt_a[0]} over {cnt_a[1]} row-windows, {cnt_a[2]} "
+          f"tokens after the admits; greedy streams equal to the plain "
+          f"engine's but {div_a} (each at a near-tie of the bf16 model); "
+          f"{sync_a} host sync per verify window")
+    ea.stop()
+    record["spec_a"] = {"counters": cnt_a[0], "row_windows": cnt_a[1],
+                        "divergences": div_a, "f32_token_stats": tok_a,
+                        "checked_11": chk11.calls,
+                        "checked_10": chk10.calls}
+    heavy11 = chk11
+    del ea, chk10, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (25b) the server with a seed-1 draft of the same preset
+    argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
+            "--host", "127.0.0.1", "--batch-slots", "8", "--draft-model",
+            "llama-3-8b", "--speculation-depth", str(k)]
+    t0 = time.perf_counter()
+    srv, cont = server.build_server(argv + ["--speculative-draft"])
+    torch.cuda.synchronize()
+    gib = torch.cuda.memory_allocated() / 2**30
+    print(f"[25b] server.build_server({' '.join(argv[:3] + argv[7:])} "
+          f"--speculative-draft): {gib:.1f} GiB on the card (target, draft, "
+          f"pool, draft caches), built in {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        times["window_b"] = timed_windows(
+            cont, [rng.integers(1, V, 512).tolist() for _ in range(8)], 16)
+    cont.start()
+    srv.start()
+    chk11, chk10 = checkers()
+    bodies = [dict(prompt=p, max_tokens=64) for p in prompts_b]
+    bodies.append(dict(prompt=rng.integers(1, V, 512).tolist(),
+                       max_tokens=64, temperature=0.8, top_k=50, top_p=0.9,
+                       seed=7))
+    before = cont.scheduler_stats()
+    fa.decode_attention_blocks.launches = fa.decode_attention.launches = 0
+    with torch.inference_mode(), chk11, chk10:
+        try:
+            resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+        finally:
+            check(chk11.error is None and chk10.error is None,
+                  f"{chk11.error} {chk10.error}")
+    check(chk11.calls > 0 and chk10.calls == (k - 1) * chk11.calls,
+          f"(b) #11 {chk11.calls} calls, #10 {chk10.calls}")
+    routes = [r["kubeinfer"]["route"] for r in resps]
+    check(routes == ["continuous"] * 5, f"(b) routes {routes}")
+    outs = [r["choices"][0]["tokens"] for r in resps]
+    check(all(len(o) == 64 and all(0 <= x < V for x in o) for o in outs),
+          "(b) tokens")
+    st = cont.scheduler_stats()
+    d = {key: st[key] - before[key] for key in
+         ("spec_draft_tokens", "spec_accepted_tokens", "spec_rollbacks")}
+    acc = sum(r["kubeinfer"]["spec_accepted"] for r in resps)
+    rb = sum(r["kubeinfer"]["spec_rollbacks"] for r in resps)
+    row_windows = d["spec_draft_tokens"] // k
+    emitted = sum(len(o) - 1 for o in outs)
+    check(acc == d["spec_accepted_tokens"] and rb == d["spec_rollbacks"]
+          and emitted <= d["spec_accepted_tokens"] + row_windows
+          <= emitted + k * len(outs) and rb <= row_windows,
+          f"(b) verify counters {d} against {emitted} tokens")
+    div_b, tok_b = held_streams("[25b]", outs[:4], plain_b, prompts_b,
+                         srv.engine.params, cfg, dev)
+    sync_b = one_sync(cont)
+    print(f"[25b] /v1/completions on that server: 4 greedy + 1 sampled "
+          f"512-token prompts, 64 new, route continuous: #11 at T = {k + 1} "
+          f"on {chk11.calls} calls and #10 on {chk10.calls} within "
+          f"tolerance (max |kernel - plain| {chk11.max_err:.3e}, "
+          f"{chk10.max_err:.3e}); counters {d} over {row_windows} "
+          f"row-windows (the response fields sum to them); greedy streams "
+          f"equal to the plain engine's but {div_b} (each at a near-tie of the "
+          f"bf16 model); {sync_b} host sync per verify window")
+    record["spec_b"] = {"counters": d, "row_windows": row_windows,
+                        "divergences": div_b, "f32_token_stats": tok_b,
+                        "checked_11": chk11.calls,
+                        "checked_10": chk10.calls}
+    srv.stop()
+    cont.stop()
+    del srv, cont, chk10
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_card_vs_cpu(dev, record, "bf16")
+    spec_f32_full(dev, record, k)
+
+    # (26) the same server without --speculative-draft: draft groups own
+    # the eligible traffic; and the side-car's bulk generate
+    srv, cont = server.build_server(argv)
+    srv.start()
+    body = dict(max_tokens=32, temperature=0.8, top_p=0.9, seed=11)
+    group_prompts = [rng.integers(1, V, 512).tolist() for _ in range(4)]
+    greedy_prompt = rng.integers(1, V, 512).tolist()
+    served0 = cont.spec_served
+    import threading
+
+    out = {}
+
+    def post_in_thread(key, bodies):
+        th = threading.Thread(target=lambda: out.__setitem__(key, in_threads(
+            lambda b: post_json(srv.port, b), bodies)))
+        th.start()
+        return th
+
+    def queued(n):
+        deadline = time.perf_counter() + 60
+        while cont._queue.qsize() < n and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        check(cont._queue.qsize() == n, f"(26) {n} requests did not queue")
+
+    # every request queued before the scheduler starts, the four sampled
+    # ones (same seed) first: they join one group, the greedy one a slot
+    th_s = post_in_thread("sampled", [dict(prompt=p, **body)
+                                      for p in group_prompts])
+    queued(4)
+    th_g = post_in_thread("greedy", [dict(prompt=greedy_prompt,
+                                          max_tokens=32)])
+    queued(5)
+    fa.flash_attention_ragged.launches = 0
+    cont.start()
+    th_s.join()
+    th_g.join()
+    resps = out["sampled"] + out["greedy"]
+    check(all(r["kubeinfer"]["route"] == "continuous" for r in resps)
+          and cont.spec_served - served0 == 4
+          and all(len(r["choices"][0]["tokens"]) == 32 for r in resps),
+          f"(26) group: served {cont.spec_served - served0}, routes "
+          f"{[r['kubeinfer']['route'] for r in resps]}")
+    n9_group = fa.flash_attention_ragged.launches
+    check(n9_group == 2 * layers, f"(26) group prefill #9 {n9_group}")
+    spec = srv.speculative
+    p1 = rng.integers(1, V, 512).tolist()
+    fa.flash_attention_ragged.launches = 0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out = spec.generate([p1], max_new_tokens=32)
+        gen_s = time.perf_counter() - t0
+    n9 = fa.flash_attention_ragged.launches
+    # one chunk of 512 for the target and for the draft, every layer
+    check(n9 == 2 * layers, f"(26) side-car prefill launched #9 {n9} times")
+    with torch.inference_mode():
+        van = srv.engine.generate([p1], 32).tokens[0].tolist()
+    div_c, tok_c = held_streams("[26]", [out.tokens[0].tolist()], [van], [p1],
+                         srv.engine.params, cfg, dev)
+    print(f"[26] the server without --speculative-draft: 4 sampled requests "
+          f"(seed 11) served by one draft group and 1 greedy on a slot, 32 "
+          f"new each, route continuous; the group's prefill launched "
+          f"flash_attention_ragged {n9_group} times (target and draft, one "
+          f"512 chunk, every layer); SpeculativeEngine.generate([512 "
+          f"tokens], 32) in {gen_s:.2f} s, {spec.last_stats['rounds']} "
+          f"rounds, {int(spec.last_stats['accepted_drafts'][0])} accepted "
+          f"drafts, #9 {n9} launches; greedy equal to Engine.generate but "
+          f"{div_c} (at a near-tie of the bf16 model)")
+    record["spec_groups"] = {"served": cont.spec_served - served0,
+                             "group_n9": n9_group, "sidecar_n9": n9,
+                             "sidecar_s": gen_s, "divergences": div_c,
+                             "f32_token_stats": tok_c}
+    srv.stop()
+    cont.stop()
+    del srv, cont, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (27) int8: the verify server with --kv-dtype int8 --weight-dtype int8
+    srv, cont = server.build_server(argv + [
+        "--speculative-draft", "--kv-dtype", "int8", "--weight-dtype",
+        "int8"])
+    srv.start()
+    cont.start()
+    bs = cont.block_size
+    crossing = [0]
+
+    def q8_live_crossing(q, kp, vp, ks, vs, kt, vt, tbl, ln):
+        live = q8_live(q, kp, vp, ks, vs, kt, vt, tbl, ln)
+        T = q.shape[1]
+        cross = live & ((ln - T) // bs != (ln - 1) // bs)
+        crossing[0] += int(cross.sum())
+        return live
+
+    chk12 = CheckedAttention(
+        fa, "decode_attention_blocks_q8", fa.decode_attention_blocks_q8_plain,
+        live=q8_live_crossing,
+        weight=lambda q, kp, vp, ks, vs, kt, vt, tbl, ln: (
+            int((tbl[:, 0] != 0).sum()), int(ln.sum())))
+    # windows from offset 600 on cross the edge at 640
+    bodies = [dict(prompt=rng.integers(1, V, n).tolist(), max_tokens=64)
+              for n in (600, 610, 620, 630)]
+    bodies.append(dict(prompt=rng.integers(1, V, 605).tolist(),
+                       max_tokens=64, temperature=0.8, top_k=50, top_p=0.9,
+                       seed=7))
+    for name in ("decode_attention_blocks", "decode_attention_blocks_q8"):
+        getattr(fa, name).launches = 0
+    wq.quant_matmul.launches = 0
+    qb0 = cont.quant_blocks_total
+    before = cont.scheduler_stats()
+    with torch.inference_mode(), chk12:
+        try:
+            resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+        finally:
+            check(chk12.error is None, str(chk12.error))
+    n11, n15 = fa.decode_attention_blocks.launches, wq.quant_matmul.launches
+    st = cont.scheduler_stats()
+    check(chk12.calls > 0 and chk12.calls % layers == 0 and n11 == 0
+          and n15 > 0 and n15 % (7 * layers) == 0 and crossing[0] > 0
+          and st["spec_draft_tokens"] > before["spec_draft_tokens"],
+          f"(27) #12 {chk12.calls} calls, #11 {n11}, #15 {n15}, windows "
+          f"over a block edge {crossing[0]}")
+    outs = [r["choices"][0]["tokens"] for r in resps]
+    check(all(len(o) == 64 and all(0 <= x < V for x in o) for o in outs),
+          "(27) tokens")
+    sync_q = one_sync(cont)
+    print(f"[27] the int8 verify server (--kv-dtype int8 --weight-dtype "
+          f"int8, seed-1 bf16 draft): 4 greedy + 1 sampled prompts of "
+          f"600-630 tokens, 64 new: decode_attention_blocks_q8 at T = "
+          f"{k + 1} on {chk12.calls} calls within tolerance (max |kernel - "
+          f"plain| {chk12.max_err:.3e}), {crossing[0]} row-windows spilling "
+          f"into tail slot 1; #11 {n11} launches; quant_matmul {n15} "
+          f"launches (7 a layer per target forward); quant_blocks_total "
+          f"+{cont.quant_blocks_total - qb0}; {sync_q} host sync per "
+          f"verify window")
+    record["spec_int8"] = {"checked_12": chk12.calls, "crossing": crossing[0],
+                           "quant_matmul": n15,
+                           "quant_blocks": cont.quant_blocks_total - qb0}
+    srv.stop()
+    cont.stop()
+    heavy12 = chk12
+    del srv, cont
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_card_vs_cpu(dev, record, "int8")
+
+    # (28) times
+    with torch.inference_mode():
+        e11 = time_kernel(
+            dev, fa, heavy11, card, "decode_attention_blocks",
+            "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
+            "kubeinfer_tpu/inference/flash_attention.py:779",
+            heavy11.calls, F, tag="[28]")
+        e12 = time_q8(dev, fa, heavy12, card,
+                      {"decode_attention_blocks_q8": heavy12.calls},
+                      tag="[28]")
+    wa, wb = times["window_a"], times["window_b"]
+    print(f"[28] {card}: a verify window (k {k}, 8 slots) {wa[0]:.1f} ms "
+          f"p50 emitting {wa[1]:.2f} tokens per row in (a), the self-draft "
+          f"({wa[2]} windows); {wb[0]:.1f} ms emitting {wb[1]:.2f} in (b), "
+          f"the seed-1 draft ({wb[2]} windows); decode per emitted token per "
+          f"slot: {wa[0] / wa[1]:.2f} ms (a), {wb[0] / wb[1]:.2f} ms (b), "
+          f"plain decode without a draft {times['decode_plain_ms']:.2f} ms")
+    record["spec_times"] = {
+        "window_a_ms": wa[0], "tokens_per_row_window_a": wa[1],
+        "window_b_ms": wb[0], "tokens_per_row_window_b": wb[1],
+        "decode_plain_ms": times["decode_plain_ms"],
+        "t5_11": {key: e11[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms")},
+        "t5_12": {key: e12[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms")},
+    }
+
+
+def spec_f32_full(dev, record, k):
+    """Phase (25c): llama-3-8b at full width and depth in f32
+    (init_params(seed=0)), 8 slots, 8 greedy 512-token prompts of 64 new
+    tokens through the plain engine, then through verify windows with
+    the target as its own draft (acceptance near 1) and with a bigram
+    draft (the target's embedding, norm and head, 0 layers: most windows
+    roll back). Every token of the speculative streams is held to a
+    teacher-forced f32 forward (``f32_streams``), with the verify
+    counters against the emitted lengths."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.model import init_params
+
+    cfg = PRESETS["llama-3-8b"]
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    bigram = {key: params[key] for key in ("embed_tokens", "norm",
+                                           "lm_head")}
+    bigram["layers"] = []
+    drafts = {"self": (params, cfg),
+              "bigram": (bigram, dataclasses.replace(cfg,
+                                                     num_hidden_layers=0))}
+    rng = np.random.default_rng(250)
+    prompts = [rng.integers(1, cfg.vocab_size, 512).tolist()
+               for _ in range(8)]
+
+    def streams(label, **kw):
+        cont = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
+                                device=dev, **kw).start()
+        try:
+            before = cont.scheduler_stats()
+            with torch.inference_mode():
+                reqs = in_threads(lambda p: cont.serve(p, 64, timeout=900),
+                                  prompts)
+            counts = None
+            if kw:
+                counts = spec_counters(f"[25c] {label}", cont, reqs, before,
+                                       k)
+        finally:
+            cont.stop()
+        return [r.out_tokens for r in reqs], counts
+
+    t0 = time.perf_counter()
+    plain, _ = streams("plain")
+    out = {}
+    for name, draft in drafts.items():
+        got, counts = streams(name, spec_draft=draft, spec_k=k)
+        gc.collect()
+        torch.cuda.empty_cache()
+        divs, excused, blind = f32_streams(f"[25c] {name}", got, plain,
+                                           prompts, params, cfg, dev)
+        out[name] = {"counters": counts[0], "row_windows": counts[1],
+                     "divergences": divs, "not_argmax": excused,
+                     "blind": blind}
+    run_s = time.perf_counter() - t0
+    print(f"[25c] llama-3-8b f32 at full width and depth, 8 slots, 8 greedy "
+          f"512-token prompts, 64 new, spec_k {k}: plain engine, self draft "
+          f"{out['self']['counters']} over {out['self']['row_windows']} "
+          f"row-windows, bigram draft {out['bigram']['counters']} over "
+          f"{out['bigram']['row_windows']}; divergences from the plain "
+          f"engine {out['self']['divergences']} and "
+          f"{out['bigram']['divergences']}, every token within {F32_TIE} "
+          f"of the f32 argmax ({run_s:.1f} s)")
+    record["spec_f32_full"] = out
+    del params, bigram, drafts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_card_vs_cpu(dev, record, kv_dtype):
+    """The verify route at llama-3-8b widths cut to 2 layers, f32, block
+    16, a bigram draft (the target's embedding, norm and head, 0 layers:
+    it mostly guesses wrong), on the card and on the CPU: one greedy and
+    one sampled row with a repetition penalty; every token and every
+    acceptance and rollback equal. ``kv_dtype`` "bf16" is the plain pool
+    (#11, phase 25), "int8" the int8 pool with int8 weights (#12 and #15,
+    phase 27), where the pool codes that differ are counted too."""
+    import dataclasses
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.model import init_params, params_to
+    from kubeinfer_tpu_torch.inference.weight_quant import quantize_params
+
+    int8 = kv_dtype == "int8"
+    tag = "[27]" if int8 else "[25]"
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=0)
+    rng = np.random.default_rng(27 if int8 else 25)
+    prompts = [rng.integers(1, cfg.vocab_size, 60).tolist() for _ in range(2)]
+    kws = ({}, dict(temperature=0.8, top_k=50, top_p=0.9,
+                    repetition_penalty=1.2, seed=3))
+    p_cpu = init_params(cfg, seed=27 if int8 else 25, dtype=torch.float32,
+                        device="cpu")
+    if int8:
+        p_cpu = quantize_params(p_cpu)
+    kernel = fa.decode_attention_blocks_q8 if int8 else \
+        fa.decode_attention_blocks
+
+    def run(q, device):
+        d = {key: q[key] for key in ("embed_tokens", "norm", "lm_head")}
+        d["layers"] = []
+        cont = ContinuousEngine(q, cfg, n_slots=2, cache_len=128,
+                                block_size=16, kv_dtype=kv_dtype,
+                                weight_dtype=kv_dtype, spec_draft=(d, dcfg),
+                                spec_k=4, device=device).start()
+        try:
+            out = in_threads(lambda i: cont.generate(prompts[i], 20,
+                                                     **kws[i]), [0, 1])
+        finally:
+            cont.stop()
+        return out, cont
+
+    t0 = time.perf_counter()
+    want, c_cpu = run(p_cpu, "cpu")
+    host_s = time.perf_counter() - t0
+    kernel.launches = 0
+    got, c_card = run(params_to(p_cpu, dev), dev)
+    launches = kernel.launches
+    st, st_cpu = c_card.scheduler_stats(), c_cpu.scheduler_stats()
+    keys = ("spec_draft_tokens", "spec_accepted_tokens", "spec_rollbacks")
+    counters = {key: st[key] for key in keys}
+    check(got == want and launches > 0 and st["spec_rollbacks"] > 0
+          and counters == {key: st_cpu[key] for key in keys}
+          and c_card.quant_blocks_total == c_cpu.quant_blocks_total,
+          f"{tag} {kv_dtype} verify, card {got} != CPU {want} (counters "
+          f"{counters}, CPU {st_cpu}, {kernel.__name__} {launches})")
+    rec = {"host_s": host_s, "counters": counters, "streams": got}
+    codes = ""
+    if int8:
+        pages = (c_card._state.q8_pages.cpu(), c_cpu._state.q8_pages)
+        diff = (pages[0].int() - pages[1].int()).abs()
+        rec["pool_codes_differing"] = n_diff = int((diff > 0).sum())
+        codes = (f", quant_blocks_total {c_card.quant_blocks_total} on both;"
+                 f" int8 pool codes that differ: {n_diff} of {diff.numel()}")
+    pool = ("int8 weights + int8 KV" if int8 else "the plain pool") + \
+        " (block 16)"
+    print(f"{tag} llama-3-8b widths, 2 layers, f32, {pool}, a bigram draft, "
+          f"spec_k 4: greedy + sampled (with a repetition penalty) streams "
+          f"on the card ({kernel.__name__} {launches} launches) equal to "
+          f"device='cpu' (host {host_s:.1f} s), with equal verify counters "
+          f"{counters}{codes}")
+    record[f"spec_{kv_dtype}_card_vs_cpu"] = rec
+
+
 def main() -> int:
     import torch
 
@@ -2721,6 +3718,8 @@ def main() -> int:
     serve_entries = serving_phases(dev, record, card)
     int8_entries = int8_phases(dev, record, card)
     train_entries = train_phases(dev, record, card)
+    mask_entry = masked_phase(dev, record, card)
+    spec_phases(dev, record, card)
 
     # (8) the kernels line
     kline = {"kernels": [{
@@ -2737,7 +3736,7 @@ def main() -> int:
         "library_ms": None,
         "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
     }, *round_entries, auction_entry, route_entry, *serve_entries,
-        *int8_entries, *train_entries]}
+        *int8_entries, *train_entries, mask_entry]}
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -5,7 +5,9 @@ for its attention (``flash_attention.py``, ``csrc/``).
 A llama-family decoder (``model.py``), the per-request engine
 (``engine.Engine``: chunked prefill, then a fused decode loop), the
 continuous batcher over a paged KV pool (``batching.ContinuousEngine``,
-``stepper.decode_window``, ``kv_blocks``), JAX-equal threefry sampling
+``stepper.decode_window``, ``kv_blocks``), speculative decoding (the
+side-car ``speculative.SpeculativeEngine`` and the batcher's verify
+windows, ``stepper.verify_window``), JAX-equal threefry sampling
 (``prng.py``) and the OpenAI-style HTTP server (``server.py``).
 """
 

@@ -1,7 +1,7 @@
 """Continuous batching: requests join and leave a shared decode batch.
 
 Counterpart of ``kubeinfer_tpu/inference/batching.py``, restricted to the
-tp=1, non-speculative engine:
+tp=1 engine without preemption:
 
 - A fixed pool of B decode **slots** over a shared PAGED KV pool
   (per-layer ``[num_blocks, block_size, n_kv, D]`` tensors and an
@@ -32,10 +32,24 @@ window's commit quantizes each tail block as it fills (kernel #12 reads
 the pool). ``weight_dtype="int8"`` takes a quantized tree, or quantizes
 a plain one here (kernel #15 runs every projection).
 
-Waiting (each named where it raises): speculative decoding, preemption,
-a sharded layout, drain/migration, prefix import and KV export; and the
-flight recorder, SLO monitor, step profiler and racecheck wrappers of
-the reference.
+Speculative decoding, two routes as in the reference:
+
+- ``spec_draft=(dparams, dcfg)``: a draft model rides the paged batch.
+  Each admit reserves ``spec_k`` positions of verify slack and prefills
+  the slot's row of the draft's dense caches (``_admit_draft``); while
+  every decoding row has both, a pass runs ``stepper.verify_window``
+  (k draft proposals per row, one T = k + 1 target forward through #11
+  or #12) instead of a decode window, and the host emits each row's
+  accepted prefix, truncated at EOS or the budget (a truncation always
+  lands on a retirement).
+- ``speculative=SpeculativeEngine``: without ``spec_draft``, eligible
+  requests (fresh, no repetition penalty, fitting the draft cache) decode
+  in an incremental draft group (``start_group``/``step_group``), one
+  round per scheduler pass beside the slots.
+
+Waiting (each named where it raises): preemption, a sharded layout,
+drain/migration, prefix import and KV export; and the flight recorder,
+SLO monitor, step profiler and racecheck wrappers of the reference.
 """
 
 from __future__ import annotations
@@ -69,11 +83,14 @@ from kubeinfer_tpu_torch.inference.model import (
 )
 from kubeinfer_tpu_torch.inference.stepper import (
     WINDOW_BUCKETS,
+    DraftState,
     RowFlags,
     SlotState,
     decode_window,
+    init_draft_state,
     init_slot_state,
     sample_rows,
+    verify_window,
 )
 from kubeinfer_tpu_torch.inference.weight_quant import (
     params_weight_dtype,
@@ -85,9 +102,6 @@ from kubeinfer_tpu_torch.inference.weight_quant import (
 DEFAULT_BLOCK_SIZE = 128
 
 _WAITS = {
-    "speculative": "ROADMAP Queue 1, speculative decoding (speculative.py)",
-    "spec_draft": "ROADMAP Queue 1, speculative decoding (verify_window, "
-                  "DraftState)",
     "preemption": "ROADMAP Queue 1, preemption, drain and migration",
     "layout": "ROADMAP Queue 1, slice 6: sharding.py / tp",
     "drain": "ROADMAP Queue 1, preemption, drain and migration",
@@ -208,6 +222,36 @@ def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
     return state
 
 
+def _admit_draft(dparams: Params, dstate: DraftState, window: torch.Tensor,
+                 prompt_len: int, dcfg: ModelConfig, slot: int) -> DraftState:
+    """Prefill the DRAFT model over one slot's full effective prompt
+    (``window`` [1, T_bucket], padded) and install the row, IN PLACE: the
+    forward runs against throwaway 1-row caches (dense attention) whose
+    KV lands in the slot's stripe of the draft's caches, and ``prev`` is
+    the prompt's last token. Padded positions carry junk KV that the
+    verify window's repair forward and propose steps rewrite before any
+    read. A 0-layer (bigram) draft has no KV: only ``prev`` is set."""
+    if dcfg.num_hidden_layers > 0:
+        T = window.shape[1]
+        dev = window.device
+        n_kv, D = dstate.caches_k[0].shape[2:]
+        dt = dstate.caches_k[0].dtype
+        caches = [(torch.zeros((1, T, n_kv, D), dtype=dt, device=dev),
+                   torch.zeros((1, T, n_kv, D), dtype=dt, device=dev))
+                  for _ in range(dcfg.num_hidden_layers)]
+        pos = torch.arange(T, device=dev)
+        mask = pos[None, None, :] <= pos[None, :, None]
+        _, caches = forward(dparams, window, dcfg, attn_mask=mask,
+                            kv_caches=caches, cache_offset=0,
+                            return_hidden=True)
+        for ck, cv, (vk, vv) in zip(dstate.caches_k, dstate.caches_v,
+                                    caches):
+            ck[slot, :T] = vk[0]  # in place
+            cv[slot, :T] = vv[0]  # in place
+    dstate.prev[slot] = window[0, prompt_len - 1]
+    return dstate
+
+
 def _prefill_chunk(params: Params, state: SlotState, window: torch.Tensor,
                    pos: int, cfg: ModelConfig, table_row: torch.Tensor,
                    own_idx: torch.Tensor) -> SlotState:
@@ -253,6 +297,10 @@ class _Request:
     rep_penalty: float = 1.0
     seed: int = 0
     out_tokens: list[int] = field(default_factory=list)
+    # verify-window accounting: accepted draft tokens and windows that
+    # rolled at least one draft back
+    spec_accepted: int = 0
+    spec_rollbacks: int = 0
     done: threading.Event = field(default_factory=threading.Event)
     cancelled: threading.Event = field(default_factory=threading.Event)
     # set instead of a normal completion when the engine shut down
@@ -284,6 +332,9 @@ class _PrefillTask:
     total: int  # blocks held by the slot (prompt + decode horizon)
     pos: int
     tokens: list[int]
+    # the plan reserved verify slack, so the finalize also prefills the
+    # slot's draft row
+    spec_ok: bool = False
 
 
 class ContinuousEngine:
@@ -301,12 +352,11 @@ class ContinuousEngine:
                  max_window: int = 8,
                  layout=None,
                  spec_draft=None,
+                 spec_k: int = 4,
                  kv_dtype: str = "bf16",
                  weight_dtype: str = "bf16",
                  device=None) -> None:
-        for name, value in (("speculative", speculative),
-                            ("spec_draft", spec_draft),
-                            ("preemption", preemption), ("layout", layout)):
+        for name, value in (("preemption", preemption), ("layout", layout)):
             if value is not None:
                 raise ValueError(f"{name}={value!r} waits: {_WAITS[name]}")
         for name, value in (("kv_dtype", kv_dtype),
@@ -359,6 +409,7 @@ class ContinuousEngine:
         self._window_buckets = tuple(b for b in WINDOW_BUCKETS
                                      if b <= max_window)
         self.chunks_total = 0  # telemetry: intermediate chunk dispatches
+        self.windows_total = 0  # telemetry: decode and verify dispatches
         # admissions planned while a decode window is in flight
         # (host-side radix match + block alloc only), admitted at the
         # next window boundary
@@ -374,6 +425,44 @@ class ContinuousEngine:
             "top_p": np.ones(n_slots, np.float32),
             "rep_penalty": np.ones(n_slots, np.float32),
         }
+        # the draft-GROUP route: eligible requests decode through an
+        # incremental SpeculativeEngine group beside the slots (one live
+        # group at a time), unless a draft rides the batch itself
+        self.speculative = speculative
+        self.spec_served = 0  # telemetry: requests served via the draft
+        self.spec_accepted = 0  # telemetry: accepted draft tokens, groups
+        # (member requests, live group handle)
+        self._spec_group = None
+        # the VERIFY route: spec_k proposals per live row, one fused
+        # verify_window per pass while every decoding row is spec-capable
+        self.spec_draft = spec_draft
+        self.spec_k = spec_k
+        self._dparams: Params | None = None
+        self._dcfg: ModelConfig | None = None
+        self._dstate: DraftState | None = None
+        # per slot: verify slack reserved AND the draft row prefilled
+        self._slot_spec_ok = [False] * n_slots
+        # verify-path counters: proposed draft tokens, host-accepted draft
+        # tokens, windows that rolled at least one draft back
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rollbacks = 0
+        if spec_draft is not None:
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            dparams, dcfg = spec_draft
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft/target vocabulary mismatch: "
+                    f"{dcfg.vocab_size} vs {cfg.vocab_size}")
+            if spec_k + 1 > cache_len:
+                raise ValueError(f"spec_k {spec_k} leaves no room in "
+                                 f"cache_len {cache_len}")
+            self._dparams = params_to(dparams, self.device)
+            self._dcfg = dcfg
+            self._dstate = init_draft_state(
+                dcfg, n_slots, cache_len, params_dtype(self.params),
+                self.device)
         self.kv_dtype = kv_dtype
         # int8 pool telemetry: logical blocks quantize-committed into the
         # pool (the admit's full blocks and the decode windows' tail
@@ -472,6 +561,45 @@ class ContinuousEngine:
         stats["quant_blocks"] = self.quant_blocks_total
         return stats
 
+    def scheduler_stats(self) -> dict:
+        """Scheduler counters (lockless reads): prefill chunks, the chunk
+        queue's depth, decode and verify dispatches, the draft groups'
+        served requests and accepted drafts, and the verify route's
+        proposed / accepted draft tokens and rollbacks."""
+        return {
+            "chunks": self.chunks_total,
+            "chunk_queue": len(self._prefills),
+            "windows": self.windows_total,
+            "spec_served": self.spec_served,
+            "spec_accepted": self.spec_accepted,
+            "spec_draft_tokens": self.spec_draft_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_rollbacks": self.spec_rollbacks,
+        }
+
+    def prewarm_spec(self, group_sizes: tuple[int, ...] = (1,),
+                     prompt_len: int = 8, max_new_tokens: int = 8,
+                     sampled: bool = False) -> int:
+        """Run ``start_group`` plus one ``step_group`` round per group size
+        on dummy prompts before serving, and discard them (the reference
+        compiles its group shapes this way; here it warms the allocator
+        and the kernel libraries). Returns the number of sizes run; 0
+        without a speculative engine."""
+        if self.speculative is None:
+            return 0
+        warmed = 0
+        for b in group_sizes:
+            b = int(b)
+            if b < 1 or not self.speculative.fits(prompt_len,
+                                                  max_new_tokens):
+                continue
+            g = self.speculative.start_group(
+                [[1] * prompt_len] * b, max_new_tokens=max_new_tokens,
+                temperatures=0.7 if sampled else 0.0)
+            self.speculative.step_group(g)
+            warmed += 1
+        return warmed
+
     def cache_summary(self) -> dict:
         """Capped radix-summary advertisement for the fleet router."""
         return self._radix.summary()
@@ -505,6 +633,7 @@ class ContinuousEngine:
             self._holdover.clear()
             staged, self._staged = self._staged, []
             self._prefills.clear()
+            group, self._spec_group = self._spec_group, None
             for slot, req in enumerate(self._slot_req):
                 if req is not None:
                     self._slot_req[slot] = None
@@ -514,18 +643,29 @@ class ContinuousEngine:
             req.failed = "engine stopped before the request was served"
             req.done.set()
         for req, _slot, kv_plan, _tokens in staged:
-            table_row, _own, _reuse, total = kv_plan
+            table_row, _own, _reuse, total, _spec = kv_plan
             self._pool.unref([int(b) for b in table_row[:total]])
             req.failed = "engine stopped before the request was served"
             req.done.set()
+        if group is not None:
+            for req in group[0]:
+                req.failed = "engine stopped mid-generation"
+                req.done.set()
 
     # -- scheduler --------------------------------------------------------
 
     def _plan_kv(self, tokens: list[int], max_new: int):
         """Host-side paged-admit plan: radix match -> capacity clamp ->
-        evict/alloc. Returns ``(table_row, own_mask, reuse, total)`` or
-        None when the pool cannot supply the fresh blocks. On success the
-        slot holds one reference per block in ``table_row[:total]``."""
+        evict/alloc. Returns ``(table_row, own_mask, reuse, total,
+        spec_ok)`` or None when the pool cannot supply the fresh blocks.
+        On success the slot holds one reference per block in
+        ``table_row[:total]``.
+
+        Verify slack: a verify window writes KV up to ``offset + spec_k``,
+        so a spec-capable slot holds ceil((p + max_new + spec_k) / bs)
+        blocks. Under pool pressure the plan drops the slack first
+        (``spec_ok=False``: the batch then decodes through decode_window
+        while the row lives)."""
         p = len(tokens)
         bs = self.block_size
         matched = self._radix.match(tokens)  # +1 ref each, ours now
@@ -539,11 +679,18 @@ class ContinuousEngine:
         if reuse < len(matched):
             self._pool.unref(matched[reuse:])
         shared = matched[:reuse]
-        total = -(-(p + max_new) // bs)
+        plain = -(-(p + max_new) // bs)
+        spec_ok = (self.spec_draft is not None
+                   and p + max_new + self.spec_k <= self.cache_len)
+        total = -(-(p + max_new + self.spec_k) // bs) if spec_ok else plain
         if not self._radix.ensure_free(total - reuse):
-            if shared:
-                self._pool.unref(shared)
-            return None
+            if spec_ok and total > plain and \
+                    self._radix.ensure_free(plain - reuse):
+                total, spec_ok = plain, False
+            else:
+                if shared:
+                    self._pool.unref(shared)
+                return None
         fresh = self._pool.alloc(total - reuse)
         self._radix.note_result(reuse)
         table_row = np.zeros(self.max_blocks, np.int32)
@@ -551,19 +698,21 @@ class ContinuousEngine:
         table_row[reuse:total] = fresh
         own_mask = np.zeros(self.max_blocks, bool)
         own_mask[reuse:total] = True
-        return table_row, own_mask, reuse, total
+        return table_row, own_mask, reuse, total, spec_ok
 
     def _admit(self, slot: int, req: _Request, kv_plan,
                tokens: list[int]) -> None:
         """Reserve ``slot`` for ``req`` and start its prefill: a chunked
         task when chunking applies, else the whole suffix at once."""
-        table_row, own_mask, reuse, total = kv_plan
+        table_row, own_mask, reuse, total, spec_ok = kv_plan
         self._slot_req[slot] = req
         self._slot_blocks[slot] = [int(b) for b in table_row[:total]]
+        # flips True only once the finalize committed the draft row too
+        self._slot_spec_ok[slot] = False
         task = _PrefillTask(
             req=req, slot=slot, table_row=table_row, own_mask=own_mask,
             reuse=reuse, total=total, pos=reuse * self.block_size,
-            tokens=tokens,
+            tokens=tokens, spec_ok=spec_ok,
         )
         if self._next_chunk_len(task) is not None:
             self._prefills.append(task)
@@ -662,6 +811,15 @@ class ContinuousEngine:
                 float(req.rep_penalty), key_data,
                 torch.from_numpy(seen_row).to(dev),
             )
+            if self.spec_draft is not None and task.spec_ok:
+                # the draft row's prefill rides the same boundary: no
+                # radix reuse and no chunking, the FULL effective prompt
+                dwin = np.zeros((1, _bucket(p)), np.int64)
+                dwin[0, :p] = tokens
+                self._dstate = _admit_draft(
+                    self._dparams, self._dstate,
+                    torch.from_numpy(dwin).to(dev), p, self._dcfg, slot)
+                self._slot_spec_ok[slot] = True
         for name, value in (("temperature", req.temperature),
                             ("top_k", req.top_k), ("top_p", req.top_p),
                             ("rep_penalty", req.rep_penalty)):
@@ -697,6 +855,7 @@ class ContinuousEngine:
         if not finished:
             return
         self._slot_req[slot] = None
+        self._slot_spec_ok[slot] = False
         blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
         if blocks:
             # blocks also cached in the trie keep its reference
@@ -707,11 +866,129 @@ class ContinuousEngine:
         self._state.tables[slot] = 0
         req.done.set()
 
+    def _group_eligible(self, req: _Request) -> bool:
+        """Whether ``req`` goes to a draft group: a speculative engine and
+        no draft in the batch itself (verify windows would serve it), no
+        live group, a fresh request without repetition penalty, fitting
+        the draft cache."""
+        with self._lock:
+            group_free = self._spec_group is None
+        return (self.speculative is not None and self.spec_draft is None
+                and group_free and not req.out_tokens
+                and req.rep_penalty == 1.0
+                and self.speculative.fits(len(req.prompt), req.max_new))
+
+    def _drain_spec_group(self, first: _Request):
+        """Drain queued requests into ``first``'s draft group: the same
+        mode (greedy or sampled), no repetition penalty, the same eos id,
+        the same seed for sampled joins (the group's keys derive from the
+        head's seed), and every member fitting the draft cache at the
+        group's max_new. The first request that cannot join is returned
+        as a holdover."""
+        group = [first]
+        gmax = first.max_new
+        head_sampled = first.temperature > 0
+        holdover = None
+        while len(group) < self.n_slots:
+            try:
+                nxt = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if nxt.cancelled.is_set():
+                nxt.done.set()
+                continue
+            cand_max = max(gmax, nxt.max_new)
+            if (nxt.rep_penalty == 1.0
+                    and (nxt.temperature > 0) == head_sampled
+                    and (not head_sampled or nxt.seed == first.seed)
+                    and nxt.eos_id == first.eos_id
+                    and all(self.speculative.fits(len(m.prompt), cand_max)
+                            for m in (*group, nxt))):
+                group.append(nxt)
+                gmax = cand_max
+            else:
+                holdover = nxt
+                break
+        return group, holdover
+
+    def _start_spec_group(self, group: list[_Request]) -> None:
+        """Prefill a draft group: rows ride the group's max_new and are
+        cut back to their own budgets on the way out; per-row warp knobs;
+        keys from the head request's seed."""
+        first = group[0]
+        try:
+            g = self.speculative.start_group(
+                [r.prompt for r in group],
+                max_new_tokens=max(r.max_new for r in group),
+                eos_id=first.eos_id,
+                temperatures=[r.temperature for r in group],
+                top_ks=[r.top_k for r in group],
+                top_ps=[r.top_p for r in group], seed=first.seed)
+        except Exception as e:  # the waiters must be released
+            for r in group:
+                r.failed = f"speculative decode failed: {e}"
+                r.done.set()
+            return
+        with self._lock:
+            self._spec_group = (group, g)
+
+    def _step_spec_group(self) -> None:
+        """One speculation round of the live group; on completion emit
+        each member's tokens and release it. A group whose members are
+        all cancelled is dropped."""
+        with self._lock:
+            live = self._spec_group
+        if live is None:
+            return
+        reqs, g = live
+        if all(r.cancelled.is_set() for r in reqs):
+            with self._lock:
+                if self._spec_group is live:
+                    self._spec_group = None
+            for r in reqs:
+                r.done.set()
+            return
+        try:
+            done = self.speculative.step_group(g)
+            out = self.speculative.finish_group(g) if done else None
+        except Exception as e:  # the waiters must be released
+            with self._lock:
+                if self._spec_group is live:
+                    self._spec_group = None
+            for r in reqs:
+                r.failed = f"speculative decode failed: {e}"
+                r.done.set()
+            return
+        if out is None:
+            return
+        with self._lock:
+            if self._spec_group is not live:
+                return  # stop() already failed the members
+            self._spec_group = None
+        self.spec_accepted += g.accepted_drafts
+        now = time.perf_counter()
+        for b, r in enumerate(reqs):
+            n = min(int(out.lengths[b]), r.max_new)
+            r.out_tokens.extend(out.tokens[b, :n].tolist())
+            r.token_times.extend([now] * n)
+            r.t_first = r.t_first or now
+            self.spec_served += 1
+            r.done.set()
+
     def _place(self, req: _Request) -> bool:
-        """Admit one pending request into a free slot; False puts it back
-        at the front of the holdover (all slots busy or pool short)."""
+        """Route one pending request: a draft group if it is eligible, else
+        a free slot; False puts it back at the front of the holdover (all
+        slots busy or pool short)."""
         if req.cancelled.is_set():
             req.done.set()
+            return True
+        if self._group_eligible(req):
+            group, holdover = self._drain_spec_group(req)
+            self._start_spec_group(group)
+            if holdover is not None:
+                with self._lock:
+                    # freshly drained from the queue: the newest pending
+                    self._holdover.append(holdover)
             return True
         with self._lock:
             for slot in range(self.n_slots):
@@ -745,7 +1022,7 @@ class ContinuousEngine:
             with self._lock:
                 if req.cancelled.is_set() or \
                         self._slot_req[slot] is not None:
-                    table_row, _own, _reuse, total = kv_plan
+                    table_row, _own, _reuse, total, _spec = kv_plan
                     self._pool.unref([int(b) for b in table_row[:total]])
                     if req.cancelled.is_set():
                         req.done.set()
@@ -777,6 +1054,12 @@ class ContinuousEngine:
             if req.cancelled.is_set():
                 req.done.set()
                 continue
+            if self._group_eligible(req):
+                # forming a group dispatches device work: back to the head
+                # of the line for _place at the boundary
+                with self._lock:
+                    self._holdover.appendleft(req)
+                return
             with self._lock:
                 tokens = req.prompt + req.out_tokens
                 kv_plan = self._plan_kv(tokens,
@@ -826,8 +1109,9 @@ class ContinuousEngine:
         while not self._stop.is_set():
             with self._lock:
                 busy = any(r is not None for r in self._slot_req)
+                idle = not busy and self._spec_group is None
                 have_holdover = bool(self._holdover)
-            if not busy:
+            if idle:
                 # idle: block briefly for the next arrival
                 if not have_holdover:
                     try:
@@ -847,13 +1131,23 @@ class ContinuousEngine:
                     for s, r in enumerate(self._slot_req)
                     if r is not None and s not in prefilling
                 ]
+                # verify windows are all-or-nothing: one decoding row
+                # without verify slack drops the pass to decode_window
+                spec_ready = self.spec_draft is not None and bool(
+                    budgets) and all(
+                    self._slot_spec_ok[s]
+                    for s, r in enumerate(self._slot_req)
+                    if r is not None and s not in prefilling)
                 host_work = (
                     bool(self._holdover) or bool(self._prefills)
+                    or self._spec_group is not None
                     or any(r is not None and r.cancelled.is_set()
                            for r in self._slot_req)
                 )
             host_work = host_work or not self._queue.empty()
-            if budgets:
+            if spec_ready:
+                self._verify_pass()
+            elif budgets:
                 k = self._pick_horizon(budgets, host_work)
                 commit_steps = None
                 if self.kv_dtype == "int8":
@@ -868,6 +1162,7 @@ class ContinuousEngine:
                 self._plan_admissions()
                 toks = tokens.cpu().numpy()
                 step_t = time.perf_counter()
+                self.windows_total += 1
                 with self._lock:
                     for j in range(k):
                         t_j = step_t0 + (j + 1) * (step_t - step_t0) / k
@@ -881,5 +1176,54 @@ class ContinuousEngine:
                             req.token_times.append(t_j)
                             self._maybe_retire(slot)
             self._step_prefill()  # at most one chunk per pass
+            self._step_spec_group()  # a no-op without a live group
         if self._stop.is_set():
             self._fail_inflight()
+
+    def _verify_pass(self) -> None:
+        """One verify window over every slot, its one readback, and the
+        host's acceptance: each row emits its device-accepted prefix,
+        truncated at EOS and at its budget. A truncation always lands on
+        a retirement, so discarded device progress never reaches a row
+        that continues."""
+        step_t0 = time.perf_counter()
+        with torch.inference_mode():
+            self._state, self._dstate, tokens = verify_window(
+                self.params, self._state, self._dparams, self._dstate,
+                self.cfg, self._dcfg, self.spec_k, self._flags())
+        self._plan_admissions()
+        toks = tokens.cpu().numpy()
+        step_t = time.perf_counter()
+        self.windows_total += 1
+        bs = self.block_size
+        with self._lock:
+            for slot in range(self.n_slots):
+                req = self._slot_req[slot]
+                row = toks[slot]
+                n_dev = int((row >= 0).sum())
+                if req is None or n_dev == 0:
+                    continue
+                self.spec_draft_tokens += self.spec_k
+                if self.kv_dtype == "int8":
+                    # the row sat at p + emitted - 1 and advanced n_dev
+                    # positions: one commit per block edge crossed
+                    old = len(req.prompt) + len(req.out_tokens) - 1
+                    self.quant_blocks_total += (old + n_dev) // bs - old // bs
+                n_host = min(n_dev, req.max_new - len(req.out_tokens))
+                if req.eos_id >= 0:
+                    for i in range(n_host):
+                        if int(row[i]) == req.eos_id:
+                            n_host = i + 1
+                            break
+                for j in range(n_host):
+                    req.out_tokens.append(int(row[j]))
+                    req.token_times.append(
+                        step_t0 + (j + 1) * (step_t - step_t0) / n_host)
+                # n_dev = the accepted drafts + the bonus token
+                acc_d = n_dev - 1
+                self.spec_accepted_tokens += acc_d
+                req.spec_accepted += acc_d
+                if acc_d < self.spec_k:
+                    self.spec_rollbacks += 1
+                    req.spec_rollbacks += 1
+                self._maybe_retire(slot)

@@ -1,5 +1,5 @@
-// Chunked-prefill GQA flash attention for Hopper (sm_90a): kernels #9
-// and #13.
+// Chunked-prefill GQA flash attention for Hopper (sm_90a): kernels #9,
+// #9b and #13.
 //
 // Replaces kubeinfer_tpu/inference/flash_attention.py:_run_flash with
 // _flash_ragged_kernel (#9, the path of flash_attention_ragged) and
@@ -25,7 +25,23 @@
 // o, all f32), p rounded to the value dtype before P.V, and
 // out = o / max(l, 1e-30) in q's dtype.
 //
-// Which key tiles are walked: the reference's _ragged_tile_active rule.
+// #9b (flash_masked_launch) replaces _run_flash with _flash_kernel, the
+// path of flash_attention: the same fold, but the penalty is read from a
+// caller's dense bool [B, T, S] mask (one byte a pair, 1 = attend; the
+// reference ships it as int8) instead of derived from two scalars. It is
+// a separate instantiation (kMask = true) of the same kernel: the mask
+// pointer is its last parameter, which #9 and #13 never read, so their
+// code is unchanged. The mask route walks EVERY key tile (the reference's
+// _flash_kernel passes no `active`), so a row with no True gets p == 1 at
+// every key and returns the uniform mean of v over all S keys, as the
+// dense softmax does. Each K/V tile step also stages the block's
+// [rows/G, BC] byte tile of the mask in shared memory with 16-byte loads
+// (one byte a load only where S is not a multiple of 16 or the mask's
+// base is not 16-byte aligned); query row r of kv head h reads the mask
+// row (b, t = r / G), the reference's index map bh // n_kv.
+//
+// Which key tiles are walked by #9 and #13: the reference's
+// _ragged_tile_active rule.
 // Tile 0 always; every tile for a row with row_len == 0 (its queries see
 // no live key, and their defined output is the uniform average over all
 // S keys); otherwise the tiles that start at or before the block's last
@@ -95,12 +111,13 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <typename T, int BR, int BC, int DMAX>
+template <typename T, int BR, int BC, int DMAX, bool kMask>
 __global__ void __launch_bounds__(kThreads) prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ row_lens,
     T* __restrict__ out, float* __restrict__ lse, int Tq, int S, int H,
-    int n_kv, int D, int q_offset, float scale) {
+    int n_kv, int D, int q_offset, float scale,
+    const uint8_t* __restrict__ mask) {
   constexpr int RI = BR / 8;     // rows per thread
   constexpr int CJ = BC / 16;    // score columns per thread
   constexpr int DK = DMAX / 16;  // output columns per thread (at most)
@@ -119,6 +136,8 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
   float* ks = qs + BR * (D + 1);     // [BC][D + 1]
   float* vs = ks + BC * (D + 1);     // [BC][D]
   float* ps = vs + BC * D;           // [BR][BC + 1]
+  // kMask: the mask tile, [BR][BC] bytes (rows t - t0 of the block)
+  uint8_t* mtile = reinterpret_cast<uint8_t*>(ps + BR * (BC + 1));
 
   constexpr int kVec = Vec<T>::N;
   const int row_chunks = D / kVec;
@@ -138,11 +157,19 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
     for (int i = 0; i < kVec; ++i) qs[rl * (D + 1) + d0 + i] = x[i];
   }
 
-  // the block's key range (the reference's _ragged_tile_active)
-  const int row_len = row_lens[b];
+  // the block's key range: every tile for the mask route, else the
+  // reference's _ragged_tile_active rule
+  const int t0 = r0 / G;
   const int t_last = (min(r0 + BR, R) - 1) / G;
-  const int q_max = q_offset + t_last;
-  const int walk = row_len == 0 ? S : min(S, max(1, min(q_max + 1, row_len)));
+  int row_len = 0, walk = S;
+  if constexpr (!kMask) {
+    row_len = row_lens[b];
+    const int q_max = q_offset + t_last;
+    walk = row_len == 0 ? S : min(S, max(1, min(q_max + 1, row_len)));
+  }
+  const int n_t = t_last - t0 + 1;  // mask rows the block reads
+  const bool vec_mask =
+      kMask && (S & 15) == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
 
   int q_pos[RI];
 #pragma unroll
@@ -178,6 +205,26 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
         vs[j * D + d0 + i] = vv[i];
       }
     }
+    if constexpr (kMask) {
+      // rows t0 .. t_last of the mask, columns s0 .. s0 + BC
+      const uint8_t* mrow = mask + ((size_t)b * Tq + t0) * S + s0;
+      if (vec_mask) {
+        constexpr int kChunks = BC / 16;
+        for (int c = tid; c < n_t * kChunks; c += kThreads) {
+          const int tl = c / kChunks, c0 = (c % kChunks) * 16;
+          uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+          if (s0 + c0 < S)  // S % 16 == 0: a chunk is whole or absent
+            raw = __ldg(reinterpret_cast<const uint4*>(mrow + (size_t)tl * S
+                                                       + c0));
+          *reinterpret_cast<uint4*>(mtile + tl * BC + c0) = raw;
+        }
+      } else {
+        for (int c = tid; c < n_t * BC; c += kThreads) {
+          const int tl = c / BC, j = c % BC;
+          mtile[tl * BC + j] = s0 + j < S ? mrow[(size_t)tl * S + j] : 0;
+        }
+      }
+    }
     __syncthreads();
 
     // scores for rows tr + 8i, keys tc + 16j
@@ -206,7 +253,13 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
       for (int j = 0; j < CJ; ++j) {
         const int p = s0 + tc + 16 * j;
         if (p < S) {
-          const bool ok = p <= q_pos[i] && p < row_len;
+          bool ok;
+          if constexpr (kMask) {
+            const int r = r0 + tr + 8 * i;
+            ok = r < R && mtile[(r / G - t0) * BC + tc + 16 * j] != 0;
+          } else {
+            ok = p <= q_pos[i] && p < row_len;
+          }
           s[i][j] = s[i][j] * scale + (ok ? 0.f : kNeg);
         } else {
           s[i][j] = -INFINITY;  // no such key: p is exactly 0
@@ -261,15 +314,16 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
   }
 }
 
-template <typename T, int BR, int BC, int DMAX>
+template <typename T, int BR, int BC, int DMAX, bool kMask>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* row_lens, void* out, void* lse, int B, int Tq,
                    int S, int H, int n_kv, int D, int q_offset, float scale,
-                   cudaStream_t stream) {
+                   const void* mask, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
                       ((size_t)BR * (D + 1) + (size_t)BC * (D + 1) +
-                       (size_t)BC * D + (size_t)BR * (BC + 1));
-  auto kern = prefill_kernel<T, BR, BC, DMAX>;
+                       (size_t)BC * D + (size_t)BR * (BC + 1)) +
+                      (kMask ? (size_t)BR * BC : 0);
+  auto kern = prefill_kernel<T, BR, BC, DMAX, kMask>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -279,20 +333,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(row_lens),
       static_cast<T*>(out), static_cast<float*>(lse), Tq, S, H, n_kv, D,
-      q_offset, scale);
+      q_offset, scale, static_cast<const uint8_t*>(mask));
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kMask>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* row_lens, void* out, void* lse, int B,
                      int Tq, int S, int H, int n_kv, int D, int q_offset,
-                     float scale, cudaStream_t stream) {
+                     float scale, const void* mask, cudaStream_t stream) {
   if (D <= 128)
-    return launch<T, 64, 64, 128>(q, k, v, row_lens, out, lse, B, Tq, S, H,
-                                  n_kv, D, q_offset, scale, stream);
-  return launch<T, 32, 32, 256>(q, k, v, row_lens, out, lse, B, Tq, S, H,
-                                n_kv, D, q_offset, scale, stream);
+    return launch<T, 64, 64, 128, kMask>(q, k, v, row_lens, out, lse, B, Tq,
+                                         S, H, n_kv, D, q_offset, scale, mask,
+                                         stream);
+  return launch<T, 32, 32, 256, kMask>(q, k, v, row_lens, out, lse, B, Tq, S,
+                                       H, n_kv, D, q_offset, scale, mask,
+                                       stream);
 }
 
 }  // namespace
@@ -309,11 +365,33 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, row_lens, out, lse, B, T, S, H, n_kv, D,
-                           q_offset, scale, st);
+    return dispatch<float, false>(q, k, v, row_lens, out, lse, B, T, S, H,
+                                  n_kv, D, q_offset, scale, nullptr, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, row_lens, out, lse, B, T, S, H,
-                                   n_kv, D, q_offset, scale, st);
+    return dispatch<__nv_bfloat16, false>(q, k, v, row_lens, out, lse, B, T,
+                                          S, H, n_kv, D, q_offset, scale,
+                                          nullptr, st);
+  return cudaErrorInvalidValue;
+}
+
+// #9b: mask is bool [B, T, S] (one byte a pair, nonzero = attend); every
+// key tile is folded.
+extern "C" int flash_masked_launch(const void* q, const void* k,
+                                   const void* v, const void* mask,
+                                   void* out, int B, int T, int S, int H,
+                                   int n_kv, int D, float scale, int dtype,
+                                   void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  if (S <= 0 || n_kv <= 0 || H % n_kv || D % 16 || D > 256)
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float, true>(q, k, v, nullptr, out, nullptr, B, T, S, H,
+                                 n_kv, D, 0, scale, mask, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, true>(q, k, v, nullptr, out, nullptr, B,
+                                         T, S, H, n_kv, D, 0, scale, mask,
+                                         st);
   return cudaErrorInvalidValue;
 }
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``kubeinfer_tpu/inference/engine.py``. Prompts pad to
 bucketed lengths, the prefill runs in fixed-size chunks against a dense
-per-row KV cache (kernel #9 on the card, ``flash_attention_ragged``),
-and the decode loop (``stepper.decode_scan``, kernel #10) steps every
-row at its own offset. ``jax.lax.scan`` over chunks and over steps is a
+per-row KV cache (kernel #9 on the card, ``flash_attention_ragged``,
+where ``flash_available`` holds; the dense attention elsewhere, as the
+reference binds it), and the decode loop (``stepper.decode_scan``,
+kernel #10) steps every row at its own offset. ``jax.lax.scan`` over chunks and over steps is a
 Python loop here; the tokens are read back once per ``generate``.
 
 Sampling is the reference's, noise included: threefry keys from
@@ -214,19 +215,36 @@ def chunked_prefill(params: Params, prompt: torch.Tensor,
     """Run the prompt through the model in fixed-size chunks, filling the
     caches in place; returns (caches, next_logits f32[B, V]) where
     next_logits[b] is the logits at row b's LAST real prompt position
-    (the vocabulary head runs once, on those rows)."""
+    (the vocabulary head runs once, on those rows).
+
+    The attention binding is the reference's: #9 (``prefill_attn``, the
+    mask derived in the kernel, nothing [C, cache_len]-sized built) iff
+    ``flash_available(C, cache_len, D)`` holds on the prompt's device;
+    otherwise ``attention_auto`` over the dense mask ``(s <= c0 + t) &
+    (s < prompt_len[b])``, which goes dense there (the two routes are
+    equal within tolerance, not bitwise)."""
     B, T = prompt.shape
+    cache_len = caches[0][0].shape[1] if caches else T
     C = min(T, prefill_chunk)
     last = torch.clamp(prompt_len.long() - 1, 0, T - 1)
-    rows = torch.arange(B, device=prompt.device)
+    dev = prompt.device
+    rows = torch.arange(B, device=dev)
     lens = prompt_len.to(torch.int32)
+    use_flash = fa.flash_available(C, cache_len, cfg.head_dim, dev)
+    pos = torch.arange(cache_len, device=dev)
     next_hidden = torch.zeros((B, cfg.hidden_size),
-                              dtype=params_dtype(params),
-                              device=prompt.device)
+                              dtype=params_dtype(params), device=dev)
     for c0 in range(0, T, C):
+        if use_flash:
+            attn_fn, mask = prefill_attn(c0, lens), None
+        else:
+            q_pos = c0 + torch.arange(C, device=dev)
+            mask = ((pos[None, None, :] <= q_pos[None, :, None])
+                    & (pos[None, None, :] < prompt_len[:, None, None]))
+            attn_fn = fa.attention_auto
         hidden, caches = forward(
-            params, prompt[:, c0:c0 + C], cfg, kv_caches=caches,
-            cache_offset=c0, attn_fn=prefill_attn(c0, lens),
+            params, prompt[:, c0:c0 + C], cfg, attn_mask=mask,
+            kv_caches=caches, cache_offset=c0, attn_fn=attn_fn,
             return_hidden=True,
         )
         in_chunk = (last >= c0) & (last < c0 + C)

@@ -2,13 +2,17 @@
 versions, the wrappers that launch the hand-written CUDA kernels, and
 the routers.
 
-Six TPU kernels of ``kubeinfer_tpu/inference/flash_attention.py`` have
+Seven TPU kernels of ``kubeinfer_tpu/inference/flash_attention.py`` have
 counterparts here:
 
 - #9 ``flash_attention_ragged`` (``_run_flash`` + ``_flash_ragged_kernel``):
   prefill attention with the causal + length mask ``(s <= q_offset + t)
   & (s < row_lens[b])`` derived from two scalars. Plain version
   ``flash_attention_ragged_plain``; kernel ``csrc/flash_prefill.cu``.
+- #9b ``flash_attention`` (``_run_flash`` + ``_flash_kernel``): the same
+  fold over a caller's dense bool [B, T, S] mask, every key tile folded.
+  Plain version ``flash_attention_plain``; kernel
+  ``csrc/flash_prefill.cu`` (its mask instantiation).
 - #10 ``decode_attention``: T == 1 GQA decode over dense per-row caches,
   reading only each row's live positions. Plain version
   ``decode_attention_plain``; kernel ``csrc/decode_attention.cu``.
@@ -47,7 +51,9 @@ counts kernel launches and nothing else. The routers
 (``decode_attention_auto``, ``decode_attention_blocks_auto``,
 ``decode_attention_blocks_q8_auto``) bind the
 wrappers with the reference's signatures; their ``mask`` operand is the
-reference's dense-fallback operand and is not read.
+reference's dense-fallback operand and is not read. ``attention_auto``
+is the reference's drop-in for ``forward(attn_fn=...)``: #9b where
+``flash_available`` holds, the dense ``model.attention`` elsewhere.
 ``FlashCausalDiff`` (``flash_attention_causal_diff``) is the reference's
 custom_vjp: #9 as the primal, #13 forward and #14 backward under
 autograd; ``causal_attention_auto`` binds it for ``model.forward``'s
@@ -187,6 +193,42 @@ def flash_ragged_lse_plain(q, k, v, q_offset, row_lens):
     out = acc / torch.clamp(l, min=1e-30)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return _unfold_q(out.to(q.dtype), B, T, H, k.shape[2]), lse
+
+
+def _check_flash_tiles(T, S, tile_t, tile_s):
+    """The reference's ``_run_flash`` tile rule for #9b."""
+    tile_t, tile_s = min(tile_t, T), min(tile_s, S)
+    if T % tile_t or S % tile_s:
+        raise ValueError(
+            f"flash_attention needs T divisible by {tile_t} and S by "
+            f"{tile_s}; got T={T} S={S} (use attention_auto for fallback)")
+
+
+def flash_attention_plain(q, k, v, mask, *, tile_t: int | None = None,
+                          tile_s: int | None = None):
+    """#9b's function: query t of row b attends key s iff mask[b, t, s].
+    q [B, T, H, D], k/v [B, S, n_kv, D], mask bool [B, T, S]. Every key
+    tile is folded with the penalty (mask - 1) * 1e30, as the reference's
+    ``_flash_kernel``, so a row with no True gets the uniform mean of v
+    over all S keys (the dense softmax's answer). T and S must divide by
+    their tiles (``TILE_T``/``TILE_S`` at call time, or smaller)."""
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    tile_s = TILE_S if tile_s is None else tile_s
+    _check_flash_tiles(T, S, TILE_T if tile_t is None else tile_t, tile_s)
+    tile_s = min(tile_s, S)
+    qf = _fold_q(q, n_kv)
+    kf, vf = _linear_kv(k, n_kv), _linear_kv(v, n_kv)
+
+    def tiles():
+        for s0 in range(0, S, tile_s):
+            # kv-head block bh reads the mask of row bh // n_kv
+            pen = (mask[:, :, s0:s0 + tile_s].float() - 1.0) * 1e30
+            yield (kf[:, s0:s0 + tile_s], vf[:, s0:s0 + tile_s],
+                   pen.repeat_interleave(n_kv, dim=0))
+
+    out = _fold_rows(qf, tiles(), H // n_kv, 1.0 / float(D) ** 0.5)
+    return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
 
 
 def _bwd_tiles(q, k, v, do, lse, drow, q_offset, row_lens):
@@ -547,9 +589,9 @@ decode_attention_blocks_q8.launches = 0
 
 
 def _check_ragged(name, q, k, v, row_lens, extra=()):
-    """The shapes, types and layout the ragged kernels (#9, #13, #14)
-    take; ``extra`` holds (name, tensor, dtype, shape, alignment) of
-    further operands."""
+    """The shapes, types and layout the prefill kernels (#9, #9b, #13,
+    #14) take (``row_lens`` None for #9b); ``extra`` holds (name, tensor,
+    dtype, shape, alignment) of further operands."""
     B, T, H, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
     _check_head(name, q, D)
@@ -559,7 +601,8 @@ def _check_ragged(name, q, k, v, row_lens, extra=()):
     _check("q", q, q.dtype, (B, T, H, D), dev)
     _check("k", k, q.dtype, (B, S, n_kv, D), dev)
     _check("v", v, q.dtype, (B, S, n_kv, D), dev)
-    _check("row_lens", row_lens, torch.int32, (B,), dev, align=4)
+    if row_lens is not None:
+        _check("row_lens", row_lens, torch.int32, (B,), dev, align=4)
     for what, t, dtype, shape, align in extra:
         _check(what, t, dtype, shape, dev, align=align)
 
@@ -608,6 +651,29 @@ def flash_ragged_lse(q, k, v, q_offset, row_lens):
 
 
 flash_ragged_lse.launches = 0
+
+
+def flash_attention(q, k, v, mask):
+    """#9b on the tensors' device: for CUDA tensors one launch of
+    ``flash_masked_launch`` (#9's kernel with a mask tile loader, walking
+    every key tile); for CPU tensors ``flash_attention_plain``. ``mask``
+    is bool [B, T, S], passed as its bytes."""
+    lib = _kernel_lib(q, "flash_attention", "flash_prefill")
+    if lib is None:
+        return flash_attention_plain(q, k, v, mask)
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    _check_flash_tiles(T, S, TILE_T, TILE_S)
+    _check_ragged("flash_attention", q, k, v, None,
+                  extra=(("mask", mask, torch.bool, (B, T, S), 1),))
+    out = torch.empty_like(q)
+    _launch(lib, "flash_masked_launch", q, k, v, mask, out, B, T, S, H,
+            n_kv, D, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 
 
 def _bwd_operands(name, q, k, v, do, lse, drow, row_lens):
@@ -782,6 +848,20 @@ def causal_attention_auto(q, k, v, mask):
         # that synchronises the host
         lens = torch.full((B,), S, dtype=torch.int32, device=q.device)
         return flash_attention_causal_diff(q, k, v, 0, lens)
+    from kubeinfer_tpu_torch.inference.model import attention
+
+    return attention(q, k, v, mask)
+
+
+def attention_auto(q, k, v, mask):
+    """``model.attention``'s signature: #9b (``flash_attention``) where
+    ``flash_available`` holds for (T, S, D) on q's device, the dense
+    ``model.attention`` otherwise. The reference's drop-in for
+    ``forward(attn_fn=...)``; every CPU tensor goes dense."""
+    if flash_available(q.shape[1], k.shape[1], q.shape[3], q.device):
+        # the kernel reads the mask's bytes in place: a broadcast view
+        # (forward shares one mask across layers) is made whole first
+        return flash_attention(q, k, v, mask.contiguous())
     from kubeinfer_tpu_torch.inference.model import attention
 
     return attention(q, k, v, mask)

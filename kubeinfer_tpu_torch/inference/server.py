@@ -6,12 +6,19 @@ int8``): ``GET /health``, ``GET /v1/models`` and ``POST
 /v1/completions``. A request that fits the continuous batcher's slot
 width rides its shared slots (route "continuous"); a longer one, or any
 request when ``--batch-slots 0``, goes to the per-request engine (route
-"engine"). Prompts are token ids (no tokenizer). Routes whose engines
+"engine"). With ``--draft-model`` a ``SpeculativeEngine`` serves
+draft-eligible requests (no repetition penalty, fitting its cache with
+the k + 1 slack) that the batcher does not own (route "speculative");
+the batcher owns them through its draft groups, or, with
+``--speculative-draft``, runs the draft inside its paged batch (verify
+windows). Prompts are token ids (no tokenizer). Routes whose engines
 wait answer 400 with the reason.
 
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
         --kv-dtype int8 --weight-dtype int8
+    python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
+        --draft-model llama-3-8b --speculative-draft --speculation-depth 4
 
 ``main(argv, device="cpu")`` runs the same server on the CPU (a
 rehearsal with ``--model tiny``).
@@ -43,14 +50,16 @@ _WAITING_BODY = {
 
 class InferenceServer:
     def __init__(self, engine, model_id: str, host: str = "127.0.0.1",
-                 port: int = 8000, continuous=None, device=None) -> None:
+                 port: int = 8000, continuous=None, speculative=None,
+                 device=None) -> None:
         self.device = resolve_device(device)
-        for e in (engine, continuous):
+        for e in (engine, continuous, speculative):
             if e is not None and e.device != self.device:
                 raise ValueError(f"engine on {e.device}, server on "
                                  f"{self.device}")
         self.engine = engine
         self.continuous = continuous  # ContinuousEngine | None
+        self.speculative = speculative  # SpeculativeEngine | None
         self.model_id = model_id
         server = self
 
@@ -135,6 +144,11 @@ class InferenceServer:
                "latency_ms": (time.perf_counter() - t0) * 1e3}
         if req is not None:
             ext["ttft_ms"] = (req.t_first - req.t_submit) * 1e3
+            if self.continuous.spec_draft is not None:
+                # the verify route's per-request accounting (the
+                # reference records it on its engine.decode span)
+                ext["spec_accepted"] = req.spec_accepted
+                ext["spec_rollbacks"] = req.spec_rollbacks
         ids_len = len(body["prompt"])
         return {
             "id": "cmpl-kubeinfer" if req is None
@@ -186,6 +200,18 @@ class InferenceServer:
                 "role) waits: ROADMAP Queue 1, disagg import/export")
         kw = dict(eos_id=eos_id, temperature=temperature, seed=seed,
                   top_k=top_k, top_p=top_p, repetition_penalty=rep_penalty)
+        if (self.speculative is not None and rep_penalty == 1.0
+                and self.speculative.fits(len(ids), max_tokens)
+                # a batcher with a speculative engine owns the draft-
+                # eligible traffic it fits (its groups, or verify windows)
+                and not (self.continuous is not None
+                         and self.continuous.speculative is not None
+                         and self.continuous.fits(len(ids), max_tokens))):
+            kw.pop("repetition_penalty")
+            out = self.speculative.generate([ids], max_new_tokens=max_tokens,
+                                            **kw)
+            return "speculative", out.tokens[0, : out.lengths[0]].tolist(), \
+                None
         if self.continuous is not None and self.continuous.fits(
                 len(ids), max_tokens):
             req = self.continuous.serve(ids, max_new_tokens=max_tokens, **kw)
@@ -219,10 +245,6 @@ _WAITING_FLAGS = {
     "queue_depth_limit": (0, "preemption, drain and migration (load "
                              "shedding)"),
     "preemption_slo": ("", "preemption, drain and migration"),
-    "draft_model": ("", "speculative decoding"),
-    "speculation_depth": (4, "speculative decoding"),
-    "speculative_draft": (False, "speculative decoding"),
-    "prewarm_spec": ("", "speculative decoding"),
     "tls_cert_file": ("", "/metrics and the debug endpoints (TLS)"),
     "tls_key_file": ("", "/metrics and the debug endpoints (TLS)"),
     "debug_token_file": ("", "/metrics and the debug endpoints"),
@@ -258,6 +280,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight-dtype", default="bf16", choices=("bf16", "int8"),
                    help="projection weight precision: int8 quantizes each "
                         "layer's projections as the layer is built")
+    p.add_argument("--draft-model", default="",
+                   help="draft preset name (with --random-init; seeded 1) "
+                        "enabling speculative decoding; must share the "
+                        "target's vocabulary")
+    p.add_argument("--speculation-depth", type=int, default=4,
+                   help="draft tokens proposed per verification round")
+    p.add_argument("--speculative-draft", action="store_true",
+                   help="run the --draft-model inside the continuous "
+                        "batcher's paged batch: k + 1-query verify windows "
+                        "with accept/rollback at the window boundary")
+    p.add_argument("--prewarm-spec", default="",
+                   help="comma-separated draft-group sizes to run once "
+                        "before serving (e.g. '1,2,4')")
     # accepted and unused, as in the reference (vLLM flag parity)
     p.add_argument("--gpu-memory-utilization", type=float, default=0.9)
     for name, (default, _entry) in _WAITING_FLAGS.items():
@@ -278,6 +313,7 @@ def build_server(argv: list[str] | None = None, device=None):
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.engine import Engine
     from kubeinfer_tpu_torch.inference.model import init_params
+    from kubeinfer_tpu_torch.inference.speculative import SpeculativeEngine
 
     args = build_parser().parse_args(argv)
     for name, (default, entry) in _WAITING_FLAGS.items():
@@ -288,6 +324,18 @@ def build_server(argv: list[str] | None = None, device=None):
         raise SystemExit("loading a checkpoint waits: ROADMAP Queue 1, "
                          "checkpoint.py and load_pretrained; pass "
                          "--random-init with a preset --model")
+    if args.speculative_draft and not args.draft_model:
+        raise SystemExit("--speculative-draft requires --draft-model (the "
+                         "paged verify windows run the same draft weights)")
+    dcfg = None
+    if args.draft_model:
+        dcfg = PRESETS.get(args.draft_model)
+        if dcfg is None:
+            raise SystemExit(
+                f"--draft-model {args.draft_model!r} is not a preset (with "
+                "--random-init the draft must name one); loading a draft "
+                "checkpoint waits: ROADMAP Queue 1, checkpoint.py and "
+                "load_pretrained")
     # --model may be a preset name or, when the agent passes its model
     # cache directory, any path: the reference falls back to the CI-sized
     # preset there
@@ -303,17 +351,35 @@ def build_server(argv: list[str] | None = None, device=None):
                          weight_dtype=args.weight_dtype)
     max_cache = args.max_model_len or cfg.max_position_embeddings
     engine = Engine(params, cfg, max_cache_len=max_cache, device=dev)
+    speculative = dparams = None
+    if dcfg is not None:
+        # seeded 1, as the reference draws its draft from PRNGKey(1)
+        dparams = init_params(dcfg, seed=1, dtype=dtype, device=dev)
+        speculative = SpeculativeEngine(
+            params, cfg, dparams, dcfg, k=args.speculation_depth,
+            max_cache_len=max_cache, device=dev)
     continuous = None
     if args.batch_slots > 0:
         continuous = ContinuousEngine(
             params, cfg, n_slots=args.batch_slots,
             cache_len=min(max_cache, 4096),
+            speculative=speculative,
             prefill_chunk_blocks=args.prefill_chunk_blocks,
+            spec_draft=(dparams, dcfg) if args.speculative_draft else None,
+            spec_k=args.speculation_depth,
             kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
             device=dev,
         )
+        if args.prewarm_spec and speculative is not None:
+            sizes = tuple(int(x) for x in args.prewarm_spec.split(",")
+                          if x.strip())
+            t0 = time.monotonic()
+            n = continuous.prewarm_spec(group_sizes=sizes)
+            log.info("prewarmed %d draft-group shapes in %.1fs", n,
+                     time.monotonic() - t0)
     srv = InferenceServer(engine, model_id=args.model, host=args.host,
-                          port=args.port, continuous=continuous, device=dev)
+                          port=args.port, continuous=continuous,
+                          speculative=speculative, device=dev)
     return srv, continuous
 
 

@@ -1,7 +1,6 @@
 """The decode stepper shared by the serving paths.
 
-Counterpart of ``kubeinfer_tpu/inference/stepper.py`` (tp=1, no
-speculative verify):
+Counterpart of ``kubeinfer_tpu/inference/stepper.py`` (tp=1):
 
 - :func:`step_forward` is the one-token forward of a length-ragged batch.
   The dense route (per-row ``[B, S, ...]`` caches, the per-request
@@ -13,6 +12,11 @@ speculative verify):
   pool is written in place; it returns the ``[n_slots, K]`` tokens
   without reading them back (the caller's readback is the window's one
   host sync).
+- :func:`verify_window` is its speculative twin: a draft model proposes
+  k tokens per live row (a repair forward, then k - 1 draft steps through
+  kernel #10 on the draft's dense caches), one target forward scores the
+  k + 1 window positions through #11 (or #12), and each row emits its
+  accepted prefix (:func:`spec_accept`).
 - :func:`decode_scan` is the per-request engine's loop.
 
 Sampling keys are position-folded as in the reference (``sample_rows``
@@ -48,7 +52,8 @@ from kubeinfer_tpu_torch.inference.model import Params, forward
 __all__ = [
     "SlotState", "init_slot_state", "sample_rows", "step_forward",
     "decode_body", "decode_window", "decode_scan", "WINDOW_BUCKETS",
-    "RowFlags",
+    "RowFlags", "DraftState", "init_draft_state", "spec_accept",
+    "verify_window",
 ]
 
 # Decode-window horizons: the reference compiles one shape per bucket;
@@ -306,6 +311,168 @@ def decode_window(params: Params, state: SlotState, cfg: ModelConfig,
         state, t = decode_body(params, state, cfg, flags, commit)
         toks.append(t)
     return state, torch.stack(toks, dim=1)
+
+
+# --- speculative verify window ---------------------------------------------
+
+
+@dataclass
+class DraftState:
+    """The draft model's state for the verify window, one row per slot:
+    DENSE per-row caches ``L_d x [n_slots, Ld, n_kv_d, D_d]`` (the draft
+    is small; paging it would couple its blocks to the pool's) and
+    ``prev``, the token at target position ``offset - 1``. At rest
+    (target offset o) the committed draft KV covers positions 0 .. o-2;
+    each window's repair forward rewrites o-1 and o before any read."""
+
+    caches_k: list[torch.Tensor]  # L_d x [n_slots, Ld, n_kv_d, D_d]
+    caches_v: list[torch.Tensor]
+    prev: torch.Tensor  # i64[n_slots]
+
+
+def init_draft_state(dcfg: ModelConfig, n_slots: int, cache_len: int,
+                     dtype, device=None) -> DraftState:
+    # Ld == cache_len: the propose steps' deepest write is o + k - 1, and
+    # the batcher verifies only rows with prompt + max_new + k <= cache_len
+    shape = (n_slots, cache_len, dcfg.num_key_value_heads, dcfg.head_dim)
+    L = dcfg.num_hidden_layers
+    return DraftState(
+        caches_k=[torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(L)],
+        caches_v=[torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(L)],
+        prev=torch.zeros((n_slots,), dtype=torch.int64, device=device),
+    )
+
+
+def spec_accept(drafts: torch.Tensor, target_toks: torch.Tensor
+                ) -> torch.Tensor:
+    """THE acceptance rule: draft i survives iff it equals the target's own
+    draw at its position and every earlier draft survived (a cumprod of
+    matches); the target's draw after the last survivor is always
+    emitted. ``drafts`` [B, k], ``target_toks`` [B, k + 1]; returns
+    n_emit = accepted + 1 in [1, k + 1]."""
+    k = drafts.shape[1]
+    agree = (drafts == target_toks[:, :k]).long()
+    return torch.cumprod(agree, dim=1).sum(dim=1) + 1
+
+
+def verify_window(params: Params, state: SlotState, dparams: Params,
+                  dstate: DraftState, cfg: ModelConfig, dcfg: ModelConfig,
+                  k: int, flags: RowFlags
+                  ) -> tuple[SlotState, DraftState, torch.Tensor]:
+    """The speculative twin of :func:`decode_window`: every live row gets
+    k draft proposals, one target forward scores the k + 1 window
+    positions through the paged kernel (#11, or #12 on the int8 pool, at
+    T = k + 1), and each row emits its accepted prefix. Returns (state,
+    dstate, toks i64[B, k + 1]): row b's first n_emit entries are its
+    tokens, the rest -1. Nothing is read back (the caller's readback is
+    the window's one host sync); the pool, the draft caches, ``seen`` and
+    the int8 tails are written in place.
+
+    The emitted tokens are the target's own draws under the position-
+    folded keys the single-step path uses (position p -> counter p), with
+    ``seen`` threaded along the accepted prefix only, so the stream
+    equals :func:`decode_window`'s whatever the draft proposes. Rejected
+    positions' KV stays past the new offset, where the next window
+    overwrites it; inactive rows (all-null tables) emit nothing and keep
+    their state."""
+    B = state.last_token.shape[0]
+    dev = state.last_token.device
+    block_size = state.caches_k[0].shape[1]
+    S = state.tables.shape[1] * block_size
+    # a 0-layer (bigram) draft has no KV: Ld only shapes the repair mask
+    Ld = dstate.caches_k[0].shape[1] if dcfg.num_hidden_layers > 0 else S
+    o = state.offset.long()
+    T = k + 1
+    rows = torch.arange(B, device=dev)
+    penalty = flags.penalty
+
+    def draw(logits, seen, counter):
+        return sample_rows(logits, state.temperature, state.top_k,
+                           state.top_p, state.rep_penalty, seen, state.rng,
+                           counter, flags)
+
+    # --- draft propose: the repair forward over [prev, last_token] at
+    # positions o-1, o (dense attention), then k - 1 draft steps (#10) ---
+    rep_tok = torch.stack([dstate.prev, state.last_token], dim=1)
+    rep_pos = torch.stack([o - 1, o], dim=1)
+    rep_mask = (torch.arange(Ld, device=dev)[None, None, :]
+                <= rep_pos[:, :, None])
+    dcaches = list(zip(dstate.caches_k, dstate.caches_v))
+    dlogits, _ = forward(dparams, rep_tok, dcfg, positions=rep_pos,
+                         attn_mask=rep_mask, kv_caches=dcaches,
+                         cache_offset=o - 1)
+    # the draft's own seen set: record_seen writes in place, and the
+    # slot's set must only ever see the accepted prefix. Every row marks
+    # its proposal (a device mask: a host True would be copied over)
+    dseen = state.seen.clone() if penalty else state.seen
+    every = torch.ones_like(state.active)
+    tok = draw(dlogits[:, 1], dseen, o + 1)
+    record_seen(dseen, tok, penalty, keep=every)
+    drafts = [tok]
+    for i in range(1, k):
+        lg, _ = step_forward(dparams, dcfg, tok, o + i, dcaches, Ld)
+        tok = draw(lg, dseen, o + i + 1)
+        record_seen(dseen, tok, penalty, keep=every)
+        drafts.append(tok)
+    drafts = torch.stack(drafts, dim=1)  # [B, k]
+
+    # --- the fused verify: the window [last, d_1 .. d_k] at positions
+    # o .. o + k, scattered before it is attended (lengths o + T) ---
+    window = torch.cat([state.last_token[:, None], drafts], dim=1)
+    positions = o[:, None] + torch.arange(T, device=dev)[None, :]
+    lengths = (o + T).to(torch.int32)
+    if state.quantized:
+        # #12 derives the window's tail base (lengths - T) // bs itself
+        def attn_fn(q, kc, vc, _mask):
+            return fa.decode_attention_blocks_q8_auto(
+                q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2], state.tables,
+                lengths)
+    else:
+        def attn_fn(q, kp, vp, _mask):
+            return fa.decode_attention_blocks_auto(q, kp, vp, state.tables,
+                                                   lengths)
+    logits, _ = forward(params, window, cfg, positions=positions,
+                        kv_caches=_zip_kv(state), cache_offset=o,
+                        block_tables=state.tables, attn_fn=attn_fn)
+
+    # --- acceptance: logits[:, i] predicts position o + 1 + i, drawn with
+    # counter o + 1 + i; seen follows the alive prefix ---
+    alive = state.active
+    target = []
+    for i in range(T):
+        t = draw(logits[:, i], state.seen, o + 1 + i)
+        record_seen(state.seen, t, penalty, keep=alive)
+        if i < k:
+            alive = alive & (drafts[:, i] == t)
+        target.append(t)
+    target = torch.stack(target, dim=1)  # [B, T]
+    keep = state.active
+    n_emit = torch.where(keep, spec_accept(drafts, target), 0)
+
+    # --- boundary state: the token at o' = o + n_emit is target[n_emit-1],
+    # the next repair's prev target[n_emit-2] (or the old last token) ---
+    last_new = target[rows, torch.clamp(n_emit - 1, 0, k)]
+    prev_new = torch.where(n_emit >= 2,
+                           target[rows, torch.clamp(n_emit - 2, 0, k)],
+                           state.last_token)
+    new_off = torch.where(keep, state.offset + n_emit.to(torch.int32),
+                          state.offset)
+    if state.quantized:
+        # a window spans at most one block edge (T <= bs): the rows that
+        # crossed commit their filled tail slot 0
+        _commit_full_tails(state.q8_pages, state.q8_scales, state.q8_tails,
+                           state.tables, state.offset, new_off, keep,
+                           block_size)
+    new_state = dataclasses.replace(
+        state, last_token=torch.where(keep, last_new, state.last_token),
+        offset=new_off)
+    new_dstate = dataclasses.replace(
+        dstate, prev=torch.where(keep, prev_new, dstate.prev))
+    toks = torch.where(torch.arange(T, device=dev)[None, :]
+                       < n_emit[:, None], target, -1)
+    return new_state, new_dstate, toks
 
 
 # --- the per-request loop --------------------------------------------------

@@ -147,8 +147,7 @@ def test_weight_dtype_guard(params):
 
 def test_waiting_features_raise(params):
     _, tp = params
-    for kw, name in ((dict(speculative=object()), "speculative"),
-                     (dict(preemption=object()), "preemption"),
+    for kw, name in ((dict(preemption=object()), "preemption"),
                      (dict(layout=object()), "layout")):
         with pytest.raises(ValueError, match=name):
             TC(tp, TP["tiny"], cache_len=64, device="cpu", **kw)

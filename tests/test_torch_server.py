@@ -89,12 +89,14 @@ def test_waiting_and_invalid_bodies_answer_400(served, body, msg):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--draft-model", "tiny"], "speculative"),
+    (["--speculative-draft"], "speculative"),
     (["--tensor-parallel-size", "2"], "sharding.py"),
     (["--preemption-slo", "1.0"], "preemption"),
     (["--slo", "ttft:0.5:0.99"], "debug endpoints"),
 ])
 def test_main_refuses_waiting_flags(flags, msg):
+    """Flags whose features wait exit naming the ROADMAP entry; so does
+    ``--speculative-draft`` without the ``--draft-model`` it runs."""
     with pytest.raises(SystemExit, match=msg):
         ts.build_server(["--model", "tiny", "--random-init", *flags],
                         device="cpu")
@@ -167,3 +169,71 @@ def test_server_needs_cuda_by_default(served, monkeypatch):
         ts.InferenceServer(engine, "tiny", port=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ts.build_server(["--model", "tiny", "--random-init", "--port", "0"])
+
+
+def test_speculative_flags_build_and_route():
+    """``--draft-model`` (seeded 1) builds a SpeculativeEngine: with
+    ``--batch-slots 0`` a draft-eligible request takes the "speculative"
+    route, as the reference routes it, with that engine's tokens; a
+    repetition penalty falls through to the engine route."""
+    srv, cont = ts.build_server(
+        ["--model", "tiny", "--random-init", "--port", "0",
+         "--batch-slots", "0", "--draft-model", "tiny",
+         "--speculation-depth", "3"], device="cpu")
+    spec = srv.speculative
+    assert cont is None and spec.k == 3 and spec.draft_cfg == CFG
+    # seeded 1, as the reference's PRNGKey(1) draft
+    assert torch.equal(spec.draft_params["embed_tokens"],
+                       init_params(CFG, seed=1, dtype=torch.bfloat16,
+                                   device="cpu")["embed_tokens"])
+    srv.start()
+    try:
+        prompt = [3, 1, 4, 1, 5]
+        for kw, route in (({}, "speculative"),
+                          (dict(temperature=0.7, seed=2), "speculative"),
+                          (dict(repetition_penalty=1.2), "engine")):
+            code, body = call(srv, "/v1/completions",
+                              dict(prompt=prompt, max_tokens=6, **kw))
+            resp = json.loads(body)
+            assert code == 200 and resp["kubeinfer"]["route"] == route
+            if route == "speculative":
+                out = spec.generate([prompt], 6, **kw)
+                assert resp["choices"][0]["tokens"] == out.tokens[0].tolist()
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("verify", [False, True], ids=["groups", "verify"])
+def test_batcher_owns_draft_traffic(verify):
+    """With slots, the batcher owns the draft-eligible requests it fits:
+    its draft groups, or with ``--speculative-draft`` its verify windows
+    (whose per-request accounting rides the response)."""
+    flags = ["--model", "tiny", "--random-init", "--port", "0",
+             "--batch-slots", "2", "--max-model-len", "128",
+             "--draft-model", "tiny", "--prewarm-spec", "1,2"]
+    srv, cont = ts.build_server(flags + (["--speculative-draft"] if verify
+                                         else []), device="cpu")
+    assert cont.speculative is srv.speculative
+    assert (cont.spec_draft is not None) == verify and cont.spec_k == 4
+    cont.start()
+    srv.start()
+    try:
+        code, body = call(srv, "/v1/completions",
+                          dict(prompt=[3, 1, 4, 1, 5], max_tokens=6))
+        resp = json.loads(body)
+        assert code == 200 and resp["kubeinfer"]["route"] == "continuous"
+        assert len(resp["choices"][0]["tokens"]) == 6
+        assert ("spec_accepted" in resp["kubeinfer"]) == verify
+        if verify:
+            assert cont.scheduler_stats()["spec_draft_tokens"] > 0
+        else:
+            assert cont.spec_served == 1
+    finally:
+        srv.stop()
+        cont.stop()
+
+
+def test_draft_directory_waits_for_load_pretrained(tmp_path):
+    with pytest.raises(SystemExit, match="load_pretrained"):
+        ts.build_server(["--model", "tiny", "--random-init",
+                         "--draft-model", str(tmp_path)], device="cpu")
