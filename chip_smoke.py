@@ -14,9 +14,10 @@ times them. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
-      together: mega_solve.cu, round_ops.cu, auction.cu, route_pick.cu,
-      decode_attention.cu, flash_prefill.cu, quant_matmul.cu,
-      flash_backward.cu;
+      together, nine sources: mega_solve.cu, round_ops.cu, auction.cu,
+      route_pick.cu, decode_attention.cu, flash_prefill.cu,
+      quant_matmul.cu, flash_backward.cu, flash_prefill_tc.cu (the
+      tensor-core kernel of every bf16 call of #9, #13 and #9b);
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -71,11 +72,12 @@ times them. Phases:
       stated tolerance, on every layer's call of the continuous engine's
       decode windows (8 requests of 512 tokens) and of an Engine
       generate with a 4100-token prompt (4 prefill chunks of 2048, one
-      decode step);
+      decode step), every #9 call on the tensor-core route;
   (14) /v1/completions over HTTP: 4 greedy 512-token prompts (two share
       256 tokens) and 1 sampled, 64 new tokens each, on the continuous
       route, and a 4100-token prompt on the engine route, concurrently;
-      the three launch counts reset before and read after (all > 0),
+      the three launch counts reset before and read after (all > 0,
+      every #9 launch on the tensor-core route),
       the routes, tokens in the vocabulary, finite logits, and the host
       syncs of one decode window (1: its readback);
   (15) the port on the card against the port on the CPU: llama-3-8b
@@ -84,7 +86,8 @@ times them. Phases:
   (16) times: TTFT of a 512-token prompt on the continuous route, decode
       ms per token at 8 live slots, the engine route's prefill chunks,
       and each attention kernel against its bound, its plain version
-      and scaled_dot_product_attention on the path's heaviest call;
+      and scaled_dot_product_attention on the path's heaviest call (#9
+      also against the CUDA-core kernel on the same call);
   (17) the int8 serving path at full width: ``server.build_server``
       with ``--kv-dtype int8 --weight-dtype int8`` (the bf16 server
       stopped and freed first): the GiB on the card, model_param_bytes
@@ -113,11 +116,14 @@ times them. Phases:
       route), no attn_fn, lr 1e-3; on step 1 flash_ragged_lse (#13),
       flash_bwd_dq and flash_bwd_dkv (#14) each against its plain version
       within the stated tolerance on every layer's call, #13's o bitwise
-      #9's; steps 2-3 with the launch counts reset before and read after
-      (32 a step each, #9 none); finite losses, peak memory;
+      #9's, every #13 call on the tensor-core route; steps 2-3 with the
+      launch counts reset before and read after (32 a step each, all of
+      #13's on the tensor-core route, #9 none); finite losses, peak
+      memory;
   (23) times of the training step: its p50, and #13, dQ and dK/dV per
       launch beside their bounds, their plain versions and
-      scaled_dot_product_attention (causal, GQA) forward and backward;
+      scaled_dot_product_attention (causal, GQA) forward and backward
+      (#13 also against the CUDA-core kernel on the same call);
   (22) the training step on the card (flash route) against the CPU
       (dense route) at llama-3-8b widths cut to 2 layers, f32, tokens
       [2, 513]: loss and every gradient leaf within tolerance; 8 steps
@@ -128,9 +134,11 @@ times them. Phases:
       of 512, 1024 and 384 tokens and 128 rows that see nothing:
       flash_attention against its plain version on all 32 layer calls,
       the all-False rows equal to the mean of v, 32 launches in a counted
-      forward, the live rows' hidden states against attn_fn=
-      model.attention; then 2 layers in f32, the card (#9b) against
-      device="cpu" (dense);
+      forward, every one on the tensor-core route (which folds only the
+      key tiles the mask makes live: the kernel's own count of the tiles
+      its blocks fold equal to flash_mask_walk's), the live rows' hidden
+      states against attn_fn=model.attention; then 2 layers in f32, the
+      card (#9b on the CUDA-core route) against device="cpu" (dense);
   (25) verify windows at 8 slots: (a) a library ContinuousEngine whose
       draft is the target itself (acceptance near 1), (b) the server with
       ``--draft-model llama-3-8b --speculative-draft`` (a seed-1 draft:
@@ -156,7 +164,8 @@ times them. Phases:
       #11 never, #15 on every projection; then 2 layers in f32 with block
       16 and a bigram draft, card against the CPU: equal streams and
       counters;
-  (28) times: #9b against its bound and SDPA with the same mask, #11 and
+  (28) times: #9b against its bound, SDPA with the same mask and the
+      CUDA-core kernel on the same call, #11 and
       #12 at T = 5, a verify window's ms and tokens a row in (a) and (b),
       decode ms per emitted token per slot with and without a draft;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
@@ -1123,6 +1132,39 @@ BF16_REL = 2.0 ** -6  # 2 bf16 ulps of a row's magnitude
 def reset_serve_counts(fa):
     for name in SERVE_KERNELS:
         getattr(fa, name).launches = 0
+    fa.flash_attention_ragged.tc_launches = 0
+
+
+# the tensor-core kernel of every bf16 call of #9, #13 and #9b
+TC_SOURCE = "kubeinfer_tpu_torch/inference/csrc/flash_prefill_tc.cu"
+TC_CORES = "tensor cores: wgmma, TMA (flash_prefill_tc.cu)"
+
+
+def cuda_core_ms(name, args, reps=3):
+    """ms per launch of the CUDA-core kernel (``flash_prefill.cu``) on the
+    same bf16 call, the route these calls took before the tensor-core
+    kernel: launched through its library, outside the wrappers' counts."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+
+    lib = _build.load_kernel_library("flash_prefill")
+    q, k, v = args[:3]
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    scale = 1.0 / float(D) ** 0.5
+    if name == "flash_attention":
+        call = ("flash_masked_launch", q, k, v, args[3], out, B, T, S, H,
+                n_kv, D, scale, 1)
+    else:
+        lse = torch.empty((B * n_kv, T * (H // n_kv), 1), dtype=torch.float32,
+                          device=q.device) if name == "flash_ragged_lse" \
+            else None
+        call = ("flash_prefill_launch", q, k, v, args[4], out, lse, B, T, S,
+                H, n_kv, D, int(args[3]), scale, 1)
+    return cuda_ms(lambda: fa._launch(lib, *call), reps=reps)
 
 
 def attn_err(got, want, live):
@@ -1152,14 +1194,16 @@ class CheckedAttention:
     them within the stated tolerance and hands the kernel's result on.
     Keeps the call with the most work (``weight``) for the times. While it
     stands in, the wrapper's ``<name>.launches += 1`` resolves to this
-    object's ``launches``, so the checking launches stay off the
-    wrapper's own count."""
+    object's ``launches`` (``tc_launches`` likewise), so the checking
+    launches stay off the wrapper's own count; its ``walk_counter`` (#9b)
+    is None, so they count no key tiles either."""
 
     def __init__(self, fa, name, plain, live, weight):
         self.fa, self.name = fa, name
         self.kernel, self.plain = getattr(fa, name), plain
         self.live, self.weight = live, weight
-        self.launches = self.calls = 0
+        self.launches = self.tc_launches = self.calls = 0
+        self.walk_counter = None
         self.max_err = 0.0
         self.heaviest = None
         self.error = None  # a failure on the scheduler thread, kept here
@@ -1400,13 +1444,18 @@ def serving_phases(dev, record, card):
         engine.generate([long_prompt], 2)
     check(chk9.calls == 4 * layers and chk10.calls == layers,
           f"#9 {chk9.calls} calls, #10 {chk10.calls}")
+    check(chk9.tc_launches == chk9.calls,
+          f"#9: {chk9.tc_launches} of {chk9.calls} bf16 calls on the "
+          "tensor-core route")
     for chk, what in ((chk11, "every layer of the continuous engine's decode "
                               "windows (8 requests of 512 tokens, 4 new)"),
                       (chk9, "the 4 chunks of 2048 of a 4100-token prompt, "
                              "every layer"),
                       (chk10, "one decode step of Engine, every layer")):
         print(f"[13] {chk.name}: {chk.calls} calls on {what}, within "
-              f"tolerance; max |kernel - plain| {chk.max_err:.3e} (bf16)")
+              f"tolerance; max |kernel - plain| {chk.max_err:.3e} (bf16)"
+              + (f"; {chk.tc_launches} on the tensor-core route"
+                 if chk is chk9 else ""))
 
     # (14) the main path over HTTP, counted
     srv.start()
@@ -1428,6 +1477,10 @@ def serving_phases(dev, record, card):
     http_s = time.perf_counter() - t0
     counts = {name: getattr(fa, name).launches for name in SERVE_KERNELS}
     check(all(counts.values()), f"a serving kernel never launched: {counts}")
+    tc9 = fa.flash_attention_ragged.tc_launches
+    check(tc9 == counts["flash_attention_ragged"],
+          f"#9: {tc9} of {counts['flash_attention_ragged']} launches on the "
+          "tensor-core route")
     routes = [r["kubeinfer"]["route"] for r in resps]
     check(routes == ["continuous"] * 5 + ["engine"], f"routes {routes}")
     for b, r in zip(bodies, resps):
@@ -1441,7 +1494,8 @@ def serving_phases(dev, record, card):
     stats = cont.kv_cache_stats()
     print(f"[14] /v1/completions over HTTP: 4 greedy + 1 sampled 512-token "
           f"prompts (64 new) on route continuous, 1 of 4100 tokens (16 new)"
-          f" on route engine, {http_s:.1f} s; launches {counts}; radix "
+          f" on route engine, {http_s:.1f} s; launches {counts} (#9 on "
+          f"the tensor-core route: {tc9}); radix "
           f"hits {stats['hits']} misses {stats['misses']}, blocks in use "
           f"{stats['blocks_in_use']}; logits finite")
     # the scheduler is idle (nothing submitted): one decode window of its
@@ -1529,10 +1583,9 @@ def serving_phases(dev, record, card):
     entries = []
     with torch.inference_mode():
         entries.append(time_kernel(
-            dev, fa, chk9, card, "flash_attention_ragged",
-            "kubeinfer_tpu_torch/inference/csrc/flash_prefill.cu",
+            dev, fa, chk9, card, "flash_attention_ragged", TC_SOURCE,
             "kubeinfer_tpu/inference/flash_attention.py:288",
-            counts["flash_attention_ragged"], F))
+            counts["flash_attention_ragged"], F, tc_launches=tc9))
         entries.append(time_kernel(
             dev, fa, chk10, card, "decode_attention",
             "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
@@ -1555,11 +1608,13 @@ def serving_phases(dev, record, card):
 
 
 def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F,
-                tag="[16]"):
+                tag="[16]", tc_launches=None):
     """One kernel's entry of the ``kernels`` line: its time per launch on
     the heaviest captured call, its plain version's, the
     scaled_dot_product_attention yardstick's on the same q/k/v, and its
-    bound from this call's data."""
+    bound from this call's data; for #9 (``tc_launches`` given: its
+    tensor-core launches on the path) also the CUDA-core kernel's time on
+    the same call."""
     import torch
 
     args = chk.heaviest
@@ -1611,11 +1666,21 @@ def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F,
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(op_ms, byte_ms)
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
+    extra = {}
+    if tc_launches is not None:
+        core_ms = cuda_core_ms(name, args)
+        extra = {"cores": TC_CORES, "cuda_core_ms": core_ms,
+                 "tc_launches": tc_launches}
+        what += (f", tensor cores (the CUDA-core kernel on this call "
+                 f"{core_ms:.4f} ms)")
     print(f"{tag} {card}: {name} {ms:.4f} ms/launch on {what}; plain "
           f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f}"
           f" ms; bound {bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path")
+          f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path"
+          + (f", {tc_launches} on the tensor-core route"
+             if tc_launches is not None else ""))
     return {
+        **extra,
         "name": name,
         "route": "cuda",
         "source": source,
@@ -2173,7 +2238,8 @@ def time_qmm(dev, wq, chk, card, counts):
 
 TRAIN_KERNELS = ("flash_ragged_lse", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_SOURCES = {
-    "flash_ragged_lse": ("kubeinfer_tpu_torch/inference/csrc/flash_prefill.cu",
+    "flash_ragged_lse": ("kubeinfer_tpu_torch/inference/csrc/"
+                         "flash_prefill_tc.cu",
                          "kubeinfer_tpu/inference/flash_attention.py:1525"),
     "flash_bwd_dq": ("kubeinfer_tpu_torch/inference/csrc/flash_backward.cu",
                      "kubeinfer_tpu/inference/flash_attention.py:1590"),
@@ -2217,7 +2283,7 @@ class CheckedTrain:
     def __init__(self, fa, name, plain):
         self.fa, self.name = fa, name
         self.kernel, self.plain = getattr(fa, name), plain
-        self.launches = self.calls = 0
+        self.launches = self.tc_launches = self.calls = 0
         self.max_err = 0.0
         self.first = None
 
@@ -2245,9 +2311,10 @@ class CheckedTrain:
                       f"call {self.calls}, output {i} (max err {err})")
             self.max_err = max(self.max_err, err)
         if self.name == "flash_ragged_lse":
-            n9 = self.fa.flash_attention_ragged.launches
-            o9 = self.fa.flash_attention_ragged(*args)
-            self.fa.flash_attention_ragged.launches = n9
+            f9 = self.fa.flash_attention_ragged
+            n9 = (f9.launches, f9.tc_launches)
+            o9 = f9(*args)
+            f9.launches, f9.tc_launches = n9
             check(torch.equal(o9, gs[0]),
                   f"#13's o differs from #9's on call {self.calls}")
         if self.first is None:
@@ -2315,11 +2382,15 @@ def train_phases(dev, record, card):
         first_s = time.perf_counter() - t0
     for n, c in chks.items():
         check(c.calls == layers, f"{n} checked on {c.calls} calls")
+    check(chks["flash_ragged_lse"].tc_launches == layers,
+          f"#13: {chks['flash_ragged_lse'].tc_launches} of {layers} bf16 "
+          "calls on the tensor-core route")
     check(fa.flash_attention_ragged.launches == 0,
           "#9 launched in the training step")
     # the main path, counted: two more steps
     for name in (*TRAIN_KERNELS, "flash_attention_ragged"):
         getattr(fa, name).launches = 0
+    fa.flash_ragged_lse.tc_launches = 0
     losses = [loss1]
     step_ms = []
     for _ in range(2):
@@ -2335,6 +2406,9 @@ def train_phases(dev, record, card):
                      "flash_bwd_dkv": 2 * layers,
                      "flash_attention_ragged": 0},
           f"training launches over 2 steps {counts}")
+    tc13 = fa.flash_ragged_lse.tc_launches
+    check(tc13 == 2 * layers,
+          f"#13: {tc13} of {2 * layers} launches on the tensor-core route")
     check(all(np.isfinite(losses)), f"losses {losses}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[21] train_step on llama-3-8b (H {cfg.hidden_size}, {layers} "
@@ -2345,7 +2419,8 @@ def train_phases(dev, record, card):
           + ", ".join(f"{n} on {c.calls} calls (max |kernel - plain| "
                       f"{c.max_err:.3e})" for n, c in chks.items())
           + f" within tolerance and #13's o bitwise #9's; losses {losses}; "
-          f"launches over steps 2-3 {counts}; peak "
+          f"launches over steps 2-3 {counts} (#13 on the tensor-core route: "
+          f"{tc13}); peak "
           f"{peak_gib:.2f} GiB")
     record["train"] = {"losses": losses, "launches_2_steps": counts,
                        "weights_gib": weights_gib, "peak_gib": peak_gib,
@@ -2363,7 +2438,8 @@ def train_phases(dev, record, card):
     print(f"[23] {card}: train_step p50 {p50:.1f} ms "
           f"({[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    entries = [time_train_kernel(dev, fa, chks[n], card, n, counts[n], F)
+    entries = [time_train_kernel(dev, fa, chks[n], card, n, counts[n], F,
+                                 tc13 if n == "flash_ragged_lse" else None)
                for n in TRAIN_KERNELS]
     record["train_times"] = {
         "step_ms": step_ms, "step_p50_ms": p50, "tokens_per_s": tok_s,
@@ -2377,12 +2453,14 @@ def train_phases(dev, record, card):
     return entries
 
 
-def time_train_kernel(dev, fa, chk, card, name, launches, F):
+def time_train_kernel(dev, fa, chk, card, name, launches, F,
+                      tc_launches=None):
     """One training kernel's entry of the ``kernels`` line: its time per
     launch on the first checked call (layer 0 of step 1), its plain
     version's, its bound from this call's live pairs, and the library
     yardstick: scaled_dot_product_attention (causal, GQA) forward for
-    #13, its backward alone (dq, dk, dv in one call) for #14."""
+    #13, its backward alone (dq, dk, dv in one call) for #14; for #13
+    (``tc_launches`` given) also the CUDA-core kernel on the same call."""
     import torch
 
     args = chk.first
@@ -2431,14 +2509,22 @@ def time_train_kernel(dev, fa, chk, card, name, launches, F):
     bound_ms = max(op_ms, byte_ms)
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
     source, replaces = TRAIN_SOURCES[name]
+    extra, core = {}, ""
+    if tc_launches is not None:
+        core_ms = cuda_core_ms(name, args)
+        extra = {"cores": TC_CORES, "cuda_core_ms": core_ms,
+                 "tc_launches": tc_launches}
+        core = (f"tensor cores ({tc_launches} of the path's launches; the "
+                f"CUDA-core kernel on this call {core_ms:.4f} ms); ")
     print(f"[23] {card}: {name} {ms:.4f} ms/launch on q [{B}, {T}, {H}, "
           f"{D}], k/v [{B}, {S}, {n_kv}, {D}], {pairs / 1e6:.1f} M live "
-          f"(head, pair)s; plain {plain_ms:.4f} ms; {label} "
+          f"(head, pair)s; {core}plain {plain_ms:.4f} ms; {label} "
           f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
           f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; "
           f"{ops / ms / 1e9:.1f} TFLOP/s, {ms / pairs * 1e9:.1f} ps a "
           f"pair); {launches} launches on the main path")
     return {
+        **extra,
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": chk.max_err, "ms": ms, "plain_ms": plain_ms,
@@ -2476,7 +2562,7 @@ def train_card_vs_cpu(dev, record):
     sides = {"card": (p_card, torch.from_numpy(toks).to(dev)),
              "cpu": (p_cpu, torch.from_numpy(toks))}
     out = {}
-    n13 = fa.flash_ragged_lse.launches
+    n13 = (fa.flash_ragged_lse.launches, fa.flash_ragged_lse.tc_launches)
     for side, (params, tk) in sides.items():
         leaves = train._leaves(params)
         for p in leaves:
@@ -2488,8 +2574,10 @@ def train_card_vs_cpu(dev, record):
         for p in leaves:
             p.requires_grad_(False)
         out[side + "_s"] = time.perf_counter() - t0
-    check(fa.flash_ragged_lse.launches > n13,
+    check(fa.flash_ragged_lse.launches > n13[0],
           "[22] the card's step did not take the flash route")
+    check(fa.flash_ragged_lse.tc_launches == n13[1],
+          "[22] an f32 call took the tensor-core route")
     (lc, gc_), (lh, gh) = out["card"], out["cpu"]
     rel_loss = abs(lc - lh) / abs(lh)
     worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
@@ -2830,13 +2918,36 @@ def masked_phase(dev, record, card):
         finally:
             check(chk.error is None, str(chk.error))
     check(chk.calls == layers, f"#9b checked on {chk.calls} calls")
-    # the main path, counted
-    fa.flash_attention.launches = 0
-    with torch.inference_mode():
-        hid, _ = tm.forward(params, tokens, cfg, attn_mask=mask,
-                            attn_fn=fa.attention_auto, return_hidden=True)
+    check(chk.tc_launches == layers,
+          f"#9b: {chk.tc_launches} of {layers} bf16 calls on the "
+          "tensor-core route")
+    # the main path, counted; the kernel also counts the key tiles its
+    # blocks fold, held against the walk's plain mirror
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+    n_kv = cfg.num_key_value_heads
+    G = cfg.num_attention_heads // n_kv
+    walk = fa.flash_mask_walk(mask, fa.TC_ROWS // G, fa.TC_KEYS)
+    fa.flash_attention.walk_counter = torch.zeros(1, dtype=torch.int32,
+                                                  device=dev)
+    try:
+        with torch.inference_mode():
+            hid, _ = tm.forward(params, tokens, cfg, attn_mask=mask,
+                                attn_fn=fa.attention_auto, return_hidden=True)
+        kernel_walked = int(fa.flash_attention.walk_counter)
+    finally:
+        fa.flash_attention.walk_counter = None
     launches = fa.flash_attention.launches
-    check(launches == layers, f"#9b launched {launches} times in a forward")
+    tc_launches = fa.flash_attention.tc_launches
+    check(launches == layers and tc_launches == layers,
+          f"#9b launched {launches} times in a forward, {tc_launches} on "
+          "the tensor-core route")
+    # (block, key tile) steps a kv head a launch: the kernel's count and
+    # the mirror's
+    walked, mirror, steps = (kernel_walked // (layers * n_kv),
+                             int(walk.sum()), walk.numel())
+    check(kernel_walked == layers * n_kv * mirror,
+          f"#9b's kernel folded {kernel_walked} key tiles in {layers} "
+          f"launches; flash_mask_walk names {layers} x {n_kv} x {mirror}")
     with torch.inference_mode():
         dense, _ = tm.forward(params, tokens, cfg, attn_mask=mask,
                               attn_fn=tm.attention, return_hidden=True)
@@ -2864,7 +2975,10 @@ def masked_phase(dev, record, card):
           f"flash_attention on {chk.calls} calls within tolerance of its "
           f"plain version (max |kernel - plain| {chk.max_err:.3e}), the "
           f"all-False rows equal to the mean of v over all {T} keys; "
-          f"{launches} launches in a counted forward; the {T - pad} live "
+          f"{launches} launches in a counted forward, {tc_launches} on the "
+          f"tensor-core route, whose blocks folded {walked} of {steps} "
+          f"(block, key tile) steps a kv head a launch by their own count "
+          f"(flash_mask_walk, the plain mirror: {mirror}); the {T - pad} live "
           f"rows' hidden states against attn_fn=model.attention: relative "
           f"L2 max {float(rel.max()):.3e}, mean {float(rel.mean()):.3e}; "
           f"against an f32 forward of the same weights: #9b route max "
@@ -2878,6 +2992,7 @@ def masked_phase(dev, record, card):
     H = q.shape[2]
     with torch.inference_mode():
         ms = cuda_ms(lambda: fa.flash_attention(*args), reps=10)
+        core_ms = cuda_core_ms("flash_attention", args)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(*args), reps=3)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -2885,8 +3000,7 @@ def masked_phase(dev, record, card):
     elt = q.element_size()
     # the work this mask needs: QK^T and PV over the live pairs of every
     # head, and one mean of v over all S keys per kv head for the rows
-    # that see nothing (the kernel folds every tile regardless)
-    n_kv = k.shape[2]
+    # that see nothing (the kernel folds every tile of their blocks)
     ops = 4 * live_pairs * H * D + n_kv * T * D
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt + m.numel()
     op_ms = ops / BF16_OPS_PER_S * 1e3
@@ -2895,15 +3009,21 @@ def masked_phase(dev, record, card):
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
     print(f"[28] {card}: flash_attention {ms:.4f} ms/launch on q [1, {T}, "
           f"{H}, {D}] with the packed mask ({live_pairs} live pairs a head, "
-          f"{100 * live_pairs / T / T:.1f}% of T x S); plain {plain_ms:.4f} "
+          f"{100 * live_pairs / T / T:.1f}% of T x S), tensor cores walking "
+          f"{walked} of {steps} (block, key tile) steps a kv head, as the "
+          f"kernel counted them in [24] (the "
+          f"CUDA-core kernel on this call, every tile: {core_ms:.4f} ms); "
+          f"plain {plain_ms:.4f} "
           f"ms; scaled_dot_product_attention (bool mask, GQA) "
           f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
           f"{ops / 1e9:.3f} GFLOP over the live pairs, {nbytes / 1e6:.3f} "
-          f"MB); {launches} launches on the main path; "
-          f"{ms / (T * T * H) * 1e9:.1f} ps a (head, pair)")
+          f"MB); {launches} launches on the main path, {tc_launches} on the "
+          f"tensor-core route")
     entry = {
+        "cores": TC_CORES, "cuda_core_ms": core_ms,
+        "tc_launches": tc_launches, "walked_steps": [walked, steps],
         "name": "flash_attention", "route": "cuda",
-        "source": "kubeinfer_tpu_torch/inference/csrc/flash_prefill.cu",
+        "source": TC_SOURCE,
         "replaces": MASK_REPLACES, "launches": launches,
         "max_abs_err": chk.max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2921,6 +3041,7 @@ def masked_phase(dev, record, card):
                         "f32_rel_9b": [float(rk.max()), float(rk.mean())],
                         "f32_rel_dense": [float(rd.max()), float(rd.mean())],
                         "ms": ms, "plain_ms": plain_ms,
+                        "cuda_core_ms": core_ms, "walked_steps": walked,
                         "library_ms": library_ms, "bound_ms": bound_ms}
     del chk, args, q, k, v, m, hid, dense, h32, rel, rk, rd
     gc.collect()
@@ -2931,11 +3052,13 @@ def masked_phase(dev, record, card):
     T2 = 512
     tok2 = torch.from_numpy(rng.integers(1, V, (1, T2)))
     m2 = torch.from_numpy(packed_mask(T2, (128, 256, 64), 64)[None])
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     with torch.inference_mode():
         h_card, _ = tm.forward(p2, tok2.to(dev), cfg2, attn_mask=m2.to(dev),
                                attn_fn=fa.attention_auto, return_hidden=True)
         n_card = fa.flash_attention.launches
+        check(fa.flash_attention.tc_launches == 0,
+              "[24] an f32 call took the tensor-core route")
         p2c = tm.params_to(p2, "cpu")
         del p2
         t0 = time.perf_counter()
@@ -3512,7 +3635,7 @@ def main() -> int:
     built = _build.build_all(["mega_solve", "round_ops", "auction",
                               "route_pick", "decode_attention",
                               "flash_prefill", "quant_matmul",
-                              "flash_backward"])
+                              "flash_backward", "flash_prefill_tc"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")

@@ -156,6 +156,14 @@ _SIGNATURES = {
         # q, k, v, mask, out, B, T, S, H, n_kv, D, scale, dtype (#9b)
         "flash_masked_launch": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     },
+    "flash_prefill_tc": {
+        # q, k, v, row_lens, out, lse (null for #9), B, T, S, H, n_kv, D,
+        # q_offset, scale (bf16, D % 64 == 0)
+        "flash_prefill_tc_launch": [_P] * 6 + [_I] * 7 + [_F, _P],
+        # q, k, v, mask, out, walked (an int counter or null), B, T, S, H,
+        # n_kv, D, scale (#9b)
+        "flash_masked_tc_launch": [_P] * 6 + [_I] * 6 + [_F, _P],
+    },
     "flash_backward": {
         # q, k, v, dO, lse, drow, row_lens, dq, B, T, S, H, n_kv, D,
         # q_offset, scale, dtype

@@ -1,5 +1,8 @@
-// Chunked-prefill GQA flash attention for Hopper (sm_90a): kernels #9,
-// #9b and #13.
+// Chunked-prefill GQA flash attention for Hopper (sm_90a) on CUDA cores:
+// kernels #9, #9b and #13 for f32 (in full f32, never TF32) and for head
+// widths D % 64 != 0. Every bf16 call with D % 64 == 0 goes to the
+// tensor-core kernel in flash_prefill_tc.cu instead (the wrappers choose
+// statically by dtype and D: flash_attention.py tc_route).
 //
 // Replaces kubeinfer_tpu/inference/flash_attention.py:_run_flash with
 // _flash_ragged_kernel (#9, the path of flash_attention_ragged) and
@@ -58,8 +61,8 @@
 // (rows padded to D + 1 floats), one V tile and the P tile sit in shared
 // memory as f32; each thread holds a (BR/8) x (BC/16) block of scores and
 // a (BR/8) x (D/16) block of the output accumulator in registers (CUDA
-// cores, f32 FMA). Tensor-core mma/wgmma and TMA pipelining are later
-// work.
+// cores, f32 FMA). The bf16 route on tensor cores, with TMA and the #9b
+// tile skip, is flash_prefill_tc.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -8,11 +8,14 @@ counterparts here:
 - #9 ``flash_attention_ragged`` (``_run_flash`` + ``_flash_ragged_kernel``):
   prefill attention with the causal + length mask ``(s <= q_offset + t)
   & (s < row_lens[b])`` derived from two scalars. Plain version
-  ``flash_attention_ragged_plain``; kernel ``csrc/flash_prefill.cu``.
+  ``flash_attention_ragged_plain``; kernels ``csrc/flash_prefill_tc.cu``
+  (bf16 on tensor cores) and ``csrc/flash_prefill.cu`` (the rest).
 - #9b ``flash_attention`` (``_run_flash`` + ``_flash_kernel``): the same
-  fold over a caller's dense bool [B, T, S] mask, every key tile folded.
-  Plain version ``flash_attention_plain``; kernel
-  ``csrc/flash_prefill.cu`` (its mask instantiation).
+  fold over a caller's dense bool [B, T, S] mask. Plain version
+  ``flash_attention_plain`` (every key tile); kernels
+  ``csrc/flash_prefill_tc.cu`` (bf16: only the key tiles that can add
+  anything, ``flash_mask_walk``) and ``csrc/flash_prefill.cu`` (its mask
+  instantiation, every key tile).
 - #10 ``decode_attention``: T == 1 GQA decode over dense per-row caches,
   reading only each row's live positions. Plain version
   ``decode_attention_plain``; kernel ``csrc/decode_attention.cu``.
@@ -28,8 +31,8 @@ counterparts here:
   tile loader).
 - #13 ``_diff_fwd`` (``_flash_ragged_lse_kernel``): #9's fold plus the
   per-row logsumexp the backward needs. Plain version
-  ``flash_ragged_lse_plain``; kernel ``csrc/flash_prefill.cu`` with its
-  lse output, so its o is bitwise #9's.
+  ``flash_ragged_lse_plain``; #9's kernel on the same route with its lse
+  output, so its o is bitwise #9's.
 - #14 ``_diff_bwd``: dQ (``_flash_bwd_dq_kernel``) and dK/dV
   (``_flash_bwd_dkv_kernel``), recomputing P from the saved lse. Plain
   versions ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain`` (together
@@ -47,7 +50,11 @@ defined output is the uniform average over every tile they name.
 
 Each wrapper takes its plain version only for a CPU tensor; for a CUDA
 tensor it launches its kernel or raises (no fallback). ``<wrapper>.launches``
-counts kernel launches and nothing else. The routers
+counts kernel launches and nothing else. The prefill wrappers (#9, #9b,
+#13) choose their kernel statically by dtype and shape (``tc_route``):
+bf16 with D % 64 == 0 (every D ``flash_available`` admits) and G <= 64
+takes the tensor-core kernel and also counts ``<wrapper>.tc_launches``;
+f32 and other head widths take the CUDA-core kernel, in full f32. The routers
 (``decode_attention_auto``, ``decode_attention_blocks_auto``,
 ``decode_attention_blocks_q8_auto``) bind the
 wrappers with the reference's signatures; their ``mask`` operand is the
@@ -76,6 +83,10 @@ TILE_S = 512  # key positions per tile
 KERNEL_MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448
+# the tensor-core prefill kernel's tiles: a block holds TC_ROWS folded
+# query rows (TC_ROWS // G positions x G heads), a key tile TC_KEYS keys
+TC_ROWS = 64
+TC_KEYS = 64
 
 
 # --- plain versions ----------------------------------------------------------
@@ -229,6 +240,30 @@ def flash_attention_plain(q, k, v, mask, *, tile_t: int | None = None,
 
     out = _fold_rows(qf, tiles(), H // n_kv, 1.0 / float(D) ** 0.5)
     return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
+
+
+def flash_mask_walk(mask, positions: int, keys: int):
+    """Which key tiles #9b's tensor-core kernel folds: bool [B,
+    ceil(T / positions), ceil(S / keys)] for a bool mask [B, T, S], blocks
+    of ``positions`` query positions and tiles of ``keys`` keys (the
+    kernel's are ``TC_ROWS // G`` and ``TC_KEYS``). A block whose every
+    row (those before T) holds a True somewhere folds the tiles in which
+    any of its rows holds one; a block with an all-False row folds every
+    tile. Skipping the rest is exact: each skipped tile is masked for
+    every row of the block, and every such row has a live key. A plain
+    mirror of the kernel's walk for the tests; nothing on the main path
+    calls it."""
+    B, T, S = mask.shape
+    nb, nt = -(-T // positions), -(-S // keys)
+    m = torch.zeros((B, nb * positions, nt * keys), dtype=torch.bool,
+                    device=mask.device)
+    m[:, :T, :S] = mask
+    m = m.reshape(B, nb, positions, nt, keys)
+    tile_live = m.any(dim=4).any(dim=2)  # [B, nb, nt]
+    past_t = (torch.arange(nb * positions, device=mask.device) >= T).reshape(
+        nb, positions)
+    rows_live = (m.any(dim=4).any(dim=3) | past_t).all(dim=2)  # [B, nb]
+    return torch.where(rows_live[:, :, None], tile_live, True)
 
 
 def _bwd_tiles(q, k, v, do, lse, drow, q_offset, row_lens):
@@ -607,58 +642,94 @@ def _check_ragged(name, q, k, v, row_lens, extra=()):
         _check(what, t, dtype, shape, dev, align=align)
 
 
-def flash_attention_ragged(q, k, v, q_offset, row_lens):
-    """#9 on the tensors' device: for CUDA tensors one launch of
-    ``flash_prefill_launch`` (grid of (B*n_kv, query-row tiles), walking
-    only the key tiles the causal + length rule admits); for CPU tensors
-    ``flash_attention_ragged_plain``. ``q_offset`` is a host int."""
-    lib = _kernel_lib(q, "flash_attention_ragged", "flash_prefill")
-    if lib is None:
-        return flash_attention_ragged_plain(q, k, v, q_offset, row_lens)
+def tc_route(q, n_kv) -> bool:
+    """Whether the prefill wrappers (#9, #9b, #13) launch the tensor-core
+    kernel (``csrc/flash_prefill_tc.cu``) for q [B, T, H, D] over n_kv kv
+    heads: bf16 with D % 64 == 0 up to 256 and G = H / n_kv <= TC_ROWS.
+    Otherwise (f32, other head widths) they launch the CUDA-core kernel
+    (``csrc/flash_prefill.cu``), f32 in full f32. A static choice, not a
+    fallback: the chosen kernel launches or the wrapper raises."""
+    D, G = q.shape[3], q.shape[2] // n_kv
+    return (q.dtype == torch.bfloat16 and D % 64 == 0 and D <= KERNEL_MAX_D
+            and G <= TC_ROWS)
+
+
+def _prefill_lib(q, name, n_kv):
+    """(library, tensor-core route?) for a prefill wrapper; library None
+    for a CPU tensor."""
+    tc = tc_route(q, n_kv)
+    return _kernel_lib(q, name, "flash_prefill_tc" if tc else
+                       "flash_prefill"), tc
+
+
+def _launch_ragged(lib, tc, q, k, v, q_offset, row_lens, out, lse):
     B, T, H, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
+    args = (q, k, v, row_lens, out, lse, B, T, S, H, n_kv, D, int(q_offset),
+            1.0 / float(D) ** 0.5)
+    if tc:
+        _launch(lib, "flash_prefill_tc_launch", *args)
+    else:
+        _launch(lib, "flash_prefill_launch", *args, _DTYPES[q.dtype])
+
+
+def flash_attention_ragged(q, k, v, q_offset, row_lens):
+    """#9 on the tensors' device: for CUDA tensors one launch (grid of
+    (B*n_kv, query-row tiles), walking only the key tiles the causal +
+    length rule admits) of ``flash_prefill_tc_launch`` where ``tc_route``
+    holds, else of ``flash_prefill_launch``; for CPU tensors
+    ``flash_attention_ragged_plain``. ``q_offset`` is a host int."""
+    lib, tc = _prefill_lib(q, "flash_attention_ragged", k.shape[2])
+    if lib is None:
+        return flash_attention_ragged_plain(q, k, v, q_offset, row_lens)
     _check_ragged("flash_attention_ragged", q, k, v, row_lens)
     out = torch.empty_like(q)
-    _launch(lib, "flash_prefill_launch", q, k, v, row_lens, out, None, B, T,
-            S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
-            _DTYPES[q.dtype])
+    _launch_ragged(lib, tc, q, k, v, q_offset, row_lens, out, None)
     flash_attention_ragged.launches += 1
+    flash_attention_ragged.tc_launches += tc
     return out
 
 
 flash_attention_ragged.launches = 0
+flash_attention_ragged.tc_launches = 0
 
 
 def flash_ragged_lse(q, k, v, q_offset, row_lens):
     """#13 on the tensors' device: (o, lse) as ``flash_ragged_lse_plain``.
-    For CUDA tensors one launch of ``flash_prefill_launch`` with its lse
-    output (#9's kernel and walk, so o is bitwise #9's); for CPU tensors
-    the plain version."""
-    lib = _kernel_lib(q, "flash_ragged_lse", "flash_prefill")
+    For CUDA tensors one launch of #9's kernel on #9's route with its lse
+    output (the same code and walk, so o is bitwise #9's); for CPU
+    tensors the plain version."""
+    lib, tc = _prefill_lib(q, "flash_ragged_lse", k.shape[2])
     if lib is None:
         return flash_ragged_lse_plain(q, k, v, q_offset, row_lens)
-    B, T, H, D = q.shape
-    S, n_kv = k.shape[1], k.shape[2]
+    B, T, H, _ = q.shape
+    n_kv = k.shape[2]
     _check_ragged("flash_ragged_lse", q, k, v, row_lens)
     out = torch.empty_like(q)
     lse = torch.empty((B * n_kv, T * (H // n_kv), 1), dtype=torch.float32,
                       device=q.device)
-    _launch(lib, "flash_prefill_launch", q, k, v, row_lens, out, lse, B, T,
-            S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
-            _DTYPES[q.dtype])
+    _launch_ragged(lib, tc, q, k, v, q_offset, row_lens, out, lse)
     flash_ragged_lse.launches += 1
+    flash_ragged_lse.tc_launches += tc
     return out, lse
 
 
 flash_ragged_lse.launches = 0
+flash_ragged_lse.tc_launches = 0
 
 
 def flash_attention(q, k, v, mask):
     """#9b on the tensors' device: for CUDA tensors one launch of
-    ``flash_masked_launch`` (#9's kernel with a mask tile loader, walking
-    every key tile); for CPU tensors ``flash_attention_plain``. ``mask``
-    is bool [B, T, S], passed as its bytes."""
-    lib = _kernel_lib(q, "flash_attention", "flash_prefill")
+    ``flash_masked_tc_launch`` where ``tc_route`` holds (folding only the
+    key tiles of ``flash_mask_walk``), else of ``flash_masked_launch``
+    (#9's CUDA-core kernel with a mask tile loader, every key tile); for
+    CPU tensors ``flash_attention_plain``. ``mask`` is bool [B, T, S],
+    passed as its bytes. Where ``flash_attention.walk_counter`` holds an
+    int32 CUDA tensor of one element, each tensor-core launch adds to it
+    the key tiles its blocks fold, summed over every (batch row, kv
+    head, query block): n_kv times the sum of ``flash_mask_walk``, the
+    walk's plain mirror, if the kernel walks as that says."""
+    lib, tc = _prefill_lib(q, "flash_attention", k.shape[2])
     if lib is None:
         return flash_attention_plain(q, k, v, mask)
     B, T, H, D = q.shape
@@ -667,13 +738,25 @@ def flash_attention(q, k, v, mask):
     _check_ragged("flash_attention", q, k, v, None,
                   extra=(("mask", mask, torch.bool, (B, T, S), 1),))
     out = torch.empty_like(q)
-    _launch(lib, "flash_masked_launch", q, k, v, mask, out, B, T, S, H,
-            n_kv, D, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
+    args = (B, T, S, H, n_kv, D, 1.0 / float(D) ** 0.5)
+    if tc:
+        walked = flash_attention.walk_counter
+        if walked is not None:
+            _check("walk_counter", walked, torch.int32, (1,), q.device,
+                   align=4)
+        _launch(lib, "flash_masked_tc_launch", q, k, v, mask, out, walked,
+                *args)
+    else:
+        _launch(lib, "flash_masked_launch", q, k, v, mask, out, *args,
+                _DTYPES[q.dtype])
     flash_attention.launches += 1
+    flash_attention.tc_launches += tc
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.walk_counter = None
 
 
 def _bwd_operands(name, q, k, v, do, lse, drow, row_lens):

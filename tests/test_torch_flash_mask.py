@@ -269,6 +269,110 @@ def test_chunked_prefill_dense_route_matches_reference():
                                    atol=1e-5, rtol=0)
 
 
+# --- the tensor-core kernel's walk (#9b skips key tiles) ---------------------
+
+
+def _fold_blocks(q, k, v, mask, positions, keys, walk=None):
+    """#9b's fold block by block, as the tensor-core kernel runs it: each
+    block of ``positions`` query positions folds, with ``fold_tile_math``
+    in ascending order, the key tiles of ``keys`` keys that ``walk`` [B,
+    blocks, tiles] marks (every tile where None). f32 [B, T, H, D]."""
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    G = H // n_kv
+    nb, nt = -(-T // positions), -(-S // keys)
+    scale = 1.0 / float(D) ** 0.5
+    out = torch.empty((B, n_kv, T * G, D))
+    for b in range(B):
+        qf = tfa._fold_q(q[b:b + 1], n_kv)
+        kf, vf = tfa._linear_kv(k[b:b + 1], n_kv), tfa._linear_kv(
+            v[b:b + 1], n_kv)
+        pen = ((mask[b].float() - 1.0) * 1e30)[None].expand(n_kv, T, S)
+        for j in range(nb):
+            t0, t1 = j * positions, min(T, (j + 1) * positions)
+            tiles = [(kf[:, s0:s0 + keys], vf[:, s0:s0 + keys],
+                      pen[:, t0:t1, s0:s0 + keys])
+                     for i, s0 in enumerate(range(0, S, keys))
+                     if walk is None or bool(walk[b, j, i])]
+            out[b, :, t0 * G:t1 * G] = tfa._fold_rows(
+                qf[:, t0 * G:t1 * G], tiles, G, scale)
+    return tfa._unfold_q(out.reshape(B * n_kv, T * G, D), B, T, H, n_kv)
+
+
+def late_mask(T, S, lo, hi):
+    """Rows that attend only keys [lo, hi), every third missing key lo +
+    1: the tiles before lo hold no True, so a row's first live key lies
+    after tiles the walk skips."""
+    m = np.zeros((T, S), bool)
+    m[:, lo:hi] = True
+    m[::3, lo + 1] = False
+    return m
+
+
+def walk_masks():
+    rng = np.random.default_rng(41)
+    return {
+        "packed_dead_rows": (64, 64, packed_mask(64, [16, 24, 8], 16)[None]),
+        "late_first_key": (32, 48, late_mask(32, 48, 20, 30)[None]),
+        "random_sparse": (32, 40, rng.random((2, 32, 40)) < 0.08),
+        "random_banded": (24, 32, (rng.random((1, 24, 32)) < 0.5) & (
+            np.abs(np.arange(32)[None, :] - np.arange(24)[:, None]) < 6)),
+    }
+
+
+@pytest.mark.parametrize("name", ["packed_dead_rows", "late_first_key",
+                                  "random_sparse", "random_banded"])
+def test_tile_walk_is_exact(name):
+    """Folding only the key tiles of ``flash_mask_walk`` is bitwise the
+    fold of every tile (f32, blocks of 4 positions x tiles of 8 keys, G =
+    4), skips tiles where it can, and is within 1e-5 of the reference's
+    ``flash_attention`` in interpret mode."""
+    T, S, mask = walk_masks()[name]
+    B = mask.shape[0]
+    q, k, v = port(inputs(B, T, S, 8, 2, 16, seed=T + S), "float32")
+    tm = torch.from_numpy(np.ascontiguousarray(mask))
+    walk = tfa.flash_mask_walk(tm, 4, 8)
+    assert walk.shape == (B, -(-T // 4), -(-S // 8))
+    assert not bool(walk.all())
+    walked = _fold_blocks(q, k, v, tm, 4, 8, walk)
+    assert torch.equal(walked, _fold_blocks(q, k, v, tm, 4, 8))
+    want = jfa.flash_attention(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), jnp.asarray(mask),
+        tile_t=8, tile_s=8 if S % 16 else 16, interpret=True)
+    held(walked.numpy(), np.asarray(want), "float32")
+
+
+def test_tile_walk_rules():
+    """A block with an all-False row folds every tile; otherwise the
+    tiles holding a True for one of its rows; rows past T do not count."""
+    m = np.zeros((1, 10, 32), bool)
+    m[0, 0:4, 9] = True          # block 0: tile 1 only
+    m[0, 4:8, 25] = True         # block 1: tile 3 only ...
+    m[0, 7, 3] = True            # ... and tile 0 for row 7
+    m[0, 8, 17] = True           # block 2: row 9 is all False
+    walk = tfa.flash_mask_walk(torch.from_numpy(m), 4, 8)
+    assert walk.tolist() == [[[False, True, False, False],
+                              [True, False, False, True],
+                              [True, True, True, True]]]
+    m[0, 9, 17] = True           # rows 10, 11 lie past T
+    walk = tfa.flash_mask_walk(torch.from_numpy(m), 4, 8)
+    assert walk[0, 2].tolist() == [False, False, True, False]
+
+
+def test_tile_walk_count_on_the_packed_forward():
+    """[24]'s mask at full size (2048 positions: documents of 512, 1024
+    and 384, then 128 rows that see nothing) at the kernel's tiles for G
+    = 4 (16 positions x 64 keys): 144 + 544 + 84 live (block, tile) steps
+    and 8 dead-row blocks x 32 tiles, 1028 of 4096."""
+    mask = torch.from_numpy(packed_mask(2048, [512, 1024, 384], 128)[None])
+    walk = tfa.flash_mask_walk(mask, tfa.TC_ROWS // 4, tfa.TC_KEYS)
+    assert walk.shape == (1, 128, 32)
+    per_doc = [int(walk[0, a:b].sum()) for a, b in
+               ((0, 32), (32, 96), (96, 120), (120, 128))]
+    assert per_doc == [144, 544, 84, 256]
+    assert int(walk.sum()) == 1028
+
+
 # --- on the card -------------------------------------------------------------
 
 
