@@ -14,10 +14,12 @@ times them. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
-      together, nine sources: mega_solve.cu, round_ops.cu, auction.cu,
+      together, ten sources: mega_solve.cu, round_ops.cu, auction.cu,
       route_pick.cu, decode_attention.cu, flash_prefill.cu,
       quant_matmul.cu, flash_backward.cu, flash_prefill_tc.cu (the
-      tensor-core kernel of every bf16 call of #9, #13 and #9b);
+      tensor-core kernel of every bf16 call of #9, #13 and #9b),
+      flash_backward_tc.cu (the tensor-core kernels of every bf16 #14
+      call at D 64 and 128);
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -116,14 +118,16 @@ times them. Phases:
       route), no attn_fn, lr 1e-3; on step 1 flash_ragged_lse (#13),
       flash_bwd_dq and flash_bwd_dkv (#14) each against its plain version
       within the stated tolerance on every layer's call, #13's o bitwise
-      #9's, every #13 call on the tensor-core route; steps 2-3 with the
-      launch counts reset before and read after (32 a step each, all of
-      #13's on the tensor-core route, #9 none); finite losses, peak
-      memory;
-  (23) times of the training step: its p50, and #13, dQ and dK/dV per
-      launch beside their bounds, their plain versions and
-      scaled_dot_product_attention (causal, GQA) forward and backward
-      (#13 also against the CUDA-core kernel on the same call);
+      #9's, every call of the three on the tensor-core route, and on
+      layer 0 each #14 kernel's own count of its folded steps equal to
+      its plain mirror's (flash_bwd_walk); steps 2-3 with the launch
+      counts reset before and read after (32 a step each, all on the
+      tensor-core route, #9 none); finite losses, peak memory;
+  (23) times of the training step: its p50, one step under
+      torch.profiler (device busy share, top device operations), and
+      #13, dQ and dK/dV per launch beside their bounds, their plain
+      versions, scaled_dot_product_attention (causal, GQA) forward and
+      backward, and the CUDA-core kernels on the same calls;
   (22) the training step on the card (flash route) against the CPU
       (dense route) at llama-3-8b widths cut to 2 layers, f32, tokens
       [2, 513]: loss and every gradient leaf within tolerance; 8 steps
@@ -1135,26 +1139,36 @@ def reset_serve_counts(fa):
     fa.flash_attention_ragged.tc_launches = 0
 
 
-# the tensor-core kernel of every bf16 call of #9, #13 and #9b
+# the tensor-core kernel of every bf16 call of #9, #13 and #9b, and the
+# one of every bf16 #14 call at D 64 and 128
 TC_SOURCE = "kubeinfer_tpu_torch/inference/csrc/flash_prefill_tc.cu"
 TC_CORES = "tensor cores: wgmma, TMA (flash_prefill_tc.cu)"
+BWD_TC_CORES = "tensor cores: wgmma, TMA (flash_backward_tc.cu)"
 
 
 def cuda_core_ms(name, args, reps=3):
-    """ms per launch of the CUDA-core kernel (``flash_prefill.cu``) on the
-    same bf16 call, the route these calls took before the tensor-core
-    kernel: launched through its library, outside the wrappers' counts."""
+    """ms per launch of the CUDA-core kernel (``flash_prefill.cu``, or
+    ``flash_backward.cu`` for #14) on the same bf16 call, the route these
+    calls took before the tensor-core kernels: launched through its
+    library, outside the wrappers' counts."""
     import torch
 
     from kubeinfer_tpu_torch import _build
     from kubeinfer_tpu_torch.inference import flash_attention as fa
 
-    lib = _build.load_kernel_library("flash_prefill")
     q, k, v = args[:3]
     B, T, H, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
     scale = 1.0 / float(D) ** 0.5
+    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        lib = _build.load_kernel_library("flash_backward")
+        outs = (torch.empty_like(q),) if name == "flash_bwd_dq" else (
+            torch.empty_like(k), torch.empty_like(v))
+        call = (f"{name}_launch", *args[:6], args[7], *outs, B, T, S, H,
+                n_kv, D, int(args[6]), scale, 1)
+        return cuda_ms(lambda: fa._launch(lib, *call), reps=reps)
+    lib = _build.load_kernel_library("flash_prefill")
+    out = torch.empty_like(q)
     if name == "flash_attention":
         call = ("flash_masked_launch", q, k, v, args[3], out, B, T, S, H,
                 n_kv, D, scale, 1)
@@ -2241,11 +2255,15 @@ TRAIN_SOURCES = {
     "flash_ragged_lse": ("kubeinfer_tpu_torch/inference/csrc/"
                          "flash_prefill_tc.cu",
                          "kubeinfer_tpu/inference/flash_attention.py:1525"),
-    "flash_bwd_dq": ("kubeinfer_tpu_torch/inference/csrc/flash_backward.cu",
+    "flash_bwd_dq": ("kubeinfer_tpu_torch/inference/csrc/"
+                     "flash_backward_tc.cu",
                      "kubeinfer_tpu/inference/flash_attention.py:1590"),
-    "flash_bwd_dkv": ("kubeinfer_tpu_torch/inference/csrc/flash_backward.cu",
+    "flash_bwd_dkv": ("kubeinfer_tpu_torch/inference/csrc/"
+                      "flash_backward_tc.cu",
                       "kubeinfer_tpu/inference/flash_attention.py:1617"),
 }
+TRAIN_CORES = {"flash_ragged_lse": TC_CORES, "flash_bwd_dq": BWD_TC_CORES,
+               "flash_bwd_dkv": BWD_TC_CORES}
 # flops per live (head, query, key) pair and head width: #13 q.k and
 # P.v; #14's dQ recomputes q.k, dO.v and adds dS.K; dK/dV recomputes
 # both and adds P^T.dO and dS^T.Q
@@ -2254,19 +2272,30 @@ TRAIN_FLOPS_PER_D = {"flash_ragged_lse": 4, "flash_bwd_dq": 6,
 LSE_ABS = 1e-4  # f32 logsumexp, kernel vs plain (sums in another order)
 
 
-def grad_err(got, want):
-    """(largest |kernel - plain|, within tolerance): every value finite,
+def grad_err(got, want, noise=None):
+    """(largest |kernel - plain|, within tolerance, rows held to their
+    rounding floor and not to 2**-6): every value finite,
     each row of the last axis within 1e-5 (f32) or 2**-6 (bf16, 2 ulps)
-    of that row's largest |plain value|."""
+    of that row's largest |plain value|; with ``noise`` (#14's dQ and dK
+    in bf16, ``flash_bwd_noise``), within the row's f32 rounding floor
+    where that is larger: a row whose dS cancels (a query's first key)
+    is rounding noise in both, and the tensor cores sum dP in another
+    order than the plain version."""
     import torch
 
     g, w = got.float(), want.float()
     if not bool(g.isfinite().all()):
-        return float("inf"), False
+        return float("inf"), False, 0
     g, w = g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])
     err = (g - w).abs().amax(dim=1)
-    rel = 1e-5 if got.dtype == torch.float32 else BF16_REL
-    return float(err.max()), bool((err <= rel * w.abs().amax(dim=1)).all())
+    if got.dtype == torch.float32:
+        return (float(err.max()),
+                bool((err <= 1e-5 * w.abs().amax(dim=1)).all()), 0)
+    rel = BF16_REL * w.abs().amax(dim=1)
+    tol = rel if noise is None else torch.maximum(
+        rel, noise.reshape(-1, g.shape[-1]).amax(dim=1))
+    return (float(err.max()), bool((err <= tol).all()),
+            int((err > rel).sum()))
 
 
 class CheckedTrain:
@@ -2276,15 +2305,23 @@ class CheckedTrain:
     version on the same inputs, holds every output within the stated
     tolerance (the lse within LSE_ABS) and, for #13, its o bitwise equal
     to #9's on the same inputs; hands the kernel's result on. Keeps the
-    first call's inputs for the times. Its ``launches`` takes the
-    wrapper's count while it stands in, and the #9 launch of the
-    comparison is taken off #9's count."""
+    first call's inputs for the times. Its ``launches`` (and
+    ``tc_launches``) take the wrapper's counts while it stands in, and the
+    #9 launch of the comparison is taken off #9's count. For #14 the
+    first call runs with ``walk_counter`` set: the kernel's own count of
+    its folded steps, held to n_kv times ``flash_bwd_walk``'s, is kept in
+    ``walked`` as (card, plain mirror); ``walk_counter`` is None
+    otherwise. #14's dQ and dK rows are held with their rounding floor
+    (``grad_err``)."""
 
     def __init__(self, fa, name, plain):
         self.fa, self.name = fa, name
         self.kernel, self.plain = getattr(fa, name), plain
         self.launches = self.tc_launches = self.calls = 0
+        self.walk_counter = None
+        self.walked = None
         self.max_err = 0.0
+        self.floor_rows = [0, 0]  # rows held to their rounding floor, rows
         self.first = None
 
     def __enter__(self):
@@ -2297,16 +2334,39 @@ class CheckedTrain:
     def __call__(self, *args):
         import torch
 
-        got = self.kernel(*args)
+        bwd = self.name in ("flash_bwd_dq", "flash_bwd_dkv")
+        if bwd and self.calls == 0:
+            self.walk_counter = torch.zeros(1, dtype=torch.int32,
+                                            device=args[0].device)
+        try:
+            got = self.kernel(*args)
+        finally:
+            counter, self.walk_counter = self.walk_counter, None
+        if counter is not None:
+            q, k = args[0], args[1]
+            n_kv = k.shape[2]
+            steps = self.fa.flash_bwd_walk(
+                q.shape[1], k.shape[1], int(args[6]), args[7],
+                q.shape[2] // n_kv)[self.name == "flash_bwd_dkv"]
+            self.walked = (int(counter), n_kv * int(steps.sum()))
+            check(self.walked[0] == self.walked[1],
+                  f"{self.name}: the kernel folded {self.walked[0]} steps, "
+                  f"flash_bwd_walk says {self.walked[1]}")
         want = self.plain(*args)
         gs = got if isinstance(got, tuple) else (got,)
         ws = want if isinstance(want, tuple) else (want,)
+        noise = [None] * len(gs)
+        if bwd:
+            dq_n, dk_n = self.fa.flash_bwd_noise(*args)
+            noise = [dq_n] if self.name == "flash_bwd_dq" else [dk_n, None]
         for i, (g, w) in enumerate(zip(gs, ws)):
             if self.name == "flash_ragged_lse" and i == 1:
                 err = float((g - w).abs().max())
                 ok = bool(g.isfinite().all()) and err <= LSE_ABS
             else:
-                err, ok = grad_err(g, w)
+                err, ok, floor = grad_err(g, w, noise[i])
+                self.floor_rows[0] += floor
+                self.floor_rows[1] += g.numel() // g.shape[-1]
             check(ok, f"{self.name}: kernel vs plain out of tolerance on "
                       f"call {self.calls}, output {i} (max err {err})")
             self.max_err = max(self.max_err, err)
@@ -2382,15 +2442,17 @@ def train_phases(dev, record, card):
         first_s = time.perf_counter() - t0
     for n, c in chks.items():
         check(c.calls == layers, f"{n} checked on {c.calls} calls")
-    check(chks["flash_ragged_lse"].tc_launches == layers,
-          f"#13: {chks['flash_ragged_lse'].tc_launches} of {layers} bf16 "
-          "calls on the tensor-core route")
+    for n, c in chks.items():
+        check(c.tc_launches == layers,
+              f"{n}: {c.tc_launches} of {layers} bf16 calls on the "
+              "tensor-core route")
     check(fa.flash_attention_ragged.launches == 0,
           "#9 launched in the training step")
     # the main path, counted: two more steps
     for name in (*TRAIN_KERNELS, "flash_attention_ragged"):
         getattr(fa, name).launches = 0
-    fa.flash_ragged_lse.tc_launches = 0
+    for name in TRAIN_KERNELS:
+        getattr(fa, name).tc_launches = 0
     losses = [loss1]
     step_ms = []
     for _ in range(2):
@@ -2406,9 +2468,10 @@ def train_phases(dev, record, card):
                      "flash_bwd_dkv": 2 * layers,
                      "flash_attention_ragged": 0},
           f"training launches over 2 steps {counts}")
-    tc13 = fa.flash_ragged_lse.tc_launches
-    check(tc13 == 2 * layers,
-          f"#13: {tc13} of {2 * layers} launches on the tensor-core route")
+    tcs = {n: getattr(fa, n).tc_launches for n in TRAIN_KERNELS}
+    check(tcs == {n: 2 * layers for n in TRAIN_KERNELS},
+          f"tensor-core launches over 2 steps {tcs}: every bf16 call of "
+          "#13 and #14 takes the tensor-core route")
     check(all(np.isfinite(losses)), f"losses {losses}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"[21] train_step on llama-3-8b (H {cfg.hidden_size}, {layers} "
@@ -2418,11 +2481,24 @@ def train_phases(dev, record, card):
           f"attn_fn: step 1 ({first_s:.1f} s) with "
           + ", ".join(f"{n} on {c.calls} calls (max |kernel - plain| "
                       f"{c.max_err:.3e})" for n, c in chks.items())
-          + f" within tolerance and #13's o bitwise #9's; losses {losses}; "
-          f"launches over steps 2-3 {counts} (#13 on the tensor-core route: "
-          f"{tc13}); peak "
+          + f" within tolerance and #13's o bitwise #9's; #14's walks on "
+          f"layer 0 (kernel's count, flash_bwd_walk's): dQ "
+          f"{chks['flash_bwd_dq'].walked}, dK/dV "
+          f"{chks['flash_bwd_dkv'].walked}; rows held to their rounding "
+          f"floor (a cancelling dS) and not to 2**-6 of their magnitude: "
+          + ", ".join(f"{n} {c.floor_rows[0]} of {c.floor_rows[1]}"
+                      for n, c in chks.items() if n != "flash_ragged_lse")
+          + f"; losses {losses}; "
+          f"launches over steps 2-3 {counts} (on the tensor-core route: "
+          f"{tcs}); peak "
           f"{peak_gib:.2f} GiB")
     record["train"] = {"losses": losses, "launches_2_steps": counts,
+                       "tc_launches_2_steps": tcs,
+                       "walked": {n: chks[n].walked
+                                  for n in ("flash_bwd_dq", "flash_bwd_dkv")},
+                       "floor_rows": {n: chks[n].floor_rows
+                                      for n in ("flash_bwd_dq",
+                                                "flash_bwd_dkv")},
                        "weights_gib": weights_gib, "peak_gib": peak_gib,
                        "first_step_s": first_s}
 
@@ -2438,12 +2514,23 @@ def train_phases(dev, record, card):
     print(f"[23] {card}: train_step p50 {p50:.1f} ms "
           f"({[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak23 = torch.cuda.max_memory_allocated() / 2**30
+    # where a step's device time goes: one step under torch.profiler
+    wall, busy, rows = device_profile(
+        lambda: train.train_step(params, tokens, cfg, lr=1e-3))
+    top = [(name, round(ms, 3), n) for name, ms, n in rows[:15]]
+    print(f"[23] {card}: one train_step under torch.profiler: wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.0f}%); top device operations (name, ms, "
+          f"count): {top}")
     entries = [time_train_kernel(dev, fa, chks[n], card, n, counts[n], F,
-                                 tc13 if n == "flash_ragged_lse" else None)
+                                 tcs[n])
                for n in TRAIN_KERNELS]
     record["train_times"] = {
         "step_ms": step_ms, "step_p50_ms": p50, "tokens_per_s": tok_s,
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        "peak_gib": peak23, "profile_wall_ms": wall,
+        "profile_busy_ms": busy,
+        "profile_top": [list(r) for r in rows[:40]]}
     del params, chks, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -2453,14 +2540,13 @@ def train_phases(dev, record, card):
     return entries
 
 
-def time_train_kernel(dev, fa, chk, card, name, launches, F,
-                      tc_launches=None):
+def time_train_kernel(dev, fa, chk, card, name, launches, F, tc_launches):
     """One training kernel's entry of the ``kernels`` line: its time per
     launch on the first checked call (layer 0 of step 1), its plain
     version's, its bound from this call's live pairs, and the library
     yardstick: scaled_dot_product_attention (causal, GQA) forward for
-    #13, its backward alone (dq, dk, dv in one call) for #14; for #13
-    (``tc_launches`` given) also the CUDA-core kernel on the same call."""
+    #13, its backward alone (dq, dk, dv in one call) for #14; and the
+    CUDA-core kernel on the same call."""
     import torch
 
     args = chk.first
@@ -2509,13 +2595,9 @@ def time_train_kernel(dev, fa, chk, card, name, launches, F,
     bound_ms = max(op_ms, byte_ms)
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
     source, replaces = TRAIN_SOURCES[name]
-    extra, core = {}, ""
-    if tc_launches is not None:
-        core_ms = cuda_core_ms(name, args)
-        extra = {"cores": TC_CORES, "cuda_core_ms": core_ms,
-                 "tc_launches": tc_launches}
-        core = (f"tensor cores ({tc_launches} of the path's launches; the "
-                f"CUDA-core kernel on this call {core_ms:.4f} ms); ")
+    core_ms = cuda_core_ms(name, args)
+    core = (f"tensor cores ({tc_launches} of the path's launches; the "
+            f"CUDA-core kernel on this call {core_ms:.4f} ms); ")
     print(f"[23] {card}: {name} {ms:.4f} ms/launch on q [{B}, {T}, {H}, "
           f"{D}], k/v [{B}, {S}, {n_kv}, {D}], {pairs / 1e6:.1f} M live "
           f"(head, pair)s; {core}plain {plain_ms:.4f} ms; {label} "
@@ -2524,7 +2606,8 @@ def time_train_kernel(dev, fa, chk, card, name, launches, F,
           f"{ops / ms / 1e9:.1f} TFLOP/s, {ms / pairs * 1e9:.1f} ps a "
           f"pair); {launches} launches on the main path")
     return {
-        **extra,
+        "cores": TRAIN_CORES[name], "cuda_core_ms": core_ms,
+        "tc_launches": tc_launches,
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": chk.max_err, "ms": ms, "plain_ms": plain_ms,
@@ -3635,7 +3718,8 @@ def main() -> int:
     built = _build.build_all(["mega_solve", "round_ops", "auction",
                               "route_pick", "decode_attention",
                               "flash_prefill", "quant_matmul",
-                              "flash_backward", "flash_prefill_tc"])
+                              "flash_backward", "flash_prefill_tc",
+                              "flash_backward_tc"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")

@@ -171,6 +171,13 @@ _SIGNATURES = {
         # ... dk, dv, B, T, S, H, n_kv, D, q_offset, scale, dtype
         "flash_bwd_dkv_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     },
+    "flash_backward_tc": {
+        # q, k, v, dO, lse, drow, row_lens, dq, walked (an int counter or
+        # null), B, T, S, H, n_kv, D, q_offset, scale (bf16, D 64 or 128)
+        "flash_bwd_dq_tc_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
+        # ... dk, dv, walked, B, T, S, H, n_kv, D, q_offset, scale
+        "flash_bwd_dkv_tc_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+    },
     "quant_matmul": {
         # x, qw, scale, out, workspace, M, N, K, splits, dtype
         "quant_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],

@@ -36,7 +36,9 @@ counterparts here:
 - #14 ``_diff_bwd``: dQ (``_flash_bwd_dq_kernel``) and dK/dV
   (``_flash_bwd_dkv_kernel``), recomputing P from the saved lse. Plain
   versions ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain`` (together
-  ``flash_bwd_plain``); kernels ``csrc/flash_backward.cu``.
+  ``flash_bwd_plain``); kernels ``csrc/flash_backward_tc.cu`` (bf16 with
+  D 64 or 128 on tensor cores, walking the tiles of ``flash_bwd_walk``)
+  and ``csrc/flash_backward.cu`` (the rest).
 
 Every plain version folds key tiles with ``fold_tile_math``, the
 reference's online-softmax step (running max m, normaliser l,
@@ -54,7 +56,9 @@ counts kernel launches and nothing else. The prefill wrappers (#9, #9b,
 #13) choose their kernel statically by dtype and shape (``tc_route``):
 bf16 with D % 64 == 0 (every D ``flash_available`` admits) and G <= 64
 takes the tensor-core kernel and also counts ``<wrapper>.tc_launches``;
-f32 and other head widths take the CUDA-core kernel, in full f32. The routers
+f32 and other head widths take the CUDA-core kernel, in full f32. The
+backward wrappers (#14) choose theirs the same way (``tc_bwd_route``:
+bf16 with D 64 or 128). The routers
 (``decode_attention_auto``, ``decode_attention_blocks_auto``,
 ``decode_attention_blocks_q8_auto``) bind the
 wrappers with the reference's signatures; their ``mask`` operand is the
@@ -87,6 +91,11 @@ _SMEM_LIMIT = 232448
 # query rows (TC_ROWS // G positions x G heads), a key tile TC_KEYS keys
 TC_ROWS = 64
 TC_KEYS = 64
+# the tensor-core backward's dK/dV block: TC_BWD_KEYS keys (two warpgroups
+# of TC_KEYS), walking query tiles of TC_ROWS folded rows; its dQ block is
+# the forward's (TC_ROWS rows, key tiles of TC_KEYS)
+TC_BWD_KEYS = 128
+TC_BWD_D = (64, 128)
 
 
 # --- plain versions ----------------------------------------------------------
@@ -266,6 +275,35 @@ def flash_mask_walk(mask, positions: int, keys: int):
     return torch.where(rows_live[:, :, None], tile_live, True)
 
 
+def flash_bwd_walk(T: int, S: int, q_offset: int, row_lens, G: int):
+    """Which (block, tile) steps #14's tensor-core kernels fold, on their
+    own tiles (``TC_ROWS // G`` query positions a query tile, ``TC_KEYS``
+    keys a dQ key tile, ``TC_BWD_KEYS`` keys a dK/dV block) for T queries
+    at ``q_offset`` over S keys, row lengths ``row_lens`` [B] and G query
+    heads a kv head. Returns (dq bool [B, query tiles, key tiles], dkv
+    bool [B, key blocks, query tiles]). A dQ block folds the key tiles
+    before min(S, row_len, its last position + 1), the reference's skip
+    rule; a dK/dV block, if its first key s0 lies before min(S, row_len)
+    and some query t < T has q_offset + t >= s0, the query tiles from the
+    one holding position max(0, s0 - q_offset) to the last. Each kernel
+    adds its folded steps to a counter, so on one launch it counts n_kv
+    times its grid's sum. A plain mirror of the walks for the tests and
+    chip_smoke; nothing on the main path calls it."""
+    tb = TC_ROWS // G
+    n_q, n_kt = -(-T // tb), -(-S // TC_KEYS)
+    n_kb = -(-S // TC_BWD_KEYS)
+    lim = torch.as_tensor(row_lens).cpu().to(torch.int64).clamp(max=S)
+    ends = torch.clamp((torch.arange(n_q) + 1) * tb, max=T)  # last + 1
+    walk = torch.minimum(lim[:, None], int(q_offset) + ends[None, :])
+    dq = torch.arange(n_kt)[None, None, :] * TC_KEYS < walk[:, :, None]
+    s0 = torch.arange(n_kb) * TC_BWD_KEYS
+    t_first = torch.clamp(s0 - int(q_offset), min=0)
+    live = (s0[None, :] < lim[:, None]) & (t_first < T)[None, :]
+    dkv = live[:, :, None] & (
+        torch.arange(n_q)[None, None, :] >= (t_first // tb)[None, :, None])
+    return dq, dkv
+
+
 def _bwd_tiles(q, k, v, do, lse, drow, q_offset, row_lens):
     """The backward's recompute, one reference key tile at a time:
     yields (s0, kf tile, P, dS) with P = exp(q.k * scale + pen - lse),
@@ -333,6 +371,38 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, drow, q_offset, row_lens):
         return x.reshape(B, n_kv, S, D).transpose(1, 2).to(dtype).contiguous()
 
     return unfold(dk, k.dtype), unfold(dv, v.dtype)
+
+
+def flash_bwd_noise(q, k, v, do, lse, drow, q_offset, row_lens):
+    """How far f32 rounding alone can move #14's dQ and dK, where dS = P *
+    (dP - drow) cancels (a query's first key: P = 1, and dP equals drow
+    up to rounding, so dS is rounding noise). dP and drow are f32 sums of
+    D products, each within D * 2**-24 of eta_t / (D * 2**-22) = sum_d
+    |dO_td| max_s |v_sd| (drow's o is a mix of the v rows), so two
+    implementations that sum them in other orders (CUDA cores, tensor
+    cores) can put dS_ts P_ts * eta_t apart, a margin of 2 included: dQ_t
+    by scale * sum_s P_ts eta_t |k_s|, dK_s by scale * sum_t P_ts eta_t
+    |q_t|. Returns f32 (dq [B, T, H, D], dk [B, S, n_kv, D]); dV takes no
+    dS. For the tests and chip_smoke, which hold each row of dQ and dK to
+    2**-6 of its magnitude or to this, whichever is larger; nothing on the
+    main path calls it."""
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    scale = 1.0 / float(D) ** 0.5
+    qa = _fold_q(q, n_kv).float().abs()
+    vmax = _linear_kv(v, n_kv).float().abs().amax(dim=1)  # [N, D]
+    eta = D * 2.0 ** -22 * torch.matmul(_fold_q(do, n_kv).float().abs(),
+                                        vmax[:, :, None])  # [N, R, 1]
+    dq = torch.zeros_like(qa)
+    dk = torch.zeros((B * n_kv, S, D), dtype=torch.float32, device=q.device)
+    for s0, k_t, p, _ in _bwd_tiles(q, k, v, do, lse, drow, q_offset,
+                                    row_lens):
+        pe = p * eta
+        dq += torch.matmul(pe, k_t.float().abs()) * scale
+        dk[:, s0:s0 + k_t.shape[1]] = torch.matmul(
+            pe.transpose(-1, -2), qa) * scale
+    return (_unfold_q(dq, B, T, H, n_kv),
+            dk.reshape(B, n_kv, S, D).transpose(1, 2))
 
 
 def flash_bwd_drow(o, do, n_kv):
@@ -654,6 +724,18 @@ def tc_route(q, n_kv) -> bool:
             and G <= TC_ROWS)
 
 
+def tc_bwd_route(q, n_kv) -> bool:
+    """Whether the backward wrappers (#14) launch the tensor-core kernels
+    (``csrc/flash_backward_tc.cu``) for q [B, T, H, D] over n_kv kv heads:
+    bf16 with D in ``TC_BWD_D`` (64, 128: dK and dV of 64 keys must fit
+    one warpgroup's registers) and G = H / n_kv <= TC_ROWS. Otherwise
+    (f32, other head widths) they launch the CUDA-core kernels
+    (``csrc/flash_backward.cu``), f32 in full f32. A static choice, not a
+    fallback: the chosen kernel launches or the wrapper raises."""
+    D, G = q.shape[3], q.shape[2] // n_kv
+    return q.dtype == torch.bfloat16 and D in TC_BWD_D and G <= TC_ROWS
+
+
 def _prefill_lib(q, name, n_kv):
     """(library, tensor-core route?) for a prefill wrapper; library None
     for a CPU tensor."""
@@ -769,48 +851,72 @@ def _bwd_operands(name, q, k, v, do, lse, drow, row_lens):
         ("drow", drow, torch.float32, (N, R, 1), 4)))
 
 
-def flash_bwd_dq(q, k, v, do, lse, drow, q_offset, row_lens):
-    """#14's dQ on the tensors' device: for CUDA tensors one launch of
-    ``flash_bwd_dq_launch`` (a block per folded query-row tile, walking
-    the live key tiles); for CPU tensors ``flash_bwd_dq_plain``."""
-    lib = _kernel_lib(q, "flash_bwd_dq", "flash_backward")
-    if lib is None:
-        return flash_bwd_dq_plain(q, k, v, do, lse, drow, q_offset, row_lens)
+def _bwd_launch(wrapper, name, q, k, v, do, lse, drow, q_offset, row_lens,
+                outs):
+    """One #14 launch of ``name`` (``flash_bwd_dq`` or ``flash_bwd_dkv``)
+    writing ``outs``: the tensor-core kernel where ``tc_bwd_route`` holds
+    (with ``wrapper.walk_counter``, if set, as its walk counter), else the
+    CUDA-core kernel; counts ``wrapper.launches`` and ``tc_launches``."""
     B, T, H, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
-    _bwd_operands("flash_bwd_dq", q, k, v, do, lse, drow, row_lens)
+    tc = tc_bwd_route(q, n_kv)
+    lib = _kernel_lib(q, name, "flash_backward_tc" if tc else
+                      "flash_backward")
+    _bwd_operands(name, q, k, v, do, lse, drow, row_lens)
+    head = (q, k, v, do, lse, drow, row_lens, *outs)
+    tail = (B, T, S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5)
+    if tc:
+        walked = wrapper.walk_counter
+        if walked is not None:
+            _check("walk_counter", walked, torch.int32, (1,), q.device,
+                   align=4)
+        _launch(lib, f"{name}_tc_launch", *head, walked, *tail)
+    else:
+        _launch(lib, f"{name}_launch", *head, *tail, _DTYPES[q.dtype])
+    wrapper.launches += 1
+    wrapper.tc_launches += tc
+
+
+def flash_bwd_dq(q, k, v, do, lse, drow, q_offset, row_lens):
+    """#14's dQ on the tensors' device: for CUDA tensors one launch (a
+    block per folded query-row tile, walking the live key tiles) of
+    ``flash_bwd_dq_tc_launch`` where ``tc_bwd_route`` holds, else of
+    ``flash_bwd_dq_launch``; for CPU tensors ``flash_bwd_dq_plain``.
+    Where ``flash_bwd_dq.walk_counter`` holds an int32 CUDA tensor of one
+    element, a tensor-core launch adds to it the key tiles its blocks
+    fold: n_kv times ``flash_bwd_walk``'s dq sum."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, drow, q_offset, row_lens)
     dq = torch.empty_like(q)
-    _launch(lib, "flash_bwd_dq_launch", q, k, v, do, lse, drow, row_lens, dq,
-            B, T, S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
-            _DTYPES[q.dtype])
-    flash_bwd_dq.launches += 1
+    _bwd_launch(flash_bwd_dq, "flash_bwd_dq", q, k, v, do, lse, drow,
+                q_offset, row_lens, (dq,))
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.tc_launches = 0
+flash_bwd_dq.walk_counter = None
 
 
 def flash_bwd_dkv(q, k, v, do, lse, drow, q_offset, row_lens):
     """#14's dK and dV on the tensors' device: for CUDA tensors one launch
-    of ``flash_bwd_dkv_launch`` (a block per key tile, walking the
-    query-row tiles that see it); for CPU tensors
-    ``flash_bwd_dkv_plain``."""
-    lib = _kernel_lib(q, "flash_bwd_dkv", "flash_backward")
-    if lib is None:
+    (a block per key block, walking the query-row tiles that see it) of
+    ``flash_bwd_dkv_tc_launch`` where ``tc_bwd_route`` holds, else of
+    ``flash_bwd_dkv_launch``; for CPU tensors ``flash_bwd_dkv_plain``.
+    ``flash_bwd_dkv.walk_counter`` as for dQ, counting the query tiles
+    its blocks fold: n_kv times ``flash_bwd_walk``'s dkv sum."""
+    if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, drow, q_offset,
                                    row_lens)
-    B, T, H, D = q.shape
-    S, n_kv = k.shape[1], k.shape[2]
-    _bwd_operands("flash_bwd_dkv", q, k, v, do, lse, drow, row_lens)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(lib, "flash_bwd_dkv_launch", q, k, v, do, lse, drow, row_lens,
-            dk, dv, B, T, S, H, n_kv, D, int(q_offset), 1.0 / float(D) ** 0.5,
-            _DTYPES[q.dtype])
-    flash_bwd_dkv.launches += 1
+    _bwd_launch(flash_bwd_dkv, "flash_bwd_dkv", q, k, v, do, lse, drow,
+                q_offset, row_lens, (dk, dv))
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.tc_launches = 0
+flash_bwd_dkv.walk_counter = None
 
 
 # --- routers -----------------------------------------------------------------
