@@ -14,12 +14,14 @@ times them. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
-      together, ten sources: mega_solve.cu, round_ops.cu, auction.cu,
-      route_pick.cu, decode_attention.cu, flash_prefill.cu,
+      together, eleven sources: mega_solve.cu, round_ops.cu, auction.cu,
+      route_pick.cu, decode_attention.cu (#12; its #10 and #11 kernels
+      only for the times beside the split-K one), flash_prefill.cu,
       quant_matmul.cu, flash_backward.cu, flash_prefill_tc.cu (the
       tensor-core kernel of every bf16 call of #9, #13 and #9b),
       flash_backward_tc.cu (the tensor-core kernels of every bf16 #14
-      call at D 64 and 128);
+      call at D 64 and 128), decode_split.cu (the split-K kernel of every
+      #10 and #11 call);
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -74,12 +76,16 @@ times them. Phases:
       stated tolerance, on every layer's call of the continuous engine's
       decode windows (8 requests of 512 tokens) and of an Engine
       generate with a 4100-token prompt (4 prefill chunks of 2048, one
-      decode step), every #9 call on the tensor-core route;
+      decode step), every #9 call on the tensor-core route, the split-K
+      kernel's own count of the live splits it walked for #10 and #11
+      equal to decode_split_walk's;
   (14) /v1/completions over HTTP: 4 greedy 512-token prompts (two share
       256 tokens) and 1 sampled, 64 new tokens each, on the continuous
       route, and a 4100-token prompt on the engine route, concurrently;
       the three launch counts reset before and read after (all > 0,
-      every #9 launch on the tensor-core route),
+      every #9 launch on the tensor-core route, the live splits of every
+      #10 and #11 launch by the kernel's own count equal to
+      decode_split_walk's),
       the routes, tokens in the vocabulary, finite logits, and the host
       syncs of one decode window (1: its readback);
   (15) the port on the card against the port on the CPU: llama-3-8b
@@ -87,9 +93,13 @@ times them. Phases:
       Engine and ContinuousEngine, greedy and sampled, equal streams;
   (16) times: TTFT of a 512-token prompt on the continuous route, decode
       ms per token at 8 live slots, the engine route's prefill chunks,
-      and each attention kernel against its bound, its plain version
-      and scaled_dot_product_attention on the path's heaviest call (#9
-      also against the CUDA-core kernel on the same call);
+      the engine route's decode (16 step_forward steps of the 4100-token
+      row, with the split-K #10 and with the old kernel), and each
+      attention kernel against its bound, its plain version and
+      scaled_dot_product_attention on the path's heaviest call (#9 also
+      against the CUDA-core kernel on the same call; #10 and #11 by
+      device time, wall time and the wrapper's host time, beside the
+      old kernel, decode_attention.cu, on the same call);
   (17) the int8 serving path at full width: ``server.build_server``
       with ``--kv-dtype int8 --weight-dtype int8`` (the bf16 server
       stopped and freed first): the GiB on the card, model_param_bytes
@@ -147,13 +157,15 @@ times them. Phases:
       draft is the target itself (acceptance near 1), (b) the server with
       ``--draft-model llama-3-8b --speculative-draft`` (a seed-1 draft:
       every window rolls back) over HTTP; #11 at T = 5 and #10 on the
-      draft steps against their plain versions on every call, one host
-      sync per verify window; greedy streams equal to the plain engine's
-      up to a near-tie (the two tokens' logits under a teacher-forced f32
-      forward of the same weights closer than twice the bf16 forward's
-      error on them, plus an ulp), and for every token, beside the plain
-      engine's, whether it is that forward's argmax; the verify counters
-      against the emitted lengths; then 2 layers in f32 with block 16 and
+      draft steps against their plain versions on every call (the
+      split-K kernel's live splits equal to decode_split_walk's), one
+      host sync per verify window; greedy streams equal to the plain
+      engine's up to a near-tie (the two tokens' logits under a
+      teacher-forced f32 forward of the same weights closer than the
+      largest bf16 allowance of any position of the streams: twice the
+      dense bf16 forward's error on its top two logits, plus an ulp), and
+      for every token, beside the plain engine's, whether it is that
+      forward's argmax; the verify counters against the emitted lengths; then 2 layers in f32 with block 16 and
       a bigram draft, card (#11) against the CPU: equal streams and
       counters; (25c) full width and depth in f32, the plain engine, a
       self draft and a bigram draft: every speculative token within
@@ -169,7 +181,7 @@ times them. Phases:
       16 and a bigram draft, card against the CPU: equal streams and
       counters;
   (28) times: #9b against its bound, SDPA with the same mask and the
-      CUDA-core kernel on the same call, #11 and
+      CUDA-core kernel on the same call, #11 (as in (16)) and
       #12 at T = 5, a verify window's ms and tokens a row in (a) and (b),
       decode ms per emitted token per slot with and without a draft;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
@@ -1202,6 +1214,24 @@ def attn_err(got, want, live):
     return float(row_err.max()), ok
 
 
+def split_walk(fa, name, args):
+    """The live splits the split-K kernel of #10 or #11 walks on one call
+    of its wrapper, n_kv * row blocks * the sum of ``decode_split_walk``,
+    as a device tensor (no host sync)."""
+    q = args[0]
+    T, H = q.shape[1], q.shape[2]
+    if name == "decode_attention":
+        _, k, _, lens = args
+        n_kv, S_total = k.shape[2], k.shape[1]
+        C = fa.decode_split_size(S_total, False)
+    else:
+        _, kp, _, tbl, lens = args
+        n_kv, bs = kp.shape[2], kp.shape[1]
+        S_total, C = tbl.shape[1] * bs, fa.decode_split_size(bs, True)
+    rb = fa.decode_row_blocks(T * (H // n_kv), q.dtype)
+    return n_kv * rb * fa.decode_split_walk(lens, T, S_total, C).sum()
+
+
 class CheckedAttention:
     """A stand-in for one attention wrapper of ``inference.flash_attention``
     that runs the kernel and its plain version on the same inputs, holds
@@ -1209,15 +1239,19 @@ class CheckedAttention:
     Keeps the call with the most work (``weight``) for the times. While it
     stands in, the wrapper's ``<name>.launches += 1`` resolves to this
     object's ``launches`` (``tc_launches`` likewise), so the checking
-    launches stay off the wrapper's own count; its ``walk_counter`` (#9b)
-    is None, so they count no key tiles either."""
+    launches stay off the wrapper's own count. Its ``walk_counter`` is
+    None (#9b: the checking launches count no key tiles), unless ``walk``
+    is set (#10, #11): then it is an int32 device counter of the split-K
+    kernel's live splits over every checked call, and ``walk_want`` adds
+    ``split_walk``'s count of each call, on the device (``walk_check``
+    compares them)."""
 
-    def __init__(self, fa, name, plain, live, weight):
+    def __init__(self, fa, name, plain, live, weight, walk=False):
         self.fa, self.name = fa, name
         self.kernel, self.plain = getattr(fa, name), plain
         self.live, self.weight = live, weight
         self.launches = self.tc_launches = self.calls = 0
-        self.walk_counter = None
+        self.walk, self.walk_counter, self.walk_want = walk, None, None
         self.max_err = 0.0
         self.heaviest = None
         self.error = None  # a failure on the scheduler thread, kept here
@@ -1229,7 +1263,24 @@ class CheckedAttention:
     def __exit__(self, *exc):
         setattr(self.fa, self.name, self.kernel)
 
+    def walk_check(self, tag):
+        """(kernel count, mirror count) of the live splits over the
+        checked calls; fails unless they are equal."""
+        got, want = int(self.walk_counter.item()), int(self.walk_want.item())
+        check(got == want, f"{tag} {self.name}: the kernel walked {got} live "
+              f"splits, decode_split_walk says {want}")
+        return got, want
+
     def __call__(self, *args):
+        if self.walk:
+            import torch
+
+            if self.walk_counter is None:
+                self.walk_counter = torch.zeros(1, dtype=torch.int32,
+                                                device=args[0].device)
+                self.walk_want = torch.zeros((), dtype=torch.int64,
+                                             device=args[0].device)
+            self.walk_want += split_walk(self.fa, self.name, args)
         got = self.kernel(*args)
         want = self.plain(*args)
         err, ok = attn_err(got, want, self.live(*args))
@@ -1248,6 +1299,31 @@ class CheckedAttention:
                 else a for a in args)
         self.calls += 1
         return got
+
+
+class CountedSplit:
+    """A pass-through stand-in for #10 or #11 while the main path runs
+    over HTTP: the wrapper launches its kernel as it would, its own
+    ``launches += 1`` and its kernel's live-split count (``walk_counter``)
+    land here, and each call adds ``split_walk``'s count for its lengths
+    on the device (no host sync on the path)."""
+
+    def __init__(self, fa, name, dev):
+        import torch
+
+        self.fa, self.name = fa, name
+        self.kernel = getattr(fa, name)
+        self.launches = 0
+        self.walk_counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.walk_want = torch.zeros((), dtype=torch.int64, device=dev)
+
+    __enter__ = CheckedAttention.__enter__
+    __exit__ = CheckedAttention.__exit__
+    walk_check = CheckedAttention.walk_check
+
+    def __call__(self, *args):
+        self.walk_want += split_walk(self.fa, self.name, args)
+        return self.kernel(*args)
 
 
 def post_json(port, body, timeout=900):
@@ -1435,7 +1511,7 @@ def serving_phases(dev, record, card):
         live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
                                          & (ln >= q.shape[1])),
         weight=lambda q, kp, vp, tbl, ln: (int((tbl[:, 0] != 0).sum()),
-                                           int(ln.sum())))
+                                           int(ln.sum())), walk=True)
     with torch.inference_mode(), chk11:
         prompts = [rng.integers(1, V, 512).tolist() for _ in range(8)]
         try:
@@ -1452,7 +1528,7 @@ def serving_phases(dev, record, card):
     chk10 = CheckedAttention(
         fa, "decode_attention", fa.decode_attention_plain,
         live=lambda q, k, v, ln: ln > 0,
-        weight=lambda q, k, v, ln: 0)
+        weight=lambda q, k, v, ln: 0, walk=True)
     long_prompt = rng.integers(1, V, 4100).tolist()
     with torch.inference_mode(), chk9, chk10:
         engine.generate([long_prompt], 2)
@@ -1461,6 +1537,9 @@ def serving_phases(dev, record, card):
     check(chk9.tc_launches == chk9.calls,
           f"#9: {chk9.tc_launches} of {chk9.calls} bf16 calls on the "
           "tensor-core route")
+    # #10 and #11 launch the split-K kernel (decode_split.cu) on every
+    # call: its own count of the live splits it walked equals the mirror's
+    walks = {chk.name: chk.walk_check("[13]") for chk in (chk11, chk10)}
     for chk, what in ((chk11, "every layer of the continuous engine's decode "
                               "windows (8 requests of 512 tokens, 4 new)"),
                       (chk9, "the 4 chunks of 2048 of a 4100-token prompt, "
@@ -1469,7 +1548,10 @@ def serving_phases(dev, record, card):
         print(f"[13] {chk.name}: {chk.calls} calls on {what}, within "
               f"tolerance; max |kernel - plain| {chk.max_err:.3e} (bf16)"
               + (f"; {chk.tc_launches} on the tensor-core route"
-                 if chk is chk9 else ""))
+                 if chk is chk9 else "")
+              + (f"; split-K (decode_split.cu): {walks[chk.name][0]} live "
+                 "splits walked by the kernel's own count, equal to "
+                 "decode_split_walk's" if chk.name in walks else ""))
 
     # (14) the main path over HTTP, counted
     srv.start()
@@ -1486,11 +1568,15 @@ def serving_phases(dev, record, card):
     bodies.append(dict(prompt=rng.integers(1, V, 4100).tolist(),
                        max_tokens=16))
     reset_serve_counts(fa)
+    split10 = CountedSplit(fa, "decode_attention", dev)
+    split11 = CountedSplit(fa, "decode_attention_blocks", dev)
     t0 = time.perf_counter()
-    resps = in_threads(lambda b: post_json(srv.port, b), bodies)
-    http_s = time.perf_counter() - t0
-    counts = {name: getattr(fa, name).launches for name in SERVE_KERNELS}
+    with split10, split11:
+        resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+        http_s = time.perf_counter() - t0
+        counts = {name: getattr(fa, name).launches for name in SERVE_KERNELS}
     check(all(counts.values()), f"a serving kernel never launched: {counts}")
+    walks14 = {c.name: c.walk_check("[14]") for c in (split10, split11)}
     tc9 = fa.flash_attention_ragged.tc_launches
     check(tc9 == counts["flash_attention_ragged"],
           f"#9: {tc9} of {counts['flash_attention_ragged']} launches on the "
@@ -1509,7 +1595,10 @@ def serving_phases(dev, record, card):
     print(f"[14] /v1/completions over HTTP: 4 greedy + 1 sampled 512-token "
           f"prompts (64 new) on route continuous, 1 of 4100 tokens (16 new)"
           f" on route engine, {http_s:.1f} s; launches {counts} (#9 on "
-          f"the tensor-core route: {tc9}); radix "
+          f"the tensor-core route: {tc9}; #10 and #11 on the split-K "
+          f"kernel, live splits walked {walks14['decode_attention'][0]} and "
+          f"{walks14['decode_attention_blocks'][0]} by its own count, equal "
+          f"to decode_split_walk's); radix "
           f"hits {stats['hits']} misses {stats['misses']}, blocks in use "
           f"{stats['blocks_in_use']}; logits finite")
     # the scheduler is idle (nothing submitted): one decode window of its
@@ -1523,6 +1612,7 @@ def serving_phases(dev, record, card):
     print(f"[14] host syncs in one decode window (K=4, sampling gates on) "
           f"+ its readback: {n_sync} ({dict(sites)})")
     record["serving"] = {"launches": counts, "http_s": http_s,
+                         "split_walks": walks14,
                          "window_syncs": n_sync, "radix": stats,
                          "model_param_bytes": cont.model_param_bytes,
                          "kv_pool_bytes": cont.kv_pool_bytes}
@@ -1563,7 +1653,17 @@ def serving_phases(dev, record, card):
                 chunk_ms.append(ms)
         whole_ms = cuda_ms(lambda: chunked_prefill(
             engine.params, prompt, lens, cfg, caches, 2048), reps=1)
+        # the engine route's decode on those caches: #10 with the split-K
+        # kernel, then with the one it replaced (decode_attention.cu)
+        eng_dec = engine_decode(engine.params, cfg, caches, 4100, dev)
+        with OldDecode(fa, "decode_attention"):
+            eng_old = engine_decode(engine.params, cfg, caches, 4100, dev)
     del caches
+    print(f"[16] {card}: engine-route decode, 16 step_forward steps of the "
+          f"4100-token row on its dense 8192-wide caches: {eng_dec[0]:.2f} "
+          f"ms per token (CUDA events), device busy {eng_dec[1]:.2f} ms a "
+          f"token; with the old #10 kernel (decode_attention.cu) "
+          f"{eng_old[0]:.2f} ms, busy {eng_old[1]:.2f} ms")
     # where the time goes: one admit, and a decode run of 8 slots
     adm_wall, adm_busy, adm_top = device_profile(
         lambda: cont.serve(rng.integers(1, V, 512).tolist(), 1))
@@ -1596,109 +1696,77 @@ def serving_phases(dev, record, card):
 
     entries = []
     with torch.inference_mode():
-        entries.append(time_kernel(
-            dev, fa, chk9, card, "flash_attention_ragged", TC_SOURCE,
-            "kubeinfer_tpu/inference/flash_attention.py:288",
-            counts["flash_attention_ragged"], F, tc_launches=tc9))
-        entries.append(time_kernel(
-            dev, fa, chk10, card, "decode_attention",
-            "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
-            "kubeinfer_tpu/inference/flash_attention.py:504",
-            counts["decode_attention"], F))
-        entries.append(time_kernel(
-            dev, fa, chk11, card, "decode_attention_blocks",
-            "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
-            "kubeinfer_tpu/inference/flash_attention.py:779",
-            counts["decode_attention_blocks"], F))
+        entries.append(time_kernel(dev, fa, chk9, card,
+                                   counts["flash_attention_ragged"], F, tc9))
+        entries.append(time_decode(dev, fa, chk10, card, "decode_attention",
+                                   counts["decode_attention"], F))
+        entries.append(time_decode(dev, fa, chk11, card,
+                                   "decode_attention_blocks",
+                                   counts["decode_attention_blocks"], F))
     srv.stop()
     cont.stop()
     record["serving_times"] = {
         "ttft_ms": ttft, "decode_ms_per_token": decode_ms,
         "tokens_per_s": 8e3 / decode_ms, "prefill_chunk_ms": chunk_ms,
         "prefill_4100_ms": whole_ms,
+        "engine_decode_ms_per_token": eng_dec[0],
+        "engine_decode_busy_ms_per_token": eng_dec[1],
+        "engine_decode_old_ms_per_token": eng_old[0],
+        "engine_decode_old_busy_ms_per_token": eng_old[1],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     return entries
 
 
-def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F,
-                tag="[16]", tc_launches=None):
-    """One kernel's entry of the ``kernels`` line: its time per launch on
-    the heaviest captured call, its plain version's, the
-    scaled_dot_product_attention yardstick's on the same q/k/v, and its
-    bound from this call's data; for #9 (``tc_launches`` given: its
-    tensor-core launches on the path) also the CUDA-core kernel's time on
-    the same call."""
+def time_kernel(dev, fa, chk, card, launches, F, tc_launches):
+    """#9's entry of the ``kernels`` line: its time per launch on the
+    heaviest captured call, its plain version's, the
+    scaled_dot_product_attention yardstick's on the same q/k/v, its bound
+    from this call's data and (``tc_launches``: its tensor-core launches
+    on the path) the CUDA-core kernel's time on the same call."""
     import torch
 
+    name = "flash_attention_ragged"
     args = chk.heaviest
-    q = args[0]
+    q, k, v, off, lens = args
     B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
     elt = q.element_size()
     kernel = getattr(fa, name)
     ms = cuda_ms(lambda: kernel(*args), reps=20)
     plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
-    if name == "flash_attention_ragged":
-        _, k, v, off, lens = args
-        S, n_kv = k.shape[1], k.shape[2]
-        t = torch.arange(T, device=dev)
-        s = torch.arange(S, device=dev)
-        keys = torch.where(lens[:, None] == 0, S, torch.minimum(
-            off + t[None, :] + 1, lens[:, None].long()).clamp(max=S))
-        ops = 4 * D * H * int(keys.sum())
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
-        mask = ((s[None, None, None, :] <= off + t[None, None, :, None])
-                & (s[None, None, None, :] < lens[:, None, None, None]))
-        kk, vv = k, v
-        what = (f"q [{B}, {T}, {H}, {D}] at offset {off}, keys [{B}, {S}], "
-                f"row_len {int(lens[0])}")
-    else:
-        if name == "decode_attention":
-            _, k, v, lens = args
-            kk, vv = k, v
-            live = lens > 0
-        else:
-            _, kp, vp, tbl, lens = args
-            M, bs = tbl.shape[1], kp.shape[1]
-            kk = kp[tbl.long()].reshape(B, M * bs, *kp.shape[2:])
-            vv = vp[tbl.long()].reshape(B, M * bs, *vp.shape[2:])
-            live = (tbl[:, 0] != 0) & (lens >= T)
-        S, n_kv = kk.shape[1], kk.shape[2]
-        live_len = torch.where(live, lens.long(), 0)
-        ops = 4 * D * H * T * int(live_len.sum())
-        nbytes = (2 * n_kv * D * int(live_len.sum()) + 2 * q.numel()) * elt
-        s = torch.arange(S, device=dev)
-        t = torch.arange(T, device=dev)
-        mask = s[None, None, None, :] <= (lens[:, None, None, None] - T
-                                          + t[None, None, :, None])
-        what = (f"q [{B}, {T}, {H}, {D}], {int(live.sum())} live rows, "
-                f"lengths {lens.tolist()}")
-    qs, ks_, vs_ = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+    t = torch.arange(T, device=dev)
+    s = torch.arange(S, device=dev)
+    keys = torch.where(lens[:, None] == 0, S, torch.minimum(
+        off + t[None, :] + 1, lens[:, None].long()).clamp(max=S))
+    ops = 4 * D * H * int(keys.sum())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+    mask = ((s[None, None, None, :] <= off + t[None, None, :, None])
+            & (s[None, None, None, :] < lens[:, None, None, None]))
+    what = (f"q [{B}, {T}, {H}, {D}] at offset {off}, keys [{B}, {S}], "
+            f"row_len {int(lens[0])}")
+    qs, ks_, vs_ = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks_, vs_, attn_mask=mask, enable_gqa=True), reps=10)
     op_ms = ops / BF16_OPS_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(op_ms, byte_ms)
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
-    extra = {}
-    if tc_launches is not None:
-        core_ms = cuda_core_ms(name, args)
-        extra = {"cores": TC_CORES, "cuda_core_ms": core_ms,
-                 "tc_launches": tc_launches}
-        what += (f", tensor cores (the CUDA-core kernel on this call "
-                 f"{core_ms:.4f} ms)")
-    print(f"{tag} {card}: {name} {ms:.4f} ms/launch on {what}; plain "
+    core_ms = cuda_core_ms(name, args)
+    what += (f", tensor cores (the CUDA-core kernel on this call "
+             f"{core_ms:.4f} ms)")
+    print(f"[16] {card}: {name} {ms:.4f} ms/launch on {what}; plain "
           f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f}"
           f" ms; bound {bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path"
-          + (f", {tc_launches} on the tensor-core route"
-             if tc_launches is not None else ""))
+          f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path, "
+          f"{tc_launches} on the tensor-core route")
     return {
-        **extra,
+        "cores": TC_CORES, "cuda_core_ms": core_ms,
+        "tc_launches": tc_launches,
         "name": name,
         "route": "cuda",
-        "source": source,
-        "replaces": replaces,
+        "source": TC_SOURCE,
+        "replaces": "kubeinfer_tpu/inference/flash_attention.py:288",
         "launches": launches,
         "max_abs_err": chk.max_err,
         "ms": ms,
@@ -1707,12 +1775,218 @@ def time_kernel(dev, fa, chk, card, name, source, replaces, launches, F,
         "bound_by": bound_by,
         "library_ms": library_ms,
         "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                        "(enable_gqa, boolean mask) on the same q/k/v",
+        "check": f"within tolerance of its plain version (bf16: 2**-6 of "
+                 f"each live row's magnitude) on {chk.calls} calls of the "
+                 "full-width path",
+    }
+
+
+# --- the split-K decode kernel (#10, #11): times beside the old kernel --------
+
+SPLIT_SOURCE = "kubeinfer_tpu_torch/inference/csrc/decode_split.cu"
+DECODE_REPLACES = {
+    "decode_attention": "kubeinfer_tpu/inference/flash_attention.py:504",
+    "decode_attention_blocks":
+        "kubeinfer_tpu/inference/flash_attention.py:779",
+}
+
+
+def old_decode(fa, name):
+    """The kernel #10 or #11 ran before the split-K one
+    (``decode_attention.cu``: one block per (row, kv head)) as a function
+    of the wrapper's arguments, launched through its library outside the
+    wrappers' counts."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    lib = _build.load_kernel_library("decode_attention")
+
+    def run(*args):
+        q = args[0]
+        B, T, H, D = q.shape
+        out = torch.empty_like(q)
+        dt = 0 if q.dtype == torch.float32 else 1
+        scale = 1.0 / float(D) ** 0.5
+        if name == "decode_attention":
+            _, k, v, ln = args
+            fa._launch(lib, "decode_attention_launch", q, k, v, ln, out, B,
+                       H, k.shape[2], D, k.shape[1], scale, dt)
+        else:
+            _, kp, vp, tbl, ln = args
+            fa._launch(lib, "decode_attention_blocks_launch", q, kp, vp, tbl,
+                       ln, out, B, T, H, kp.shape[2], D, kp.shape[1],
+                       tbl.shape[1], scale, dt)
+        return out
+
+    return run
+
+
+class OldDecode:
+    """Stands the old kernel (``old_decode``) in for the wrapper ``name``
+    while the path runs, for a before/after on the same call."""
+
+    def __init__(self, fa, name):
+        self.fa, self.name = fa, name
+        self.kernel = getattr(fa, name)
+
+    def __enter__(self):
+        setattr(self.fa, self.name, old_decode(self.fa, self.name))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.fa, self.name, self.kernel)
+
+
+def device_ms(fn, reps=20):
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the graph replayed and timed with CUDA events, so the host's
+    per-call work is out of the time (a warm-up call first builds,
+    allocates and sets what it needs outside the capture)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / reps
+
+
+def host_us(fn, reps=200):
+    """The host's us per call of ``fn``, the device left to run behind."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def engine_decode(params, cfg, caches, offset, dev, steps=16):
+    """The engine route's decode loop on one row's dense caches: ``steps``
+    step_forward calls from position ``offset`` (token 1 each step, the
+    caches' positions from ``offset`` on rewritten). Returns (ms per
+    token by CUDA events over the run, device busy ms per token under
+    torch.profiler)."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference.stepper import step_forward
+
+    tok = torch.ones(1, dtype=torch.int64, device=dev)
+    cache_len = caches[0][0].shape[1]
+
+    def run():
+        off = torch.full((1,), offset, dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            step_forward(params, cfg, tok, off, caches, cache_len)
+            off = off + 1
+
+    ms = cuda_ms(run, reps=1) / steps
+    _, busy, _ = device_profile(run)
+    return ms, busy / steps
+
+
+def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
+    """#10's or #11's entry of the ``kernels`` line, on the heaviest
+    captured call: the split-K kernel's device time per launch (``ms``:
+    a CUDA graph of 20 launches, replays timed by CUDA events;
+    ``device_ms``), its wall per call (CUDA events over
+    20 back-to-back calls) and the wrapper's host us per call; the old
+    kernel's device and wall time on the same call; the plain version's;
+    scaled_dot_product_attention's device and wall time on the same q and
+    K/V (gathered through the table beforehand for #11); the bound from
+    this call's live K/V."""
+    import torch
+
+    args = chk.heaviest
+    q = args[0]
+    B, T, H, D = q.shape
+    elt = q.element_size()
+    kernel, old = getattr(fa, name), old_decode(fa, name)
+    ms = device_ms(lambda: kernel(*args))
+    wall_ms = cuda_ms(lambda: kernel(*args), reps=20)
+    wrapper_us = host_us(lambda: kernel(*args))
+    old_ms = device_ms(lambda: old(*args))
+    old_wall_ms = cuda_ms(lambda: old(*args), reps=20)
+    plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
+    if name == "decode_attention":
+        _, kk, vv, lens = args
+        live = lens > 0
+    else:
+        _, kp, vp, tbl, lens = args
+        M, bs = tbl.shape[1], kp.shape[1]
+        kk = kp[tbl.long()].reshape(B, M * bs, *kp.shape[2:])
+        vv = vp[tbl.long()].reshape(B, M * bs, *vp.shape[2:])
+        live = (tbl[:, 0] != 0) & (lens >= T)
+    S, n_kv = kk.shape[1], kk.shape[2]
+    live_len = torch.where(live, lens.long(), 0)
+    ops = 4 * D * H * T * int(live_len.sum())
+    nbytes = (2 * n_kv * D * int(live_len.sum()) + 2 * q.numel()) * elt
+    s = torch.arange(S, device=dev)
+    t = torch.arange(T, device=dev)
+    mask = s[None, None, None, :] <= (lens[:, None, None, None] - T
+                                      + t[None, None, :, None])
+    qs, ks_, vs_ = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=mask,
+                                              enable_gqa=True)
+
+    library_ms = device_ms(sdpa)
+    library_wall_ms = cuda_ms(sdpa, reps=20)
+    op_ms = ops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(op_ms, byte_ms)
+    bound_by = "operations" if op_ms >= byte_ms else "bytes"
+    splits = int(split_walk(fa, name, args))
+    print(f"{tag} {card}: {name} (split-K, decode_split.cu) {ms:.4f} ms "
+          f"device time a launch, {wall_ms:.4f} ms wall a call, wrapper "
+          f"{wrapper_us:.1f} us of host a call, {splits} live splits, on q "
+          f"[{B}, {T}, {H}, {D}], {int(live.sum())} live rows, lengths "
+          f"{lens.tolist()}; the old kernel (decode_attention.cu) "
+          f"{old_ms:.4f} ms device, {old_wall_ms:.4f} ms wall; plain "
+          f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f}"
+          f" ms device, {library_wall_ms:.4f} ms wall; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": SPLIT_SOURCE,
+        "replaces": DECODE_REPLACES[name],
+        "launches": launches,
+        "max_abs_err": chk.max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "wall_ms": wall_ms,
+        "host_us": wrapper_us,
+        "old_ms": old_ms,
+        "old_wall_ms": old_wall_ms,
+        "library_wall_ms": library_wall_ms,
+        "live_splits": splits,
+        "timing": "ms, old_ms, library_ms: device time a launch (a CUDA "
+                  "graph of 20 launches, replays timed by CUDA events); "
+                  "*_wall_ms: CUDA events "
+                  "over 20 back-to-back calls; host_us: the wrapper's host "
+                  "time a call",
+        "library_call": "torch.nn.functional.scaled_dot_product_attention "
                         "(enable_gqa, boolean mask) on the same q/k/v"
                         + (", K/V gathered through the table beforehand"
                            if name == "decode_attention_blocks" else ""),
         "check": f"within tolerance of its plain version (bf16: 2**-6 of "
                  f"each live row's magnitude) on {chk.calls} calls of the "
-                 "full-width path",
+                 "full-width path; the kernel's own count of its live "
+                 "splits equal to decode_split_walk's",
     }
 
 
@@ -2695,9 +2969,11 @@ MASK_REPLACES = "kubeinfer_tpu/inference/flash_attention.py:323"
 # a greedy stream may leave the plain engine's only at a near-tie of the
 # bf16 model: where the two tokens' logits under an f32 forward of the
 # same weights (the exact model) differ by no more than two bf16 paths'
-# errors can swap, 2 x the bf16 forward's own error on those two logits,
-# plus one bf16 ulp of the head's output at the top logits (about 5,
-# where an ulp is 2**-5). The verify forward runs T = k + 1 rows through
+# errors can swap. A position's bf16 allowance is 2 x the bf16 forward's
+# own error on its two top logits, plus one bf16 ulp of the head's output
+# at the top logits (about 5, where an ulp is 2**-5); a divergence is
+# held to the largest allowance of any position of the streams
+# (``held_streams``). The verify forward runs T = k + 1 rows through
 # the projections where plain decode runs T = 1, and cuBLAS rounds the
 # two differently; at full depth the bf16 hidden states sit about 9% off
 # the f32 forward's ([24]), so the top logits move by up to ~0.25
@@ -2817,21 +3093,18 @@ def token_gaps(stream, lg32, lg16=None):
     return gap, toks == a, allow
 
 
-def held_streams(label, got, want, prompts, params, cfg, dev):
-    """Greedy bf16 streams (``got``) equal to the plain engine's
-    (``want``), or leaving them first at a near-tie of the bf16 model:
-    the two tokens' logits under a teacher-forced f32 forward of the same
-    weights on the shared prefix differ by at most 2 x the bf16 forward's
-    largest error on them + GAP_ULP. Prints each divergence as (output
-    index, that f32 gap, that bf16 error), and for both sets of streams
-    how many tokens are not the f32 forward's argmax and how many lie
-    outside that allowance: a statistic of bf16 rounding, reported beside
-    the plain engine's as its control and not checked, since one bf16
-    forward's error does not bound another route's (phase 25c holds every
-    token in f32). Returns (the count of divergences, the per-token counts
-    [positions, not the argmax, outside] of both sets)."""
+def stream_ties(got, want, prompts, params, cfg, dev):
+    """Each greedy bf16 stream of ``got`` against the plain engine's
+    (``want``) and a teacher-forced f32 forward of the same weights.
+    Returns (the first divergences as (output index, the two tokens' f32
+    logit gap, the bf16 forward's largest error on them, the route whose
+    token the f32 forward ranks lower), the per-token counts [positions,
+    not the f32 argmax, outside the bf16 allowance] of both sets of
+    streams, the largest bf16 allowance of any position of any of them).
+    The allowance of a position is 2 x the bf16 forward's largest error on
+    the two logits + GAP_ULP (``token_gaps``)."""
     stats = {"speculative": [0, 0, 0], "plain": [0, 0, 0]}
-    divs = []
+    divs, envelope = [], 0.0
     for g, w, p in zip(got, want, prompts):
         rows = {}
         for name, stream in (("speculative", g), ("plain", w)):
@@ -2841,27 +3114,57 @@ def held_streams(label, got, want, prompts, params, cfg, dev):
             st[0] += len(stream)
             st[1] += int((~is_top).sum())
             st[2] += int((~is_top & (gap > allow)).sum())
+            envelope = max(envelope, float(allow.max()))
             rows[name] = (l16, l32)
         if g == w:
             continue
         i = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
                  min(len(g), len(w)))
         if i >= min(len(g), len(w)):
-            divs.append((i, float("inf"), float("inf")))  # lengths differ
+            divs.append((i, float("inf"), float("inf"), "length"))
             continue
         l16, l32 = rows["speculative"]  # the same prefix up to row i
         x, y = g[i], w[i]
         err = max(abs(float(l16[i, x] - l32[i, x])),
                   abs(float(l16[i, y] - l32[i, y])))
-        divs.append((i, round(abs(float(l32[i, x] - l32[i, y])), 5),
-                     round(err, 5)))
+        gap = float(l32[i, x] - l32[i, y])
+        divs.append((i, round(abs(gap), 5), round(err, 5),
+                     "plain" if gap > 0 else "speculative"))
+    return divs, stats, envelope
+
+
+def held_streams(label, got, want, prompts, params, cfg, dev):
+    """Greedy bf16 streams (``got``) equal to the plain engine's
+    (``want``), or leaving them first at a near-tie of the bf16 model:
+    the two tokens' logits under a teacher-forced f32 forward of the same
+    weights on the shared prefix differ by no more than the bf16 model's
+    error can swap, the largest bf16 allowance (2 x the dense bf16
+    forward's error on a position's two top logits + GAP_ULP) of any
+    position of these streams. The allowance at the divergence itself is
+    reported beside it and not checked: a divergence happens where the two
+    routes' own errors are large, which one sample of a third forward's
+    error on two logits does not bound (``--tie-probe``: on (25a)'s
+    streams over 12 prompt sets it rejected the kernels before the
+    split-K one on 5). Prints each divergence as (output index, that f32
+    gap, that bf16 error, the route whose token f32 ranks lower), and for
+    both sets of streams how many tokens are not the f32 forward's argmax
+    and how many lie outside their own position's allowance, the plain
+    engine's as the control (phase 25c holds every token in f32).
+    Returns (the count of divergences, the per-token counts [positions,
+    not the argmax, outside] of both sets)."""
+    divs, stats, envelope = stream_ties(got, want, prompts, params, cfg,
+                                        dev)
     print(f"{label} greedy divergences from the plain engine (output index,"
-          f" f32 logit gap of the two tokens, bf16 error on them): {divs}")
+          f" f32 logit gap of the two tokens, bf16 error on them, the route "
+          f"f32 ranks lower): {divs}; within 2 x that error + an ulp: "
+          f"{sum(gap <= 2 * err + GAP_ULP for _, gap, err, _ in divs)} of "
+          f"{len(divs)}; the largest allowance of any position "
+          f"{envelope:.5f}")
     print(f"{label} every greedy token against a teacher-forced f32 forward "
           f"on its own prefix (positions, not the f32 argmax, outside the "
           f"bf16 allowance): speculative {stats['speculative']}, the plain "
           f"engine {stats['plain']}")
-    check(all(gap <= 2 * err + GAP_ULP for _, gap, err in divs),
+    check(all(gap <= envelope for _, gap, _, _ in divs),
           f"{label}: a stream leaves the plain engine's where the two "
           f"tokens' f32 logits differ by more than the bf16 model's error "
           f"can swap")
@@ -3199,10 +3502,11 @@ def spec_phases(dev, record, card):
                 live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
                                                  & (ln >= q.shape[1])),
                 weight=lambda q, kp, vp, tbl, ln: (
-                    int((tbl[:, 0] != 0).sum()), int(ln.sum()))),
+                    int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True),
             CheckedAttention(
                 fa, "decode_attention", fa.decode_attention_plain,
-                live=lambda q, kk, vv, ln: ln > 0, weight=lambda *a: 0))
+                live=lambda q, kk, vv, ln: ln > 0, weight=lambda *a: 0,
+                walk=True))
 
     def one_sync(cont):
         flags = RowFlags(sampled=True, top_k=True, top_p=True, penalty=True)
@@ -3256,20 +3560,23 @@ def spec_phases(dev, record, card):
           and chk10.calls == (k - 1) * chk11.calls
           and fa.decode_attention_blocks.launches == 0,
           f"(a) #11 {chk11.calls} calls, #10 {chk10.calls}")
+    walks_a = [chk.walk_check("[25a]")[0] for chk in (chk11, chk10)]
     for r in reqs:
         check(len(r.out_tokens) == 64 and all(0 <= x < V
                                               for x in r.out_tokens),
               "(a) tokens")
     cnt_a = spec_counters("[25a]", ea, reqs, before, k)
-    div_a, tok_a = held_streams("[25a]", [r.out_tokens for r in reqs[:8]], plain_a,
-                         prompts_a, params, cfg, dev)
+    div_a, tok_a = held_streams("[25a]", [r.out_tokens for r in reqs[:8]],
+                                plain_a, prompts_a, params, cfg, dev)
     sync_a = one_sync(ea)
     print(f"[25a] ContinuousEngine(llama-3-8b bf16, 8 slots, cache 4096, "
           f"spec_draft = the target itself, spec_k {k}): 8 greedy + 2 "
           f"sampled 512-token prompts, 64 new: decode_attention_blocks at "
           f"T = {k + 1} on {chk11.calls} calls and decode_attention on the "
           f"draft steps' {chk10.calls} calls within tolerance (max "
-          f"|kernel - plain| {chk11.max_err:.3e}, {chk10.max_err:.3e}); "
+          f"|kernel - plain| {chk11.max_err:.3e}, {chk10.max_err:.3e}; "
+          f"split-K, live splits walked {walks_a[0]} and {walks_a[1]} by "
+          f"the kernel's own count, equal to decode_split_walk's); "
           f"counters {cnt_a[0]} over {cnt_a[1]} row-windows, {cnt_a[2]} "
           f"tokens after the admits; greedy streams equal to the plain "
           f"engine's but {div_a} (each at a near-tie of the bf16 model); "
@@ -3315,6 +3622,7 @@ def spec_phases(dev, record, card):
                   f"{chk11.error} {chk10.error}")
     check(chk11.calls > 0 and chk10.calls == (k - 1) * chk11.calls,
           f"(b) #11 {chk11.calls} calls, #10 {chk10.calls}")
+    walks_b = [chk.walk_check("[25b]")[0] for chk in (chk11, chk10)]
     routes = [r["kubeinfer"]["route"] for r in resps]
     check(routes == ["continuous"] * 5, f"(b) routes {routes}")
     outs = [r["choices"][0]["tokens"] for r in resps]
@@ -3332,13 +3640,15 @@ def spec_phases(dev, record, card):
           <= emitted + k * len(outs) and rb <= row_windows,
           f"(b) verify counters {d} against {emitted} tokens")
     div_b, tok_b = held_streams("[25b]", outs[:4], plain_b, prompts_b,
-                         srv.engine.params, cfg, dev)
+                                srv.engine.params, cfg, dev)
     sync_b = one_sync(cont)
     print(f"[25b] /v1/completions on that server: 4 greedy + 1 sampled "
           f"512-token prompts, 64 new, route continuous: #11 at T = {k + 1} "
           f"on {chk11.calls} calls and #10 on {chk10.calls} within "
           f"tolerance (max |kernel - plain| {chk11.max_err:.3e}, "
-          f"{chk10.max_err:.3e}); counters {d} over {row_windows} "
+          f"{chk10.max_err:.3e}; live splits walked {walks_b[0]} and "
+          f"{walks_b[1]}, equal to decode_split_walk's); counters {d} over "
+          f"{row_windows} "
           f"row-windows (the response fields sum to them); greedy streams "
           f"equal to the plain engine's but {div_b} (each at a near-tie of the "
           f"bf16 model); {sync_b} host sync per verify window")
@@ -3501,11 +3811,8 @@ def spec_phases(dev, record, card):
 
     # (28) times
     with torch.inference_mode():
-        e11 = time_kernel(
-            dev, fa, heavy11, card, "decode_attention_blocks",
-            "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
-            "kubeinfer_tpu/inference/flash_attention.py:779",
-            heavy11.calls, F, tag="[28]")
+        e11 = time_decode(dev, fa, heavy11, card, "decode_attention_blocks",
+                          heavy11.calls, F, tag="[28]")
         e12 = time_q8(dev, fa, heavy12, card,
                       {"decode_attention_blocks_q8": heavy12.calls},
                       tag="[28]")
@@ -3520,11 +3827,101 @@ def spec_phases(dev, record, card):
         "window_a_ms": wa[0], "tokens_per_row_window_a": wa[1],
         "window_b_ms": wb[0], "tokens_per_row_window_b": wb[1],
         "decode_plain_ms": times["decode_plain_ms"],
-        "t5_11": {key: e11[key] for key in ("ms", "plain_ms", "bound_ms",
-                                            "library_ms")},
+        "t5_11": {key: e11[key] for key in (
+            "ms", "wall_ms", "host_us", "old_ms", "old_wall_ms", "plain_ms",
+            "bound_ms", "library_ms", "library_wall_ms", "live_splits")},
         "t5_12": {key: e12[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "library_ms")},
     }
+
+
+def tie_probe(seeds, dev=None):
+    """``python3 chip_smoke.py --tie-probe SEED ...``: phase (25a)'s
+    streams on other prompts, for the near-tie allowance of
+    ``held_streams``. For each seed, the prompts that (25a) draws from
+    ``np.random.default_rng(seed)`` (25 is (25a)'s own) go through the
+    plain engine and the self-draft engine as in (25a), once with #10 and
+    #11 on their split-K kernels and once on the ones before them
+    (``OldDecode``); prints a line per (kernel, seed): the divergences as
+    ``stream_ties`` gives them, whether each lies within its allowance,
+    and the largest allowance of any position of the run's streams
+    (``envelope``); then a summary per kernel. Checks nothing."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.model import init_params
+
+    dev = dev or torch.device("cuda")
+    print(card_line())
+    cfg = PRESETS["llama-3-8b"]
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    V, k = cfg.vocab_size, 4
+    summary = {}
+    for kernel in ("split-K", "old"):
+        with contextlib.ExitStack() as stack:
+            if kernel == "old":
+                for name in ("decode_attention", "decode_attention_blocks"):
+                    stack.enter_context(OldDecode(fa, name))
+            e0 = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
+                                  device=dev).start()
+            ea = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
+                                  spec_draft=(params, cfg), spec_k=k,
+                                  device=dev).start()
+            rows = []
+            try:
+                for seed in seeds:
+                    rng = np.random.default_rng(seed)
+                    # (25a)'s draws in its order: its prompts, (25b)'s,
+                    # two timing sets, then the two sampled requests'
+                    draws = [rng.integers(1, V, 512).tolist()
+                             for _ in range(8 + 4 + 8 + 8 + 2)]
+                    prompts = draws[:8]
+                    jobs = [(p, {}) for p in prompts] + [
+                        (p, dict(temperature=0.8, top_k=50, top_p=0.9,
+                                 seed=s)) for p, s in zip(draws[-2:], (3, 4))]
+                    with torch.inference_mode():
+                        plain = in_threads(
+                            lambda p: e0.generate(p, 64, timeout=900),
+                            prompts)
+                        reqs = in_threads(lambda j: ea.serve(
+                            j[0], 64, timeout=900, **j[1]), jobs)
+                    divs, stats, env = stream_ties(
+                        [r.out_tokens for r in reqs[:8]], plain, prompts,
+                        params, cfg, dev)
+                    out = [(i, gap, err, worse, gap <= 2 * err + GAP_ULP,
+                            gap <= env) for i, gap, err, worse in divs]
+                    rows.append(out)
+                    print(f"[tie-probe] {kernel} seed {seed}: divergences "
+                          f"(index, f32 gap, bf16 error, the route f32 ranks"
+                          f" lower, within its allowance, within the "
+                          f"envelope) {out}; envelope {env:.5f}; tokens "
+                          f"[positions, not the f32 argmax, outside] {stats};"
+                          f" allowance "
+                          f"{'PASS' if all(o[4] for o in out) else 'FAIL'}",
+                          flush=True)
+            finally:
+                e0.stop()
+                ea.stop()
+            del e0, ea
+            gc.collect()
+            torch.cuda.empty_cache()
+        divs = [d for r in rows for d in r]
+        summary[kernel] = {
+            "seeds_failing": sum(not all(d[4] for d in r) for r in rows),
+            "seeds": len(rows),
+            "divergences_outside": sum(not d[4] for d in divs),
+            "divergences": len(divs),
+            "mean_gap": float(np.mean([d[1] for d in divs])) if divs else 0.0,
+            "speculative_ranked_lower": sum(d[3] == "speculative"
+                                            for d in divs),
+            "outside_envelope": sum(not d[5] for d in divs)}
+    print(json.dumps({"tie_probe": summary}))
+    return 0
 
 
 def spec_f32_full(dev, record, k):
@@ -3719,7 +4116,7 @@ def main() -> int:
                               "route_pick", "decode_attention",
                               "flash_prefill", "quant_matmul",
                               "flash_backward", "flash_prefill_tc",
-                              "flash_backward_tc"])
+                              "flash_backward_tc", "decode_split"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")
@@ -3959,4 +4356,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tie-probe"]:
+        sys.exit(tie_probe([int(a) for a in sys.argv[2:]] or [25]))
     sys.exit(main())

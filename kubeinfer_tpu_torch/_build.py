@@ -149,6 +149,14 @@ _SIGNATURES = {
         "decode_attention_blocks_q8_launch":
             [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     },
+    "decode_split": {
+        # q, k, v, lengths, out, ws, tickets, walked (an int counter or
+        # null), B, H, n_kv, D, S, C, scale, dtype
+        "decode_split_launch": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+        # q, k_pool, v_pool, tables, lengths, out, ws, tickets, walked, B,
+        # T, H, n_kv, D, bs, M, C, scale, dtype
+        "decode_split_blocks_launch": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    },
     "flash_prefill": {
         # q, k, v, row_lens, out, lse (null for #9), B, T, S, H, n_kv, D,
         # q_offset, scale, dtype

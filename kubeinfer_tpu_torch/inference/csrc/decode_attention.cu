@@ -1,4 +1,11 @@
-// GQA decode attention for Hopper (sm_90a): kernels #10, #11 and #12.
+// GQA decode attention for Hopper (sm_90a): kernel #12, and the first
+// kernels of #10 and #11.
+//
+// The wrappers of #10 and #11 launch csrc/decode_split.cu (split-K) for
+// every call. decode_attention_launch and decode_attention_blocks_launch
+// stay here, one block per (row, kv head), launchable only for
+// chip_smoke.py's "old kernel on the same call" times; #12's route is
+// decode_attention_blocks_q8_launch.
 //
 // Replaces kubeinfer_tpu/inference/flash_attention.py:decode_attention
 // (_decode_attn_kernel, dense per-row caches, T == 1),
@@ -54,7 +61,7 @@
 // warp, one key each, hit distinct banks), a warp scores one query row
 // against the tile (lane = key), reduces max and sum with shuffles, and
 // the block then folds P.V into the accumulators. No split over the
-// cache yet: a long row is walked by one block.
+// cache: a long row is walked by one block (decode_split.cu splits it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

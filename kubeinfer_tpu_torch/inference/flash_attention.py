@@ -18,17 +18,20 @@ counterparts here:
   instantiation, every key tile).
 - #10 ``decode_attention``: T == 1 GQA decode over dense per-row caches,
   reading only each row's live positions. Plain version
-  ``decode_attention_plain``; kernel ``csrc/decode_attention.cu``.
+  ``decode_attention_plain``; kernel ``csrc/decode_split.cu`` (split-K:
+  the cache in splits of ``decode_split_size`` positions across blocks,
+  combined in the same launch; ``decode_split_walk`` mirrors which splits
+  are live, ``decode_split_combine_plain`` the combine's arithmetic).
 - #11 ``decode_attention_blocks``: paged GQA decode through block tables,
   T >= 1 (query t attends positions <= lengths[b] - T + t). Plain version
-  ``decode_attention_blocks_plain``; kernel ``csrc/decode_attention.cu``.
+  ``decode_attention_blocks_plain``; kernel ``csrc/decode_split.cu``.
 - #12 ``decode_attention_blocks_q8``: #11 over the int8 pool (int8 pages,
   f32 per-(block, kv head) scales, per-row tails in the compute dtype);
   a tile at or past the row's tail base reads the tail verbatim, any
   other the dequantized page rounded to the compute dtype
   (``_dequant_tile``). Plain version ``decode_attention_blocks_q8_plain``;
   kernel ``csrc/decode_attention.cu`` (``decode_kernel`` with its q8
-  tile loader).
+  tile loader: one block per (row, kv head), no split yet).
 - #13 ``_diff_fwd`` (``_flash_ragged_lse_kernel``): #9's fold plus the
   per-row logsumexp the backward needs. Plain version
   ``flash_ragged_lse_plain``; #9's kernel on the same route with its lse
@@ -58,7 +61,10 @@ bf16 with D % 64 == 0 (every D ``flash_available`` admits) and G <= 64
 takes the tensor-core kernel and also counts ``<wrapper>.tc_launches``;
 f32 and other head widths take the CUDA-core kernel, in full f32. The
 backward wrappers (#14) choose theirs the same way (``tc_bwd_route``:
-bf16 with D 64 or 128). The routers
+bf16 with D 64 or 128). The decode wrappers (#10, #11) launch the
+split-K kernel for every CUDA call and, where ``<wrapper>.walk_counter``
+holds an int32 CUDA tensor, add to it the live splits the kernel's
+blocks walk. The routers
 (``decode_attention_auto``, ``decode_attention_blocks_auto``,
 ``decode_attention_blocks_q8_auto``) bind the
 wrappers with the reference's signatures; their ``mask`` operand is the
@@ -96,6 +102,15 @@ TC_KEYS = 64
 # the forward's (TC_ROWS rows, key tiles of TC_KEYS)
 TC_BWD_KEYS = 128
 TC_BWD_D = (64, 128)
+# the split-K decode kernel (#10, #11): a block walks this many
+# consecutive positions of one (row, kv head) of a linear cache, or the
+# whole pool pages that make at least DECODE_SPLIT_PAGED
+# (decode_split_size), and holds at most DECODE_BLOCK_ROWS[dtype] folded
+# query rows (bf16: 4 m-tiles of 16 on the tensor cores; f32: 4 warps of
+# 4 on CUDA cores; more rows take further row blocks of the grid)
+DECODE_SPLIT_LINEAR = 256
+DECODE_SPLIT_PAGED = 128
+DECODE_BLOCK_ROWS = {torch.bfloat16: 64, torch.float32: 16}
 
 
 # --- plain versions ----------------------------------------------------------
@@ -476,6 +491,78 @@ def decode_attention_blocks_plain(q, k_pool, v_pool, block_tables, lengths):
     return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
 
 
+def decode_split_size(width: int, paged: bool) -> int:
+    """C, the positions one block of the split-K decode kernel walks: for
+    a linear cache (``width`` = S) ``DECODE_SPLIT_LINEAR``; for a pool of
+    blocks of ``width`` positions the whole pages that make at least
+    ``DECODE_SPLIT_PAGED``. From the cache geometry alone: the host never
+    reads the lengths. (A split has a fixed cost, its partial and its share
+    of the combine; on an H100, llama-3-8b's 4101-position engine row ran
+    faster in splits of 256 than of 128, eight pool rows of 515 faster in
+    single pages than in pairs.)"""
+    if not paged:
+        return DECODE_SPLIT_LINEAR
+    return width * -(-DECODE_SPLIT_PAGED // width)
+
+
+def decode_row_blocks(rows: int, dtype) -> int:
+    """Blocks of the split-K grid over the ``rows`` = T * G folded query
+    rows of one (row, kv head, split)."""
+    return -(-rows // DECODE_BLOCK_ROWS[dtype])
+
+
+def decode_split_walk(lengths, T: int, S_total: int, C: int):
+    """The live splits of each row: ceil(walk / C), walk = min(len,
+    S_total) for a row with len >= T and S_total (every position the row
+    names) for one with len < T. int64 [B] on the lengths' device, with
+    no host sync. One kernel launch adds n_kv * decode_row_blocks(T * G,
+    dtype) times its sum to ``walk_counter``. A plain mirror of the
+    kernel's walk for the tests and chip_smoke; nothing on the main path
+    calls it."""
+    lens = lengths.to(torch.int64)
+    walk = torch.where(lens < T, S_total, torch.clamp(lens, max=S_total))
+    return (walk + C - 1) // C
+
+
+def decode_split_combine_plain(q, k, v, lengths, C: int):
+    """The split-K kernel's arithmetic in plain PyTorch: each live split
+    of C positions folded on its own from the reference's initial state
+    (``_fold_state``), then out = sum_s e^{m_s - m} acc_s / max(sum_s
+    e^{m_s - m} l_s, 1e-30) with m = max_s m_s over the live splits
+    (``decode_split_walk``), taken as the kernel takes it: the splits in
+    order, in running form. q [B, T, H, D] over a linear cache k, v [B,
+    S, n_kv, D] (a paged pool gathered through its tables first); query t
+    attends positions <= lengths[b] - T + t. For the tests only."""
+    B, T, H, D = q.shape
+    S, n_kv = k.shape[1], k.shape[2]
+    dev = q.device
+    qf = _fold_q(q, n_kv)
+    kf, vf = _linear_kv(k, n_kv), _linear_kv(v, n_kv)
+    lens = lengths.to(device=dev, dtype=torch.int64).repeat_interleave(n_kv)
+    q_pos = lens[:, None] - T + torch.arange(T, device=dev)[None, :]
+    n_live = decode_split_walk(lengths.to(dev), T, S, C).repeat_interleave(
+        n_kv)
+    scale = 1.0 / float(D) ** 0.5
+    N, R = qf.shape[0], qf.shape[1]
+    m = torch.full((N, R, 1), -1e30, dtype=torch.float32, device=dev)
+    L = torch.zeros((N, R, 1), dtype=torch.float32, device=dev)
+    A = torch.zeros((N, R, D), dtype=torch.float32, device=dev)
+    for i, s0 in enumerate(range(0, S, C)):
+        s_pos = torch.arange(s0, min(s0 + C, S), device=dev)
+        pen = torch.where(s_pos[None, None, :] <= q_pos[:, :, None], 0.0,
+                          -1e30).float()
+        m_s, l_s, acc_s = _fold_state(
+            qf, [(kf[:, s0:s0 + C], vf[:, s0:s0 + C], pen)], H // n_kv, scale)
+        # a split past the row's walk takes no part
+        live = (i < n_live)[:, None, None]
+        mn = torch.where(live, torch.maximum(m, m_s), m)
+        ea = torch.exp(m - mn)
+        eb = torch.where(live, torch.exp(m_s - mn), 0.0)
+        L, A, m = L * ea + l_s * eb, A * ea + acc_s * eb, mn
+    out = A / torch.clamp(L, min=1e-30)
+    return _unfold_q(out.to(q.dtype), B, T, H, n_kv)
+
+
 def _dequant_tile(kq, scale, tail, use_tail, out_dtype):
     """One tile's effective K (or V) for a batch of rows: the int8 page
     [B, bs, n_kv, D] dequantized in f32 with its [B, n_kv] scales, or the
@@ -529,16 +616,25 @@ def decode_attention_blocks_q8_plain(q, k_pool, v_pool, k_scales, v_scales,
 # --- kernel wrappers ---------------------------------------------------------
 
 
+_libs: dict = {}  # the loaded kernel libraries, by name
+
+
 def _kernel_lib(t: torch.Tensor, name: str, lib_name: str):
     """The kernel library for a CUDA tensor (built at first use); None for
     a CPU tensor, where the wrapper ``name`` takes its plain version."""
-    if t.device.type == "cpu":
+    kind = t.device.type
+    if kind == "cuda":
+        lib = _libs.get(lib_name)
+        if lib is not None:
+            return lib
+    elif kind == "cpu":
         return None
-    if t.device.type != "cuda":
+    else:
         raise ValueError(f"{name}: unsupported device {t.device}")
     from kubeinfer_tpu_torch._build import load_kernel_library
 
-    return load_kernel_library(lib_name)
+    lib = _libs[lib_name] = load_kernel_library(lib_name)
+    return lib
 
 
 def _check(name, t, dtype, shape, device, align=16):
@@ -584,18 +680,79 @@ def _launch(lib, fn: str, *args) -> None:
 
 
 def decode_smem_bytes(rows: int, D: int) -> int:
-    """Shared memory of one decode block (csrc/decode_attention.cu): the
+    """Shared memory of one #12 block (csrc/decode_attention.cu): the
     block's T*G query rows and accumulators, a 32-key K (padded) and V
     tile, the score tile and the per-row softmax state."""
     kt = 32
     return 4 * (2 * rows * D + kt * (D + 1) + kt * D + rows * kt + 3 * rows)
 
 
+# the split-K kernel's tickets: int32, one per (row, kv head, row block)
+# of the largest grid launched on a (device, stream), zeroed once when
+# allocated; every launch leaves them zero
+_tickets: dict = {}
+
+
+def _split_tickets(dev, stream: int, n: int) -> torch.Tensor:
+    key = (dev, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=dev)
+        _tickets[key] = buf
+    return buf
+
+
+def _check_split(specs, dev) -> None:
+    """``_check`` of each (name, tensor, dtype, shape, alignment) in
+    ``specs`` on ``dev``, at a few attribute reads a tensor: the split-K
+    wrappers run about 2000 times a serving decode step, on the host."""
+    for name, t, dtype, shape, align in specs:
+        if (t.dtype != dtype or t.shape != shape or t.device != dev
+                or not t.is_contiguous() or t.data_ptr() % align):
+            _check(name, t, dtype, shape, dev, align)  # raises
+
+
+def _split_launch(wrapper, lib, fn, q, operands, n_kv, S_total, C, ints):
+    """One launch of the split-K kernel: q's folded rows over S_total
+    positions in splits of C; ``operands`` the tensors before ``out``,
+    ``ints`` the launcher's ints before C. Allocates the output and the
+    f32 partials (the caching allocator), takes the tickets, passes
+    ``wrapper.walk_counter`` (or null) and counts the launch."""
+    B, T, H, D = q.shape
+    R = T * (H // n_kv)
+    dev = q.device
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # builds a Stream object, several us of host time a call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    out = torch.empty_like(q)
+    n_split = -(-S_total // C)
+    ws = torch.empty(B * n_kv * n_split * R * (D + 2), dtype=torch.float32,
+                     device=dev)
+    tickets = _split_tickets(dev, stream,
+                             B * n_kv * decode_row_blocks(R, q.dtype))
+    walked = wrapper.walk_counter
+    if walked is not None:
+        _check("walk_counter", walked, torch.int32, (1,), dev, align=4)
+    err = getattr(lib, fn)(
+        *(t.data_ptr() for t in operands), out.data_ptr(), ws.data_ptr(),
+        tickets.data_ptr(), None if walked is None else walked.data_ptr(),
+        *ints, C, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
+    wrapper.launches += 1
+    return out
+
+
 def decode_attention(q, k, v, lengths):
     """#10 on the tensors' device: for CUDA tensors one launch of
-    ``decode_attention_launch`` (one block per (row, kv head), live
-    positions only); for CPU tensors ``decode_attention_plain``."""
-    lib = _kernel_lib(q, "decode_attention", "decode_attention")
+    ``decode_split_launch`` (split-K over ``decode_split_size(S, False)``
+    positions a block, live splits only, combined in the same launch);
+    for CPU tensors ``decode_attention_plain``. Where
+    ``decode_attention.walk_counter`` holds an int32 CUDA tensor of one
+    element, the launch adds to it n_kv times the sum of
+    ``decode_split_walk(lengths, 1, S, C)``."""
+    lib = _kernel_lib(q, "decode_attention", "decode_split")
     if lib is None:
         return decode_attention_plain(q, k, v, lengths)
     B, T, H, D = q.shape
@@ -604,29 +761,30 @@ def decode_attention(q, k, v, lengths):
         raise ValueError(f"decode_attention is T == 1 only; got q "
                          f"{tuple(q.shape)}")
     _check_head("decode_attention", q, D)
-    if H % n_kv or decode_smem_bytes(H // n_kv, D) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attention: no kernel for q {tuple(q.shape)}"
-                         f" with {n_kv} kv heads")
-    dev = q.device
-    _check("q", q, q.dtype, (B, 1, H, D), dev)
-    _check("k", k, q.dtype, (B, S, n_kv, D), dev)
-    _check("v", v, q.dtype, (B, S, n_kv, D), dev)
-    _check("lengths", lengths, torch.int32, (B,), dev)
-    out = torch.empty_like(q)
-    _launch(lib, "decode_attention_launch", q, k, v, lengths, out, B, H,
-            n_kv, D, S, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
-    decode_attention.launches += 1
-    return out
+    if H % n_kv:
+        raise ValueError(f"decode_attention: {H} heads over {n_kv} kv heads")
+    dt = q.dtype
+    _check_split((("q", q, dt, (B, 1, H, D), 16),
+                  ("k", k, dt, (B, S, n_kv, D), 16),
+                  ("v", v, dt, (B, S, n_kv, D), 16),
+                  ("lengths", lengths, torch.int32, (B,), 4)), q.device)
+    return _split_launch(decode_attention, lib, "decode_split_launch", q,
+                         (q, k, v, lengths), n_kv, S,
+                         decode_split_size(S, False), (B, H, n_kv, D, S))
 
 
 decode_attention.launches = 0
+decode_attention.walk_counter = None
 
 
 def decode_attention_blocks(q, k_pool, v_pool, block_tables, lengths):
     """#11 on the tensors' device: for CUDA tensors one launch of
-    ``decode_attention_blocks_launch``; for CPU tensors
-    ``decode_attention_blocks_plain``."""
-    lib = _kernel_lib(q, "decode_attention_blocks", "decode_attention")
+    ``decode_split_blocks_launch`` (split-K over ``decode_split_size(bs,
+    True)`` positions, whole pages, a block); for CPU tensors
+    ``decode_attention_blocks_plain``. ``walk_counter`` as for #10, with
+    S_total = M * bs and n_kv * decode_row_blocks(T * G, dtype) blocks a
+    split."""
+    lib = _kernel_lib(q, "decode_attention_blocks", "decode_split")
     if lib is None:
         return decode_attention_blocks_plain(q, k_pool, v_pool, block_tables,
                                              lengths)
@@ -634,24 +792,24 @@ def decode_attention_blocks(q, k_pool, v_pool, block_tables, lengths):
     NB, bs, n_kv = k_pool.shape[:3]
     M = block_tables.shape[1]
     _check_head("decode_attention_blocks", q, D)
-    if H % n_kv or decode_smem_bytes(T * (H // n_kv), D) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attention_blocks: no kernel for q "
-                         f"{tuple(q.shape)} with {n_kv} kv heads")
-    dev = q.device
-    _check("q", q, q.dtype, (B, T, H, D), dev)
-    _check("k_pool", k_pool, q.dtype, (NB, bs, n_kv, D), dev)
-    _check("v_pool", v_pool, q.dtype, (NB, bs, n_kv, D), dev)
-    _check("block_tables", block_tables, torch.int32, (B, M), dev)
-    _check("lengths", lengths, torch.int32, (B,), dev)
-    out = torch.empty_like(q)
-    _launch(lib, "decode_attention_blocks_launch", q, k_pool, v_pool,
-            block_tables, lengths, out, B, T, H, n_kv, D, bs, M,
-            1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
-    decode_attention_blocks.launches += 1
-    return out
+    if H % n_kv:
+        raise ValueError(f"decode_attention_blocks: {H} heads over {n_kv} "
+                         "kv heads")
+    dt = q.dtype
+    _check_split((("q", q, dt, (B, T, H, D), 16),
+                  ("k_pool", k_pool, dt, (NB, bs, n_kv, D), 16),
+                  ("v_pool", v_pool, dt, (NB, bs, n_kv, D), 16),
+                  ("block_tables", block_tables, torch.int32, (B, M), 4),
+                  ("lengths", lengths, torch.int32, (B,), 4)), q.device)
+    return _split_launch(decode_attention_blocks, lib,
+                         "decode_split_blocks_launch", q,
+                         (q, k_pool, v_pool, block_tables, lengths), n_kv,
+                         M * bs, decode_split_size(bs, True),
+                         (B, T, H, n_kv, D, bs, M))
 
 
 decode_attention_blocks.launches = 0
+decode_attention_blocks.walk_counter = None
 
 
 def decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales, k_tail,
