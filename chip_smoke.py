@@ -15,13 +15,13 @@ times them. Phases:
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
       together, eleven sources: mega_solve.cu, round_ops.cu, auction.cu,
-      route_pick.cu, decode_attention.cu (#12; its #10 and #11 kernels
-      only for the times beside the split-K one), flash_prefill.cu,
+      route_pick.cu, decode_attention.cu (the first kernels of #10, #11
+      and #12, only for the times beside the split-K one), flash_prefill.cu,
       quant_matmul.cu, flash_backward.cu, flash_prefill_tc.cu (the
       tensor-core kernel of every bf16 call of #9, #13 and #9b),
       flash_backward_tc.cu (the tensor-core kernels of every bf16 #14
       call at D 64 and 128), decode_split.cu (the split-K kernel of every
-      #10 and #11 call);
+      #10, #11 and #12 call);
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -99,7 +99,8 @@ times them. Phases:
       scaled_dot_product_attention on the path's heaviest call (#9 also
       against the CUDA-core kernel on the same call; #10 and #11 by
       device time, wall time and the wrapper's host time, beside the
-      old kernel, decode_attention.cu, on the same call);
+      old kernel, decode_attention.cu, on the same call, and each of the
+      three routes' distance from an f32 evaluation of the call);
   (17) the int8 serving path at full width: ``server.build_server``
       with ``--kv-dtype int8 --weight-dtype int8`` (the bf16 server
       stopped and freed first): the GiB on the card, model_param_bytes
@@ -108,20 +109,23 @@ times them. Phases:
       requests of 512 tokens (4 new) and quant_matmul (#15) on every
       projection of those and of a 4100-token Engine generate (M = 8,
       512 and 2048), each against its plain version within the stated
-      tolerance; #11 never launched;
+      tolerance (#12's live splits equal to decode_split_walk's); #11
+      never launched;
   (18) /v1/completions over HTTP on the int8 server, the bodies of
-      (14): #12, #15, #9 and #10 launched, #11 not; routes, tokens,
-      finite logits, one host sync per decode window, quant_blocks_total;
+      (14): #12, #15, #9 and #10 launched, #11 not (#12's live splits
+      equal to decode_split_walk's); routes, tokens, finite logits, one
+      host sync per decode window, quant_blocks_total;
   (19) int8 on the card against the CPU at llama-3-8b widths cut to 2
       layers, f32: the weight codes and scales bitwise equal, the
-      Engine and the int8-pool ContinuousEngine (block 16, a block edge
-      crossed while decoding) giving equal streams, the count of pool
-      codes that differ;
+      Engine and the int8-pool ContinuousEngine (blocks of 128, prompts
+      of about 120: a block edge crossed while decoding) giving equal
+      streams, the card's through #10 and #12 (launched) and the CPU's
+      through the dense route, the count of pool codes that differ;
   (20) times of the int8 path: TTFT, decode ms per token at 8 slots,
       the engine route's prefill chunks, a torch.profiler split of one
       admit and of a decode run, device launches per decode step
-      against bf16, and #12 and #15 against their bounds, plain
-      versions and library yardsticks;
+      against bf16, #12 as #10 and #11 in (16), and #15 against its
+      bound, plain version and library yardstick;
   (21) the training step at full width and depth: ``train.train_step``
       on llama-3-8b (bf16 init_params(seed=0), the int8 server freed
       first) over seeded tokens [1, 2049] (T = S = 2048, the flash
@@ -165,9 +169,10 @@ times them. Phases:
       largest bf16 allowance of any position of the streams: twice the
       dense bf16 forward's error on its top two logits, plus an ulp), and
       for every token, beside the plain engine's, whether it is that
-      forward's argmax; the verify counters against the emitted lengths; then 2 layers in f32 with block 16 and
-      a bigram draft, card (#11) against the CPU: equal streams and
-      counters; (25c) full width and depth in f32, the plain engine, a
+      forward's argmax; the verify counters against the emitted
+      lengths; then 2 layers in f32 with blocks of 128 and a bigram
+      draft, card (#11 launched) against the CPU (dense): equal streams
+      and counters; (25c) full width and depth in f32, the plain engine, a
       self draft and a bigram draft: every speculative token within
       2**-10 of a teacher-forced f32 forward's argmax on its own prefix,
       the streams equal to the plain engine's up to such a tie;
@@ -176,13 +181,14 @@ times them. Phases:
       slot, and a direct SpeculativeEngine.generate whose prefills launch
       #9 once per chunk and layer, its greedy tokens checked as in (25);
   (27) the int8 verify server (``--kv-dtype int8 --weight-dtype int8``):
-      #12 at T = 5 on every call, windows that spill into tail slot 1,
-      #11 never, #15 on every projection; then 2 layers in f32 with block
-      16 and a bigram draft, card against the CPU: equal streams and
-      counters;
+      #12 at T = 5 on every call (its live splits equal to
+      decode_split_walk's), windows that spill into tail slot 1, #11
+      never, #15 on every projection; then 2 layers in f32 with blocks of
+      128 and a bigram draft, card (#12 launched) against the CPU
+      (dense): equal streams and counters;
   (28) times: #9b against its bound, SDPA with the same mask and the
-      CUDA-core kernel on the same call, #11 (as in (16)) and
-      #12 at T = 5, a verify window's ms and tokens a row in (a) and (b),
+      CUDA-core kernel on the same call, #11 and #12 at T = 5 (as in
+      (16)), a verify window's ms and tokens a row in (a) and (b),
       decode ms per emitted token per slot with and without a draft;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases.
@@ -1215,17 +1221,17 @@ def attn_err(got, want, live):
 
 
 def split_walk(fa, name, args):
-    """The live splits the split-K kernel of #10 or #11 walks on one call
-    of its wrapper, n_kv * row blocks * the sum of ``decode_split_walk``,
-    as a device tensor (no host sync)."""
-    q = args[0]
+    """The live splits the split-K kernel of #10, #11 or #12 walks on one
+    call of its wrapper, n_kv * row blocks * the sum of
+    ``decode_split_walk``, as a device tensor (no host sync)."""
+    q, lens = args[0], args[-1]
     T, H = q.shape[1], q.shape[2]
     if name == "decode_attention":
-        _, k, _, lens = args
+        k = args[1]
         n_kv, S_total = k.shape[2], k.shape[1]
         C = fa.decode_split_size(S_total, False)
-    else:
-        _, kp, _, tbl, lens = args
+    else:  # the pool (#11) or the int8 pages (#12), then the tables
+        kp, tbl = args[1], args[-2]
         n_kv, bs = kp.shape[2], kp.shape[1]
         S_total, C = tbl.shape[1] * bs, fa.decode_split_size(bs, True)
     rb = fa.decode_row_blocks(T * (H // n_kv), q.dtype)
@@ -1241,7 +1247,7 @@ class CheckedAttention:
     object's ``launches`` (``tc_launches`` likewise), so the checking
     launches stay off the wrapper's own count. Its ``walk_counter`` is
     None (#9b: the checking launches count no key tiles), unless ``walk``
-    is set (#10, #11): then it is an int32 device counter of the split-K
+    is set (#10, #11, #12): then it is an int32 device counter of the split-K
     kernel's live splits over every checked call, and ``walk_want`` adds
     ``split_walk``'s count of each call, on the device (``walk_check``
     compares them)."""
@@ -1302,7 +1308,7 @@ class CheckedAttention:
 
 
 class CountedSplit:
-    """A pass-through stand-in for #10 or #11 while the main path runs
+    """A pass-through stand-in for #10, #11 or #12 while the main path runs
     over HTTP: the wrapper launches its kernel as it would, its own
     ``launches += 1`` and its kernel's live-split count (``walk_counter``)
     land here, and each call adds ``split_walk``'s count for its lengths
@@ -1782,18 +1788,20 @@ def time_kernel(dev, fa, chk, card, launches, F, tc_launches):
     }
 
 
-# --- the split-K decode kernel (#10, #11): times beside the old kernel --------
+# --- the split-K decode kernel (#10, #11, #12): times beside the old kernel ---
 
 SPLIT_SOURCE = "kubeinfer_tpu_torch/inference/csrc/decode_split.cu"
 DECODE_REPLACES = {
     "decode_attention": "kubeinfer_tpu/inference/flash_attention.py:504",
     "decode_attention_blocks":
         "kubeinfer_tpu/inference/flash_attention.py:779",
+    "decode_attention_blocks_q8":
+        "kubeinfer_tpu/inference/flash_attention.py:1115",
 }
 
 
 def old_decode(fa, name):
-    """The kernel #10 or #11 ran before the split-K one
+    """The kernel #10, #11 or #12 ran before the split-K one
     (``decode_attention.cu``: one block per (row, kv head)) as a function
     of the wrapper's arguments, launched through its library outside the
     wrappers' counts."""
@@ -1813,6 +1821,11 @@ def old_decode(fa, name):
             _, k, v, ln = args
             fa._launch(lib, "decode_attention_launch", q, k, v, ln, out, B,
                        H, k.shape[2], D, k.shape[1], scale, dt)
+        elif name == "decode_attention_blocks_q8":
+            _, kp, vp, ks, vs, kt, vt, tbl, ln = args
+            fa._launch(lib, "decode_attention_blocks_q8_launch", q, kp, vp,
+                       ks, vs, kt, vt, tbl, ln, out, B, T, H, kp.shape[2], D,
+                       kp.shape[1], tbl.shape[1], scale, dt)
         else:
             _, kp, vp, tbl, ln = args
             fa._launch(lib, "decode_attention_blocks_launch", q, kp, vp, tbl,
@@ -1893,20 +1906,64 @@ def engine_decode(params, cfg, caches, offset, dev, steps=16):
     return ms, busy / steps
 
 
+def decode_views(fa, name, args):
+    """(K, V, live rows) of one decode call, K and V as linear caches [B,
+    S, n_kv, D] in the compute dtype: the cache itself (#10), the pools
+    gathered through the tables (#11), the int8 pool dequantize-gathered
+    at the tail base max(len - T, 0) // bs (#12: on a live row, the
+    tiles the kernel folds)."""
+    import torch
+
+    q, lens = args[0], args[-1]
+    T = q.shape[1]
+    if name == "decode_attention":
+        return args[1], args[2], lens > 0
+    tbl = args[-2]
+    live = (tbl[:, 0] != 0) & (lens >= T)
+    if name == "decode_attention_blocks":
+        return (fa.gather_block_kv(args[1], tbl),
+                fa.gather_block_kv(args[2], tbl), live)
+    _, kp, vp, ks, vs, kt, vt, _, _ = args
+    tb = torch.clamp(lens.long() - T, min=0) // kp.shape[1]
+    return (fa.dequant_gather_block_kv(kp, ks, kt, tbl, tb),
+            fa.dequant_gather_block_kv(vp, vs, vt, tbl, tb), live)
+
+
+def f32_errors(fa, q, kk, vv, lens, live, outs):
+    """Each route's distance from an f32 evaluation of the same call: the
+    plain fold (``decode_split_combine_plain`` in one split) on q and the
+    effective K/V upcast to f32 (for #12 the dequantized tiles as the
+    function rounds them). Per route in ``outs``, over the live rows:
+    the largest of each row's max |out - f32| and the mean of each row's
+    mean |out - f32|, both over the row's largest |f32 value|."""
+    B = q.shape[0]
+    ref = fa.decode_split_combine_plain(q.float(), kk.float(), vv.float(),
+                                        lens, kk.shape[1])
+    mag = ref.abs().reshape(B, -1).amax(dim=1)[live]
+    errs = {}
+    for route, out in outs.items():
+        e = (out.float() - ref).abs().reshape(B, -1)[live]
+        errs[route] = {"max_rel": float((e.amax(dim=1) / mag).max()),
+                       "mean_rel": float((e.mean(dim=1) / mag).mean())}
+    return errs
+
+
 def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
-    """#10's or #11's entry of the ``kernels`` line, on the heaviest
-    captured call: the split-K kernel's device time per launch (``ms``:
-    a CUDA graph of 20 launches, replays timed by CUDA events;
-    ``device_ms``), its wall per call (CUDA events over
-    20 back-to-back calls) and the wrapper's host us per call; the old
-    kernel's device and wall time on the same call; the plain version's;
+    """#10's, #11's or #12's entry of the ``kernels`` line, on the
+    heaviest captured call: the split-K kernel's device time per launch
+    (``ms``: a CUDA graph of 20 launches, replays timed by CUDA events;
+    ``device_ms``), its wall per call (CUDA events over 20 back-to-back
+    calls) and the wrapper's host us per call; the old kernel's device and
+    wall time on the same call; the plain version's;
     scaled_dot_product_attention's device and wall time on the same q and
-    K/V (gathered through the table beforehand for #11); the bound from
-    this call's live K/V."""
+    K/V (``decode_views``, made beforehand); the bound from this call's
+    live K/V (#12: int8 codes and scales of the committed pages, tail
+    positions in q's dtype); each route's distance from an f32 evaluation
+    (``f32_errors``)."""
     import torch
 
     args = chk.heaviest
-    q = args[0]
+    q, lens = args[0], args[-1]
     B, T, H, D = q.shape
     elt = q.element_size()
     kernel, old = getattr(fa, name), old_decode(fa, name)
@@ -1916,19 +1973,19 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
     old_ms = device_ms(lambda: old(*args))
     old_wall_ms = cuda_ms(lambda: old(*args), reps=20)
     plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
-    if name == "decode_attention":
-        _, kk, vv, lens = args
-        live = lens > 0
-    else:
-        _, kp, vp, tbl, lens = args
-        M, bs = tbl.shape[1], kp.shape[1]
-        kk = kp[tbl.long()].reshape(B, M * bs, *kp.shape[2:])
-        vv = vp[tbl.long()].reshape(B, M * bs, *vp.shape[2:])
-        live = (tbl[:, 0] != 0) & (lens >= T)
+    kk, vv, live = decode_views(fa, name, args)
     S, n_kv = kk.shape[1], kk.shape[2]
     live_len = torch.where(live, lens.long(), 0)
     ops = 4 * D * H * T * int(live_len.sum())
-    nbytes = (2 * n_kv * D * int(live_len.sum()) + 2 * q.numel()) * elt
+    if name == "decode_attention_blocks_q8":
+        bs = args[1].shape[1]
+        tb = torch.clamp(live_len - T, min=0) // bs
+        paged = torch.minimum(live_len, tb * bs)
+        nbytes = (2 * n_kv * D * (int(paged.sum())
+                                  + elt * int((live_len - paged).sum()))
+                  + 2 * 4 * n_kv * int(tb.sum()) + 2 * q.numel() * elt)
+    else:
+        nbytes = (2 * n_kv * D * int(live_len.sum()) + 2 * q.numel()) * elt
     s = torch.arange(S, device=dev)
     t = torch.arange(T, device=dev)
     mask = s[None, None, None, :] <= (lens[:, None, None, None] - T
@@ -1946,6 +2003,9 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
     bound_ms = max(op_ms, byte_ms)
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
     splits = int(split_walk(fa, name, args))
+    errs = f32_errors(fa, q, kk, vv, lens, live, {
+        "split_k": kernel(*args), "old": old(*args),
+        "sdpa": sdpa().transpose(1, 2)})
     print(f"{tag} {card}: {name} (split-K, decode_split.cu) {ms:.4f} ms "
           f"device time a launch, {wall_ms:.4f} ms wall a call, wrapper "
           f"{wrapper_us:.1f} us of host a call, {splits} live splits, on q "
@@ -1956,6 +2016,11 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
           f" ms device, {library_wall_ms:.4f} ms wall; bound "
           f"{bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.3f} MB); {launches} launches on the main path")
+    print(f"{tag} {name} against an f32 evaluation of the call, |out - "
+          f"f32| over each live row's largest |f32|, largest row max (mean "
+          f"of row means): " + "; ".join(
+              f"{route} {e['max_rel']:.3e} ({e['mean_rel']:.3e})"
+              for route, e in errs.items()))
     return {
         "name": name,
         "route": "cuda",
@@ -1974,6 +2039,7 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
         "old_wall_ms": old_wall_ms,
         "library_wall_ms": library_wall_ms,
         "live_splits": splits,
+        "f32_err": errs,
         "timing": "ms, old_ms, library_ms: device time a launch (a CUDA "
                   "graph of 20 launches, replays timed by CUDA events); "
                   "*_wall_ms: CUDA events "
@@ -1981,8 +2047,12 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
                   "time a call",
         "library_call": "torch.nn.functional.scaled_dot_product_attention "
                         "(enable_gqa, boolean mask) on the same q/k/v"
-                        + (", K/V gathered through the table beforehand"
-                           if name == "decode_attention_blocks" else ""),
+                        + {"decode_attention": "",
+                           "decode_attention_blocks":
+                               ", K/V gathered through the table beforehand",
+                           "decode_attention_blocks_q8":
+                               ", K/V gathered through the table, "
+                               "dequantized, tails overlaid beforehand"}[name],
         "check": f"within tolerance of its plain version (bf16: 2**-6 of "
                  f"each live row's magnitude) on {chk.calls} calls of the "
                  "full-width path; the kernel's own count of its live "
@@ -1992,7 +2062,6 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
 
 # --- the int8 serving path: phases (17)-(20) ----------------------------------
 
-Q8_REPLACES = "kubeinfer_tpu/inference/flash_attention.py:1115"
 QMM_REPLACES = "kubeinfer_tpu/inference/weight_quant.py:222"
 
 
@@ -2088,6 +2157,7 @@ def int8_phases(dev, record, card):
     import gc
 
     import torch
+    import torch.nn.functional as F
 
     from kubeinfer_tpu_torch.inference import flash_attention as fa
     from kubeinfer_tpu_torch.inference import model as tm
@@ -2145,7 +2215,7 @@ def int8_phases(dev, record, card):
         fa, "decode_attention_blocks_q8", fa.decode_attention_blocks_q8_plain,
         live=q8_live,
         weight=lambda q, kp, vp, ks, vs, kt, vt, tbl, ln: (
-            int((tbl[:, 0] != 0).sum()), int(ln.sum())))
+            int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True)
     chk15 = CheckedMatmul(wq)
     fa.decode_attention_blocks.launches = 0
     with torch.inference_mode(), chk12, chk15:
@@ -2163,10 +2233,15 @@ def int8_phases(dev, record, card):
           f"#15 saw M in {sorted(chk15.m_values)}")
     check(fa.decode_attention_blocks.launches == 0,
           "#11 launched on the int8 pool")
+    # #12 launches the split-K kernel (decode_split.cu) on every call: its
+    # own count of the live splits it walked equals the mirror's
+    walk17 = chk12.walk_check("[17]")[0]
     print(f"[17] decode_attention_blocks_q8: {chk12.calls} calls on every "
           f"layer of the int8 continuous engine's decode windows (8 requests"
           f" of 512 tokens, 4 new), within tolerance; max |kernel - plain| "
-          f"{chk12.max_err:.3e} (bf16)")
+          f"{chk12.max_err:.3e} (bf16); split-K (decode_split.cu): {walk17} "
+          f"live splits walked by the kernel's own count, equal to "
+          f"decode_split_walk's")
     print(f"[17] quant_matmul: {chk15.calls} calls on every projection of "
           f"those admits and windows and of an Engine generate with a "
           f"4100-token prompt (M in {sorted(chk15.m_values)}), within tolerance; "
@@ -2189,11 +2264,14 @@ def int8_phases(dev, record, card):
         getattr(fa, name).launches = 0
     wq.quant_matmul.launches = 0
     qb0 = cont.quant_blocks_total
+    split12 = CountedSplit(fa, "decode_attention_blocks_q8", dev)
     t0 = time.perf_counter()
-    resps = in_threads(lambda b: post_json(srv.port, b), bodies)
-    http_s = time.perf_counter() - t0
-    counts = {name: getattr(fa, name).launches for name in names}
+    with split12:
+        resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+        http_s = time.perf_counter() - t0
+        counts = {name: getattr(fa, name).launches for name in names}
     counts["quant_matmul"] = wq.quant_matmul.launches
+    walk18 = split12.walk_check("[18]")[0]
     check(counts["decode_attention_blocks_q8"] > 0
           and counts["quant_matmul"] > 0
           and counts["flash_attention_ragged"] > 0
@@ -2220,10 +2298,13 @@ def int8_phases(dev, record, card):
     print(f"[18] /v1/completions over HTTP on the int8 server: 4 greedy + 1 "
           f"sampled 512-token prompts (64 new) on route continuous, 1 of "
           f"4100 tokens (16 new) on route engine, {http_s:.1f} s; launches "
-          f"{counts}; host syncs in one decode window (K=4, gates on) + its "
+          f"{counts} (#12 on the split-K kernel, {walk18} live splits walked "
+          f"by its own count, equal to decode_split_walk's); host syncs in "
+          f"one decode window (K=4, gates on) + its "
           f"readback: {n_sync}; quant_blocks_total {qb} ({qb - qb0} in this "
           f"run); logits finite")
     record["int8_serving"] = {"launches": counts, "http_s": http_s,
+                              "split_walk_12": walk18,
                               "window_syncs": n_sync,
                               "quant_blocks_total": qb}
 
@@ -2270,12 +2351,15 @@ def int8_phases(dev, record, card):
                           for n, ms, c in top[:6]))
     step = launches_per_step(cont, cfg, commit_steps=[False] * 4)
     step_c = launches_per_step(cont, cfg)
+    with OldDecode(fa, "decode_attention_blocks_q8"):
+        step_old = launches_per_step(cont, cfg, commit_steps=[False] * 4)
     bf = record["profile"]["decode_step"]
     print(f"[20] per decode step (8 slots, one K=4 window profiled): bf16 "
           f"{bf['launches']:.0f} device launches, {bf['busy_ms']:.2f} ms "
           f"busy; int8 {step[0]:.0f} launches, {step[1]:.2f} ms busy "
           f"(on a step with the tail commit: {step_c[0]:.0f}, "
-          f"{step_c[1]:.2f} ms)")
+          f"{step_c[1]:.2f} ms; with the old #12 kernel, decode_attention.cu:"
+          f" {step_old[0]:.0f}, {step_old[1]:.2f} ms)")
     print(f"[20] {card}: int8 TTFT of a 512-token prompt p50 "
           f"{statistics.median(ttft):.2f} ms ({[round(x, 2) for x in ttft]});"
           f" decode at 8 live slots p50 {decode_ms:.3f} ms per token per "
@@ -2292,6 +2376,9 @@ def int8_phases(dev, record, card):
                         "wall_ms": step[2]},
         "decode_step_commit": {"launches": step_c[0], "busy_ms": step_c[1],
                                "wall_ms": step_c[2]},
+        "decode_step_old_12": {"launches": step_old[0],
+                               "busy_ms": step_old[1],
+                               "wall_ms": step_old[2]},
     }
     record["int8_times"] = {
         "ttft_ms": ttft, "decode_ms_per_token": decode_ms,
@@ -2299,7 +2386,10 @@ def int8_phases(dev, record, card):
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     with torch.inference_mode():
-        entries = [time_q8(dev, fa, chk12, card, counts),
+        entries = [time_decode(dev, fa, chk12, card,
+                               "decode_attention_blocks_q8",
+                               counts["decode_attention_blocks_q8"], F,
+                               tag="[20]"),
                    time_qmm(dev, wq, chk15, card, counts)]
     srv.stop()
     cont.stop()
@@ -2310,12 +2400,15 @@ def card_vs_cpu_int8(dev, record):
     """Phase (19): int8 weights quantized on the card and on the CPU from
     the same f32 draw at llama-3-8b widths cut to 2 layers: codes and
     scales bitwise equal; then the Engine (greedy) and the int8-pool
-    ContinuousEngine (one greedy and one sampled row in one batch, block
-    16 so the decode crosses a block edge) on both: equal streams."""
+    ContinuousEngine (one greedy and one sampled row in one batch, blocks
+    of 128, prompts of about 120 so the decode crosses a block edge) on
+    both: equal streams, the card's through #10 and #12 (their guards
+    hold at block 128 and D 128), the CPU's through the dense route."""
     import dataclasses
 
     import torch
 
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
     from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.engine import Engine
@@ -2327,7 +2420,7 @@ def card_vs_cpu_int8(dev, record):
 
     cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
     rng = np.random.default_rng(19)
-    prompts = [rng.integers(1, cfg.vocab_size, 60).tolist() for _ in range(2)]
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (118, 121)]
     kws = ({}, dict(temperature=0.8, top_k=50, top_p=0.9,
                     repetition_penalty=1.2, seed=3))
     p_cpu = init_params(cfg, seed=19, dtype=torch.float32, device="cpu")
@@ -2345,8 +2438,8 @@ def card_vs_cpu_int8(dev, record):
     def run(params, device):
         eng = Engine(params, cfg, max_cache_len=256, device=device)
         out = [eng.generate(prompts, 20).tokens.tolist()]
-        cont = ContinuousEngine(params, cfg, n_slots=2, cache_len=128,
-                                block_size=16, kv_dtype="int8",
+        cont = ContinuousEngine(params, cfg, n_slots=2, cache_len=256,
+                                block_size=128, kv_dtype="int8",
                                 weight_dtype="int8", device=device).start()
         try:
             out.append(in_threads(lambda i: cont.generate(
@@ -2358,9 +2451,14 @@ def card_vs_cpu_int8(dev, record):
     t0 = time.perf_counter()
     want, c_cpu = run(q_cpu, "cpu")
     host_s = time.perf_counter() - t0
+    fa.decode_attention.launches = fa.decode_attention_blocks_q8.launches = 0
     t0 = time.perf_counter()
     got, c_card = run(q_card, dev)
     card_s = time.perf_counter() - t0
+    n10, n12 = (fa.decode_attention.launches,
+                fa.decode_attention_blocks_q8.launches)
+    check(n10 > 0 and n12 > 0, f"[19] the card took the dense route: #10 "
+          f"{n10} launches, #12 {n12}")
     pages = (c_card._state.q8_pages.cpu(), c_cpu._state.q8_pages)
     diff = (pages[0].int() - pages[1].int()).abs()
     n_diff = int((diff > 0).sum())
@@ -2377,87 +2475,15 @@ def card_vs_cpu_int8(dev, record):
             print(f"[19] {name}: streams differ first at flat index {first}")
         check(g == w, f"[19] {name}: card {g} != CPU {w}")
     print(f"[19] llama-3-8b widths, 2 layers, f32, int8 weights + int8 KV "
-          f"(block 16), 2 prompts of 60, 20 new: Engine greedy and "
-          f"ContinuousEngine greedy + sampled on the card equal to "
-          f"device='cpu' (host {host_s:.1f} s, card {card_s:.1f} s)")
+          f"(block 128), 2 prompts of 118 and 121, 20 new: Engine greedy and"
+          f" ContinuousEngine greedy + sampled on the card (#10 {n10} "
+          f"launches, #12 {n12}) equal to device='cpu' (the dense route; "
+          f"host {host_s:.1f} s, card {card_s:.1f} s)")
     record["card_vs_cpu_int8"] = {"host_s": host_s, "card_s": card_s,
+                                  "launches_10": n10, "launches_12": n12,
                                   "pool_codes_differing": n_diff,
                                   "streams": got}
     del q_card, q_cpu, c_card, c_cpu
-
-
-def time_q8(dev, fa, chk, card, counts, tag="[20]"):
-    """#12's entry of the ``kernels`` line, as ``time_kernel``: its time
-    per launch on the heaviest captured call, its plain version's, SDPA on
-    the table-gathered, dequantized K/V with the tails overlaid, and its
-    bound from this call's data (int8 pages and scales of the blocks
-    before each row's tail base, tail positions in bf16)."""
-    import torch
-    import torch.nn.functional as F
-
-    args = chk.heaviest
-    q, kp, vp, ks, vs, kt, vt, tbl, lens = args
-    B, T, H, D = q.shape
-    NB, bs, n_kv = kp.shape[:3]
-    M = tbl.shape[1]
-    elt = q.element_size()
-    ms = cuda_ms(lambda: fa.decode_attention_blocks_q8(*args), reps=20)
-    plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
-    live = q8_live(*args)
-    ln = torch.where(live, lens.long(), 0)
-    tb = torch.clamp(ln - T, min=0) // bs
-    page_pos = torch.minimum(ln, tb * bs)
-    tail_pos = ln - page_pos
-    ops = 4 * D * H * T * int(ln.sum())
-    nbytes = (2 * n_kv * D * (int(page_pos.sum()) + elt * int(tail_pos.sum()))
-              + 2 * 4 * n_kv * int(tb.sum()) + 2 * q.numel() * elt)
-    # the reference's dequantize-gather view: pages x scales, tails at the
-    # tiles from the tail base on
-    tl = tbl.long()
-
-    def gathered(pool, scales, tail):
-        deq = pool[tl].float() * scales[tl][:, :, None, :, None]
-        rel = torch.arange(M, device=dev)[None, :] - (
-            torch.clamp(lens.long() - T, min=0) // bs)[:, None]
-        use = (rel >= 0) & (rel < 2)
-        tg = tail[torch.arange(B, device=dev)[:, None], rel.clamp(0, 1)]
-        out = torch.where(use[:, :, None, None, None], tg.float(), deq)
-        return out.to(q.dtype).reshape(B, M * bs, n_kv, D)
-
-    kk, vv = gathered(kp, ks, kt), gathered(vp, vs, vt)
-    s = torch.arange(M * bs, device=dev)
-    t = torch.arange(T, device=dev)
-    mask = s[None, None, None, :] <= (lens[:, None, None, None] - T
-                                      + t[None, None, :, None])
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True), reps=10)
-    op_ms = ops / BF16_OPS_PER_S * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(op_ms, byte_ms)
-    bound_by = "operations" if op_ms >= byte_ms else "bytes"
-    launches = counts["decode_attention_blocks_q8"]
-    print(f"{tag} {card}: decode_attention_blocks_q8 {ms:.4f} ms/launch on q "
-          f"[{B}, {T}, {H}, {D}], {int(live.sum())} live rows, lengths "
-          f"{lens.tolist()}; plain {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention on the gathered, dequantized K/V "
-          f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); {launches} "
-          f"launches on the main path")
-    return {
-        "name": "decode_attention_blocks_q8", "route": "cuda",
-        "source": "kubeinfer_tpu_torch/inference/csrc/decode_attention.cu",
-        "replaces": Q8_REPLACES, "launches": launches,
-        "max_abs_err": chk.max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-        "library_call": "torch.nn.functional.scaled_dot_product_attention "
-                        "(enable_gqa, boolean mask) on K/V gathered through "
-                        "the table, dequantized, tails overlaid beforehand",
-        "check": f"within tolerance of its plain version (bf16: 2**-6 of "
-                 f"each live row's magnitude) on {chk.calls} calls of the "
-                 "full-width int8 path",
-    }
 
 
 def time_qmm(dev, wq, chk, card, counts):
@@ -3761,7 +3787,7 @@ def spec_phases(dev, record, card):
         fa, "decode_attention_blocks_q8", fa.decode_attention_blocks_q8_plain,
         live=q8_live_crossing,
         weight=lambda q, kp, vp, ks, vs, kt, vt, tbl, ln: (
-            int((tbl[:, 0] != 0).sum()), int(ln.sum())))
+            int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True)
     # windows from offset 600 on cross the edge at 640
     bodies = [dict(prompt=rng.integers(1, V, n).tolist(), max_tokens=64)
               for n in (600, 610, 620, 630)]
@@ -3788,12 +3814,15 @@ def spec_phases(dev, record, card):
     outs = [r["choices"][0]["tokens"] for r in resps]
     check(all(len(o) == 64 and all(0 <= x < V for x in o) for o in outs),
           "(27) tokens")
+    walk27 = chk12.walk_check("[27]")[0]
     sync_q = one_sync(cont)
     print(f"[27] the int8 verify server (--kv-dtype int8 --weight-dtype "
           f"int8, seed-1 bf16 draft): 4 greedy + 1 sampled prompts of "
           f"600-630 tokens, 64 new: decode_attention_blocks_q8 at T = "
           f"{k + 1} on {chk12.calls} calls within tolerance (max |kernel - "
-          f"plain| {chk12.max_err:.3e}), {crossing[0]} row-windows spilling "
+          f"plain| {chk12.max_err:.3e}; split-K, {walk27} live splits walked "
+          f"by the kernel's own count, equal to decode_split_walk's), "
+          f"{crossing[0]} row-windows spilling "
           f"into tail slot 1; #11 {n11} launches; quant_matmul {n15} "
           f"launches (7 a layer per target forward); quant_blocks_total "
           f"+{cont.quant_blocks_total - qb0}; {sync_q} host sync per "
@@ -3813,9 +3842,9 @@ def spec_phases(dev, record, card):
     with torch.inference_mode():
         e11 = time_decode(dev, fa, heavy11, card, "decode_attention_blocks",
                           heavy11.calls, F, tag="[28]")
-        e12 = time_q8(dev, fa, heavy12, card,
-                      {"decode_attention_blocks_q8": heavy12.calls},
-                      tag="[28]")
+        e12 = time_decode(dev, fa, heavy12, card,
+                          "decode_attention_blocks_q8", heavy12.calls, F,
+                          tag="[28]")
     wa, wb = times["window_a"], times["window_b"]
     print(f"[28] {card}: a verify window (k {k}, 8 slots) {wa[0]:.1f} ms "
           f"p50 emitting {wa[1]:.2f} tokens per row in (a), the self-draft "
@@ -3829,9 +3858,12 @@ def spec_phases(dev, record, card):
         "decode_plain_ms": times["decode_plain_ms"],
         "t5_11": {key: e11[key] for key in (
             "ms", "wall_ms", "host_us", "old_ms", "old_wall_ms", "plain_ms",
-            "bound_ms", "library_ms", "library_wall_ms", "live_splits")},
-        "t5_12": {key: e12[key] for key in ("ms", "plain_ms", "bound_ms",
-                                            "library_ms")},
+            "bound_ms", "library_ms", "library_wall_ms", "live_splits",
+            "f32_err")},
+        "t5_12": {key: e12[key] for key in (
+            "ms", "wall_ms", "host_us", "old_ms", "old_wall_ms", "plain_ms",
+            "bound_ms", "library_ms", "library_wall_ms", "live_splits",
+            "f32_err")},
     }
 
 
@@ -3998,9 +4030,11 @@ def spec_f32_full(dev, record, k):
 
 
 def spec_card_vs_cpu(dev, record, kv_dtype):
-    """The verify route at llama-3-8b widths cut to 2 layers, f32, block
-    16, a bigram draft (the target's embedding, norm and head, 0 layers:
-    it mostly guesses wrong), on the card and on the CPU: one greedy and
+    """The verify route at llama-3-8b widths cut to 2 layers, f32, blocks
+    of 128 (prompts of about 120: the windows cross a block edge), a
+    bigram draft (the target's embedding, norm and head, 0 layers: it
+    mostly guesses wrong), on the card (the kernels: the guard holds at
+    block 128 and D 128) and on the CPU (the dense route): one greedy and
     one sampled row with a repetition penalty; every token and every
     acceptance and rollback equal. ``kv_dtype`` "bf16" is the plain pool
     (#11, phase 25), "int8" the int8 pool with int8 weights (#12 and #15,
@@ -4020,7 +4054,7 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
     cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
     dcfg = dataclasses.replace(cfg, num_hidden_layers=0)
     rng = np.random.default_rng(27 if int8 else 25)
-    prompts = [rng.integers(1, cfg.vocab_size, 60).tolist() for _ in range(2)]
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (119, 122)]
     kws = ({}, dict(temperature=0.8, top_k=50, top_p=0.9,
                     repetition_penalty=1.2, seed=3))
     p_cpu = init_params(cfg, seed=27 if int8 else 25, dtype=torch.float32,
@@ -4033,8 +4067,8 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
     def run(q, device):
         d = {key: q[key] for key in ("embed_tokens", "norm", "lm_head")}
         d["layers"] = []
-        cont = ContinuousEngine(q, cfg, n_slots=2, cache_len=128,
-                                block_size=16, kv_dtype=kv_dtype,
+        cont = ContinuousEngine(q, cfg, n_slots=2, cache_len=256,
+                                block_size=128, kv_dtype=kv_dtype,
                                 weight_dtype=kv_dtype, spec_draft=(d, dcfg),
                                 spec_k=4, device=device).start()
         try:
@@ -4067,7 +4101,7 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
         codes = (f", quant_blocks_total {c_card.quant_blocks_total} on both;"
                  f" int8 pool codes that differ: {n_diff} of {diff.numel()}")
     pool = ("int8 weights + int8 KV" if int8 else "the plain pool") + \
-        " (block 16)"
+        " (block 128, prompts of 119 and 122)"
     print(f"{tag} llama-3-8b widths, 2 layers, f32, {pool}, a bigram draft, "
           f"spec_k 4: greedy + sampled (with a repetition penalty) streams "
           f"on the card ({kernel.__name__} {launches} launches) equal to "

@@ -156,6 +156,11 @@ _SIGNATURES = {
         # q, k_pool, v_pool, tables, lengths, out, ws, tickets, walked, B,
         # T, H, n_kv, D, bs, M, C, scale, dtype
         "decode_split_blocks_launch": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+        # q, k_pool, v_pool (int8), k_scales, v_scales, k_tail, v_tail,
+        # tables, lengths, out, ws, tickets, walked, B, T, H, n_kv, D, bs,
+        # M, C, scale, dtype
+        "decode_split_blocks_q8_launch":
+            [_P] * 13 + [_I] * 8 + [_F, _I, _P],
     },
     "flash_prefill": {
         # q, k, v, row_lens, out, lse (null for #9), B, T, S, H, n_kv, D,

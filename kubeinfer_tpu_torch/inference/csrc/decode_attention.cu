@@ -1,11 +1,11 @@
-// GQA decode attention for Hopper (sm_90a): kernel #12, and the first
-// kernels of #10 and #11.
+// GQA decode attention for Hopper (sm_90a): the first kernels of #10,
+// #11 and #12.
 //
-// The wrappers of #10 and #11 launch csrc/decode_split.cu (split-K) for
-// every call. decode_attention_launch and decode_attention_blocks_launch
-// stay here, one block per (row, kv head), launchable only for
-// chip_smoke.py's "old kernel on the same call" times; #12's route is
-// decode_attention_blocks_q8_launch.
+// The wrappers of #10, #11 and #12 launch csrc/decode_split.cu (split-K)
+// for every call. decode_attention_launch, decode_attention_blocks_launch
+// and decode_attention_blocks_q8_launch stay here, one block per (row, kv
+// head), launchable only for chip_smoke.py's "old kernel on the same
+// call" times.
 //
 // Replaces kubeinfer_tpu/inference/flash_attention.py:decode_attention
 // (_decode_attn_kernel, dense per-row caches, T == 1),

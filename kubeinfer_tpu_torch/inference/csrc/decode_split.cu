@@ -1,14 +1,18 @@
-// Split-K GQA decode attention for Hopper (sm_90a): kernels #10 and #11.
+// Split-K GQA decode attention for Hopper (sm_90a): kernels #10, #11 and
+// #12.
 //
 // Replaces kubeinfer_tpu/inference/flash_attention.py:decode_attention
-// (:504, _decode_attn_kernel: dense per-row caches, T == 1) and
+// (:504, _decode_attn_kernel: dense per-row caches, T == 1),
 // :decode_attention_blocks (:779, _decode_blocks_kernel: a paged pool
 // read through block tables, T >= 1, the speculative verify windows
-// included). Plain PyTorch versions:
-// kubeinfer_tpu_torch/inference/flash_attention.py:decode_attention_plain
-// and :decode_attention_blocks_plain, which this kernel matches within a
-// stated tolerance (the sums run in another order);
-// :decode_split_combine_plain mirrors its split-and-combine arithmetic.
+// included) and :decode_attention_blocks_q8 (:1115,
+// _decode_blocks_q8_kernel: the same walk over the int8 pool). Plain
+// PyTorch versions:
+// kubeinfer_tpu_torch/inference/flash_attention.py:decode_attention_plain,
+// :decode_attention_blocks_plain and :decode_attention_blocks_q8_plain,
+// which this kernel matches within a stated tolerance (the sums run in
+// another order); :decode_split_combine_plain mirrors its
+// split-and-combine arithmetic.
 //
 // What it computes. For batch row b and kv head h, the R = T*G folded
 // query rows r = t*G + g (query t, head h*G + g) attend key positions p
@@ -18,6 +22,15 @@
 // before P.V, and out = acc / max(l, 1e-30) in q's dtype. Position p
 // lives at k[b, p] (linear cache [B, S, n_kv, D]) or at
 // pool[tables[b, p / bs], p % bs] (paged pool [num_blocks, bs, n_kv, D]).
+// The int8 pool (#12) holds int8 pages [num_blocks, bs, n_kv, D], one f32
+// scale per (block, kv head) and per-row tails [B, 2, bs, n_kv, D] in q's
+// dtype. With the tail base tb = max(len - T, 0) / bs (derived on the
+// device from lengths, as the reference derives it), position p of page
+// ts = p / bs reads tail[b, min(ts - tb, 1), p % bs] verbatim when
+// ts >= tb, else code * scale of block tables[b, ts] in f32, rounded once
+// to q's dtype (the reference's _dequant_tile): the effective K/V tiles
+// are bitwise the plain version's, and only the tile loader differs
+// from #11's.
 // A row with len >= T walks [0, min(len, S_total)): every later position
 // is masked for every query and adds exactly 0. A row with len < T has
 // queries with no live position, whose defined output is the uniform
@@ -25,9 +38,10 @@
 // them (null-padded table entries included), as the reference does.
 //
 // Bound on this card: bytes. The live K and V of every (row, kv head)
-// are read once (2 * walk * D * sizeof(T) each); at T*G = 4-20 folded
-// rows that is 4-20 FLOP a byte, far below the ridge, so the least time
-// is the live K/V over 3.35 TB/s.
+// are read once (2 * walk * D * sizeof(T) each; a committed int8 page one
+// byte a value and its two scales); at T*G = 4-20 folded rows that is
+// 4-20 FLOP a byte, far below the ridge, so the least time is the live
+// K/V over 3.35 TB/s.
 //
 // Design.
 // 1. Split the keys across blocks. The grid is (B * n_kv * row_blocks,
@@ -107,6 +121,18 @@
 //    difference; exited splits take no part in the combine.
 // 6. Per-call host work: the shared-memory attribute is set once per
 //    instantiation and device, not every launch.
+// 7. The int8 pool (#12) keeps everything above and changes the loader.
+//    The block reads, per page of its split, the table entry and (for a
+//    page before the tail base) the page's K and V scales, right after
+//    the row's length. A tail page's rows are copied verbatim with
+//    cp.async, as #11 copies a pool page; a committed page's int8 codes
+//    (half of bf16's bytes, a quarter of f32's) are copied with cp.async
+//    into a staging ring beside the K/V ring, and once a tile has landed
+//    the block dequantizes them, __fmul_rn(code, scale) rounded once to
+//    q's dtype, into the same padded ring rows the walk reads (one more
+//    barrier a tile). At decode_split_size(128, True) a split is one page,
+//    so its tiles are all tail or all committed; a direct call at bs 16 or
+//    64 puts several pages in a split, and the loader decides per page.
 //
 // walked (an int counter or null): each live block adds 1, so one launch
 // adds n_kv * row_blocks * sum over rows of the live splits
@@ -226,8 +252,35 @@ __device__ __forceinline__ void load_row(const T* row, int gl, int lanes,
   }
 }
 
-// where key position p lives
-enum Src { kLinear = 0, kPaged = 1 };
+// where key position p lives: a linear cache, a pool page, or (kQ8) an
+// int8 pool page or the row's tail
+enum Src { kLinear = 0, kPaged = 1, kQ8 = 2 };
+
+// the int8 pool's pages and scales (kQ8; unused otherwise): k and v of
+// the kernel are then the tails
+struct Q8 {
+  const int8_t* kq;  // int8 pages [num_blocks, bs, n_kv, D]
+  const int8_t* vq;
+  const float* ks;  // f32 scales [num_blocks, n_kv]
+  const float* vs;
+};
+
+// 16 int8 codes times their scale in f32, each rounded once to T, into
+// 16 values of T (16-byte aligned)
+template <typename T>
+__device__ __forceinline__ void dequant16(const int8_t* src, float scale,
+                                          T* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  uint4 w[sizeof(T)];  // 16 values of T
+  T* e = reinterpret_cast<T*>(w);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    e[i] = from_f<T>(__fmul_rn(static_cast<float>(c[i]), scale));
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(T); ++i)
+    reinterpret_cast<uint4*>(dst)[i] = w[i];
+}
 
 // launch geometry, computed on the host (geometry below)
 struct Geo {
@@ -240,6 +293,7 @@ struct Geo {
   int kt;          // keys a stage
   int ld;          // elements a key row takes in the ring
   int C;           // positions a split
+  int pages;       // pool pages a split (C / bs; 0 for the linear cache)
   int warps;       // warps a block: row_warps * kslices, at least 4
   int stages;      // stages of the ring: kStages, or the split's tiles
 };
@@ -254,8 +308,9 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
     const int* __restrict__ lengths, T* __restrict__ out,
     float* __restrict__ ws, int* __restrict__ tickets,
     int* __restrict__ walked, int Tq, int H, int n_kv, int D, int width,
-    int M, float scale, Geo geo) {
-  // width: S of the linear cache, or the pool's block size bs
+    int M, float scale, Geo geo, Q8 q8) {
+  // width: S of the linear cache, or the pool's block size bs; kQ8: k
+  // and v are the tails [B, 2, bs, n_kv, D]
   constexpr bool kMma = kDT > 0;
   constexpr int EV = 16 / sizeof(T);
   constexpr int kBlockRows = kMma ? kMmaRows : kCoreRows;
@@ -274,9 +329,19 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
   const int stages = geo.stages;
   T* k_ring = reinterpret_cast<T*>(smem);        // [stages][kt][ld]
   T* v_ring = k_ring + (size_t)stages * kt * ld;  // [stages][kt][ld]
-  // the paged pool: the element offset of each position of the split
-  size_t* rowoff =
-      reinterpret_cast<size_t*>(v_ring + (size_t)stages * kt * ld);
+  // kQ8: the committed pages' codes land here first, [stages][kt][D]
+  int8_t* k8_ring =
+      reinterpret_cast<int8_t*>(v_ring + (size_t)stages * kt * ld);
+  int8_t* v8_ring = k8_ring + (size_t)stages * kt * D;
+  // kPaged: the element offset of each position of the split; kQ8: of
+  // each page's first row (in the tail or in the pages), with the page's
+  // scales and whether it is a tail page
+  size_t* rowoff = reinterpret_cast<size_t*>(
+      kSrc == kQ8 ? v8_ring + (size_t)stages * kt * D
+                  : reinterpret_cast<int8_t*>(k8_ring));
+  float* pg_ks = reinterpret_cast<float*>(rowoff + geo.pages);
+  float* pg_vs = pg_ks + geo.pages;
+  int* pg_tail = reinterpret_cast<int*>(pg_vs + geo.pages);
   // the block's merge: per row its m, l and the key slices' weights
   __shared__ float s_m[kBlockRows], s_l[kBlockRows];
   __shared__ float s_w[2 * kSlices][kBlockRows];
@@ -294,11 +359,30 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
                     (p - pg * width)) * n_kv + h) * D;
     }
   }
+  if constexpr (kSrc == kQ8) {
+    // per page: the row's tail slot min(ts - tb, 1) from the tail base
+    // on, else the int8 page of the table entry and its scales
+    const int tb = max(len - Tq, 0) / width;
+    const int pg0 = p0 / width;
+    for (int i = tid; i < min(geo.C, s_total - p0) / width; i += nthreads) {
+      const int ts = pg0 + i;
+      const size_t blk = tables[(size_t)b * M + ts];
+      if (ts >= tb) {
+        rowoff[i] = (((size_t)b * 2 + min(ts - tb, 1)) * width * n_kv + h) * D;
+        pg_tail[i] = 1;
+      } else {
+        rowoff[i] = (blk * width * n_kv + h) * D;
+        pg_ks[i] = q8.ks[blk * n_kv + h];
+        pg_vs[i] = q8.vs[blk * n_kv + h];
+        pg_tail[i] = 0;
+      }
+    }
+  }
   const int walk = len < Tq ? s_total : min(len, s_total);
   if (p0 >= walk) return;  // past the row's walk: no part in anything
   const int p1 = min(p0 + geo.C, walk);
   const int n_live = (walk + geo.C - 1) / geo.C;
-  if constexpr (kSrc == kPaged) __syncthreads();
+  if constexpr (kSrc != kLinear) __syncthreads();
 
   const int rw = warp % geo.row_warps;   // this warp's rows
   const int ksl = warp / geo.row_warps;  // and key slice
@@ -328,7 +412,29 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
       const int nk = min(kt, p1 - base);
       T* kd = k_ring + (size_t)stage * kt * ld + copy_ch * EV;
       T* vd = v_ring + (size_t)stage * kt * ld + copy_ch * EV;
-      if (copier) {
+      if constexpr (kSrc == kQ8) {
+        const size_t slot = (size_t)n_kv * D;  // elements between rows
+        // tail pages: the rows in T, verbatim, as a pool page of #11
+        for (int j = copy_j; copier && j < nk; j += copy_step) {
+          const int x = base - p0 + j, i = x / width;
+          if (!pg_tail[i]) continue;
+          const size_t off = rowoff[i] + (x - i * width) * slot + copy_ch * EV;
+          cp_async16(kd + j * ld, k + off);
+          cp_async16(vd + j * ld, v + off);
+        }
+        // committed pages: the int8 codes into the staging ring
+        const int ch8 = D / 16;
+        int8_t* kd8 = k8_ring + (size_t)stage * kt * D;
+        int8_t* vd8 = v8_ring + (size_t)stage * kt * D;
+        for (int c = tid; c < nk * ch8; c += nthreads) {
+          const int j = c / ch8, x = base - p0 + j, i = x / width;
+          if (pg_tail[i]) continue;
+          const int cb = (c - j * ch8) * 16;
+          const size_t off = rowoff[i] + (x - i * width) * slot + cb;
+          cp_async16(kd8 + (size_t)j * D + cb, q8.kq + off);
+          cp_async16(vd8 + (size_t)j * D + cb, q8.vq + off);
+        }
+      } else if (copier) {
         for (int j = copy_j; j < nk; j += copy_step) {
           size_t off = copy_ch * EV;
           if constexpr (kSrc == kPaged) {
@@ -350,6 +456,29 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
       }
     }
     cp_async_commit();
+  };
+  // kQ8, once tile `it` has landed: its committed positions' codes times
+  // their page's scale, rounded once to T, into the ring rows the walk
+  // reads; a barrier before the walk
+  auto dequant = [&](int it) {
+    if constexpr (kSrc == kQ8) {
+      const int stage = it % stages, base = p0 + it * kt;
+      const int nk = min(kt, p1 - base), ch8 = D / 16;
+      const int8_t* ks8 = k8_ring + (size_t)stage * kt * D;
+      const int8_t* vs8 = v8_ring + (size_t)stage * kt * D;
+      T* kw = k_ring + (size_t)stage * kt * ld;
+      T* vw = v_ring + (size_t)stage * kt * ld;
+      for (int c = tid; c < nk * ch8; c += nthreads) {
+        const int j = c / ch8, i = (base - p0 + j) / width;
+        if (pg_tail[i]) continue;
+        const int cb = (c - j * ch8) * 16;
+        dequant16<T>(ks8 + (size_t)j * D + cb, pg_ks[i],
+                     kw + (size_t)j * ld + cb);
+        dequant16<T>(vs8 + (size_t)j * D + cb, pg_vs[i],
+                     vw + (size_t)j * ld + cb);
+      }
+      __syncthreads();
+    }
   };
 
   // the merge area, over the ring once the walk is done:
@@ -397,6 +526,7 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
       issue(it + kStages - 1);
       cp_async_wait<kStages - 1>();
       __syncthreads();  // tile `it` is in shared memory for every thread
+      dequant(it);
       const T* kb = k_ring + (size_t)(it % stages) * kt * ld;
       const T* vb = v_ring + (size_t)(it % stages) * kt * ld;
       const int base = p0 + it * kt;
@@ -532,6 +662,7 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
       issue(it + kStages - 1);
       cp_async_wait<kStages - 1>();
       __syncthreads();  // tile `it` is in shared memory for every thread
+      dequant(it);
       const T* kb = k_ring + (size_t)(it % stages) * kt * ld;
       const T* vb = v_ring + (size_t)(it % stages) * kt * ld;
       const int base = p0 + it * kt;
@@ -743,19 +874,27 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(
   }
 }
 
-// the bytes of the ring, and of the paged pool's offsets beside it
+// the bytes of the ring, and beside it the paged pool's offsets or the
+// int8 pool's staging ring and page records
 template <typename T, int kSrc>
 size_t ring_bytes(const Geo& g) {
-  return (size_t)2 * g.stages * g.kt * g.ld * sizeof(T) +
-         (kSrc == kPaged ? sizeof(size_t) * g.C : 0);
+  size_t bytes = (size_t)2 * g.stages * g.kt * g.ld * sizeof(T);
+  if (kSrc == kPaged) bytes += sizeof(size_t) * g.C;
+  if (kSrc == kQ8) {
+    const size_t d = (size_t)g.chunks * 16 / sizeof(T);  // D
+    bytes += 2 * g.stages * g.kt * d +
+             (sizeof(size_t) + 2 * sizeof(float) + sizeof(int)) * g.pages;
+  }
+  return bytes;
 }
 
 template <typename T, int kNch, int kSrc, int kDT>
-Geo geometry(int R, int D, int C) {
+Geo geometry(int R, int D, int C, int pages) {
   constexpr bool kMma = kDT > 0;
   Geo g;
   g.rows = R;
   g.C = C;
+  g.pages = pages;
   g.chunks = D * (int)sizeof(T) / 16;
   const int block_rows = kMma ? kMmaRows : kCoreRows;
   g.row_blocks = (R + block_rows - 1) / block_rows;
@@ -803,8 +942,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* tables, const void* lengths, void* out,
                    void* ws, void* tickets, void* walked, int B, int Tq,
                    int H, int n_kv, int D, int width, int M, int C,
-                   float scale, cudaStream_t stream) {
-  const Geo g = geometry<T, kNch, kSrc, kDT>(Tq * (H / n_kv), D, C);
+                   float scale, Q8 q8, cudaStream_t stream) {
+  const Geo g = geometry<T, kNch, kSrc, kDT>(Tq * (H / n_kv), D, C,
+                                             kSrc == kLinear ? 0 : C / width);
   const int s_total = kSrc == kLinear ? width : M * width;
   const int n_split = (s_total + C - 1) / C;
   const long long rows_x = (long long)B * n_kv * g.row_blocks;
@@ -836,7 +976,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<T*>(out),
       static_cast<float*>(ws), static_cast<int*>(tickets),
-      static_cast<int*>(walked), Tq, H, n_kv, D, width, M, scale, g);
+      static_cast<int*>(walked), Tq, H, n_kv, D, width, M, scale, g, q8);
   return cudaGetLastError();
 }
 
@@ -845,14 +985,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* tables, const void* lengths, void* out,
                      void* ws, void* tickets, void* walked, int B, int Tq,
                      int H, int n_kv, int D, int width, int M, int C,
-                     float scale, int dtype, cudaStream_t st) {
+                     float scale, int dtype, Q8 q8, cudaStream_t st) {
   if (B <= 0) return cudaSuccess;
   if (Tq <= 0 || n_kv <= 0 || H % n_kv || D <= 0 || D % 16 || D > 256 ||
-      width <= 0 || C <= 0 || (kSrc == kPaged && (M <= 0 || C % width)))
+      width <= 0 || C <= 0 || (kSrc != kLinear && (M <= 0 || C % width)))
     return cudaErrorInvalidValue;
 #define SPLIT_ARGS                                                        \
   q, k, v, tables, lengths, out, ws, tickets, walked, B, Tq, H, n_kv, D, \
-      width, M, C, scale, st
+      width, M, C, scale, q8, st
   using bf16 = __nv_bfloat16;
   if (dtype == 1) {  // tensor cores, registers sized by D's power of two
     if (D <= 16) return launch<bf16, 1, kSrc, 16>(SPLIT_ARGS);
@@ -883,7 +1023,7 @@ extern "C" int decode_split_launch(const void* q, const void* k,
                                    int dtype, void* stream) {
   return dispatch<kLinear>(q, k, v, nullptr, lengths, out, ws, tickets,
                            walked, B, 1, H, n_kv, D, S, 0, C, scale, dtype,
-                           static_cast<cudaStream_t>(stream));
+                           Q8{}, static_cast<cudaStream_t>(stream));
 }
 
 // the paged pool [num_blocks, bs, n_kv, D] through tables i32[B, M]; C a
@@ -895,7 +1035,25 @@ extern "C" int decode_split_blocks_launch(
     int bs, int M, int C, float scale, int dtype, void* stream) {
   return dispatch<kPaged>(q, k_pool, v_pool, tables, lengths, out, ws,
                           tickets, walked, B, T, H, n_kv, D, bs, M, C, scale,
-                          dtype, static_cast<cudaStream_t>(stream));
+                          dtype, Q8{}, static_cast<cudaStream_t>(stream));
+}
+
+// the int8 pool: int8 pages [num_blocks, bs, n_kv, D] with f32 scales
+// [num_blocks, n_kv] and tails [B, 2, bs, n_kv, D] in q's dtype, through
+// tables i32[B, M]; C, ws and tickets as for the paged pool
+extern "C" int decode_split_blocks_q8_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scales, const void* v_scales, const void* k_tail,
+    const void* v_tail, const void* tables, const void* lengths, void* out,
+    void* ws, void* tickets, void* walked, int B, int T, int H, int n_kv,
+    int D, int bs, int M, int C, float scale, int dtype, void* stream) {
+  const Q8 q8{static_cast<const int8_t*>(k_pool),
+              static_cast<const int8_t*>(v_pool),
+              static_cast<const float*>(k_scales),
+              static_cast<const float*>(v_scales)};
+  return dispatch<kQ8>(q, k_tail, v_tail, tables, lengths, out, ws, tickets,
+                       walked, B, T, H, n_kv, D, bs, M, C, scale, dtype, q8,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* decode_split_error_string(int code) {

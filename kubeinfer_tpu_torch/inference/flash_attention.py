@@ -30,8 +30,9 @@ counterparts here:
   a tile at or past the row's tail base reads the tail verbatim, any
   other the dequantized page rounded to the compute dtype
   (``_dequant_tile``). Plain version ``decode_attention_blocks_q8_plain``;
-  kernel ``csrc/decode_attention.cu`` (``decode_kernel`` with its q8
-  tile loader: one block per (row, kv head), no split yet).
+  kernel ``csrc/decode_split.cu`` (#11's split-K walk with a loader that
+  copies tail pages verbatim and dequantizes committed int8 pages in
+  shared memory).
 - #13 ``_diff_fwd`` (``_flash_ragged_lse_kernel``): #9's fold plus the
   per-row logsumexp the backward needs. Plain version
   ``flash_ragged_lse_plain``; #9's kernel on the same route with its lse
@@ -61,14 +62,17 @@ bf16 with D % 64 == 0 (every D ``flash_available`` admits) and G <= 64
 takes the tensor-core kernel and also counts ``<wrapper>.tc_launches``;
 f32 and other head widths take the CUDA-core kernel, in full f32. The
 backward wrappers (#14) choose theirs the same way (``tc_bwd_route``:
-bf16 with D 64 or 128). The decode wrappers (#10, #11) launch the
+bf16 with D 64 or 128). The decode wrappers (#10, #11, #12) launch the
 split-K kernel for every CUDA call and, where ``<wrapper>.walk_counter``
 holds an int32 CUDA tensor, add to it the live splits the kernel's
-blocks walk. The routers
-(``decode_attention_auto``, ``decode_attention_blocks_auto``,
-``decode_attention_blocks_q8_auto``) bind the
-wrappers with the reference's signatures; their ``mask`` operand is the
-reference's dense-fallback operand and is not read. ``attention_auto``
+blocks walk. The routers (``decode_attention_auto``,
+``decode_attention_blocks_auto``, ``decode_attention_blocks_q8_auto``)
+bind as the reference's do: the wrapper where the reference's guard
+(``decode_flash_available`` with T == 1, ``decode_blocks_available``)
+holds on the tensors' device, else the dense ``model.attention`` over
+``mask`` (the paged ones over ``gather_block_kv`` /
+``dequant_gather_block_kv`` of the pools); every CPU tensor goes
+dense. ``attention_auto``
 is the reference's drop-in for ``forward(attn_fn=...)``: #9b where
 ``flash_available`` holds, the dense ``model.attention`` elsewhere.
 ``FlashCausalDiff`` (``flash_attention_causal_diff``) is the reference's
@@ -89,10 +93,9 @@ import torch
 TILE_T = 256  # query positions per tile
 TILE_S = 512  # key positions per tile
 # shapes the kernels take: head width a multiple of 16 up to 256, f32 or
-# bf16 operands, and at most this much shared memory per block
+# bf16 operands
 KERNEL_MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232448
 # the tensor-core prefill kernel's tiles: a block holds TC_ROWS folded
 # query rows (TC_ROWS // G positions x G heads), a key tile TC_KEYS keys
 TC_ROWS = 64
@@ -102,7 +105,7 @@ TC_KEYS = 64
 # the forward's (TC_ROWS rows, key tiles of TC_KEYS)
 TC_BWD_KEYS = 128
 TC_BWD_D = (64, 128)
-# the split-K decode kernel (#10, #11): a block walks this many
+# the split-K decode kernel (#10, #11, #12): a block walks this many
 # consecutive positions of one (row, kv head) of a linear cache, or the
 # whole pool pages that make at least DECODE_SPLIT_PAGED
 # (decode_split_size), and holds at most DECODE_BLOCK_ROWS[dtype] folded
@@ -679,14 +682,6 @@ def _launch(lib, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
 
 
-def decode_smem_bytes(rows: int, D: int) -> int:
-    """Shared memory of one #12 block (csrc/decode_attention.cu): the
-    block's T*G query rows and accumulators, a 32-key K (padded) and V
-    tile, the score tile and the per-row softmax state."""
-    kt = 32
-    return 4 * (2 * rows * D + kt * (D + 1) + kt * D + rows * kt + 3 * rows)
-
-
 # the split-K kernel's tickets: int32, one per (row, kv head, row block)
 # of the largest grid launched on a (device, stream), zeroed once when
 # allocated; every launch leaves them zero
@@ -815,10 +810,12 @@ decode_attention_blocks.walk_counter = None
 def decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales, k_tail,
                                v_tail, block_tables, lengths):
     """#12 on the tensors' device: for CUDA tensors one launch of
-    ``decode_attention_blocks_q8_launch`` (#11's walk with the
-    dequant-or-tail tile loader); for CPU tensors
-    ``decode_attention_blocks_q8_plain``."""
-    lib = _kernel_lib(q, "decode_attention_blocks_q8", "decode_attention")
+    ``decode_split_blocks_q8_launch`` (#11's split-K walk, whose loader
+    copies a page at or past the row's tail base from the tail verbatim
+    and dequantizes any other from its int8 codes and scale); for CPU
+    tensors ``decode_attention_blocks_q8_plain``. ``walk_counter`` as for
+    #11."""
+    lib = _kernel_lib(q, "decode_attention_blocks_q8", "decode_split")
     if lib is None:
         return decode_attention_blocks_q8_plain(
             q, k_pool, v_pool, k_scales, v_scales, k_tail, v_tail,
@@ -827,28 +824,30 @@ def decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales, k_tail,
     NB, bs, n_kv = k_pool.shape[:3]
     M = block_tables.shape[1]
     _check_head("decode_attention_blocks_q8", q, D)
-    if H % n_kv or decode_smem_bytes(T * (H // n_kv), D) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attention_blocks_q8: no kernel for q "
-                         f"{tuple(q.shape)} with {n_kv} kv heads")
-    dev = q.device
-    _check("q", q, q.dtype, (B, T, H, D), dev)
-    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
-        _check(name, pool, torch.int8, (NB, bs, n_kv, D), dev)
-    for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
-        _check(name, sc, torch.float32, (NB, n_kv), dev, align=4)
-    for name, tail in (("k_tail", k_tail), ("v_tail", v_tail)):
-        _check(name, tail, q.dtype, (B, 2, bs, n_kv, D), dev)
-    _check("block_tables", block_tables, torch.int32, (B, M), dev)
-    _check("lengths", lengths, torch.int32, (B,), dev)
-    out = torch.empty_like(q)
-    _launch(lib, "decode_attention_blocks_q8_launch", q, k_pool, v_pool,
-            k_scales, v_scales, k_tail, v_tail, block_tables, lengths, out,
-            B, T, H, n_kv, D, bs, M, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype])
-    decode_attention_blocks_q8.launches += 1
-    return out
+    if H % n_kv:
+        raise ValueError(f"decode_attention_blocks_q8: {H} heads over {n_kv} "
+                         "kv heads")
+    dt, i8, f32 = q.dtype, torch.int8, torch.float32
+    pages, tails = (NB, bs, n_kv, D), (B, 2, bs, n_kv, D)
+    _check_split((("q", q, dt, (B, T, H, D), 16),
+                  ("k_pool", k_pool, i8, pages, 16),
+                  ("v_pool", v_pool, i8, pages, 16),
+                  ("k_scales", k_scales, f32, (NB, n_kv), 4),
+                  ("v_scales", v_scales, f32, (NB, n_kv), 4),
+                  ("k_tail", k_tail, dt, tails, 16),
+                  ("v_tail", v_tail, dt, tails, 16),
+                  ("block_tables", block_tables, torch.int32, (B, M), 4),
+                  ("lengths", lengths, torch.int32, (B,), 4)), q.device)
+    return _split_launch(decode_attention_blocks_q8, lib,
+                         "decode_split_blocks_q8_launch", q,
+                         (q, k_pool, v_pool, k_scales, v_scales, k_tail,
+                          v_tail, block_tables, lengths), n_kv, M * bs,
+                         decode_split_size(bs, True),
+                         (B, T, H, n_kv, D, bs, M))
 
 
 decode_attention_blocks_q8.launches = 0
+decode_attention_blocks_q8.walk_counter = None
 
 
 def _check_ragged(name, q, k, v, row_lens, extra=()):
@@ -1080,36 +1079,120 @@ flash_bwd_dkv.walk_counter = None
 # --- routers -----------------------------------------------------------------
 
 
+def decode_flash_available(S: int, D: int, device) -> bool:
+    """The reference's guard on the linear caches its decode kernel (#10)
+    takes, word for word, with its accelerator test read as "``device``
+    is CUDA": ``flash_available``'s contract without the T terms."""
+    return (
+        torch.device(device).type == "cuda"
+        and S % min(TILE_S, S) == 0
+        and S % 128 == 0
+        and S >= 128
+        and D % 64 == 0
+    )
+
+
+def decode_blocks_available(block_size: int, D: int, device) -> bool:
+    """The reference's guard on the pools its paged decode kernels (#11,
+    #12) take, word for word, with its accelerator test read as
+    "``device`` is CUDA": ``decode_flash_available`` with S replaced by
+    the pool's block size. Small-block configs take the gather + dense
+    route."""
+    return (
+        torch.device(device).type == "cuda"
+        and block_size % 128 == 0
+        and block_size >= 128
+        and D % 64 == 0
+    )
+
+
+def gather_block_kv(pool, block_tables):
+    """[num_blocks, bs, n_kv, D] pool -> [B, max_blocks * bs, n_kv, D],
+    each row's linear view through its table (the reference's
+    ``gather_block_kv``): the dense route's K/V."""
+    _, bs, n_kv, D = pool.shape
+    B, M = block_tables.shape
+    return pool[block_tables.long()].reshape(B, M * bs, n_kv, D)
+
+
+def dequant_gather_block_kv(pool, scales, tail, block_tables, tail_base):
+    """``gather_block_kv`` for the int8 pool (the reference's
+    ``dequant_gather_block_kv``): the gathered pages times their scales in
+    f32, table entries ``tail_base[b]`` and the next one overlaid by the
+    row's two tail slots, cast once to the tail's dtype; [B, max_blocks
+    * bs, n_kv, D]."""
+    _, bs, n_kv, D = pool.shape
+    B, M = block_tables.shape
+    tbl = block_tables.long()
+    deq = pool[tbl].float() * scales[tbl][:, :, None, :, None]
+    rel = (torch.arange(M, device=pool.device)[None, :]
+           - tail_base.long()[:, None])
+    use_tail = (rel >= 0) & (rel < 2)
+    tg = tail[torch.arange(B, device=pool.device)[:, None], rel.clamp(0, 1)]
+    out = torch.where(use_tail[:, :, None, None, None], tg.float(), deq)
+    return out.to(tail.dtype).reshape(B, M * bs, n_kv, D)
+
+
+def _dense_decode(q, k, v, mask):
+    """The routers' dense route: ``model.attention`` over the reference's
+    mask, which the caller must pass (the route never derives one)."""
+    if mask is None:
+        raise ValueError(
+            f"the decode routers' dense route needs the reference's mask: "
+            f"q {tuple(q.shape)} over {tuple(k.shape)} fails the kernel's "
+            f"guard on {q.device}")
+    from kubeinfer_tpu_torch.inference.model import attention
+
+    return attention(q, k, v, mask)
+
+
 def decode_attention_auto(q, k, v, lengths, mask=None):
-    """Decode-step attention with the reference router's signature: the
-    #10 wrapper (kernel on CUDA, plain version on the CPU). ``lengths``
-    must be the live set the reference's ``mask`` describes."""
-    del mask  # the reference's dense-fallback operand
-    return decode_attention(q, k, v, lengths)
+    """Decode-step attention, the reference's router: #10
+    (``decode_attention``) iff T == 1 and ``decode_flash_available(S, D)``
+    holds on q's device, else the dense ``model.attention`` over ``mask``.
+    ``lengths`` and ``mask`` must describe the same live set."""
+    if q.shape[1] == 1 and decode_flash_available(k.shape[1], q.shape[3],
+                                                  q.device):
+        return decode_attention(q, k, v, lengths)
+    return _dense_decode(q, k, v, mask)
 
 
 def decode_attention_blocks_auto(q, k_pool, v_pool, block_tables, lengths,
                                  mask=None):
-    """Paged decode-step attention with the reference router's signature:
-    the #11 wrapper for any T >= 1. The reference's tp>1 route (table
-    gather + dense, ``gspmd=True``) waits with sharding.py."""
-    del mask
-    return decode_attention_blocks(q, k_pool, v_pool, block_tables, lengths)
+    """Paged decode-step attention, the reference's router: #11
+    (``decode_attention_blocks``, any T >= 1) iff
+    ``decode_blocks_available(bs, D)`` holds on q's device, else the
+    dense ``model.attention`` over ``mask`` on both pools gathered
+    through the tables. ``mask`` must be s <= lengths[b] - T + t. The
+    reference's tp > 1 route (``gspmd=True``) waits with sharding.py."""
+    if decode_blocks_available(k_pool.shape[1], q.shape[3], q.device):
+        return decode_attention_blocks(q, k_pool, v_pool, block_tables,
+                                       lengths)
+    return _dense_decode(q, gather_block_kv(k_pool, block_tables),
+                         gather_block_kv(v_pool, block_tables), mask)
 
 
 def decode_attention_blocks_q8_auto(q, k_pool, v_pool, k_scales, v_scales,
                                     k_tail, v_tail, block_tables, lengths,
                                     mask=None, gspmd=False):
-    """Paged decode over the int8 pool with the reference router's
-    signature: the #12 wrapper for any T >= 1. The reference's
-    dequantize-gather + dense route (its CPU and tp>1 fallback) waits
-    with sharding.py, as #11's dense route does."""
-    del mask
+    """Paged decode over the int8 pool, the reference's router: #12
+    (``decode_attention_blocks_q8``) under #11's guard, else the dense
+    ``model.attention`` over ``mask`` on ``dequant_gather_block_kv`` of
+    both pools, with the tail base max(lengths - T, 0) // bs both routes
+    derive."""
     if gspmd:
         raise NotImplementedError(
             "the GSPMD route: ROADMAP Queue 1, slice 6: sharding.py / tp")
-    return decode_attention_blocks_q8(q, k_pool, v_pool, k_scales, v_scales,
-                                      k_tail, v_tail, block_tables, lengths)
+    bs = k_pool.shape[1]
+    if decode_blocks_available(bs, q.shape[3], q.device):
+        return decode_attention_blocks_q8(q, k_pool, v_pool, k_scales,
+                                          v_scales, k_tail, v_tail,
+                                          block_tables, lengths)
+    tb = torch.clamp(lengths.long() - q.shape[1], min=0) // bs
+    return _dense_decode(
+        q, dequant_gather_block_kv(k_pool, k_scales, k_tail, block_tables, tb),
+        dequant_gather_block_kv(v_pool, v_scales, v_tail, block_tables, tb),
+        mask)
 
 
 # --- the differentiable causal route (training) -------------------------------

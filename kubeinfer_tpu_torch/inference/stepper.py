@@ -6,7 +6,10 @@ Counterpart of ``kubeinfer_tpu/inference/stepper.py`` (tp=1):
   The dense route (per-row ``[B, S, ...]`` caches, the per-request
   engine) reads through kernel #10, the paged route (shared block pool +
   ``i32[B, max_blocks]`` tables, the continuous batcher) through #11, or
-  through #12 when the pool is int8 (``kv_dtype="int8"``).
+  through #12 when the pool is int8 (``kv_dtype="int8"``), each where
+  the reference's guard holds (``decode_flash_available``,
+  ``decode_blocks_available``); elsewhere both take the dense
+  ``attention`` over the reference's mask.
 - :func:`decode_window` is the continuous batcher's K-step window: K
   :func:`decode_body` steps in a Python loop over the slot state, whose
   pool is written in place; it returns the ``[n_slots, K]`` tokens
@@ -196,24 +199,35 @@ def step_forward(params: Params, cfg: ModelConfig, tok: torch.Tensor,
                  block_tables: torch.Tensor | None = None):
     """One decode token for a length-ragged batch; returns (logits
     f32[B, V], kv_caches written in place). Both routes write the step's
-    K/V at each row's own offset and attend positions < offset + 1."""
+    K/V at each row's own offset and attend positions < offset + 1: the
+    routers' kernel (#10, or #11 / #12 on the pool) where its guard holds,
+    else the dense route over the reference's mask, which is built only
+    then (the guard reads shapes alone, once a call, on the host)."""
     lengths = (offset + 1).to(torch.int32)
+    dev = tok.device
     if block_tables is None:
-        def attn_fn(q, k, v, _mask):
-            return fa.decode_attention_auto(q, k, v, lengths)
+        kernel = fa.decode_flash_available(cache_len, cfg.head_dim, dev)
+
+        def attn_fn(q, k, v, mask):
+            return fa.decode_attention_auto(q, k, v, lengths, mask)
     else:
+        kernel = fa.decode_blocks_available(
+            cache_len // block_tables.shape[1], cfg.head_dim, dev)
         quantized = bool(kv_caches) and isinstance(kv_caches[0][0], tuple)
 
-        def attn_fn(q, kc, vc, _mask):
+        def attn_fn(q, kc, vc, mask):
             if quantized:  # (pages, scales, tail) triples: #12
                 return fa.decode_attention_blocks_q8_auto(
                     q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2],
-                    block_tables, lengths)
+                    block_tables, lengths, mask)
             return fa.decode_attention_blocks_auto(q, kc, vc, block_tables,
-                                                   lengths)
+                                                   lengths, mask)
+    mask = None if kernel else (
+        torch.arange(cache_len, device=dev)[None, None, :]
+        < lengths[:, None, None])  # [B, 1, S]
     logits, kv_caches = forward(
         params, tok[:, None], cfg, positions=offset[:, None].long(),
-        kv_caches=kv_caches, cache_offset=offset.long(),
+        attn_mask=mask, kv_caches=kv_caches, cache_offset=offset.long(),
         block_tables=block_tables, attn_fn=attn_fn,
     )
     return logits[:, 0], kv_caches
@@ -363,8 +377,10 @@ def verify_window(params: Params, state: SlotState, dparams: Params,
                   ) -> tuple[SlotState, DraftState, torch.Tensor]:
     """The speculative twin of :func:`decode_window`: every live row gets
     k draft proposals, one target forward scores the k + 1 window
-    positions through the paged kernel (#11, or #12 on the int8 pool, at
-    T = k + 1), and each row emits its accepted prefix. Returns (state,
+    positions through the paged router (#11, or #12 on the int8 pool, at
+    T = k + 1, where its guard holds; else the dense route over the
+    reference's window mask), and each row emits its accepted prefix.
+    Returns (state,
     dstate, toks i64[B, k + 1]): row b's first n_emit entries are its
     tokens, the rest -1. Nothing is read back (the caller's readback is
     the window's one host sync); the pool, the draft caches, ``seen`` and
@@ -424,18 +440,24 @@ def verify_window(params: Params, state: SlotState, dparams: Params,
     positions = o[:, None] + torch.arange(T, device=dev)[None, :]
     lengths = (o + T).to(torch.int32)
     if state.quantized:
-        # #12 derives the window's tail base (lengths - T) // bs itself
-        def attn_fn(q, kc, vc, _mask):
+        # both routes derive the window's tail base (lengths - T) // bs
+        def attn_fn(q, kc, vc, mask):
             return fa.decode_attention_blocks_q8_auto(
                 q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2], state.tables,
-                lengths)
+                lengths, mask)
     else:
-        def attn_fn(q, kp, vp, _mask):
+        def attn_fn(q, kp, vp, mask):
             return fa.decode_attention_blocks_auto(q, kp, vp, state.tables,
-                                                   lengths)
+                                                   lengths, mask)
+    # the reference's dense-route mask, built only where the kernel's
+    # guard fails
+    mask = None if fa.decode_blocks_available(
+        block_size, cfg.head_dim, dev) else (
+        torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None])
     logits, _ = forward(params, window, cfg, positions=positions,
-                        kv_caches=_zip_kv(state), cache_offset=o,
-                        block_tables=state.tables, attn_fn=attn_fn)
+                        attn_mask=mask, kv_caches=_zip_kv(state),
+                        cache_offset=o, block_tables=state.tables,
+                        attn_fn=attn_fn)
 
     # --- acceptance: logits[:, i] predicts position o + 1 + i, drawn with
     # counter o + 1 + i; seen follows the alive prefix ---

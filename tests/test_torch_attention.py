@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from kubeinfer_tpu.inference import flash_attention as jfa
 from kubeinfer_tpu_torch import _build
 from kubeinfer_tpu_torch.inference import flash_attention as tfa
+from kubeinfer_tpu_torch.inference.model import attention
 
 BF16_REL = 2.0 ** -6
 
@@ -67,11 +68,16 @@ def test_decode_plain_matches_pallas(G):
         tile_s=16, interpret=True))
     got = tfa.decode_attention_plain(t(q), t(k), t(v), t(lens), tile_s=16)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
-    # the wrapper and the router take the plain version on the CPU
+    # on the CPU the wrapper takes the plain version, and the router the
+    # dense route over the reference's mask
     before = tfa.decode_attention.launches
     np.testing.assert_array_equal(
-        tfa.decode_attention_auto(t(q), t(k), t(v), t(lens), None).numpy(),
+        tfa.decode_attention(t(q), t(k), t(v), t(lens)).numpy(),
         tfa.decode_attention_plain(t(q), t(k), t(v), t(lens)).numpy())
+    mask = t(np.arange(64)[None, None, :] < lens[:, None, None])
+    np.testing.assert_array_equal(
+        tfa.decode_attention_auto(t(q), t(k), t(v), t(lens), mask).numpy(),
+        attention(t(q), t(k), t(v), mask).numpy())
     assert tfa.decode_attention.launches == before
 
 
@@ -89,10 +95,16 @@ def test_decode_blocks_plain_matches_pallas(T, G):
     got = tfa.decode_attention_blocks_plain(t(q), t(kp), t(vp), t(tbl),
                                             t(lens))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    # on the CPU the router takes the dense route over the reference's
+    # mask, on both pools gathered through the tables
     before = tfa.decode_attention_blocks.launches
+    mask = t(np.arange(4 * 16)[None, None, :]
+             <= (lens - T)[:, None, None] + np.arange(T)[None, :, None])
     routed = tfa.decode_attention_blocks_auto(t(q), t(kp), t(vp), t(tbl),
-                                              t(lens), None)
-    np.testing.assert_array_equal(routed.numpy(), got.numpy())
+                                              t(lens), mask)
+    np.testing.assert_array_equal(routed.numpy(), attention(
+        t(q), tfa.gather_block_kv(t(kp), t(tbl)),
+        tfa.gather_block_kv(t(vp), t(tbl)), mask).numpy())
     assert tfa.decode_attention_blocks.launches == before
 
 

@@ -1,21 +1,27 @@
-"""The split-K decode kernel (#10, #11: ``csrc/decode_split.cu``).
+"""The split-K decode kernel (#10, #11, #12: ``csrc/decode_split.cu``).
 
 On the CPU: its plain split-and-combine mirror
 (``decode_split_combine_plain``) against the JAX package's
-``decode_attention`` and ``decode_attention_blocks`` run in interpret
-mode, f32, atol 1e-6 (both fold the same positions; the mirror folds
-splits of C and combines them, the reference folds tiles in order, so
-the sums run in another order), over rows of length 0, shorter than the
-window, inside one split, ending on a split edge and spanning every
-split; and the live-split mirror (``decode_split_walk``) against a
-count made position by position.
+``decode_attention``, ``decode_attention_blocks`` and
+``decode_attention_blocks_q8`` (over ``dequant_gather_block_kv``'s linear
+view of the int8 pool) run in interpret mode, f32, atol 1e-6 (both fold
+the same positions; the mirror folds splits of C and combines them, the
+reference folds tiles in order, so the sums run in another order; over
+the int8 pool 1e-5 of a row's largest |value| where that passes 1: its
+dequantized keys reach |20|, the scores |10|, and a weight e^{s - m}
+moves by the score's rounding, about 1e-6 relative, per reordering),
+over rows of length 0, shorter than the window, inside
+one split, ending on a split edge and spanning every split; and the
+live-split mirror (``decode_split_walk``) against a count made position
+by position.
 
-On a card (``cuda``): both kernels against their plain versions, f32
-within 1e-5 and bf16 within 2**-6 of each live row's largest |value|,
-every row finite; the kernel's own count of its live splits against
-``decode_split_walk``; a verify window's rows bitwise the T = 1 steps;
-the tickets left zero by one launch for the next; one launch counted per
-call.
+On a card (``cuda``): the three kernels against their plain versions,
+f32 within 1e-5 (#12: 1e-5 of a row's largest |value| where that passes
+1) and bf16 within 2**-6 of each live row's largest |value|, every row
+finite; the kernel's own count of its live splits
+against ``decode_split_walk``; a verify window's rows bitwise the T = 1
+steps (#11); the tickets left zero by one launch for the next; one launch
+counted per call.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import jax.numpy as jnp
 
 from kubeinfer_tpu.inference import flash_attention as jfa
 from kubeinfer_tpu_torch.inference import flash_attention as tfa
+
+from test_torch_kv_quant import q8_inputs
 
 BF16_REL = 2.0 ** -6
 
@@ -130,6 +138,55 @@ def test_split_combine_matches_plain_versions():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
+def _q8_views(ins, T):
+    """#12's inputs as the linear K/V view the split mirror takes: the
+    reference's dequantize-gather at the tail base max(len - T, 0) // bs."""
+    q, kp, vp, ks, vs, kt, vt, tbl, ln = ins
+    tb = t(np.maximum(ln - T, 0) // kp.shape[1])
+    return (tfa.dequant_gather_block_kv(t(kp), t(ks), t(kt), t(tbl), tb),
+            tfa.dequant_gather_block_kv(t(vp), t(vs), t(vt), t(tbl), tb))
+
+
+def _close_rows(got, want, rows):
+    """f32 over the int8 pool: 1e-5 of each row's largest |value| where
+    that passes 1, else 1e-5, on ``rows``."""
+    B = want.shape[0]
+    err = np.abs(got - want).reshape(B, -1).max(axis=1)[rows]
+    mag = np.abs(want).reshape(B, -1).max(axis=1)[rows]
+    assert (err <= 1e-5 * np.maximum(mag, 1.0)).all(), (err, mag)
+
+
+# bs = 4, M = 8 (32 positions): a window that spills into tail slot 1
+# (length 10 at T = 3: positions 7-9 cross the edge at 8), one ending on a
+# page edge (16), the full table (32), one inside a later split (21)
+Q8_LENS = [10, 16, 32, 21]
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_split_combine_matches_decode_attention_blocks_q8(T):
+    ins = q8_inputs(4, T, 2, 2, 16, 4, 8, Q8_LENS, 40 + T)
+    ln = ins[-1]
+    want = np.asarray(jfa.decode_attention_blocks_q8(
+        *(jnp.asarray(a) for a in ins), interpret=True))
+    kk, vv = _q8_views(ins, T)
+    C = tfa.decode_split_size(4, True)
+    for c in (8, 12, C):  # several splits, splits off the page, one split
+        got = tfa.decode_split_combine_plain(t(ins[0]), kk, vv, t(ln), c)
+        _close_rows(got.numpy(), want, ln >= T)
+        # the q8 walk is #11's: the splits that hold a live position
+        walk = tfa.decode_split_walk(t(ln), T, 32, c)
+        assert walk.tolist() == [-(-n // c) for n in ln.tolist()]
+    # rows shorter than the window walk every position the row names
+    # (two pages: both tail slots, on either view of the pool)
+    ins = q8_inputs(3, 3, 2, 2, 16, 4, 2, [1, 0, 8], 45)
+    want = np.asarray(jfa.decode_attention_blocks_q8(
+        *(jnp.asarray(a) for a in ins), interpret=True))
+    kk, vv = _q8_views(ins, 3)
+    got = tfa.decode_split_combine_plain(t(ins[0]), kk, vv, t(ins[-1]), 4)
+    _close_rows(got.numpy(), want, np.ones(3, bool))
+    assert tfa.decode_split_walk(t(ins[-1]), 3, 8, 4).tolist() == [2, 2, 2]
+
+
 @pytest.mark.parametrize("T,S_total,C", [(1, 32, 8), (3, 32, 8), (5, 40, 16),
                                          (1, 4096, 128), (5, 4096, 128)])
 def test_split_walk_matches_a_position_count(T, S_total, C):
@@ -157,6 +214,13 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     """CPU tensors: the plain versions, no launch counted, no walk."""
     q, k, v, lens = linear_inputs(2, 16, 2, 2, 16, 3, [16, 0])
     n10, n11 = tfa.decode_attention.launches, tfa.decode_attention_blocks.launches
+    n12 = tfa.decode_attention_blocks_q8.launches
+    ins = [t(a) for a in q8_inputs(2, 3, 2, 2, 16, 4, 4, [9, 2], 6)]
+    np.testing.assert_array_equal(
+        tfa.decode_attention_blocks_q8(*ins).numpy(),
+        tfa.decode_attention_blocks_q8_plain(*ins).numpy())
+    assert tfa.decode_attention_blocks_q8.launches == n12
+    assert tfa.decode_attention_blocks_q8.walk_counter is None
     np.testing.assert_array_equal(
         tfa.decode_attention(t(q), t(k), t(v), t(lens)).numpy(),
         tfa.decode_attention_plain(t(q), t(k), t(v), t(lens)).numpy())
@@ -180,16 +244,19 @@ def _card():
     return torch.device("cuda")
 
 
-def _close(got, want, live):
+def _close(got, want, live, f32_rel=False):
+    """f32: 1e-5 (``f32_rel``: 1e-5 of each row's largest |value| where
+    that passes 1); bf16: 2**-6 of it; on the ``live`` rows."""
     g, w = got.float().cpu(), want.float().cpu()
     assert torch.isfinite(g).all()
     B = g.shape[0]
     row_err = (g - w).abs().reshape(B, -1).amax(dim=1)
+    row_mag = w.abs().reshape(B, -1).amax(dim=1)
     live = torch.as_tensor(live)
     if got.dtype == torch.float32:
-        assert bool((row_err[live] <= 1e-5).all()), row_err
+        tol = 1e-5 * (row_mag.clamp(min=1.0) if f32_rel else 1.0)
+        assert bool((row_err <= tol)[live].all()), (row_err, row_mag)
     else:
-        row_mag = w.abs().reshape(B, -1).amax(dim=1)
         assert bool((row_err <= BF16_REL * row_mag)[live].all()), (
             row_err, row_mag)
 
@@ -316,3 +383,47 @@ def test_split_tickets_reset_between_calls_on_card():
     _close(second, tfa.decode_attention_plain(*args), lens > 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     assert int(tfa._tickets[(args[0].device, stream)].abs().sum()) == 0
+
+
+# #12 on the card: pages of 16 (C = 8 pages, tail and committed pages in
+# one split), 128 and 256 (one page a split); each set has a window that
+# spills into tail slot 1 at T = 5 (17, 260, 259), a row shorter than the
+# window, a retired row; the first set is test_torch_kv_quant.py's
+Q8_CARD = ((16, 4, [17, 16, 48, 1, 0]), (128, 3, [200, 260, 300, 1, 0]),
+           (256, 2, [400, 259, 300, 1, 0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 5])
+def test_split_q8_matches_plain_on_card(dtype, D, T):
+    """#12: one launch a call, within tolerance of
+    ``decode_attention_blocks_q8_plain``, the kernel's live splits equal
+    to ``decode_split_walk``'s, the tickets zero after the call. f32 is
+    held to 1e-5 of each row's magnitude where that passes 1: these pages
+    dequantize to |values| up to about 25, so rows reach 52 and scores 55,
+    where f32 rounding alone moves the plain version 1.2e-5 from an f64
+    evaluation."""
+    dev = _card()
+    for bs, M, lens in Q8_CARD:
+        ins = q8_inputs(5, T, 2, 4, D, bs, M, lens, D + T + bs)
+        args = [t(a).to(dev) for a in ins]
+        for i in (0, 5, 6):
+            args[i] = args[i].to(dtype)
+        lb = np.asarray(lens)
+        if T > 1:
+            assert ((lb - T) // bs != (lb - 1) // bs)[lb >= T].any()
+        n = tfa.decode_attention_blocks_q8.launches
+        got, walked = _walked(tfa.decode_attention_blocks_q8,
+                              tfa.decode_attention_blocks_q8, dev, *args)
+        assert tfa.decode_attention_blocks_q8.launches == n + 1
+        C = tfa.decode_split_size(bs, True)
+        assert walked == 2 * tfa.decode_row_blocks(4 * T, dtype) * int(
+            tfa.decode_split_walk(t(lb), T, M * bs, C).sum())
+        want = tfa.decode_attention_blocks_q8_plain(*args)
+        _close(got, want, lb >= T, f32_rel=True)
+        if T > 1:  # the short row's defined output holds too
+            _close(got, want, lb >= 0, f32_rel=True)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        assert int(tfa._tickets[(args[0].device, stream)].abs().sum()) == 0

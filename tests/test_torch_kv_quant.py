@@ -26,6 +26,7 @@ from kubeinfer_tpu.inference import stepper as jst
 from kubeinfer_tpu_torch.inference import flash_attention as tfa
 from kubeinfer_tpu_torch.inference import kv_blocks as tkv
 from kubeinfer_tpu_torch.inference import stepper as tst
+from kubeinfer_tpu_torch.inference.model import attention
 
 BF16_REL = 2.0 ** -6
 
@@ -118,10 +119,20 @@ def test_plain_matches_reference(G, n_kv, T, dtype):
     check(got, jfa.decode_attention_blocks_q8(*jargs, interpret=True), ln,
           T, dtype)
     check(got, jfa.decode_attention_blocks_q8_jnp(*jargs), ln, T, dtype)
-    # the wrapper and the router take the plain version on the CPU
+    # on the CPU the wrapper takes the plain version, and the router the
+    # dense route over the reference's mask on the dequantize-gathered
+    # pools (tail base max(len - T, 0) // bs)
     before = tfa.decode_attention_blocks_q8.launches
-    routed = tfa.decode_attention_blocks_q8_auto(*targs, None)
-    assert torch.equal(routed, got)
+    assert torch.equal(tfa.decode_attention_blocks_q8(*targs), got)
+    mask = t(np.arange(3 * 16)[None, None, :]
+             <= (ln - T)[:, None, None] + np.arange(T)[None, :, None])
+    routed = tfa.decode_attention_blocks_q8_auto(*targs, mask)
+    tb = t(np.maximum(ln - T, 0) // 16)
+    assert torch.equal(routed, attention(
+        targs[0],
+        tfa.dequant_gather_block_kv(targs[1], targs[3], targs[5], t(tbl), tb),
+        tfa.dequant_gather_block_kv(targs[2], targs[4], targs[6], t(tbl), tb),
+        mask))
     assert tfa.decode_attention_blocks_q8.launches == before
 
 

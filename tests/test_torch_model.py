@@ -152,6 +152,7 @@ def test_paged_write_and_read(name):
     got, tpools = tm.forward(
         tp, torch.from_numpy(toks).long(), tcfg,
         positions=torch.from_numpy(off[:, None]).long(),
+        attn_mask=torch.from_numpy(mask),
         kv_caches=tpools, cache_offset=torch.from_numpy(off).long(),
         block_tables=torch.from_numpy(tbl), attn_fn=t_attn)
     close(got[:2].numpy(), np.asarray(want)[:2])  # the live rows
