@@ -14,14 +14,16 @@ times them. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
-      together, eleven sources: mega_solve.cu, round_ops.cu, auction.cu,
+      together, twelve sources: mega_solve.cu, round_ops.cu, auction.cu,
       route_pick.cu, decode_attention.cu (the first kernels of #10, #11
       and #12, only for the times beside the split-K one), flash_prefill.cu,
       quant_matmul.cu, flash_backward.cu, flash_prefill_tc.cu (the
       tensor-core kernel of every bf16 call of #9, #13 and #9b),
       flash_backward_tc.cu (the tensor-core kernels of every bf16 #14
       call at D 64 and 128), decode_split.cu (the split-K kernel of every
-      #10, #11 and #12 call);
+      #10, #11 and #12 call), quant_matmul_tc.cu (the wgmma + TMA kernel
+      of every #15 call that weight_quant.qmm_route admits; quant_matmul.cu
+      keeps the ragged bf16 and the f32 calls);
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
       request, and a seeded churn re-solve with asg_init — every output
@@ -67,7 +69,9 @@ times them. Phases:
       solved_affinity at 10k jobs x 1k nodes (12288 x 1024) and of the
       route solve's three modes on a fleet-storm batch (bench.py's
       fleet_storm_bench: 256 requests x 100 replicas), and at 256 x 128;
-      those solves against device="cpu", their launch counts, and times;
+      those solves against device="cpu", their launch counts, and times
+      (route_pick and torch.max on the masked plane by device time, a
+      CUDA graph of 20 launches, beside CUDA events over calls);
   (13) the serving path at full width: ``server.build_server`` with
       ``--model llama-3-8b --random-init --batch-slots 8`` (bf16 weights
       from init_params, a 4096-wide slot row, a 513-block pool of 128);
@@ -109,11 +113,13 @@ times them. Phases:
       requests of 512 tokens (4 new) and quant_matmul (#15) on every
       projection of those and of a 4100-token Engine generate (M = 8,
       512 and 2048), each against its plain version within the stated
-      tolerance (#12's live splits equal to decode_split_walk's); #11
-      never launched;
+      tolerance (#12's live splits equal to decode_split_walk's), every
+      #15 call on the tensor-core route; #11 never launched;
   (18) /v1/completions over HTTP on the int8 server, the bodies of
       (14): #12, #15, #9 and #10 launched, #11 not (#12's live splits
-      equal to decode_split_walk's); routes, tokens, finite logits, one
+      equal to decode_split_walk's; every #15 call within tolerance of
+      its plain version and on the tensor-core route); routes, tokens,
+      finite logits, one
       host sync per decode window, quant_blocks_total;
   (19) int8 on the card against the CPU at llama-3-8b widths cut to 2
       layers, f32: the weight codes and scales bitwise equal, the
@@ -124,8 +130,12 @@ times them. Phases:
   (20) times of the int8 path: TTFT, decode ms per token at 8 slots,
       the engine route's prefill chunks, a torch.profiler split of one
       admit and of a decode run, device launches per decode step
-      against bf16, #12 as #10 and #11 in (16), and #15 against its
-      bound, plain version and library yardstick;
+      against bf16 and #15's share of each profile, #12 as #10 and #11 in
+      (16), and #15 at M = 8, 40, 512 and 2048 on the gate and down
+      projections and on the path's heaviest call: device time, the
+      wrapper's host us, the first kernel (quant_matmul.cu) on the same
+      call, the bound, the plain version, torch._weight_int8pack_mm and
+      torch.matmul on the pre-dequantized weight;
   (21) the training step at full width and depth: ``train.train_step``
       on llama-3-8b (bf16 init_params(seed=0), the int8 server freed
       first) over seeded tokens [1, 2049] (T = S = 2048, the flash
@@ -191,7 +201,7 @@ times them. Phases:
       (16)), a verify window's ms and tokens a row in (a) and (b),
       decode ms per emitted token per slot with and without a draft;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
-      phases.
+      phases, after each phase's seconds (lines "[s] ...").
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Full numbers go to chiprun_out/chip_smoke.json.
@@ -1067,6 +1077,10 @@ def route_phases(dev, kernels, record, card):
     s = torch.where((m >= 0) & act[:, None], m.float() + bias[None, :],
                     torch.tensor(kernels.ROUTE_NEG, device=dev))
     library_ms = cuda_ms(lambda: torch.max(s, dim=1), reps=50)
+    # device time (a CUDA graph of 20 launches): at ~0.02 ms a call, the
+    # CUDA-event times above include the host's per-call work
+    kernel_dev = device_ms(lambda: kernels.route_pick(m, bias, act))
+    library_dev = device_ms(lambda: torch.max(s, dim=1))
     # the kernel reads no match row of an inactive request
     n_act = int(act.sum())
     bound_bytes = 4 * n_act * R + 4 * R + Bb + 8 * Bb
@@ -1102,11 +1116,13 @@ def route_phases(dev, kernels, record, card):
                                              device=dev)
     aff_solve_p50 = p50_ms(lambda: routing.decode_routes(routing.solve_routes(
         aff_rp, alpha=4.0, stale_penalty=0.0, mode="greedy"), len(model)), 10)
-    print(f"[12] {card}: route_pick {kernel_ms:.4f} ms/launch at {Bb}x{R}, "
+    print(f"[12] {card}: route_pick device {kernel_dev:.5f} ms/launch at "
+          f"{Bb}x{R} (CUDA events over calls {kernel_ms:.4f} ms), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes: "
           f"{n_act} active rows), "
-          f"torch.max over a precomputed masked plane {library_ms:.4f} ms "
-          f"(a lower yardstick: no mask, no add); p50 match plane + pack + "
+          f"torch.max over a precomputed masked plane device "
+          f"{library_dev:.5f} ms (CUDA events {library_ms:.4f} ms; a lower "
+          f"yardstick: no mask, no add); p50 match plane + pack + "
           f"parity solve + decode at B={B}: {storm_p50:.3f} ms "
           f"({storm_p50 / B * 1e3:.2f} us/request; the host match plane "
           f"{plane_p50:.3f} ms of it); p50 solved_affinity 10kx1k "
@@ -1114,8 +1130,9 @@ def route_phases(dev, kernels, record, card):
           f"readback {aff_solve_p50:.3f} ms)")
     record["route"] = {
         "launches": route_launches, "checked_calls": chk.calls,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms,
+        "kernel_ms": kernel_dev, "kernel_wall_ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": library_dev,
+        "library_wall_ms": library_ms, "bound_ms": bound_ms,
         "bound_active_rows": n_act,
         "storm_p50_ms": storm_p50, "storm_plane_ms": plane_p50,
         "affinity_p50_ms": aff_p50, "affinity_pack_ms": aff_pack_p50,
@@ -1129,11 +1146,16 @@ def route_phases(dev, kernels, record, card):
         "replaces": "kubeinfer_tpu/solver/pallas_kernels.py:1433",
         "launches": route_launches,
         "max_abs_err": chk.max_err,
-        "ms": kernel_ms,
+        "ms": kernel_dev,
+        "wall_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
-        "library_ms": library_ms,
+        "library_ms": library_dev,
+        "library_wall_ms": library_ms,
+        "timing": "ms, library_ms: device time a launch (a CUDA graph of "
+                  "20 launches, replays timed by CUDA events); *_wall_ms: "
+                  "CUDA events over back-to-back calls",
         "library_call": "torch.max(s, dim=1) on a precomputed masked f32 "
                         "plane (leaves out the mask and the add: a lower "
                         "yardstick)",
@@ -1686,11 +1708,11 @@ def serving_phases(dev, record, card):
     step = launches_per_step(cont, cfg)
     record["profile"] = {
         "admit": {"wall_ms": adm_wall, "busy_ms": adm_busy,
-                  "top": adm_top[:12]},
+                  "qmm_ms": qmm_share(adm_top), "top": adm_top[:12]},
         "decode_8x32": {"wall_ms": dec_wall, "busy_ms": dec_busy,
-                        "top": dec_top[:12]},
+                        "qmm_ms": qmm_share(dec_top), "top": dec_top[:12]},
         "decode_step": {"launches": step[0], "busy_ms": step[1],
-                        "wall_ms": step[2]},
+                        "wall_ms": step[2], "qmm_ms": step[3]},
     }
     print(f"[16] {card}: TTFT of a 512-token prompt on the continuous route "
           f"p50 {p50(ttft):.2f} ms ({[round(x, 2) for x in ttft]}); decode "
@@ -2065,10 +2087,18 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
 QMM_REPLACES = "kubeinfer_tpu/inference/weight_quant.py:222"
 
 
+def qmm_share(rows):
+    """#15's device ms in a profile's rows: every kernel of
+    ``quant_matmul.cu`` and ``quant_matmul_tc.cu`` (their names hold
+    ``qmm_``)."""
+    return sum(ms for name, ms, _ in rows if "qmm_" in name)
+
+
 def launches_per_step(cont, cfg, commit_steps=None, k=4):
-    """Device kernels and device-busy ms per decode step: one K-step
-    window of the engine's slot state under torch.profiler (greedy gates;
-    rows flow through the same math active or not)."""
+    """Device kernels, device-busy ms, wall ms and #15's device ms per
+    decode step: one K-step window of the engine's slot state under
+    torch.profiler (greedy gates; rows flow through the same math active
+    or not)."""
     import torch
 
     from kubeinfer_tpu_torch.inference.stepper import RowFlags, decode_window
@@ -2078,40 +2108,46 @@ def launches_per_step(cont, cfg, commit_steps=None, k=4):
         decode_window(cont.params, cont._state, cfg, k, flags, commit_steps)
         wall, busy, rows = device_profile(lambda: decode_window(
             cont.params, cont._state, cfg, k, flags, commit_steps))
-    return sum(c for _, _, c in rows) / k, busy / k, wall / k
+    return (sum(c for _, _, c in rows) / k, busy / k, wall / k,
+            qmm_share(rows) / k)
 
 
 def matmul_err(got, want):
-    """(largest |kernel - plain|, within tolerance): f32 1e-5 and bf16
-    2**-6 (2 bf16 ulps) of each output row's largest |plain value|;
-    every value finite."""
+    """(largest |kernel - plain|, within tolerance) as two device
+    scalars, with no host sync: f32 1e-5 and bf16 2**-6 (2 bf16 ulps) of
+    each output row's largest |plain value|; a value that is not finite
+    fails (its comparison is False)."""
     import torch
 
     g, w = got.float(), want.float()
-    if not bool(g.isfinite().all()):
-        return float("inf"), False
     err = (g - w).abs().reshape(-1, g.shape[-1])
     mag = w.abs().reshape(-1, g.shape[-1]).amax(dim=1, keepdim=True)
     rel = 1e-5 if got.dtype == torch.float32 else BF16_REL
-    return float(err.max()), bool((err <= rel * mag).all())
+    return err.max(), (err <= rel * mag).all()
 
 
 class CheckedMatmul:
     """A stand-in for ``weight_quant.quant_matmul`` that runs the kernel
-    and its plain version on the same inputs, holds them within the
-    stated tolerance and hands the kernel's result on. Keeps the call
-    with the most operations and the heaviest decode-sized call (M <= 16)
-    for the times. While it stands in, the wrapper's ``launches += 1``
-    resolves to this object's ``launches``, off the wrapper's own count."""
+    and its plain version on the same inputs, hands the kernel's result
+    on, and holds every call within the stated tolerance when
+    ``verify`` reads the calls' outcomes back (one host sync for all of
+    them, so the served path is not paced by the check). Counts the
+    calls by route (``qmm_route``: "tc" the tensor-core kernel, else
+    "mma" or "f32" on ``quant_matmul.cu``) and keeps the call with the
+    most operations for the times. While it stands in, the wrapper's
+    ``launches += 1`` and ``tc_launches += 1`` resolve to this object's
+    counts, off the wrapper's own."""
 
     def __init__(self, wq):
         self.wq = wq
         self.kernel, self.plain = wq.quant_matmul, wq.quant_matmul_plain
-        self.launches = self.calls = 0
+        self.launches = self.tc_launches = self.calls = 0
+        self.routes = collections.Counter()
         self.max_err = 0.0
         self.m_values = set()
-        self.heaviest = self.decode = None
+        self.heaviest = None
         self.error = None
+        self.pending = []  # (err, ok, x shape, qw shape) not yet read back
 
     def __enter__(self):
         self.wq.quant_matmul = self
@@ -2121,26 +2157,54 @@ class CheckedMatmul:
         self.wq.quant_matmul = self.kernel
 
     def __call__(self, x, qw, scale):
+        import torch
+
+        route = ("tc" if self.wq.qmm_route(x, qw) else
+                 "f32" if x.dtype == torch.float32 else "mma")
         got = self.kernel(x, qw, scale)
-        want = self.plain(x, qw, scale)
-        err, ok = matmul_err(got, want)
-        if not ok:
-            self.error = (f"quant_matmul: kernel vs plain out of tolerance on "
-                          f"call {self.calls}, x {tuple(x.shape)} @ "
-                          f"{tuple(qw.shape)} (max err {err})")
-            raise AssertionError(self.error)
-        self.max_err = max(self.max_err, err)
+        err, ok = matmul_err(got, self.plain(x, qw, scale))
+        self.pending.append((err, ok, tuple(x.shape), tuple(qw.shape)))
         M = x.numel() // x.shape[-1]
         K, N = qw.shape
         self.m_values.add(M)
+        self.routes[route] += 1
         if self.heaviest is None or M * N * K > self.heaviest[0].shape[0] * \
                 self.heaviest[1].numel():
             self.heaviest = (x.reshape(M, K).clone(), qw, scale)
-        if M <= 16 and (self.decode is None or
-                        qw.numel() > self.decode[1].numel()):
-            self.decode = (x.reshape(M, K).clone(), qw, scale)
         self.calls += 1
         return got
+
+    def verify(self):
+        """Read every pending call's outcome back; the first call out of
+        tolerance becomes ``error``. Returns ``error``."""
+        import torch
+
+        if self.pending:
+            first = self.calls - len(self.pending)
+            errs = torch.stack([p[0] for p in self.pending]).tolist()
+            oks = torch.stack([p[1] for p in self.pending]).tolist()
+            self.max_err = max(self.max_err, *errs)
+            bad = [i for i, ok in enumerate(oks) if not ok]
+            if bad and self.error is None:
+                _, _, xs, ws = self.pending[bad[0]]
+                self.error = (f"quant_matmul: kernel vs plain out of "
+                              f"tolerance on call {first + bad[0]} of "
+                              f"{self.calls} ({len(bad)} such), x {xs} @ "
+                              f"{ws} (max err {errs[bad[0]]})")
+            self.pending = []
+        return self.error
+
+    def all_tc(self, tag):
+        """Every call within tolerance and on the tensor-core route, and
+        the counts say so."""
+        check(self.verify() is None, str(self.error))
+        check(self.calls > 0 and self.routes["tc"] == self.calls
+              and self.tc_launches == self.calls
+              and self.launches == self.calls,
+              f"{tag} #15 routes {dict(self.routes)}, launches "
+              f"{self.launches}, tc_launches {self.tc_launches} of "
+              f"{self.calls} calls")
+        return dict(self.routes)
 
 
 def q8_live(q, kp, vp, ks, vs, kt, vt, tbl, ln):
@@ -2226,11 +2290,12 @@ def int8_phases(dev, record, card):
             engine.generate([long_prompt], 2)
         finally:
             check(chk12.error is None, str(chk12.error))
-            check(chk15.error is None, str(chk15.error))
+            check(chk15.verify() is None, str(chk15.error))
     check(chk12.calls >= layers and chk12.calls % layers == 0,
           f"#12 checked on {chk12.calls} calls")
     check({8, 512, 2048} <= chk15.m_values,
           f"#15 saw M in {sorted(chk15.m_values)}")
+    routes17 = chk15.all_tc("[17]")
     check(fa.decode_attention_blocks.launches == 0,
           "#11 launched on the int8 pool")
     # #12 launches the split-K kernel (decode_split.cu) on every call: its
@@ -2245,7 +2310,9 @@ def int8_phases(dev, record, card):
     print(f"[17] quant_matmul: {chk15.calls} calls on every projection of "
           f"those admits and windows and of an Engine generate with a "
           f"4100-token prompt (M in {sorted(chk15.m_values)}), within tolerance; "
-          f"max |kernel - plain| {chk15.max_err:.3e} (bf16)")
+          f"max |kernel - plain| {chk15.max_err:.3e} (bf16); routes "
+          f"{routes17} (tc: quant_matmul_tc.cu, wgmma + TMA), "
+          f"tc_launches {chk15.tc_launches}")
 
     # (18) the main path over HTTP, counted
     srv.start()
@@ -2262,15 +2329,19 @@ def int8_phases(dev, record, card):
     names = (*SERVE_KERNELS, "decode_attention_blocks_q8")
     for name in names:
         getattr(fa, name).launches = 0
-    wq.quant_matmul.launches = 0
     qb0 = cont.quant_blocks_total
     split12 = CountedSplit(fa, "decode_attention_blocks_q8", dev)
+    chk18 = CheckedMatmul(wq)
     t0 = time.perf_counter()
-    with split12:
-        resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+    with torch.inference_mode(), split12, chk18:
+        try:
+            resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+        finally:
+            check(chk18.verify() is None, str(chk18.error))
         http_s = time.perf_counter() - t0
         counts = {name: getattr(fa, name).launches for name in names}
-    counts["quant_matmul"] = wq.quant_matmul.launches
+    counts["quant_matmul"] = chk18.launches
+    routes18 = chk18.all_tc("[18]")
     walk18 = split12.walk_check("[18]")[0]
     check(counts["decode_attention_blocks_q8"] > 0
           and counts["quant_matmul"] > 0
@@ -2299,11 +2370,15 @@ def int8_phases(dev, record, card):
           f"sampled 512-token prompts (64 new) on route continuous, 1 of "
           f"4100 tokens (16 new) on route engine, {http_s:.1f} s; launches "
           f"{counts} (#12 on the split-K kernel, {walk18} live splits walked "
-          f"by its own count, equal to decode_split_walk's); host syncs in "
+          f"by its own count, equal to decode_split_walk's; #15 within "
+          f"tolerance of its plain version on all {chk18.calls} calls, "
+          f"routes {routes18}); host syncs in "
           f"one decode window (K=4, gates on) + its "
           f"readback: {n_sync}; quant_blocks_total {qb} ({qb - qb0} in this "
           f"run); logits finite")
     record["int8_serving"] = {"launches": counts, "http_s": http_s,
+                              "qmm_routes": routes18,
+                              "qmm_max_err": chk18.max_err,
                               "split_walk_12": walk18,
                               "window_syncs": n_sync,
                               "quant_blocks_total": qb}
@@ -2346,7 +2421,8 @@ def int8_phases(dev, record, card):
             ("one 512-token admit (TTFT)", adm_wall, adm_busy, adm_top),
             ("8 requests of 512 + 32 new", dec_wall, dec_busy, dec_top)):
         print(f"[20] int8 profile, {what}: wall {wall:.1f} ms, device busy "
-              f"{busy:.1f} ms ({100 * busy / wall:.1f}%); top kernels "
+              f"{busy:.1f} ms ({100 * busy / wall:.1f}%); #15 "
+              f"{qmm_share(top):.2f} ms of it; top kernels "
               + "; ".join(f"{n[:60]} {ms:.1f} ms x{c}"
                           for n, ms, c in top[:6]))
     step = launches_per_step(cont, cfg, commit_steps=[False] * 4)
@@ -2356,8 +2432,8 @@ def int8_phases(dev, record, card):
     bf = record["profile"]["decode_step"]
     print(f"[20] per decode step (8 slots, one K=4 window profiled): bf16 "
           f"{bf['launches']:.0f} device launches, {bf['busy_ms']:.2f} ms "
-          f"busy; int8 {step[0]:.0f} launches, {step[1]:.2f} ms busy "
-          f"(on a step with the tail commit: {step_c[0]:.0f}, "
+          f"busy; int8 {step[0]:.0f} launches, {step[1]:.2f} ms busy, "
+          f"#15 {step[3]:.3f} ms of it (on a step with the tail commit: {step_c[0]:.0f}, "
           f"{step_c[1]:.2f} ms; with the old #12 kernel, decode_attention.cu:"
           f" {step_old[0]:.0f}, {step_old[1]:.2f} ms)")
     print(f"[20] {card}: int8 TTFT of a 512-token prompt p50 "
@@ -2369,11 +2445,11 @@ def int8_phases(dev, record, card):
           f"({[round(x, 2) for x in chunk_ms]})")
     record["int8_profile"] = {
         "admit": {"wall_ms": adm_wall, "busy_ms": adm_busy,
-                  "top": adm_top[:12]},
+                  "qmm_ms": qmm_share(adm_top), "top": adm_top[:12]},
         "decode_8x32": {"wall_ms": dec_wall, "busy_ms": dec_busy,
-                        "top": dec_top[:12]},
+                        "qmm_ms": qmm_share(dec_top), "top": dec_top[:12]},
         "decode_step": {"launches": step[0], "busy_ms": step[1],
-                        "wall_ms": step[2]},
+                        "wall_ms": step[2], "qmm_ms": step[3]},
         "decode_step_commit": {"launches": step_c[0], "busy_ms": step_c[1],
                                "wall_ms": step_c[2]},
         "decode_step_old_12": {"launches": step_old[0],
@@ -2390,7 +2466,8 @@ def int8_phases(dev, record, card):
                                "decode_attention_blocks_q8",
                                counts["decode_attention_blocks_q8"], F,
                                tag="[20]"),
-                   time_qmm(dev, wq, chk15, card, counts)]
+                   time_qmm(dev, wq, chk15, card, counts,
+                            engine.params["layers"][0], record)]
     srv.stop()
     cont.stop()
     return entries
@@ -2486,62 +2563,146 @@ def card_vs_cpu_int8(dev, record):
     del q_card, q_cpu, c_card, c_cpu
 
 
-def time_qmm(dev, wq, chk, card, counts):
-    """#15's entry of the ``kernels`` line: its time per launch on the
-    captured call with the most operations (and, printed, on the heaviest
-    decode-sized call), its plain version's, its bound from the shapes,
-    and the library yardstick: ``torch._weight_int8pack_mm`` where the
-    installed torch runs it on CUDA, else ``torch.matmul`` on the
-    pre-dequantized bf16 weight (a lower yardstick: it reads twice the
-    weight bytes and skips the conversion)."""
+QMM_M = (8, 40, 512, 2048)  # decode, a T = 5 verify window, an admit, a chunk
+QMM_LEAVES = ("gate_proj", "down_proj")  # 4096 x 14336 and 14336 x 4096
+
+
+def old_qmm(wq):
+    """#15's first kernel (``quant_matmul.cu``'s mma.sync instantiation,
+    split-K reduced by a second pass) as a function of the wrapper's
+    arguments, launched through its library outside the wrapper's
+    counts: the before of every #15 time."""
     import torch
 
-    out = {}
-    for what, args in (("heaviest", chk.heaviest), ("decode", chk.decode)):
-        x, qw, scale = args
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+
+    lib = _build.load_kernel_library("quant_matmul")
+
+    def run(x, qw, scale):
         M, K = x.shape
         N = qw.shape[1]
-        elt = x.element_size()
-        ms = cuda_ms(lambda: wq.quant_matmul(x, qw, scale), reps=20)
-        plain_ms = cuda_ms(lambda: chk.plain(x, qw, scale), reps=3)
-        ops = 2 * M * N * K
-        nbytes = M * K * elt + K * N + 4 * N + M * N * elt
-        library, label = None, None
-        try:
-            w_nk = qw.t().contiguous()
-            torch._weight_int8pack_mm(x, w_nk, scale.to(x.dtype))
-            torch.cuda.synchronize()
-            library = cuda_ms(lambda: torch._weight_int8pack_mm(
-                x, w_nk, scale.to(x.dtype)), reps=20)
-            label = "torch._weight_int8pack_mm (int8 weight [N, K])"
-        except (RuntimeError, NotImplementedError):
-            w16 = (qw.float() * scale).to(x.dtype)
-            library = cuda_ms(lambda: torch.matmul(x, w16), reps=20)
-            label = ("torch.matmul on the pre-dequantized bf16 weight (a "
-                     "lower yardstick: twice the weight bytes, no int8 "
-                     "conversion)")
-            del w16
-        op_ms = ops / BF16_OPS_PER_S * 1e3
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(op_ms, byte_ms)
-        bound_by = "operations" if op_ms >= byte_ms else "bytes"
-        print(f"[20] {card}: quant_matmul ({what}) {ms:.4f} ms/launch on x "
-              f"[{M}, {K}] @ int8 [{K}, {N}]; plain {plain_ms:.4f} ms; "
-              f"{label} {library:.4f} ms; bound {bound_ms:.5f} ms "
-              f"({bound_by}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; "
-              f"{ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s)")
-        out[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library,
-                         library_call=label, shape=[M, K, N])
-    h = out["heaviest"]
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        splits = wq.k_splits(M, N, K)
+        ws = torch.empty((splits, M, N) if splits > 1 else (1,),
+                         dtype=torch.float32, device=x.device)
+        fa._launch(lib, "quant_matmul_launch", x, qw, scale, out, ws, M, N,
+                   K, splits, 1)
+        return out
+
+    return run
+
+
+def qmm_library(x, qw, scale, reps):
+    """``torch._weight_int8pack_mm`` (int8 weight [N, K], the same
+    function) as (ms, label): device time at decode sizes, CUDA events
+    over ``reps`` calls where a call takes many ms; (None, reason) where
+    the installed torch does not run it on CUDA."""
+    import torch
+
+    try:
+        w_nk = qw.t().contiguous()
+        s16 = scale.to(x.dtype)
+        torch._weight_int8pack_mm(x, w_nk, s16)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"torch._weight_int8pack_mm not run: {e}"[:120]
+    fn = lambda: torch._weight_int8pack_mm(x, w_nk, s16)  # noqa: E731
+    if x.shape[0] <= 64:
+        return device_ms(fn), "torch._weight_int8pack_mm, device time"
+    return (cuda_ms(fn, reps=reps, warmup=0),
+            "torch._weight_int8pack_mm, CUDA events over calls")
+
+
+def qmm_bound(M, N, K, elt):
+    """(bound ms, bound_by, ops, bytes) of one #15 call: 2 M N K
+    operations at the bf16 tensor-core rate against x, the int8 weight,
+    the scale and out read or written once at HBM speed."""
+    ops = 2 * M * N * K
+    nbytes = M * K * elt + K * N + 4 * N + M * N * elt
+    op_ms = ops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", ops, nbytes)
+
+
+def time_qmm(dev, wq, chk, card, counts, layer, record):
+    """#15's entry of the ``kernels`` line and its times: on the captured
+    call with the most operations, and at M in ``QMM_M`` on layer 0's
+    gate and down projections (x random, seeded): device time (a CUDA
+    graph of 20 launches), the wrapper's host us a call, the first
+    kernel's device time on the same call (``old_qmm``), the plain
+    version, ``torch._weight_int8pack_mm`` and, as a lower yardstick
+    the port never calls, ``torch.matmul`` on the pre-dequantized bf16
+    weight (twice the weight bytes, no conversion)."""
+    import torch
+
+    old = old_qmm(wq)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = []
+    for leaf in QMM_LEAVES:
+        qw, scale = layer[leaf]["qw"], layer[leaf]["scale"]
+        K, N = qw.shape
+        w16 = (qw.float() * scale).to(torch.bfloat16)
+        for M in QMM_M:
+            x = torch.randn((M, K), generator=gen, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+            bound, by, ops, nbytes = qmm_bound(M, N, K, 2)
+            ms = device_ms(lambda: wq.quant_matmul(x, qw, scale))
+            old_ms = device_ms(lambda: old(x, qw, scale))
+            us = host_us(lambda: wq.quant_matmul(x, qw, scale), reps=100)
+            mm_ms = device_ms(lambda: torch.matmul(x, w16))
+            lib_ms, lib_label = qmm_library(x, qw, scale, reps=2)
+            got, want = wq.quant_matmul(x, qw, scale), old(x, qw, scale)
+            rows.append(dict(
+                leaf=leaf, M=M, K=K, N=N, device_ms=ms, old_device_ms=old_ms,
+                host_us=us, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, library_call=lib_label,
+                matmul_bf16_ms=mm_ms,
+                tflops=ops / ms / 1e9, gbps=nbytes / ms / 1e6,
+                new_vs_old_max_abs=float((got.float() - want.float())
+                                         .abs().max())))
+            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+            print(f"[20] {card}: quant_matmul {leaf} M {M} (x [{M}, {K}] @ "
+                  f"int8 [{K}, {N}]): device {ms:.4f} ms "
+                  f"({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
+                  f"GB/s), host {us:.1f} us a call; first kernel "
+                  f"{old_ms:.4f} ms; bound {bound:.5f} ms ({by}); "
+                  f"_weight_int8pack_mm {lib_txt} ms; torch.matmul on the "
+                  f"bf16 weight {mm_ms:.4f} ms")
+        del w16
+    record["qmm_times"] = rows
+
+    x, qw, scale = chk.heaviest
+    M, K = x.shape
+    N = qw.shape[1]
+    ms = device_ms(lambda: wq.quant_matmul(x, qw, scale))
+    wall_ms = cuda_ms(lambda: wq.quant_matmul(x, qw, scale), reps=20)
+    old_ms = device_ms(lambda: old(x, qw, scale))
+    us = host_us(lambda: wq.quant_matmul(x, qw, scale), reps=100)
+    plain_ms = cuda_ms(lambda: chk.plain(x, qw, scale), reps=3)
+    lib_ms, lib_label = qmm_library(x, qw, scale, reps=2)
+    bound, by, ops, nbytes = qmm_bound(M, N, K, x.element_size())
+    print(f"[20] {card}: quant_matmul on the path's heaviest call, x [{M}, "
+          f"{K}] @ int8 [{K}, {N}]: device {ms:.4f} ms (wall {wall_ms:.4f},"
+          f" host {us:.1f} us), first kernel {old_ms:.4f}, plain "
+          f"{plain_ms:.4f}, bound {bound:.5f} ({by})")
     return {
         "name": "quant_matmul", "route": "cuda",
-        "source": "kubeinfer_tpu_torch/inference/csrc/quant_matmul.cu",
+        "source": "kubeinfer_tpu_torch/inference/csrc/quant_matmul_tc.cu",
+        "kernel_route": "tc" if wq.qmm_route(x, qw) else "mma",
+        "routes": dict(chk.routes),
+        "old_source": "kubeinfer_tpu_torch/inference/csrc/quant_matmul.cu",
         "replaces": QMM_REPLACES, "launches": counts["quant_matmul"],
-        "max_abs_err": chk.max_err, "ms": h["ms"], "plain_ms": h["plain_ms"],
-        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-        "library_ms": h["library_ms"], "library_call": h["library_call"],
-        "shape_mkn": h["shape"], "decode": out["decode"],
+        "max_abs_err": chk.max_err, "ms": ms, "device_ms": ms,
+        "wall_ms": wall_ms, "old_device_ms": old_ms, "host_us": us,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": lib_ms, "library_call": lib_label,
+        "shape_mkn": [M, K, N], "times": rows,
+        "timing": "ms, device_ms, old_device_ms: device time a launch (a "
+                  "CUDA graph of 20 launches, replays timed by CUDA "
+                  "events); wall_ms: CUDA events over 20 calls; host_us: "
+                  "the wrapper's host time a call",
         "check": f"within tolerance of its plain version (bf16: 2**-6 of "
                  f"each output row's magnitude) on {chk.calls} calls of the "
                  "full-width int8 path",
@@ -3796,15 +3957,17 @@ def spec_phases(dev, record, card):
                        seed=7))
     for name in ("decode_attention_blocks", "decode_attention_blocks_q8"):
         getattr(fa, name).launches = 0
-    wq.quant_matmul.launches = 0
     qb0 = cont.quant_blocks_total
     before = cont.scheduler_stats()
-    with torch.inference_mode(), chk12:
+    chk15 = CheckedMatmul(wq)
+    with torch.inference_mode(), chk12, chk15:
         try:
             resps = in_threads(lambda b: post_json(srv.port, b), bodies)
         finally:
             check(chk12.error is None, str(chk12.error))
-    n11, n15 = fa.decode_attention_blocks.launches, wq.quant_matmul.launches
+            check(chk15.verify() is None, str(chk15.error))
+    n11, n15 = fa.decode_attention_blocks.launches, chk15.launches
+    routes27 = chk15.all_tc("[27]")
     st = cont.scheduler_stats()
     check(chk12.calls > 0 and chk12.calls % layers == 0 and n11 == 0
           and n15 > 0 and n15 % (7 * layers) == 0 and crossing[0] > 0
@@ -3824,11 +3987,13 @@ def spec_phases(dev, record, card):
           f"by the kernel's own count, equal to decode_split_walk's), "
           f"{crossing[0]} row-windows spilling "
           f"into tail slot 1; #11 {n11} launches; quant_matmul {n15} "
-          f"launches (7 a layer per target forward); quant_blocks_total "
+          f"launches (7 a layer per target forward), all within tolerance "
+          f"of its plain version, routes {routes27}; quant_blocks_total "
           f"+{cont.quant_blocks_total - qb0}; {sync_q} host sync per "
           f"verify window")
     record["spec_int8"] = {"checked_12": chk12.calls, "crossing": crossing[0],
-                           "quant_matmul": n15,
+                           "quant_matmul": n15, "qmm_routes": routes27,
+                           "qmm_max_err": chk15.max_err,
                            "quant_blocks": cont.quant_blocks_total - qb0}
     srv.stop()
     cont.stop()
@@ -4138,6 +4303,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     record: dict = {}
+    t_main = time.perf_counter()
 
     # (0) the card
     card = card_line()
@@ -4150,7 +4316,8 @@ def main() -> int:
                               "route_pick", "decode_attention",
                               "flash_prefill", "quant_matmul",
                               "flash_backward", "flash_prefill_tc",
-                              "flash_backward_tc", "decode_split"])
+                              "flash_backward_tc", "decode_split",
+                              "quant_matmul_tc"])
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")
@@ -4349,15 +4516,28 @@ def main() -> int:
         "cost_field_10k_ms": field_ms,
     }
 
-    round_entries = pipelined_phases(dev, backend, cpu_backend, kernels,
-                                     record, card)
-    auction_entry = auction_phases(dev, kernels, record, card)
-    route_entry = route_phases(dev, kernels, record, card)
-    serve_entries = serving_phases(dev, record, card)
-    int8_entries = int8_phases(dev, record, card)
-    train_entries = train_phases(dev, record, card)
-    mask_entry = masked_phase(dev, record, card)
-    spec_phases(dev, record, card)
+    phase_s = record["phase_s"] = {"[1] build": build_s,
+                                   "[2]-[4]": time.perf_counter() - t_main
+                                   - build_s}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    round_entries = phase("[5]-[7]", pipelined_phases, dev, backend,
+                          cpu_backend, kernels, record, card)
+    auction_entry = phase("[9]-[11]", auction_phases, dev, kernels, record,
+                          card)
+    route_entry = phase("[12]", route_phases, dev, kernels, record, card)
+    serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
+    int8_entries = phase("[17]-[20]", int8_phases, dev, record, card)
+    train_entries = phase("[21]-[23]", train_phases, dev, record, card)
+    mask_entry = phase("[24], [28]", masked_phase, dev, record, card)
+    phase("[25]-[28]", spec_phases, dev, record, card)
+    for name, sec in phase_s.items():
+        print(f"[s] {name}: {sec:.1f} s")
 
     # (8) the kernels line
     kline = {"kernels": [{
@@ -4389,7 +4569,125 @@ def main() -> int:
     return 0
 
 
+def qmm_plan_sweep(dev, wq, layer, gen):
+    """Device ms of the tensor-core kernel under each (rows, splits)
+    plan at the llama-3-8b projections, launched through its library
+    beside ``qmm_tc_plan``'s choice (marked "*"): the evidence for that
+    rule. Each plan's output is held to the plain version."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    lib = _build.load_kernel_library("quant_matmul_tc")
+    rows_out = []
+    for leaf, d in layer.items():
+        K, N = d["qw"].shape
+        for M in QMM_M:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            want = wq.quant_matmul_plain(x, d["qw"], d["scale"])
+            k_tiles = -(-K // wq.TC_BK)
+            chosen = wq.qmm_tc_plan(M, N, K)
+            cells = []
+            for rows in ((next(r for r in wq.TC_DECODE_ROWS if M <= r),)
+                         if M <= wq.TC_DECODE_ROWS[-1] else (128, 256)):
+                for splits in (1, 2, 4, 8, 16):
+                    per = -(-k_tiles // splits)
+                    if -(-k_tiles // per) != splits:
+                        continue
+                    tiles = -(-M // rows) * -(-N // wq.TC_BN)
+                    ws = torch.empty(splits * M * N, dtype=torch.float32,
+                                     device=dev)
+                    tk = torch.zeros(tiles, dtype=torch.int32, device=dev)
+                    out = torch.empty((M, N), dtype=torch.bfloat16,
+                                      device=dev)
+
+                    def go(rows=rows, splits=splits, per=per, ws=ws, tk=tk,
+                           out=out):
+                        stream = torch.cuda.current_stream().cuda_stream
+                        err = lib.quant_matmul_tc_launch(
+                            x.data_ptr(), d["qw"].data_ptr(),
+                            d["scale"].data_ptr(), out.data_ptr(),
+                            ws.data_ptr(), tk.data_ptr(), M, N, K, rows,
+                            splits, per, stream)
+                        check(err == 0, f"quant_matmul_tc_launch: {err}")
+
+                    go()
+                    check(bool(matmul_err(out, want)[1]),
+                          f"plan r{rows} s{splits} on {leaf} M {M}")
+                    ms = device_ms(go)
+                    mark = "*" if (rows, splits) == chosen[:2] else ""
+                    cells.append(f"r{rows}s{splits}{mark} {ms:.4f}")
+                    rows_out.append(dict(leaf=leaf, M=M, rows=rows,
+                                         splits=splits, ms=ms,
+                                         chosen=bool(mark)))
+            print(f"[qmm] plans, {leaf} M {M} (device ms; * = qmm_tc_plan): "
+                  + "; ".join(cells))
+    return rows_out
+
+
+def qmm_probe() -> int:
+    """``--qmm``: #15 alone (card only; about a minute): builds both of
+    its libraries, holds the kernel to its plain version at the
+    llama-3-8b projections (random seeded weights, quantized on the
+    card) for M in ``QMM_M`` and twice for the same bits, prints the
+    times ``time_qmm`` takes on the path's layer 0, and the sweep of
+    (rows, splits) plans that ``qmm_tc_plan`` was read off."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    for name, (path, report) in _build.build_all(
+            ["quant_matmul", "quant_matmul_tc"]).items():
+        print(f"[qmm] built {path.name}; ptxas: " + "; ".join(
+            ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "Compiling entry" in ln or "spill" in ln))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    layer = {}
+    for leaf, (K, N) in (("q_proj", (4096, 4096)), ("k_proj", (4096, 1024)),
+                         ("gate_proj", (4096, 14336)),
+                         ("down_proj", (14336, 4096))):
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+        layer[leaf] = wq.quantize_weight(w)
+        del w
+    chk = CheckedMatmul(wq)
+    with torch.inference_mode(), chk:
+        for leaf, d in layer.items():
+            K = d["qw"].shape[0]
+            for M in (*QMM_M, 77):
+                x = torch.randn((M, K), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                got = wq.quant_matmul(x, d["qw"], d["scale"])
+                again = wq.quant_matmul(x, d["qw"], d["scale"])
+                check(torch.equal(got, again), f"{leaf} M {M}: two calls "
+                      "differ")
+    torch.cuda.synchronize()
+    routes = chk.all_tc("[qmm]")
+    print(f"[qmm] {chk.calls} calls within tolerance of the plain version, "
+          f"max |kernel - plain| {chk.max_err:.3e}, routes {routes}; "
+          f"repeated calls bitwise equal")
+    record = {}
+    with torch.inference_mode():
+        entry = time_qmm(dev, wq, chk, card, {"quant_matmul": chk.launches},
+                         layer, record)
+        sweep = qmm_plan_sweep(dev, wq, layer, gen)
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "qmm_probe.json").write_text(json.dumps(
+        {"card": card, "entry": entry, "plans": sweep}, indent=1))
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tie-probe"]:
         sys.exit(tie_probe([int(a) for a in sys.argv[2:]] or [25]))
+    if sys.argv[1:2] == ["--qmm"]:
+        sys.exit(qmm_probe())
     sys.exit(main())

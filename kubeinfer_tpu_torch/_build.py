@@ -195,6 +195,11 @@ _SIGNATURES = {
         # x, qw, scale, out, workspace, M, N, K, splits, dtype
         "quant_matmul_launch": [_P] * 5 + [_I] * 5 + [_P],
     },
+    "quant_matmul_tc": {
+        # x, qw, scale, out, workspace, tickets, M, N, K, rows, splits,
+        # k_per (bf16, K % 16 == 0, N % 16 == 0)
+        "quant_matmul_tc_launch": [_P] * 6 + [_I] * 6 + [_P],
+    },
 }
 
 

@@ -10,6 +10,13 @@
 // matches within a stated tolerance (the sums run in another order).
 // Ragged M, N and K are masked.
 //
+// The shapes it serves: since quant_matmul_tc.cu (wgmma + TMA) took
+// every bf16 call with K % 16 == 0, N % 16 == 0 and 16-byte aligned x
+// and qw (weight_quant.qmm_route: every llama-3-8b projection), this
+// file runs the other bf16 calls (a ragged N or K, an x view at an odd
+// offset) and every f32 call. chip_smoke.py times its bf16 kernel beside
+// the tensor-core one on the same calls (old_qmm).
+//
 // Bound on this card, and the design. The shapes of the serving path
 // span two orders of magnitude:
 // - decode (M = 8 rows) is bound by bytes: each launch streams the whole

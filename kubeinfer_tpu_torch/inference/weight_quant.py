@@ -22,11 +22,16 @@ accumulation, and ``acc * scale[n]`` cast once to x's dtype. Its plain
 version ``quant_matmul_plain`` is the reference's CPU route
 (``quant_matmul_dense``): ``((x.float() @ qw.float()) * scale)`` in f32,
 cast once. The wrapper takes the plain version for a CPU tensor only;
-for a CUDA tensor it launches ``csrc/quant_matmul.cu`` or raises.
-``quant_matmul.launches`` counts its launches.
+for a CUDA tensor it launches ``csrc/quant_matmul_tc.cu`` (wgmma + TMA)
+where ``qmm_route`` holds, else ``csrc/quant_matmul.cu``, or raises.
+``quant_matmul.launches`` counts its launches, ``tc_launches`` those of
+the tensor-core kernel; ``quant_matmul_split_plain`` mirrors that
+kernel's split-K arithmetic (``qmm_tc_plan``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -155,13 +160,107 @@ def k_splits(M: int, N: int, K: int) -> int:
     return max(1, min(-(-K // BK), SPLIT_TARGET_BLOCKS // tiles))
 
 
+# the tensor-core kernel's geometry (csrc/quant_matmul_tc.cu): 128 weight
+# columns and 64-deep K stages a block, and x rows a block: at decode
+# sizes the first of TC_DECODE_ROWS that holds M (TMA zero-fills the
+# padding), above them 128 or 256
+TC_BN = 128
+TC_BK = 64
+TC_DECODE_ROWS = (8, 16, 32, 64)
+# blocks that fill an H100 SXM once (132 SMs, one block each): the wide
+# 256-row blocks where their tiles alone fill it, and K split over blocks
+# only while the tiles are fewer, each split at least TC_MIN_K_TILES
+# stages deep (decode sizes, bound by bytes) or TC_MIN_K_TILES_WIDE
+# (prefill sizes, where each split adds an f32 partial of 128 or 256 rows
+# to the combine)
+TC_BLOCKS = 132
+TC_MIN_K_TILES = 4
+TC_MIN_K_TILES_WIDE = 16
+
+
+def qmm_route(x: torch.Tensor, qw: torch.Tensor) -> bool:
+    """Whether #15's wrapper launches the tensor-core kernel
+    (``csrc/quant_matmul_tc.cu``) for ``x [..., K] @ qw [K, N]``: bf16
+    with K % 16 == 0 and N % 16 == 0 (TMA's 16-byte strides), x and qw
+    16-byte aligned as given. Every other bf16 call (a ragged shape, an x
+    view at an odd offset) launches ``csrc/quant_matmul.cu``'s mma.sync
+    kernel, f32 its CUDA-core kernel. A static choice, not a fallback:
+    the chosen kernel launches or the wrapper raises."""
+    K, N = qw.shape
+    return (x.dtype == torch.bfloat16 and K % 16 == 0 and N % 16 == 0
+            and x.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def qmm_tc_plan(M: int, N: int, K: int) -> tuple[int, int, int]:
+    """(x rows a block, splits, 64-deep K tiles a split) of the
+    tensor-core kernel for x [M, K] @ qw [K, N]; every split non-empty.
+    The rule was read off device times of the llama-3-8b projections on
+    an H100 (``chip_smoke.py --qmm``): 256-row blocks run about 1.4x the
+    rate of 128-row ones where both fill the card; splitting K pays at
+    decode sizes and where fewer than a wave of tiles would run."""
+    n_tiles = -(-N // TC_BN)
+    k_tiles = -(-K // TC_BK)
+    if M <= TC_DECODE_ROWS[-1]:
+        rows = next(r for r in TC_DECODE_ROWS if M <= r)
+        min_per = TC_MIN_K_TILES
+    else:
+        rows = 256 if -(-M // 256) * n_tiles >= TC_BLOCKS else 128
+        min_per = TC_MIN_K_TILES_WIDE
+    tiles = -(-M // rows) * n_tiles
+    splits = max(1, min(TC_BLOCKS // tiles, k_tiles // min_per))
+    per = -(-k_tiles // splits)
+    return rows, -(-k_tiles // per), per
+
+
+def quant_matmul_split_plain(x: torch.Tensor, qw: torch.Tensor,
+                             scale: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in plain PyTorch: f32 partial
+    sums over the K ranges of ``qmm_tc_plan``, added in split order,
+    times the scale, cast once (each partial's own sum runs in another
+    order than the kernel's)."""
+    K, N = qw.shape
+    x2 = x.reshape(-1, K)
+    _, splits, per = qmm_tc_plan(x2.shape[0], N, K)
+    step = per * TC_BK
+    total = None
+    for z in range(splits):
+        part = torch.matmul(x2[:, z * step:(z + 1) * step].float(),
+                            qw[z * step:(z + 1) * step].float())
+        total = part if total is None else total + part
+    return (total * scale.float()).to(x.dtype).reshape(*x.shape[:-1], N)
+
+
+# the tensor-core kernel's f32 split partials, one buffer per (device,
+# stream) grown to the largest call: launches on one stream never overlap
+_workspaces: dict = {}
+
+
+def _tc_workspace(dev, stream: int, n: int) -> torch.Tensor:
+    key = (dev, stream)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=dev)
+        _workspaces[key] = buf
+    return buf
+
+
+def _call(lib, fn: str, *args) -> None:
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
+
+
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """#15 on the tensors' device: leading dims of ``x`` fold into M (the
-    reference's ``quant_matmul_auto``). For CUDA tensors one launch of
-    ``quant_matmul_launch`` (bf16 on the tensor cores, f32 on the CUDA
-    cores); for CPU tensors ``quant_matmul_plain``."""
-    lib = fa._kernel_lib(x, "quant_matmul", "quant_matmul")
+    reference's ``quant_matmul_auto``). For CUDA tensors one launch:
+    ``quant_matmul_tc_launch`` where ``qmm_route`` holds (split K combined
+    in the same launch), else ``quant_matmul_launch`` (bf16 on mma.sync,
+    f32 on the CUDA cores); for CPU tensors ``quant_matmul_plain``."""
+    tc = qmm_route(x, qw)
+    lib = fa._kernel_lib(x, "quant_matmul",
+                         "quant_matmul_tc" if tc else "quant_matmul")
     if lib is None:
         return quant_matmul_plain(x, qw, scale)
     if x.dtype not in fa._DTYPES:
@@ -177,21 +276,38 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
         x2 = x2.clone()
     M = x2.shape[0]
     dev = x.device
-    fa._check("x", x2, x.dtype, (M, K), dev)
-    fa._check("qw", qw, torch.int8, (K, N), dev)
-    fa._check("scale", scale, torch.float32, (N,), dev, align=4)
+    fa._check_split((("x", x2, x.dtype, (M, K), 16),
+                     ("qw", qw, torch.int8, (K, N), 16),
+                     ("scale", scale, torch.float32, (N,), 4)), dev)
+    # the raw handle of the current stream (not a Stream object): #15 runs
+    # 224 times a llama-3-8b forward, on the host
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    splits = k_splits(M, N, K) if x.dtype == torch.bfloat16 else 1
-    # the split-K partial sums, reduced in split order by a second pass
-    ws = torch.empty((splits, M, N) if splits > 1 else (1,),
-                     dtype=torch.float32, device=dev)
-    fa._launch(lib, "quant_matmul_launch", x2, qw, scale, out, ws, M, N, K,
-               splits, fa._DTYPES[x.dtype])
+    if tc:
+        rows, splits, per = qmm_tc_plan(M, N, K)
+        ws = tickets = None
+        if splits > 1:
+            ws = _tc_workspace(dev, stream, splits * M * N).data_ptr()
+            tickets = fa._split_tickets(
+                dev, stream, -(-M // rows) * -(-N // TC_BN)).data_ptr()
+        _call(lib, "quant_matmul_tc_launch", x2.data_ptr(), qw.data_ptr(),
+              scale.data_ptr(), out.data_ptr(), ws, tickets, M, N, K, rows,
+              splits, per, stream)
+        quant_matmul.tc_launches += 1
+    else:
+        splits = k_splits(M, N, K) if x.dtype == torch.bfloat16 else 1
+        # the split-K partial sums, reduced in split order by a second pass
+        ws = torch.empty((splits, M, N) if splits > 1 else (1,),
+                         dtype=torch.float32, device=dev)
+        _call(lib, "quant_matmul_launch", x2.data_ptr(), qw.data_ptr(),
+              scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
+              splits, fa._DTYPES[x.dtype], stream)
     quant_matmul.launches += 1
     return out.reshape(*lead, N)
 
 
 quant_matmul.launches = 0
+quant_matmul.tc_launches = 0
 
 
 def wq_dot(x: torch.Tensor, w) -> torch.Tensor:

@@ -196,12 +196,25 @@ def test_int8_loading_gives_reference_codes(source):
 # --- on the card ---------------------------------------------------------------
 
 
+# the llama-3-8b projections (K, N): q and o, k and v, gate and up, down
+LLAMA_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (8, 1024, 4096),
                                    (5, 200, 300), (300, 512, 704),
-                                   (512, 256, 128), (600, 264, 392)])
+                                   (512, 256, 128), (600, 264, 392),
+                                   (77, 4096, 4096), (40, 1040, 272),
+                                   (130, 1040, 272)]
+                         + [(M, K, N) for M in (8, 40, 512)
+                            for K, N in LLAMA_KN])
 def test_kernel_matches_plain_on_card(dtype, M, K, N):
+    """Each call within tolerance of the plain version; bf16 calls that
+    ``qmm_route`` admits (the llama shapes at decode, verify and admit
+    sizes, a ragged M of 77, the down projection, whose K splits at
+    decode, K and N short of whole 64-deep and 128-wide tiles) launch the
+    tensor-core kernel and give the same bits twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel; no interpret mode)")
     dev = torch.device("cuda")
@@ -210,12 +223,17 @@ def test_kernel_matches_plain_on_card(dtype, M, K, N):
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
     d = tq.quantize_weight(torch.from_numpy(weight(K, N, N)).to(dev))
     x = x.to(dev).to(td)
-    before = tq.quant_matmul.launches
+    tc = tq.qmm_route(x, d["qw"])
+    assert tc == (dtype == "bf16" and K % 16 == 0 and N % 16 == 0)
+    before, before_tc = tq.quant_matmul.launches, tq.quant_matmul.tc_launches
     got = tq.quant_matmul(x, d["qw"], d["scale"])
     want = tq.quant_matmul_plain(x, d["qw"], d["scale"])
     torch.cuda.synchronize()
     assert tq.quant_matmul.launches == before + 1
+    assert tq.quant_matmul.tc_launches == before_tc + tc
     assert got.dtype == td and torch.isfinite(got.float()).all()
+    if tc:  # the split-K combine adds in a fixed order: the same bits
+        assert torch.equal(tq.quant_matmul(x, d["qw"], d["scale"]), got)
     g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
     mag = np.abs(w).max(axis=-1, keepdims=True)
     rel = 1e-5 if dtype == "f32" else 2.0 ** -6
