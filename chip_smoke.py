@@ -39,10 +39,14 @@ times them. Phases:
       the kernel and its plain version (CUDA events), and the serial
       native baseline;
   (5) fence, bid and accept vs fence_minrank, round_bids and dense_accept,
-      bitwise, on the inputs of the first rounds of a real 10k jobs x 20k
-      nodes solve (J=12288, N=24576, both accept passes; no mega window
-      fits) and on every round of a 700 x 60 solve with 25% gangs (N=64,
-      the halves group rule);
+      bitwise, on every round of a real 10k jobs x 20k nodes solve
+      (J=12288, N=24576, both accept passes; no mega window fits), of its
+      10% churn re-solve through the backend, of the churn loop with no
+      incumbent seated (columns that bid at their incumbent's node alone)
+      and of a 700 x 60 solve with 25% gangs (N=64, the halves group
+      rule); on each fence and bid call, the kernel's own count of its
+      walk (chunk sweeps; pairs tested and chunks walked) equal to its
+      plain mirror's (kernels.fence_walk, kernels.bid_walk);
   (6) the pipelined path: ``get_backend("jax-greedy").solve`` at 10k x 20k
       fresh, with 25% gangs, and a 10% churn re-solve (seeded, with the
       preemption repair), launch counts reset just before and read just
@@ -50,8 +54,12 @@ times them. Phases:
       device="cpu" solve at 1k x 20k, at 700 x 60 with 25% gangs, and at
       an overloaded 1000 x 60 with 25% gangs (gang repair + fill);
   (7) times of the pipelined path: p50 pack + solve at 10k x 20k, rounds,
-      ms per round, launches and host syncs per solve, and each round
-      kernel beside its plain version and its bound;
+      the main loop's ms, launches and host syncs per solve; fence, bid
+      and accept on every round's inputs by device time (a CUDA graph of
+      20 launches) beside the bound of what those inputs need and the
+      walk counts, and on round 1 also by CUDA events over calls, by the
+      wrapper's host us and beside the plain version; torch.amin over as
+      many columns of S as are active, a yardstick of the same bytes;
   (9) auction_solve vs auction_rounds, bitwise (assigned, iterations), on
       the benefit fields of bench.py's whole-node auction request
       (J = N = 1024), of 256 identical jobs, of a random 64 x 64 field
@@ -205,11 +213,19 @@ times them. Phases:
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Full numbers go to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --placement
+
+runs (0)-(4), (5)-(7), (9)-(12) alone (the four solver libraries; about a
+minute of command), with their entries of the kernels line and the last
+line; the numbers go to chiprun_out/placement.json. ``--p50s`` prints the
+placement p50s of (4), (7) and (11) alone.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import pathlib
 import statistics
@@ -369,18 +385,32 @@ def round_counts(kernels):
 class CheckedOps:
     """Round ops for ``core.run_rounds`` that run each kernel and its plain
     version on the same inputs, hold every output bitwise equal, and hand
-    the kernel's result on. The inputs of each op's first call are kept
-    for the timings."""
+    the kernel's result on. Where a wrapper has a ``walk_counter``, the
+    kernel's own count of what it read is held to its plain mirror
+    (``walk_mirror``) on every call. The inputs of every call are kept, in
+    order, for the timings (``every``). ``ops()`` gives them to
+    ``run_rounds``; under ``installed()`` every ``run_rounds`` call of a
+    solve through the backend takes them."""
 
     def __init__(self, kernels):
         self.k = kernels
+        self.real = {name: getattr(kernels, name) for name in ROUND_KERNELS}
+        self.plain = {"fence": kernels.fence_minrank,
+                      "bid": kernels.round_bids,
+                      "accept": kernels.dense_accept}
         self.calls = dict.fromkeys(ROUND_KERNELS, 0)
         self.max_err = dict.fromkeys(ROUND_KERNELS, 0.0)
-        self.first = {}
+        self.walked = {"fence": 0, "bid": 0}
+        self.walk_log = {"fence": [], "bid": []}
+        self.every = {name: [] for name in ROUND_KERNELS}
 
-    def _held(self, name, kern, plain, args, kw):
-        self.first.setdefault(name, (args, kw))
-        got, want = kern(*args, **kw), plain(*args, **kw)
+    def _held(self, name, args, kw):
+        self.every[name].append((args, kw))
+        counter = getattr(self.real[name], "walk_counter", None)
+        if counter is not None:
+            counter.zero_()
+        got = self.real[name](*args, **kw)
+        want = self.plain[name](*args, **kw)
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         for g, w in zip(got, want):
@@ -388,19 +418,50 @@ class CheckedOps:
             self.max_err[name] = max(self.max_err[name], err)
             check(torch_equal(g, w),
                   f"{name}: kernel != plain version, call {self.calls[name]}")
+        if counter is not None:
+            mirror = walk_mirror(self.k, name, args)
+            check(counter.tolist() == mirror,
+                  f"{name}: the kernel's walk count {counter.tolist()} != "
+                  f"its mirror's {mirror}, call {self.calls[name]}")
+            self.walked[name] += mirror[0]
+            self.walk_log[name].append(mirror)
         self.calls[name] += 1
         return got if len(got) > 1 else got[0]
 
     def ops(self):
         from kubeinfer_tpu_torch.solver.core import RoundOps
 
-        k = self.k
-        return RoundOps(
-            lambda *a, **kw: self._held("fence", k.fence, k.fence_minrank, a, kw),
-            lambda *a, **kw: self._held("bid", k.bid, k.round_bids, a, kw),
-            lambda *a, **kw: self._held(
-                "accept", k.accept, k.dense_accept, a, kw),
-        )
+        return RoundOps(*(
+            (lambda *a, _n=name, **kw: self._held(_n, a, kw))
+            for name in ROUND_KERNELS))
+
+    @contextlib.contextmanager
+    def installed(self):
+        from kubeinfer_tpu_torch.solver import core
+
+        real = core.run_rounds
+        core.run_rounds = lambda *a, **kw: real(*a, **kw, ops=self.ops())
+        try:
+            yield self
+        finally:
+            core.run_rounds = real
+
+
+def home_reads(kernels, chk):
+    """The pairs the bid kernel tested at an incumbent's node alone, over
+    the bid calls ``chk`` checked (``bid_walk``'s home pairs)."""
+    return sum(int(kernels.bid_walk(a[6], a[7], a[8])[1].sum())
+               for a, _ in chk.every["bid"])
+
+
+def walk_mirror(kernels, name, args):
+    """The plain mirror of a round kernel's own walk count: ``[sweeps]``
+    of ``fence_walk`` for fence, ``[entries, walks]`` of ``bid_walk`` for
+    bid."""
+    if name == "fence":
+        return [int(kernels.fence_walk(*args).sum())]
+    rank, minrank, cur = args[6], args[7], args[8]
+    return list(kernels.bid_walk(rank, minrank, cur)[2:])
 
 
 def torch_equal(a, b):
@@ -460,7 +521,7 @@ def pipelined_phases(dev, backend, cpu_backend, kernels, record, card,
         run_rounds,
         seed_incumbents,
     )
-    from kubeinfer_tpu_torch.solver.kernels import RANK_INF, mega_window
+    from kubeinfer_tpu_torch.solver.kernels import mega_window
 
     w = ScoreWeights()
     Jb, Nb = big
@@ -469,15 +530,23 @@ def pipelined_phases(dev, backend, cpu_backend, kernels, record, card,
     J, N = p20.jobs.valid.shape[0], p20.nodes.valid.shape[0]
     check(mega_window(N, J) is None, f"{J}x{N} has a mega window")
 
-    # (5) kernel vs plain: every round of the main loop of a fresh solve
-    # at the full width, and of a 700 x 60 solve with 25% gangs (N=64)
+    # (5) kernel vs plain, and the fence and bid kernels' own walk counts
+    # vs their mirrors: every round of the main loop of a fresh solve at
+    # the full width, of a 700 x 60 solve with 25% gangs (N=64), of the
+    # whole 10% churn solve through the backend (the preemption repair's
+    # re-solves included) and of the churn loop with no incumbent seated
+    kernels.fence.walk_counter = torch.zeros(1, dtype=torch.int64,
+                                             device=dev)
+    kernels.bid.walk_counter = torch.zeros(2, dtype=torch.int64, device=dev)
     f20 = cost_field(p20, w)
     a0, g0, m0, _ = seed_incumbents(p20, False)
     chk = CheckedOps(kernels)
     _, _, _, r20 = run_rounds(f20, p20.jobs, a0, g0, m0, 0, f20.rankf, 64,
                               ops=chk.ops())
     print(f"[5] {J}x{N}: fence/bid/accept bitwise equal to their plain "
-          f"versions over {r20} rounds ({chk.calls})")
+          f"versions over {r20} rounds ({chk.calls}); walk counts equal to "
+          f"the mirrors': fence {chk.walked['fence']} chunk sweeps, bid "
+          f"{chk.walked['bid']} pairs tested")
     req700 = build_request(700, 60, seed=6, gang_fraction=0.25)
     p7, _ = problem_of(req700, dev)
     check(p7.nodes.valid.shape[0] == 64, "700x60 does not pad to N=64")
@@ -487,19 +556,52 @@ def pipelined_phases(dev, backend, cpu_backend, kernels, record, card,
     _, _, _, r7 = run_rounds(f7, p7.jobs, a7, g7, m7, 0, f7.rankf, 64,
                              ops=chk64.ops())
     print(f"[5] {p7.jobs.valid.shape[0]}x64 (halves group rule): bitwise "
-          f"equal over {r7} rounds ({chk64.calls})")
-    max_err = {k: max(chk.max_err[k], chk64.max_err[k]) for k in ROUND_KERNELS}
+          f"equal over {r7} rounds ({chk64.calls}); walk counts equal to the "
+          "mirrors'")
+    req20c = churned(req20, backend.solve(req20).assignment, seed=9)
+    chk_c = CheckedOps(kernels)
+    with chk_c.installed():
+        res_c = backend.solve(req20c)
+    print(f"[5] {Jb}x{Nb} 10% churn through the backend: bitwise equal over "
+          f"{res_c.rounds} rounds ({chk_c.calls}); walk counts equal to the "
+          f"mirrors', {home_reads(kernels, chk_c)} home-only reads (a "
+          "seated incumbent is placed and does not bid)")
+    # the churn problem's loop with no incumbent seated: a column whose
+    # rank is above its chunks' fence minima bids at its incumbent's node
+    # alone (the home-only reads)
+    p20c, _ = problem_of(req20c, dev)
+    f20c = cost_field(p20c, w)
+    ac, gc, mc, _ = seed_incumbents(p20c, False)
+    chk_h = CheckedOps(kernels)
+    _, _, _, rh = run_rounds(f20c, p20c.jobs, ac, gc, mc, 0, f20c.rankf, 64,
+                             ops=chk_h.ops())
+    homes = home_reads(kernels, chk_h)
+    check(homes > 0, "the unseated churn loop read no incumbent's home alone")
+    print(f"[5] {J}x{N} churn loop, no incumbent seated: bitwise equal over "
+          f"{rh} rounds ({chk_h.calls}); walk counts equal to the mirrors', "
+          f"{homes} home-only reads")
+    kernels.fence.walk_counter = kernels.bid.walk_counter = None
+    max_err = {k: max(c.max_err[k] for c in (chk, chk64, chk_c, chk_h))
+               for k in ROUND_KERNELS}
     record["round_checks"] = {"rounds_full": r20, "rounds_n64": r7,
+                              "rounds_churn": res_c.rounds,
                               "calls_full": chk.calls,
-                              "calls_n64": chk64.calls}
+                              "calls_n64": chk64.calls,
+                              "calls_churn": chk_c.calls,
+                              "walked_full": chk.walked,
+                              "walked_churn": chk_c.walked,
+                              "rounds_unseated": rh,
+                              "calls_unseated": chk_h.calls,
+                              "home_reads_unseated": homes}
 
     # (6) the pipelined path through the backend, counted
     req20g = build_request(Jb, Nb, seed=1, gang_fraction=0.25)
     reset_counts(kernels)
     res20 = backend.solve(req20)
     res20g = backend.solve(req20g)
-    req20c = churned(req20, res20.assignment, seed=9)
     res20c = backend.solve(req20c)
+    check(np.array_equal(res20c.assignment, res_c.assignment),
+          "the churn solve differs from its checked run in [5]")
     counts = round_counts(kernels)
     check(all(counts.values()), f"the pipelined path skipped a kernel: {counts}")
     check(kernels.mega_solve.launches == 0, "a no-window solve ran mega")
@@ -580,61 +682,10 @@ def pipelined_phases(dev, backend, cpu_backend, kernels, record, card,
     backend.solve(req20)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # each kernel on the inputs of its first call (round 1), and its bound
-    plain = {"fence": kernels.fence_minrank, "bid": kernels.round_bids,
-             "accept": kernels.dense_accept}
-    entries = []
-    sources = {"fence": 587, "bid": 275, "accept": 420}
-    also = {"fence": None, "bid": 513, "accept": 1125}
-    for name in ROUND_KERNELS:
-        args, kw = chk.first[name]
-        ms = cuda_ms(lambda: getattr(kernels, name)(*args, **kw), reps=20)
-        pms = cuda_ms(lambda: plain[name](*args, **kw), reps=3)
-        if name == "fence":
-            gf, mf, d, md, rank = args
-            pairs = N * int((rank < RANK_INF).sum())
-            moved_b = N * 12 + J * 12
-            bound_ms = max(pairs / F32_OPS_PER_S,
-                           moved_b / HBM_BYTES_PER_S) * 1e3
-            bound_by = ("operations" if pairs / F32_OPS_PER_S
-                        > moved_b / HBM_BYTES_PER_S else "bytes")
-            note = f"{pairs} compare-selects (N x unplaced jobs) at 67 TFLOP/s"
-        elif name == "bid":
-            S, u, gf, mf, d, md, rank, minrank, cur = args
-            finite = minrank < RANK_INF * 0.5
-            max_mr = torch.where(finite, minrank, -1.0).max()
-            active = (rank < RANK_INF * 0.5) & ((rank <= max_mr) | (cur >= 0))
-            cols = int(active.sum())
-            moved_b = cols * N * 4 + N * 16 + J * 16 + J * 8
-            bound_ms = moved_b / HBM_BYTES_PER_S * 1e3
-            bound_by = "bytes"
-            note = f"S of {cols} active columns ({cols * N * 4} bytes)"
-        else:
-            moved_b = J * 16 + N * 8 + J + N * 8
-            bound_ms = moved_b / HBM_BYTES_PER_S * 1e3
-            bound_by = "bytes"
-            note = "O(N + J) bytes; launch and barrier latency set the pace"
-        print(f"[7] {card}: {name} {ms:.4f} ms/launch, plain {pms:.3f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}: {note}), "
-              f"{per_solve[name]} launches per {Jb}x{Nb} solve")
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": "kubeinfer_tpu_torch/solver/csrc/round_ops.cu",
-            "replaces": f"kubeinfer_tpu/solver/pallas_kernels.py:{sources[name]}",
-            **({"also_replaces":
-                f"kubeinfer_tpu/solver/pallas_kernels.py:{also[name]}"}
-               if also[name] else {}),
-            "launches": counts[name],
-            "max_abs_err": max_err[name],
-            "ms": ms,
-            "plain_ms": pms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "check": f"bitwise equal to its plain version at {J}x{N} "
-                     "and at N=64",
-        })
+    # each round kernel on every round's inputs of the fresh solve
+    entries, rec = round_kernel_times(kernels, chk, card, counts, per_solve,
+                                      max_err, f"{J}x{N}")
+    record["round_kernel_times"] = rec
     print(f"[7] {card}: p50 pack+solve {Jb}x{Nb} {p50:.3f} ms (pack "
           f"{enc:.3f} ms), {res20.rounds} rounds, main loop {loop_p50:.3f} ms"
           f" = {loop_p50 / max(r20, 1):.3f} ms/round over {r20} rounds; per "
@@ -650,6 +701,155 @@ def pipelined_phases(dev, backend, cpu_backend, kernels, record, card,
         "cost_field_ms": field_ms, "peak_gb": peak_gb,
     }
     return entries
+
+
+def round_bound(name, args):
+    """(bound ms, "bytes" or "operations", note, counts) of one round
+    kernel call: what these inputs need. fence: the larger of its bytes
+    and the compare-selects of the chunk sweeps its walk takes
+    (``fence_walk``), beside the dense count (N x unplaced jobs); bid: the
+    bytes of the S entries whose pair is allowed (the entries any kernel
+    must read) and of the vectors, beside the count of the active columns'
+    S; accept: its O(N + J) bytes."""
+    import torch
+
+    from kubeinfer_tpu_torch.solver.kernels import (
+        FENCE_CHUNK,
+        RANK_INF,
+        fence_walk,
+    )
+
+    if name == "fence":
+        gf, mf, d, md, rank = args
+        N, J = gf.shape[0], d.shape[0]
+        sweeps = int(fence_walk(*args).sum())
+        pairs = sweeps * FENCE_CHUNK * 64  # a warp's 64 nodes x 32 jobs
+        dense = N * int((rank < RANK_INF).sum())
+        moved_b = N * 8 + J * 12 + N * 4
+        op_s, b_s = pairs / F32_OPS_PER_S, moved_b / HBM_BYTES_PER_S
+        return (max(op_s, b_s) * 1e3, "operations" if op_s > b_s else "bytes",
+                f"{moved_b} bytes; {pairs} compare-selects in the {sweeps} "
+                f"chunk sweeps of the walk at 67 TFLOP/s; the dense count of "
+                f"the earlier design, N x unplaced jobs: {dense}, "
+                f"{dense / F32_OPS_PER_S * 1e3:.5f} ms",
+                {"sweeps": sweeps, "dense_pairs": dense})
+    if name == "bid":
+        S, u, gf, mf, d, md, rank, minrank, cur = args
+        N, J = S.shape
+        finite = minrank < RANK_INF * 0.5
+        max_mr = torch.where(finite, minrank, -1.0).max()
+        active = (rank < RANK_INF * 0.5) & ((rank <= max_mr) | (cur >= 0))
+        cols = int(active.sum())
+        allowed = 0
+        for n0 in range(0, N, 2048):  # [2048, J] at a time
+            n = torch.arange(n0, min(N, n0 + 2048), device=S.device)
+            ok = ((d[None, :] <= (gf[n] + 1e-4)[:, None])
+                  & (md[None, :] <= (mf[n] + 1e-4)[:, None])
+                  & ((rank[None, :] <= minrank[n][:, None])
+                     | (cur[None, :] == n[:, None]))
+                  & (rank[None, :] < RANK_INF * 0.5))
+            allowed += int(ok.sum())
+        moved_b = allowed * 4 + N * 16 + J * 16 + J * 8
+        return (moved_b / HBM_BYTES_PER_S * 1e3, "bytes",
+                f"S of {allowed} allowed pairs ({allowed * 4} bytes); the "
+                f"active columns' S, the earlier count: {cols} columns, "
+                f"{cols * N * 4} bytes, "
+                f"{(cols * N * 4 + N * 16 + J * 24) / HBM_BYTES_PER_S * 1e3:.5f}"
+                " ms", {"allowed": allowed, "active_cols": cols})
+    choice = args[0]
+    N, J = args[4].shape[0], choice.shape[0]
+    moved_b = J * 16 + N * 8 + J + N * 8
+    return (moved_b / HBM_BYTES_PER_S * 1e3, "bytes",
+            "O(N + J) bytes; launch and barrier latency set the pace", {})
+
+
+def round_kernel_times(kernels, chk, card, counts, per_solve, max_err, shape):
+    """[7]: fence, bid and accept on every round's inputs of a checked
+    solve (``chk.every``) by device time (``device_ms``), each beside its
+    bound; round 1 also by CUDA events over calls (the measure up to PR
+    12), by the wrapper's host us and by its plain version. Returns the
+    three entries of the ``kernels`` line and the record."""
+    plain = {"fence": kernels.fence_minrank, "bid": kernels.round_bids,
+             "accept": kernels.dense_accept}
+    sources = {"fence": 587, "bid": 275, "accept": 420}
+    also = {"fence": None, "bid": 513, "accept": 1125}
+    rounds = len(chk.every["fence"])
+    per_round = {name: [] for name in ROUND_KERNELS}
+    for name in ROUND_KERNELS:
+        fn = getattr(kernels, name)
+        calls = chk.every[name]
+        per = len(calls) // rounds  # accept: two passes a round
+        for r in range(rounds):
+            row = {"device_ms": 0.0, "bound_ms": 0.0}
+            for args, kw in calls[r * per:(r + 1) * per]:
+                row["device_ms"] += device_ms(lambda: fn(*args, **kw))
+                bound_ms, bound_by, note, n = round_bound(name, args)
+                row["bound_ms"] += bound_ms
+                row["bound_by"], row["note"], row["counts"] = bound_by, note, n
+            if r < len(chk.walk_log.get(name, [])):
+                row["walk"] = chk.walk_log[name][r]
+            per_round[name].append(row)
+    for r in range(rounds):
+        walks = {name: per_round[name][r].get("walk") for name in ("fence",
+                                                                   "bid")}
+        print(f"[7] {card}: round {r + 1}/{rounds}: " + "; ".join(
+            f"{name} {per_round[name][r]['device_ms']:.4f} ms device, bound "
+            f"{per_round[name][r]['bound_ms']:.5f} ms "
+            f"({per_round[name][r]['bound_by']})" for name in ROUND_KERNELS)
+            + f"; walks: fence {walks['fence']} chunk sweeps, bid "
+            f"{walks['bid']} (pairs tested, chunks walked), "
+            f"{per_round['bid'][r]['counts']['allowed']} allowed pairs")
+    entries, rec = [], {"per_round": per_round}
+    for name in ROUND_KERNELS:
+        fn = getattr(kernels, name)
+        args, kw = chk.every[name][0]
+        first = per_round[name][0]
+        event_ms = cuda_ms(lambda: fn(*args, **kw), reps=20)
+        us = host_us(lambda: fn(*args, **kw), reps=100)
+        pms = cuda_ms(lambda: plain[name](*args, **kw), reps=3)
+        total = sum(row["device_ms"] for row in per_round[name])
+        yard = ""
+        if name == "bid":
+            S, cols = args[0], first["counts"]["active_cols"]
+            rec["amin_ms"] = device_ms(lambda: S[:, :cols].amin(dim=0))
+            yard = (f"; torch.amin over the first {cols} columns of S, read "
+                    f"once, {rec['amin_ms']:.4f} ms device (a yardstick of "
+                    "the same bytes, not a library call for the function)")
+        total_bound = sum(row["bound_ms"] for row in per_round[name])
+        print(f"[7] {card}: {name} round 1 {first['device_ms']:.4f} ms device "
+              f"(CUDA events over calls {event_ms:.4f} ms), host {us:.1f} us "
+              f"a call, plain {pms:.3f} ms, bound {first['bound_ms']:.5f} ms "
+              f"({first['bound_by']}: {first['note']}); over the {rounds} "
+              f"rounds {total:.4f} ms device against a bound of "
+              f"{total_bound:.5f} ms; {per_solve[name]} launches per {shape} "
+              f"solve{yard}")
+        rec[name] = {"device_ms": first["device_ms"], "event_ms": event_ms,
+                     "host_us": us, "plain_ms": pms,
+                     "bound_ms": first["bound_ms"],
+                     "bound_by": first["bound_by"], "note": first["note"],
+                     "solve_device_ms": total, "solve_bound_ms": total_bound,
+                     "launches_per_solve": per_solve[name]}
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "kubeinfer_tpu_torch/solver/csrc/round_ops.cu",
+            "replaces": f"kubeinfer_tpu/solver/pallas_kernels.py:{sources[name]}",
+            **({"also_replaces":
+                f"kubeinfer_tpu/solver/pallas_kernels.py:{also[name]}"}
+               if also[name] else {}),
+            "launches": counts[name],
+            "max_abs_err": max_err[name],
+            "ms": first["device_ms"],
+            "plain_ms": pms,
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": None,
+            "check": f"bitwise equal to its plain version on every round "
+                     f"at {shape} (fresh, churn, churn unseated) and at N=64"
+                     + ("; its own walk count equal to its mirror's"
+                        if name != "accept" else ""),
+        })
+    return entries, rec
 
 
 def whole_node_request(J, N, seed=3):
@@ -4275,7 +4475,10 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
     record[f"spec_{kv_dtype}_card_vs_cpu"] = rec
 
 
-def main() -> int:
+def main(placement_only=False) -> int:
+    """The whole smoke test; ``placement_only`` (``--placement``) stops
+    after [12] (the solver's four libraries, the placement and route
+    phases, their entries of the kernels line)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4312,12 +4515,11 @@ def main() -> int:
 
     # (1) the build, from this checkout's sources
     t0 = time.perf_counter()
-    built = _build.build_all(["mega_solve", "round_ops", "auction",
-                              "route_pick", "decode_attention",
-                              "flash_prefill", "quant_matmul",
-                              "flash_backward", "flash_prefill_tc",
-                              "flash_backward_tc", "decode_split",
-                              "quant_matmul_tc"])
+    solver_libs = ["mega_solve", "round_ops", "auction", "route_pick"]
+    built = _build.build_all(solver_libs + ([] if placement_only else [
+        "decode_attention", "flash_prefill", "quant_matmul",
+        "flash_backward", "flash_prefill_tc", "flash_backward_tc",
+        "decode_split", "quant_matmul_tc"]))
     for name in built:
         check(_build.load_kernel_library(name) is not None,
               f"{name} library did not load")
@@ -4531,11 +4733,13 @@ def main() -> int:
     auction_entry = phase("[9]-[11]", auction_phases, dev, kernels, record,
                           card)
     route_entry = phase("[12]", route_phases, dev, kernels, record, card)
-    serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
-    int8_entries = phase("[17]-[20]", int8_phases, dev, record, card)
-    train_entries = phase("[21]-[23]", train_phases, dev, record, card)
-    mask_entry = phase("[24], [28]", masked_phase, dev, record, card)
-    phase("[25]-[28]", spec_phases, dev, record, card)
+    serve_entries = int8_entries = train_entries = mask_entry = []
+    if not placement_only:
+        serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
+        int8_entries = phase("[17]-[20]", int8_phases, dev, record, card)
+        train_entries = phase("[21]-[23]", train_phases, dev, record, card)
+        mask_entry = [phase("[24], [28]", masked_phase, dev, record, card)]
+        phase("[25]-[28]", spec_phases, dev, record, card)
     for name, sec in phase_s.items():
         print(f"[s] {name}: {sec:.1f} s")
 
@@ -4554,11 +4758,12 @@ def main() -> int:
         "library_ms": None,
         "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
     }, *round_entries, auction_entry, route_entry, *serve_entries,
-        *int8_entries, *train_entries, mask_entry]}
+        *int8_entries, *train_entries, *mask_entry]}
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    (out_dir / ("placement.json" if placement_only else "chip_smoke.json")
+     ).write_text(json.dumps(record, indent=1))
     print(json.dumps(kline))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4626,6 +4831,29 @@ def qmm_plan_sweep(dev, wq, layer, gen):
     return rows_out
 
 
+def placement_p50s() -> int:
+    """``--p50s``: the placement p50s of [4], [7] and [11] alone, as one
+    JSON line (card only; about 40 s). For a parent/change comparison in
+    one chip call, run it from each tree's root in turns (the package it
+    times is the one beside this file)."""
+    from kubeinfer_tpu_torch.scheduler import get_backend
+
+    greedy, auction = get_backend("jax-greedy"), get_backend("jax-auction")
+    out = {"card": card_line()}
+    for label, be, req, reps in (
+        ("[4] 10kx1k", greedy, build_request(10000, 1000), 20),
+        ("[4] 50kx1k", greedy, build_request(50000, 1000), 10),
+        ("[7] 10kx20k", greedy, build_request(10000, 20000, seed=5), 10),
+        ("[11] auction 1kx1k", auction, whole_node_request(1000, 1000), 25),
+    ):
+        for _ in range(2):
+            be.solve(req)
+        out[label] = statistics.median(be.solve(req).solve_ms
+                                       for _ in range(reps))
+    print(json.dumps(out))
+    return 0
+
+
 def qmm_probe() -> int:
     """``--qmm``: #15 alone (card only; about a minute): builds both of
     its libraries, holds the kernel to its plain version at the
@@ -4690,4 +4918,6 @@ if __name__ == "__main__":
         sys.exit(tie_probe([int(a) for a in sys.argv[2:]] or [25]))
     if sys.argv[1:2] == ["--qmm"]:
         sys.exit(qmm_probe())
-    sys.exit(main())
+    if sys.argv[1:2] == ["--p50s"]:
+        sys.exit(placement_p50s())
+    sys.exit(main(placement_only=sys.argv[1:2] == ["--placement"]))

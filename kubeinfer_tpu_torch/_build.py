@@ -128,7 +128,11 @@ _SIGNATURES = {
         "mega_solve_launch": [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _I, _P],
     },
     "round_ops": {
-        "fence_launch": [_P] * 6 + [_I, _I, _P],
+        # gf, mf, d, md, rank, out, walked (an int64 counter or null), N, J
+        "fence_launch": [_P] * 7 + [_I, _I, _P],
+        # S, u, gf, mf, d, md, rank, minrank, cur, out (int32 [J, 2]:
+        # prim, alt), walked (two int64 counters or null), N, J, gs, bits,
+        # q_lo, q_scale, q_max
         "bid_launch": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _P],
         "accept_launch": [_P] * 11 + [_I, _I, _P],
     },

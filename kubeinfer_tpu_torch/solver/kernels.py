@@ -18,7 +18,8 @@ Four algorithms, as in ``kubeinfer_tpu/solver``:
   ``bid_select_pallas``, ``accept_phase_pallas`` →
   ``accept_flags_pallas``). ``fence_minrank``, ``round_bids`` and
   ``dense_accept`` are the plain versions; ``fence``, ``bid`` and
-  ``accept`` launch the kernels of ``csrc/round_ops.cu``.
+  ``accept`` launch the kernels of ``csrc/round_ops.cu``; ``fence_walk``
+  and ``bid_walk`` mirror what the fence and bid kernels read.
 - The Jacobi auction loop of the ``jax-auction`` policy, counterpart of
   ``core._auction_loop_jnp`` and of ``pallas_kernels.auction_solve``:
   ``auction_rounds`` is the plain version, ``auction_solve`` launches
@@ -434,11 +435,14 @@ def dense_accept(
 
 def _launch(lib, fn: str, *args) -> None:
     """Call one launcher of a kernel library; pointers and the stream are
-    passed as c_void_p, floats as c_float, the rest as c_int."""
+    passed as c_void_p (None as a null pointer), floats as c_float, the
+    rest as c_int."""
     conv = []
     for a in args:
         if isinstance(a, torch.Tensor):
             conv.append(ctypes.c_void_p(a.data_ptr()))
+        elif a is None:
+            conv.append(None)
         elif isinstance(a, float):
             conv.append(ctypes.c_float(a))
         else:
@@ -451,9 +455,98 @@ def _launch(lib, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
 
 
+# The walks of the fence and bid kernels (csrc/round_ops.cu): their tile
+# constants, and plain mirrors of what they read, for the tests and
+# chip_smoke; nothing on the main path calls the mirrors.
+FENCE_BLOCK_NODES = 512  # kFenceBlockNodes: nodes a block, two a thread
+FENCE_JOBS = 2048  # kFenceJobs: jobs a block stages (one split of J)
+FENCE_CHUNK = 32  # kFenceChunk: jobs a warp sweeps or skips at once
+BID_COLS = 128  # kBidCols: columns a block
+BID_CHUNK = 512  # kBidChunk: nodes a block (one split of N)
+
+
+def fence_walk(gf, mf, d, md, rankf_eff) -> torch.Tensor:
+    """The fence kernel's sweeps: bool ``[splits, warps, chunks]``, True
+    where warp w (nodes ``b * 512 + i * 256 + 32 * (w % 8) + lane``, b =
+    w // 8, i in {0, 1}) sweeps chunk c (jobs ``s * 2048 + 32 * c`` on) of
+    job split s. A warp sweeps a chunk when one of its nodes has a running
+    minimum above the chunk's least rank below RANK_INF and free capacities
+    at least its least demands; the running minimum starts at RANK_INF in
+    each split. Its sum is what the kernel adds to ``fence.walk_counter``.
+    Exact for finite demands and capacities."""
+    N, J = gf.shape[0], d.shape[0]
+    dev = gf.device
+    blocks = -(-N // FENCE_BLOCK_NODES)
+    splits = -(-J // FENCE_JOBS)
+    chunks = FENCE_JOBS // FENCE_CHUNK
+    Np, Jp = blocks * FENCE_BLOCK_NODES, splits * FENCE_JOBS
+    inf = float("inf")
+    g = torch.nn.functional.pad(gf + _EPS, (0, Np - N))
+    m = torch.nn.functional.pad(mf + _EPS, (0, Np - N))
+    live = torch.arange(Np, device=dev) < N
+    jd = torch.nn.functional.pad(d, (0, Jp - J)).view(splits, chunks, -1)
+    jm = torch.nn.functional.pad(md, (0, Jp - J)).view(splits, chunks, -1)
+    jr = torch.nn.functional.pad(rankf_eff, (0, Jp - J), value=RANK_INF)
+    jr = jr.view(splits, chunks, -1)
+    act = jr < RANK_INF
+    rmin = torch.where(act, jr, RANK_INF).amin(dim=2)  # [splits, chunks]
+    dmin = torch.where(act, jd, inf).amin(dim=2)
+    mmin = torch.where(act, jm, inf).amin(dim=2)
+    mr = torch.full((splits, Np), RANK_INF, dtype=torch.float32, device=dev)
+    visits = torch.zeros(splits, blocks * 8, chunks, dtype=torch.bool,
+                         device=dev)
+    for c in range(chunks):
+        need = live & ~((mr <= rmin[:, c, None]) | (g < dmin[:, c, None])
+                        | (m < mmin[:, c, None]))
+        # node b * 512 + i * 256 + 32 * w + lane belongs to warp b * 8 + w
+        warp = need.view(splits, blocks, 2, 8, 32).any(dim=4).any(dim=2)
+        visits[:, :, c] = warp.view(splits, -1)
+        swept = warp.view(splits, blocks, 1, 8, 1).expand(
+            splits, blocks, 2, 8, 32).reshape(splits, Np)
+        fits = (jd[:, None, c, :] <= g[None, :, None]) & (
+            jm[:, None, c, :] <= m[None, :, None])
+        low = torch.where(fits, jr[:, None, c, :], RANK_INF).amin(dim=2)
+        mr = torch.where(swept, torch.minimum(mr, low), mr)
+    return visits
+
+
+def bid_walk(rankf_eff, minrank, current_node):
+    """The bid kernel's walk: ``(walk bool[splits, J], home bool[splits,
+    J], entries, walks)``. Node chunk s (nodes ``512 s`` on) walks column j
+    where its rank is below RANK_INF / 2 and at most the chunk's largest
+    fence minimum below RANK_INF / 2 (-1 where there is none); a column
+    that does not walk the chunk reads S only at its incumbent's node, if
+    that lies in the chunk (``home``). ``entries`` is the number of
+    (node, column) pairs the kernel tests (it reads S at the allowed ones
+    among them) and ``walks`` the number of (chunk, 128-column tile)
+    pairs walked: what the kernel adds to ``bid.walk_counter``."""
+    N, J = minrank.shape[0], rankf_eff.shape[0]
+    dev = minrank.device
+    splits = -(-N // BID_CHUNK)
+    lo = torch.arange(splits, device=dev) * BID_CHUNK
+    hi_n = torch.clamp(lo + BID_CHUNK, max=N)
+    v = torch.where(minrank < RANK_INF * 0.5, minrank, -1.0)
+    v = torch.nn.functional.pad(v, (0, splits * BID_CHUNK - N),
+                                value=float("-inf"))
+    hi = v.view(splits, BID_CHUNK).amax(dim=1)
+    alive = rankf_eff < RANK_INF * 0.5
+    walk = alive[None, :] & (rankf_eff[None, :] <= hi[:, None])
+    cur = current_node[None, :]
+    home = (alive[None, :] & ~walk & (cur >= lo[:, None])
+            & (cur < hi_n[:, None]))
+    entries = int((walk.sum(dim=1) * (hi_n - lo)).sum() + home.sum())
+    tiles = -(-J // BID_COLS)
+    walked = torch.nn.functional.pad(walk, (0, tiles * BID_COLS - J))
+    walks = int(walked.view(splits, tiles, BID_COLS).any(dim=2).sum())
+    return walk, home, entries, walks
+
+
 def fence(gf, mf, d, md, rankf_eff):
     """``fence_minrank`` on the tensors' device: for CUDA tensors one
-    launch of the fence kernel of ``csrc/round_ops.cu``."""
+    launch of the fence kernel of ``csrc/round_ops.cu``. Where
+    ``fence.walk_counter`` holds an int64 CUDA tensor of one element, the
+    launch adds to it the chunk sweeps its warps take (``fence_walk``'s
+    sum)."""
     lib = _kernel_lib(gf, "fence", "round_ops")
     if lib is None:
         return fence_minrank(gf, mf, d, md, rankf_eff)
@@ -462,13 +555,17 @@ def fence(gf, mf, d, md, rankf_eff):
         _check(name, t, torch.float32, (N,), gf.device)
     for name, t in (("d", d), ("md", md), ("rankf_eff", rankf_eff)):
         _check(name, t, torch.float32, (J,), gf.device)
+    walked = fence.walk_counter
+    if walked is not None:
+        _check("walk_counter", walked, torch.int64, (1,), gf.device)
     out = torch.full((N,), RANK_INF, dtype=torch.float32, device=gf.device)
-    _launch(lib, "fence_launch", gf, mf, d, md, rankf_eff, out, N, J)
+    _launch(lib, "fence_launch", gf, mf, d, md, rankf_eff, out, walked, N, J)
     fence.launches += 1
     return out
 
 
 fence.launches = 0
+fence.walk_counter = None
 
 
 def bid(
@@ -476,8 +573,14 @@ def bid(
     q_lo, q_scale, q_max, node_idx_bits,
 ):
     """``round_bids`` on the tensors' device: for CUDA tensors one launch
-    of the bid kernel of ``csrc/round_ops.cu``, which reads each allowed
-    S entry once and keeps a running top-2 of group minima per job."""
+    of the bid kernel of ``csrc/round_ops.cu``, which reads S only where
+    ``bid_walk`` says (the reference's column skip, exact when ``minrank``
+    is the fence minimum of the same inputs, as ``core.run_rounds`` passes
+    it), split over node chunks whose pairs fold into each job's word in
+    the same launch. ``prim`` and ``alt`` are the two columns of one
+    [J, 2] tensor.
+    Where ``bid.walk_counter`` holds an int64 CUDA tensor of two elements,
+    the launch adds ``bid_walk``'s entries and walks to them."""
     lib = _kernel_lib(S, "bid", "round_ops")
     if lib is None:
         return round_bids(
@@ -495,18 +598,23 @@ def bid(
     _check("current_node", current_node, torch.int32, (J,), dev)
     if node_idx_bits < (N - 1).bit_length() or node_idx_bits > 30:
         raise ValueError(f"node_idx_bits={node_idx_bits} cannot index N={N}")
-    prim = torch.empty(J, dtype=torch.int32, device=dev)
-    alt = torch.empty(J, dtype=torch.int32, device=dev)
+    walked = bid.walk_counter
+    if walked is not None:
+        _check("walk_counter", walked, torch.int64, (2,), dev)
+    # each job's (prim, alt) in one 8-byte word, which the node chunks'
+    # blocks fold their pairs into
+    out = torch.full((J, 2), _I32MAX, dtype=torch.int32, device=dev)
     _launch(
         lib, "bid_launch", S, u, gf, mf, d, md, rankf_eff, minrank,
-        current_node, prim, alt, N, J, bid_group_size(N), int(node_idx_bits),
-        float(q_lo), float(q_scale), float(q_max),
+        current_node, out, walked, N, J, bid_group_size(N),
+        int(node_idx_bits), float(q_lo), float(q_scale), float(q_max),
     )
     bid.launches += 1
-    return prim, alt
+    return out[:, 0], out[:, 1]
 
 
 bid.launches = 0
+bid.walk_counter = None
 
 
 def accept(choice, key, d, md, gf, mf):

@@ -1,6 +1,6 @@
 """The port's pipelined round loop against the JAX package's.
 
-Three layers, on the same seeded numpy inputs:
+Four layers, on the same seeded numpy inputs:
 
 - the plain round ops (``kubeinfer_tpu_torch.solver.kernels``:
   ``fence_minrank``, ``round_bids``, ``dense_accept``) against their jnp
@@ -9,6 +9,9 @@ Three layers, on the same seeded numpy inputs:
 - the same plain ops against the Pallas kernels they stand in for
   (``fence_minrank_pallas``, ``bid_reduce_pallas``,
   ``accept_phase_pallas``) in interpret mode, bitwise, J-tiled too;
+- the walks of the fence and bid kernels (``fence_walk``, ``bid_walk``):
+  the plain versions over only what each kernel reads equal the full ones
+  bitwise, and the bid's column rule gives the reference's tile activity;
 - the whole solve, ``solve_greedy(accel="pallas", device="cpu")`` against
   ``solve_greedy(accel="jnp")``, on cases mirroring the reference's
   ``TestGreedySmall``, ``TestGang``, ``TestChurnStability``,
@@ -204,6 +207,136 @@ def test_accept_matches_interpret_kernel(N, J, tile_j, monkeypatch):
     got = tk.dense_accept(T(ch), *(T(x[k]) for k in args))
     for g, w in zip(got, want):
         same(g, w)
+
+
+
+# --- the walks of the fence and bid kernels ----------------------------------
+
+
+def walk_case(case, N, J):
+    """``round_inputs`` with the variants the kernels' skips must hold
+    on: ranks sorted ascending (the solver's order), every job placed, no
+    node with a finite fence minimum, and incumbents whose rank is above
+    every node's minimum (their column bids at home only)."""
+    x = round_inputs(N * 7 + J, N, J)
+    if case == "sorted":
+        x["rank"] = np.sort(x["rank"])
+    elif case == "placed":
+        x["rank"][:] = RANK_INF
+    elif case == "no_finite":
+        x["gf"][:] = -1.0
+    elif case == "home_above":
+        inc = x["cur"] >= 0
+        x["rank"] = np.where(inc, 3.0, 0.0).astype(np.float32)
+        x["rank"][np.random.default_rng(N).random(J) < 0.1] = RANK_INF
+    return x
+
+
+WALK_SHAPES = SHAPES + [(62, 80), (1152, 96), (1100, 64)]
+WALK_CASES = ["random", "sorted", "placed", "no_finite", "home_above"]
+
+
+def allowed_pairs(t, minrank):
+    """``round_bids``' allowed mask: the pairs whose bid is not BIG."""
+    N = t["gf"].shape[0]
+    n = torch.arange(N, dtype=torch.int32)[:, None]
+    return (
+        tk._feasible(t["gf"], t["mf"], t["d"], t["md"])
+        & ((t["rank"][None, :] <= minrank[:, None]) | (t["cur"][None, :] == n))
+        & (t["rank"][None, :] < RANK_INF * 0.5)
+    )
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("N,J", WALK_SHAPES)
+def test_bid_walk_is_exact(N, J, case):
+    """The bid kernel reads S only at the pairs ``bid_walk`` keeps: every
+    allowed pair is kept, so ``round_bids`` over the kept pairs alone (S
+    poisoned elsewhere) equals the full ``round_bids`` bitwise, and the
+    kernel's counts are the kept pairs'."""
+    x = walk_case(case, N, J)
+    t = {k: T(v) for k, v in x.items()}
+    q = quant(N)
+    mr = tk.fence_minrank(t["gf"], t["mf"], t["d"], t["md"], t["rank"])
+    walk, home, entries, walks = tk.bid_walk(t["rank"], mr, t["cur"])
+    chunk = torch.arange(N) // tk.BID_CHUNK
+    n = torch.arange(N, dtype=torch.int32)[:, None]
+    kept = walk[chunk] | (home[chunk] & (t["cur"][None, :] == n))
+    assert not (allowed_pairs(t, mr) & ~kept).any()
+    assert entries == int(kept.sum())
+    tiles = -(-J // tk.BID_COLS)
+    assert walks == sum(
+        bool(walk[c, i * tk.BID_COLS:(i + 1) * tk.BID_COLS].any())
+        for c in range(walk.shape[0]) for i in range(tiles))
+    poisoned = torch.where(kept, t["S"], float("-inf"))
+    args = ("u", "gf", "mf", "d", "md", "rank")
+    want = tk.round_bids(t["S"], *(t[k] for k in args), mr, t["cur"], **q)
+    got = tk.round_bids(poisoned, *(t[k] for k in args), mr, t["cur"], **q)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case == "placed":
+        assert entries == 0
+    if case in ("placed", "no_finite"):
+        assert (want[0] == 0x7FFFFFFF).all()
+    if case == "home_above":
+        assert home.any() and (want[0] != 0x7FFFFFFF).any()
+    if case == "sorted" and N >= 128:
+        assert entries < N * int((t["rank"] < RANK_INF * 0.5).sum())
+
+
+def fence_kept(visits, N, J):
+    """[N, J] bool: the (node, job) pairs of the chunks each node's warp
+    sweeps."""
+    n = torch.arange(N)
+    warp = (n // tk.FENCE_BLOCK_NODES) * 8 + (n % 256) // 32
+    j = torch.arange(J)
+    split, chunk = j // tk.FENCE_JOBS, (j % tk.FENCE_JOBS) // tk.FENCE_CHUNK
+    return visits[split[None, :], warp[:, None], chunk[None, :]]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("N,J", SHAPES + [(600, 4200)])
+def test_fence_walk_is_exact(N, J, case):
+    """The fence kernel's warps sweep only the chunks ``fence_walk``
+    names; the minimum over those chunks alone equals ``fence_minrank``
+    bitwise."""
+    x = walk_case(case, N, J)
+    t = {k: T(v) for k, v in x.items()}
+    fargs = (t["gf"], t["mf"], t["d"], t["md"], t["rank"])
+    want = tk.fence_minrank(*fargs)
+    visits = tk.fence_walk(*fargs)
+    feas = tk._feasible(t["gf"], t["mf"], t["d"], t["md"])
+    got = torch.where(feas & fence_kept(visits, N, J), t["rank"][None, :],
+                      RANK_INF).amin(dim=1)
+    assert torch.equal(got, want)
+    if case in ("placed", "no_finite"):
+        assert not visits.any()
+    if case == "sorted":
+        assert 0 < int(visits.sum()) < visits.numel()
+
+
+@pytest.mark.parametrize("N,J,tile_j", [(128, 192, None), (256, 384, 128),
+                                        (1152, 384, 128), (63, 96, None)])
+@pytest.mark.parametrize("case", ["random", "sorted", "home_above"])
+def test_bid_column_rule_is_the_references(N, J, tile_j, case, monkeypatch):
+    """A column takes part in the bid kernel's walk (in some chunk, or at
+    its incumbent's node) exactly where core.py:729-731's ``active_j``
+    holds, so ``pk.tile_activity`` gives the same ``act`` on both."""
+    if tile_j:
+        monkeypatch.setattr(pk, "MAX_TILE_J", tile_j)
+    x = walk_case(case, N, J)
+    t = {k: T(v) for k, v in x.items()}
+    mr = tk.fence_minrank(t["gf"], t["mf"], t["d"], t["md"], t["rank"])
+    walk, home, _, _ = tk.bid_walk(t["rank"], mr, t["cur"])
+    mine = (walk | home).any(dim=0)
+    finite = mr < RANK_INF * 0.5
+    max_mr = torch.where(finite, mr, -1.0).max()
+    ref = (t["rank"] < RANK_INF * 0.5) & (
+        (t["rank"] <= max_mr) | (t["cur"] >= 0))
+    assert torch.equal(mine, ref)
+    got = pk.tile_activity(jnp.asarray(mine.numpy()), J)[1]
+    want = pk.tile_activity(jnp.asarray(ref.numpy()), J)[1]
+    assert np.array_equal(np.asarray(got), np.asarray(want))
 
 
 # --- the whole solve ---------------------------------------------------------
@@ -491,3 +624,41 @@ def test_round_kernels_match_plain_on_card(N, J):
     torch.cuda.synchronize()
     after = (tk.fence.launches, tk.bid.launches, tk.accept.launches)
     assert after == tuple(c + 1 for c in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("N,J", [(62, 80), (63, 96), (1152, 384),
+                                 (3000, 200), (2048, 4200)])
+def test_round_kernel_walks_on_card(N, J, case):
+    """The fence and bid kernels against their plain versions on several
+    node splits (N up to 3000: six bid chunks), all-BIG columns, home-only
+    incumbents and the group sizes 31, 1 and 16; repeated launches
+    bitwise equal, and each kernel's own walk count equal to its mirror's
+    (``fence_walk``, ``bid_walk``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no interpret mode)")
+    x = {k: T(v).cuda() for k, v in walk_case(case, N, J).items()}
+    q = quant(N)
+    fargs = (x["gf"], x["mf"], x["d"], x["md"], x["rank"])
+    bargs = ("S", "u", "gf", "mf", "d", "md", "rank")
+    tk.fence.walk_counter = torch.zeros(1, dtype=torch.int64, device="cuda")
+    tk.bid.walk_counter = torch.zeros(2, dtype=torch.int64, device="cuda")
+    try:
+        mr = tk.fence(*fargs)
+        assert torch.equal(mr, tk.fence_minrank(*fargs))
+        assert int(tk.fence.walk_counter) == int(tk.fence_walk(*fargs).sum())
+        got = tk.bid(*(x[k] for k in bargs), mr, x["cur"], **q)
+        want = tk.round_bids(*(x[k] for k in bargs), mr, x["cur"], **q)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        _, _, entries, walks = tk.bid_walk(x["rank"], mr, x["cur"])
+        assert tk.bid.walk_counter.tolist() == [entries, walks]
+        for _ in range(3):  # the tickets are left zero for the next launch
+            assert torch.equal(tk.fence(*fargs), mr)
+            again = tk.bid(*(x[k] for k in bargs), mr, x["cur"], **q)
+            for a, b in zip(again, want):
+                assert torch.equal(a, b)
+        torch.cuda.synchronize()
+    finally:
+        tk.fence.walk_counter = tk.bid.walk_counter = None
