@@ -26,8 +26,11 @@ times them. Phases:
       keeps the ragged bf16 and the f32 calls);
   (2) mega_solve vs mega_rounds at the headline shape J=12288, N=1024 on
       the same tensors: a fresh solve, a fill with may_bid over a 25%-gang
-      request, and a seeded churn re-solve with asg_init — every output
-      bitwise equal;
+      request (the fill's W + 1 cap), and a seeded churn re-solve with
+      asg_init, and on seeded dyadic inputs at N=16384, J=1024 (W=128, 128
+      nodes a block) — every output bitwise equal, and the kernel's own
+      walk count (windows, rounds, fenced rounds, grid barriers) equal to
+      kernels.mega_walk's;
   (3) the mega path: ``get_backend("jax-greedy").solve`` at 10k jobs x 1k
       nodes and the ``/solve`` handler at 32 x 8 and 1k x 128, with the
       launch counts reset just before and read just after; no overcommit,
@@ -36,8 +39,10 @@ times them. Phases:
       a 64 x 64 bucket, which is not 128-aligned: it runs the pipelined
       loop (round kernels), as the reference routes it;
   (4) times of the mega path: p50 pack + solve at 10k x 1k and 50k x 1k,
-      the kernel and its plain version (CUDA events), and the serial
-      native baseline;
+      the kernel by device time (a CUDA graph of 20 launches) at both
+      shapes with its rounds, beside CUDA events over calls, the first
+      kernel's time, its bound and its plain version; one grid barrier
+      alone (mega_barrier_launch); the serial native baseline;
   (5) fence, bid and accept vs fence_minrank, round_bids and dense_accept,
       bitwise, on every round of a real 10k jobs x 20k nodes solve
       (J=12288, N=24576, both accept passes; no mega window fits), of its
@@ -376,6 +381,42 @@ def reset_counts(kernels):
     """Set every kernel wrapper's launch count to 0."""
     for name in ("mega_solve", *ROUND_KERNELS, "auction_solve", "route_pick"):
         getattr(kernels, name).launches = 0
+
+
+def dyadic_mega_inputs(seed, N, J, dev):
+    """Seeded mega-loop inputs on which every sum is exact (as
+    tests/test_torch_mega.py:dyadic_inputs makes them): S on a 2^-8 grid,
+    integer demands and capacities, power-of-two fit weights and q_scale,
+    5% invalid nodes, 30% incumbents, half of them seated. Returns the
+    twelve tensors and the constants of ``kernels.mega_solve``."""
+    import torch
+
+    from kubeinfer_tpu_torch.solver.kernels import RANK_INF
+
+    rng = np.random.default_rng(seed)
+    bits = max((N - 1).bit_length(), 1)
+    S = (rng.integers(-4 * 256, 12 * 256, (N, J)) / 256.0).astype(np.float32)
+    d = rng.integers(1, 8, J).astype(np.float32)
+    md = rng.integers(1, 32, J).astype(np.float32)
+    rank = np.sort(rng.integers(0, 4, J)).astype(np.float32)
+    may = np.ones(J, bool)
+    key = ((rank.astype(np.int32) << 24) | ((15 - d.astype(np.int32)) << 20)
+           | np.arange(J, dtype=np.int32)).astype(np.int32)
+    cur = np.where(rng.random(J) < 0.3, rng.integers(0, N, J), -1
+                   ).astype(np.int32)
+    gf = rng.integers(4, 24, N).astype(np.float32)
+    gf[rng.random(N) < 0.05] = -1.0
+    mf = rng.integers(32, 160, N).astype(np.float32)
+    asg0 = np.where((cur >= 0) & (rng.random(J) < 0.5), cur, -1
+                    ).astype(np.int32)
+    vg = np.where(rng.random(N) < 0.5, 2.0**-6, 2.0**-5).astype(np.float32)
+    vm = np.full(N, 2.0**-10, np.float32)
+    assert (rank < RANK_INF).all()
+    arrays = [torch.from_numpy(a).to(dev)
+              for a in (S, d, md, key, rank, cur, asg0, may, gf, mf, vg, vm)]
+    consts = dict(q_lo=-4.0, q_scale=2.0**16,
+                  q_max=float((1 << (31 - bits)) - 2), node_idx_bits=bits)
+    return arrays, consts
 
 
 def round_counts(kernels):
@@ -2088,6 +2129,36 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, reps=5) / reps
+
+
+# the first mega kernel (five grid barriers a round, the window read from
+# L2) at 10k x 1k on an H100 80GB HBM3 at 700 W: PERF.md, the baseline of
+# the redesign (scripts/torch_mega_stamps.py)
+OLD_MEGA_MS = 1.7249
+
+
+def grid_barrier_us(blocks, iters=1000):
+    """us of one grid barrier of the mega kernel's kind on ``blocks``
+    blocks of 512 threads (``mega_barrier_launch``: ``iters`` barriers and
+    nothing else, by CUDA events; the best of three launches)."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    lib = _build.load_kernel_library("mega_solve")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    best = float("inf")
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = lib.mega_barrier_launch(blocks, iters, out.data_ptr(), stream)
+        end.record()
+        torch.cuda.synchronize()
+        check(err == 0, f"mega_barrier_launch: {lib.error_string(err)}")
+        best = min(best, start.elapsed_time(end) * 1e3 / iters)
+    return best
 
 
 def host_us(fn, reps=200):
@@ -4580,12 +4651,33 @@ def main(placement_only=False) -> int:
     cases["churn_seeded"] = (f_c, p_c.jobs, a_c, f_c.rankf, p_c.jobs.valid,
                              g_c, m_c, 64)
 
+    def field_call(f, jobs, asg, rank, may, gfe, mfe, cap):
+        return lambda fn: f.run(fn, jobs, asg, rank, may, gfe, mfe, cap)
+
+    calls = {name: field_call(*c) for name, c in cases.items()}
+    # the widest node axis the router sends to mega: N = 16384, W = 128,
+    # 8 windows, R = 128 nodes a block
+    wide, wide_c = dyadic_mega_inputs(14, 16384, 1024, dev)
+    check(mega_window(16384, 1024) == 128, "16384 x 1024 is not W = 128")
+    calls["wide_16384"] = lambda fn: fn(*wide, max_rounds=64, **wide_c)
+
     max_err = 0.0
     fresh_out = None
-    for name, (f, jobs, asg, rank, may, gfe, mfe, cap) in cases.items():
-        ko = f.run(kernels.mega_solve, jobs, asg, rank, may, gfe, mfe, cap)
-        po = f.run(kernels.mega_rounds, jobs, asg, rank, may, gfe, mfe, cap)
+    walks = {}
+    for name, call in calls.items():
+        counter = torch.zeros(4, dtype=torch.int64, device=dev)
+        kernels.mega_solve.walk_counter = counter
+        ko = call(kernels.mega_solve)
+        kernels.mega_solve.walk_counter = None
+        po = call(kernels.mega_rounds)
+        walk = call(kernels.mega_walk)
         torch.cuda.synchronize()
+        walks[name] = counter.cpu().tolist()
+        check(torch.equal(counter.cpu(), walk),
+              f"{name}: the kernel's walk {walks[name]} != mega_walk's "
+              f"{walk.tolist()}")
+        check(walks[name][3] == 1 + 2 * walks[name][1],
+              f"{name}: not two barriers a round and one a launch")
         err = max(
             float((ko[0] - po[0]).abs().max()),
             float((ko[1] - po[1]).abs().max()),
@@ -4599,10 +4691,12 @@ def main(placement_only=False) -> int:
         )
         print(f"[2] {name}: kernel rounds={int(ko[3])} capped={bool(ko[4])} "
               f"placed={int((ko[0] >= 0).sum())} plain rounds={int(po[3])} "
-              f"bitwise_equal={same} max_abs_err={err}")
+              f"bitwise_equal={same} max_abs_err={err}; walk (windows, "
+              f"rounds, fenced, barriers) {walks[name]} = mega_walk's")
         check(same, f"mega_solve != mega_rounds in case {name}")
         record[f"case_{name}"] = {"rounds": int(ko[3]),
-                                  "capped": bool(ko[4])}
+                                  "capped": bool(ko[4]),
+                                  "walk": walks[name]}
         if name == "fresh":
             fresh_out = ko
 
@@ -4674,12 +4768,17 @@ def main(placement_only=False) -> int:
     res50 = backend.solve(req50)
     check_assignment(req50, res50.assignment, "50kx1k")
     f, jobs, asg, rank, may, gfe, mfe, cap = cases["fresh"]
-    kernel_ms = cuda_ms(
-        lambda: f.run(kernels.mega_solve, jobs, asg, rank, may, gfe, mfe,
-                      cap), reps=20)
-    plain_ms = cuda_ms(
-        lambda: f.run(kernels.mega_rounds, jobs, asg, rank, may, gfe, mfe,
-                      cap), reps=3)
+    kernel_ms = device_ms(lambda: calls["fresh"](kernels.mega_solve))
+    events_ms = cuda_ms(lambda: calls["fresh"](kernels.mega_solve), reps=20)
+    plain_ms = cuda_ms(lambda: calls["fresh"](kernels.mega_rounds), reps=3)
+    # the kernel at 50k x 1k (65536 x 1024: 32 windows)
+    p50k, _ = problem_of(req50, dev)
+    f50 = cost_field(p50k, w)
+    a50, g50, m50, _ = seed_incumbents(p50k, False)
+    call50 = field_call(f50, p50k.jobs, a50, f50.rankf, p50k.jobs.valid,
+                        g50, m50, 64)
+    kernel50_ms = device_ms(lambda: call50(kernels.mega_solve))
+    rounds50 = int(call50(kernels.mega_solve)[3])
     # per-layer split of one 10k x 1k solve: pack (host, above), one
     # host-to-device copy + views, the cost field, the mega loop
     buf, _, _, Jp, Np = pack_problem_arrays(
@@ -4695,25 +4794,38 @@ def main(placement_only=False) -> int:
     N, J = f.S.shape
     W = mega_window(N, J)
     rounds = int(fresh_out[3])
+    # one grid barrier alone, on the kernel's grid
+    plan = kernels.mega_plan(N, W, kernels._sm_count(dev))
+    barrier_us = grid_barrier_us(plan.blocks)
     in_bytes = N * J * 4 + J * (6 * 4 + 1) + N * 4 * 4
     out_bytes = J * 4 + 2 * N * 4 + 8
     bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     rounds_bound_ms = (rounds * N * W * 4 + N * J * 4) / HBM_BYTES_PER_S * 1e3
     print(f"[4] {card}: p50 pack+solve 10kx1k {p50_10k:.3f} ms "
           f"(pack {enc_10k:.3f} ms), 50kx1k {p50_50k:.3f} ms "
-          f"(pack {enc_50k:.3f} ms, placed {res50.placed}); mega_solve "
-          f"{kernel_ms:.3f} ms/launch ({rounds} rounds, {J // W} windows), "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"(rounds x window {rounds_bound_ms:.4f} ms); native_p50_ms "
+          f"(pack {enc_50k:.3f} ms, placed {res50.placed}); native_p50_ms "
           f"{native_ms:.3f}; layers: copy+unpack {unpack_ms:.3f} ms, "
           f"cost field {field_ms:.3f} ms")
+    print(f"[4] mega_solve 10kx1k: {kernel_ms:.4f} ms device time (a CUDA "
+          f"graph of 20 launches; {events_ms:.4f} by CUDA events over "
+          f"calls), {rounds} rounds, "
+          f"{J // W} windows, {kernel_ms * 1e3 / max(rounds, 1):.2f} us a "
+          f"round (the first kernel: {OLD_MEGA_MS} ms, "
+          f"{OLD_MEGA_MS * 1e3 / 48:.1f} us a round over its 48, PERF.md); "
+          f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms (rounds x "
+          f"window {rounds_bound_ms:.4f} ms); plan {plan._asdict()}; one "
+          f"grid barrier {barrier_us:.3f} us; 50kx1k: {kernel50_ms:.4f} ms, "
+          f"{rounds50} rounds, {p50k.jobs.valid.shape[0] // W} windows")
     record["times"] = {
         "p50_10k_ms": p50_10k, "pack_10k_ms": enc_10k,
         "p50_50k_ms": p50_50k, "pack_50k_ms": enc_50k,
         "placed_50k": res50.placed, "rounds_50k": res50.rounds,
-        "mega_ms": kernel_ms, "mega_rounds": rounds, "windows": J // W,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "rounds_bound_ms": rounds_bound_ms, "native_p50_ms": native_ms,
+        "mega_ms": kernel_ms, "mega_events_ms": events_ms,
+        "mega_rounds": rounds,
+        "windows": J // W, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "rounds_bound_ms": rounds_bound_ms, "barrier_us": barrier_us,
+        "mega_plan": plan._asdict(), "mega_50k_ms": kernel50_ms,
+        "mega_50k_rounds": rounds50, "native_p50_ms": native_ms,
         "cpu_solve_10k_s": cpu_s, "unpack_10k_ms": unpack_ms,
         "cost_field_10k_ms": field_ms,
     }
@@ -4756,7 +4868,9 @@ def main(placement_only=False) -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-        "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024",
+        "check": "bitwise equal to mega_rounds in 3 cases at 12288x1024 "
+                 "(one with the W + 1 fill cap) and at 16384 nodes x 1024; "
+                 "walk counts equal to mega_walk's",
     }, *round_entries, auction_entry, route_entry, *serve_entries,
         *int8_entries, *train_entries, *mask_entry]}
     record.update(kline)

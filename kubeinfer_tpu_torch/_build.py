@@ -125,7 +125,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t as int and takes the stream last
 _SIGNATURES = {
     "mega_solve": {
-        "mega_solve_launch": [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _I, _P],
+        # S, d, md, key, rank, cur, asg0, may, gf0, mf0, vg, vm, asg, gf,
+        # mf, stats, ws, walked (four int64 counters or null), N, J, W,
+        # max_rounds, q_lo, q_scale, q_max, bits, blocks, rows, vec_smem
+        # (kernels.mega_plan)
+        "mega_solve_launch": [_P] * 18 + [_I] * 4 + [_F] * 3 + [_I] * 4
+                             + [_P],
+        # blocks, iters, out: grid barriers alone
+        "mega_barrier_launch": [_I, _I, _P, _P],
     },
     "round_ops": {
         # gf, mf, d, md, rank, out, walked (an int64 counter or null), N, J

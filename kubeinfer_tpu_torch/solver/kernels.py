@@ -10,7 +10,8 @@ Four algorithms, as in ``kubeinfer_tpu/solver``:
   packed ``(quantized cost << bits) | node`` min bid per job, per-node
   joint-fit/winner accept, capacity update — while the capacity vectors
   carry from one window to the next. ``mega_rounds`` is the plain
-  version; ``mega_solve`` launches ``csrc/mega_solve.cu``.
+  version; ``mega_solve`` launches ``csrc/mega_solve.cu`` on the grid
+  ``mega_plan`` chooses; ``mega_walk`` mirrors the kernel's walk counts.
 - The round ops of the pipelined loop (``core.run_rounds``), counterparts
   of ``core._fence_minrank``, ``core._round_bids_jnp`` and
   ``core._dense_accept`` and of the Pallas kernels that replace them on
@@ -41,6 +42,7 @@ attribute counts its kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -174,6 +176,36 @@ def mega_rounds(
     i32 0-d, capped bool 0-d)``; ``max_rounds`` is a per-window budget.
     Branches on device values with Python control flow, so it syncs with
     the device every round: it is the reference, not the fast path."""
+    return _mega_loop(
+        s_t, d, md, accept_key, rankf, current_node, asg_init, may_bid,
+        gf_eff, mf, vg, vm, max_rounds=max_rounds, q_lo=q_lo,
+        q_scale=q_scale, q_max=q_max, node_idx_bits=node_idx_bits,
+    )
+
+
+def mega_walk(
+    s_t, d, md, accept_key, rankf, current_node, asg_init, may_bid,
+    gf_eff, mf, vg, vm, *, max_rounds, q_lo, q_scale, q_max, node_idx_bits,
+) -> torch.Tensor:
+    """Plain mirror of what ``mega_solve``'s kernel adds to
+    ``mega_solve.walk_counter``: int64[4] on the CPU, the windows whose
+    entry test held, the rounds, the fenced rounds (r_lo < r_hi at the
+    round's start) and the grid barriers (one a launch, two a round). Runs
+    the plain loop; same arguments as ``mega_rounds``."""
+    walk = [0, 0, 0, 1]
+    _mega_loop(
+        s_t, d, md, accept_key, rankf, current_node, asg_init, may_bid,
+        gf_eff, mf, vg, vm, max_rounds=max_rounds, q_lo=q_lo,
+        q_scale=q_scale, q_max=q_max, node_idx_bits=node_idx_bits, walk=walk,
+    )
+    return torch.tensor(walk, dtype=torch.int64)
+
+
+def _mega_loop(
+    s_t, d, md, accept_key, rankf, current_node, asg_init, may_bid,
+    gf_eff, mf, vg, vm, *, max_rounds, q_lo, q_scale, q_max, node_idx_bits,
+    walk=None,
+):
     N, J = s_t.shape
     W = mega_window(N, J)
     if W is None:
@@ -191,8 +223,17 @@ def mega_rounds(
             unpl0.any()
             & (torch.where(unpl0, dw, 3.4e38).min() <= gf.max() + _EPS)
         )
+        if walk is not None:
+            walk[0] += int(prog)
         r = 0
         while prog and r < max_rounds:
+            if walk is not None:
+                unpl = mayw & (asg < 0)
+                fenced = bool(
+                    torch.where(unpl, rankf[w], RANK_INF).min()
+                    < torch.where(unpl, rankf[w], -RANK_INF).max()
+                )
+                walk[1:] = [walk[1] + 1, walk[2] + fenced, walk[3] + 2]
             asg, gf, mf_c, p = mega_round_math(
                 Sw, dw, mdw, accept_key[w], rankf[w], current_node[w],
                 mayw, asg, gf, mf_c, vg, vm,
@@ -209,6 +250,47 @@ def mega_rounds(
         torch.tensor(rounds, dtype=torch.int32, device=dev),
         torch.tensor(capped, device=dev),
     )
+
+
+# The mega kernel's launch plan (csrc/mega_solve.cu): MEGA_THREADS threads
+# a block, one block an SM, each block's shared memory within the card's
+# opt-in maximum (227 KB) less room for its static arrays; a thread
+# compacts at most 32 active columns, so W <= 32 x MEGA_THREADS.
+MEGA_THREADS = 512
+MEGA_SMEM_LIMIT = 232448 - 1024
+
+
+class MegaPlan(NamedTuple):
+    blocks: int  # B, one per SM, each owning `rows` contiguous nodes
+    rows: int  # R = N / B
+    smem: int  # dynamic shared-memory bytes a block
+    vec_smem: bool  # the window's job words and keys in shared memory
+
+
+def mega_smem_bytes(rows: int, W: int, vec_smem: bool) -> int:
+    """A block's shared memory (``smem_bytes`` in mega_solve.cu): the
+    window's rows twice (row stride W + 4), two mbarriers, 16 bytes of
+    node words and 40 of state a row, the job words and keys, two 16-bit
+    active lists and the owner rows."""
+    b = 2 * rows * (W + 4) * 4 + 16 + rows * 16
+    b += W * 20 if vec_smem else 0
+    return b + rows * 40 + W * 6
+
+
+def mega_plan(N: int, W: int, sms: int) -> MegaPlan:
+    """The launch of ``mega_solve``'s kernel for N nodes and windows of W
+    columns on a card with ``sms`` SMs: the most blocks (at most one an
+    SM) that split the nodes evenly, and the job words in shared memory
+    where they fit. Raises for a shape it does not cover."""
+    blocks = max(b for b in range(1, min(sms, N) + 1) if N % b == 0)
+    rows = N // blocks
+    if rows <= MEGA_THREADS and W <= 32 * MEGA_THREADS and W % 4 == 0:
+        for vec_smem in (True, False):
+            smem = mega_smem_bytes(rows, W, vec_smem)
+            if smem <= MEGA_SMEM_LIMIT:
+                return MegaPlan(blocks, rows, smem, vec_smem)
+    raise ValueError(f"mega_plan: no launch plan for N={N}, W={W} on "
+                     f"{sms} SMs")
 
 
 def _check(name, t, dtype, shape, device):
@@ -233,16 +315,22 @@ def _kernel_lib(t: torch.Tensor, name: str, lib_name: str):
     return load_kernel_library(lib_name)
 
 
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def mega_solve(
     s_t, d, md, accept_key, rankf, current_node, asg_init, may_bid,
     gf_eff, mf, vg, vm, *, max_rounds, q_lo, q_scale, q_max, node_idx_bits,
 ):
     """The mega loop on the device the tensors are on: for CUDA tensors
     ONE cooperative launch of ``csrc/mega_solve.cu`` that runs every
-    window and every round; for CPU tensors the plain ``mega_rounds``.
-    Same arguments and results as ``mega_rounds``.
+    window and every round, planned by ``mega_plan``; for CPU tensors the
+    plain ``mega_rounds``. Same arguments and results as ``mega_rounds``.
 
-    ``mega_solve.launches`` counts kernel launches (and nothing else)."""
+    ``mega_solve.launches`` counts kernel launches (and nothing else).
+    Where ``mega_solve.walk_counter`` holds an int64 CUDA tensor of four
+    elements, the kernel adds its walk to it (``mega_walk`` mirrors it)."""
     lib = _kernel_lib(s_t, "mega_solve", "mega_solve")
     if lib is None:
         return mega_rounds(
@@ -256,6 +344,8 @@ def mega_solve(
         raise ValueError(f"no mega window for N={N} J={J}")
     dev = s_t.device
     _check("s_t", s_t, torch.float32, (N, J), dev)
+    if s_t.data_ptr() % 16:
+        raise ValueError("s_t must start on a 16-byte boundary")
     for name, t, dt in (
         ("d", d, torch.float32), ("md", md, torch.float32),
         ("accept_key", accept_key, torch.int32),
@@ -268,13 +358,19 @@ def mega_solve(
         _check(name, t, torch.float32, (N,), dev)
     if node_idx_bits < (N - 1).bit_length() or node_idx_bits > 30:
         raise ValueError(f"node_idx_bits={node_idx_bits} cannot index N={N}")
+    plan = mega_plan(N, W, _sm_count(dev))
+    walked = mega_solve.walk_counter
+    if walked is not None:
+        _check("walk_counter", walked, torch.int64, (4,), dev)
 
     asg = torch.empty(J, dtype=torch.int32, device=dev)
     gf_out = torch.empty(N, dtype=torch.float32, device=dev)
     mf_out = torch.empty(N, dtype=torch.float32, device=dev)
     stats = torch.empty(2, dtype=torch.int32, device=dev)  # rounds, capped
-    ws_f = torch.empty(8 * N, dtype=torch.float32, device=dev)
-    ws_i = torch.empty(N + 2 * W + 16, dtype=torch.int32, device=dev)
+    # the launch's packed job words (16 bytes a job), prim by round parity,
+    # and a progress slot a block
+    ws = torch.empty(4 * J + 2 * W + 2 * plan.blocks, dtype=torch.int32,
+                     device=dev)
     p = ctypes.c_void_p
     err = lib.mega_solve_launch(
         p(s_t.data_ptr()), p(d.data_ptr()), p(md.data_ptr()),
@@ -283,10 +379,11 @@ def mega_solve(
         p(may_bid.data_ptr()), p(gf_eff.data_ptr()), p(mf.data_ptr()),
         p(vg.data_ptr()), p(vm.data_ptr()),
         p(asg.data_ptr()), p(gf_out.data_ptr()), p(mf_out.data_ptr()),
-        p(stats.data_ptr()), p(ws_f.data_ptr()), p(ws_i.data_ptr()),
+        p(stats.data_ptr()), p(ws.data_ptr()),
+        p(0 if walked is None else walked.data_ptr()),
         N, J, W, int(max_rounds),
         ctypes.c_float(q_lo), ctypes.c_float(q_scale), ctypes.c_float(q_max),
-        int(node_idx_bits),
+        int(node_idx_bits), plan.blocks, plan.rows, int(plan.vec_smem),
         p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
@@ -296,6 +393,7 @@ def mega_solve(
 
 
 mega_solve.launches = 0
+mega_solve.walk_counter = None
 
 
 # --- the pipelined loop's round ops ----------------------------------------

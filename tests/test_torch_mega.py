@@ -18,6 +18,8 @@ import torch
 
 from kubeinfer_tpu.solver import pallas_kernels as pk
 from kubeinfer_tpu_torch.solver import kernels as tk
+from kubeinfer_tpu_torch.solver.core import resolve_accel
+from kubeinfer_tpu_torch.solver.problem import BUCKETS
 
 
 def dyadic_inputs(seed, N=128, J=384, seeded=False, may_frac=1.0):
@@ -160,3 +162,123 @@ def test_kernel_matches_plain_on_card(seed, seeded, may_frac, max_rounds):
     assert tk.mega_solve.launches == before + 1
     for x, y in zip(k, p):
         assert torch.equal(x, y)
+
+
+def _mega_buckets():
+    return [(N, J) for N in BUCKETS for J in BUCKETS
+            if resolve_accel("auto", J, N) == "mega"]
+
+
+@pytest.mark.parametrize("sms", [132, 128])
+def test_mega_plan_covers_every_routed_bucket(sms):
+    """Every (N, J) bucket pair the router sends to mega, and the tests'
+    explicit shapes, get a plan that splits the nodes evenly and fits the
+    card's shared memory."""
+    shapes = [(N, tk.mega_window(N, J)) for N, J in _mega_buckets()]
+    shapes += [(128, 384), (128, 128)]  # accel="mega" in the tests
+    assert len(shapes) > 100
+    for N, W in shapes:
+        plan = tk.mega_plan(N, W, sms)
+        assert plan.rows * plan.blocks == N, (N, W)
+        assert plan.blocks <= sms and plan.rows <= tk.MEGA_THREADS
+        assert plan.smem == tk.mega_smem_bytes(plan.rows, W, plan.vec_smem)
+        assert plan.smem <= 232448, (N, W, plan)
+
+
+@pytest.mark.parametrize("N,W,vec", [(1024, 2048, True), (16384, 128, True),
+                                     (128, 16384, False)])
+def test_mega_plan_headline_shapes(N, W, vec):
+    plan = tk.mega_plan(N, W, 132)
+    assert (plan.blocks, plan.rows, plan.vec_smem) == (128, N // 128, vec)
+
+
+def test_mega_plan_refuses_what_it_cannot_hold():
+    with pytest.raises(ValueError, match="no launch plan"):
+        tk.mega_plan(8, 262144, 132)  # a 1 MiB row a block
+
+
+def _walk(arrays, consts, max_rounds):
+    tensors = [torch.from_numpy(np.array(a)) for a in arrays]
+    got = tk.mega_rounds(*tensors, max_rounds=max_rounds, **consts)
+    walk = tk.mega_walk(*tensors, max_rounds=max_rounds, **consts)
+    return got, walk
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["one", "multi"])
+@pytest.mark.parametrize("seed,seeded,may_frac,max_rounds", CASES)
+def test_mega_walk_counts(monkeypatch, multi, seed, seeded, may_frac,
+                          max_rounds):
+    """mega_walk's rounds are mega_rounds' rounds; two barriers a round
+    and one a launch; no more windows entered than there are."""
+    if multi:
+        monkeypatch.setattr(tk, "_MEGA_S_BYTES", 128 * 128 * 4)
+    arrays, consts = dyadic_inputs(seed, seeded=seeded, may_frac=may_frac)
+    got, walk = _walk(arrays, consts, max_rounds)
+    windows, rounds, fenced, barriers = walk.tolist()
+    assert walk.dtype == torch.int64
+    assert rounds == int(got[3])
+    assert barriers == 1 + 2 * rounds
+    assert 0 < windows <= 384 // tk.mega_window(128, 384)
+    assert 0 <= fenced <= rounds
+
+
+def test_mega_walk_fences_mixed_ranks_only():
+    """A window whose unplaced jobs share one rank needs no fence; a
+    window that mixes ranks fences at least once."""
+    arrays, consts = dyadic_inputs(0)
+    rank = arrays[4]
+    assert rank.min() < rank.max()
+    _, walk = _walk(arrays, consts, 64)
+    assert int(walk[2]) >= 1
+    one_rank = list(arrays)
+    one_rank[4] = np.zeros_like(rank)
+    _, walk = _walk(one_rank, consts, 64)
+    assert int(walk[1]) > 0 and int(walk[2]) == 0
+
+
+# (N, J, window bytes or None, seed, seeded, may_frac, max_rounds; "fill"
+# is the gang fill's per-window cap, W + 1)
+CARD_CASES = [
+    (128, 384, None, 0, False, 1.0, 64),  # one window, R = 1
+    (128, 384, 128 * 128 * 4, 1, True, 1.0, 64),  # three windows
+    (1024, 384, None, 2, True, 0.7, 64),  # R = 8, may_bid set
+    (1024, 4096, None, 3, False, 1.0, 64),  # two windows of 2048
+    (16384, 384, None, 4, False, 1.0, 64),  # R = 128, three windows of 128
+    (128, 16384, None, 7, False, 1.0, 64),  # W = 16384: job words from L2
+    (1024, 4096, None, 5, False, 1.0, 3),  # capped
+    (1024, 4096, None, 6, True, 0.7, "fill"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,J,sbytes,seed,seeded,may_frac,max_rounds",
+                         CARD_CASES)
+def test_kernel_bitwise_at_width_on_card(monkeypatch, N, J, sbytes, seed,
+                                         seeded, may_frac, max_rounds):
+    """The kernel against mega_rounds at N 128, 1024 and 16384, one
+    window and several, capped, the fill's W + 1 cap: three launches back
+    to back on the same inputs, every output bitwise equal, and the
+    kernel's own walk count equal to mega_walk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no interpret mode)")
+    if sbytes is not None:
+        monkeypatch.setattr(tk, "_MEGA_S_BYTES", sbytes)
+    W = tk.mega_window(N, J)
+    cap = W + 1 if max_rounds == "fill" else max_rounds
+    arrays, consts = dyadic_inputs(seed, N=N, J=J, seeded=seeded,
+                                   may_frac=may_frac)
+    tensors = [torch.from_numpy(np.array(a)).cuda() for a in arrays]
+    counter = torch.zeros(4, dtype=torch.int64, device="cuda")
+    monkeypatch.setattr(tk.mega_solve, "walk_counter", counter)
+    outs = [tk.mega_solve(*tensors, max_rounds=cap, **consts)
+            for _ in range(3)]
+    want = tk.mega_rounds(*tensors, max_rounds=cap, **consts)
+    walk = tk.mega_walk(*tensors, max_rounds=cap, **consts)
+    torch.cuda.synchronize()
+    assert int(want[3]) > 0
+    if max_rounds == 3:
+        assert bool(want[4])
+    for got in outs:
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert torch.equal(counter.cpu(), 3 * walk)
