@@ -65,19 +65,28 @@ times them. Phases:
       walk counts, and on round 1 also by CUDA events over calls, by the
       wrapper's host us and beside the plain version; torch.amin over as
       many columns of S as are active, a yardstick of the same bytes;
+      accept's grid barriers a launch (one, from its source) and its
+      workspace, one for every accept call of a solve;
   (9) auction_solve vs auction_rounds, bitwise (assigned, iterations), on
       the benefit fields of bench.py's whole-node auction request
       (J = N = 1024), of 256 identical jobs, of a random 64 x 64 field
-      (25% infeasible, 10% invalid rows) and of a 4096 x 4096 whole-node
-      request (beyond L2);
+      (25% infeasible, 10% invalid rows), of a 4096 x 4096 whole-node
+      request (beyond L2) — the shared-state kernel, one grid barrier an
+      iteration — and of a 1000 x 24000 one (1024 x 24576, past
+      kernels.auction_plan's line: the two-barrier kernel); on each, the
+      kernel's own walk count (rows walked, tie-break entries, grid
+      barriers) equal to kernels.auction_walk's;
   (10) the jax-auction path: ``get_backend("jax-auction").solve`` on the
       1k x 1k request and on 960 jobs with 25% gangs on a fleet where
       100 nodes cannot host a job (gangs unwind, the fill runs mega), and
       the ``/solve`` handler at 32 x 64; launch counts reset before and
       read after each; one job per node, no overcommit, gangs
       all-or-nothing, a fixpoint, and equality with device="cpu";
-  (11) times of the auction path: p50 pack + solve, the kernel per launch
-      and per iteration, its plain version, its bound, and 4096 x 4096;
+  (11) times of the auction path: p50 pack + solve; the kernel by device
+      time (a CUDA graph of 20 launches), per iteration, by CUDA events
+      over calls and by the wrapper's host us at 1k x 1k, 4096 x 4096 and
+      1024 x 24576, beside its bound and, on the first two, the
+      two-barrier kernel through its launcher; its plain version;
   (12) route_pick vs route_pick_plain, bitwise, on every call of
       solved_affinity at 10k jobs x 1k nodes (12288 x 1024) and of the
       route solve's three modes on a fleet-storm batch (bench.py's
@@ -804,6 +813,16 @@ def round_bound(name, args):
             "O(N + J) bytes; launch and barrier latency set the pace", {})
 
 
+def accept_barriers() -> int:
+    """The grid barriers in one launch of the accept kernel: the
+    ``grid.sync()`` calls in ``accept_kernel``'s body, which has no loop
+    around them."""
+    src = (pathlib.Path(__file__).resolve().parent / "kubeinfer_tpu_torch"
+           / "solver" / "csrc" / "round_ops.cu").read_text()
+    body = src[src.index("accept_kernel(AcceptParams P)"):]
+    return body[:body.index("\n}\n")].count("grid.sync()")
+
+
 def round_kernel_times(kernels, chk, card, counts, per_solve, max_err, shape):
     """[7]: fence, bid and accept on every round's inputs of a checked
     solve (``chk.every``) by device time (``device_ms``), each beside its
@@ -857,6 +876,14 @@ def round_kernel_times(kernels, chk, card, counts, per_solve, max_err, shape):
                     f"once, {rec['amin_ms']:.4f} ms device (a yardstick of "
                     "the same bytes, not a library call for the function)")
         total_bound = sum(row["bound_ms"] for row in per_round[name])
+        if name == "accept":
+            rec["accept_barriers"] = accept_barriers()
+            check(rec["accept_barriers"] == 1,
+                  f"accept_kernel has {rec['accept_barriers']} grid barriers")
+            yard = (f"; {rec['accept_barriers']} grid barrier a launch "
+                    "(accept_kernel), one workspace for the solve's "
+                    f"{per_solve[name]} calls (the earlier kernel had "
+                    "two barriers and allocated its own)")
         print(f"[7] {card}: {name} round 1 {first['device_ms']:.4f} ms device "
               f"(CUDA events over calls {event_ms:.4f} ms), host {us:.1f} us "
               f"a call, plain {pms:.3f} ms, bound {first['bound_ms']:.5f} ms "
@@ -888,7 +915,9 @@ def round_kernel_times(kernels, chk, card, counts, per_solve, max_err, shape):
             "check": f"bitwise equal to its plain version on every round "
                      f"at {shape} (fresh, churn, churn unseated) and at N=64"
                      + ("; its own walk count equal to its mirror's"
-                        if name != "accept" else ""),
+                        if name != "accept" else
+                        "; one grid barrier a launch, one workspace a solve "
+                        "reused by every call"),
         })
     return entries, rec
 
@@ -925,10 +954,35 @@ def auction_inputs(req, dev):
             p.jobs.valid)
 
 
-def auction_phases(dev, kernels, record, card):
+def old_auction(b, t, v):
+    """The two-barrier auction kernel (the state in L2), through its
+    launcher, on any field: what ``auction_plan``
+    routes past its line, and the yardstick of [11] on the fields it does
+    not. Returns ``(assigned, iterations)``."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    lib = _build.load_kernel_library("auction")
+    J, N = b.shape
+    asg = torch.empty(J, dtype=torch.int32, device=b.device)
+    iters = torch.empty(1, dtype=torch.int32, device=b.device)
+    ws = torch.zeros(4 * N + 8, dtype=torch.int32, device=b.device)
+    err = lib.auction_launch(
+        b.data_ptr(), t.data_ptr(), v.data_ptr(), asg.data_ptr(),
+        iters.data_ptr(), ws.data_ptr(), None, J, N, 512, 0.01,
+        torch.cuda.current_stream(b.device).cuda_stream)
+    check(err == 0, f"auction_launch: {lib.error_string(err)}")
+    return asg, iters[0]
+
+
+def auction_phases(dev, kernels, record, card, big=(4096, 4096),
+                   wide=(1000, 24000)):
     """Phases (9)-(11): the auction kernel against its plain version, the
     jax-auction path through the backend and the /solve handler, and its
-    times. Returns the auction's entry of the ``kernels`` line."""
+    times. ``big`` and ``wide`` are the (jobs, nodes) of the whole-node
+    fields beyond L2 and past ``auction_plan``'s line (a CPU rehearsal
+    cuts them). Returns the auction's entry of the ``kernels`` line."""
     import torch
 
     from kubeinfer_tpu_torch.scheduler import (
@@ -940,7 +994,7 @@ def auction_phases(dev, kernels, record, card):
 
     # (9) kernel vs plain, bitwise, on the same card tensors
     req1k = whole_node_request(1000, 1000)
-    req4k = whole_node_request(4096, 4096)
+    req4k = whole_node_request(*big)
     identical = SolveRequest(  # TestAuction.test_identical_fleet_converges_fast
         job_gpu=np.full(256, 8.0, np.float32),
         job_mem_gib=np.full(256, 8.0, np.float32),
@@ -954,34 +1008,60 @@ def auction_phases(dev, kernels, record, card):
     random64 = (torch.from_numpy(field).to(dev),
                 auction_tiebreak(64, 64, dev),
                 torch.from_numpy(rng.random(64) >= 0.1).to(dev))
+    big_label = f"{big[0]}x{big[1]} whole-node"
+    wide_label = f"{wide[0]}x{wide[1]} whole-node, past the plan's line"
     cases = {
         "1kx1k whole-node": auction_inputs(req1k, dev),
         "256 identical": auction_inputs(identical, dev),
         "64x64 random, 25% infeasible, 10% invalid": random64,
-        "4096x4096 whole-node": auction_inputs(req4k, dev),
+        big_label: auction_inputs(req4k, dev),
+        wide_label: auction_inputs(whole_node_request(*wide), dev),
     }
+    sms = kernels._sm_count(dev)
     max_err, checked = 0.0, {}
     for label, (b, t, v) in cases.items():
         active, near = [], []
-        ka, ki = kernels.auction_solve(b, t, v, 0.01, max_iters=512)
+        plan = kernels.auction_plan(*b.shape, sms)
+        check(plan.route == ("wide" if label == wide_label else "shared"),
+              f"{label}: auction_plan routes {b.shape} to {plan.route}")
+        walked = torch.zeros(3, dtype=torch.int64, device=dev)
+        kernels.auction_solve.walk_counter = walked
+        try:
+            ka, ki = kernels.auction_solve(b, t, v, 0.01, max_iters=512)
+        finally:
+            kernels.auction_solve.walk_counter = None
         pa, pi = kernels.auction_rounds(b, t, v, 0.01, max_iters=512,
                                         active_rows=active, near_entries=near)
+        mirror = kernels.auction_walk(b, t, v, 0.01, max_iters=512,
+                                      plan=plan).tolist()
         torch.cuda.synchronize()
         err = float((ka - pa).abs().max())
         max_err = max(max_err, err)
         same = torch.equal(ka, pa) and int(ki) == int(pi)
-        print(f"[9] {label} ({b.shape[0]}x{b.shape[1]}): kernel iters "
-              f"{int(ki)} placed {int((ka >= 0).sum())}, plain iters "
-              f"{int(pi)}; bitwise_equal={same} max_abs_err={err}")
+        walk = walked.tolist()
+        print(f"[9] {label} ({b.shape[0]}x{b.shape[1]}, route "
+              f"{plan.route}, {plan.blocks} blocks): kernel iters {int(ki)} "
+              f"placed {int((ka >= 0).sum())}, plain iters {int(pi)}; "
+              f"bitwise_equal={same} max_abs_err={err}; walk (rows, "
+              f"tie-break entries, grid barriers) {walk}, auction_walk's "
+              f"{mirror}")
         check(same, f"auction_solve != auction_rounds on {label}")
+        check(walk == mirror and walk[:2] == [sum(active), sum(near)],
+              f"{label}: the kernel's walk {walk} != auction_walk's "
+              f"{mirror} (active rows {sum(active)}, near {sum(near)})")
+        check(walk[2] == (int(ki) if plan.route == "shared"
+                          else 1 + 2 * int(ki)),
+              f"{label}: {walk[2]} grid barriers in {int(ki)} iterations")
         # the bytes this run's data needs: the benefit row of every active
         # job in every iteration, and the tie-break only at the near
-        # entries of the rows that bid (the kernel reads no other)
+        # entries of the rows that bid
         checked[label] = {"iters": int(ki), "active_rows": sum(active),
                           "near_entries": sum(near),
                           "bound_bytes": 4 * b.shape[1] * sum(active)
                           + 4 * sum(near),
-                          "placed": int((ka >= 0).sum())}
+                          "placed": int((ka >= 0).sum()),
+                          "route": plan.route, "blocks": plan.blocks,
+                          "walk": walk}
     record["auction_checks"] = checked
 
     # (10) the auction path, counted
@@ -1059,8 +1139,32 @@ def auction_phases(dev, kernels, record, card):
     _, sync_sites = count_syncs(lambda: backend.solve(req1k))
     b, t, v = cases["1kx1k whole-node"]
     iters = checked["1kx1k whole-node"]["iters"]
-    kernel_ms = cuda_ms(
-        lambda: kernels.auction_solve(b, t, v, 0.01, max_iters=512), reps=20)
+    times = {}
+    for label in ("1kx1k whole-node", big_label, wide_label):
+        fb, ft, fv = cases[label]
+        kernel = lambda: kernels.auction_solve(fb, ft, fv, 0.01, max_iters=512)
+        pr3 = lambda: old_auction(fb, ft, fv)
+        c = checked[label]
+        times[label] = row = {
+            "device_ms": device_ms(kernel),
+            "event_ms": cuda_ms(kernel, reps=20),
+            "host_us": host_us(kernel, reps=50),
+            "iters": c["iters"], "route": c["route"],
+            "bound_ms": c["bound_bytes"] / HBM_BYTES_PER_S * 1e3}
+        if c["route"] == "shared":
+            row["old_device_ms"] = device_ms(pr3)
+            row["old_event_ms"] = cuda_ms(pr3, reps=20)
+        print(f"[11] {card}: auction_solve {label}, route {c['route']}: "
+              f"{row['device_ms']:.4f} ms device (a CUDA graph of 20), "
+              f"{row['device_ms'] * 1e3 / c['iters']:.2f} us an iteration "
+              f"over {c['iters']}, {row['event_ms']:.4f} ms wall a call by "
+              f"CUDA events, host {row['host_us']:.1f} us a call"
+              + (f"; the two-barrier kernel on the same field "
+                 f"{row['old_device_ms']:.4f} ms device "
+                 f"({row['old_event_ms']:.4f} wall)"
+                 if "old_device_ms" in row else "")
+              + f"; bound {row['bound_ms']:.5f} ms (bytes)")
+    kernel_ms = times["1kx1k whole-node"]["device_ms"]
     plain_ms = cuda_ms(
         lambda: kernels.auction_rounds(b, t, v, 0.01, max_iters=512), reps=3)
     N = b.shape[1]
@@ -1086,24 +1190,23 @@ def auction_phases(dev, kernels, record, card):
         torch.cuda.synchronize()
         solve_ms.append((time.perf_counter() - t0) * 1e3)
     solve_p50 = statistics.median(solve_ms)
-    b4, t4, v4 = cases["4096x4096 whole-node"]
-    k4_ms = cuda_ms(
-        lambda: kernels.auction_solve(b4, t4, v4, 0.01, max_iters=512), reps=5)
-    c4 = checked["4096x4096 whole-node"]
-    bound4_ms = c4["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    k4_ms = times[big_label]["device_ms"]
+    c4 = checked[big_label]
+    bound4_ms = times[big_label]["bound_ms"]
     print(f"[11] {card}: jax-auction 1kx1k p50 pack+solve {p50:.3f} ms "
           f"(CUDA events {p50_event:.3f} ms, pack {pack:.3f} ms), "
           f"{sum(sync_sites.values())} synchronising calls "
           f"{dict(sync_sites)}; layers: solve_auction on the unpacked "
           f"problem {solve_p50:.3f} ms, of which benefit field + tie-break "
-          f"{field_ms:.3f} ms and the kernel; auction_solve {kernel_ms:.4f} ms/launch, "
+          f"{field_ms:.3f} ms and the kernel; auction_solve {kernel_ms:.4f} "
+          f"ms/launch device, "
           f"{iters} iterations, {kernel_ms / iters * 1e3:.2f} us/iteration, "
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms (bytes: "
           f"{bound_bytes} B: the benefit rows of "
           f"{checked['1kx1k whole-node']['active_rows']} active rows and "
           f"the tie-break at {checked['1kx1k whole-node']['near_entries']} "
-          f"near entries, over all iterations); 4096x4096 "
-          f"{k4_ms:.3f} ms/launch, {c4['iters']} iterations, bound "
+          f"near entries, over all iterations); {big_label} "
+          f"{k4_ms:.4f} ms/launch, {c4['iters']} iterations, bound "
           f"{bound4_ms:.4f} ms")
     record["auction_times"] = {
         "p50_ms": p50, "p50_event_ms": p50_event, "pack_ms": pack,
@@ -1113,7 +1216,7 @@ def auction_phases(dev, kernels, record, card):
         "iters": iters, "ms_per_iter": kernel_ms / iters,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "kernel_4096_ms": k4_ms, "iters_4096": c4["iters"],
-        "bound_4096_ms": bound4_ms,
+        "bound_4096_ms": bound4_ms, "fields": times,
     }
     return {
         "name": "auction_solve",
@@ -1128,7 +1231,11 @@ def auction_phases(dev, kernels, record, card):
         "bound_by": "bytes",
         "library_ms": None,
         "check": "bitwise equal (assigned, iterations) to auction_rounds "
-                 "at 1024x1024, 256x256, 64x64 and 4096x4096",
+                 "at 1024x1024, 256x256, 64x64 and 4096x4096 (the "
+                 "shared-state kernel, one grid barrier an iteration) and "
+                 "at 1024x24576 (past auction_plan's line: the "
+                 "two-barrier kernel); its own walk count (rows, tie-break "
+                 "entries, grid barriers) equal to auction_walk's on each",
     }
 
 

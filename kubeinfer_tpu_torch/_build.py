@@ -141,10 +141,19 @@ _SIGNATURES = {
         # prim, alt), walked (two int64 counters or null), N, J, gs, bits,
         # q_lo, q_scale, q_max
         "bid_launch": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _P],
-        "accept_launch": [_P] * 11 + [_I, _I, _P],
+        # choice, key, d, md, gf, mf, accept, used_g, used_m, ws (two
+        # halves of 3N words, kernels.AcceptWorkspace), half, N, J
+        "accept_launch": [_P] * 10 + [_I, _I, _I, _P],
     },
     "auction": {
-        "auction_launch": [_P] * 6 + [_I, _I, _I, _F, _P],
+        # benefit, tiebreak, valid, asg, iters, keys (three zeroed u64
+        # buffers of N rounded up to even), walked (three int64 counters
+        # or null), J, N, max_iters, eps, blocks, smem, vec
+        # (kernels.auction_plan)
+        "auction_shared_launch": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _I, _P],
+        # benefit, tiebreak, valid, asg, iters, ws, walked, J, N,
+        # max_iters, eps: the two-barrier kernel
+        "auction_launch": [_P] * 7 + [_I, _I, _I, _F, _P],
     },
     "route_pick": {
         "route_pick_launch": [_P] * 5 + [_I, _I, _P],

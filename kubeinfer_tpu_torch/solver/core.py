@@ -268,8 +268,9 @@ class CostField:
 class RoundOps(NamedTuple):
     """The three round ops ``run_rounds`` calls, with the signatures of
     ``kernels.fence``, ``kernels.bid`` and ``kernels.accept`` (the
-    default); a caller may pass others, e.g. ones that also check each
-    kernel against its plain version."""
+    default; ``run_rounds`` passes accept the solve's
+    ``kernels.AcceptWorkspace`` last); a caller may pass others, e.g. ones
+    that also check each kernel against its plain version."""
 
     fence: Callable
     bid: Callable
@@ -301,6 +302,9 @@ def run_rounds(
     host sync per round."""
     ops = ops or RoundOps(kernels.fence, kernels.bid, kernels.accept)
     N = gpu_free.shape[0]
+    # the accept kernel's accumulators, one for every accept call of the
+    # solve: each call leaves the next one's half zeroed
+    ws = kernels.AcceptWorkspace(N, gpu_free.device)
     d, md, cur = jobs.gpu_demand, jobs.mem_demand, jobs.current_node
     node_mask = (1 << f.node_idx_bits) - 1
     rounds = rounds0
@@ -317,7 +321,7 @@ def run_rounds(
         has1 = prim != _I32MAX
         choice1 = torch.where(has1, prim & node_mask, N)
         accept1, used_g, used_m = ops.accept(
-            choice1, f.key, d, md, gpu_free, mem_free
+            choice1, f.key, d, md, gpu_free, mem_free, ws
         )
         assigned = torch.where(accept1, choice1, assigned)
         gpu_free = gpu_free - used_g
@@ -326,7 +330,7 @@ def run_rounds(
         retry = has1 & ~accept1 & (alt != _I32MAX) & ~home_bid
         choice2 = torch.where(retry, alt & node_mask, N)
         accept2, used_g, used_m = ops.accept(
-            choice2, f.key, d, md, gpu_free, mem_free
+            choice2, f.key, d, md, gpu_free, mem_free, ws
         )
         assigned = torch.where(accept2, choice2, assigned)
         gpu_free = gpu_free - used_g

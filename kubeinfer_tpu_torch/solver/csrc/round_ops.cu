@@ -53,14 +53,19 @@
 // pairs it tested and the chunks it walked (kernels.bid_walk mirrors
 // both). Bound: bytes (the S entries of the allowed pairs).
 //
-// accept. One cooperative launch, two grid barriers: (1) reset the node
-// accumulators; (2) per bidder, atomicAdd its demands into its node's
-// totals and atomicMin its key into the node's winner key; (3) per node,
-// the winner's demand is gathered through the job index in the winner
-// key's low bits, then fits_all / fits_win and the consumed capacity;
-// per job, the accept flag is a gather through choice of the same
-// verdicts. choice outside [0, N) (the N sentinel) matches no node.
-// Bound: launch and barrier latency (O(N + J) work).
+// accept. One cooperative launch, ONE grid barrier: (1) per bidder,
+// atomicAdd its demands into its node's totals and atomicMax its key's
+// code (INT_MAX - key in order, so a zero word is "no winner") into the
+// node's winner word, in the half of a two-half workspace that the
+// previous call left zeroed, while every thread zeroes its share of the
+// other half, which nothing in this call reads (the next call's); (2) per
+// node, the winner's demand is gathered through the job index in the
+// winner key's low bits, then fits_all / fits_win and the consumed
+// capacity; per job, the accept flag is a gather through choice of the
+// same verdicts. choice outside [0, N) (the N sentinel) matches no node.
+// The workspace belongs to the solve (kernels.AcceptWorkspace, one for
+// every accept call of core.run_rounds), and the wrapper flips its half
+// after each launch. Bound: launch and barrier latency (O(N + J) work).
 //
 // Exactness. The bid arithmetic is (S + u - q_lo) * q_scale in the plain
 // version's order with __fadd_rn/__fsub_rn/__fmul_rn (the library is built
@@ -484,20 +489,30 @@ struct AcceptParams {
   unsigned char* accept;  // [J] out (bool)
   float* used_g;  // [N] out
   float* used_m;  // [N] out
-  float* tg;  // [N] scratch: bidder gpu totals
+  float* tg;  // [N] this call's half, zero on entry: bidder gpu totals
   float* tm;  // [N]
-  int* win;  // [N] scratch: winner key
+  unsigned* win;  // [N] winner code, win_code(key); 0 = none
+  unsigned* zero;  // [3N] the other half, zeroed here for the next call
   int N, J, idx_mask;
 };
+
+// the least key has the largest code; INT_MAX ("no key") has code 0
+__device__ __forceinline__ unsigned win_code(int key) {
+  return static_cast<unsigned>(key) ^ 0x7FFFFFFFu;
+}
+
+__device__ __forceinline__ int win_key(unsigned code) {
+  return static_cast<int>(code ^ 0x7FFFFFFFu);
+}
 
 struct Verdict {
   bool all, win;
   float wd, wmd;
 };
 
-__device__ __forceinline__ Verdict node_verdict(const AcceptParams& P, int n) {
+__device__ __forceinline__ Verdict node_verdict(const AcceptParams& P, int n,
+                                                int w) {
   Verdict v;
-  const int w = __ldcg(&P.win[n]);
   const bool has = w != kI32Max;
   const int wj = min(w & P.idx_mask, P.J - 1);
   v.wd = has ? P.d[wj] : 0.f;
@@ -513,23 +528,18 @@ __global__ void __launch_bounds__(kAcceptThreads) accept_kernel(AcceptParams P) 
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
-  for (int n = gtid; n < P.N; n += nthreads) {
-    P.tg[n] = 0.f;
-    P.tm[n] = 0.f;
-    P.win[n] = kI32Max;
-  }
-  grid.sync();
   for (int j = gtid; j < P.J; j += nthreads) {
     const int c = P.choice[j];
     if (c >= 0 && c < P.N) {
       atomicAdd(&P.tg[c], P.d[j]);
       atomicAdd(&P.tm[c], P.md[j]);
-      atomicMin(&P.win[c], P.key[j]);
+      atomicMax(&P.win[c], win_code(P.key[j]));
     }
   }
+  for (int i = gtid; i < 3 * P.N; i += nthreads) P.zero[i] = 0u;
   grid.sync();
   for (int n = gtid; n < P.N; n += nthreads) {
-    const Verdict v = node_verdict(P, n);
+    const Verdict v = node_verdict(P, n, win_key(__ldcg(&P.win[n])));
     P.used_g[n] = v.all ? __ldcg(&P.tg[n]) : (v.win ? v.wd : 0.f);
     P.used_m[n] = v.all ? __ldcg(&P.tm[n]) : (v.win ? v.wmd : 0.f);
   }
@@ -537,19 +547,21 @@ __global__ void __launch_bounds__(kAcceptThreads) accept_kernel(AcceptParams P) 
     const int c = P.choice[j];
     bool ok = false;
     if (c >= 0 && c < P.N) {
-      const Verdict v = node_verdict(P, c);
-      ok = v.all || (v.win && __ldcg(&P.win[c]) == P.key[j]);
+      const int w = win_key(__ldcg(&P.win[c]));
+      const Verdict v = node_verdict(P, c, w);
+      ok = v.all || (v.win && w == P.key[j]);
     }
     P.accept[j] = ok ? 1 : 0;
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
+// Per device, once a process: the SM count and the accept kernel's
+// resident blocks an SM, 0 where cooperative launches do not work (a
+// benign race: every thread stores the same values).
+struct AcceptDevice {
+  int sms = -1, per_sm = 0;
+};
+AcceptDevice g_accept_devices[64];
 
 }  // namespace
 
@@ -604,9 +616,10 @@ extern "C" int bid_launch(const void* S, const void* u, const void* gf,
 extern "C" int accept_launch(const void* choice, const void* key,
                              const void* d, const void* md, const void* gf,
                              const void* mf, void* accept, void* used_g,
-                             void* used_m, void* ws_f, void* ws_i, int N,
-                             int J, void* stream) {
-  if (N <= 0 || J <= 0) return cudaErrorInvalidValue;
+                             void* used_m, void* ws, int half, int N, int J,
+                             void* stream) {
+  if (N <= 0 || J <= 0 || (half != 0 && half != 1))
+    return cudaErrorInvalidValue;
   AcceptParams P;
   P.choice = static_cast<const int*>(choice);
   P.key = static_cast<const int*>(key);
@@ -617,28 +630,38 @@ extern "C" int accept_launch(const void* choice, const void* key,
   P.accept = static_cast<unsigned char*>(accept);
   P.used_g = static_cast<float*>(used_g);
   P.used_m = static_cast<float*>(used_m);
-  P.tg = static_cast<float*>(ws_f);  // 2N floats
+  // ws: two halves of (tg, tm, win), N words each
+  unsigned* w = static_cast<unsigned*>(ws);
+  unsigned* mine = w + 3 * N * half;
+  P.tg = reinterpret_cast<float*>(mine);
   P.tm = P.tg + N;
-  P.win = static_cast<int*>(ws_i);  // N ints
+  P.win = mine + 2 * N;
+  P.zero = w + 3 * N * (half ^ 1);
   P.N = N;
   P.J = J;
   int bits = 1;
   while ((1 << bits) < J) ++bits;  // max((J - 1).bit_length(), 1)
   P.idx_mask = (1 << bits) - 1;
 
-  int dev = 0, coop = 0, per_sm = 0;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, accept_kernel,
-                                                    kAcceptThreads, 0);
-  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  AcceptDevice& info = g_accept_devices[dev];
+  if (info.sms < 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, accept_kernel,
+                                                      kAcceptThreads, 0);
+    if (e != cudaSuccess) return e;
+    info.per_sm = coop ? std::min(per_sm, 2) : 0;
+    info.sms = sms;
+  }
   // every block of a cooperative grid must be co-resident
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (info.per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int want = (std::max(N, J) + kAcceptThreads - 1) / kAcceptThreads;
-  const int blocks =
-      std::max(1, std::min(want, sm_count() * std::min(per_sm, 2)));
+  const int blocks = std::max(1, std::min(want, info.sms * info.per_sm));
   void* args[] = {&P};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(accept_kernel),
                                   dim3(blocks), dim3(kAcceptThreads), args, 0,

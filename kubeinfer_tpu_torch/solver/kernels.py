@@ -24,7 +24,8 @@ Four algorithms, as in ``kubeinfer_tpu/solver``:
 - The Jacobi auction loop of the ``jax-auction`` policy, counterpart of
   ``core._auction_loop_jnp`` and of ``pallas_kernels.auction_solve``:
   ``auction_rounds`` is the plain version, ``auction_solve`` launches
-  ``csrc/auction.cu``.
+  ``csrc/auction.cu`` on the kernel ``auction_plan`` chooses;
+  ``auction_walk`` mirrors the kernel's walk counts.
 - The route solve's masked row argmax, counterpart of
   ``pallas_kernels.route_pick_jnp``/``route_pick_pallas``:
   ``route_pick_plain`` is the plain version, ``route_pick`` launches
@@ -45,6 +46,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from kubeinfer_tpu_torch import _build
 
 _I32MAX = 0x7FFFFFFF
 _EPS = 1e-4
@@ -302,21 +305,38 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous on {device}")
 
 
+def _check_lean(specs, dev) -> None:
+    """``_check`` of each (name, tensor, dtype, shape) on ``dev`` at a few
+    attribute reads a tensor (the accept wrapper runs twice a round)."""
+    for name, t, dtype, shape in specs:
+        if (t.dtype != dtype or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):
+            _check(name, t, dtype, shape, dev)  # raises
+
+
+_sms: dict = {}  # SM counts by device index
+
+
 def _kernel_lib(t: torch.Tensor, name: str, lib_name: str):
     """The kernel library ``lib_name`` for a CUDA tensor (built at first
     use); None for a CPU tensor, where the wrapper ``name`` takes its plain
     version; raises for any other device."""
-    if t.device.type == "cpu":
+    kind = t.device.type
+    if kind == "cpu":
         return None
-    if t.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
-    from kubeinfer_tpu_torch._build import load_kernel_library
-
-    return load_kernel_library(lib_name)
+    # a loaded library without the loader's lock (a dict read)
+    lib = _build._libs.get(lib_name)
+    return lib if lib is not None else _build.load_kernel_library(lib_name)
 
 
 def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _sms.get(dev.index)
+    if sms is None:
+        sms = _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
 
 
 def mega_solve(
@@ -513,10 +533,13 @@ def dense_accept(
     md: torch.Tensor,  # f32[J]
     gf: torch.Tensor,  # f32[N] the capacities the bids must fit
     mf: torch.Tensor,  # f32[N]
+    ws: AcceptWorkspace | None = None,  # the kernel's; unused here
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One accept pass -> ``(accept bool[J], used_gpu f32[N], used_mem
     f32[N])`` (``core._dense_accept``): a node whose bidders jointly fit
-    accepts them all, else only its least-key bidder, if that one fits."""
+    accepts them all, else only its least-key bidder, if that one fits.
+    ``ws`` is taken, and ignored, so that the kernel's callers can pass
+    their workspace to either."""
     N = gf.shape[0]
     tot_g, tot_m, win_key, win_g, win_m = accept_reduce(choice, key, d, md, N)
     fits_all = (tot_g <= gf + _EPS) & (tot_m <= mf + _EPS)
@@ -715,33 +738,60 @@ bid.launches = 0
 bid.walk_counter = None
 
 
-def accept(choice, key, d, md, gf, mf):
+class AcceptWorkspace:
+    """The accept kernel's node accumulators: two halves of (gpu totals,
+    mem totals, winner codes), N int32 words each, all zero at first. A
+    launch accumulates into ``half``, which the launch before left zeroed,
+    and zeroes the other; ``accept`` flips ``half`` after each launch. One
+    workspace serves every accept call of a solve (``core.run_rounds``),
+    in stream order."""
+
+    __slots__ = ("buf", "half")
+
+    def __init__(self, N: int, device) -> None:
+        self.buf = torch.zeros(2 * 3 * N, dtype=torch.int32, device=device)
+        self.half = 0
+
+
+def accept(choice, key, d, md, gf, mf, ws=None):
     """``dense_accept`` on the tensors' device: for CUDA tensors one
-    cooperative launch of the accept kernel of ``csrc/round_ops.cu``
-    (bidder totals and winner by atomics, then the node verdicts and the
-    per-job flag, a gather through ``choice``)."""
+    cooperative launch of the accept kernel of ``csrc/round_ops.cu`` with
+    one grid barrier (bidder totals and winner by atomics into the half of
+    ``ws`` the launch before left zeroed, then the node verdicts and the
+    per-job flag, a gather through ``choice``). ``ws`` is an
+    ``AcceptWorkspace`` of N nodes on the same device, used in stream
+    order; without one the call allocates a zeroed one."""
     lib = _kernel_lib(choice, "accept", "round_ops")
     if lib is None:
-        return dense_accept(choice, key, d, md, gf, mf)
+        return dense_accept(choice, key, d, md, gf, mf, ws)
     N, J = gf.shape[0], choice.shape[0]
     dev = choice.device
-    for name, t, dt in (
-        ("choice", choice, torch.int32), ("key", key, torch.int32),
-        ("d", d, torch.float32), ("md", md, torch.float32),
-    ):
-        _check(name, t, dt, (J,), dev)
-    for name, t in (("gf", gf), ("mf", mf)):
-        _check(name, t, torch.float32, (N,), dev)
+    _check_lean((("choice", choice, torch.int32, (J,)),
+                 ("key", key, torch.int32, (J,)),
+                 ("d", d, torch.float32, (J,)),
+                 ("md", md, torch.float32, (J,)),
+                 ("gf", gf, torch.float32, (N,)),
+                 ("mf", mf, torch.float32, (N,))), dev)
+    if ws is None:
+        ws = AcceptWorkspace(N, dev)
+    elif ws.buf.shape != (6 * N,) or ws.buf.device != dev:
+        raise ValueError(f"accept: a workspace of {ws.buf.shape[0] // 6} "
+                         f"nodes on {ws.buf.device} for {N} nodes on {dev}")
     flags = torch.empty(J, dtype=torch.bool, device=dev)
-    used = torch.empty(2, N, dtype=torch.float32, device=dev)
-    ws_f = torch.empty(2 * N, dtype=torch.float32, device=dev)
-    ws_i = torch.empty(N, dtype=torch.int32, device=dev)
-    _launch(
-        lib, "accept_launch", choice, key, d, md, gf, mf, flags, used[0],
-        used[1], ws_f, ws_i, N, J,
-    )
+    used_g, used_m = torch.empty(2, N, dtype=torch.float32,
+                                 device=dev).unbind(0)
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # builds a Stream object, several us of host time a call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = lib.accept_launch(
+        choice.data_ptr(), key.data_ptr(), d.data_ptr(), md.data_ptr(),
+        gf.data_ptr(), mf.data_ptr(), flags.data_ptr(), used_g.data_ptr(),
+        used_m.data_ptr(), ws.buf.data_ptr(), ws.half, N, J, stream)
+    if err != 0:
+        raise RuntimeError(f"accept_launch failed: {lib.error_string(err)}")
+    ws.half ^= 1
     accept.launches += 1
-    return flags, used[0], used[1]
+    return flags, used_g, used_m
 
 
 accept.launches = 0
@@ -844,14 +894,88 @@ def auction_rounds(
     return assigned, torch.tensor(it, dtype=torch.int32, device=dev)
 
 
+# The auction kernels' launch plan (csrc/auction.cu). The shared-state
+# kernel runs AUCTION_THREADS threads a block, one block an SM, each holding
+# price[N], owner[N], assigned[J] and the active list [J] in shared memory
+# (8 bytes a node and a job) within the card's opt-in maximum less room for
+# its static arrays, and a thread holds at most AUCTION_VMAX values of a
+# row. Past that line the two-barrier kernel takes the call (the state in
+# L2, two blocks an SM): a route chosen by shape.
+AUCTION_THREADS = 512
+AUCTION_VMAX = 32
+AUCTION_SMEM_LIMIT = 232448 - 1024
+
+
+class AuctionPlan(NamedTuple):
+    route: str  # "shared" (one grid barrier an iteration) or "wide" (two)
+    blocks: int  # "wide": as many as are co-resident, up to two an SM
+    threads: int
+    smem: int  # dynamic shared-memory bytes a block
+
+
+def auction_plan(J: int, N: int, sms: int) -> AuctionPlan:
+    """The launch of ``auction_solve`` for a [J, N] field on a card with
+    ``sms`` SMs: the shared-state kernel on min(sms, J) blocks where a row
+    fits a block's threads and the state fits its shared memory, else the
+    two-barrier kernel."""
+    smem = 8 * (N + J)
+    if N <= AUCTION_THREADS * AUCTION_VMAX and smem <= AUCTION_SMEM_LIMIT:
+        return AuctionPlan("shared", min(sms, J), AUCTION_THREADS, smem)
+    return AuctionPlan("wide", 2 * sms, AUCTION_THREADS, 0)
+
+
+def auction_deal(active: int, N: int, blocks: int) -> list[list[int]]:
+    """The shared kernel's deal of an iteration's ``active`` rows (positions
+    in the active list) over its groups: the group size G, a power of two
+    from the least that holds a row (G x AUCTION_VMAX >= N) up to a whole
+    block, is the most threads that still give every row a group; group g
+    (block g // (512 / G)) walks positions g, g + groups, ... Returns each
+    group's positions."""
+    gmin = 32
+    while gmin * AUCTION_VMAX < N:
+        gmin *= 2
+    fit = blocks * AUCTION_THREADS // active
+    G = min(AUCTION_THREADS, max(gmin, 1 << (fit.bit_length() - 1)))
+    groups = blocks * (AUCTION_THREADS // G)
+    return [list(range(g, active, groups)) for g in range(groups)]
+
+
+def auction_walk(benefit, tiebreak, valid, eps, *, max_iters,
+                 plan: AuctionPlan) -> torch.Tensor:
+    """Plain mirror of what ``auction_solve``'s kernel on ``plan`` adds to
+    ``auction_solve.walk_counter``: int64[3] on the CPU, the rows walked
+    (on the "shared" route the rows ``auction_deal`` gives the groups in
+    each iteration, on the "wide" one every active row, a warp each), the
+    tie-break entries read (the near entries of the rows that bid) and the
+    grid barriers (one an iteration on the "shared" route; one a launch
+    and two an iteration on the "wide" one). Runs the plain loop."""
+    N = benefit.shape[1]
+    active, near = [], []
+    _, iters = auction_rounds(benefit, tiebreak, valid, eps,
+                              max_iters=max_iters, active_rows=active,
+                              near_entries=near)
+    it = int(iters)
+    if plan.route == "shared":
+        rows = sum(len(pos) for a in active
+                   for pos in auction_deal(a, N, plan.blocks))
+        barriers = it
+    else:
+        rows, barriers = sum(active), 1 + 2 * it
+    return torch.tensor([rows, sum(near), barriers], dtype=torch.int64)
+
+
 def auction_solve(benefit, tiebreak, valid, eps, *, max_iters):
     """The auction loop on the device the tensors are on: for CUDA tensors
     ONE cooperative launch of ``csrc/auction.cu`` that runs every
-    iteration; for CPU tensors the plain ``auction_rounds``. Same
-    arguments and results as ``auction_rounds`` (without
-    ``active_rows`` and ``near_entries``); any (J, N) is taken.
+    iteration, on the kernel ``auction_plan`` routes the shape to; for CPU
+    tensors the plain ``auction_rounds``. Same arguments and results as
+    ``auction_rounds`` (without ``active_rows`` and ``near_entries``); any
+    (J, N) is taken.
 
-    ``auction_solve.launches`` counts kernel launches (and nothing else)."""
+    ``auction_solve.launches`` counts kernel launches (and nothing else).
+    Where ``auction_solve.walk_counter`` holds an int64 CUDA tensor of three
+    elements, the kernel adds its walk to it (``auction_walk`` mirrors
+    it)."""
     lib = _kernel_lib(benefit, "auction_solve", "auction")
     if lib is None:
         return auction_rounds(benefit, tiebreak, valid, eps, max_iters=max_iters)
@@ -859,23 +983,42 @@ def auction_solve(benefit, tiebreak, valid, eps, *, max_iters):
     dev = benefit.device
     if J < 1 or N < 1:
         raise ValueError(f"auction_solve: empty field {J}x{N}")
-    _check("benefit", benefit, torch.float32, (J, N), dev)
-    _check("tiebreak", tiebreak, torch.int32, (J, N), dev)
-    _check("valid", valid, torch.bool, (J,), dev)
+    _check_lean((("benefit", benefit, torch.float32, (J, N)),
+                 ("tiebreak", tiebreak, torch.int32, (J, N)),
+                 ("valid", valid, torch.bool, (J,))), dev)
+    plan = auction_plan(J, N, _sm_count(dev))
+    walked = auction_solve.walk_counter
+    if walked is not None:
+        _check("walk_counter", walked, torch.int64, (3,), dev)
     asg = torch.empty(J, dtype=torch.int32, device=dev)
     iters = torch.empty(1, dtype=torch.int32, device=dev)
-    # workspace, zeroed: key u64[N] (2N ints), price f32[N], owner i32[N],
-    # 8 counters
-    ws = torch.zeros(4 * N + 8, dtype=torch.int32, device=dev)
-    _launch(
-        lib, "auction_launch", benefit, tiebreak, valid, asg, iters, ws,
-        J, N, int(max_iters), float(eps),
-    )
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    walk_ptr = None if walked is None else walked.data_ptr()
+    if plan.route == "shared":
+        # three key buffers of N rounded up to even u64 words; buffer 0
+        # must arrive zeroed, the kernel clears the others as it goes
+        keys = torch.zeros(3 * (N + (N & 1)), dtype=torch.int64, device=dev)
+        vec = 4 if N % 4 == 0 and benefit.data_ptr() % 16 == 0 else 1
+        err = lib.auction_shared_launch(
+            benefit.data_ptr(), tiebreak.data_ptr(), valid.data_ptr(),
+            asg.data_ptr(), iters.data_ptr(), keys.data_ptr(), walk_ptr,
+            J, N, int(max_iters), float(eps), plan.blocks, plan.smem, vec,
+            stream)
+    else:
+        # key u64[N] (2N ints), price f32[N], owner i32[N], 8 counters
+        ws = torch.zeros(4 * N + 8, dtype=torch.int32, device=dev)
+        err = lib.auction_launch(
+            benefit.data_ptr(), tiebreak.data_ptr(), valid.data_ptr(),
+            asg.data_ptr(), iters.data_ptr(), ws.data_ptr(), walk_ptr,
+            J, N, int(max_iters), float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"auction launch failed: {lib.error_string(err)}")
     auction_solve.launches += 1
     return asg, iters[0]
 
 
 auction_solve.launches = 0
+auction_solve.walk_counter = None
 
 
 # --- the route pick ----------------------------------------------------------

@@ -408,18 +408,120 @@ def test_auction_wrapper_on_cpu_is_the_plain_version():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("J,N,seed", [(64, 64, 7), (96, 128, 0), (256, 384, 2)])
+@pytest.mark.parametrize("J,N,seed", [
+    (64, 64, 7), (96, 128, 0), (256, 384, 2),
+    # both sides of auction_plan's line, N not a multiple of 128 (odd too)
+    (100, 1000, 1), (50, 63, 2), (300, 4100, 4), (40, 16400, 5),
+])
 def test_auction_kernel_matches_plain_on_card(J, N, seed):
-    """The kernel against its plain version on the same card tensors."""
+    """The kernel ``auction_plan`` routes to against its plain version on
+    the same card tensors, three launches back to back, bitwise (assigned,
+    iterations), with the kernel's own walk count equal to
+    ``auction_walk``'s."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel; no interpret mode)")
+    dev = torch.device("cuda")
     benefit, valid = random_field(seed, J, N)
-    t = [torch.from_numpy(benefit).cuda(),
-         tc.auction_tiebreak(J, N, torch.device("cuda")),
-         torch.from_numpy(valid).cuda()]
+    t = [torch.from_numpy(benefit).to(dev), tc.auction_tiebreak(J, N, dev),
+         torch.from_numpy(valid).to(dev)]
+    plan = tk.auction_plan(J, N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan.route == ("wide" if N > 16384 else "shared")
+    want_a, want_i = tk.auction_rounds(*t, 0.01, max_iters=512)
+    mirror = tk.auction_walk(*t, 0.01, max_iters=512, plan=plan)
     before = tk.auction_solve.launches
-    a, i = tk.auction_solve(*t, 0.01, max_iters=512)
-    b, j = tk.auction_rounds(*t, 0.01, max_iters=512)
-    torch.cuda.synchronize()
-    assert torch.equal(a, b) and int(i) == int(j)
-    assert tk.auction_solve.launches == before + 1
+    try:
+        for _ in range(3):
+            tk.auction_solve.walk_counter = torch.zeros(
+                3, dtype=torch.int64, device=dev)
+            a, i = tk.auction_solve(*t, 0.01, max_iters=512)
+            torch.cuda.synchronize()
+            assert torch.equal(a, want_a) and int(i) == int(want_i)
+            assert tk.auction_solve.walk_counter.tolist() == mirror.tolist()
+    finally:
+        tk.auction_solve.walk_counter = None
+    assert tk.auction_solve.launches == before + 3
+
+
+# --- the launch plan and the walk mirror --------------------------------------
+
+
+def test_auction_plan_covers_every_bucket_pair():
+    """Every (J, N) bucket pair up to 16384 x 16384: the shared-state kernel
+    where a row fits a block (N <= 512 x 32) and the state fits its shared
+    memory (8 bytes a node and a job), on min(SMs, J) blocks; the
+    two-barrier kernel ("wide") past that line."""
+    from kubeinfer_tpu_torch.solver.problem import BUCKETS
+
+    sizes = [b for b in BUCKETS if b <= 16384]
+    routes = {}
+    for sms in (132, 114):
+        for J in sizes:
+            for N in sizes:
+                plan = tk.auction_plan(J, N, sms)
+                state = 8 * (N + J)
+                fits = N <= 16384 and state <= tk.AUCTION_SMEM_LIMIT
+                assert plan.route == ("shared" if fits else "wide"), (J, N)
+                assert plan.threads == tk.AUCTION_THREADS == 512
+                if fits:
+                    assert plan.blocks == min(sms, J)
+                    assert plan.smem == state <= 232448 - 1024
+                else:
+                    assert plan.blocks == 2 * sms and plan.smem == 0
+                routes[J, N] = plan.route
+    # where the line lies: the chip_smoke fields, and the state's size
+    assert routes[1024, 1024] == routes[4096, 4096] == "shared"
+    assert routes[16384, 12288] == routes[12288, 16384] == "shared"
+    assert routes[16384, 16384] == "wide"
+    assert tk.auction_plan(1024, 24576, 132).route == "wide"
+    assert tk.auction_plan(64, 16385, 132).route == "wide"
+
+
+@pytest.mark.parametrize("active,N,blocks", [
+    (1, 1024, 132), (21, 1024, 132), (132, 1024, 132), (133, 1024, 132),
+    (1000, 1024, 132), (4096, 4096, 132), (81, 4096, 132), (5, 16384, 3),
+    (700, 100, 2), (9000, 64, 132), (64, 64, 64),
+])
+def test_auction_deal_walks_every_row_once(active, N, blocks):
+    """The shared kernel's deal: every active row to exactly one group; a
+    whole block a row while the rows are no more than the blocks; groups of
+    at least the threads that hold a row (32 values a thread), and of the
+    most threads that still give every row a group of its own."""
+    deal = tk.auction_deal(active, N, blocks)
+    walked = sorted(i for pos in deal for i in pos)
+    assert walked == list(range(active))
+    groups = len(deal)
+    G = blocks * 512 // groups
+    gmin = next(g for g in (32, 64, 128, 256, 512) if g * 32 >= N)
+    assert G in (32, 64, 128, 256, 512) and G >= gmin
+    if active <= blocks:
+        assert G == 512
+    if G > gmin:
+        assert groups >= active
+    if G < 512:
+        assert groups // 2 < active
+
+
+@pytest.mark.parametrize("case", ["fused_0_96x128", "identical_256",
+                                  "pocket_stale_exit", "unaligned_50x64"])
+@pytest.mark.parametrize("sms", [132, 3])
+def test_auction_walk_mirror(case, sms):
+    """``auction_walk``'s rows (summed over the groups of each iteration's
+    deal) and tie-break entries equal ``auction_rounds``' active rows and
+    near entries; one grid barrier an iteration on the shared route, one a
+    launch and two an iteration on the two-barrier kernel."""
+    make, max_iters = FIELDS[case]
+    benefit, valid = make()
+    J, N = benefit.shape
+    args = (torch.from_numpy(benefit), tc.auction_tiebreak(J, N, CPU),
+            torch.from_numpy(valid), 0.01)
+    active, near = [], []
+    _, it = tk.auction_rounds(*args, max_iters=max_iters, active_rows=active,
+                              near_entries=near)
+    plan = tk.auction_plan(J, N, sms)
+    assert plan.route == "shared"
+    got = tk.auction_walk(*args, max_iters=max_iters, plan=plan)
+    assert got.tolist() == [sum(active), sum(near), int(it)]
+    wide = tk.AuctionPlan("wide", 2 * sms, 512, 0)
+    got = tk.auction_walk(*args, max_iters=max_iters, plan=wide)
+    assert got.tolist() == [sum(active), sum(near), 1 + 2 * int(it)]

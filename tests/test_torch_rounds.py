@@ -662,3 +662,78 @@ def test_round_kernel_walks_on_card(N, J, case):
         torch.cuda.synchronize()
     finally:
         tk.fence.walk_counter = tk.bid.walk_counter = None
+
+
+# --- the accept workspace ----------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["contention", "fill_drains_freed_node",
+                                  "random_200x30"])
+def test_run_rounds_owns_one_accept_workspace(name, monkeypatch):
+    """``run_rounds`` passes one ``AcceptWorkspace`` of its own to every
+    accept call of a solve; the solve equals the reference's (``compare``)
+    and the same solve with accept called without a workspace."""
+    if name == "random_200x30":
+        rng = np.random.default_rng(5)
+        p = encode_problem_arrays(
+            job_gpu=rng.choice([0.5, 1.0, 2.0], 200).astype(np.float32),
+            job_mem_gib=rng.integers(1, 16, 200).astype(np.float32),
+            job_priority=rng.integers(0, 4, 200).astype(np.float32),
+            node_gpu_free=np.full(30, 8.0, np.float32),
+            node_mem_free_gib=np.full(30, 64.0, np.float32),
+        )
+    else:
+        p, _ = encode_problem(*{**SMALL, **GANG}[name])
+    seen = []
+    real = tk.accept
+
+    def with_ws(*a):
+        seen.append(a[6])
+        return real(*a)
+
+    monkeypatch.setattr(tk, "accept", with_ws)
+    got = compare(p)
+    assert seen and all(isinstance(w, tk.AcceptWorkspace) for w in seen)
+    # one workspace a run_rounds call: the main loop's, then the fill's
+    assert len({id(w) for w in seen}) <= 2
+    assert seen[0].buf.shape == (6 * p.nodes.valid.shape[0],)
+    monkeypatch.setattr(tk, "accept", lambda *a: real(*a[:6]))
+    again = tc.solve_greedy(to_port(p), seeded=True, device="cpu",
+                            accel="pallas")
+    for a, b in ((got.node, again.node), (got.gpu_free, again.gpu_free),
+                 (got.mem_free, again.mem_free)):
+        assert torch.equal(a, b)
+    assert int(got.rounds) == int(again.rounds)
+
+
+def test_dense_accept_ignores_the_workspace():
+    N, J = 63, 97
+    x = {k: T(v) for k, v in round_inputs(4, N, J).items()}
+    args = (T(choices(4, N, J)), x["key"], x["d"], x["md"], x["gf"], x["mf"])
+    ws = tk.AcceptWorkspace(N, "cpu")
+    for a, b in zip(tk.accept(*args, ws), tk.dense_accept(*args)):
+        assert torch.equal(a, b)
+    assert ws.half == 0 and not ws.buf.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,J", [(63, 97), (1001, 3003)])
+def test_accept_reuses_one_workspace_on_card(N, J):
+    """One workspace over five accept launches of different bids at odd N
+    and J: each bitwise equal to ``dense_accept``; after each, the half the
+    next launch takes is zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no interpret mode)")
+    x = {k: T(v).cuda() for k, v in round_inputs(N + J, N, J).items()}
+    ws = tk.AcceptWorkspace(N, torch.device("cuda"))
+    before = tk.accept.launches
+    for call in range(5):
+        args = (T(choices(call, N, J)).cuda(), x["key"], x["d"], x["md"],
+                x["gf"], x["mf"])
+        got = tk.accept(*args, ws)
+        for a, b in zip(got, tk.dense_accept(*args)):
+            assert torch.equal(a, b)
+        torch.cuda.synchronize()
+        assert ws.half == (call + 1) % 2
+        assert not ws.buf.view(2, -1)[ws.half].any()
+    assert tk.accept.launches == before + 5
