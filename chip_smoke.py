@@ -14,9 +14,8 @@ times them. Phases:
 
   (0) the card's name and power limit (nvidia-smi);
   (1) the nvcc build of every kernel, one nvcc per source, started
-      together, twelve sources: mega_solve.cu, round_ops.cu, auction.cu,
-      route_pick.cu, decode_attention.cu (the first kernels of #10, #11
-      and #12, only for the times beside the split-K one), flash_prefill.cu,
+      together, eleven sources: mega_solve.cu, round_ops.cu, auction.cu,
+      route_pick.cu, flash_prefill.cu,
       quant_matmul.cu, flash_backward.cu, flash_prefill_tc.cu (the
       tensor-core kernel of every bf16 call of #9, #13 and #9b),
       flash_backward_tc.cu (the tensor-core kernels of every bf16 #14
@@ -94,6 +93,20 @@ times them. Phases:
       those solves against device="cpu", their launch counts, and times
       (route_pick and torch.max on the masked plane by device time, a
       CUDA graph of 20 launches, beside CUDA events over calls);
+  (29) the reconcile tick through the manager (run right after (12)):
+      ``Manager`` with its device left at the card's default hosts the
+      store on ephemeral ports; 1024 nodes and 1344 services (1280
+      jax-greedy of 8 replicas, 25% gangs, and 64 whole-node
+      jax-auction) written over HTTP through ``RemoteStore``; the
+      manager's own loop takes the first tick (after a lease that held
+      it off is deleted), then 5 steady ticks by
+      ``controller.reconcile_once()``; launch counts reset before and
+      read after (#1, #7 and #8 all launched); each tick split into
+      store reads, host work, solved_affinity (pack, #8), each group's
+      solve and launches, write-back, host syncs; no overcommit, gangs
+      all or nothing, the first and a steady tick's bindings equal to a
+      device="cpu" Controller's on the same contents, /metrics solve
+      counts for both policies, POST /solve equal to the handler;
   (13) the serving path at full width: ``server.build_server`` with
       ``--model llama-3-8b --random-init --batch-slots 8`` (bf16 weights
       from init_params, a 4096-wide slot row, a 513-block pool of 128);
@@ -115,18 +128,17 @@ times them. Phases:
       the routes, tokens in the vocabulary, finite logits, and the host
       syncs of one decode window (1: its readback);
   (15) the port on the card against the port on the CPU: llama-3-8b
-      widths cut to 2 layers (1 if the host run exceeds 20 s), f32,
+      widths cut to 1 layer (CPU_CHECK_LAYERS), f32,
       Engine and ContinuousEngine, greedy and sampled, equal streams;
   (16) times: TTFT of a 512-token prompt on the continuous route, decode
       ms per token at 8 live slots, the engine route's prefill chunks,
       the engine route's decode (16 step_forward steps of the 4100-token
-      row, with the split-K #10 and with the old kernel), and each
+      row, split-K #10), and each
       attention kernel against its bound, its plain version and
       scaled_dot_product_attention on the path's heaviest call (#9 also
       against the CUDA-core kernel on the same call; #10 and #11 by
-      device time, wall time and the wrapper's host time, beside the
-      old kernel, decode_attention.cu, on the same call, and each of the
-      three routes' distance from an f32 evaluation of the call);
+      device time, wall time and the wrapper's host time, and each of
+      the two routes' distance from an f32 evaluation of the call);
   (17) the int8 serving path at full width: ``server.build_server``
       with ``--kv-dtype int8 --weight-dtype int8`` (the bf16 server
       stopped and freed first): the GiB on the card, model_param_bytes
@@ -175,7 +187,7 @@ times them. Phases:
       versions, scaled_dot_product_attention (causal, GQA) forward and
       backward, and the CUDA-core kernels on the same calls;
   (22) the training step on the card (flash route) against the CPU
-      (dense route) at llama-3-8b widths cut to 2 layers, f32, tokens
+      (dense route) at llama-3-8b widths cut to 1 layer, f32, tokens
       [2, 513]: loss and every gradient leaf within tolerance; 8 steps
       at lr 5e-2 lower the loss on both;
   (24) #9b on its entry: ``forward(params, tokens [1, 2048], cfg,
@@ -202,7 +214,7 @@ times them. Phases:
       dense bf16 forward's error on its top two logits, plus an ulp), and
       for every token, beside the plain engine's, whether it is that
       forward's argmax; the verify counters against the emitted
-      lengths; then 2 layers in f32 with blocks of 128 and a bigram
+      lengths; then 1 layer in f32 with blocks of 128 and a bigram
       draft, card (#11 launched) against the CPU (dense): equal streams
       and counters; (25c) full width and depth in f32, the plain engine, a
       self draft and a bigram draft: every speculative token within
@@ -212,10 +224,11 @@ times them. Phases:
       requests of one seed served by one draft group, a greedy one on a
       slot, and a direct SpeculativeEngine.generate whose prefills launch
       #9 once per chunk and layer, its greedy tokens checked as in (25);
-  (27) the int8 verify server (``--kv-dtype int8 --weight-dtype int8``):
+  (27) the int8 verify server (``--kv-dtype int8 --weight-dtype int8``)
+      at full width and half depth (SPEC_INT8_LAYERS):
       #12 at T = 5 on every call (its live splits equal to
       decode_split_walk's), windows that spill into tail slot 1, #11
-      never, #15 on every projection; then 2 layers in f32 with blocks of
+      never, #15 on every projection; then 1 layer in f32 with blocks of
       128 and a bigram draft, card (#12 launched) against the CPU
       (dense): equal streams and counters;
   (28) times: #9b against its bound, SDPA with the same mask and the
@@ -230,8 +243,8 @@ phase fails. Full numbers go to chiprun_out/chip_smoke.json.
 
     python3 chip_smoke.py --placement
 
-runs (0)-(4), (5)-(7), (9)-(12) alone (the four solver libraries; about a
-minute of command), with their entries of the kernels line and the last
+runs (0)-(4), (5)-(7), (9)-(12) and (29) alone (the four solver
+libraries; about a minute and a half of command), with their entries of the kernels line and the last
 line; the numbers go to chiprun_out/placement.json. ``--p50s`` prints the
 placement p50s of (4), (7) and (11) alone.
 """
@@ -253,6 +266,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 ROUND_KERNELS = ("fence", "bid", "accept")
+# depth of the card-against-CPU runs at llama-3-8b widths in f32 ([15],
+# [19], [22], [25], [27]): the host's f32 run is most of each check's
+# time, and one layer keeps the whole run near 750 s
+CPU_CHECK_LAYERS = 1
+# depth of the int8 verify server in [27] (the preset has 32): [17]-[20]
+# serve int8 at full depth, and half depth here keeps the whole run near
+# 750 s
+SPEC_INT8_LAYERS = 16
 
 
 def build_request(J, N, seed=0, gang_fraction=0.0):
@@ -1513,6 +1534,427 @@ def route_phases(dev, kernels, record, card):
     }
 
 
+# --- the reconcile tick on the card: phase (29) --------------------------------
+
+TICK_LAUNCHES = ("mega_solve", *ROUND_KERNELS, "auction_solve", "route_pick")
+TICK_NODE_TTL_S = 600.0  # every node's heartbeat stays fresh for the phase
+TICK_TOKEN = "chip-smoke-token"
+
+
+def tick_state(seed=29, n_nodes=1024, n_greedy=1280, n_whole=64, per=8):
+    """What phase (29) writes to the store, shaped as
+    ``build_request(10000, 1000, gang_fraction=0.25)`` shapes a solve:
+    ``n_nodes`` NodeStates (64 GPUs, 512 GiB, topology 0-15, 2% of 255
+    model names cached, a fresh heartbeat, 8 serving slots and a seeded
+    queue depth), ``n_greedy`` jax-greedy services of ``per`` replicas
+    (1-7 GPUs and 4-63 GiB a replica, priority 0-7, gang on every fourth,
+    a model from the 255) and ``n_whole`` jax-auction services of one
+    whole-node replica at priority 8. Returns the node and service
+    dicts as the agents and ``ctl apply`` send them."""
+    from kubeinfer_tpu_torch.api.types import LLMService
+    from kubeinfer_tpu_torch.api.workload import NodeState
+
+    rng = np.random.default_rng(seed)
+    models = [f"org/model-{i:03d}" for i in range(255)]
+    now = time.time()
+    nodes = []
+    for i in range(n_nodes):
+        cached = rng.random(len(models)) < 0.02
+        n = NodeState(
+            gpu_capacity=64.0, gpu_free=64.0,
+            gpu_memory_bytes=512 * 2**30, gpu_memory_free_bytes=512 * 2**30,
+            topology=(int(rng.integers(0, 16)), 0),
+            cached_models=[m for m, c in zip(models, cached) if c],
+            heartbeat=now,
+            serving_stats={"n_slots": 8,
+                           "queue_depth": int(rng.integers(0, 16))},
+        )
+        n.metadata.name = f"node-{i:04d}"
+        nodes.append(n.to_dict())
+
+    def service(name, spec):
+        svc = LLMService.from_dict({"metadata": {"name": name},
+                                    "spec": spec})
+        svc.validate()
+        return svc.to_dict()
+
+    services = [service(f"whole-{i:02d}", {
+        "model": models[int(rng.integers(0, len(models)))], "replicas": 1,
+        "gpuPerReplica": 64, "gpuMemory": "256Gi", "priority": 8,
+        "schedulerPolicy": "jax-auction"}) for i in range(n_whole)]
+    services += [service(f"svc-{i:04d}", {
+        "model": models[int(rng.integers(0, len(models)))],
+        "replicas": per, "gpuPerReplica": int(rng.integers(1, 8)),
+        "gpuMemory": f"{int(rng.integers(4, 64))}Gi",
+        "priority": int(rng.integers(0, 8)), "gang": i % 4 == 0,
+        "schedulerPolicy": "jax-greedy"}) for i in range(n_greedy)]
+    return nodes, services
+
+
+class TickSplit:
+    """Where each reconcile tick's time goes, by wrappers around the
+    controller's store, its backends' ``solve``, ``solved_affinity``
+    and the route pack: store reads (list, get), write-back (create,
+    update, delete), the affinity solve (its pack, its #8 launches),
+    each policy group's solve (wall, solve_ms, kernel launches) and the
+    controller's own host work (the rest). One tick runs at a time."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.ticks: list[dict] = []
+        self.cur: dict | None = None
+        self.syncs: list | None = None  # a catch_warnings record list
+        self.after = None  # called with the tick count after each tick
+
+    def add(self, key, ms):
+        if self.cur is not None:
+            self.cur[key] = self.cur.get(key, 0.0) + ms
+
+    def counts(self):
+        return {k: getattr(self.kernels, k).launches for k in TICK_LAUNCHES}
+
+    def timed(self, key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.add(key, (time.perf_counter() - t0) * 1e3)
+        return run
+
+    def tick(self, reconcile_once):
+        def run():
+            self.cur = {"reads_ms": 0.0, "writes_ms": 0.0,
+                        "affinity_ms": 0.0, "affinity_pack_ms": 0.0,
+                        "groups": {}}
+            n_sync = len(self.syncs) if self.syncs is not None else None
+            c0 = self.counts()
+            t0 = time.perf_counter()
+            res = reconcile_once()
+            cur, self.cur = self.cur, None
+            cur["total_ms"] = (time.perf_counter() - t0) * 1e3
+            cur["affinity_launches"] = (self.counts()["route_pick"]
+                                        - c0["route_pick"])
+            cur["solves_ms"] = sum(g["wall_ms"]
+                                   for g in cur["groups"].values())
+            cur["host_ms"] = (cur["total_ms"] - cur["reads_ms"]
+                              - cur["writes_ms"] - cur["affinity_ms"]
+                              - cur["solves_ms"])
+            cur["syncs"] = None if n_sync is None else sum(
+                1 for w in self.syncs[n_sync:]
+                if "synchroniz" in str(w.message)
+                and "prototype" not in str(w.message))
+            cur["placed"] = res.replicas_placed
+            cur["replicas"] = res.replicas_total
+            self.ticks.append(cur)
+            if self.after is not None:
+                self.after(len(self.ticks))
+            return res
+        return run
+
+    def solve(self, policy, solve):
+        def run(req):
+            c0 = self.counts()
+            t0 = time.perf_counter()
+            res = solve(req)
+            wall = (time.perf_counter() - t0) * 1e3
+            c1 = self.counts()
+            if self.cur is not None:
+                self.cur["groups"][policy] = {
+                    "wall_ms": wall, "solve_ms": res.solve_ms,
+                    "pack_ms": res.extras.get("encode_ms"),
+                    "jobs": req.num_jobs, "placed": res.placed,
+                    "launches": {k: c1[k] - c0[k] for k in TICK_LAUNCHES
+                                 if c1[k] != c0[k]},
+                }
+            return res
+        return run
+
+
+class TimedStore:
+    """The controller's handle on the hosted store, timed into a
+    ``TickSplit``: the HTTP server keeps the store itself, untimed."""
+
+    def __init__(self, store, split):
+        self._store = store
+        for name in ("list", "get"):
+            setattr(self, name, split.timed("reads_ms",
+                                            getattr(store, name)))
+        for name in ("create", "update", "delete"):
+            setattr(self, name, split.timed("writes_ms",
+                                            getattr(store, name)))
+
+    def watch(self, *a, **kw):
+        return self._store.watch(*a, **kw)
+
+
+@contextlib.contextmanager
+def sync_capture():
+    """Torch's CUDA sync debug mode on, its warnings recorded from every
+    thread into the yielded list."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def tick_bindings(workloads):
+    """(namespace, name) -> [(node, phase) of every replica]."""
+    return {(w["metadata"]["namespace"], w["metadata"]["name"]):
+            [(r["node"], r["phase"]) for r in w["replicas"]]
+            for w in workloads}
+
+
+def check_tick_state(nodes, workloads, gangs, label):
+    """No node overcommitted in GPUs or memory by the bound replicas,
+    every gang all or nothing. Returns the replicas bound."""
+    free = {n["metadata"]["name"]: [n["gpuFree"], n["gpuMemoryFreeBytes"]]
+            for n in nodes}
+    bound = 0
+    for w in workloads:
+        on = [bool(r["node"]) for r in w["replicas"]]
+        bound += sum(on)
+        for r in w["replicas"]:
+            if r["node"]:
+                f = free[r["node"]]
+                f[0] -= w["gpuPerReplica"]
+                f[1] -= w["gpuMemoryBytes"]
+        if w["metadata"]["name"] in gangs:
+            check(all(on) or not any(on),
+                  f"{label}: gang {w['metadata']['name']} partially bound")
+    check(all(g >= -1e-3 and m >= 0 for g, m in free.values()),
+          f"{label}: a node is overcommitted")
+    return bound
+
+
+def cpu_tick(dump):
+    """The port's ``Controller(device="cpu")`` over a copy of the store
+    contents ``dump``: the bindings its tick leaves."""
+    from kubeinfer_tpu_torch.controller import Controller
+    from kubeinfer_tpu_torch.controlplane.store import Store
+
+    store = Store()
+    store.load_dump(*dump)
+    Controller(store, node_ttl_s=TICK_NODE_TTL_S,
+               device="cpu").reconcile_once()
+    return tick_bindings(store.list("Workload"))
+
+
+def tick_phase(dev, kernels, record, card, steady=5):
+    """Phase (29): the reconcile tick on the card, through the manager.
+
+    ``Manager`` (device left at its default, the card) hosts the store
+    on an ephemeral port; a lease held by another identity keeps its
+    election from winning while ``tick_state`` is written over HTTP
+    through ``RemoteStore``, one object a request. Deleting that lease
+    lets the manager's own loop take the first tick (a fresh solve) and
+    a second; the loop is then paused as on a lost lease, and
+    ``steady`` ticks more are taken with ``controller.reconcile_once()``
+    (full re-solves with incumbents). Launch counts are reset just
+    before the lease is deleted and read after the last tick. Checks:
+    no overcommit, gangs all or nothing, the first tick's and the
+    first steady tick's bindings equal to a device="cpu" Controller's
+    on a copy of the same contents, solve_duration_seconds counted for
+    both policies on /metrics, and POST /solve on the hosted store
+    equal to solve_service_handler called directly. Returns the tick's
+    launches of #1, #7 and #8."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from kubeinfer_tpu_torch.controlplane.httpstore import RemoteStore
+    from kubeinfer_tpu_torch.coordination.lease import Lease
+    from kubeinfer_tpu_torch.manager import (
+        MANAGER_LEASE,
+        Manager,
+        ManagerConfig,
+    )
+    from kubeinfer_tpu_torch.scheduler import (
+        get_backend,
+        solve_service_handler,
+    )
+    from kubeinfer_tpu_torch.solver import routing
+
+    t_phase = time.perf_counter()
+    nodes, services = tick_state()
+    gangs = {s["metadata"]["name"] for s in services if s["spec"]["gang"]}
+    mgr = Manager(ManagerConfig(
+        store_bind_port=0, metrics_bind_port=0, health_bind_port=0,
+        auth_token=TICK_TOKEN, tick_interval_s=0.3,
+        node_ttl_s=TICK_NODE_TTL_S, leader_elect=True,
+        identity="chip-smoke-manager", lease_timings=(60.0, 20.0, 0.1),
+    ))
+    now = time.time()
+    mgr.store.create("Lease", Lease(
+        name=MANAGER_LEASE, holder="chip-smoke-writer", acquire_time=now,
+        renew_time=now, duration_s=3600.0).to_dict())
+    split = TickSplit(kernels)
+    ctl = mgr.controller
+    ctl._store = TimedStore(mgr.store, split)
+    ctl.reconcile_once = split.tick(ctl.reconcile_once)
+    backends = {p: get_backend(p) for p in ("jax-greedy", "jax-auction")}
+    for policy, be in backends.items():
+        be.solve = split.solve(policy, be.solve)
+    real_affinity, real_pack = routing.solved_affinity, routing.pack_route_arrays
+    routing.solved_affinity = split.timed("affinity_ms", real_affinity)
+    routing.pack_route_arrays = split.timed("affinity_pack_ms", real_pack)
+    first: dict = {}
+
+    def after(n):  # on the controller's thread, between its ticks
+        if n == 1:
+            first["workloads"] = mgr.store.list("Workload")
+        elif n == 2:
+            # pause the loop, as a lost lease does, and hold this thread
+            # until the loop's relay has seen it (it looks every 0.2 s),
+            # so the loop takes no third tick
+            mgr._on_lost()
+            time.sleep(0.25)
+
+    split.after = after
+    try:
+        mgr.start()
+        t0 = time.perf_counter()
+
+        def write(chunk):
+            remote = RemoteStore(mgr.store_address, token=TICK_TOKEN)
+            for kind, obj in chunk:
+                remote.create(kind, obj)
+
+        # one writer: more threads only contend for the interpreter lock
+        # that the hosted store's handlers also take
+        write([("Node", n) for n in nodes]
+              + [("LLMService", s) for s in services])
+        write_s = time.perf_counter() - t0
+        check(not split.ticks, "the manager ticked while its lease was held")
+        pre_first = mgr.store.dump()
+        remote = RemoteStore(mgr.store_address, token=TICK_TOKEN)
+        with sync_capture() as caught:
+            split.syncs = caught
+            reset_counts(kernels)
+            remote.delete("Lease", MANAGER_LEASE)
+            deadline = time.monotonic() + 300
+            while len(split.ticks) < 2 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            check(len(split.ticks) >= 2, "the manager's loop did not tick")
+            for th in mgr._threads:
+                th.join(timeout=30)
+            check(not any(th.is_alive() for th in mgr._threads),
+                  "the manager's loop did not pause")
+            check(len(split.ticks) == 2,
+                  f"the loop took {len(split.ticks)} ticks, not 2")
+            pre_steady = mgr.store.dump()
+            for i in range(steady):
+                ctl.reconcile_once()
+                if i == 0:
+                    steady_workloads = mgr.store.list("Workload")
+            split.syncs = None
+        tick_launches = split.counts()
+        for name in ("mega_solve", "auction_solve", "route_pick"):
+            check(tick_launches[name] > 0,
+                  f"the tick never launched {name}")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{mgr.metrics_server.port}/metrics",
+            headers={"Authorization": f"Bearer {TICK_TOKEN}"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            metrics_text = r.read().decode()
+        solve_counts = {}
+        for policy in backends:
+            key = ('kubeinfer_solve_duration_seconds_count{policy="'
+                   + policy + '"} ')
+            line = [ln for ln in metrics_text.splitlines()
+                    if ln.startswith(key)]
+            solve_counts[policy] = float(line[0].split()[-1]) if line else 0
+            check(solve_counts[policy] >= 1,
+                  f"/metrics counts no solve of {policy}")
+        body = handler_body(1000, 128, 4, fractional=True)
+        rpc = remote._req("POST", "/solve", body)
+        direct = solve_service_handler(body)
+        check(rpc["assignment"] == direct["assignment"],
+              "POST /solve on the hosted store != solve_service_handler")
+    finally:
+        routing.solved_affinity, routing.pack_route_arrays = (
+            real_affinity, real_pack)
+        for be in backends.values():
+            be.__dict__.pop("solve", None)
+        mgr.stop()
+    final = tick_bindings(steady_workloads)
+    bound_first = check_tick_state(nodes, first["workloads"], gangs,
+                                   "first tick")
+    bound_steady = check_tick_state(nodes, steady_workloads, gangs,
+                                    "steady tick")
+    t0 = time.perf_counter()
+    cpu_first, cpu_steady = in_threads(cpu_tick, [pre_first, pre_steady])
+    cpu_s = time.perf_counter() - t0
+    check(cpu_first == tick_bindings(first["workloads"]),
+          "first tick: the card's bindings != the device='cpu' tick's")
+    check(cpu_steady == final,
+          "steady tick: the card's bindings != the device='cpu' tick's")
+    torch.cuda.synchronize()
+
+    def p50(key, ticks):
+        return statistics.median(t[key] for t in ticks)
+
+    def split_line(what, ticks):
+        groups = {}
+        for policy in ticks[0]["groups"]:
+            gs = [t["groups"][policy] for t in ticks]
+            groups[policy] = {
+                "jobs": gs[0]["jobs"], "placed": gs[-1]["placed"],
+                "solve_ms": statistics.median(g["solve_ms"] for g in gs),
+                "wall_ms": statistics.median(g["wall_ms"] for g in gs),
+                "launches": gs[-1]["launches"]}
+        row = {k: p50(k, ticks) for k in (
+            "total_ms", "reads_ms", "host_ms", "affinity_ms",
+            "affinity_pack_ms", "solves_ms", "writes_ms")}
+        row.update(ticks=len(ticks), groups=groups,
+                   affinity_launches=ticks[-1]["affinity_launches"],
+                   syncs=[t["syncs"] for t in ticks],
+                   placed=ticks[-1]["placed"],
+                   replicas=ticks[-1]["replicas"])
+        print(f"[29] {card}: {what} ({len(ticks)}), p50 {row['total_ms']:.1f}"
+              f" ms: store reads {row['reads_ms']:.1f}, controller host "
+              f"work {row['host_ms']:.1f}, solved_affinity "
+              f"{row['affinity_ms']:.1f} (pack {row['affinity_pack_ms']:.1f},"
+              f" #8 launches {row['affinity_launches']}), solves "
+              f"{row['solves_ms']:.1f} ("
+              + "; ".join(f"{p} {g['jobs']} jobs solve_ms "
+                          f"{g['solve_ms']:.2f} wall {g['wall_ms']:.2f} "
+                          f"launches {g['launches']}"
+                          for p, g in groups.items())
+              + f"), write-back {row['writes_ms']:.1f}; host syncs a tick "
+              f"{row['syncs']}; placed {row['placed']}/{row['replicas']}")
+        return row
+
+    first_row = split_line("the manager's first tick", split.ticks[:1])
+    loop_row = split_line("the loop's second tick", split.ticks[1:2])
+    steady_row = split_line("steady ticks", split.ticks[2:])
+    print(f"[29] {card}: {len(nodes)} nodes and {len(services)} services "
+          f"written over HTTP, one a request, in {write_s:.2f} s; bound "
+          f"{bound_first} replicas after the first tick, {bound_steady} "
+          f"after the first steady tick (no overcommit, gangs all or "
+          f"nothing); bindings equal to the device='cpu' tick on the same "
+          f"contents (both ticks, {cpu_s:.1f} s on the host, in two "
+          f"threads); /metrics "
+          f"solve counts {solve_counts}; POST /solve 1kx128 equal to the "
+          f"handler; launches {tick_launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    record["tick"] = {
+        "first": first_row, "loop_second": loop_row, "steady": steady_row,
+        "ticks": split.ticks, "write_s": write_s, "cpu_check_s": cpu_s,
+        "bound_first": bound_first, "bound_steady": bound_steady,
+        "launches": tick_launches, "solve_counts": solve_counts,
+        "nodes": len(nodes), "services": len(services),
+    }
+    return tick_launches
+
+
 # --- the serving path: phases (13)-(16) ---------------------------------------
 
 SERVE_KERNELS = ("flash_attention_ragged", "decode_attention",
@@ -1774,7 +2216,7 @@ def device_profile(fn):
 
 def card_vs_cpu(dev, record):
     """Phase (15): the port's engines on the card and on the CPU, same
-    f32 weights at llama-3-8b widths cut to 2 layers: equal greedy and
+    f32 weights at llama-3-8b widths cut to 1 layer: equal greedy and
     sampled token streams."""
     import dataclasses
 
@@ -1805,19 +2247,14 @@ def card_vs_cpu(dev, record):
         finally:
             cont.stop()
 
-    for layers in (2, 1):
-        cfg = dataclasses.replace(PRESETS["llama-3-8b"],
-                                  num_hidden_layers=layers)
-        prompts = [rng.integers(1, cfg.vocab_size, 64).tolist()
-                   for _ in range(2)]
-        p_cpu = init_params(cfg, seed=15, dtype=torch.float32, device="cpu")
-        t0 = time.perf_counter()
-        want = run(cfg, p_cpu, "cpu")
-        host_s = time.perf_counter() - t0
-        if host_s <= 20.0 or layers == 1:
-            break
-        print(f"[15] the host run took {host_s:.1f} s at 2 layers: cut to "
-              "1 layer")
+    layers = CPU_CHECK_LAYERS
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=layers)
+    prompts = [rng.integers(1, cfg.vocab_size, 64).tolist()
+               for _ in range(2)]
+    p_cpu = init_params(cfg, seed=15, dtype=torch.float32, device="cpu")
+    t0 = time.perf_counter()
+    want = run(cfg, p_cpu, "cpu")
+    host_s = time.perf_counter() - t0
     p_card = params_to(p_cpu, dev)
     t0 = time.perf_counter()
     got = run(cfg, p_card, dev)
@@ -2029,17 +2466,13 @@ def serving_phases(dev, record, card):
                 chunk_ms.append(ms)
         whole_ms = cuda_ms(lambda: chunked_prefill(
             engine.params, prompt, lens, cfg, caches, 2048), reps=1)
-        # the engine route's decode on those caches: #10 with the split-K
-        # kernel, then with the one it replaced (decode_attention.cu)
+        # the engine route's decode on those caches (#10, split-K)
         eng_dec = engine_decode(engine.params, cfg, caches, 4100, dev)
-        with OldDecode(fa, "decode_attention"):
-            eng_old = engine_decode(engine.params, cfg, caches, 4100, dev)
     del caches
     print(f"[16] {card}: engine-route decode, 16 step_forward steps of the "
           f"4100-token row on its dense 8192-wide caches: {eng_dec[0]:.2f} "
           f"ms per token (CUDA events), device busy {eng_dec[1]:.2f} ms a "
-          f"token; with the old #10 kernel (decode_attention.cu) "
-          f"{eng_old[0]:.2f} ms, busy {eng_old[1]:.2f} ms")
+          f"token")
     # where the time goes: one admit, and a decode run of 8 slots
     adm_wall, adm_busy, adm_top = device_profile(
         lambda: cont.serve(rng.integers(1, V, 512).tolist(), 1))
@@ -2087,8 +2520,6 @@ def serving_phases(dev, record, card):
         "prefill_4100_ms": whole_ms,
         "engine_decode_ms_per_token": eng_dec[0],
         "engine_decode_busy_ms_per_token": eng_dec[1],
-        "engine_decode_old_ms_per_token": eng_old[0],
-        "engine_decode_old_busy_ms_per_token": eng_old[1],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     return entries
@@ -2158,7 +2589,7 @@ def time_kernel(dev, fa, chk, card, launches, F, tc_launches):
     }
 
 
-# --- the split-K decode kernel (#10, #11, #12): times beside the old kernel ---
+# --- the split-K decode kernel (#10, #11, #12): times ---------------------------
 
 SPLIT_SOURCE = "kubeinfer_tpu_torch/inference/csrc/decode_split.cu"
 DECODE_REPLACES = {
@@ -2174,7 +2605,7 @@ def old_decode(fa, name):
     """The kernel #10, #11 or #12 ran before the split-K one
     (``decode_attention.cu``: one block per (row, kv head)) as a function
     of the wrapper's arguments, launched through its library outside the
-    wrappers' counts."""
+    wrappers' counts. Only ``--tie-probe`` runs it."""
     import torch
 
     from kubeinfer_tpu_torch import _build
@@ -2353,8 +2784,7 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
     heaviest captured call: the split-K kernel's device time per launch
     (``ms``: a CUDA graph of 20 launches, replays timed by CUDA events;
     ``device_ms``), its wall per call (CUDA events over 20 back-to-back
-    calls) and the wrapper's host us per call; the old kernel's device and
-    wall time on the same call; the plain version's;
+    calls) and the wrapper's host us per call; the plain version's;
     scaled_dot_product_attention's device and wall time on the same q and
     K/V (``decode_views``, made beforehand); the bound from this call's
     live K/V (#12: int8 codes and scales of the committed pages, tail
@@ -2366,12 +2796,10 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
     q, lens = args[0], args[-1]
     B, T, H, D = q.shape
     elt = q.element_size()
-    kernel, old = getattr(fa, name), old_decode(fa, name)
+    kernel = getattr(fa, name)
     ms = device_ms(lambda: kernel(*args))
     wall_ms = cuda_ms(lambda: kernel(*args), reps=20)
     wrapper_us = host_us(lambda: kernel(*args))
-    old_ms = device_ms(lambda: old(*args))
-    old_wall_ms = cuda_ms(lambda: old(*args), reps=20)
     plain_ms = cuda_ms(lambda: chk.plain(*args), reps=3)
     kk, vv, live = decode_views(fa, name, args)
     S, n_kv = kk.shape[1], kk.shape[2]
@@ -2404,14 +2832,13 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
     bound_by = "operations" if op_ms >= byte_ms else "bytes"
     splits = int(split_walk(fa, name, args))
     errs = f32_errors(fa, q, kk, vv, lens, live, {
-        "split_k": kernel(*args), "old": old(*args),
+        "split_k": kernel(*args),
         "sdpa": sdpa().transpose(1, 2)})
     print(f"{tag} {card}: {name} (split-K, decode_split.cu) {ms:.4f} ms "
           f"device time a launch, {wall_ms:.4f} ms wall a call, wrapper "
           f"{wrapper_us:.1f} us of host a call, {splits} live splits, on q "
           f"[{B}, {T}, {H}, {D}], {int(live.sum())} live rows, lengths "
-          f"{lens.tolist()}; the old kernel (decode_attention.cu) "
-          f"{old_ms:.4f} ms device, {old_wall_ms:.4f} ms wall; plain "
+          f"{lens.tolist()}; plain "
           f"{plain_ms:.4f} ms; scaled_dot_product_attention {library_ms:.4f}"
           f" ms device, {library_wall_ms:.4f} ms wall; bound "
           f"{bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
@@ -2435,12 +2862,10 @@ def time_decode(dev, fa, chk, card, name, launches, F, tag="[16]"):
         "library_ms": library_ms,
         "wall_ms": wall_ms,
         "host_us": wrapper_us,
-        "old_ms": old_ms,
-        "old_wall_ms": old_wall_ms,
         "library_wall_ms": library_wall_ms,
         "live_splits": splits,
         "f32_err": errs,
-        "timing": "ms, old_ms, library_ms: device time a launch (a CUDA "
+        "timing": "ms, library_ms: device time a launch (a CUDA "
                   "graph of 20 launches, replays timed by CUDA events); "
                   "*_wall_ms: CUDA events "
                   "over 20 back-to-back calls; host_us: the wrapper's host "
@@ -2805,15 +3230,12 @@ def int8_phases(dev, record, card):
                           for n, ms, c in top[:6]))
     step = launches_per_step(cont, cfg, commit_steps=[False] * 4)
     step_c = launches_per_step(cont, cfg)
-    with OldDecode(fa, "decode_attention_blocks_q8"):
-        step_old = launches_per_step(cont, cfg, commit_steps=[False] * 4)
     bf = record["profile"]["decode_step"]
     print(f"[20] per decode step (8 slots, one K=4 window profiled): bf16 "
           f"{bf['launches']:.0f} device launches, {bf['busy_ms']:.2f} ms "
           f"busy; int8 {step[0]:.0f} launches, {step[1]:.2f} ms busy, "
           f"#15 {step[3]:.3f} ms of it (on a step with the tail commit: {step_c[0]:.0f}, "
-          f"{step_c[1]:.2f} ms; with the old #12 kernel, decode_attention.cu:"
-          f" {step_old[0]:.0f}, {step_old[1]:.2f} ms)")
+          f"{step_c[1]:.2f} ms)")
     print(f"[20] {card}: int8 TTFT of a 512-token prompt p50 "
           f"{statistics.median(ttft):.2f} ms ({[round(x, 2) for x in ttft]});"
           f" decode at 8 live slots p50 {decode_ms:.3f} ms per token per "
@@ -2830,9 +3252,6 @@ def int8_phases(dev, record, card):
                         "wall_ms": step[2], "qmm_ms": step[3]},
         "decode_step_commit": {"launches": step_c[0], "busy_ms": step_c[1],
                                "wall_ms": step_c[2]},
-        "decode_step_old_12": {"launches": step_old[0],
-                               "busy_ms": step_old[1],
-                               "wall_ms": step_old[2]},
     }
     record["int8_times"] = {
         "ttft_ms": ttft, "decode_ms_per_token": decode_ms,
@@ -2853,7 +3272,7 @@ def int8_phases(dev, record, card):
 
 def card_vs_cpu_int8(dev, record):
     """Phase (19): int8 weights quantized on the card and on the CPU from
-    the same f32 draw at llama-3-8b widths cut to 2 layers: codes and
+    the same f32 draw at llama-3-8b widths cut to 1 layer: codes and
     scales bitwise equal; then the Engine (greedy) and the int8-pool
     ContinuousEngine (one greedy and one sampled row in one batch, blocks
     of 128, prompts of about 120 so the decode crosses a block edge) on
@@ -2873,7 +3292,8 @@ def card_vs_cpu_int8(dev, record):
         quantize_params,
     )
 
-    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=CPU_CHECK_LAYERS)
     rng = np.random.default_rng(19)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (118, 121)]
     kws = ({}, dict(temperature=0.8, top_k=50, top_p=0.9,
@@ -2929,7 +3349,8 @@ def card_vs_cpu_int8(dev, record):
                 zip(np.ravel(g), np.ravel(w))) if a != b)
             print(f"[19] {name}: streams differ first at flat index {first}")
         check(g == w, f"[19] {name}: card {g} != CPU {w}")
-    print(f"[19] llama-3-8b widths, 2 layers, f32, int8 weights + int8 KV "
+    print(f"[19] llama-3-8b widths, {CPU_CHECK_LAYERS} layer, f32, int8 "
+          f"weights + int8 KV "
           f"(block 128), 2 prompts of 118 and 121, 20 new: Engine greedy and"
           f" ContinuousEngine greedy + sampled on the card (#10 {n10} "
           f"launches, #12 {n12}) equal to device='cpu' (the dense route; "
@@ -3239,7 +3660,7 @@ def train_phases(dev, record, card):
     default binding takes the flash route), #13 and both #14 kernels
     against their plain versions on every layer's call of the first step,
     the launch counts of two more steps; times; then the card against
-    the CPU at 2 layers in f32. Returns the three kernels' entries of the
+    the CPU at 1 layer in f32. Returns the three kernels' entries of the
     ``kernels`` line."""
     import gc
 
@@ -3476,7 +3897,8 @@ def train_card_vs_cpu(dev, record):
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.model import init_params, params_to
 
-    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=CPU_CHECK_LAYERS)
     rng = np.random.default_rng(22)
     toks = rng.integers(1, cfg.vocab_size, (2, 513))
     p_cpu = init_params(cfg, seed=22, dtype=torch.float32, device="cpu")
@@ -3517,7 +3939,8 @@ def train_card_vs_cpu(dev, record):
         curves[side] = curve
         check(curve[-1] < curve[0], f"[22] {side}: loss did not fall {curve}")
         out[side + "_steps_s"] = time.perf_counter() - t0
-    print(f"[22] llama-3-8b widths, 2 layers, f32, tokens [2, 513]: loss "
+    print(f"[22] llama-3-8b widths, {CPU_CHECK_LAYERS} layer, f32, tokens "
+          f"[2, 513]: loss "
           f"card (flash route) {lc:.6f}, CPU (dense route) {lh:.6f} (rel "
           f"{rel_loss:.2e}); gradients within {worst:.2e} of each leaf's "
           f"largest value; 8 steps at lr 5e-2: card {curves['card']}, CPU "
@@ -4034,9 +4457,11 @@ def masked_phase(dev, record, card):
 def spec_phases(dev, record, card):
     """Phases (25)-(28): verify windows on llama-3-8b bf16 at 8 slots, a
     self-draft library engine (a) and the server with a seed-1 draft (b);
-    the draft groups and the side-car (26); the int8 verify server (27);
-    times (28). Returns nothing: #10, #11 and #12 keep their kernels-line
-    entries from phases 16 and 20."""
+    the draft groups and the side-car (26); the int8 verify server (27,
+    at SPEC_INT8_LAYERS of the preset's layers); times (28). Returns
+    nothing: #10, #11 and #12 keep their kernels-line entries from phases
+    16 and 20."""
+    import dataclasses
     import gc
 
     import torch
@@ -4058,6 +4483,12 @@ def spec_phases(dev, record, card):
     prompts_a = [rng.integers(1, V, 512).tolist() for _ in range(8)]
     prompts_b = [rng.integers(1, V, 512).tolist() for _ in range(4)]
     times = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        record.setdefault("spec_s", {})[name] = now - t_mark[0]
+        t_mark[0] = now
 
     def checkers():
         return (
@@ -4099,6 +4530,7 @@ def spec_phases(dev, record, card):
     del e0
     gc.collect()
     torch.cuda.empty_cache()
+    mark("[25] plain streams")
 
     # (25a) a library engine whose draft is the target itself
     ea = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
@@ -4155,6 +4587,7 @@ def spec_phases(dev, record, card):
     del ea, chk10, params
     gc.collect()
     torch.cuda.empty_cache()
+    mark("[25a]")
 
     # (25b) the server with a seed-1 draft of the same preset
     argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
@@ -4226,8 +4659,11 @@ def spec_phases(dev, record, card):
     del srv, cont, chk10
     gc.collect()
     torch.cuda.empty_cache()
+    mark("[25b]")
     spec_card_vs_cpu(dev, record, "bf16")
+    mark("[25] card vs CPU")
     spec_f32_full(dev, record, k)
+    mark("[25c]")
 
     # (26) the same server without --speculative-draft: draft groups own
     # the eligible traffic; and the side-car's bulk generate
@@ -4305,11 +4741,20 @@ def spec_phases(dev, record, card):
     del srv, cont, spec
     gc.collect()
     torch.cuda.empty_cache()
+    mark("[26]")
 
-    # (27) int8: the verify server with --kv-dtype int8 --weight-dtype int8
-    srv, cont = server.build_server(argv + [
-        "--speculative-draft", "--kv-dtype", "int8", "--weight-dtype",
-        "int8"])
+    # (27) int8: the verify server with --kv-dtype int8 --weight-dtype int8,
+    # the preset cut to SPEC_INT8_LAYERS for the server's build
+    full = PRESETS["llama-3-8b"]
+    PRESETS["llama-3-8b"] = dataclasses.replace(
+        full, num_hidden_layers=SPEC_INT8_LAYERS)
+    try:
+        srv, cont = server.build_server(argv + [
+            "--speculative-draft", "--kv-dtype", "int8", "--weight-dtype",
+            "int8"])
+    finally:
+        PRESETS["llama-3-8b"] = full
+    layers = SPEC_INT8_LAYERS
     srv.start()
     cont.start()
     bs = cont.block_size
@@ -4358,7 +4803,8 @@ def spec_phases(dev, record, card):
     walk27 = chk12.walk_check("[27]")[0]
     sync_q = one_sync(cont)
     print(f"[27] the int8 verify server (--kv-dtype int8 --weight-dtype "
-          f"int8, seed-1 bf16 draft): 4 greedy + 1 sampled prompts of "
+          f"int8, seed-1 bf16 draft; {layers} layers, full width): 4 greedy "
+          f"+ 1 sampled prompts of "
           f"600-630 tokens, 64 new: decode_attention_blocks_q8 at T = "
           f"{k + 1} on {chk12.calls} calls within tolerance (max |kernel - "
           f"plain| {chk12.max_err:.3e}; split-K, {walk27} live splits walked "
@@ -4379,7 +4825,9 @@ def spec_phases(dev, record, card):
     del srv, cont
     gc.collect()
     torch.cuda.empty_cache()
+    mark("[27]")
     spec_card_vs_cpu(dev, record, "int8")
+    mark("[27] card vs CPU")
 
     # (28) times
     with torch.inference_mode():
@@ -4400,14 +4848,17 @@ def spec_phases(dev, record, card):
         "window_b_ms": wb[0], "tokens_per_row_window_b": wb[1],
         "decode_plain_ms": times["decode_plain_ms"],
         "t5_11": {key: e11[key] for key in (
-            "ms", "wall_ms", "host_us", "old_ms", "old_wall_ms", "plain_ms",
+            "ms", "wall_ms", "host_us", "plain_ms",
             "bound_ms", "library_ms", "library_wall_ms", "live_splits",
             "f32_err")},
         "t5_12": {key: e12[key] for key in (
-            "ms", "wall_ms", "host_us", "old_ms", "old_wall_ms", "plain_ms",
+            "ms", "wall_ms", "host_us", "plain_ms",
             "bound_ms", "library_ms", "library_wall_ms", "live_splits",
             "f32_err")},
     }
+    mark("[28]")
+    for name, sec in record["spec_s"].items():
+        print(f"[s] {name}: {sec:.1f} s")
 
 
 def tie_probe(seeds, dev=None):
@@ -4573,7 +5024,7 @@ def spec_f32_full(dev, record, k):
 
 
 def spec_card_vs_cpu(dev, record, kv_dtype):
-    """The verify route at llama-3-8b widths cut to 2 layers, f32, blocks
+    """The verify route at llama-3-8b widths cut to 1 layer, f32, blocks
     of 128 (prompts of about 120: the windows cross a block edge), a
     bigram draft (the target's embedding, norm and head, 0 layers: it
     mostly guesses wrong), on the card (the kernels: the guard holds at
@@ -4594,7 +5045,8 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
 
     int8 = kv_dtype == "int8"
     tag = "[27]" if int8 else "[25]"
-    cfg = dataclasses.replace(PRESETS["llama-3-8b"], num_hidden_layers=2)
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=CPU_CHECK_LAYERS)
     dcfg = dataclasses.replace(cfg, num_hidden_layers=0)
     rng = np.random.default_rng(27 if int8 else 25)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (119, 122)]
@@ -4645,7 +5097,8 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
                  f" int8 pool codes that differ: {n_diff} of {diff.numel()}")
     pool = ("int8 weights + int8 KV" if int8 else "the plain pool") + \
         " (block 128, prompts of 119 and 122)"
-    print(f"{tag} llama-3-8b widths, 2 layers, f32, {pool}, a bigram draft, "
+    print(f"{tag} llama-3-8b widths, {CPU_CHECK_LAYERS} layer, f32, {pool}, "
+          f"a bigram draft, "
           f"spec_k 4: greedy + sampled (with a repetition penalty) streams "
           f"on the card ({kernel.__name__} {launches} launches) equal to "
           f"device='cpu' (host {host_s:.1f} s), with equal verify counters "
@@ -4695,7 +5148,7 @@ def main(placement_only=False) -> int:
     t0 = time.perf_counter()
     solver_libs = ["mega_solve", "round_ops", "auction", "route_pick"]
     built = _build.build_all(solver_libs + ([] if placement_only else [
-        "decode_attention", "flash_prefill", "quant_matmul",
+        "flash_prefill", "quant_matmul",
         "flash_backward", "flash_prefill_tc", "flash_backward_tc",
         "decode_split", "quant_matmul_tc"]))
     for name in built:
@@ -4952,6 +5405,9 @@ def main(placement_only=False) -> int:
     auction_entry = phase("[9]-[11]", auction_phases, dev, kernels, record,
                           card)
     route_entry = phase("[12]", route_phases, dev, kernels, record, card)
+    tick_launches = phase("[29]", tick_phase, dev, kernels, record, card)
+    auction_entry["tick_launches"] = tick_launches["auction_solve"]
+    route_entry["tick_launches"] = tick_launches["route_pick"]
     serve_entries = int8_entries = train_entries = mask_entry = []
     if not placement_only:
         serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
@@ -4969,6 +5425,7 @@ def main(placement_only=False) -> int:
         "source": "kubeinfer_tpu_torch/solver/csrc/mega_solve.cu",
         "replaces": "kubeinfer_tpu/solver/pallas_kernels.py:909",
         "launches": launches,
+        "tick_launches": tick_launches["mega_solve"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -74,24 +74,45 @@ def build(name: str) -> tuple[pathlib.Path, str]:
 
 def build_all(names: list[str]) -> dict[str, tuple[pathlib.Path, str]]:
     """``build`` for several sources, with one nvcc per stale source, all
-    started together."""
-    done, running = {}, {}
+    started together. A failure leaves ``build/`` as it found it: nvcc is
+    found before any file is made, every temporary library is removed,
+    and the nvcc processes already started are stopped when a later one
+    cannot start."""
+    done, stale = {}, []
     for name in names:
         src = source(name)
         out = BUILD_DIR / f"lib{name}.so"
         if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
             done[name] = (out, "")
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # compile to a private name and rename: a concurrent build never
-        # sees (or loads) a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, str(src)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-        )
-        running[name] = (cmd, proc, tmp, out)
+        else:
+            stale.append((name, src, out))
+    if not stale:
+        return done
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    try:
+        for name, src, out in stale:
+            # compile to a private name and rename: a concurrent build
+            # never sees (or loads) a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *nvcc_flags(name), "-o", tmp, str(src)]
+            try:
+                proc = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True,
+                )
+            except BaseException:
+                os.unlink(tmp)
+                raise
+            running[name] = (cmd, proc, tmp, out)
+    except BaseException:
+        for _, proc, tmp, _ in running.values():
+            proc.kill()
+            proc.communicate()
+            os.unlink(tmp)
+        raise
     failed = []
     for name, (cmd, proc, tmp, out) in running.items():
         stdout, stderr = proc.communicate()

@@ -1,0 +1,46 @@
+"""Request-scoped tracing: spans, trace-context propagation and Chrome
+trace export (a copy of the tracing part of
+``kubeinfer_tpu/observability``). The flight recorder, the step profiler
+and the SLO monitor are not ported yet."""
+
+from kubeinfer_tpu_torch.observability.tracing import (
+    RECORDER,
+    Span,
+    SpanContext,
+    SpanRecorder,
+    TraceContextFilter,
+    Tracer,
+    add_event,
+    current_context,
+    current_span,
+    get_tracer,
+    new_root_context,
+    now,
+    parse_traceparent,
+    set_clock,
+    set_span_sampling,
+    span_sampling,
+    to_chrome_trace,
+    trace_sampled,
+)
+
+__all__ = [
+    "RECORDER",
+    "Span",
+    "SpanContext",
+    "SpanRecorder",
+    "TraceContextFilter",
+    "Tracer",
+    "add_event",
+    "current_context",
+    "current_span",
+    "get_tracer",
+    "new_root_context",
+    "now",
+    "parse_traceparent",
+    "set_clock",
+    "set_span_sampling",
+    "span_sampling",
+    "to_chrome_trace",
+    "trace_sampled",
+]

@@ -199,6 +199,9 @@ class TorchBackend(SchedulerBackend):
             self._policy is SchedulerPolicy.JAX_AUCTION
             and not auction_suitable(req)
         ):
+            from kubeinfer_tpu_torch import metrics
+
+            metrics.auction_fallback_total.inc()
             log.warning(
                 "jax-auction requested for a non-whole-node problem "
                 "(%d jobs, %d nodes): falling back to jax-greedy to avoid "

@@ -213,6 +213,15 @@ def test_import_loads_no_jax_and_no_reference_module():
         "from kubeinfer_tpu_torch.inference import batching, config, "
         "engine, flash_attention, kv_blocks, model, prng, server, "
         "stepper, weights\n"
+        "import kubeinfer_tpu_torch.api, kubeinfer_tpu_torch.controller, "
+        "kubeinfer_tpu_torch.controlplane.httpstore, "
+        "kubeinfer_tpu_torch.controlplane.replica, "
+        "kubeinfer_tpu_torch.coordination, kubeinfer_tpu_torch.manager, "
+        "kubeinfer_tpu_torch.manager.__main__, kubeinfer_tpu_torch.metrics, "
+        "kubeinfer_tpu_torch.observability, "
+        "kubeinfer_tpu_torch.resilience.faultpoints, "
+        "kubeinfer_tpu_torch.router.scoring, kubeinfer_tpu_torch.utils, "
+        "kubeinfer_tpu_torch.utils.httpbase\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubeinfer_tpu')]\n"
         "print(','.join(bad))\n"
