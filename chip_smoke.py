@@ -235,6 +235,24 @@ times them. Phases:
       CUDA-core kernel on the same call, #11 and #12 at T = 5 (as in
       (16)), a verify window's ms and tokens a row in (a) and (b),
       decode ms per emitted token per slot with and without a draft;
+  (30) disaggregated prefill and decode, run on the server of (13) as
+      (30a) before it stops, and on the int8 server of (17) as (30b): its
+      engine is the prefill replica; a second ContinuousEngine and
+      InferenceServer on the same parameter tensors (its own pool) is the
+      decode replica. A 512-token greedy and a 600-token sampled prompt
+      with max_tokens=0 (route "prefill", a wire blob in the export
+      cache), then with max_tokens=64 and kubeinfer_kv_source to the
+      decode replica, which fetches GET /kv/blocks, verifies and imports:
+      #11 (#12, and #15 on both replicas, in int8) against its plain
+      version on every call and counted, the landed pages bitwise the
+      exporter's, the streams bitwise a fresh engine's after a local
+      max_tokens=0 warm-up (whose pages are held against the exported
+      ones too), equal to a cold prefill's up to (25)'s near-tie rule,
+      one host sync a decode window, a repeat not imported again, an
+      unreachable source counted as fetch_error; then, unchecked, the
+      export capture, encode_payload, fetch + verify and staged import
+      ms, wire bytes and the decode replica's TTFT after the import. The
+      kernels line's #11, #12 and #15 entries gain ``disagg_launches``;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -246,7 +264,8 @@ phase fails. Full numbers go to chiprun_out/chip_smoke.json.
 runs (0)-(4), (5)-(7), (9)-(12) and (29) alone (the four solver
 libraries; about a minute and a half of command), with their entries of the kernels line and the last
 line; the numbers go to chiprun_out/placement.json. ``--p50s`` prints the
-placement p50s of (4), (7) and (11) alone.
+placement p50s of (4), (7) and (11) alone. ``--disagg`` runs (30a) and
+(30b) alone (chiprun_out/disagg_probe.json).
 """
 
 from __future__ import annotations
@@ -2062,12 +2081,23 @@ class CheckedAttention:
     is set (#10, #11, #12): then it is an int32 device counter of the split-K
     kernel's live splits over every checked call, and ``walk_want`` adds
     ``split_walk``'s count of each call, on the device (``walk_check``
-    compares them)."""
+    compares them).
 
-    def __init__(self, fa, name, plain, live, weight, walk=False):
+    ``trim`` (#11, #12: the block tables second to last, the lengths
+    last) runs the plain version on the table columns the live rows reach
+    (``trimmed``): every tile past a row's length is masked, and a masked
+    tile adds exactly nothing to the row's online softmax (weights 0, a
+    rescale of 1), so the live rows' plain outputs are bitwise those of
+    the whole call. The first call holds that: the whole call's plain
+    output, bitwise the trimmed one on the live rows. A trimmed check
+    that fails keeps its error and lets the path run on (the served
+    request completes; the phase fails on ``error`` afterwards)."""
+
+    def __init__(self, fa, name, plain, live, weight, walk=False, trim=False):
         self.fa, self.name = fa, name
         self.kernel, self.plain = getattr(fa, name), plain
         self.live, self.weight = live, weight
+        self.trim, self.trim_held = trim, False
         self.launches = self.tc_launches = self.calls = 0
         self.walk, self.walk_counter, self.walk_want = walk, None, None
         self.max_err = 0.0
@@ -2100,6 +2130,8 @@ class CheckedAttention:
                                              device=args[0].device)
             self.walk_want += split_walk(self.fa, self.name, args)
         got = self.kernel(*args)
+        if self.trim:
+            return self.trimmed(got, args)
         want = self.plain(*args)
         err, ok = attn_err(got, want, self.live(*args))
         if not ok:
@@ -2115,6 +2147,33 @@ class CheckedAttention:
             self.heaviest = tuple(
                 a.clone() if hasattr(a, "clone") and a.numel() < 1 << 22
                 else a for a in args)
+        self.calls += 1
+        return got
+
+    def trimmed(self, got, args):
+        """The call checked against the plain version on the table columns
+        the live rows reach; returns the kernel's result."""
+        import torch
+
+        live = self.live(*args)
+        bs = args[1].shape[1]
+        cols = max(1, int((args[-1][live].max() + bs - 1) // bs)
+                   if bool(live.any()) else 1)
+        sub = list(args)
+        sub[-2] = sub[-2][:, :cols].contiguous()
+        want = self.plain(*sub)
+        if not self.trim_held:
+            full = self.plain(*args)
+            if not torch.equal(full[live], want[live]) and self.error is None:
+                self.error = (f"{self.name}: the plain version on {cols} "
+                              "table columns differs from the whole call's "
+                              "on the live rows")
+            self.trim_held = True
+        err, ok = attn_err(got, want, live)
+        if not ok and self.error is None:
+            self.error = (f"{self.name}: kernel vs plain out of tolerance "
+                          f"on call {self.calls} (max err {err})")
+        self.max_err = max(self.max_err, err)
         self.calls += 1
         return got
 
@@ -2512,8 +2571,6 @@ def serving_phases(dev, record, card):
         entries.append(time_decode(dev, fa, chk11, card,
                                    "decode_attention_blocks",
                                    counts["decode_attention_blocks"], F))
-    srv.stop()
-    cont.stop()
     record["serving_times"] = {
         "ttft_ms": ttft, "decode_ms_per_token": decode_ms,
         "tokens_per_s": 8e3 / decode_ms, "prefill_chunk_ms": chunk_ms,
@@ -2522,7 +2579,382 @@ def serving_phases(dev, record, card):
         "engine_decode_busy_ms_per_token": eng_dec[1],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
+    # (30a) disaggregated prefill and decode, this server the prefill side
+    try:
+        launches = disagg_phase(dev, record, card, srv, cont)
+    finally:
+        srv.stop()
+        cont.stop()
+    entries[2]["disagg_launches"] = launches["decode_attention_blocks"]
     return entries
+
+
+DISAGG_NEW = 64  # new tokens of each decode-replica request in (30)
+
+
+def pool_blocks(cont, tokens):
+    """The block ids ``cont``'s radix trie holds for the full blocks of
+    ``tokens`` (the walk's references returned)."""
+    blocks = cont._radix.match(tokens)
+    cont._pool.unref(blocks)
+    return blocks
+
+
+def pool_pages(cont, blocks):
+    """The pool's pages of ``blocks`` on the card: every layer's K and V
+    ([2, L, n, bs, n_kv, D]), and the int8 pool's scales
+    ([2, L, n, n_kv])."""
+    import torch
+
+    st = cont._state
+    idx = torch.tensor(blocks, dtype=torch.long, device=st.tables.device)
+    if st.quantized:
+        return [st.q8_pages[:, :, idx], st.q8_scales[:, :, idx]]
+    return [torch.stack([torch.stack([c[idx] for c in side])
+                         for side in (st.caches_k, st.caches_v)])]
+
+
+def differing_bytes(a, b):
+    """Bytes that differ between two lists of same-shaped tensors."""
+    import torch
+
+    def raw(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    return sum(int((raw(x) != raw(y)).sum()) for x, y in zip(a, b))
+
+
+class Timed:
+    """Host ms of every call of ``owner.name`` while installed (of those
+    for which ``when()`` holds just before, if given), with the card
+    synchronised before and after each call when ``sync`` is set (the
+    time of the call's own device work, not of the work queued before
+    it). Installs on an instance or a module; ``__exit__`` restores."""
+
+    def __init__(self, owner, name, sync=False, when=None):
+        self.owner, self.name, self.sync, self.when = owner, name, sync, when
+        self.fn = getattr(owner, name)
+        self.ms = []
+
+    def __enter__(self):
+        import torch
+
+        def run(*args, **kw):
+            if self.when is not None and not self.when():
+                return self.fn(*args, **kw)
+            if self.sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kw)
+            if self.sync:
+                torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.owner, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        if isinstance(self.owner, type(sys)):
+            setattr(self.owner, self.name, self.fn)
+        else:
+            delattr(self.owner, self.name)  # the bound method shows again
+
+
+def disagg_phase(dev, record, card, pre_srv, pre):
+    """Phase (30): disaggregated prefill and decode on the server of
+    (13)-(16) ("bf16") or (17)-(20) ("int8"), whose continuous engine is
+    the prefill replica. A decode replica (a second ContinuousEngine +
+    InferenceServer on the same parameter tensors, its own pool) takes
+    the same bodies with ``kubeinfer_kv_source``: it pulls the blob from
+    ``GET /kv/blocks``, verifies it and stages the pages into its pool,
+    then admits warm and decodes through #11 (bf16 pool) or #12 (int8
+    pool), with #15 on every int8 projection. Every call of those kernels
+    is held against its plain version; the landed pages are bitwise the
+    exporter's; the streams are bitwise those after a local prefill-only
+    warm-up on a fresh engine, and equal to a cold prefill's up to a
+    near-tie ([25]'s rule). Returns the path's launch counts."""
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.disagg import client, wire
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.stepper import RowFlags, decode_window
+
+    t_phase = time.perf_counter()
+    int8 = pre.kv_dtype == "int8"
+    label = "[30b]" if int8 else "[30a]"
+    cfg, bs = pre.cfg, pre.block_size
+    V, layers = cfg.vocab_size, cfg.num_hidden_layers
+    rng = np.random.default_rng(30 + int8)
+    source = f"http://127.0.0.1:{pre_srv.port}"
+
+    def engine():
+        # the prefill replica's settings, on its parameter tensors
+        return ContinuousEngine(
+            pre.params, cfg, n_slots=pre.n_slots, cache_len=pre.cache_len,
+            block_size=bs, prefill_chunk_blocks=pre.chunk_tokens // bs,
+            kv_dtype=pre.kv_dtype, weight_dtype=pre.weight_dtype,
+            device=dev)
+
+    # 4 full blocks, and 4 full blocks + a tail (a chunk of 512 first)
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)
+    cases = [(rng.integers(1, V, 512).tolist(), {}),
+             (rng.integers(1, V, 600).tolist(), sampled)]
+    marks = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    if int8:
+        chk = CheckedAttention(
+            fa, "decode_attention_blocks_q8",
+            fa.decode_attention_blocks_q8_plain, live=q8_live,
+            weight=lambda q, kp, vp, ks, vs, kt, vt, tbl, ln: (
+                int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True,
+            trim=True)
+    else:
+        chk = CheckedAttention(
+            fa, "decode_attention_blocks", fa.decode_attention_blocks_plain,
+            live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
+                                             & (ln >= q.shape[1])),
+            weight=lambda q, kp, vp, tbl, ln: (int((tbl[:, 0] != 0).sum()),
+                                               int(ln.sum())), walk=True,
+            trim=True)
+    chk15 = CheckedMatmul(wq) if pre.weight_dtype == "int8" else None
+    other = ("decode_attention_blocks" if int8
+             else "decode_attention_blocks_q8")
+    getattr(fa, other).launches = 0
+
+    dec = engine().start()
+    dec_srv = server.InferenceServer(
+        pre_srv.engine, "llama-3-8b-decode", host="127.0.0.1", port=0,
+        continuous=dec, device=dev).start()
+    try:
+        # the main path, every kernel call checked and counted; the two
+        # requests of each replica together (a row's tokens do not depend
+        # on the batch's other rows)
+        with torch.inference_mode(), chk, (chk15 or contextlib.nullcontext()):
+            try:
+                docs = in_threads(lambda c: post_json(pre_srv.port, dict(
+                    prompt=c[0], max_tokens=0, **c[1])), cases)
+                exports = [d["kubeinfer"].get("kv_export") for d in docs]
+                check(all(d["kubeinfer"]["route"] == "prefill"
+                          and d["choices"][0]["tokens"] == [] for d in docs)
+                      and [e and e["blocks"] for e in exports]
+                      == [len(p) // bs for p, _ in cases],
+                      f"{label} prefill replica answered "
+                      f"{[d['kubeinfer'] for d in docs]}")
+                imp0 = (dec.imports_total, dec.imported_blocks_total)
+                docs = in_threads(lambda c: post_json(dec_srv.port, dict(
+                    prompt=c[0], max_tokens=DISAGG_NEW,
+                    kubeinfer_kv_source=source, **c[1])), cases)
+                check(all(d["kubeinfer"]["route"] == "continuous"
+                          for d in docs),
+                      f"{label} decode replica routes "
+                      f"{[d['kubeinfer'] for d in docs]}")
+                got = [d["choices"][0]["tokens"] for d in docs]
+            finally:
+                check(chk.error is None, str(chk.error))
+                if chk15 is not None:
+                    check(chk15.verify() is None, str(chk15.error))
+        check(chk.calls >= layers and chk.calls % layers == 0,
+              f"{label} {chk.name} checked on {chk.calls} calls")
+        walk = chk.walk_check(label)[0]
+        launches = {chk.name: chk.launches}
+        check(chk.launches == chk.calls and chk.launches > 0,
+              f"{label} {chk.name}: {chk.launches} launches, {chk.calls} calls")
+        check(getattr(fa, other).launches == 0,
+              f"{label} {other} launched on the {pre.kv_dtype} pool")
+        if chk15 is not None:
+            routes15 = chk15.all_tc(label)
+            launches["quant_matmul"] = chk15.launches
+        n_blocks = sum(len(p) // bs for p, _ in cases)
+        check((dec.imports_total - imp0[0],
+               dec.imported_blocks_total - imp0[1]) == (len(cases), n_blocks)
+              and not dec_srv.disagg_fallbacks,
+              f"{label} imports {dec.scheduler_stats()}, fallbacks "
+              f"{dict(dec_srv.disagg_fallbacks)}")
+        # the same prompt again: advertised, so not fetched again (greedy:
+        # its first 8 tokens are the first request's)
+        again = post_json(dec_srv.port, dict(
+            prompt=cases[0][0], max_tokens=8, kubeinfer_kv_source=source))
+        check(dec.imports_total - imp0[0] == len(cases)
+              and again["choices"][0]["tokens"] == got[0][:8],
+              f"{label} a repeat was imported again or differs")
+        # a source that does not answer: a local prefill, counted
+        fb = post_json(dec_srv.port, dict(
+            prompt=rng.integers(1, V, 512).tolist(), max_tokens=8,
+            kubeinfer_kv_source="http://127.0.0.1:9"))
+        check(fb["kubeinfer"]["route"] == "continuous"
+              and len(fb["choices"][0]["tokens"]) == 8
+              and dict(dec_srv.disagg_fallbacks) == {"fetch_error": 1}
+              and dec.imports_total - imp0[0] == len(cases),
+              f"{label} fallback {dict(dec_srv.disagg_fallbacks)}")
+        mark("path")
+        # the landed pages, bitwise the exporter's
+        exported = [pool_pages(pre, pool_blocks(pre, p[:len(p) // bs * bs]))
+                    for p, _ in cases]
+        landed = [pool_pages(dec, pool_blocks(dec, p[:len(p) // bs * bs]))
+                  for p, _ in cases]
+        diff_landed = [differing_bytes(a, b)
+                       for a, b in zip(exported, landed)]
+        check(all(n == 0 for n in diff_landed),
+              f"{label} imported pages differ from the exporter's: "
+              f"{diff_landed} bytes")
+        flags = RowFlags(sampled=True, top_k=True, top_p=True, penalty=True)
+        with torch.inference_mode():
+            _, sites = count_syncs(lambda: decode_window(
+                dec.params, dec._state, cfg, 4, flags)[1].cpu())
+        n_sync = sum(sites.values())
+        check(n_sync == 1, f"{label} decode window host syncs {dict(sites)}")
+
+        # times, unchecked: 3 more prompts through both replicas
+        timing = {key: Timed(*args) for key, args in (
+            ("capture", (pre, "_capture_export", True)),
+            ("encode", (wire, "encode_payload")),
+            ("fetch", (client, "fetch_kv_blocks")),
+            # every scheduler pass calls it; timed where a task waits
+            ("import", (dec, "_step_import", True,
+                        lambda: bool(dec._imports))))}
+        ttft, latency, wire_bytes = [], [], []
+        with contextlib.ExitStack() as stack:
+            for t in timing.values():
+                stack.enter_context(t)
+            for _ in range(3):
+                p = rng.integers(1, V, 512).tolist()
+                doc = post_json(pre_srv.port, dict(prompt=p, max_tokens=0))
+                wire_bytes.append(doc["kubeinfer"]["kv_export"]["bytes"])
+                doc = post_json(dec_srv.port, dict(
+                    prompt=p, max_tokens=1, kubeinfer_kv_source=source))
+                ttft.append(doc["kubeinfer"]["ttft_ms"])
+                latency.append(doc["kubeinfer"]["latency_ms"])
+        check(dec.imports_total - imp0[0] == len(cases) + 3
+              and len(timing["import"].ms) == 3,
+              f"{label} timing runs imported {dec.imports_total}")
+        import_s = list(dec_srv.kv_stream_seconds["import"])[-3:]
+        streamed = (dict(pre_srv.kv_stream_blocks),
+                    dict(dec_srv.kv_stream_blocks))
+        mark("times")
+    finally:
+        dec_srv.stop()
+        dec.stop()
+    del dec, dec_srv, landed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a fresh engine warmed by a local prefill-only request, then a cold one
+    warm = engine().start()
+    try:
+        in_threads(lambda c: warm.serve(c[0], 0, timeout=300, **c[1]), cases)
+        local = [pool_pages(warm, pool_blocks(warm, p[:len(p) // bs * bs]))
+                 for p, _ in cases]
+        warm_got = in_threads(lambda c: warm.serve(
+            c[0], DISAGG_NEW, timeout=300, **c[1]).out_tokens, cases)
+    finally:
+        warm.stop()
+    diff_local = [differing_bytes(a, b) for a, b in zip(exported, local)]
+    del warm, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold = engine().start()
+    try:
+        reqs = in_threads(lambda c: cold.serve(c[0], DISAGG_NEW, timeout=300,
+                                               **c[1]), cases)
+        cold_got = [r.out_tokens for r in reqs]
+        # alone, for the TTFT beside the import's
+        r = cold.serve(rng.integers(1, V, 512).tolist(), 1, timeout=300)
+        cold_ttft = (r.t_first - r.t_submit) * 1e3
+    finally:
+        cold.stop()
+    del cold, exported
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("warm and cold")
+    check(all(n == 0 for n in diff_local),
+          f"{label} a local prefill's pages differ from the exported ones: "
+          f"{diff_local} bytes")
+    check(got == warm_got, f"{label} the decode replica's streams differ "
+          f"from a locally warmed engine's: {got} vs {warm_got}")
+    # the sampled case's cold admit runs the same chunk + suffix as the
+    # warm one; the greedy case's cold admit prefills all 512 at once
+    check(got[1] == cold_got[1], f"{label} sampled stream differs from a "
+          "cold prefill's")
+    divs, _ = held_streams(f"{label} against a cold prefill:", [got[0]],
+                           [cold_got[0]], [cases[0][0]], pre.params, cfg,
+                           dev)
+    mark("near-tie")
+
+    p50 = statistics.median
+    ms = {key: t.ms for key, t in timing.items()}
+    before = record.get("int8_times" if int8 else "serving_times",
+                        {}).get("ttft_ms")
+    print(f"{label} {pre.kv_dtype} pool: 2 prompts (512 tokens greedy, 600 "
+          f"sampled) prefilled by the prefill replica (max_tokens=0, route "
+          f"prefill, exports {exports}), imported by the decode replica "
+          f"over GET /kv/blocks ({n_blocks} blocks; blocks streamed, "
+          f"prefill replica {streamed[0]}, decode replica {streamed[1]}), "
+          f"{DISAGG_NEW} new tokens each: landed pages bitwise the "
+          f"exporter's (differing bytes {diff_landed}); a local prefill's "
+          f"pages against the exported ones: differing bytes {diff_local}; "
+          f"streams bitwise equal to a locally warmed fresh engine's; "
+          f"against a cold prefill: {divs} greedy divergence(s) (near-tie "
+          f"rule), the sampled stream equal; a repeat not imported again; "
+          f"an unreachable source fell back (fetch_error 1)")
+    print(f"{label} {chk.name}: {chk.calls} calls on the decode replica's "
+          f"imported requests, within tolerance of its plain version (on "
+          f"the table columns the live rows reach, bitwise the whole "
+          f"call's on the first); max |kernel - plain| "
+          f"{chk.max_err:.3e}; split-K live splits {walk} by the kernel's "
+          f"own count, equal to decode_split_walk's"
+          + (f"; quant_matmul: {chk15.calls} calls on both replicas, within "
+             f"tolerance, max |kernel - plain| {chk15.max_err:.3e}, routes "
+             f"{routes15}" if chk15 is not None else "")
+          + f"; launches {launches}; host syncs in one decode window "
+          f"{n_sync}")
+    print(f"{label} {card}: wire bytes of a 512-token prompt "
+          f"{wire_bytes[0]} ({wire_bytes[0] / 2**20:.3f} MiB); export "
+          f"capture p50 {p50(ms['capture']):.3f} ms {rounded(ms['capture'])}"
+          f"; encode_payload p50 {p50(ms['encode']):.3f} ms "
+          f"{rounded(ms['encode'])}; fetch + verify p50 "
+          f"{p50(ms['fetch']):.3f} ms {rounded(ms['fetch'])}; staged import "
+          f"on the scheduler thread p50 {p50(ms['import']):.3f} ms "
+          f"{rounded(ms['import'])}; the server's whole import (fetch, "
+          f"verify, staged write) {rounded([x * 1e3 for x in import_s])} "
+          f"ms; decode replica TTFT after the import p50 {p50(ttft):.3f} ms "
+          f"{rounded(ttft)}, request latency with the import p50 "
+          f"{p50(latency):.3f} ms {rounded(latency)}; a cold 512-token "
+          f"prefill's TTFT {cold_ttft:.3f} ms on a fresh engine"
+          + (f", and p50 {p50(before):.3f} ms in "
+             f"{'[20]' if int8 else '[16]'}" if before else ""))
+    record["disagg_" + pre.kv_dtype] = {
+        "exports": exports, "wire_bytes": wire_bytes,
+        "capture_ms": ms["capture"], "encode_ms": ms["encode"],
+        "fetch_verify_ms": ms["fetch"], "import_ms": ms["import"],
+        "server_import_s": import_s, "ttft_ms": ttft,
+        "latency_ms": latency, "cold_ttft_ms": cold_ttft,
+        "launches": launches, "max_err": chk.max_err,
+        "qmm_max_err": chk15.max_err if chk15 is not None else None,
+        "split_walk": walk, "window_syncs": n_sync,
+        "differing_bytes_landed": diff_landed,
+        "differing_bytes_local": diff_local, "cold_divergences": divs,
+        "streams": got, "split_s": marks,
+    }
+    record.setdefault("phase_s", {})[label] = time.perf_counter() - t_phase
+    print(f"{label} seconds: {rounded(list(marks.values()))} "
+          f"({', '.join(marks)})")
+    return launches
+
+
+def rounded(xs):
+    return [round(x, 3) for x in xs]
 
 
 def time_kernel(dev, fa, chk, card, launches, F, tc_launches):
@@ -3265,8 +3697,14 @@ def int8_phases(dev, record, card):
                                tag="[20]"),
                    time_qmm(dev, wq, chk15, card, counts,
                             engine.params["layers"][0], record)]
-    srv.stop()
-    cont.stop()
+    # (30b) disaggregated prefill and decode on the int8 server
+    try:
+        launches = disagg_phase(dev, record, card, srv, cont)
+    finally:
+        srv.stop()
+        cont.stop()
+    entries[0]["disagg_launches"] = launches["decode_attention_blocks_q8"]
+    entries[1]["disagg_launches"] = launches["quant_matmul"]
     return entries
 
 
@@ -4020,7 +4458,12 @@ class CheckedMasked(CheckedAttention):
 
 
 def cast_tree(params, dtype):
-    """The parameter tree with every tensor cast to ``dtype`` (a copy)."""
+    """The parameter tree with every tensor cast to ``dtype`` (a copy); an
+    int8 weight leaf becomes its dequantized weight in ``dtype``."""
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+
+    if wq.is_quant_leaf(params):
+        return wq.dequantize_weight(params, dtype)
     if isinstance(params, dict):
         return {key: cast_tree(x, dtype) for key, x in params.items()}
     if isinstance(params, list):
@@ -5591,7 +6034,50 @@ def qmm_probe() -> int:
     return 0
 
 
+def disagg_probe() -> int:
+    """``--disagg``: phase (30) alone (card only; about two minutes):
+    builds the decode and #15 libraries, then the bf16 server of (13) and
+    the int8 server of (17), each in turn the prefill replica of
+    ``disagg_phase``."""
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.inference import server
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["decode_split", "quant_matmul", "quant_matmul_tc"])
+    record = {"card": card}
+    argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
+            "--host", "127.0.0.1", "--batch-slots", "8"]
+    for flags in ([], ["--kv-dtype", "int8", "--weight-dtype", "int8"]):
+        srv, cont = server.build_server(argv + flags)
+        cont.start()
+        srv.start()
+        try:
+            disagg_phase(dev, record, card, srv, cont)
+        finally:
+            srv.stop()
+            cont.stop()
+        del srv, cont
+        gc.collect()
+        torch.cuda.empty_cache()
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "disagg_probe.json").write_text(json.dumps(record, indent=1))
+    print(record["phase_s"])
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--disagg"]:
+        sys.exit(disagg_probe())
     if sys.argv[1:2] == ["--tie-probe"]:
         sys.exit(tie_probe([int(a) for a in sys.argv[2:]] or [25]))
     if sys.argv[1:2] == ["--qmm"]:

@@ -47,9 +47,16 @@ Speculative decoding, two routes as in the reference:
   in an incremental draft group (``start_group``/``step_group``), one
   round per scheduler pass beside the slots.
 
-Waiting (each named where it raises): preemption, a sharded layout,
-drain/migration, prefix import and KV export; and the flight recorder,
-SLO monitor, step profiler and racecheck wrappers of the reference.
+Disaggregated prefill, as in the reference: ``submit(export_kv=True)``
+captures the request's committed full-block pages right after its admit
+(one device-to-host copy per side), and ``import_prefix`` stages a
+fetched prefix for the scheduler thread, which writes the pages into
+fresh pool blocks in place and caches them in the radix trie, so the
+request that wants them admits warm.
+
+Waiting (each named where it raises): preemption, a sharded layout and
+drain/migration; and the flight recorder, SLO monitor, step profiler and
+racecheck wrappers of the reference.
 """
 
 from __future__ import annotations
@@ -105,8 +112,6 @@ _WAITS = {
     "preemption": "ROADMAP Queue 1, preemption, drain and migration",
     "layout": "ROADMAP Queue 1, slice 6: sharding.py / tp",
     "drain": "ROADMAP Queue 1, preemption, drain and migration",
-    "import_prefix": "ROADMAP Queue 1, disagg import/export",
-    "export_kv": "ROADMAP Queue 1, disagg import/export",
 }
 
 
@@ -311,6 +316,12 @@ class _Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     token_times: list[float] = field(default_factory=list)
+    # disaggregated prefill: export_kv asks the scheduler to capture this
+    # request's committed full-block pages at finalize time; kv_export is
+    # the captured dict (pages_k/pages_v/fingerprints/block_size/kv_dtype,
+    # scales under the int8 pool), read after ``done`` is set
+    export_kv: bool = False
+    kv_export: dict | None = None
 
     def cancel(self) -> None:
         """Abandon the request: dropped before admission or retired at
@@ -335,6 +346,29 @@ class _PrefillTask:
     # the plan reserved verify slack, so the finalize also prefills the
     # slot's draft row
     spec_ok: bool = False
+
+
+@dataclass
+class _ImportTask:
+    """One staged KV import: an HTTP thread fetched and verified the
+    pages (``disagg.client``), the scheduler thread writes them into the
+    pool (it is the only writer of the device state). ``tokens`` covers
+    exactly the imported full blocks (n * block_size tokens, through the
+    chunk's end for a chunked import); ``pages_k``/``pages_v`` are CPU
+    tensors ``[L, n, bs, n_kv, D]``, the scales ``[L, n, n_kv]`` f32 on
+    the int8 wire."""
+
+    tokens: list[int]
+    pages_k: torch.Tensor
+    pages_v: torch.Tensor
+    scales_k: torch.Tensor | None = None
+    scales_v: torch.Tensor | None = None
+    # chunked import (wire v3): the pages cover blocks [start_block,
+    # start_block + n) and stack on a radix-matched [0, start_block)
+    start_block: int = 0
+    done: threading.Event = field(default_factory=threading.Event)
+    imported: int = 0
+    reason: str | None = None
 
 
 class ContinuousEngine:
@@ -410,6 +444,11 @@ class ContinuousEngine:
                                      if b <= max_window)
         self.chunks_total = 0  # telemetry: intermediate chunk dispatches
         self.windows_total = 0  # telemetry: decode and verify dispatches
+        # staged KV imports: appended by HTTP threads under _lock, serviced
+        # one per scheduler pass by _step_import, swept by _fail_inflight
+        self._imports: list[_ImportTask] = []
+        self.imports_total = 0  # telemetry: serviced KV imports
+        self.imported_blocks_total = 0  # telemetry: blocks written in
         # admissions planned while a decode window is in flight
         # (host-side radix match + block alloc only), admitted at the
         # next window boundary
@@ -500,8 +539,10 @@ class ContinuousEngine:
                seed: int = 0, top_k: int = 0, top_p: float = 1.0,
                repetition_penalty: float = 1.0,
                export_kv: bool = False) -> _Request:
-        if export_kv:
-            raise ValueError(f"export_kv waits: {_WAITS['export_kv']}")
+        """Queue a request; ``export_kv`` captures its committed full
+        prompt blocks after the admit (``req.kv_export``), and with
+        ``max_new_tokens=0`` the request retires right there, nothing
+        generated (the prefill replica's role)."""
         if not prompt:
             raise ValueError("empty prompt")
         if not self.fits(len(prompt), max_new_tokens):
@@ -511,7 +552,8 @@ class ContinuousEngine:
                 f"capacity ({self.cache_len})")
         req = _Request(list(prompt), max_new_tokens, eos_id,
                        temperature=temperature, top_k=top_k, top_p=top_p,
-                       rep_penalty=repetition_penalty, seed=seed)
+                       rep_penalty=repetition_penalty, seed=seed,
+                       export_kv=export_kv)
         req.t_submit = time.perf_counter()
         self._queue.put(req)
         return req
@@ -549,8 +591,133 @@ class ContinuousEngine:
     def drain(self) -> None:
         raise ValueError(f"drain waits: {_WAITS['drain']}")
 
-    def import_prefix(self, *args, **kwargs) -> None:
-        raise ValueError(f"import_prefix waits: {_WAITS['import_prefix']}")
+    def import_prefix(self, tokens: list[int], pages_k, pages_v,
+                      timeout_s: float = 10.0, scales_k=None, scales_v=None,
+                      kv_dtype: str = "bf16",
+                      start_block: int = 0) -> tuple[int, str | None]:
+        """Land a remotely prefilled prefix in the local pool + radix
+        cache. Callable from any thread: the write is staged for the
+        scheduler thread and this call waits for it. Returns
+        ``(blocks_imported, reason)``; reason is None on success, else a
+        low-cardinality fallback label. Never raises: a failure here only
+        means the request prefills locally (token-identical).
+
+        ``tokens`` must cover exactly the imported full blocks and
+        ``pages_k``/``pages_v`` be ``[L, n, block_size, n_kv, D]`` CPU
+        tensors in the pool's dtype (as ``disagg.wire.decode_payload``
+        gives them). ``start_block`` supports chunked imports (wire v3):
+        the pages cover blocks ``[start_block, start_block + n)`` of
+        ``tokens`` and the first ``start_block`` blocks must already be in
+        the radix cache, else ``missing_prefix``."""
+        if start_block < 0:
+            return 0, "shape_mismatch"
+        if kv_dtype != self.kv_dtype:
+            # an int8 page without its scales, or bf16 pages an int8 pool
+            # would have to requantize blind: rejected before staging
+            return 0, "kv_dtype_mismatch"
+        if pages_k.ndim != 5 or pages_k.shape != pages_v.shape:
+            return 0, "shape_mismatch"
+        n = int(pages_k.shape[1])
+        if n == 0 or start_block + n > self.max_blocks or \
+                len(tokens) != (start_block + n) * self.block_size:
+            return 0, "shape_mismatch"
+        if kv_dtype == "int8":
+            want_s = (pages_k.shape[0], n, pages_k.shape[3])
+            if (scales_k is None or scales_v is None
+                    or tuple(scales_k.shape) != want_s
+                    or tuple(scales_v.shape) != want_s):
+                return 0, "shape_mismatch"
+        if self._stop.is_set() or self._thread is None:
+            return 0, "stopped"
+        task = _ImportTask(list(tokens), pages_k, pages_v, scales_k=scales_k,
+                           scales_v=scales_v, start_block=start_block)
+        with self._lock:
+            self._imports.append(task)
+        if not task.done.wait(timeout_s):
+            # the scheduler may still service the task later: that only
+            # warms the trie; the caller prefills locally
+            return 0, "timeout"
+        return task.imported, task.reason
+
+    def _step_import(self) -> None:
+        """Service at most ONE staged import per scheduler pass: alloc ->
+        write -> trie insert -> drop our alloc hold, leaving the imported
+        blocks at trie-only refcount, as a parked prefix (LRU-evictable).
+        Spans already cached keep the existing trie nodes and our
+        duplicate fresh blocks free right back (dedup by construction).
+        The pages cross to the card in one copy per side, in the pool's
+        dtype, and are written into the n fresh blocks in place."""
+        with self._lock:
+            task = self._imports.pop(0) if self._imports else None
+        if task is None:
+            return
+        st = self._state
+        n = int(task.pages_k.shape[1])
+        L = len(st.caches_k)
+        _nb, bs, n_kv, D = st.caches_k[0].shape
+        want = (L, n, bs, n_kv, D)
+        pool_dt = st.caches_k[0].dtype
+        reason = None
+        if task.pages_k.dtype != pool_dt or task.pages_v.dtype != pool_dt:
+            # a fleet mixing kv_dtype configurations, which the wire's
+            # version negotiation should have caught upstream
+            reason = "kv_dtype_mismatch"
+        elif tuple(task.pages_k.shape) != want or \
+                tuple(task.pages_v.shape) != want:
+            reason = "shape_mismatch"
+        if reason is not None:
+            task.reason = reason
+            task.done.set()
+            return
+        start = task.start_block
+        with self._lock:
+            shared: list[int] = []
+            if start:
+                # a chunk stacks on the blocks earlier chunks inserted;
+                # fewer matches than start_block means the base was
+                # evicted between chunks: reject rather than cache a
+                # chain with a hole
+                matched = self._radix.match(task.tokens[: start * bs])
+                if len(matched) < start:
+                    if matched:
+                        self._pool.unref(matched)
+                    task.reason = "missing_prefix"
+                    task.done.set()
+                    return
+                shared = matched[:start]
+                if len(matched) > start:
+                    self._pool.unref(matched[start:])
+            if not self._radix.ensure_free(n):
+                if shared:
+                    self._pool.unref(shared)
+                task.reason = "backpressure"
+                task.done.set()
+                return
+            fresh = self._pool.alloc(n)
+        dev = self.device
+        idx = torch.tensor(fresh, dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            pk = task.pages_k.to(dev)
+            pv = task.pages_v.to(dev)
+            if st.quantized:
+                st.q8_pages[0][:, idx] = pk  # in place; the views follow
+                st.q8_pages[1][:, idx] = pv
+                st.q8_scales[0][:, idx] = task.scales_k.to(dev, torch.float32)
+                st.q8_scales[1][:, idx] = task.scales_v.to(dev, torch.float32)
+            else:
+                for l in range(L):
+                    st.caches_k[l][idx] = pk[l]  # in place
+                    st.caches_v[l][idx] = pv[l]
+        with self._lock:
+            # the insert covers the WHOLE chain so far (shared base + this
+            # chunk); the trie takes its own reference per new node and
+            # our holds return here
+            self._radix.insert(task.tokens, shared + fresh)
+            self._pool.unref(shared + fresh)
+        self.imports_total += 1
+        self.imported_blocks_total += n
+        task.imported = n
+        task.done.set()
 
     def kv_cache_stats(self) -> dict:
         """Pool occupancy plus the radix cache's counters."""
@@ -565,7 +732,8 @@ class ContinuousEngine:
         """Scheduler counters (lockless reads): prefill chunks, the chunk
         queue's depth, decode and verify dispatches, the draft groups'
         served requests and accepted drafts, and the verify route's
-        proposed / accepted draft tokens and rollbacks."""
+        proposed / accepted draft tokens and rollbacks, and the serviced
+        KV imports and their blocks."""
         return {
             "chunks": self.chunks_total,
             "chunk_queue": len(self._prefills),
@@ -575,6 +743,9 @@ class ContinuousEngine:
             "spec_draft_tokens": self.spec_draft_tokens,
             "spec_accepted_tokens": self.spec_accepted_tokens,
             "spec_rollbacks": self.spec_rollbacks,
+            # disaggregated prefill: serviced imports / blocks landed
+            "kv_imports": self.imports_total,
+            "kv_imported_blocks": self.imported_blocks_total,
         }
 
     def prewarm_spec(self, group_sizes: tuple[int, ...] = (1,),
@@ -632,6 +803,9 @@ class ContinuousEngine:
             held = list(self._holdover)
             self._holdover.clear()
             staged, self._staged = self._staged, []
+            # staged imports hold no pool references yet (the alloc is in
+            # _step_import): releasing their waiters is the whole cleanup
+            imports, self._imports = self._imports, []
             self._prefills.clear()
             group, self._spec_group = self._spec_group, None
             for slot, req in enumerate(self._slot_req):
@@ -651,6 +825,9 @@ class ContinuousEngine:
             for req in group[0]:
                 req.failed = "engine stopped mid-generation"
                 req.done.set()
+        for task in imports:
+            task.reason = "stopped"
+            task.done.set()
 
     # -- scheduler --------------------------------------------------------
 
@@ -832,7 +1009,11 @@ class ContinuousEngine:
         # fresh ones included (the partial tail block stays private)
         if full:
             self._radix.insert(tokens, [int(b) for b in task.table_row[:full]])
-        # admission boundary: the first token reaches the request now
+        if req.export_kv and full:
+            self._capture_export(req, tokens, table_row[:full])
+        # admission boundary: the first token reaches the request now; in
+        # prefill-only mode (max_new == 0, the export role) it is dropped:
+        # the decode replica resamples it from the same distribution
         first = int(self._state.last_token[slot])
         now = time.perf_counter()
         if req.max_new > 0:
@@ -841,6 +1022,38 @@ class ContinuousEngine:
         if not req.t_first:
             req.t_first = now
         self._maybe_retire(slot)
+
+    def _capture_export(self, req: _Request, tokens: list[int],
+                        idx: torch.Tensor) -> None:
+        """Capture the committed full-block pages ``idx`` of an admit for
+        export (scheduler thread, right after the trie insert): gathered
+        on the device, one device-to-host copy per side (the int8 pool's
+        pages and scales of both sides in one gather each). The partial
+        tail block never leaves. The fingerprints come out of the trie
+        walk, the very chain importers recompute."""
+        st = self._state
+        with torch.inference_mode():
+            if st.quantized:
+                pages = st.q8_pages[:, :, idx].cpu()
+                scales = st.q8_scales[:, :, idx].cpu()
+                pages_k, pages_v = pages[0], pages[1]
+            else:
+                pages_k = torch.stack([ck[idx] for ck in st.caches_k]).cpu()
+                pages_v = torch.stack([cv[idx] for cv in st.caches_v]).cpu()
+        pairs = self._radix.match_with_fingerprints(
+            tokens[: len(idx) * self.block_size])
+        # the walk refs its matches; the slot already holds these blocks
+        self._pool.unref([b for b, _ in pairs])
+        req.kv_export = {
+            "pages_k": pages_k,
+            "pages_v": pages_v,
+            "fingerprints": [fp for _, fp in pairs],
+            "block_size": self.block_size,
+            "kv_dtype": self.kv_dtype,
+        }
+        if st.quantized:
+            req.kv_export["scales_k"] = scales[0]
+            req.kv_export["scales_v"] = scales[1]
 
     def _maybe_retire(self, slot: int) -> None:
         req = self._slot_req[slot]
@@ -875,6 +1088,8 @@ class ContinuousEngine:
             group_free = self._spec_group is None
         return (self.speculative is not None and self.spec_draft is None
                 and group_free and not req.out_tokens
+                # a draft group has no paged pool to export from
+                and not req.export_kv
                 and req.rep_penalty == 1.0
                 and self.speculative.fits(len(req.prompt), req.max_new))
 
@@ -1107,6 +1322,10 @@ class ContinuousEngine:
 
     def _loop(self) -> None:
         while not self._stop.is_set():
+            # staged KV imports first (at most one per pass), idle or not:
+            # an import usually precedes the request that wants its
+            # blocks, whose admit then finds them warm
+            self._step_import()
             with self._lock:
                 busy = any(r is not None for r in self._slot_req)
                 idle = not busy and self._spec_group is None

@@ -14,11 +14,26 @@ the batcher owns them through its draft groups, or, with
 windows). Prompts are token ids (no tokenizer). Routes whose engines
 wait answer 400 with the reason.
 
+Disaggregated prefill and decode, as in the reference: a request with
+``max_tokens=0`` (the prefill replica's role) prefills through the
+continuous batcher's admit, and its committed full-block pages wait in
+an export cache as one wire blob (``disagg.wire``), served by ``GET
+/kv/blocks?fp=<deepest prefix fingerprint>``. A request annotated with
+``kubeinfer_kv_source`` (the decode replica's role) first pulls that
+blob from the named replica, verifies it and stages the pages into its
+pool, then admits warm; every failure falls back to a local prefill and
+counts its reason (``disagg_fallbacks``).
+
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
         --kv-dtype int8 --weight-dtype int8
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
         --draft-model llama-3-8b --speculative-draft --speculation-depth 4
+    # two replicas: POST {"prompt": [...], "max_tokens": 0} to :8001, then
+    # the same prompt with "kubeinfer_kv_source": "http://127.0.0.1:8001"
+    # (and max_tokens > 0) to :8002
+    python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8001
+    python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8002
 
 ``main(argv, device="cpu")`` runs the same server on the CPU (a
 rehearsal with ``--model tiny``).
@@ -27,12 +42,14 @@ rehearsal with ``--model tiny``).
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import logging
 import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 
 import torch
 
@@ -43,15 +60,13 @@ log = logging.getLogger(__name__)
 _WAITING_BODY = {
     "kubeinfer_resume": "live-session resume waits: ROADMAP Queue 1, "
                         "preemption, drain and migration",
-    "kubeinfer_kv_source": "KV import waits: ROADMAP Queue 1, disagg "
-                           "import/export",
 }
 
 
 class InferenceServer:
     def __init__(self, engine, model_id: str, host: str = "127.0.0.1",
                  port: int = 8000, continuous=None, speculative=None,
-                 device=None) -> None:
+                 device=None, kv_export_budget_mb: float = 0.0) -> None:
         self.device = resolve_device(device)
         for e in (engine, continuous, speculative):
             if e is not None and e.device != self.device:
@@ -61,6 +76,31 @@ class InferenceServer:
         self.continuous = continuous  # ContinuousEngine | None
         self.speculative = speculative  # SpeculativeEngine | None
         self.model_id = model_id
+        # disaggregated-prefill export staging: prefill-only completions
+        # park their wire-encoded KV here, keyed by the deepest prefix
+        # fingerprint, until a decode replica pulls it from /kv/blocks.
+        # Only with a continuous engine (its paged pool is what exports);
+        # --kv-export-budget-mb bounds it in bytes too (0 = entries only)
+        self.kv_exports = None
+        if continuous is not None:
+            from kubeinfer_tpu_torch.disagg.export import KVExportCache
+
+            self.kv_exports = KVExportCache(
+                max_bytes=(int(kv_export_budget_mb * (1 << 20))
+                           if kv_export_budget_mb > 0 else None))
+        # the transfer plane seen from both ends, per direction ("export":
+        # blobs served at /kv/blocks; "import": prefixes landed through
+        # import_prefix): blocks, wire bytes, and the seconds of the
+        # latest operations (export: serving the blob; import: fetch +
+        # verify + staged write); fallbacks to local prefill by reason.
+        # The export cache's evictions are ``kv_exports.stats()
+        # ["evictions"]``.
+        self.kv_stream_blocks: collections.Counter = collections.Counter()
+        self.kv_stream_bytes: collections.Counter = collections.Counter()
+        self.kv_stream_seconds = {
+            d: collections.deque(maxlen=1024) for d in ("export", "import")}
+        self.disagg_fallbacks: collections.Counter = collections.Counter()
+        self._kv_lock = threading.Lock()
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -69,8 +109,8 @@ class InferenceServer:
             def log_message(self, fmt, *args):  # no per-request stderr
                 return
 
-            def respond(self, code: int, ctype: str, body: str) -> None:
-                data = body.encode()
+            def respond(self, code: int, ctype: str, body) -> None:
+                data = body.encode() if isinstance(body, str) else body
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
@@ -87,8 +127,42 @@ class InferenceServer:
                         "data": [{"id": server.model_id, "object": "model",
                                   "owned_by": "kubeinfer-tpu"}],
                     }))
+                elif path == "/kv/blocks":
+                    self.kv_blocks()
                 else:
                     self.respond(404, "text/plain", "not found\n")
+
+            def kv_blocks(self):
+                """One exported prefix by content address (its deepest
+                rolling fingerprint); self-verifying on the wire."""
+                q = parse_qs(urlparse(self.path).query)
+                try:
+                    fp = int((q.get("fp") or [""])[0])
+                except ValueError:
+                    self.respond(400, "application/json", json.dumps(
+                        {"error": "fp must be an integer fingerprint"}))
+                    return
+                blob = (server.kv_exports.get(fp)
+                        if server.kv_exports is not None else None)
+                if blob is None:
+                    # evicted from the export LRU (or never made): the
+                    # importer falls back to local prefill
+                    self.respond(404, "application/json", json.dumps(
+                        {"error": "no export for fingerprint"}))
+                    return
+                try:
+                    hdr = json.loads(blob[:blob.find(b"\n")])
+                    nblocks = int(hdr.get("blocks", 0))
+                except ValueError:
+                    nblocks = 0
+                # counted BEFORE the write: the importer's next request
+                # may read the counts
+                server._count_stream("export", nblocks, len(blob))
+                t0 = time.perf_counter()
+                self.respond(200, "application/octet-stream", blob)
+                with server._kv_lock:
+                    server.kv_stream_seconds["export"].append(
+                        time.perf_counter() - t0)
 
             def do_POST(self):
                 path = self.path.split("?", 1)[0]
@@ -139,9 +213,9 @@ class InferenceServer:
         if not isinstance(body, dict):
             raise ValueError("request body must be a JSON object")
         t0 = time.perf_counter()
-        route, gen, req = self._complete(body)
+        route, gen, req, more = self._complete(body)
         ext = {"route": route,
-               "latency_ms": (time.perf_counter() - t0) * 1e3}
+               "latency_ms": (time.perf_counter() - t0) * 1e3, **more}
         if req is not None:
             ext["ttft_ms"] = (req.t_first - req.t_submit) * 1e3
             if self.continuous.spec_draft is not None:
@@ -194,12 +268,19 @@ class InferenceServer:
         for key, reason in _WAITING_BODY.items():
             if body.get(key) is not None:
                 raise ValueError(reason)
-        if max_tokens == 0:
-            raise ValueError(
-                "max_tokens=0 (prefill-only, the disaggregated prefill "
-                "role) waits: ROADMAP Queue 1, disagg import/export")
         kw = dict(eos_id=eos_id, temperature=temperature, seed=seed,
                   top_k=top_k, top_p=top_p, repetition_penalty=rep_penalty)
+        # the decode side: pull the prefill replica's KV into the local
+        # pool BEFORE routing, so the continuous admit below finds it warm
+        # (this HTTP thread holds no engine lock; the write is staged to
+        # the scheduler thread)
+        kv_source = body.get("kubeinfer_kv_source")
+        if (isinstance(kv_source, str) and kv_source and max_tokens > 0
+                and self.continuous is not None
+                and self.continuous.fits(len(ids), max_tokens)):
+            self._maybe_import_prefix(ids, kv_source)
+        if max_tokens == 0:
+            return self._prefill_only(ids, kw)
         if (self.speculative is not None and rep_penalty == 1.0
                 and self.speculative.fits(len(ids), max_tokens)
                 # a batcher with a speculative engine owns the draft-
@@ -211,13 +292,83 @@ class InferenceServer:
             out = self.speculative.generate([ids], max_new_tokens=max_tokens,
                                             **kw)
             return "speculative", out.tokens[0, : out.lengths[0]].tolist(), \
-                None
+                None, {}
         if self.continuous is not None and self.continuous.fits(
                 len(ids), max_tokens):
             req = self.continuous.serve(ids, max_new_tokens=max_tokens, **kw)
-            return "continuous", list(req.out_tokens), req
+            return "continuous", list(req.out_tokens), req, {}
         out = self.engine.generate([ids], max_new_tokens=max_tokens, **kw)
-        return "engine", out.tokens[0, : out.lengths[0]].tolist(), None
+        return "engine", out.tokens[0, : out.lengths[0]].tolist(), None, {}
+
+    def _prefill_only(self, ids: list[int], kw: dict):
+        """``max_tokens=0``, the prefill replica's role, outranking every
+        other route (only the paged pool exports): the prompt runs through
+        the continuous batcher's ordinary admit, and its committed pages
+        are wire-encoded into the export cache."""
+        if not (self.continuous is not None
+                and self.continuous.fits(len(ids), 0)):
+            raise ValueError(
+                "max_tokens=0 (prefill-only) requires the continuous "
+                "batcher and a prompt that fits its cache")
+        from kubeinfer_tpu_torch.disagg.wire import WireError, encode_payload
+
+        req = self.continuous.serve(ids, max_new_tokens=0, export_kv=True,
+                                    **kw)
+        more = {}
+        exp = req.kv_export
+        if exp is not None and self.kv_exports is not None:
+            try:
+                blob = encode_payload(
+                    exp["pages_k"], exp["pages_v"], exp["fingerprints"],
+                    exp["block_size"], scales_k=exp.get("scales_k"),
+                    scales_v=exp.get("scales_v"),
+                    kv_dtype=exp.get("kv_dtype", "bf16"))
+            except WireError:
+                # the importer falls back to a local prefill: latency,
+                # not correctness
+                log.exception("kv export encode failed; skipping")
+            else:
+                fp = exp["fingerprints"][-1]
+                self.kv_exports.put(fp, blob)
+                more = {"kv_export": {"fingerprint": int(fp),
+                                      "blocks": len(exp["fingerprints"]),
+                                      "bytes": len(blob)}}
+        return "prefill", [], req, more
+
+    def _count_stream(self, direction: str, blocks: int, nbytes: int,
+                      seconds: float | None = None) -> None:
+        with self._kv_lock:
+            self.kv_stream_blocks[direction] += blocks
+            self.kv_stream_bytes[direction] += nbytes
+            if seconds is not None:
+                self.kv_stream_seconds[direction].append(seconds)
+
+    def _maybe_import_prefix(self, ids: list[int], base_url: str) -> None:
+        """Pull this prompt's exported KV prefix from ``base_url`` into
+        the local pool + radix cache. Best-effort: every failure counts a
+        fallback reason and the request prefills locally (token-
+        identical). A prompt whose deepest fingerprint the engine already
+        advertises (an earlier import or admit) is not fetched again."""
+        from kubeinfer_tpu_torch.disagg.client import import_remote_prefix
+        from kubeinfer_tpu_torch.inference.kv_blocks import (
+            prefix_fingerprints,
+        )
+
+        eng = self.continuous
+        fps = prefix_fingerprints(ids, eng.block_size)
+        if not fps:
+            return  # sub-block prompt: nothing a prefill replica can ship
+        if fps[-1] in set(eng.cache_summary().get("fingerprints", [])):
+            return  # already warm locally
+        t0 = time.perf_counter()
+        imported, reason, wire_bytes = import_remote_prefix(
+            eng, ids, base_url)
+        if imported > 0:
+            self._count_stream("import", imported, wire_bytes,
+                               time.perf_counter() - t0)
+        else:
+            with self._kv_lock:
+                self.disagg_fallbacks[reason or "unknown"] += 1
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -241,7 +392,6 @@ _WAITING_FLAGS = {
     "sequence_parallel_size": (1, "slice 6: sp_engine.py + ring_attention.py"),
     "sp_min_prompt": (1024, "slice 6: sp_engine.py + ring_attention.py"),
     "migration_chunk_blocks": (4, "preemption, drain and migration"),
-    "kv_export_budget_mb": (0.0, "disagg import/export"),
     "queue_depth_limit": (0, "preemption, drain and migration (load "
                              "shedding)"),
     "preemption_slo": ("", "preemption, drain and migration"),
@@ -293,6 +443,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prewarm-spec", default="",
                    help="comma-separated draft-group sizes to run once "
                         "before serving (e.g. '1,2,4')")
+    p.add_argument("--kv-export-budget-mb", type=float, default=0.0,
+                   help="byte budget of the KV export cache served at "
+                        "/kv/blocks (0 = bounded by entry count only)")
     # accepted and unused, as in the reference (vLLM flag parity)
     p.add_argument("--gpu-memory-utilization", type=float, default=0.9)
     for name, (default, _entry) in _WAITING_FLAGS.items():
@@ -379,7 +532,8 @@ def build_server(argv: list[str] | None = None, device=None):
                      time.monotonic() - t0)
     srv = InferenceServer(engine, model_id=args.model, host=args.host,
                           port=args.port, continuous=continuous,
-                          speculative=speculative, device=dev)
+                          speculative=speculative, device=dev,
+                          kv_export_budget_mb=args.kv_export_budget_mb)
     return srv, continuous
 
 

@@ -216,14 +216,15 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import kubeinfer_tpu_torch.api, kubeinfer_tpu_torch.controller, "
         "kubeinfer_tpu_torch.controlplane.httpstore, "
         "kubeinfer_tpu_torch.controlplane.replica, "
-        "kubeinfer_tpu_torch.coordination, kubeinfer_tpu_torch.manager, "
+        "kubeinfer_tpu_torch.coordination, kubeinfer_tpu_torch.disagg, "
+        "kubeinfer_tpu_torch.manager, "
         "kubeinfer_tpu_torch.manager.__main__, kubeinfer_tpu_torch.metrics, "
         "kubeinfer_tpu_torch.observability, "
         "kubeinfer_tpu_torch.resilience.faultpoints, "
         "kubeinfer_tpu_torch.router.scoring, kubeinfer_tpu_torch.utils, "
         "kubeinfer_tpu_torch.utils.httpbase\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'kubeinfer_tpu')]\n"
+        "('jax', 'jaxlib', 'kubeinfer_tpu', 'ml_dtypes')]\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run(
@@ -248,6 +249,6 @@ def _imported_names(path: pathlib.Path):
 def test_source_imports_stay_in_the_port(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "kubeinfer_tpu"), (
+        assert top not in ("jax", "jaxlib", "kubeinfer_tpu", "ml_dtypes"), (
             f"{path.name} imports {name}"
         )

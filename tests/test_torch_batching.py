@@ -152,11 +152,8 @@ def test_waiting_features_raise(params):
         with pytest.raises(ValueError, match=name):
             TC(tp, TP["tiny"], cache_len=64, device="cpu", **kw)
     eng = TC(tp, TP["tiny"], n_slots=2, cache_len=64, device="cpu")
-    for fn in (eng.drain, eng.import_prefix):
-        with pytest.raises(ValueError, match="waits"):
-            fn()
-    with pytest.raises(ValueError, match="export_kv"):
-        eng.serve([1, 2], 2, export_kv=True)
+    with pytest.raises(ValueError, match="waits"):
+        eng.drain()
     assert not eng.fits(60, 10) and eng.fits(10, 10)
 
 

@@ -75,9 +75,9 @@ def test_routes_return_their_engines_tokens(served, kw):
 
 
 @pytest.mark.parametrize("body,msg", [
-    (dict(prompt=[1, 2], max_tokens=0), "prefill-only"),
+    # prefill-only needs a prompt the 64-wide slots can take
+    (dict(prompt=list(range(1, 71)), max_tokens=0), "prefill-only"),
     (dict(prompt=[1, 2], kubeinfer_resume={"tokens": [3]}), "resume"),
-    (dict(prompt=[1, 2], kubeinfer_kv_source="http://x"), "KV import"),
     (dict(prompt="hello"), "tokenizer"),
     (dict(prompt=[1, 2], top_p=0.0), "top_p"),
     (dict(max_tokens=3), "prompt"),
@@ -86,6 +86,31 @@ def test_waiting_and_invalid_bodies_answer_400(served, body, msg):
     srv, *_ = served
     code, text = call(srv, "/v1/completions", body)
     assert code == 400 and msg in json.loads(text)["error"]["message"]
+
+
+def test_unreachable_kv_source_falls_back_locally(served):
+    """A ``kubeinfer_kv_source`` that does not answer: the request
+    prefills locally on the continuous route, with the engine's own
+    tokens, and the fallback is counted by its reason (blocks of 16 here,
+    so the prompt has full blocks to fetch)."""
+    _srv, engine, _cont = served
+    cont = ContinuousEngine(engine.params, CFG, n_slots=2, cache_len=64,
+                            block_size=16, device="cpu").start()
+    srv = ts.InferenceServer(engine, "tiny", port=0, continuous=cont,
+                             device="cpu").start()
+    try:
+        prompt = list(range(3, 40))  # two full blocks of 16
+        code, body = call(srv, "/v1/completions", dict(
+            prompt=prompt, max_tokens=4,
+            kubeinfer_kv_source="http://127.0.0.1:9"))
+        resp = json.loads(body)
+        assert code == 200 and resp["kubeinfer"]["route"] == "continuous"
+        assert resp["choices"][0]["tokens"] == cont.generate(prompt, 4)
+        assert dict(srv.disagg_fallbacks) == {"fetch_error": 1}
+        assert cont.imports_total == 0
+    finally:
+        srv.stop()
+        cont.stop()
 
 
 @pytest.mark.parametrize("flags,msg", [
