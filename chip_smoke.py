@@ -167,9 +167,9 @@ times them. Phases:
       against bf16 and #15's share of each profile, #12 as #10 and #11 in
       (16), and #15 at M = 8, 40, 512 and 2048 on the gate and down
       projections and on the path's heaviest call: device time, the
-      wrapper's host us, the first kernel (quant_matmul.cu) on the same
-      call, the bound, the plain version, torch._weight_int8pack_mm and
-      torch.matmul on the pre-dequantized weight;
+      wrapper's host us, the bound, the plain version,
+      torch._weight_int8pack_mm and torch.matmul on the pre-dequantized
+      weight;
   (21) the training step at full width and depth: ``train.train_step``
       on llama-3-8b (bf16 init_params(seed=0), the int8 server freed
       first) over seeded tokens [1, 2049] (T = S = 2048, the flash
@@ -203,8 +203,9 @@ times them. Phases:
       card (#9b on the CUDA-core route) against device="cpu" (dense);
   (25) verify windows at 8 slots: (a) a library ContinuousEngine whose
       draft is the target itself (acceptance near 1), (b) the server with
-      ``--draft-model llama-3-8b --speculative-draft`` (a seed-1 draft:
-      every window rolls back) over HTTP; #11 at T = 5 and #10 on the
+      ``--draft-model llama-3-8b --speculative-draft`` at SPEC_INT8_LAYERS
+      layers (a seed-1 draft: every window rolls back) over HTTP, the
+      plain engine's streams on its weights; #11 at T = 5 and #10 on the
       draft steps against their plain versions on every call (the
       split-K kernel's live splits equal to decode_split_walk's), one
       host sync per verify window; greedy streams equal to the plain
@@ -216,8 +217,8 @@ times them. Phases:
       forward's argmax; the verify counters against the emitted
       lengths; then 1 layer in f32 with blocks of 128 and a bigram
       draft, card (#11 launched) against the CPU (dense): equal streams
-      and counters; (25c) full width and depth in f32, the plain engine, a
-      self draft and a bigram draft: every speculative token within
+      and counters; (25c) full width in f32 at SPEC_INT8_LAYERS layers,
+      the plain engine, a self draft and a bigram draft: every speculative token within
       2**-10 of a teacher-forced f32 forward's argmax on its own prefix,
       the streams equal to the plain engine's up to such a tie;
   (26) the same server without ``--speculative-draft``: four sampled
@@ -253,6 +254,36 @@ times them. Phases:
       export capture, encode_payload, fetch + verify and staged import
       ms, wire bytes and the decode replica's TTFT after the import. The
       kernels line's #11, #12 and #15 entries gain ``disagg_launches``;
+  (31) preemption, drain and live-session migration. (31b), before (30a)'s
+      decode replica stops: a 600-token greedy and a 600-token sampled
+      session (80 new each) on the server of (13); once each decoded 48
+      tokens, POST /admin/drain: both complete with finish_reason
+      "migrated" after streaming their committed blocks (a 4-block v1
+      chunk, then v3) into the export cache, new work answers 503
+      draining; each resumes on the decode replica from a
+      kubeinfer_resume body with kv_source (route "resume"): the chain
+      lands bitwise the source's pool pages and counted, the whole
+      stream equals an uninterrupted run on the target up to (25)'s
+      near-tie rule (for the sampled one, the same rule on the sampler's
+      perturbed scores), a degenerate tail answers with no admit, and
+      {"resume": true} undrains the source; #11 held on every call of
+      both replicas. (31a), after (30a): a 2-slot ContinuousEngine on
+      (13)'s parameter tensors (cache 4096, blocks of 128, its 129-block
+      pool, prefill chunks of 4) under PreemptionPolicy(0.0005, 0.5, 0.5,
+      1, 1) and queue_depth_limit 5: 6 requests of 512 tokens (3 greedy,
+      3 sampled; 32 new), one more shed at the door; parks and readmits,
+      every readmit warm, #11 held on every call and counted, one host
+      sync a decode window, the streams equal to an uncontended run up
+      to the near-tie rule; (31a2) the same with the target as its own
+      draft (spec_k 4): 4 greedy requests across preemption cycles, #11
+      at T = 5 and #10 on the draft steps held on every call. (31c), on
+      the int8 server of (17) and (30b)'s decode replica: (31b) in int8
+      (wire v2 then v3, the pages and scales bitwise, #12 and #15 held on
+      every call of both replicas). Times: the readmit admit beside a
+      cold admit, request latency under preemption beside uncontended,
+      the drain, each chunk pass's gather and encode, the chunk bytes, the
+      chain import and the resume's TTFT. #10, #11, #12 and #15 gain
+      ``migrate_launches`` in the kernels line;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -265,7 +296,8 @@ runs (0)-(4), (5)-(7), (9)-(12) and (29) alone (the four solver
 libraries; about a minute and a half of command), with their entries of the kernels line and the last
 line; the numbers go to chiprun_out/placement.json. ``--p50s`` prints the
 placement p50s of (4), (7) and (11) alone. ``--disagg`` runs (30a) and
-(30b) alone (chiprun_out/disagg_probe.json).
+(30b) alone (chiprun_out/disagg_probe.json); ``--migrate`` runs (31) alone
+(chiprun_out/migrate_probe.json).
 """
 
 from __future__ import annotations
@@ -994,28 +1026,6 @@ def auction_inputs(req, dev):
             p.jobs.valid)
 
 
-def old_auction(b, t, v):
-    """The two-barrier auction kernel (the state in L2), through its
-    launcher, on any field: what ``auction_plan``
-    routes past its line, and the yardstick of [11] on the fields it does
-    not. Returns ``(assigned, iterations)``."""
-    import torch
-
-    from kubeinfer_tpu_torch import _build
-
-    lib = _build.load_kernel_library("auction")
-    J, N = b.shape
-    asg = torch.empty(J, dtype=torch.int32, device=b.device)
-    iters = torch.empty(1, dtype=torch.int32, device=b.device)
-    ws = torch.zeros(4 * N + 8, dtype=torch.int32, device=b.device)
-    err = lib.auction_launch(
-        b.data_ptr(), t.data_ptr(), v.data_ptr(), asg.data_ptr(),
-        iters.data_ptr(), ws.data_ptr(), None, J, N, 512, 0.01,
-        torch.cuda.current_stream(b.device).cuda_stream)
-    check(err == 0, f"auction_launch: {lib.error_string(err)}")
-    return asg, iters[0]
-
-
 def auction_phases(dev, kernels, record, card, big=(4096, 4096),
                    wide=(1000, 24000)):
     """Phases (9)-(11): the auction kernel against its plain version, the
@@ -1183,7 +1193,6 @@ def auction_phases(dev, kernels, record, card, big=(4096, 4096),
     for label in ("1kx1k whole-node", big_label, wide_label):
         fb, ft, fv = cases[label]
         kernel = lambda: kernels.auction_solve(fb, ft, fv, 0.01, max_iters=512)
-        pr3 = lambda: old_auction(fb, ft, fv)
         c = checked[label]
         times[label] = row = {
             "device_ms": device_ms(kernel),
@@ -1191,19 +1200,12 @@ def auction_phases(dev, kernels, record, card, big=(4096, 4096),
             "host_us": host_us(kernel, reps=50),
             "iters": c["iters"], "route": c["route"],
             "bound_ms": c["bound_bytes"] / HBM_BYTES_PER_S * 1e3}
-        if c["route"] == "shared":
-            row["old_device_ms"] = device_ms(pr3)
-            row["old_event_ms"] = cuda_ms(pr3, reps=20)
         print(f"[11] {card}: auction_solve {label}, route {c['route']}: "
               f"{row['device_ms']:.4f} ms device (a CUDA graph of 20), "
               f"{row['device_ms'] * 1e3 / c['iters']:.2f} us an iteration "
               f"over {c['iters']}, {row['event_ms']:.4f} ms wall a call by "
-              f"CUDA events, host {row['host_us']:.1f} us a call"
-              + (f"; the two-barrier kernel on the same field "
-                 f"{row['old_device_ms']:.4f} ms device "
-                 f"({row['old_event_ms']:.4f} wall)"
-                 if "old_device_ms" in row else "")
-              + f"; bound {row['bound_ms']:.5f} ms (bytes)")
+              f"CUDA events, host {row['host_us']:.1f} us a call; bound "
+              f"{row['bound_ms']:.5f} ms (bytes)")
     kernel_ms = times["1kx1k whole-node"]["device_ms"]
     plain_ms = cuda_ms(
         lambda: kernels.auction_rounds(b, t, v, 0.01, max_iters=512), reps=3)
@@ -2085,10 +2087,11 @@ class CheckedAttention:
 
     ``trim`` (#11, #12: the block tables second to last, the lengths
     last) runs the plain version on the table columns the live rows reach
-    (``trimmed``): every tile past a row's length is masked, and a masked
-    tile adds exactly nothing to the row's online softmax (weights 0, a
-    rescale of 1), so the live rows' plain outputs are bitwise those of
-    the whole call. The first call holds that: the whole call's plain
+    (``trimmed``; #10: on the whole TILE_S tiles of the linear caches they
+    reach): every tile past a row's length is masked, and a masked tile
+    adds exactly nothing to the row's online softmax (weights 0, a rescale
+    of 1), so the live rows' plain outputs are bitwise those of the whole
+    call. The first call holds that: the whole call's plain
     output, bitwise the trimmed one on the live rows. A trimmed check
     that fails keeps its error and lets the path run on (the served
     request completes; the phase fails on ``error`` afterwards)."""
@@ -2156,17 +2159,23 @@ class CheckedAttention:
         import torch
 
         live = self.live(*args)
-        bs = args[1].shape[1]
-        cols = max(1, int((args[-1][live].max() + bs - 1) // bs)
-                   if bool(live.any()) else 1)
         sub = list(args)
-        sub[-2] = sub[-2][:, :cols].contiguous()
+        if self.name == "decode_attention":  # q, k, v, lengths
+            tile = min(self.fa.TILE_S, args[1].shape[1])
+            n = max(1, int((args[-1][live].max() + tile - 1) // tile)
+                    if bool(live.any()) else 1)
+            sub[1], sub[2] = args[1][:, :n * tile], args[2][:, :n * tile]
+        else:  # the block tables second to last
+            bs = args[1].shape[1]
+            cols = max(1, int((args[-1][live].max() + bs - 1) // bs)
+                       if bool(live.any()) else 1)
+            sub[-2] = sub[-2][:, :cols].contiguous()
         want = self.plain(*sub)
         if not self.trim_held:
             full = self.plain(*args)
             if not torch.equal(full[live], want[live]) and self.error is None:
-                self.error = (f"{self.name}: the plain version on {cols} "
-                              "table columns differs from the whole call's "
+                self.error = (f"{self.name}: the plain version on the "
+                              "trimmed call differs from the whole call's "
                               "on the live rows")
             self.trim_held = True
         err, ok = attn_err(got, want, live)
@@ -2579,13 +2588,24 @@ def serving_phases(dev, record, card):
         "engine_decode_busy_ms_per_token": eng_dec[1],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    # (30a) disaggregated prefill and decode, this server the prefill side
+    # (30a) disaggregated prefill and decode, this server the prefill side;
+    # (31b) drains it onto (30a)'s decode replica; (31a) preempts on its
+    # parameter tensors
+    migrate = {}
     try:
-        launches = disagg_phase(dev, record, card, srv, cont)
+        launches = disagg_phase(
+            dev, record, card, srv, cont,
+            then=lambda dec_srv, dec: migrate.update(migrate_phase(
+                dev, record, card, srv, cont, dec_srv, dec)))
+        preempt = preempt_phases(dev, record, card, cont.params, cfg,
+                                 cont.cache_len)
     finally:
         srv.stop()
         cont.stop()
     entries[2]["disagg_launches"] = launches["decode_attention_blocks"]
+    entries[1]["migrate_launches"] = preempt["decode_attention"]
+    entries[2]["migrate_launches"] = (preempt["decode_attention_blocks"]
+                                      + migrate["decode_attention_blocks"])
     return entries
 
 
@@ -2661,7 +2681,46 @@ class Timed:
             delattr(self.owner, self.name)  # the bound method shows again
 
 
-def disagg_phase(dev, record, card, pre_srv, pre):
+def attention_check(fa, int8):
+    """The stand-in that holds #11 (bf16 pool) or #12 (int8 pool) against
+    its plain version on every call, on the table columns the live rows
+    reach, with the split-K kernel's live splits counted."""
+    if int8:
+        return CheckedAttention(
+            fa, "decode_attention_blocks_q8",
+            fa.decode_attention_blocks_q8_plain, live=q8_live,
+            weight=lambda q, kp, vp, ks, vs, kt, vt, tbl, ln: (
+                int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True,
+            trim=True)
+    return CheckedAttention(
+        fa, "decode_attention_blocks", fa.decode_attention_blocks_plain,
+        live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
+                                         & (ln >= q.shape[1])),
+        weight=lambda q, kp, vp, tbl, ln: (int((tbl[:, 0] != 0).sum()),
+                                           int(ln.sum())), walk=True,
+        trim=True)
+
+
+def decode_replica(dev, pre_srv, pre):
+    """A second ContinuousEngine + InferenceServer with ``pre``'s
+    settings on its parameter tensors (its own pool), started: phase
+    (30)'s decode replica and phase (31)'s migration target."""
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+
+    dec = ContinuousEngine(
+        pre.params, pre.cfg, n_slots=pre.n_slots, cache_len=pre.cache_len,
+        block_size=pre.block_size,
+        prefill_chunk_blocks=pre.chunk_tokens // pre.block_size,
+        kv_dtype=pre.kv_dtype, weight_dtype=pre.weight_dtype,
+        device=dev).start()
+    dec_srv = server.InferenceServer(
+        pre_srv.engine, "llama-3-8b-decode", host="127.0.0.1", port=0,
+        continuous=dec, device=dev).start()
+    return dec_srv, dec
+
+
+def disagg_phase(dev, record, card, pre_srv, pre, then=None):
     """Phase (30): disaggregated prefill and decode on the server of
     (13)-(16) ("bf16") or (17)-(20) ("int8"), whose continuous engine is
     the prefill replica. A decode replica (a second ContinuousEngine +
@@ -2673,7 +2732,9 @@ def disagg_phase(dev, record, card, pre_srv, pre):
     is held against its plain version; the landed pages are bitwise the
     exporter's; the streams are bitwise those after a local prefill-only
     warm-up on a fresh engine, and equal to a cold prefill's up to a
-    near-tie ([25]'s rule). Returns the path's launch counts."""
+    near-tie ([25]'s rule). ``then(dec_srv, dec)``, if given, runs on the
+    decode replica before it stops (phase (31b)/(31c)). Returns the
+    path's launch counts."""
     import gc
 
     import torch
@@ -2713,30 +2774,13 @@ def disagg_phase(dev, record, card, pre_srv, pre):
         marks[name] = now - t_mark[0]
         t_mark[0] = now
 
-    if int8:
-        chk = CheckedAttention(
-            fa, "decode_attention_blocks_q8",
-            fa.decode_attention_blocks_q8_plain, live=q8_live,
-            weight=lambda q, kp, vp, ks, vs, kt, vt, tbl, ln: (
-                int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True,
-            trim=True)
-    else:
-        chk = CheckedAttention(
-            fa, "decode_attention_blocks", fa.decode_attention_blocks_plain,
-            live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
-                                             & (ln >= q.shape[1])),
-            weight=lambda q, kp, vp, tbl, ln: (int((tbl[:, 0] != 0).sum()),
-                                               int(ln.sum())), walk=True,
-            trim=True)
+    chk = attention_check(fa, int8)
     chk15 = CheckedMatmul(wq) if pre.weight_dtype == "int8" else None
     other = ("decode_attention_blocks" if int8
              else "decode_attention_blocks_q8")
     getattr(fa, other).launches = 0
 
-    dec = engine().start()
-    dec_srv = server.InferenceServer(
-        pre_srv.engine, "llama-3-8b-decode", host="127.0.0.1", port=0,
-        continuous=dec, device=dev).start()
+    dec_srv, dec = decode_replica(dev, pre_srv, pre)
     try:
         # the main path, every kernel call checked and counted; the two
         # requests of each replica together (a row's tokens do not depend
@@ -2843,6 +2887,9 @@ def disagg_phase(dev, record, card, pre_srv, pre):
         streamed = (dict(pre_srv.kv_stream_blocks),
                     dict(dec_srv.kv_stream_blocks))
         mark("times")
+        if then is not None:
+            then(dec_srv, dec)
+            mark("[31]")
     finally:
         dec_srv.stop()
         dec.stop()
@@ -2950,6 +2997,667 @@ def disagg_phase(dev, record, card, pre_srv, pre):
     record.setdefault("phase_s", {})[label] = time.perf_counter() - t_phase
     print(f"{label} seconds: {rounded(list(marks.values()))} "
           f"({', '.join(marks)})")
+    return launches
+
+
+# phase (31): preemption, drain and live-session migration
+PREEMPT_POLICY = dict(threshold_s=0.0005, objective=0.5, burn_limit=0.5,
+                      cooldown_steps=1, min_progress=1)
+PREEMPT_NEW = 32  # new tokens of each (31a) request
+PREEMPT_F32_LAYERS = 2  # (31a)'s f32 identity run, cut to this depth
+# the budget of each (31b)/(31c) session: the drains land at 61-62 tokens
+MIGRATE_NEW = 80
+# tokens each session decodes before the drain: 600 + 48 tokens commit 5
+# blocks of 128, so a v3 chunk follows the 4-block v1/v2 one
+MIGRATE_AT = 48
+
+
+def post_path(port, path, body, timeout=900):
+    """(status, JSON body, headers) of a POST, an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def wait_until(cond, what, timeout=300.0):
+    """Poll ``cond`` every 2 ms; the phase fails after ``timeout``."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def sampled_tie(label, got, want, prompt, kw, params, cfg, dev):
+    """A sampled bf16 stream (``got``) that leaves ``want`` (the same
+    request on another route) first at output i, held to [25]'s rule on
+    the sampler's own decision. The sampler's scores are the tempered
+    logits plus the request's gumbel noise (key fold_in(key(seed),
+    len(prompt) + i)) over the top-k kept tokens, and it may draw any of
+    those, so a position's allowance is 2 x the served forward's largest
+    error on the scores of the tokens the f32 filter keeps + GAP_ULP; the
+    envelope is the largest over both streams, all under teacher-forced
+    forwards of the same weights. Held where the two tokens' f32 scores
+    differ by no more than the envelope, or where either token lies
+    within the envelope (in logits) of the f32 filter's edge (kept, and
+    that close above the (k+1)-th largest logit; or dropped, and that
+    close below the k-th): a near-tie of the filter, which one route's
+    bf16 logits may cross. top_p stays 1 here. Returns (i, the f32 score
+    gap, the envelope)."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference import prng
+    from kubeinfer_tpu_torch.inference.engine import filter_logits
+
+    check(float(kw.get("top_p", 1.0)) == 1.0, f"{label} top_p unsupported")
+    i = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+    T, k = float(kw["temperature"]), int(kw.get("top_k", 0))
+    temp = torch.full((), T, dtype=torch.float32, device=dev)
+    envelope, rows = 0.0, None
+    for stream in (got, want):
+        l16, l32 = forced_logits(params, cfg, prompt, stream, dev)
+        n, V = l32.shape
+        keys = prng.fold_in(
+            prng.key(int(kw.get("seed", 0)), device=dev)[None].expand(n, 2),
+            len(prompt) + torch.arange(n, device=dev))
+        noise = prng.gumbel(keys, (V,))
+        keep = torch.isfinite(filter_logits(l32 / temp, k, 1.0))
+        err = torch.where(keep, (l16 - l32).abs() / temp, 0.0)
+        envelope = max(envelope, 2 * float(err.amax()) + GAP_ULP)
+        if rows is None:  # the shared prefix: row i is the same in both
+            rows = (l32[i], noise[i], keep[i])
+    l32, noise, keep = rows
+    x, y = got[i], want[i]
+    gap = abs(float((l32[x] - l32[y]) / temp + noise[x] - noise[y]))
+    edge = {}  # token: its f32 logit's distance from the filter's edge
+    if k >= 1:
+        top = l32.topk(k + 1).values
+        for t in (x, y):
+            edge[t] = float(l32[t] - top[k] if keep[t] else top[k - 1]
+                            - l32[t])
+    held = gap <= envelope or any(d <= envelope * T for d in edge.values())
+    print(f"{label} sampled divergence at output {i}: the two tokens' f32 "
+          f"scores differ by {gap:.5f}, the largest allowance of the two "
+          f"streams {envelope:.5f}; their f32 logits' distance from the "
+          f"top-{k} edge (kept above the (k+1)-th, dropped below the k-th) "
+          f"{ {t: round(d, 5) for t, d in edge.items()} }, kept "
+          f"{[bool(keep[t]) for t in (x, y)]}")
+    check(held, f"{label} a sampled stream leaves the other route's where "
+          f"the sampler's f32 decision is not within the bf16 model's error")
+    return i, gap, envelope
+
+
+def held_pairs(label, got, want, jobs, params, cfg, dev):
+    """Each stream of ``got`` equal to the same request's in ``want`` (the
+    same budget), or leaving it first at a near-tie: [25]'s rule for a
+    greedy stream (``held_streams``), ``sampled_tie`` for a sampled one.
+    Only the pairs that differ run the teacher-forced f32 forward.
+    Returns the divergences as (request, output index)."""
+    divs = []
+    for n, (g, w, (p, kw)) in enumerate(zip(got, want, jobs)):
+        check(len(g) == len(w), f"{label} request {n}: {len(g)} tokens "
+              f"against {len(w)}")
+        if g == w:
+            continue
+        if kw.get("temperature", 0.0) > 0:
+            sampled_tie(f"{label} request {n}:", g, w, p, kw, params, cfg,
+                        dev)
+        else:
+            held_streams(f"{label} request {n}:", [g], [w], [p], params,
+                         cfg, dev)
+        divs.append((n, next(j for j, (x, y) in enumerate(zip(g, w))
+                             if x != y)))
+    return divs
+
+
+def preempt_phases(dev, record, card, params, cfg, cache_len):
+    """Phase (31a) and (31a2): SLO-aware preemption at full width and depth
+    on (13)'s parameter tensors: a 2-slot ContinuousEngine (``cache_len``,
+    blocks of 128, its default pool, prefill chunks of 4 blocks) under the
+    reference tests' aggressive policy, with a queue depth limit of 5.
+    (a): 6 requests of 512 tokens (3 greedy, 3 sampled), 32 new each,
+    while one more is shed at the door; parks and readmits counted, every
+    readmit warm, #11 held on every call, one host sync a decode window,
+    every stream equal to an uncontended run on the same engine class or
+    leaving it at a near-tie; the same at PREEMPT_F32_LAYERS layers in f32
+    (#11 on CUDA cores), every stream EQUAL. (a2): the same engine with the
+    target as its own draft (spec_k 4): 4 greedy requests through verify
+    windows across preemption cycles, #11 at T = 5 and #10 on the draft
+    steps held on every call. Returns the launch counts of #10 and #11."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference.batching import (
+        ContinuousEngine,
+        EngineOverloadedError,
+        PreemptionPolicy,
+    )
+    from kubeinfer_tpu_torch.inference.model import init_params
+    from kubeinfer_tpu_torch.inference.stepper import RowFlags, decode_window
+
+    t_phase = time.perf_counter()
+    marks = {}
+    t_mark = [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    V, layers = cfg.vocab_size, cfg.num_hidden_layers
+    rng = np.random.default_rng(31)
+    jobs = [(rng.integers(1, V, 512).tolist(), {}) for _ in range(3)]
+    jobs += [(rng.integers(1, V, 512).tolist(),
+              dict(temperature=0.9, top_k=11, seed=s))
+             for s in (100, 101, 102)]
+    jobs_a2 = jobs[:3] + [(rng.integers(1, V, 512).tolist(), {})]
+    pol = PreemptionPolicy(**PREEMPT_POLICY)
+
+    def engine(p=params, c=cfg, n_slots=2, **kw):
+        return ContinuousEngine(p, c, n_slots=n_slots, cache_len=cache_len,
+                                prefill_chunk_blocks=4, device=dev, **kw)
+
+    def latency_ms(r):
+        return (r.token_times[-1] - r.t_submit) * 1e3
+
+    def uncontended(p, c, todo):
+        """Every request at once on a slot of its own: nobody waits."""
+        ref = engine(p, c, n_slots=len(todo)).start()
+        try:
+            reqs = in_threads(lambda j: ref.serve(
+                j[0], PREEMPT_NEW, timeout=900, **j[1]), todo)
+        finally:
+            ref.stop()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        return [r.out_tokens for r in reqs], [latency_ms(r) for r in reqs]
+
+    plain, plain_ms = uncontended(params, cfg, jobs + jobs_a2[3:])
+    mark("uncontended")
+
+    # (a) under the policy; a sixth waiting request is shed
+    eng = engine(preemption=pol, queue_depth_limit=5)
+    check(eng._pool.num_blocks == 1 + 4 * eng.max_blocks,
+          f"[31a] pool of {eng._pool.num_blocks} blocks")
+    admits = []  # (readmit?, reused blocks, ms) of every finalized admit
+    finalize = eng._finalize_admit
+
+    def logged(task):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finalize(task)
+        torch.cuda.synchronize()
+        admits.append((task.resumed, task.reuse,
+                       (time.perf_counter() - t0) * 1e3))
+
+    eng._finalize_admit = logged
+
+    def contended(eng):
+        """Five requests queued before the scheduler starts, a sixth shed
+        at the door, then let in once both slots are busy."""
+        reqs = [eng.submit(p, PREEMPT_NEW, **kw) for p, kw in jobs[:5]]
+        shed = None
+        try:
+            eng.submit(jobs[5][0], PREEMPT_NEW, **jobs[5][1])
+        except EngineOverloadedError as e:
+            shed = e
+        check(shed is not None and shed.request.failed == "shed"
+              and shed.request.done.is_set() and shed.retry_after_s > 0,
+              f"[31a] a request past 5 waiting was not shed: {shed!r}")
+        eng.start()
+        wait_until(lambda: all(r is not None for r in eng._slot_req),
+                   "[31a] both slots busy")
+        reqs.append(eng.submit(jobs[5][0], PREEMPT_NEW, **jobs[5][1]))
+        for r in reqs:
+            check(r.done.wait(900) and not r.failed,
+                  f"[31a] a request failed: {r.failed!r}")
+        return reqs
+
+    chk = attention_check(fa, False)
+    with torch.inference_mode(), chk:
+        try:
+            reqs = contended(eng)
+        finally:
+            check(chk.error is None, str(chk.error))
+    # the scheduler thread logs an admit after the admit completes its
+    # request: join it before the counts are read
+    eng.stop()
+    stats = eng.scheduler_stats()
+    got = [r.out_tokens for r in reqs]
+    readmits = [a for a in admits if a[0]]
+    cold = [a for a in admits if not a[0]]
+    check(stats["preempted"] > 0 and stats["resumed"] == stats["preempted"]
+          and stats["parked"] == 0 and stats["chunk_queue"] == 0,
+          f"[31a] scheduler {stats}")
+    check(len(readmits) == stats["resumed"] and len(cold) == len(jobs)
+          and all(reuse > 0 for _, reuse, _ in readmits),
+          f"[31a] admits (readmit, reused blocks, ms) {admits}")
+    check(all(len(g) == PREEMPT_NEW for g in got), "[31a] a budget unmet")
+    check(chk.calls > 0 and chk.calls % layers == 0
+          and chk.launches == chk.calls,
+          f"[31a] #11: {chk.launches} launches, {chk.calls} calls")
+    walk = chk.walk_check("[31a]")[0]
+    flags = RowFlags(sampled=True, top_k=True, top_p=True, penalty=True)
+    with torch.inference_mode():
+        _, sites = count_syncs(lambda: decode_window(
+            eng.params, eng._state, cfg, 4, flags)[1].cpu())
+    n_sync = sum(sites.values())
+    check(n_sync == 1, f"[31a] decode window host syncs {dict(sites)}")
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("checked run")
+    divs = held_pairs("[31a]", got, plain[:6], jobs, params, cfg, dev)
+    mark("near-tie")
+    # in f32 at a cut depth the readmit's dense tail and #11 agree to the
+    # last bit: the streams under the policy EQUAL the uncontended ones
+    c32 = dataclasses.replace(cfg, num_hidden_layers=PREEMPT_F32_LAYERS)
+    p32 = init_params(c32, seed=0, dtype=torch.float32, device=dev)
+    want32, _ = uncontended(p32, c32, jobs)
+    chk32 = attention_check(fa, False)
+    e32 = engine(p32, c32, preemption=pol, queue_depth_limit=5)
+    with torch.inference_mode(), chk32:
+        try:
+            got32 = [r.out_tokens for r in contended(e32)]
+        finally:
+            e32.stop()
+            check(chk32.error is None, str(chk32.error))
+    st32 = e32.scheduler_stats()
+    del e32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(got32 == want32 and st32["preempted"] > 0
+          and st32["resumed"] == st32["preempted"] and chk32.launches > 0,
+          f"[31a] f32 at {PREEMPT_F32_LAYERS} layers: streams equal "
+          f"{[g == w for g, w in zip(got32, want32)]}, scheduler {st32}, "
+          f"#11 launches {chk32.launches}")
+    mark("f32")
+    # the latencies with nothing checked, on a fresh engine
+    et = engine(preemption=pol, queue_depth_limit=5)
+    try:
+        reqs = contended(et)
+        lat = [latency_ms(r) for r in reqs]
+        st_t = et.scheduler_stats()
+    finally:
+        et.stop()
+    del et, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("times")
+
+    # (a2) verify windows across preemption cycles
+    ea = engine(preemption=pol, spec_draft=(params, cfg), spec_k=4).start()
+    chk11 = attention_check(fa, False)
+    chk10 = CheckedAttention(
+        fa, "decode_attention", fa.decode_attention_plain,
+        live=lambda q, kk, vv, ln: ln > 0, weight=lambda *a: 0, walk=True,
+        trim=True)
+    with torch.inference_mode(), chk11, chk10:
+        try:
+            reqs = [ea.submit(p, PREEMPT_NEW, **kw) for p, kw in jobs_a2]
+            for r in reqs:
+                check(r.done.wait(900) and not r.failed,
+                      f"[31a2] a request failed: {r.failed!r}")
+        finally:
+            check(chk11.error is None and chk10.error is None,
+                  f"{chk11.error} {chk10.error}")
+    st2 = ea.scheduler_stats()
+    got2 = [r.out_tokens for r in reqs]
+    ea.stop()
+    del ea, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(st2["preempted"] >= 1 and st2["resumed"] == st2["preempted"]
+          and st2["spec_draft_tokens"] > 0 and st2["parked"] == 0,
+          f"[31a2] scheduler {st2}")
+    check(chk11.calls > 0 and chk11.launches == chk11.calls
+          and chk10.calls > 0 and chk10.launches == chk10.calls,
+          f"[31a2] #11 {chk11.launches}/{chk11.calls}, #10 "
+          f"{chk10.launches}/{chk10.calls} launches/calls")
+    walks2 = [c.walk_check("[31a2]")[0] for c in (chk11, chk10)]
+    mark("(a2) run")
+    divs2 = held_pairs("[31a2]", got2, plain[:3] + plain[6:], jobs_a2,
+                       params, cfg, dev)
+    mark("(a2) near-tie")
+
+    p50 = statistics.median
+    re_ms = [ms for _, _, ms in readmits]
+    cold_ms = [ms for _, _, ms in cold]
+    print(f"[31a] {card}: 6 requests of 512 tokens (3 greedy, 3 sampled), "
+          f"{PREEMPT_NEW} new each, through 2 slots under "
+          f"PreemptionPolicy({PREEMPT_POLICY}) and queue_depth_limit 5: a "
+          f"request past 5 waiting shed (EngineOverloadedError, failed "
+          f"'shed'); parks {stats['preempted']}, readmits "
+          f"{stats['resumed']}, every readmit warm (reused blocks "
+          f"{sorted(set(r for _, r, _ in readmits))}); #11 on "
+          f"{chk.calls} calls within tolerance, max |kernel - plain| "
+          f"{chk.max_err:.3e}, split-K live splits {walk}; host syncs in "
+          f"one decode window {n_sync}; streams against an uncontended run "
+          f"(request, output index of the first divergence): {divs}; in f32 "
+          f"at {PREEMPT_F32_LAYERS} layers ({st32['preempted']} parks, #11 on "
+          f"{chk32.calls} calls within tolerance, max |kernel - plain| "
+          f"{chk32.max_err:.3e}) every stream equal")
+    print(f"[31a] {card}: readmit admit p50 {p50(re_ms):.3f} ms "
+          f"{rounded(sorted(re_ms))}, a cold 512-token admit p50 "
+          f"{p50(cold_ms):.3f} ms {rounded(cold_ms)}; request latency "
+          f"under preemption (unchecked, {st_t['preempted']} parks) p50 "
+          f"{p50(lat):.1f} ms (max {max(lat):.1f}), uncontended (a slot "
+          f"each) p50 {p50(plain_ms[:6]):.1f} ms (max "
+          f"{max(plain_ms[:6]):.1f})")
+    print(f"[31a2] {card}: 4 greedy requests through verify windows (the "
+          f"target as its own draft, spec_k 4) under the same policy: parks "
+          f"{st2['preempted']}, readmits {st2['resumed']}, proposed "
+          f"{st2['spec_draft_tokens']} and accepted "
+          f"{st2['spec_accepted_tokens']} draft tokens; #11 at T = 5 on "
+          f"{chk11.calls} calls and #10 on {chk10.calls} draft-step calls "
+          f"within tolerance (max |kernel - plain| {chk11.max_err:.3e}, "
+          f"{chk10.max_err:.3e}; live splits {walks2}); streams against the "
+          f"plain engine's: divergences {divs2}")
+    record["preempt"] = {
+        "stats": stats, "admits": admits, "latency_ms": lat,
+        "timing_stats": st_t,
+        "uncontended_latency_ms": plain_ms, "divergences": divs,
+        "max_err": chk.max_err, "launches": chk.launches, "split_walk": walk,
+        "window_syncs": n_sync, "verify_stats": st2,
+        "verify_divergences": divs2,
+        "verify_launches": [chk11.launches, chk10.launches],
+        "verify_max_err": [chk11.max_err, chk10.max_err],
+        "f32_stats": st32, "f32_launches": chk32.launches, "split_s": marks,
+    }
+    print(f"[31a] seconds: {rounded(list(marks.values()))} ({', '.join(marks)})")
+    record.setdefault("phase_s", {})["[31a]"] = time.perf_counter() - t_phase
+    return {"decode_attention_blocks": chk.launches + chk11.launches,
+            "decode_attention": chk10.launches}
+
+
+def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
+    """Phase (31b) on the bf16 server of (13) with (30a)'s decode replica
+    as the target, or (31c) on the int8 server of (17) with (30b)'s: a
+    600-token greedy and a 600-token sampled session (80 new each) on
+    the source; once each decoded 48 tokens, ``POST /admin/drain``: the
+    sessions stream their committed blocks (a 4-block v1/v2 chunk, then
+    v3) into the export cache and complete as migrated; new work answers
+    503 ``draining``. Each resumes on the target from ``kubeinfer_resume
+    {tokens, kv_source}``: the chain lands bitwise (the int8 scales too)
+    and counted, the whole stream equals an uninterrupted run on the
+    target or leaves it at a near-tie. #11 (or #12 and #15) held against
+    its plain version on every call of both replicas. A degenerate tail
+    answers with no admit; ``{"resume": true}`` undrains the source. The
+    times come from a second drain and resume with nothing checked (two
+    new sessions). Returns the path's launch counts."""
+    import threading
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+    from kubeinfer_tpu_torch.inference.kv_blocks import prefix_fingerprints
+
+    t_phase = time.perf_counter()
+    marks = {}
+    t_mark = [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    int8 = src.kv_dtype == "int8"
+    label = "[31c]" if int8 else "[31b]"
+    cfg, bs = src.cfg, src.block_size
+    layers = cfg.num_hidden_layers
+    rng = np.random.default_rng(310 + int8)
+    sampled = dict(temperature=0.8, top_k=50, seed=11)
+
+    def sessions():
+        return [(rng.integers(1, cfg.vocab_size, 600).tolist(), {}),
+                (rng.integers(1, cfg.vocab_size, 600).tolist(), sampled)]
+
+    source = f"http://127.0.0.1:{src_srv.port}"
+    check(src.migration_sink is not None and src.migration_chunk_blocks == 4
+          and dst.migration_chunk_blocks == 4,
+          f"{label} the source's sink or chunk size")
+
+    def migrate(jobs, budget, together=True):
+        """The sessions on the source, the drain once each decoded
+        MIGRATE_AT tokens, a request refused while draining, and the
+        resumes on the target (``together``, else one after the other).
+        Returns the drain's (report, ms), the sessions' and the resumes'
+        answers, the refusal, and each chunk pass's gather and export
+        ms."""
+        gather = Timed(src, "_gather_pages", True)
+        sink, sink_ms = src.migration_sink, []
+
+        def timed_sink(chunk):
+            t0 = time.perf_counter()
+            sink(chunk)
+            sink_ms.append((time.perf_counter() - t0) * 1e3)
+
+        docs = [None] * len(jobs)
+
+        def client(n):
+            docs[n] = post_json(src_srv.port, dict(
+                prompt=jobs[n][0], max_tokens=budget, **jobs[n][1]))
+
+        def live():
+            rows = [r for r in src._slot_req if r is not None
+                    and any(r.prompt == p for p, _ in jobs)]
+            return len(rows) == len(jobs) and all(
+                len(r.out_tokens) >= MIGRATE_AT for r in rows)
+
+        src.migration_sink = timed_sink
+        try:
+            with gather:
+                threads = [threading.Thread(target=client, args=(n,))
+                           for n in range(len(jobs))]
+                for th in threads:
+                    th.start()
+                wait_until(live, f"{label} the sessions past {MIGRATE_AT} "
+                           "tokens")
+                t0 = time.perf_counter()
+                status, report, _ = post_path(src_srv.port, "/admin/drain",
+                                              {})
+                drain_ms = (time.perf_counter() - t0) * 1e3
+                for th in threads:
+                    th.join(900)
+        finally:
+            src.migration_sink = sink
+        check(status == 200 and all(d is not None for d in docs),
+              f"{label} drain {status} {report}, a session's client failed")
+        refused = post_path(src_srv.port, "/v1/completions",
+                            dict(prompt=jobs[0][0][:64], max_tokens=2))
+        mig = [d["kubeinfer"]["migrated"] for d in docs]
+
+        def resume(n):
+            return post_json(dst_srv.port, dict(
+                prompt=jobs[n][0], max_tokens=budget,
+                kubeinfer_resume={"tokens": mig[n]["tokens"],
+                                  "kv_source": source}, **jobs[n][1]))
+
+        order = list(range(len(jobs)))
+        resumed = (in_threads(resume, order) if together
+                   else [resume(n) for n in order])
+        return (report, drain_ms), docs, mig, resumed, refused, \
+            gather.ms, sink_ms
+
+    chk = attention_check(fa, int8)
+    chk15 = (CheckedMatmul(wq, keep_f32=True) if src.weight_dtype == "int8"
+             else None)
+    imp0 = (dst.imports_total, dst.imported_blocks_total,
+            dst_srv.kv_stream_blocks["import"])
+    chunks0 = (src.migration_chunks_total, src.migration_blocks_total)
+    jobs = sessions()
+    with torch.inference_mode(), chk, (chk15 or contextlib.nullcontext()):
+        try:
+            (report, _), docs, mig, resumed, refused, _, _ = migrate(
+                jobs, MIGRATE_NEW)
+        finally:
+            check(chk.error is None, str(chk.error))
+            if chk15 is not None:
+                check(chk15.verify() is None, str(chk15.error))
+    mark("checked path")
+    chunks = src.migration_chunks_total - chunks0[0]
+    blocks = src.migration_blocks_total - chunks0[1]
+    check(report["drained"] and report["draining"]
+          and report["migrated"] == 2 and chunks >= 4,
+          f"{label} drain report {report}, {chunks} chunks")
+    chains = [(p + m["tokens"])[:-1] for (p, _), m in zip(jobs, mig)]
+    for d, m, chain in zip(docs, mig, chains):
+        toks = m["tokens"]
+        check(d["choices"][0]["finish_reason"] == "migrated"
+              and d["choices"][0]["tokens"] == toks
+              and MIGRATE_AT <= len(toks) < MIGRATE_NEW
+              and m["blocks"] == len(chain) // bs >= 5
+              and m["kv_dtype"] == src.kv_dtype,
+              f"{label} migrated session {d['kubeinfer']}")
+    check(blocks == sum(m["blocks"] for m in mig),
+          f"{label} {blocks} blocks streamed for {mig}")
+    check(refused[0] == 503 and refused[1]["error"]["type"] == "draining"
+          and "Retry-After" not in refused[2],
+          f"{label} new work on the draining source: {refused[:2]}")
+    # the chunks in the source's export cache: v1 (v2 in int8) for the
+    # first 4 blocks, then v3
+    chunk_bytes, magics = [], []
+    for chain in chains:
+        fps = prefix_fingerprints(chain, bs)
+        for fp in (fps[3], fps[-1]):
+            blob = src_srv.kv_exports.get(fp)
+            check(blob is not None, f"{label} a chunk left the export cache")
+            magics.append(json.loads(blob[:blob.find(b"\n")])["magic"][-1])
+            chunk_bytes.append(len(blob))
+    check(magics == ["2" if int8 else "1", "3"] * 2,
+          f"{label} chunk wire versions {magics}")
+    full = [d["choices"][0]["tokens"] for d in resumed]
+    for d, m, f in zip(resumed, mig, full):
+        check(d["kubeinfer"]["route"] == "resume"
+              and d["choices"][0]["finish_reason"] == "length"
+              and len(f) == MIGRATE_NEW
+              and f[:len(m["tokens"])] == m["tokens"],
+              f"{label} resume answered {d['kubeinfer']}")
+    n_chain = sum(m["blocks"] for m in mig)
+    check((dst.imported_blocks_total - imp0[1],
+           dst_srv.kv_stream_blocks["import"] - imp0[2]) == (n_chain, n_chain)
+          and dst.imports_total - imp0[0] == 4
+          and not dst_srv.migration_fallbacks,
+          f"{label} chain imports {dst.scheduler_stats()}, fallbacks "
+          f"{dict(dst_srv.migration_fallbacks)}")
+    diff = []
+    for chain in chains:
+        n = len(chain) // bs
+        a, b = (pool_blocks(e, chain[:n * bs]) for e in (src, dst))
+        check(len(a) == len(b) == n, f"{label} {len(a)} and {len(b)} of "
+              f"{n} chain blocks cached")
+        diff.append(differing_bytes(pool_pages(src, a), pool_pages(dst, b)))
+    check(diff == [0, 0], f"{label} landed pages differ from the source's: "
+          f"{diff} bytes")
+    check(chk.calls > 0 and chk.calls % layers == 0
+          and chk.launches == chk.calls,
+          f"{label} {chk.name}: {chk.launches} launches, {chk.calls} calls")
+    walk = chk.walk_check(label)[0]
+    launches = {chk.name: chk.launches}
+    if chk15 is not None:
+        routes15 = chk15.all_tc(label)
+        launches["quant_matmul"] = chk15.launches
+
+    # a degenerate tail: answered with no admit
+    before = dst.scheduler_stats()
+    st, doc, _ = post_path(dst_srv.port, "/v1/completions", dict(
+        prompt=jobs[0][0], max_tokens=8,
+        kubeinfer_resume={"tokens": mig[0]["tokens"][:8]}))
+    check(st == 200 and doc["kubeinfer"]["route"] == "resume"
+          and doc["choices"][0]["tokens"] == mig[0]["tokens"][:8]
+          and dst.scheduler_stats() == before,
+          f"{label} degenerate tail {st} {doc}")
+
+    def undrain():
+        st, rep, _ = post_path(src_srv.port, "/admin/drain", {"resume": True})
+        check(st == 200 and rep["drained"] and not rep["draining"]
+              and not src.draining, f"{label} undrain {rep}")
+        ok = post_json(src_srv.port, dict(prompt=jobs[0][0][:64],
+                                          max_tokens=2))
+        check(len(ok["choices"][0]["tokens"]) == 2, f"{label} after undrain")
+
+    undrain()
+    mark("checks")
+    # an uninterrupted run on the target, for the streams
+    ref = in_threads(lambda j: dst.serve(j[0], MIGRATE_NEW, timeout=900,
+                                         **j[1]).out_tokens, jobs)
+    mark("uninterrupted")
+    divs = held_pairs(label, full, ref, jobs, src.params, cfg, dev)
+    mark("near-tie")
+
+    # times, nothing checked: two new sessions of 128, drained and resumed
+    n_import = len(dst_srv.kv_stream_seconds["import"])
+    (report_t, drain_ms), _, mig_t, resumed_t, _, gather_ms, sink_ms = \
+        migrate(sessions(), MIGRATE_NEW, together=False)
+    check(report_t["migrated"] == 2 and all(
+        d["kubeinfer"]["route"] == "resume"
+        and len(d["choices"][0]["tokens"]) == MIGRATE_NEW
+        for d in resumed_t),
+        f"{label} the timing drain {report_t}")
+    undrain()
+    import_s = list(dst_srv.kv_stream_seconds["import"])[n_import:]
+    ttft = [d["kubeinfer"]["ttft_ms"] for d in resumed_t]
+    mark("times")
+
+    p50 = statistics.median
+    first_ms = [s * 1e3 + t for s, t in zip(import_s, ttft)]
+    print(f"{label} {src.kv_dtype} pool: 2 sessions of 600 tokens (greedy, "
+          f"sampled; {MIGRATE_NEW} new) drained at "
+          f"{[len(m['tokens']) for m in mig]} tokens: POST /admin/drain "
+          f"{report['migrated']} migrated, {chunks} chunks, {blocks} blocks "
+          f"streamed (wire versions {magics} of the first and last chunk "
+          f"of each), new work 503 draining; resumed on the target "
+          f"(route resume, {n_chain} chain blocks imported, landed pages "
+          f"{'and scales ' if int8 else ''}bitwise the source's: differing "
+          f"bytes {diff}); whole streams against an uninterrupted run on "
+          f"the target: divergences (request, output index) {divs}; a "
+          f"degenerate tail answered with no admit; undrained and serving")
+    print(f"{label} {chk.name}: {chk.calls} calls on both replicas within "
+          f"tolerance of its plain version, max |kernel - plain| "
+          f"{chk.max_err:.3e}, split-K live splits {walk}"
+          + (f"; quant_matmul: {chk15.calls} calls within tolerance, max "
+             f"|kernel - plain| {chk15.max_err:.3e}, routes {routes15}"
+             if chk15 is not None else "") + f"; launches {launches}")
+    print(f"{label} {card}, unchecked (2 sessions of {MIGRATE_NEW} drained at "
+          f"{[len(m['tokens']) for m in mig_t]} tokens, resumed one after "
+          f"the other): drain "
+          f"{drain_ms:.1f} ms from POST to drained; chunk wire bytes "
+          f"{chunk_bytes} (MiB {rounded([b / 2**20 for b in chunk_bytes])})"
+          f"; per chunk pass gather p50 {p50(gather_ms):.3f} ms "
+          f"{rounded(gather_ms)}, encode + export p50 {p50(sink_ms):.3f} ms "
+          f"{rounded(sink_ms)}; chain import on the target (fetch, verify, "
+          f"staged writes) {rounded([s * 1e3 for s in import_s])} ms; "
+          f"resume TTFT after the import {rounded(ttft)} ms, import + TTFT "
+          f"{rounded(first_ms)} ms")
+    record["migrate_" + src.kv_dtype] = {
+        "drain_ms": drain_ms, "report": report, "chunks": chunks,
+        "blocks": blocks, "chunk_bytes": chunk_bytes, "magics": magics,
+        "gather_ms": gather_ms, "encode_ms": sink_ms,
+        "import_s": import_s, "resume_ttft_ms": ttft,
+        "resume_latency_ms": [d["kubeinfer"]["latency_ms"]
+                              for d in resumed_t],
+        "migrated_tokens": [len(m["tokens"]) for m in mig],
+        "timing_migrated_tokens": [len(m["tokens"]) for m in mig_t],
+        "differing_bytes": diff, "divergences": divs,
+        "launches": launches, "max_err": chk.max_err, "split_walk": walk,
+        "qmm_max_err": chk15.max_err if chk15 is not None else None,
+        "split_s": marks,
+    }
+    print(f"{label} seconds: {rounded(list(marks.values()))} "
+          f"({', '.join(marks)})")
+    record.setdefault("phase_s", {})[label] = time.perf_counter() - t_phase
     return launches
 
 
@@ -3371,11 +4079,16 @@ class CheckedMatmul:
     "mma" or "f32" on ``quant_matmul.cu``) and keeps the call with the
     most operations for the times. While it stands in, the wrapper's
     ``launches += 1`` and ``tc_launches += 1`` resolve to this object's
-    counts, off the wrapper's own."""
+    counts, off the wrapper's own. ``keep_f32`` keeps each weight's f32
+    copy (about 4 bytes a weight, freed on exit) for the plain version's
+    product, the same arithmetic as ``quant_matmul_plain`` without
+    converting the weight on every call; the first call is held bitwise
+    to ``quant_matmul_plain``."""
 
-    def __init__(self, wq):
+    def __init__(self, wq, keep_f32=False):
         self.wq = wq
         self.kernel, self.plain = wq.quant_matmul, wq.quant_matmul_plain
+        self.w32 = {} if keep_f32 else None
         self.launches = self.tc_launches = self.calls = 0
         self.routes = collections.Counter()
         self.max_err = 0.0
@@ -3390,6 +4103,25 @@ class CheckedMatmul:
 
     def __exit__(self, *exc):
         self.wq.quant_matmul = self.kernel
+        if self.w32 is not None:
+            self.w32.clear()
+
+    def plain_of(self, x, qw, scale):
+        """The plain version's result, with the weight's f32 copy kept
+        where ``keep_f32`` is set."""
+        import torch
+
+        if self.w32 is None:
+            return self.plain(x, qw, scale)
+        w32 = self.w32.get(qw.data_ptr())
+        if w32 is None:
+            w32 = self.w32[qw.data_ptr()] = qw.float()
+        want = (torch.matmul(x.float(), w32) * scale.float()).to(x.dtype)
+        if self.calls == 0:
+            check(torch.equal(want, self.plain(x, qw, scale)),
+                  "quant_matmul: the kept f32 weight's product differs "
+                  "from quant_matmul_plain's")
+        return want
 
     def __call__(self, x, qw, scale):
         import torch
@@ -3397,7 +4129,7 @@ class CheckedMatmul:
         route = ("tc" if self.wq.qmm_route(x, qw) else
                  "f32" if x.dtype == torch.float32 else "mma")
         got = self.kernel(x, qw, scale)
-        err, ok = matmul_err(got, self.plain(x, qw, scale))
+        err, ok = matmul_err(got, self.plain_of(x, qw, scale))
         self.pending.append((err, ok, tuple(x.shape), tuple(qw.shape)))
         M = x.numel() // x.shape[-1]
         K, N = qw.shape
@@ -3697,14 +4429,21 @@ def int8_phases(dev, record, card):
                                tag="[20]"),
                    time_qmm(dev, wq, chk15, card, counts,
                             engine.params["layers"][0], record)]
-    # (30b) disaggregated prefill and decode on the int8 server
+    # (30b) disaggregated prefill and decode on the int8 server; (31c)
+    # drains it onto (30b)'s decode replica
+    migrate = {}
     try:
-        launches = disagg_phase(dev, record, card, srv, cont)
+        launches = disagg_phase(
+            dev, record, card, srv, cont,
+            then=lambda dec_srv, dec: migrate.update(migrate_phase(
+                dev, record, card, srv, cont, dec_srv, dec)))
     finally:
         srv.stop()
         cont.stop()
     entries[0]["disagg_launches"] = launches["decode_attention_blocks_q8"]
     entries[1]["disagg_launches"] = launches["quant_matmul"]
+    entries[0]["migrate_launches"] = migrate["decode_attention_blocks_q8"]
+    entries[1]["migrate_launches"] = migrate["quant_matmul"]
     return entries
 
 
@@ -3804,32 +4543,6 @@ QMM_M = (8, 40, 512, 2048)  # decode, a T = 5 verify window, an admit, a chunk
 QMM_LEAVES = ("gate_proj", "down_proj")  # 4096 x 14336 and 14336 x 4096
 
 
-def old_qmm(wq):
-    """#15's first kernel (``quant_matmul.cu``'s mma.sync instantiation,
-    split-K reduced by a second pass) as a function of the wrapper's
-    arguments, launched through its library outside the wrapper's
-    counts: the before of every #15 time."""
-    import torch
-
-    from kubeinfer_tpu_torch import _build
-    from kubeinfer_tpu_torch.inference import flash_attention as fa
-
-    lib = _build.load_kernel_library("quant_matmul")
-
-    def run(x, qw, scale):
-        M, K = x.shape
-        N = qw.shape[1]
-        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-        splits = wq.k_splits(M, N, K)
-        ws = torch.empty((splits, M, N) if splits > 1 else (1,),
-                         dtype=torch.float32, device=x.device)
-        fa._launch(lib, "quant_matmul_launch", x, qw, scale, out, ws, M, N,
-                   K, splits, 1)
-        return out
-
-    return run
-
-
 def qmm_library(x, qw, scale, reps):
     """``torch._weight_int8pack_mm`` (int8 weight [N, K], the same
     function) as (ms, label): device time at decode sizes, CUDA events
@@ -3867,14 +4580,12 @@ def time_qmm(dev, wq, chk, card, counts, layer, record):
     """#15's entry of the ``kernels`` line and its times: on the captured
     call with the most operations, and at M in ``QMM_M`` on layer 0's
     gate and down projections (x random, seeded): device time (a CUDA
-    graph of 20 launches), the wrapper's host us a call, the first
-    kernel's device time on the same call (``old_qmm``), the plain
+    graph of 20 launches), the wrapper's host us a call, the plain
     version, ``torch._weight_int8pack_mm`` and, as a lower yardstick
     the port never calls, ``torch.matmul`` on the pre-dequantized bf16
     weight (twice the weight bytes, no conversion)."""
     import torch
 
-    old = old_qmm(wq)
     gen = torch.Generator(device=dev).manual_seed(20)
     rows = []
     for leaf in QMM_LEAVES:
@@ -3886,25 +4597,21 @@ def time_qmm(dev, wq, chk, card, counts, layer, record):
                             dtype=torch.float32).to(torch.bfloat16)
             bound, by, ops, nbytes = qmm_bound(M, N, K, 2)
             ms = device_ms(lambda: wq.quant_matmul(x, qw, scale))
-            old_ms = device_ms(lambda: old(x, qw, scale))
             us = host_us(lambda: wq.quant_matmul(x, qw, scale), reps=100)
             mm_ms = device_ms(lambda: torch.matmul(x, w16))
             lib_ms, lib_label = qmm_library(x, qw, scale, reps=2)
-            got, want = wq.quant_matmul(x, qw, scale), old(x, qw, scale)
             rows.append(dict(
-                leaf=leaf, M=M, K=K, N=N, device_ms=ms, old_device_ms=old_ms,
+                leaf=leaf, M=M, K=K, N=N, device_ms=ms,
                 host_us=us, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, library_call=lib_label,
                 matmul_bf16_ms=mm_ms,
-                tflops=ops / ms / 1e9, gbps=nbytes / ms / 1e6,
-                new_vs_old_max_abs=float((got.float() - want.float())
-                                         .abs().max())))
+                tflops=ops / ms / 1e9, gbps=nbytes / ms / 1e6))
             lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
             print(f"[20] {card}: quant_matmul {leaf} M {M} (x [{M}, {K}] @ "
                   f"int8 [{K}, {N}]): device {ms:.4f} ms "
                   f"({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
-                  f"GB/s), host {us:.1f} us a call; first kernel "
-                  f"{old_ms:.4f} ms; bound {bound:.5f} ms ({by}); "
+                  f"GB/s), host {us:.1f} us a call; bound {bound:.5f} ms "
+                  f"({by}); "
                   f"_weight_int8pack_mm {lib_txt} ms; torch.matmul on the "
                   f"bf16 weight {mm_ms:.4f} ms")
         del w16
@@ -3915,28 +4622,26 @@ def time_qmm(dev, wq, chk, card, counts, layer, record):
     N = qw.shape[1]
     ms = device_ms(lambda: wq.quant_matmul(x, qw, scale))
     wall_ms = cuda_ms(lambda: wq.quant_matmul(x, qw, scale), reps=20)
-    old_ms = device_ms(lambda: old(x, qw, scale))
     us = host_us(lambda: wq.quant_matmul(x, qw, scale), reps=100)
     plain_ms = cuda_ms(lambda: chk.plain(x, qw, scale), reps=3)
     lib_ms, lib_label = qmm_library(x, qw, scale, reps=2)
     bound, by, ops, nbytes = qmm_bound(M, N, K, x.element_size())
     print(f"[20] {card}: quant_matmul on the path's heaviest call, x [{M}, "
           f"{K}] @ int8 [{K}, {N}]: device {ms:.4f} ms (wall {wall_ms:.4f},"
-          f" host {us:.1f} us), first kernel {old_ms:.4f}, plain "
+          f" host {us:.1f} us), plain "
           f"{plain_ms:.4f}, bound {bound:.5f} ({by})")
     return {
         "name": "quant_matmul", "route": "cuda",
         "source": "kubeinfer_tpu_torch/inference/csrc/quant_matmul_tc.cu",
         "kernel_route": "tc" if wq.qmm_route(x, qw) else "mma",
         "routes": dict(chk.routes),
-        "old_source": "kubeinfer_tpu_torch/inference/csrc/quant_matmul.cu",
         "replaces": QMM_REPLACES, "launches": counts["quant_matmul"],
         "max_abs_err": chk.max_err, "ms": ms, "device_ms": ms,
-        "wall_ms": wall_ms, "old_device_ms": old_ms, "host_us": us,
+        "wall_ms": wall_ms, "host_us": us,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": lib_ms, "library_call": lib_label,
         "shape_mkn": [M, K, N], "times": rows,
-        "timing": "ms, device_ms, old_device_ms: device time a launch (a "
+        "timing": "ms, device_ms: device time a launch (a "
                   "CUDA graph of 20 launches, replays timed by CUDA "
                   "events); wall_ms: CUDA events over 20 calls; host_us: "
                   "the wrapper's host time a call",
@@ -4933,7 +5638,9 @@ def spec_phases(dev, record, card):
         record.setdefault("spec_s", {})[name] = now - t_mark[0]
         t_mark[0] = now
 
-    def checkers():
+    def checkers(trim11=False):
+        """#11 (trimmed where its heaviest call is not timed later) and
+        #10, each on every call."""
         return (
             CheckedAttention(
                 fa, "decode_attention_blocks",
@@ -4941,18 +5648,19 @@ def spec_phases(dev, record, card):
                 live=lambda q, kp, vp, tbl, ln: ((tbl[:, 0] != 0)
                                                  & (ln >= q.shape[1])),
                 weight=lambda q, kp, vp, tbl, ln: (
-                    int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True),
+                    int((tbl[:, 0] != 0).sum()), int(ln.sum())), walk=True,
+                trim=trim11),
             CheckedAttention(
                 fa, "decode_attention", fa.decode_attention_plain,
                 live=lambda q, kk, vv, ln: ln > 0, weight=lambda *a: 0,
-                walk=True))
+                walk=True, trim=True))
 
     def one_sync(cont):
         flags = RowFlags(sampled=True, top_k=True, top_p=True, penalty=True)
         with torch.inference_mode():
             _, sites = count_syncs(lambda: verify_window(
-                cont.params, cont._state, cont._dparams, cont._dstate, cfg,
-                cont._dcfg, k, flags)[2].cpu())
+                cont.params, cont._state, cont._dparams, cont._dstate,
+                cont.cfg, cont._dcfg, k, flags)[2].cpu())
         n = sum(sites.values())
         check(n == 1, f"verify window host syncs {dict(sites)}")
         return n
@@ -4964,8 +5672,6 @@ def spec_phases(dev, record, card):
         with torch.inference_mode():
             plain_a = in_threads(lambda p: e0.generate(p, 64, timeout=900),
                                  prompts_a)
-            plain_b = in_threads(lambda p: e0.generate(p, 64, timeout=900),
-                                 prompts_b)
             times["decode_plain_ms"] = decode_ms_per_token(
                 e0, [rng.integers(1, V, 512).tolist() for _ in range(8)], 64)
     finally:
@@ -5032,23 +5738,44 @@ def spec_phases(dev, record, card):
     torch.cuda.empty_cache()
     mark("[25a]")
 
-    # (25b) the server with a seed-1 draft of the same preset
+    # (25b) the server with a seed-1 draft of the same preset, both cut to
+    # SPEC_INT8_LAYERS (every window rolls back at any depth), and the plain
+    # engine's streams on the server's own weights
     argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
             "--host", "127.0.0.1", "--batch-slots", "8", "--draft-model",
             "llama-3-8b", "--speculation-depth", str(k)]
     t0 = time.perf_counter()
-    srv, cont = server.build_server(argv + ["--speculative-draft"])
+    full = PRESETS["llama-3-8b"]
+    PRESETS["llama-3-8b"] = dataclasses.replace(
+        full, num_hidden_layers=SPEC_INT8_LAYERS)
+    try:
+        srv, cont = server.build_server(argv + ["--speculative-draft"])
+    finally:
+        PRESETS["llama-3-8b"] = full
     torch.cuda.synchronize()
+    cfg_b = cont.cfg
+    eb = ContinuousEngine(srv.engine.params, cfg_b, n_slots=8,
+                          cache_len=4096, device=dev).start()
+    try:
+        with torch.inference_mode():
+            plain_b = in_threads(lambda p: eb.generate(p, 64, timeout=900),
+                                 prompts_b)
+    finally:
+        eb.stop()
+    del eb
+    gc.collect()
+    torch.cuda.empty_cache()
     gib = torch.cuda.memory_allocated() / 2**30
     print(f"[25b] server.build_server({' '.join(argv[:3] + argv[7:])} "
-          f"--speculative-draft): {gib:.1f} GiB on the card (target, draft, "
-          f"pool, draft caches), built in {time.perf_counter() - t0:.1f} s")
+          f"--speculative-draft) at {SPEC_INT8_LAYERS} layers: {gib:.1f} GiB "
+          f"on the card (target, draft, pool, draft caches), built in "
+          f"{time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
         times["window_b"] = timed_windows(
             cont, [rng.integers(1, V, 512).tolist() for _ in range(8)], 16)
     cont.start()
     srv.start()
-    chk11, chk10 = checkers()
+    chk11, chk10 = checkers(trim11=True)
     bodies = [dict(prompt=p, max_tokens=64) for p in prompts_b]
     bodies.append(dict(prompt=rng.integers(1, V, 512).tolist(),
                        max_tokens=64, temperature=0.8, top_k=50, top_p=0.9,
@@ -5081,7 +5808,7 @@ def spec_phases(dev, record, card):
           <= emitted + k * len(outs) and rb <= row_windows,
           f"(b) verify counters {d} against {emitted} tokens")
     div_b, tok_b = held_streams("[25b]", outs[:4], plain_b, prompts_b,
-                                srv.engine.params, cfg, dev)
+                                srv.engine.params, cfg_b, dev)
     sync_b = one_sync(cont)
     print(f"[25b] /v1/completions on that server: 4 greedy + 1 sampled "
           f"512-token prompts, 64 new, route continuous: #11 at T = {k + 1} "
@@ -5283,7 +6010,8 @@ def spec_phases(dev, record, card):
     print(f"[28] {card}: a verify window (k {k}, 8 slots) {wa[0]:.1f} ms "
           f"p50 emitting {wa[1]:.2f} tokens per row in (a), the self-draft "
           f"({wa[2]} windows); {wb[0]:.1f} ms emitting {wb[1]:.2f} in (b), "
-          f"the seed-1 draft ({wb[2]} windows); decode per emitted token per "
+          f"the seed-1 draft at {SPEC_INT8_LAYERS} layers ({wb[2]} windows); "
+          f"decode per emitted token per "
           f"slot: {wa[0] / wa[1]:.2f} ms (a), {wb[0] / wb[1]:.2f} ms (b), "
           f"plain decode without a draft {times['decode_plain_ms']:.2f} ms")
     record["spec_times"] = {
@@ -5394,8 +6122,8 @@ def tie_probe(seeds, dev=None):
 
 
 def spec_f32_full(dev, record, k):
-    """Phase (25c): llama-3-8b at full width and depth in f32
-    (init_params(seed=0)), 8 slots, 8 greedy 512-token prompts of 64 new
+    """Phase (25c): llama-3-8b at full width in f32, cut to
+    SPEC_INT8_LAYERS layers (init_params(seed=0)), 8 slots, 8 greedy 512-token prompts of 64 new
     tokens through the plain engine, then through verify windows with
     the target as its own draft (acceptance near 1) and with a bigram
     draft (the target's embedding, norm and head, 0 layers: most windows
@@ -5411,7 +6139,8 @@ def spec_f32_full(dev, record, k):
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.model import init_params
 
-    cfg = PRESETS["llama-3-8b"]
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=SPEC_INT8_LAYERS)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
     bigram = {key: params[key] for key in ("embed_tokens", "norm",
                                            "lm_head")}
@@ -5452,7 +6181,8 @@ def spec_f32_full(dev, record, k):
                      "divergences": divs, "not_argmax": excused,
                      "blind": blind}
     run_s = time.perf_counter() - t0
-    print(f"[25c] llama-3-8b f32 at full width and depth, 8 slots, 8 greedy "
+    print(f"[25c] llama-3-8b f32 at full width, {SPEC_INT8_LAYERS} layers, "
+          f"8 slots, 8 greedy "
           f"512-token prompts, 64 new, spec_k {k}: plain engine, self draft "
           f"{out['self']['counters']} over {out['self']['row_windows']} "
           f"row-windows, bigram draft {out['bigram']['counters']} over "
@@ -6075,9 +6805,63 @@ def disagg_probe() -> int:
     return 0
 
 
+def migrate_probe() -> int:
+    """``--migrate``: phase (31) alone (card only): builds the decode and
+    #15 libraries, then the bf16 server of (13) with a decode replica
+    beside it ((31b), then (31a) and (31a2) on its parameter tensors), then
+    the int8 server of (17) with its own ((31c))."""
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.inference import server
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["decode_split", "quant_matmul", "quant_matmul_tc"])
+    record = {"card": card}
+    argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
+            "--host", "127.0.0.1", "--batch-slots", "8"]
+    for flags in ([], ["--kv-dtype", "int8", "--weight-dtype", "int8"]):
+        srv, cont = server.build_server(argv + flags)
+        cont.start()
+        srv.start()
+        try:
+            dec_srv, dec = decode_replica(dev, srv, cont)
+            try:
+                launches = migrate_phase(dev, record, card, srv, cont,
+                                         dec_srv, dec)
+            finally:
+                dec_srv.stop()
+                dec.stop()
+            del dec_srv, dec
+            if not flags:
+                launches.update(preempt_phases(dev, record, card, cont.params,
+                                               cont.cfg, cont.cache_len))
+            record.setdefault("launches", {}).update(launches)
+        finally:
+            srv.stop()
+            cont.stop()
+        del srv, cont
+        gc.collect()
+        torch.cuda.empty_cache()
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "migrate_probe.json").write_text(json.dumps(record, indent=1))
+    print(record["phase_s"])
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--disagg"]:
         sys.exit(disagg_probe())
+    if sys.argv[1:2] == ["--migrate"]:
+        sys.exit(migrate_probe())
     if sys.argv[1:2] == ["--tie-probe"]:
         sys.exit(tie_probe([int(a) for a in sys.argv[2:]] or [25]))
     if sys.argv[1:2] == ["--qmm"]:

@@ -1,7 +1,7 @@
 """Continuous batching: requests join and leave a shared decode batch.
 
 Counterpart of ``kubeinfer_tpu/inference/batching.py``, restricted to the
-tp=1 engine without preemption:
+tp=1 engine:
 
 - A fixed pool of B decode **slots** over a shared PAGED KV pool
   (per-layer ``[num_blocks, block_size, n_kv, D]`` tensors and an
@@ -54,9 +54,26 @@ fetched prefix for the scheduler thread, which writes the pages into
 fresh pool blocks in place and caches them in the radix trie, so the
 request that wants them admits warm.
 
-Waiting (each named where it raises): preemption, a sharded layout and
-drain/migration; and the flight recorder, SLO monitor, step profiler and
-racecheck wrappers of the reference.
+Preemption, load shedding and live-session migration, as in the
+reference:
+
+- ``preemption=PreemptionPolicy``: a waiter whose queue wait burns the
+  engine's private queue-wait SLO parks the youngest decoding row
+  between windows (``_park_slot``): its committed full blocks go into
+  the radix trie, and its readmit later matches them warm and
+  recomputes only the tail, drawing the same samples by the
+  position-folded key schedule.
+- ``queue_depth_limit``: ``submit`` refuses (``EngineOverloadedError``)
+  once the queue, the holdover and the parked rows hold that many.
+- ``drain()``: ``submit`` refuses (``EngineDrainingError``), pending
+  requests complete as migrated, and each live slot streams its
+  committed blocks through ``migration_sink``, one chunk per scheduler
+  pass with decode windows between, then parks-for-migrate
+  (``req.migrated``). ``submit(resume_tokens=...)`` finishes such a
+  session on another engine.
+
+Waiting (named where it raises): a sharded layout; and the flight
+recorder, step profiler and racecheck wrappers of the reference.
 """
 
 from __future__ import annotations
@@ -65,7 +82,6 @@ import collections
 import itertools
 import queue
 import threading
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -79,6 +95,7 @@ from kubeinfer_tpu_torch.inference.kv_blocks import (
     BlockPool,
     RadixCache,
     dequantize_blocks,
+    prefix_fingerprints,
     quantize_blocks,
 )
 from kubeinfer_tpu_torch.inference.model import (
@@ -103,15 +120,15 @@ from kubeinfer_tpu_torch.inference.weight_quant import (
     params_weight_dtype,
     quantize_params,
 )
+from kubeinfer_tpu_torch.observability import tracing
+from kubeinfer_tpu_torch.observability.slo import SLOMonitor, SLOObjective
 
 # pool block width (tokens), as in the reference; engines whose
 # cache_len is smaller clamp down
 DEFAULT_BLOCK_SIZE = 128
 
 _WAITS = {
-    "preemption": "ROADMAP Queue 1, preemption, drain and migration",
     "layout": "ROADMAP Queue 1, slice 6: sharding.py / tp",
-    "drain": "ROADMAP Queue 1, preemption, drain and migration",
 }
 
 
@@ -286,6 +303,58 @@ def _prefill_chunk(params: Params, state: SlotState, window: torch.Tensor,
     return state
 
 
+class EngineDrainingError(RuntimeError):
+    """submit() refused because the engine is draining: the request is
+    valid, this replica just will not take it (the server answers 503
+    ``draining``, with no Retry-After: a drained replica does not
+    recover for new work)."""
+
+
+class EngineOverloadedError(RuntimeError):
+    """submit() shed because the waiting work (queue, holdover, parked
+    rows) reached ``queue_depth_limit``: the server answers 503
+    ``overloaded`` with ``Retry-After``. ``request`` is the refused
+    request, completed with ``failed == "shed"``."""
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0,
+                 request=None) -> None:
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+        self.request = request
+
+
+@dataclass(frozen=True)
+class PreemptionPolicy:
+    """SLO-aware preemption knobs. A waiter triggers a park only when ALL
+    of: its wait exceeds ``threshold_s``, the engine's private queue_wait
+    SLO burn rate has reached ``burn_limit`` (burn 1.0 = spending error
+    budget exactly at the sustainable rate), at least ``cooldown_steps``
+    decode steps ran since the last park, and some victim has decoded at
+    least ``min_progress`` tokens since its own (re)admission. The last
+    two are the anti-livelock levers: every park is preceded by forward
+    progress, so an oversubscribed engine round-robins rather than
+    thrashes."""
+
+    threshold_s: float = 0.5
+    objective: float = 0.9  # good fraction target for the private SLO
+    burn_limit: float = 1.0
+    cooldown_steps: int = 4
+    min_progress: int = 2
+
+    @classmethod
+    def parse(cls, spec: str) -> "PreemptionPolicy":
+        """``THRESHOLD_S[:BURN_LIMIT]``, the --preemption-slo syntax, e.g.
+        ``0.5`` or ``0.5:2.0``."""
+        parts = spec.split(":")
+        if len(parts) > 2:
+            raise ValueError(
+                f"preemption spec {spec!r} is not THRESHOLD_S[:BURN_LIMIT]")
+        kw: dict = {"threshold_s": float(parts[0])}
+        if len(parts) == 2:
+            kw["burn_limit"] = float(parts[1])
+        return cls(**kw)
+
+
 # process-wide request ids, as the reference's
 _REQ_IDS = itertools.count()
 
@@ -309,19 +378,37 @@ class _Request:
     done: threading.Event = field(default_factory=threading.Event)
     cancelled: threading.Event = field(default_factory=threading.Event)
     # set instead of a normal completion when the engine shut down
-    # mid-flight: truncated output must not look like success
+    # mid-flight (or shed the request at the door): truncated output
+    # must not look like success
     failed: str = ""
-    # request timeline (time.perf_counter seconds), written by the
+    # request timeline (``tracing.now()`` seconds), written by the
     # scheduler and read after ``done`` is set
     t_submit: float = 0.0
+    t_admit: float = 0.0
     t_first: float = 0.0
     token_times: list[float] = field(default_factory=list)
+    # preemption: t_parked restarts the request's place in the
+    # longest-pending-first order (a just-parked victim goes to the back
+    # of the line); tokens_at_admit anchors the min_progress guard to the
+    # current residency
+    t_parked: float = 0.0
+    preemptions: int = 0
+    tokens_at_admit: int = 0
     # disaggregated prefill: export_kv asks the scheduler to capture this
     # request's committed full-block pages at finalize time; kv_export is
     # the captured dict (pages_k/pages_v/fingerprints/block_size/kv_dtype,
     # scales under the int8 pool), read after ``done`` is set
     export_kv: bool = False
     kv_export: dict | None = None
+    # live-session migration: set INSTEAD of a normal completion when a
+    # drain handed the session off (the tokens so far, a prefix of the
+    # final answer, and the committed blocks streamed), read after
+    # ``done`` is set
+    migrated: dict | None = None
+
+    @property
+    def pending_since(self) -> float:
+        return self.t_parked or self.t_submit
 
     def cancel(self) -> None:
         """Abandon the request: dropped before admission or retired at
@@ -342,7 +429,10 @@ class _PrefillTask:
     reuse: int  # radix-matched full blocks
     total: int  # blocks held by the slot (prompt + decode horizon)
     pos: int
+    # the EFFECTIVE prompt: the prompt + any tokens generated before a
+    # park (or handed over by a resume)
     tokens: list[int]
+    resumed: bool = False
     # the plan reserved verify slack, so the finalize also prefills the
     # slot's draft row
     spec_ok: bool = False
@@ -389,10 +479,11 @@ class ContinuousEngine:
                  spec_k: int = 4,
                  kv_dtype: str = "bf16",
                  weight_dtype: str = "bf16",
+                 queue_depth_limit: int = 0,
+                 migration_chunk_blocks: int = 4,
                  device=None) -> None:
-        for name, value in (("preemption", preemption), ("layout", layout)):
-            if value is not None:
-                raise ValueError(f"{name}={value!r} waits: {_WAITS[name]}")
+        if layout is not None:
+            raise ValueError(f"layout={layout!r} waits: {_WAITS['layout']}")
         for name, value in (("kv_dtype", kv_dtype),
                             ("weight_dtype", weight_dtype)):
             if value not in ("bf16", "int8"):
@@ -453,7 +544,48 @@ class ContinuousEngine:
         # (host-side radix match + block alloc only), admitted at the
         # next window boundary
         self._staged: list[tuple[_Request, int, tuple, list[int]]] = []
+        # SLO-aware preemption: a PRIVATE monitor (one queue_wait
+        # objective), fed at first admits and by the live head-wait probe
+        # of _maybe_preempt, so a wedged engine still sees its burn rise
+        self.preemption = preemption
+        self._slo: SLOMonitor | None = None
+        if preemption is not None:
+            self._slo = SLOMonitor(
+                objectives=(SLOObjective("queue_wait", preemption.threshold_s,
+                                         preemption.objective),),
+                windows=(30.0, 300.0), name="batching.SLOMonitor._lock")
         self._prefills: list[_PrefillTask] = []
+        # preempted requests awaiting readmit
+        self._parked: list[_Request] = []
+        # cooldown ticks on decode steps; starts past the gate so the
+        # first pressure spike can preempt at once
+        self._steps_since_preempt = 1 << 30
+        self.preempted_total = 0  # telemetry: rows parked
+        self.resumed_total = 0  # telemetry: parked rows readmitted
+        # live-session migration: while _draining, submit() refuses,
+        # pending requests complete as migrated, and live slots stream
+        # their committed blocks through migration_sink one chunk per
+        # scheduler pass, then park-for-migrate. _draining is read
+        # locklessly on the hot paths (a racing submit lands in the
+        # queue and the next drain sweep migrates it)
+        if migration_chunk_blocks < 1:
+            raise ValueError(f"migration_chunk_blocks must be >= 1, got "
+                             f"{migration_chunk_blocks}")
+        self.migration_chunk_blocks = migration_chunk_blocks
+        self._draining = False
+        self._drained = threading.Event()
+        # set by the serving layer: called on the scheduler thread, off
+        # the lock, with one chunk dict (start_block, pages, fingerprints,
+        # scales under the int8 pool)
+        self.migration_sink = None
+        # per slot: committed blocks already streamed out
+        self._migrate_cursor: dict[int, int] = {}
+        self.migrated_total = 0  # telemetry: sessions handed off
+        self.migration_chunks_total = 0  # telemetry: chunks streamed
+        self.migration_blocks_total = 0  # telemetry: blocks streamed
+        # load shedding: 0 = unbounded; > 0 sheds submits once the
+        # waiting work (queue + holdover + parked) reaches the limit
+        self.queue_depth_limit = int(queue_depth_limit)
         self._holdover: "collections.deque[_Request]" = collections.deque()
         self._slot_blocks: list[list[int]] = [[] for _ in range(n_slots)]
         # the host's copy of each slot's sampling settings (the device
@@ -538,11 +670,24 @@ class ContinuousEngine:
                eos_id: int = -1, temperature: float = 0.0,
                seed: int = 0, top_k: int = 0, top_p: float = 1.0,
                repetition_penalty: float = 1.0,
-               export_kv: bool = False) -> _Request:
+               export_kv: bool = False,
+               resume_tokens: list[int] | None = None) -> _Request:
         """Queue a request; ``export_kv`` captures its committed full
         prompt blocks after the admit (``req.kv_export``), and with
         ``max_new_tokens=0`` the request retires right there, nothing
-        generated (the prefill replica's role)."""
+        generated (the prefill replica's role).
+
+        ``resume_tokens`` (migration resume): the tokens a source replica
+        already generated. They pre-populate ``out_tokens``, so the admit
+        takes the readmit route (effective prompt = prompt +
+        resume_tokens, remaining budget = max_new - len(resume_tokens))
+        and every later sample draws the noise an uninterrupted run would
+        at that position. ``max_new_tokens`` stays the original total
+        budget; the returned ``out_tokens`` starts with resume_tokens."""
+        if self._draining:
+            # lockless: a submit racing the flag lands in the queue and
+            # the next drain sweep migrates it
+            raise EngineDrainingError("engine is draining")
         if not prompt:
             raise ValueError("empty prompt")
         if not self.fits(len(prompt), max_new_tokens):
@@ -550,11 +695,42 @@ class ContinuousEngine:
                 f"request (prompt {len(prompt)} + new {max_new_tokens}, "
                 f"prefill bucket {_bucket(len(prompt))}) exceeds slot "
                 f"capacity ({self.cache_len})")
+        rt = [int(t) for t in (resume_tokens or [])]
+        if rt:
+            if len(rt) >= max_new_tokens:
+                raise ValueError(f"resume_tokens ({len(rt)}) must leave "
+                                 f"budget (max_new {max_new_tokens})")
+            if _bucket(len(prompt) + len(rt)) > self.cache_len:
+                # the readmit's effective prompt pads to a bucket as a
+                # cold admit does
+                raise ValueError(
+                    f"resume bucket {_bucket(len(prompt) + len(rt))} "
+                    f"exceeds slot capacity ({self.cache_len})")
+        if self.queue_depth_limit:
+            # lockless depth read (torn by at most 1); >= so a limit of 1
+            # sheds whenever anything is already waiting
+            depth = (self._queue.qsize() + len(self._holdover)
+                     + len(self._parked))
+            if depth >= self.queue_depth_limit:
+                req = _Request(list(prompt), max_new_tokens, eos_id,
+                               temperature=temperature, top_k=top_k,
+                               top_p=top_p, rep_penalty=repetition_penalty,
+                               seed=seed)
+                req.t_submit = tracing.now()
+                req.failed = "shed"
+                req.done.set()
+                raise EngineOverloadedError(
+                    f"queue depth {depth} >= queue_depth_limit "
+                    f"{self.queue_depth_limit}", request=req)
         req = _Request(list(prompt), max_new_tokens, eos_id,
                        temperature=temperature, top_k=top_k, top_p=top_p,
                        rep_penalty=repetition_penalty, seed=seed,
                        export_kv=export_kv)
-        req.t_submit = time.perf_counter()
+        if rt:
+            # a non-empty out_tokens is how the admit tells a resume (as
+            # it tells a parked readmit); these were timed at the source
+            req.out_tokens = rt
+        req.t_submit = tracing.now()
         self._queue.put(req)
         return req
 
@@ -563,13 +739,15 @@ class ContinuousEngine:
               seed: int = 0, top_k: int = 0, top_p: float = 1.0,
               repetition_penalty: float = 1.0,
               timeout: float = 300.0,
-              export_kv: bool = False) -> _Request:
+              export_kv: bool = False,
+              resume_tokens: list[int] | None = None) -> _Request:
         """submit() + wait; returns the completed request (tokens and
-        timeline)."""
+        timeline). A request that completes by MIGRATION returns normally
+        with ``req.migrated`` set."""
         req = self.submit(prompt, max_new_tokens, eos_id,
                           temperature=temperature, seed=seed, top_k=top_k,
                           top_p=top_p, repetition_penalty=repetition_penalty,
-                          export_kv=export_kv)
+                          export_kv=export_kv, resume_tokens=resume_tokens)
         if not req.done.wait(timeout):
             req.cancel()
             raise TimeoutError("generation timed out")
@@ -588,8 +766,39 @@ class ContinuousEngine:
             repetition_penalty=repetition_penalty, timeout=timeout,
         ).out_tokens
 
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
     def drain(self) -> None:
-        raise ValueError(f"drain waits: {_WAITS['drain']}")
+        """Flip the engine into drain mode: submit() refuses, and the
+        scheduler replaces admission and preemption with ``_step_drain``
+        (pending requests complete as migrated, live slots stream their
+        committed KV through ``migration_sink`` one chunk per pass with
+        decode windows between, then park-for-migrate). Idempotent;
+        ``undrain()`` reverses it."""
+        with self._lock:
+            if self._draining:
+                return
+            self._draining = True
+            self._drained.clear()
+
+    def undrain(self) -> None:
+        """Resume admissions after a drain. Sessions already migrated are
+        gone: a bounced-back one re-enters through
+        ``submit(resume_tokens=...)`` and lands warm on the blocks
+        ``_migrate_slot`` left in the trie."""
+        with self._lock:
+            if not self._draining:
+                return
+            self._draining = False
+            self._drained.clear()
+
+    def wait_drained(self, timeout_s: float = 30.0) -> bool:
+        """Block until every live session reached a terminal state (done,
+        failed, cancelled or migrated) and the queue is empty. Only
+        meaningful while draining."""
+        return self._drained.wait(timeout_s)
 
     def import_prefix(self, tokens: list[int], pages_k, pages_v,
                       timeout_s: float = 10.0, scales_k=None, scales_v=None,
@@ -729,14 +938,18 @@ class ContinuousEngine:
         return stats
 
     def scheduler_stats(self) -> dict:
-        """Scheduler counters (lockless reads): prefill chunks, the chunk
-        queue's depth, decode and verify dispatches, the draft groups'
-        served requests and accepted drafts, and the verify route's
-        proposed / accepted draft tokens and rollbacks, and the serviced
-        KV imports and their blocks."""
+        """Scheduler counters (lockless reads): parks and readmits and the
+        parked rows, prefill chunks, the chunk queue's depth, decode and
+        verify dispatches, the draft groups' served requests and accepted
+        drafts, the verify route's proposed / accepted draft tokens and
+        rollbacks, the serviced KV imports and their blocks, and the
+        sessions migrated with the chunks and blocks streamed."""
         return {
+            "preempted": self.preempted_total,
+            "resumed": self.resumed_total,
             "chunks": self.chunks_total,
             "chunk_queue": len(self._prefills),
+            "parked": len(self._parked),
             "windows": self.windows_total,
             "spec_served": self.spec_served,
             "spec_accepted": self.spec_accepted,
@@ -746,6 +959,11 @@ class ContinuousEngine:
             # disaggregated prefill: serviced imports / blocks landed
             "kv_imports": self.imports_total,
             "kv_imported_blocks": self.imported_blocks_total,
+            # live-session migration: sessions handed off, chunks and
+            # blocks streamed out
+            "migrated": self.migrated_total,
+            "migration_chunks": self.migration_chunks_total,
+            "migration_blocks": self.migration_blocks_total,
         }
 
     def prewarm_spec(self, group_sizes: tuple[int, ...] = (1,),
@@ -797,11 +1015,12 @@ class ContinuousEngine:
 
     def _fail_inflight(self) -> None:
         """Fail every published in-flight request (slots, holdover,
-        staged plans, chunked prefills); shared by stop() and the
-        scheduler loop's epilogue."""
+        parked rows, staged plans, chunked prefills); shared by stop() and
+        the scheduler loop's epilogue."""
         with self._lock:
             held = list(self._holdover)
             self._holdover.clear()
+            parked, self._parked = self._parked, []
             staged, self._staged = self._staged, []
             # staged imports hold no pool references yet (the alloc is in
             # _step_import): releasing their waiters is the whole cleanup
@@ -815,6 +1034,11 @@ class ContinuousEngine:
                     req.done.set()
         for req in held:
             req.failed = "engine stopped before the request was served"
+            req.done.set()
+        for req in parked:
+            # partial output: a failure, never a truncated completion
+            req.failed = "engine stopped mid-generation (stopped while " \
+                         "parked)"
             req.done.set()
         for req, _slot, kv_plan, _tokens in staged:
             table_row, _own, _reuse, total, _spec = kv_plan
@@ -882,14 +1106,22 @@ class ContinuousEngine:
         """Reserve ``slot`` for ``req`` and start its prefill: a chunked
         task when chunking applies, else the whole suffix at once."""
         table_row, own_mask, reuse, total, spec_ok = kv_plan
+        resumed = bool(req.out_tokens)
+        if not resumed:
+            # first admission only: a readmit is not a queue exit
+            req.t_admit = tracing.now()
+            if self._slo is not None:
+                self._slo.observe("queue_wait", req.t_admit - req.t_submit,
+                                  t=req.t_admit)
         self._slot_req[slot] = req
         self._slot_blocks[slot] = [int(b) for b in table_row[:total]]
         # flips True only once the finalize committed the draft row too
         self._slot_spec_ok[slot] = False
+        req.tokens_at_admit = len(req.out_tokens)
         task = _PrefillTask(
             req=req, slot=slot, table_row=table_row, own_mask=own_mask,
             reuse=reuse, total=total, pos=reuse * self.block_size,
-            tokens=tokens, spec_ok=spec_ok,
+            tokens=tokens, resumed=resumed, spec_ok=spec_ok,
         )
         if self._next_chunk_len(task) is not None:
             self._prefills.append(task)
@@ -955,6 +1187,7 @@ class ContinuousEngine:
         row was never activated, so releasing its blocks is the cleanup."""
         slot, req = task.slot, task.req
         self._slot_req[slot] = None
+        self._slot_spec_ok[slot] = False
         blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
         if blocks:
             self._pool.unref(blocks)
@@ -1015,45 +1248,53 @@ class ContinuousEngine:
         # prefill-only mode (max_new == 0, the export role) it is dropped:
         # the decode replica resamples it from the same distribution
         first = int(self._state.last_token[slot])
-        now = time.perf_counter()
+        now = tracing.now()
         if req.max_new > 0:
             req.out_tokens.append(first)
             req.token_times.append(now)
+        # a readmit keeps its first stamp; a resume from another replica
+        # never had one here
         if not req.t_first:
             req.t_first = now
+        if task.resumed:
+            self.resumed_total += 1
         self._maybe_retire(slot)
 
-    def _capture_export(self, req: _Request, tokens: list[int],
-                        idx: torch.Tensor) -> None:
-        """Capture the committed full-block pages ``idx`` of an admit for
-        export (scheduler thread, right after the trie insert): gathered
-        on the device, one device-to-host copy per side (the int8 pool's
-        pages and scales of both sides in one gather each). The partial
-        tail block never leaves. The fingerprints come out of the trie
-        walk, the very chain importers recompute."""
+    def _gather_pages(self, idx: torch.Tensor) -> dict:
+        """The committed pages of the pool blocks ``idx`` on the host:
+        gathered on the device, one device-to-host copy per side (the
+        int8 pool's pages and scales of both sides in one gather each).
+        Returns ``pages_k``/``pages_v`` ``[L, n, bs, n_kv, D]``, and
+        ``scales_k``/``scales_v`` ``[L, n, n_kv]`` under the int8 pool."""
         st = self._state
         with torch.inference_mode():
             if st.quantized:
                 pages = st.q8_pages[:, :, idx].cpu()
                 scales = st.q8_scales[:, :, idx].cpu()
-                pages_k, pages_v = pages[0], pages[1]
-            else:
-                pages_k = torch.stack([ck[idx] for ck in st.caches_k]).cpu()
-                pages_v = torch.stack([cv[idx] for cv in st.caches_v]).cpu()
+                return {"pages_k": pages[0], "pages_v": pages[1],
+                        "scales_k": scales[0], "scales_v": scales[1]}
+            return {
+                "pages_k": torch.stack([ck[idx] for ck in st.caches_k]).cpu(),
+                "pages_v": torch.stack([cv[idx] for cv in st.caches_v]).cpu(),
+            }
+
+    def _capture_export(self, req: _Request, tokens: list[int],
+                        idx: torch.Tensor) -> None:
+        """Capture the committed full-block pages ``idx`` of an admit for
+        export (scheduler thread, right after the trie insert). The
+        partial tail block never leaves. The fingerprints come out of the
+        trie walk, the very chain importers recompute."""
+        pages = self._gather_pages(idx)
         pairs = self._radix.match_with_fingerprints(
             tokens[: len(idx) * self.block_size])
         # the walk refs its matches; the slot already holds these blocks
         self._pool.unref([b for b, _ in pairs])
         req.kv_export = {
-            "pages_k": pages_k,
-            "pages_v": pages_v,
+            **pages,
             "fingerprints": [fp for _, fp in pairs],
             "block_size": self.block_size,
             "kv_dtype": self.kv_dtype,
         }
-        if st.quantized:
-            req.kv_export["scales_k"] = scales[0]
-            req.kv_export["scales_v"] = scales[1]
 
     def _maybe_retire(self, slot: int) -> None:
         req = self._slot_req[slot]
@@ -1069,15 +1310,226 @@ class ContinuousEngine:
             return
         self._slot_req[slot] = None
         self._slot_spec_ok[slot] = False
+        # a drain may have been streaming this slot: a stale cursor would
+        # make a later drain stream the wrong blocks
+        self._migrate_cursor.pop(slot, None)
         blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
         if blocks:
             # blocks also cached in the trie keep its reference
             self._pool.unref(blocks)
-        # the row goes inactive and its table all-null BEFORE its next
-        # decode write: freed blocks may be re-issued to another slot
+        self._deactivate(slot)
+        req.done.set()
+
+    def _deactivate(self, slot: int) -> None:
+        """The row goes inactive and its table all-null, in place, BEFORE
+        its next decode write: freed blocks may be re-issued to another
+        slot. Runs between windows only (retire, park, migrate)."""
         self._state.active[slot] = False
         self._state.tables[slot] = 0
+
+    # -- preemptive scheduling ----------------------------------------------
+
+    def _release_committed(self, slot: int, req: _Request) -> None:
+        """Free ``slot`` of a live decoding row, keeping its committed
+        full blocks in the radix trie (the trie's own reference) so a
+        readmit or resume matches them warm (caller holds the lock). The
+        newest token's KV is not written yet (the next decode step writes
+        it at the row's offset), so only blocks fully inside [0, len - 1)
+        may enter the trie: a block-aligned park would otherwise cache a
+        block whose last position is junk. Under the int8 pool these are
+        exactly the blocks the windows quantize-committed; the bf16 tail
+        row is dropped and the readmit recomputes it."""
+        committed = (req.prompt + req.out_tokens)[:-1]
+        full = len(committed) // self.block_size
+        blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
+        if full:
+            self._radix.insert(committed, blocks[:full])
+        self._slot_req[slot] = None
+        self._slot_spec_ok[slot] = False
+        self._migrate_cursor.pop(slot, None)  # the slot id becomes reusable
+        if blocks:
+            self._pool.unref(blocks)
+        self._deactivate(slot)
+
+    def _park_slot(self, slot: int) -> None:
+        """Preempt a decoding row: its committed blocks go into the trie
+        at trie-only refcount (LRU-evictable: a parked row never pins the
+        pool; an eviction only makes its readmit colder), every slot hold
+        is released, and the request joins ``_parked``. Caller holds the
+        lock; runs between windows."""
+        req = self._slot_req[slot]
+        if req is None:
+            return
+        self._release_committed(slot, req)
+        req.t_parked = tracing.now()
+        req.preemptions += 1
+        self.preempted_total += 1
+        self._parked.append(req)
+
+    def _pick_victim(self, pol: PreemptionPolicy) -> int | None:
+        """The youngest-arrival decoding slot that has decoded at least
+        ``min_progress`` tokens since its own (re)admission and whose cold
+        readmit would still fit a slot (caller holds the lock).
+        Mid-prefill rows are never parked."""
+        prefilling = {t.slot for t in self._prefills}
+        victim, victim_t = None, -1.0
+        for slot, req in enumerate(self._slot_req):
+            if req is None or slot in prefilling:
+                continue
+            if len(req.out_tokens) - req.tokens_at_admit < \
+                    max(1, pol.min_progress):
+                continue
+            # an evicted park readmits COLD: the full bucket must fit
+            if _bucket(len(req.prompt) + len(req.out_tokens)) > \
+                    self.cache_len:
+                continue
+            if req.t_submit > victim_t:
+                victim, victim_t = slot, req.t_submit
+        return victim
+
+    def _maybe_preempt(self) -> None:
+        """Park one decoding row for the longest-pending waiter when its
+        queue wait burns the private SLO past the policy's limit: at most
+        one park per call, gated by the cooldown. Runs at a window
+        boundary, before the next dispatch."""
+        pol = self.preemption
+        if pol is None or self._slo is None:
+            return
+        with self._lock:
+            waiter = self._holdover[0] if self._holdover else None
+            free = any(r is None for r in self._slot_req)
+        if waiter is None or free:
+            return
+        now = tracing.now()
+        wait = now - waiter.pending_since
+        if wait < pol.threshold_s or \
+                self._steps_since_preempt < pol.cooldown_steps:
+            return
+        # the live head wait: a wedged engine admits nothing, so admit-time
+        # observations alone would never show the burn rising
+        self._slo.observe("queue_wait", wait, t=now)
+        burn = max(self._slo.burn_rates(now=now)["queue_wait"].values())
+        if burn < pol.burn_limit:
+            return
+        with self._lock:
+            victim = self._pick_victim(pol)
+            if victim is None:
+                return
+            self._park_slot(victim)
+        self._steps_since_preempt = 0
+        # the waiter takes the freed slot now; the victim re-enters the
+        # pending order behind it (its pending_since just reset)
+        self._admit_pending()
+
+    # -- live-session migration (drain) ---------------------------------------
+
+    def _mark_migrated(self, req: _Request, streamed: int) -> None:
+        """Complete ``req`` as MIGRATED: ``out_tokens`` is a prefix of the
+        final answer, which a resume elsewhere completes
+        token-identically."""
+        req.migrated = {
+            "tokens": list(req.out_tokens),
+            "blocks": int(streamed),
+            "block_size": self.block_size,
+            "kv_dtype": self.kv_dtype,
+        }
+        self.migrated_total += 1
         req.done.set()
+
+    def _migrate_slot(self, slot: int, req: _Request, streamed: int) -> None:
+        """Park-for-migrate: free ``slot`` as ``_park_slot`` does
+        (committed blocks into the trie, so a bounced-back resume lands
+        warm here), but complete the request as migrated."""
+        with self._lock:
+            if self._slot_req[slot] is not req:
+                return  # retired or cancelled since the snapshot
+            self._release_committed(slot, req)
+        self._mark_migrated(req, streamed)
+
+    def _step_drain(self) -> None:
+        """One drain pass (scheduler thread): every pending population
+        completes as migrated, then at most ONE live slot advances: one
+        chunk of its committed blocks through ``migration_sink``, or,
+        once the stream caught up with the decode head (or with no sink),
+        its park-for-migrate. The decode windows between passes keep the
+        batch emitting; the catch-up terminates because a pass streams
+        chunk_blocks * block_size positions while decode advances at most
+        one window."""
+        with self._lock:
+            pending: list[_Request] = list(self._holdover)
+            self._holdover.clear()
+            pending.extend(self._parked)
+            self._parked.clear()
+            while True:
+                try:
+                    pending.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            staged, self._staged = self._staged, []
+            for req, _slot, kv_plan, _tokens in staged:
+                table_row, _own, _reuse, total, _spec = kv_plan
+                self._pool.unref([int(b) for b in table_row[:total]])
+                pending.append(req)
+        for req in pending:
+            if req.cancelled.is_set():
+                req.done.set()
+                continue
+            self._mark_migrated(req, streamed=0)
+        sink = self.migration_sink
+        stream = final = None
+        with self._lock:
+            # mid-prefill rows become decoding rows in a pass or two;
+            # cancelled rows retire at the next boundary
+            prefilling = {t.slot for t in self._prefills}
+            for slot, req in enumerate(self._slot_req):
+                if req is None or slot in prefilling \
+                        or req.cancelled.is_set():
+                    continue
+                toks = req.prompt + req.out_tokens
+                committed = (len(toks) - 1) // self.block_size
+                cursor = self._migrate_cursor.get(slot, 0)
+                if sink is not None and cursor < committed:
+                    n = min(self.migration_chunk_blocks, committed - cursor)
+                    stream = (slot, req, toks, cursor, n,
+                              list(self._slot_blocks[slot][cursor:cursor + n]))
+                else:
+                    final = (slot, req, cursor)
+                break
+        if stream is not None:
+            slot, req, toks, cursor, n, blocks = stream
+            bs = self.block_size
+            # off the lock: only this thread writes the device state
+            chunk = self._gather_pages(torch.tensor(
+                blocks, dtype=torch.long, device=self.device))
+            # recomputed from the tokens: the streamed blocks are
+            # slot-held, not yet in the trie
+            fps = prefix_fingerprints(toks[:(cursor + n) * bs], bs)
+            chunk.update(start_block=cursor,
+                         fingerprints=fps[cursor:cursor + n], block_size=bs,
+                         kv_dtype=self.kv_dtype)
+            try:
+                sink(chunk)
+            except Exception:  # the sink is injected code
+                # a broken sink must not wedge the drain: hand the session
+                # off with what already streamed
+                self._migrate_slot(slot, req, cursor)
+                return
+            with self._lock:
+                self._migrate_cursor[slot] = cursor + n
+                self.migration_chunks_total += 1
+                self.migration_blocks_total += n
+            return
+        if final is not None:
+            self._migrate_slot(*final)
+            return
+        # nothing to advance: drained once every population is empty
+        with self._lock:
+            live = (any(r is not None for r in self._slot_req)
+                    or self._spec_group is not None
+                    or bool(self._holdover) or bool(self._parked)
+                    or bool(self._prefills) or bool(self._staged))
+        if not live and self._queue.empty():
+            self._drained.set()
 
     def _group_eligible(self, req: _Request) -> bool:
         """Whether ``req`` goes to a draft group: a speculative engine and
@@ -1181,7 +1633,7 @@ class ContinuousEngine:
                 return  # stop() already failed the members
             self._spec_group = None
         self.spec_accepted += g.accepted_drafts
-        now = time.perf_counter()
+        now = tracing.now()
         for b, r in enumerate(reqs):
             n = min(int(out.lengths[b]), r.max_new)
             r.out_tokens.extend(out.tokens[b, :n].tolist())
@@ -1219,14 +1671,23 @@ class ContinuousEngine:
         return False
 
     def _pop_pending(self) -> _Request | None:
-        """Oldest pending request: the holdover first, then the queue."""
+        """Longest-pending-first across the holdover, the parked rows and
+        the queue (pulled through the holdover so its head's age
+        compares). The anti-livelock order: a just-parked victim's
+        ``pending_since`` restarts at its park, so it never readmits
+        ahead of the waiter it was parked for."""
         with self._lock:
             if not self._holdover:
                 try:
                     self._holdover.append(self._queue.get_nowait())
                 except queue.Empty:
                     pass
-            return self._holdover.popleft() if self._holdover else None
+            hold = self._holdover[0] if self._holdover else None
+            park = self._parked[0] if self._parked else None
+            if park is not None and (
+                    hold is None or park.pending_since <= hold.pending_since):
+                return self._parked.pop(0)
+            return self._holdover.popleft() if hold is not None else None
 
     def _admit_pending(self) -> None:
         """Admit the plans staged during the last window, then place
@@ -1328,9 +1789,16 @@ class ContinuousEngine:
             self._step_import()
             with self._lock:
                 busy = any(r is not None for r in self._slot_req)
-                idle = not busy and self._spec_group is None
+                idle = (not busy and self._spec_group is None
+                        and not self._parked)
                 have_holdover = bool(self._holdover)
             if idle:
+                if self._draining:
+                    # the drain sweeps the queue itself and flips _drained
+                    # once every population is empty
+                    self._step_drain()
+                    self._stop.wait(0.05)
+                    continue
                 # idle: block briefly for the next arrival
                 if not have_holdover:
                     try:
@@ -1341,7 +1809,14 @@ class ContinuousEngine:
                         self._holdover.append(nxt)
                 self._admit_pending()
                 continue
-            self._admit_pending()
+            if self._draining:
+                # admission and preemption stand down; the drain pass
+                # streams one chunk (or migrates one caught-up slot) and
+                # the window below keeps the batch emitting between chunks
+                self._step_drain()
+            else:
+                self._admit_pending()
+                self._maybe_preempt()
             with self._lock:
                 # mid-prefill rows are reserved but not decoding
                 prefilling = {t.slot for t in self._prefills}
@@ -1358,12 +1833,16 @@ class ContinuousEngine:
                     for s, r in enumerate(self._slot_req)
                     if r is not None and s not in prefilling)
                 host_work = (
-                    bool(self._holdover) or bool(self._prefills)
+                    bool(self._holdover) or bool(self._parked)
+                    or bool(self._prefills)
                     or self._spec_group is not None
                     or any(r is not None and r.cancelled.is_set()
                            for r in self._slot_req)
                 )
-            host_work = host_work or not self._queue.empty()
+            # draining forces K = 1 too: short windows keep the chunk
+            # stream close behind the decode head
+            host_work = host_work or not self._queue.empty() or \
+                self._draining
             if spec_ready:
                 self._verify_pass()
             elif budgets:
@@ -1371,17 +1850,20 @@ class ContinuousEngine:
                 commit_steps = None
                 if self.kv_dtype == "int8":
                     commit_steps = self._commit_steps(k, prefilling)
-                step_t0 = time.perf_counter()
+                step_t0 = tracing.now()
                 with torch.inference_mode():
                     self._state, tokens = decode_window(
                         self.params, self._state, self.cfg, k, self._flags(),
                         commit_steps)
-                # host work overlapped with the device's window, then the
-                # window's one readback
-                self._plan_admissions()
+                # host work overlapped with the device's window (none while
+                # draining: the next sweep would unwind the plans), then
+                # the window's one readback
+                if not self._draining:
+                    self._plan_admissions()
                 toks = tokens.cpu().numpy()
-                step_t = time.perf_counter()
+                step_t = tracing.now()
                 self.windows_total += 1
+                self._steps_since_preempt += k
                 with self._lock:
                     for j in range(k):
                         t_j = step_t0 + (j + 1) * (step_t - step_t0) / k
@@ -1405,15 +1887,18 @@ class ContinuousEngine:
         truncated at EOS and at its budget. A truncation always lands on
         a retirement, so discarded device progress never reaches a row
         that continues."""
-        step_t0 = time.perf_counter()
+        step_t0 = tracing.now()
         with torch.inference_mode():
             self._state, self._dstate, tokens = verify_window(
                 self.params, self._state, self._dparams, self._dstate,
                 self.cfg, self._dcfg, self.spec_k, self._flags())
-        self._plan_admissions()
+        if not self._draining:
+            # the decode branch's stand-down: no new plans while draining
+            self._plan_admissions()
         toks = tokens.cpu().numpy()
-        step_t = time.perf_counter()
+        step_t = tracing.now()
         self.windows_total += 1
+        self._steps_since_preempt += self.spec_k
         bs = self.block_size
         with self._lock:
             for slot in range(self.n_slots):

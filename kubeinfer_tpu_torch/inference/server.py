@@ -24,6 +24,19 @@ blob from the named replica, verifies it and stages the pages into its
 pool, then admits warm; every failure falls back to a local prefill and
 counts its reason (``disagg_fallbacks``).
 
+Drain and live-session migration, as in the reference: ``POST
+/admin/drain`` (open, as a reference server with no bearer token is)
+stops admissions, and each live session streams its committed KV
+chunk by chunk into the same export cache (wire v1/v2 for chunk 0, v3
+after), then completes with ``finish_reason: "migrated"`` and
+``kubeinfer.migrated`` (its tokens so far). Another replica finishes it
+from a ``kubeinfer_resume: {tokens, kv_source}`` body: it chain-imports
+the streamed blocks from the source's ``/kv/blocks`` and decodes the
+rest (route "resume"). A draining replica answers new work with 503
+``draining``; ``--queue-depth-limit`` sheds with 503 ``overloaded`` and
+``Retry-After``; ``--preemption-slo`` lets the batcher park rows for
+waiters whose queue wait burns its SLO.
+
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
         --kv-dtype int8 --weight-dtype int8
@@ -31,7 +44,9 @@ counts its reason (``disagg_fallbacks``).
         --draft-model llama-3-8b --speculative-draft --speculation-depth 4
     # two replicas: POST {"prompt": [...], "max_tokens": 0} to :8001, then
     # the same prompt with "kubeinfer_kv_source": "http://127.0.0.1:8001"
-    # (and max_tokens > 0) to :8002
+    # (and max_tokens > 0) to :8002; POST /admin/drain to :8001 hands its
+    # live sessions off, each resumed on :8002 with
+    # "kubeinfer_resume": {"tokens": [...], "kv_source": "http://127.0.0.1:8001"}
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8001
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8002
 
@@ -54,13 +69,14 @@ from urllib.parse import parse_qs, urlparse
 import torch
 
 from kubeinfer_tpu_torch.device import resolve_device
+from kubeinfer_tpu_torch.inference.batching import (
+    ContinuousEngine,
+    EngineDrainingError,
+    EngineOverloadedError,
+    PreemptionPolicy,
+)
 
 log = logging.getLogger(__name__)
-
-_WAITING_BODY = {
-    "kubeinfer_resume": "live-session resume waits: ROADMAP Queue 1, "
-                        "preemption, drain and migration",
-}
 
 
 class InferenceServer:
@@ -100,7 +116,15 @@ class InferenceServer:
         self.kv_stream_seconds = {
             d: collections.deque(maxlen=1024) for d in ("export", "import")}
         self.disagg_fallbacks: collections.Counter = collections.Counter()
+        # chain imports of migrated sessions that fell short, by reason (a
+        # partial import still counts its blocks above)
+        self.migration_fallbacks: collections.Counter = collections.Counter()
         self._kv_lock = threading.Lock()
+        if self.kv_exports is not None:
+            # the drain pass streams committed-KV chunks through this sink
+            # (scheduler thread, off the engine lock) into the same cache
+            # /kv/blocks serves, keyed by each chunk's deepest fingerprint
+            continuous.migration_sink = self._export_migration_chunk
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -109,11 +133,14 @@ class InferenceServer:
             def log_message(self, fmt, *args):  # no per-request stderr
                 return
 
-            def respond(self, code: int, ctype: str, body) -> None:
+            def respond(self, code: int, ctype: str, body,
+                        headers: dict | None = None) -> None:
                 data = body.encode() if isinstance(body, str) else body
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
+                for key, value in (headers or {}).items():
+                    self.send_header(key, value)
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -168,6 +195,9 @@ class InferenceServer:
                 path = self.path.split("?", 1)[0]
                 n = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(n)
+                if path == "/admin/drain":
+                    self.admin_drain(raw)
+                    return
                 if path != "/v1/completions":
                     self.respond(404, "text/plain", "not found\n")
                     return
@@ -178,11 +208,42 @@ class InferenceServer:
                     self.respond(400, "application/json", json.dumps(
                         {"error": {"message": str(e),
                                    "type": "invalid_request_error"}}))
+                except EngineOverloadedError as e:
+                    # a valid request with no queue room: back off and retry
+                    self.respond(503, "application/json", json.dumps(
+                        {"error": {"message": str(e), "type": "overloaded"}}),
+                        headers={"Retry-After": str(max(
+                            1, int(e.retry_after_s)))})
+                except EngineDrainingError as e:
+                    # valid, but THIS replica will not take it: route
+                    # elsewhere (no Retry-After, a drain does not recover)
+                    self.respond(503, "application/json", json.dumps(
+                        {"error": {"message": str(e), "type": "draining"}}))
                 except Exception as e:  # keep the serving thread alive
                     log.exception("completion failed")
                     self.respond(500, "application/json", json.dumps(
                         {"error": {"message": str(e),
                                    "type": "server_error"}}))
+
+            def admin_drain(self, raw: bytes):
+                """``POST /admin/drain {"resume": bool, "timeout_s": s}``;
+                a body that is not a JSON object counts as ``{}``."""
+                try:
+                    body = json.loads(raw or b"{}")
+                except ValueError:
+                    body = {}
+                if not isinstance(body, dict):
+                    body = {}
+                try:
+                    resp = server.drain(
+                        resume=bool(body.get("resume", False)),
+                        timeout_s=float(body.get("timeout_s", 30.0)))
+                except ValueError as e:
+                    self.respond(400, "application/json", json.dumps(
+                        {"error": {"message": str(e),
+                                   "type": "invalid_request_error"}}))
+                    return
+                self.respond(200, "application/json", json.dumps(resp))
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self._httpd.daemon_threads = True
@@ -217,13 +278,17 @@ class InferenceServer:
         ext = {"route": route,
                "latency_ms": (time.perf_counter() - t0) * 1e3, **more}
         if req is not None:
-            ext["ttft_ms"] = (req.t_first - req.t_submit) * 1e3
+            if req.t_first:  # (none for a session migrated unadmitted)
+                ext["ttft_ms"] = (req.t_first - req.t_submit) * 1e3
             if self.continuous.spec_draft is not None:
                 # the verify route's per-request accounting (the
                 # reference records it on its engine.decode span)
                 ext["spec_accepted"] = req.spec_accepted
                 ext["spec_rollbacks"] = req.spec_rollbacks
         ids_len = len(body["prompt"])
+        # no tokenizer, so no EOS: every completion runs to length, unless
+        # a drain handed it off (its tokens are a prefix of the answer)
+        finish = "migrated" if "migrated" in ext else "length"
         return {
             "id": "cmpl-kubeinfer" if req is None
             else f"cmpl-kubeinfer-{req.rid}",
@@ -233,8 +298,7 @@ class InferenceServer:
                 "index": 0,
                 "text": self._decode(gen),
                 "tokens": gen,
-                # no tokenizer, so no EOS: every completion runs to length
-                "finish_reason": "length",
+                "finish_reason": finish,
             }],
             "usage": {
                 "prompt_tokens": ids_len,
@@ -265,9 +329,19 @@ class InferenceServer:
             raise ValueError("repetition_penalty must be > 0")
         seed = int(body.get("seed", 0))
         eos_id = -1
-        for key, reason in _WAITING_BODY.items():
-            if body.get(key) is not None:
-                raise ValueError(reason)
+        # live-session resume: a drained source handed back its tokens so
+        # far (and where to pull the streamed KV chain from)
+        resume = body.get("kubeinfer_resume")
+        resume_tokens: list[int] = []
+        if resume is not None:
+            if not isinstance(resume, dict):
+                raise ValueError("kubeinfer_resume must be an object")
+            rt = resume.get("tokens") or []
+            if not (isinstance(rt, list)
+                    and all(isinstance(t, int) for t in rt)):
+                raise ValueError(
+                    "kubeinfer_resume.tokens must be token ids (ints)")
+            resume_tokens = [int(t) for t in rt]
         kw = dict(eos_id=eos_id, temperature=temperature, seed=seed,
                   top_k=top_k, top_p=top_p, repetition_penalty=rep_penalty)
         # the decode side: pull the prefill replica's KV into the local
@@ -281,6 +355,8 @@ class InferenceServer:
             self._maybe_import_prefix(ids, kv_source)
         if max_tokens == 0:
             return self._prefill_only(ids, kw)
+        if resume_tokens:
+            return self._resume(ids, max_tokens, resume_tokens, resume, kw)
         if (self.speculative is not None and rep_penalty == 1.0
                 and self.speculative.fits(len(ids), max_tokens)
                 # a batcher with a speculative engine owns the draft-
@@ -296,9 +372,39 @@ class InferenceServer:
         if self.continuous is not None and self.continuous.fits(
                 len(ids), max_tokens):
             req = self.continuous.serve(ids, max_new_tokens=max_tokens, **kw)
-            return "continuous", list(req.out_tokens), req, {}
+            return "continuous", list(req.out_tokens), req, self._ext(req)
         out = self.engine.generate([ids], max_new_tokens=max_tokens, **kw)
         return "engine", out.tokens[0, : out.lengths[0]].tolist(), None, {}
+
+    @staticmethod
+    def _ext(req) -> dict:
+        """A continuous request's extra fields: ``migrated`` when the
+        engine drained under it (the router re-routes with these tokens
+        as the resume prefix, pulling the chain from /kv/blocks)."""
+        return {"migrated": dict(req.migrated)} if req.migrated else {}
+
+    def _resume(self, ids: list[int], max_tokens: int,
+                resume_tokens: list[int], resume: dict, kw: dict):
+        """Finish a migrated session: only the continuous batcher's
+        position-folded key schedule reproduces the source's stream
+        mid-generation. A tail the source already finished answers
+        directly; else the committed chain is chain-imported from
+        ``kv_source`` (best-effort) and the batcher readmits the rest."""
+        if not (self.continuous is not None
+                and self.continuous.fits(len(ids), max_tokens)):
+            raise ValueError("kubeinfer_resume requires the continuous "
+                             "batcher and a prompt that fits its cache")
+        if len(resume_tokens) >= max_tokens:
+            return "resume", resume_tokens[:max_tokens], None, {}
+        src = resume.get("kv_source")
+        if isinstance(src, str) and src:
+            # the committed chain only: the newest token's KV never
+            # streamed
+            self._maybe_import_chain((ids + resume_tokens)[:-1], src)
+        req = self.continuous.serve(ids, max_new_tokens=max_tokens,
+                                    resume_tokens=resume_tokens, **kw)
+        # drained AGAIN mid-resume: migrated carries on to the next hop
+        return "resume", list(req.out_tokens), req, self._ext(req)
 
     def _prefill_only(self, ids: list[int], kw: dict):
         """``max_tokens=0``, the prefill replica's role, outranking every
@@ -370,6 +476,78 @@ class InferenceServer:
             with self._kv_lock:
                 self.disagg_fallbacks[reason or "unknown"] += 1
 
+    def _maybe_import_chain(self, tokens: list[int], base_url: str) -> None:
+        """Chunked warm import of a migrated session's KV chain from the
+        source replica before the resume admit. Best-effort: a failure
+        counts under ``migration_fallbacks``, and a partial import still
+        counts its blocks (the resume re-prefills only past the last
+        verified chunk). A chain whose deepest fingerprint the engine
+        already advertises (a bounce-back resume) is not fetched."""
+        from kubeinfer_tpu_torch.disagg.client import import_remote_chain
+        from kubeinfer_tpu_torch.inference.kv_blocks import (
+            prefix_fingerprints,
+        )
+
+        eng = self.continuous
+        fps = prefix_fingerprints(tokens, eng.block_size)
+        if not fps:
+            return
+        if fps[-1] in set(eng.cache_summary().get("fingerprints", [])):
+            return  # the whole chain is warm here already
+        t0 = time.perf_counter()
+        imported, reason, wire_bytes = import_remote_chain(
+            eng, tokens, base_url, chunk_blocks=eng.migration_chunk_blocks)
+        if imported > 0:
+            self._count_stream("import", imported, wire_bytes,
+                               time.perf_counter() - t0)
+        if reason is not None:
+            with self._kv_lock:
+                self.migration_fallbacks[reason] += 1
+
+    def _export_migration_chunk(self, chunk: dict) -> None:
+        """The engine's migration sink (scheduler thread, off the engine
+        lock): wire-encode one streamed chunk (chunk 0 as v1/v2, later
+        ones as v3) and park it in the export cache under the chunk's own
+        deepest fingerprint, where ``/kv/blocks`` serves it. Raising is
+        fine: the engine then hands the session off with what already
+        streamed. Export blocks and bytes count when /kv/blocks serves
+        the blob."""
+        from kubeinfer_tpu_torch.disagg.wire import encode_payload
+
+        blob = encode_payload(
+            chunk["pages_k"], chunk["pages_v"], chunk["fingerprints"],
+            chunk["block_size"], scales_k=chunk.get("scales_k"),
+            scales_v=chunk.get("scales_v"),
+            kv_dtype=chunk.get("kv_dtype", "bf16"),
+            start_block=chunk["start_block"])
+        self.kv_exports.put(int(chunk["fingerprints"][-1]), blob)
+
+    def drain(self, resume: bool = False, timeout_s: float = 30.0) -> dict:
+        """``POST /admin/drain``: stop admitting, migrate or complete
+        every live session, report. ``resume=True`` (a rebalance) undrains
+        once drained. Blocks up to ``timeout_s``; ``drained`` false means
+        sessions are still live."""
+        if self.continuous is None:
+            raise ValueError("drain requires the continuous batcher")
+        eng = self.continuous
+        before = eng.migrated_total
+        eng.drain()
+        drained = eng.wait_drained(timeout_s)
+        sched = eng.scheduler_stats()
+        out = {
+            "drained": bool(drained),
+            "draining": True,
+            "migrated": int(eng.migrated_total - before),
+            "migration_chunks_total": int(sched["migration_chunks"]),
+            "migration_blocks_total": int(sched["migration_blocks"]),
+            "exports": (self.kv_exports.stats()
+                        if self.kv_exports is not None else {}),
+        }
+        if resume and drained:
+            eng.undrain()
+            out["draining"] = False
+        return out
+
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> "InferenceServer":
@@ -391,10 +569,6 @@ _WAITING_FLAGS = {
     "tensor_parallel_size": (1, "slice 6: sharding.py / tp"),
     "sequence_parallel_size": (1, "slice 6: sp_engine.py + ring_attention.py"),
     "sp_min_prompt": (1024, "slice 6: sp_engine.py + ring_attention.py"),
-    "migration_chunk_blocks": (4, "preemption, drain and migration"),
-    "queue_depth_limit": (0, "preemption, drain and migration (load "
-                             "shedding)"),
-    "preemption_slo": ("", "preemption, drain and migration"),
     "tls_cert_file": ("", "/metrics and the debug endpoints (TLS)"),
     "tls_key_file": ("", "/metrics and the debug endpoints (TLS)"),
     "debug_token_file": ("", "/metrics and the debug endpoints"),
@@ -445,7 +619,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "before serving (e.g. '1,2,4')")
     p.add_argument("--kv-export-budget-mb", type=float, default=0.0,
                    help="byte budget of the KV export cache served at "
-                        "/kv/blocks (0 = bounded by entry count only)")
+                        "/kv/blocks, prefill exports and migration chunks "
+                        "(0 = bounded by entry count only)")
+    p.add_argument("--migration-chunk-blocks", type=int, default=4,
+                   help="KV blocks streamed per drain pass during live-"
+                        "session migration; decode windows run between "
+                        "chunks")
+    p.add_argument("--queue-depth-limit", type=int, default=0,
+                   help="shed completion submits with 503 + Retry-After "
+                        "once waiting work (queue + holdover + parked) "
+                        "reaches this depth (0 = unbounded)")
+    p.add_argument("--preemption-slo", default="",
+                   metavar="THRESHOLD_S[:BURN_LIMIT]",
+                   help="park the youngest decoding row (its KV cached in "
+                        "the radix trie, a token-identical warm readmit) "
+                        "when a waiter exceeds THRESHOLD_S and the "
+                        "queue-wait burn rate reaches BURN_LIMIT (default "
+                        "1.0); empty disables preemption")
     # accepted and unused, as in the reference (vLLM flag parity)
     p.add_argument("--gpu-memory-utilization", type=float, default=0.9)
     for name, (default, _entry) in _WAITING_FLAGS.items():
@@ -462,7 +652,6 @@ def build_parser() -> argparse.ArgumentParser:
 def build_server(argv: list[str] | None = None, device=None):
     """Parse flags, build the engines and the server (not started).
     Returns (server, continuous engine or None)."""
-    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.engine import Engine
     from kubeinfer_tpu_torch.inference.model import init_params
@@ -513,6 +702,9 @@ def build_server(argv: list[str] | None = None, device=None):
             max_cache_len=max_cache, device=dev)
     continuous = None
     if args.batch_slots > 0:
+        preemption = None
+        if args.preemption_slo:
+            preemption = PreemptionPolicy.parse(args.preemption_slo)
         continuous = ContinuousEngine(
             params, cfg, n_slots=args.batch_slots,
             cache_len=min(max_cache, 4096),
@@ -521,6 +713,9 @@ def build_server(argv: list[str] | None = None, device=None):
             spec_draft=(dparams, dcfg) if args.speculative_draft else None,
             spec_k=args.speculation_depth,
             kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
+            preemption=preemption,
+            queue_depth_limit=args.queue_depth_limit,
+            migration_chunk_blocks=args.migration_chunk_blocks,
             device=dev,
         )
         if args.prewarm_spec and speculative is not None:

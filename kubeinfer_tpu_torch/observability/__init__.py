@@ -1,7 +1,8 @@
 """Request-scoped tracing: spans, trace-context propagation and Chrome
 trace export (a copy of the tracing part of
-``kubeinfer_tpu/observability``). The flight recorder, the step profiler
-and the SLO monitor are not ported yet."""
+``kubeinfer_tpu/observability``), and the SLO burn-rate monitor
+(``slo.py``, imported from there). The flight recorder and the step
+profiler are not ported yet."""
 
 from kubeinfer_tpu_torch.observability.tracing import (
     RECORDER,

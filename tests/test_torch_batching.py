@@ -27,6 +27,7 @@ from kubeinfer_tpu.inference import init_params as j_init
 from kubeinfer_tpu.inference.batching import ContinuousEngine as JC
 from kubeinfer_tpu_torch.inference import weights as tw
 from kubeinfer_tpu_torch.inference.batching import ContinuousEngine as TC
+from kubeinfer_tpu_torch.inference.batching import PreemptionPolicy
 from kubeinfer_tpu_torch.inference.config import PRESETS as TP
 
 SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9, repetition_penalty=1.3)
@@ -146,14 +147,22 @@ def test_weight_dtype_guard(params):
 
 
 def test_waiting_features_raise(params):
+    """A sharded layout still waits; preemption and drain() are accepted
+    (the drain of an idle engine completes, and undrain() reopens it)."""
     _, tp = params
-    for kw, name in ((dict(preemption=object()), "preemption"),
-                     (dict(layout=object()), "layout")):
-        with pytest.raises(ValueError, match=name):
-            TC(tp, TP["tiny"], cache_len=64, device="cpu", **kw)
-    eng = TC(tp, TP["tiny"], n_slots=2, cache_len=64, device="cpu")
-    with pytest.raises(ValueError, match="waits"):
+    with pytest.raises(ValueError, match="layout"):
+        TC(tp, TP["tiny"], cache_len=64, device="cpu", layout=object())
+    pol = PreemptionPolicy(threshold_s=0.25)
+    eng = TC(tp, TP["tiny"], cache_len=64, device="cpu", preemption=pol)
+    assert eng.preemption is pol and eng.scheduler_stats()["preempted"] == 0
+    eng = TC(tp, TP["tiny"], n_slots=2, cache_len=64, device="cpu").start()
+    try:
         eng.drain()
+        assert eng.draining and eng.wait_drained(10.0)
+        eng.undrain()
+        assert not eng.draining and len(eng.generate([1, 2, 3], 2)) == 2
+    finally:
+        eng.stop()
     assert not eng.fits(60, 10) and eng.fits(10, 10)
 
 

@@ -690,4 +690,5 @@ def test_prefill_only_needs_the_continuous_batcher(fleet):
     with pytest.raises(ValueError, match="prefill-only"):
         pre.complete({"prompt": list(range(1, 200)), "max_tokens": 0})
     with pytest.raises(ValueError, match="resume"):
-        pre.complete({"prompt": [1, 2], "kubeinfer_resume": {"tokens": [3]}})
+        pre.complete({"prompt": list(range(1, 200)), "max_tokens": 4,
+                      "kubeinfer_resume": {"tokens": [3]}})

@@ -77,7 +77,9 @@ def test_routes_return_their_engines_tokens(served, kw):
 @pytest.mark.parametrize("body,msg", [
     # prefill-only needs a prompt the 64-wide slots can take
     (dict(prompt=list(range(1, 71)), max_tokens=0), "prefill-only"),
-    (dict(prompt=[1, 2], kubeinfer_resume={"tokens": [3]}), "resume"),
+    # a resume rides the continuous batcher only: 70 + 4 > its 64 slots
+    (dict(prompt=list(range(1, 71)), max_tokens=4,
+          kubeinfer_resume={"tokens": [3]}), "resume"),
     (dict(prompt="hello"), "tokenizer"),
     (dict(prompt=[1, 2], top_p=0.0), "top_p"),
     (dict(max_tokens=3), "prompt"),
@@ -116,7 +118,7 @@ def test_unreachable_kv_source_falls_back_locally(served):
 @pytest.mark.parametrize("flags,msg", [
     (["--speculative-draft"], "speculative"),
     (["--tensor-parallel-size", "2"], "sharding.py"),
-    (["--preemption-slo", "1.0"], "preemption"),
+    (["--debug-token-file", "/nonexistent"], "debug endpoints"),
     (["--slo", "ttft:0.5:0.99"], "debug endpoints"),
 ])
 def test_main_refuses_waiting_flags(flags, msg):
