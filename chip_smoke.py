@@ -202,7 +202,8 @@ times them. Phases:
       states against attn_fn=model.attention; then 2 layers in f32, the
       card (#9b on the CUDA-core route) against device="cpu" (dense);
   (25) verify windows at 8 slots: (a) a library ContinuousEngine whose
-      draft is the target itself (acceptance near 1), (b) the server with
+      draft is the target itself (acceptance near 1; at SPEC_INT8_LAYERS
+      layers, as the plain engine it is held to), (b) the server with
       ``--draft-model llama-3-8b --speculative-draft`` at SPEC_INT8_LAYERS
       layers (a seed-1 draft: every window rolls back) over HTTP, the
       plain engine's streams on its weights; #11 at T = 5 and #10 on the
@@ -226,7 +227,7 @@ times them. Phases:
       slot, and a direct SpeculativeEngine.generate whose prefills launch
       #9 once per chunk and layer, its greedy tokens checked as in (25);
   (27) the int8 verify server (``--kv-dtype int8 --weight-dtype int8``)
-      at full width and half depth (SPEC_INT8_LAYERS):
+      at full width and a quarter of its depth (SPEC_INT8_LAYERS):
       #12 at T = 5 on every call (its live splits equal to
       decode_split_walk's), windows that spill into tail slot 1, #11
       never, #15 on every projection; then 1 layer in f32 with blocks of
@@ -283,7 +284,29 @@ times them. Phases:
       cold admit, request latency under preemption beside uncontended,
       the drain, each chunk pass's gather and encode, the chunk bytes, the
       chain import and the resume's TTFT. #10, #11, #12 and #15 gain
-      ``migrate_launches`` in the kernels line;
+      ``migrate_launches`` in the kernels line. Since (32), the servers of
+      (13) and (17) carry a bearer token: (31b)'s and (31c)'s drains send
+      it, and one drain without it answers 401, the source undrained;
+  (32) /metrics and the debug endpoints: the servers of (13) and (17) are
+      built with ``--slo ttft:2.0:0.99 --debug-token-file <a temporary
+      file> --flight-capacity 4096`` (``observe_flags``), so every phase
+      on them runs instrumented (the batcher's step profiler and flight
+      recorder, the server's collectors and SLO monitor). (32a) on the bf16
+      server after (31b), (32b) on the int8 one after (31c): GET /metrics
+      parses with every family of the serving collectors and its counters
+      equal the engine's own; a burst (7 completions, 2 shed at the door,
+      an invalid body, the engine route, a prefill-only export fetched
+      twice) moves each counter by what the answers say, the step
+      histogram by the profiler's new records, #11 (#12) by 32 launches a
+      decode step (#11 and #12 held against their plain versions on every
+      call, #15's launches counted: [17]-(31c) hold it on this server's
+      calls); histograms only grow; /debug/flightrecorder?since=
+      replays each event once; /debug/spans, /debug/slo,
+      stats_summary() and /cache/summary answer sanely, /debug/* 401
+      without the token; one host sync a decode window with the
+      instrumentation on. Unchecked: a scrape's ms, the host us of a
+      profiler record and a flight note. #11, #12 and #15 gain
+      ``observe_launches`` in the kernels line;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -297,18 +320,23 @@ libraries; about a minute and a half of command), with their entries of the kern
 line; the numbers go to chiprun_out/placement.json. ``--p50s`` prints the
 placement p50s of (4), (7) and (11) alone. ``--disagg`` runs (30a) and
 (30b) alone (chiprun_out/disagg_probe.json); ``--migrate`` runs (31) alone
-(chiprun_out/migrate_probe.json).
+(chiprun_out/migrate_probe.json); ``--observe`` runs (32) alone on fresh
+servers (chiprun_out/observe_probe.json).
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import json
 import pathlib
+import secrets
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -321,10 +349,10 @@ ROUND_KERNELS = ("fence", "bid", "accept")
 # [19], [22], [25], [27]): the host's f32 run is most of each check's
 # time, and one layer keeps the whole run near 750 s
 CPU_CHECK_LAYERS = 1
-# depth of the int8 verify server in [27] (the preset has 32): [17]-[20]
-# serve int8 at full depth, and half depth here keeps the whole run near
-# 750 s
-SPEC_INT8_LAYERS = 16
+# depth of the verify engines and servers in [25a], [25b], [25c] and [27]
+# (the preset has 32): [13]-[20] serve at full depth, and a quarter here
+# keeps the whole run near 750 s with [32] added
+SPEC_INT8_LAYERS = 8
 
 
 def build_request(J, N, seed=0, gang_fraction=0.0):
@@ -2231,6 +2259,60 @@ def get_status(port, path):
         return r.status
 
 
+def get_text(port, path, token=None):
+    """(status, body, host ms) of a GET; an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}")
+    if token is not None:
+        req.add_header("Authorization", f"Bearer {token}")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read().decode(), \
+                (time.perf_counter() - t0) * 1e3
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(), (time.perf_counter() - t0) * 1e3
+
+
+# the bearer token of (13)'s and (17)'s servers (--debug-token-file),
+# fresh each run: /debug/* and POST /admin/drain need it
+OBSERVE_TOKEN = secrets.token_hex(16)
+_TOKEN_FILE: list = []
+
+
+def observe_flags():
+    """The observability flags (13)'s and (17)'s servers are built with:
+    the SLO objective, the bearer token (a file in a temporary directory
+    removed at exit) and the flight recorder's ring."""
+    if not _TOKEN_FILE:
+        d = tempfile.mkdtemp(prefix="chip-smoke-")
+        atexit.register(shutil.rmtree, d, True)
+        path = pathlib.Path(d) / "debug-token"
+        path.write_text(OBSERVE_TOKEN + "\n")
+        _TOKEN_FILE.append(str(path))
+    return ["--slo", "ttft:2.0:0.99", "--debug-token-file", _TOKEN_FILE[0],
+            "--flight-capacity", "4096"]
+
+
+def metric_samples(text):
+    """Prometheus text -> {"name{labels}": value} of every sample line."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            out[series] = float(value)
+    return out
+
+
+def family(srv, name):
+    """{"{labels}" or "": value} of one family of ``srv``'s registry."""
+    return {series[len(name):]: v for series, v in
+            metric_samples(srv.registry.render()).items()
+            if series == name or series.startswith(name + "{")}
+
+
 def in_threads(fn, items):
     """fn over items, one thread each, all started together."""
     import threading
@@ -2366,7 +2448,7 @@ def serving_phases(dev, record, card):
     t0 = time.perf_counter()
     srv, cont = server.build_server(
         ["--model", "llama-3-8b", "--random-init", "--port", "0",
-         "--host", "127.0.0.1", "--batch-slots", "8"])
+         "--host", "127.0.0.1", "--batch-slots", "8", *observe_flags()])
     torch.cuda.synchronize()
     engine = srv.engine
     cfg = engine.cfg
@@ -2597,11 +2679,14 @@ def serving_phases(dev, record, card):
             dev, record, card, srv, cont,
             then=lambda dec_srv, dec: migrate.update(migrate_phase(
                 dev, record, card, srv, cont, dec_srv, dec)))
+        # (32a) on this server, after (31b)
+        observe = observe_phase(dev, record, card, srv, cont)
         preempt = preempt_phases(dev, record, card, cont.params, cfg,
                                  cont.cache_len)
     finally:
         srv.stop()
         cont.stop()
+    entries[2]["observe_launches"] = observe["decode_attention_blocks"]
     entries[2]["disagg_launches"] = launches["decode_attention_blocks"]
     entries[1]["migrate_launches"] = preempt["decode_attention"]
     entries[2]["migrate_launches"] = (preempt["decode_attention_blocks"]
@@ -2823,9 +2908,9 @@ def disagg_phase(dev, record, card, pre_srv, pre, then=None):
         n_blocks = sum(len(p) // bs for p, _ in cases)
         check((dec.imports_total - imp0[0],
                dec.imported_blocks_total - imp0[1]) == (len(cases), n_blocks)
-              and not dec_srv.disagg_fallbacks,
+              and not family(dec_srv, "kubeinfer_disagg_fallbacks_total"),
               f"{label} imports {dec.scheduler_stats()}, fallbacks "
-              f"{dict(dec_srv.disagg_fallbacks)}")
+              f"{family(dec_srv, 'kubeinfer_disagg_fallbacks_total')}")
         # the same prompt again: advertised, so not fetched again (greedy:
         # its first 8 tokens are the first request's)
         again = post_json(dec_srv.port, dict(
@@ -2839,9 +2924,11 @@ def disagg_phase(dev, record, card, pre_srv, pre, then=None):
             kubeinfer_kv_source="http://127.0.0.1:9"))
         check(fb["kubeinfer"]["route"] == "continuous"
               and len(fb["choices"][0]["tokens"]) == 8
-              and dict(dec_srv.disagg_fallbacks) == {"fetch_error": 1}
+              and family(dec_srv, "kubeinfer_disagg_fallbacks_total")
+              == {'{reason="fetch_error"}': 1.0}
               and dec.imports_total - imp0[0] == len(cases),
-              f"{label} fallback {dict(dec_srv.disagg_fallbacks)}")
+              f"{label} fallback "
+              f"{family(dec_srv, 'kubeinfer_disagg_fallbacks_total')}")
         mark("path")
         # the landed pages, bitwise the exporter's
         exported = [pool_pages(pre, pool_blocks(pre, p[:len(p) // bs * bs]))
@@ -2867,7 +2954,9 @@ def disagg_phase(dev, record, card, pre_srv, pre, then=None):
             ("fetch", (client, "fetch_kv_blocks")),
             # every scheduler pass calls it; timed where a task waits
             ("import", (dec, "_step_import", True,
-                        lambda: bool(dec._imports))))}
+                        lambda: bool(dec._imports))),
+            # the server's whole import: fetch, verify, staged write
+            ("server_import", (dec_srv, "_maybe_import_prefix")))}
         ttft, latency, wire_bytes = [], [], []
         with contextlib.ExitStack() as stack:
             for t in timing.values():
@@ -2876,16 +2965,17 @@ def disagg_phase(dev, record, card, pre_srv, pre, then=None):
                 p = rng.integers(1, V, 512).tolist()
                 doc = post_json(pre_srv.port, dict(prompt=p, max_tokens=0))
                 wire_bytes.append(doc["kubeinfer"]["kv_export"]["bytes"])
+                t0 = time.perf_counter()
                 doc = post_json(dec_srv.port, dict(
                     prompt=p, max_tokens=1, kubeinfer_kv_source=source))
+                latency.append((time.perf_counter() - t0) * 1e3)
                 ttft.append(doc["kubeinfer"]["ttft_ms"])
-                latency.append(doc["kubeinfer"]["latency_ms"])
         check(dec.imports_total - imp0[0] == len(cases) + 3
               and len(timing["import"].ms) == 3,
               f"{label} timing runs imported {dec.imports_total}")
-        import_s = list(dec_srv.kv_stream_seconds["import"])[-3:]
-        streamed = (dict(pre_srv.kv_stream_blocks),
-                    dict(dec_srv.kv_stream_blocks))
+        import_s = [ms / 1e3 for ms in timing["server_import"].ms]
+        streamed = (family(pre_srv, "kubeinfer_kv_stream_blocks_total"),
+                    family(dec_srv, "kubeinfer_kv_stream_blocks_total"))
         mark("times")
         if then is not None:
             then(dec_srv, dec)
@@ -3012,7 +3102,7 @@ MIGRATE_NEW = 80
 MIGRATE_AT = 48
 
 
-def post_path(port, path, body, timeout=900):
+def post_path(port, path, body, timeout=900, token=None):
     """(status, JSON body, headers) of a POST, an HTTP error's too."""
     import urllib.error
     import urllib.request
@@ -3020,6 +3110,8 @@ def post_path(port, path, body, timeout=900):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
+    if token is not None:
+        req.add_header("Authorization", f"Bearer {token}")
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, json.loads(r.read()), dict(r.headers)
@@ -3467,7 +3559,7 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
                            "tokens")
                 t0 = time.perf_counter()
                 status, report, _ = post_path(src_srv.port, "/admin/drain",
-                                              {})
+                                              {}, token=OBSERVE_TOKEN)
                 drain_ms = (time.perf_counter() - t0) * 1e3
                 for th in threads:
                     th.join(900)
@@ -3479,28 +3571,39 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
                             dict(prompt=jobs[0][0][:64], max_tokens=2))
         mig = [d["kubeinfer"]["migrated"] for d in docs]
 
+        resume_ms = [None] * len(jobs)
+
         def resume(n):
-            return post_json(dst_srv.port, dict(
+            t0 = time.perf_counter()
+            doc = post_json(dst_srv.port, dict(
                 prompt=jobs[n][0], max_tokens=budget,
                 kubeinfer_resume={"tokens": mig[n]["tokens"],
                                   "kv_source": source}, **jobs[n][1]))
+            resume_ms[n] = (time.perf_counter() - t0) * 1e3
+            return doc
 
         order = list(range(len(jobs)))
         resumed = (in_threads(resume, order) if together
                    else [resume(n) for n in order])
         return (report, drain_ms), docs, mig, resumed, refused, \
-            gather.ms, sink_ms
+            gather.ms, sink_ms, resume_ms
 
     chk = attention_check(fa, int8)
     chk15 = (CheckedMatmul(wq, keep_f32=True) if src.weight_dtype == "int8"
              else None)
+    stream_blocks = family(dst_srv, "kubeinfer_kv_stream_blocks_total")
     imp0 = (dst.imports_total, dst.imported_blocks_total,
-            dst_srv.kv_stream_blocks["import"])
+            stream_blocks.get('{direction="import"}', 0.0))
     chunks0 = (src.migration_chunks_total, src.migration_blocks_total)
     jobs = sessions()
+    # without the bearer token a drain is refused and the source undrained
+    st, body, _ = post_path(src_srv.port, "/admin/drain", {})
+    check(st == 401 and body == {"error": "unauthorized"}
+          and not src.draining,
+          f"{label} a drain without the token answered {st} {body}")
     with torch.inference_mode(), chk, (chk15 or contextlib.nullcontext()):
         try:
-            (report, _), docs, mig, resumed, refused, _, _ = migrate(
+            (report, _), docs, mig, resumed, refused, _, _, _ = migrate(
                 jobs, MIGRATE_NEW)
         finally:
             check(chk.error is None, str(chk.error))
@@ -3546,12 +3649,13 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
               and f[:len(m["tokens"])] == m["tokens"],
               f"{label} resume answered {d['kubeinfer']}")
     n_chain = sum(m["blocks"] for m in mig)
+    fallbacks = family(dst_srv, "kubeinfer_migration_fallbacks_total")
     check((dst.imported_blocks_total - imp0[1],
-           dst_srv.kv_stream_blocks["import"] - imp0[2]) == (n_chain, n_chain)
-          and dst.imports_total - imp0[0] == 4
-          and not dst_srv.migration_fallbacks,
+           dst_srv.metrics["kv_stream_blocks"].value("import") - imp0[2])
+          == (n_chain, n_chain)
+          and dst.imports_total - imp0[0] == 4 and not fallbacks,
           f"{label} chain imports {dst.scheduler_stats()}, fallbacks "
-          f"{dict(dst_srv.migration_fallbacks)}")
+          f"{fallbacks}")
     diff = []
     for chain in chains:
         n = len(chain) // bs
@@ -3581,7 +3685,8 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
           f"{label} degenerate tail {st} {doc}")
 
     def undrain():
-        st, rep, _ = post_path(src_srv.port, "/admin/drain", {"resume": True})
+        st, rep, _ = post_path(src_srv.port, "/admin/drain", {"resume": True},
+                               token=OBSERVE_TOKEN)
         check(st == 200 and rep["drained"] and not rep["draining"]
               and not src.draining, f"{label} undrain {rep}")
         ok = post_json(src_srv.port, dict(prompt=jobs[0][0][:64],
@@ -3598,16 +3703,17 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
     mark("near-tie")
 
     # times, nothing checked: two new sessions of 128, drained and resumed
-    n_import = len(dst_srv.kv_stream_seconds["import"])
-    (report_t, drain_ms), _, mig_t, resumed_t, _, gather_ms, sink_ms = \
-        migrate(sessions(), MIGRATE_NEW, together=False)
+    # the target's whole chain import: fetch, verify, staged writes
+    with Timed(dst_srv, "_maybe_import_chain") as chain_t:
+        (report_t, drain_ms), _, mig_t, resumed_t, _, gather_ms, sink_ms, \
+            resume_ms = migrate(sessions(), MIGRATE_NEW, together=False)
     check(report_t["migrated"] == 2 and all(
         d["kubeinfer"]["route"] == "resume"
         and len(d["choices"][0]["tokens"]) == MIGRATE_NEW
         for d in resumed_t),
         f"{label} the timing drain {report_t}")
     undrain()
-    import_s = list(dst_srv.kv_stream_seconds["import"])[n_import:]
+    import_s = [ms / 1e3 for ms in chain_t.ms]
     ttft = [d["kubeinfer"]["ttft_ms"] for d in resumed_t]
     mark("times")
 
@@ -3646,8 +3752,7 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
         "blocks": blocks, "chunk_bytes": chunk_bytes, "magics": magics,
         "gather_ms": gather_ms, "encode_ms": sink_ms,
         "import_s": import_s, "resume_ttft_ms": ttft,
-        "resume_latency_ms": [d["kubeinfer"]["latency_ms"]
-                              for d in resumed_t],
+        "resume_latency_ms": resume_ms,
         "migrated_tokens": [len(m["tokens"]) for m in mig],
         "timing_migrated_tokens": [len(m["tokens"]) for m in mig_t],
         "differing_bytes": diff, "divergences": divs,
@@ -3657,6 +3762,388 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
     }
     print(f"{label} seconds: {rounded(list(marks.values()))} "
           f"({', '.join(marks)})")
+    record.setdefault("phase_s", {})[label] = time.perf_counter() - t_phase
+    return launches
+
+
+# phase (32): /metrics and the debug endpoints on the instrumented servers
+OBSERVE_NEW = 33  # new tokens of each (32) request: windows of 4 and 8
+
+
+def readback_site():
+    """``batching.py:<line>`` of the decode window's one readback in
+    ``ContinuousEngine._loop`` (where the sync debug mode reports it)."""
+    import inspect
+
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+
+    lines, start = inspect.getsourcelines(ContinuousEngine._loop)
+    hits = [start + i for i, ln in enumerate(lines)
+            if "tokens.cpu()" in ln]
+    check(len(hits) == 1, f"the decode window's readback lines {hits}")
+    return f"batching.py:{hits[0]}"
+
+
+def observe_phase(dev, record, card, srv, cont):
+    """Phase (32a) on the bf16 server of (13) after (31b), or (32b) on the
+    int8 server of (17) after (31c), both built with ``observe_flags()``:
+    ``GET /metrics`` parses and carries every family of the serving
+    collectors; its counters equal the engine's own (parks, readmits,
+    chunks, migrations and their chunks, prefix hits, misses and
+    evictions, quantized blocks, the verify counters; the flight ring's
+    events where it kept them all). Then a burst (5 requests of 512
+    tokens, one sampled; two shed at the door, a limit of 1 set while
+    the scheduler is held; an invalid body; 4100 tokens on the engine
+    route; a prefill-only export fetched twice) with #11 (#12) held
+    against its plain version on every call and #15's launches counted
+    (held on this server's calls in [17]-(31c)): the scrape's deltas
+    equal the answers' routes and outcomes, tokens and sheds, the
+    export's blocks and bytes; the step histogram counts each new
+    profiler record once, and the decode records' steps x layers equal
+    #11's (#12's) launches; every histogram sample only grows;
+    ``/debug/flightrecorder?since=`` polled through the burst replays
+    each event once; ``/debug/spans`` is a Chrome trace with the
+    request's spans and the engine-counters process; ``/debug/slo`` and
+    ``stats_summary()`` are sane; ``/debug/*`` answer 401 without the
+    token; ``/cache/summary`` answers. One request under the sync debug
+    mode: one host sync a decode window, none in the instrumentation.
+    Unchecked: a scrape's ms, the host us of ``profiler.record`` and a
+    flight note, the instrumented decode ms/token of [16] ([20]).
+    Returns the burst's launch counts."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+    from kubeinfer_tpu_torch.metrics.registry import Registry
+    from kubeinfer_tpu_torch.observability.flightrecorder import (
+        FlightRecorder,
+    )
+    from kubeinfer_tpu_torch.observability.stepprof import StepProfiler
+
+    t_phase = time.perf_counter()
+    int8 = cont.kv_dtype == "int8"
+    label = "[32b]" if int8 else "[32a]"
+    cfg, port, tok = cont.cfg, srv.port, OBSERVE_TOKEN
+    V, layers = cfg.vocab_size, cfg.num_hidden_layers
+    rng = np.random.default_rng(32 + int8)
+    wait_until(lambda: not any(r is not None for r in cont._slot_req)
+               and cont._queue.empty(), f"{label} an idle engine")
+
+    def scrape():
+        st, text, ms = get_text(port, "/metrics")
+        check(st == 200, f"{label} GET /metrics answered {st}")
+        return text, ms
+
+    # every family (tests/test_torch_observability.py holds the port's
+    # names, labels and buckets to the reference's on the CPU)
+    families = sorted(c.name for c in
+                      server._serving_metrics(Registry()).values())
+    text_a, scrape_ms = scrape()
+    missing = [f for f in families if f"# TYPE {f} " not in text_a]
+    check(not missing, f"{label} /metrics lacks {missing}")
+    a = metric_samples(text_a)
+    seq_a = srv._prof_seq
+    sched, kv = cont.scheduler_stats(), cont.kv_cache_stats()
+    engine_counts = {
+        "kubeinfer_preemptions_total": sched["preempted"],
+        "kubeinfer_preemption_resumes_total": sched["resumed"],
+        "kubeinfer_prefill_chunks_total": sched["chunks"],
+        "kubeinfer_migrations_total": sched["migrated"],
+        "kubeinfer_migration_chunks_total": sched["migration_chunks"],
+        "kubeinfer_spec_draft_tokens_total": sched["spec_draft_tokens"],
+        "kubeinfer_spec_accepted_tokens_total":
+            sched["spec_accepted_tokens"],
+        "kubeinfer_spec_rollbacks_total": sched["spec_rollbacks"],
+        "kubeinfer_prefix_cache_hits_total": kv["hits"],
+        "kubeinfer_prefix_cache_misses_total": kv["misses"],
+        "kubeinfer_prefix_cache_evictions_total": kv["evictions"],
+        "kubeinfer_kv_quant_blocks_total": kv["quant_blocks"],
+        "kubeinfer_kv_blocks_in_use": kv["blocks_in_use"],
+        "kubeinfer_kv_blocks_free": kv["blocks_free"],
+        "kubeinfer_parked_requests": sched["parked"],
+        "kubeinfer_engine_draining_state": 0,
+    }
+    off = {k: (a.get(k), v) for k, v in engine_counts.items()
+           if a.get(k) != v}
+    check(not off, f"{label} scrape against the engine (scraped, engine): "
+          f"{off}")
+    ring = cont.flight.to_dict()
+    kinds = collections.Counter(e["kind"] for e in ring["events"])
+    whole_ring = ring["recorded"] == len(ring["events"])
+    if whole_ring:
+        ring_counts = {"preempt": sched["preempted"],
+                       "resume": sched["resumed"],
+                       "chunk": sched["chunks"],
+                       "migrate": sched["migrated"],
+                       "migrate_chunk": sched["migration_chunks"],
+                       "import": sched["kv_imports"]}
+        off = {k: (kinds[k], v) for k, v in ring_counts.items()
+               if kinds[k] != v}
+        check(not off, f"{label} flight events against the engine: {off}")
+
+    # the burst, every #11 (#12) call checked and counted; #15, held on
+    # this server's calls in [17], [18], (30b) and (31c), is counted here
+    chk = attention_check(fa, int8)
+    qmm0 = (wq.quant_matmul.launches, wq.quant_matmul.tc_launches)
+    answers = []  # (status, body) of every completion
+    cursor = [ring["recorded"] - 1]
+    cursor0 = cursor[0]
+    polled: list = []
+    done = threading.Event()
+
+    def poll():
+        while True:
+            last = done.is_set()
+            st, body, _ = get_text(
+                port, f"/debug/flightrecorder?since={cursor[0]}", tok)
+            check(st == 200, f"{label} flightrecorder poll answered {st}")
+            evs = json.loads(body)["events"]
+            polled.extend(e["seq"] for e in evs)
+            if evs:
+                cursor[0] = evs[-1]["seq"]
+            if last:
+                return
+            done.wait(0.02)
+
+    def send(body):
+        st, doc, _ = post_path(port, "/v1/completions", body)
+        answers.append((st, doc))
+        return st, doc
+
+    poller = threading.Thread(target=poll, daemon=True)
+    bodies = [dict(prompt=rng.integers(1, V, 512).tolist(),
+                   max_tokens=OBSERVE_NEW) for _ in range(4)]
+    bodies.append(dict(prompt=rng.integers(1, V, 512).tolist(),
+                       max_tokens=OBSERVE_NEW, temperature=0.8, top_k=50,
+                       seed=5))
+    export_prompt = rng.integers(1, V, 512).tolist()
+    short = [dict(prompt=rng.integers(1, V, 64).tolist(), max_tokens=4)
+             for _ in range(4)]
+    with torch.inference_mode(), chk:
+        try:
+            poller.start()
+            in_threads(send, bodies)
+            # two shed at the door: with the scheduler held on its lock,
+            # two requests are submitted (an idle scheduler takes at most
+            # one off the queue before it blocks), then, with a limit of
+            # 1 and one still queued, the next two are refused
+            with cont._lock:
+                seq0 = cont.flight.to_dict()["recorded"] - 1
+                held = [threading.Thread(target=send, args=(b,))
+                        for b in short[:2]]
+                for th in held:
+                    th.start()
+                # both submitted (each notes "submit" past the shed check,
+                # before its queue put), one of them still queued
+                wait_until(lambda: sum(
+                    e.kind == "submit"
+                    for e in cont.flight.snapshot(since_seq=seq0)) == 2
+                    and cont._queue.qsize() >= 1,
+                    f"{label} two submitted requests, one queued")
+                cont.queue_depth_limit = 1
+                try:
+                    shed = [send(b)[0] for b in short[2:]]
+                finally:
+                    cont.queue_depth_limit = 0
+            for th in held:
+                th.join(900)
+            send(dict(prompt=[1, 2, 3], max_tokens=2, top_p=0.0))
+            send(dict(prompt=rng.integers(1, V, 4100).tolist(),
+                      max_tokens=4))
+            st, doc = send(dict(prompt=export_prompt, max_tokens=0))
+            ext = doc["kubeinfer"]["kv_export"]
+            blobs = []
+            for _ in range(2):
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/kv/blocks?fp="
+                        f"{ext['fingerprint']}", timeout=60) as r:
+                    blobs.append(len(r.read()))
+        finally:
+            done.set()
+            poller.join(60)
+            check(chk.error is None, str(chk.error))
+    qmm = (wq.quant_matmul.launches - qmm0[0],
+           wq.quant_matmul.tc_launches - qmm0[1])
+    check(shed == [503, 503], f"{label} the held scheduler's sheds {shed}")
+    text_b, _ = scrape()
+    b = metric_samples(text_b)
+    seq_b = srv._prof_seq
+    recs = cont.profiler.snapshot(since_seq=seq_a)
+
+    def delta(name):
+        return b.get(name, 0.0) - a.get(name, 0.0)
+
+    tally = collections.Counter()
+    tokens = [0, 0]
+    for st, doc in answers:
+        if st == 200:
+            tally[(doc["kubeinfer"]["route"], "ok")] += 1
+            tokens[0] += doc["usage"]["prompt_tokens"]
+            tokens[1] += doc["usage"]["completion_tokens"]
+        elif st == 503:
+            tally[("continuous",
+                   "shed" if doc["error"]["type"] == "overloaded"
+                   else "draining")] += 1
+        else:
+            tally[("invalid", "invalid")] += 1
+    req_fam = "kubeinfer_inference_requests_total"
+    got = {k: delta(f'{req_fam}{{route="{k[0]}",outcome="{k[1]}"}}')
+           for k in tally}
+    check(got == dict(tally) and tally[("engine", "ok")] == 1
+          and tally[("prefill", "ok")] == 1
+          and tally[("continuous", "ok")] == 7,
+          f"{label} requests by route and outcome: scraped {got}, answered "
+          f"{dict(tally)}")
+    shed_d = delta('kubeinfer_requests_shed_total{reason="queue_depth_limit"}')
+    tok_d = (delta("kubeinfer_inference_prompt_tokens_total"),
+             delta("kubeinfer_inference_completion_tokens_total"))
+    exp_d = (delta('kubeinfer_kv_stream_blocks_total{direction="export"}'),
+             delta('kubeinfer_kv_stream_bytes_total{direction="export"}'))
+    check(shed_d == 2 and tok_d == tuple(tokens)
+          and exp_d == (2 * ext["blocks"], sum(blobs))
+          and blobs == [ext["bytes"]] * 2,
+          f"{label} sheds {shed_d}, tokens {tok_d} against {tokens}, "
+          f"export {exp_d} against {ext} fetched {blobs}")
+    steps_hist = "kubeinfer_engine_step_duration_seconds_count"
+    hist_d = sum(v - a.get(k, 0.0) for k, v in b.items()
+                 if k.startswith(steps_hist))
+    compiles_d = delta("kubeinfer_engine_compiles_total")
+    decode_steps = sum(r.steps for r in recs if r.phase == "decode")
+    check(hist_d == seq_b - seq_a == len(recs)
+          and compiles_d == sum(r.compiled for r in recs)
+          and chk.launches == chk.calls == layers * decode_steps > 0,
+          f"{label} step records: histogram +{hist_d}, profiler "
+          f"{seq_a}->{seq_b} ({len(recs)} records, {decode_steps} decode "
+          f"steps); {chk.name} {chk.launches} launches, {chk.calls} calls")
+    walk = chk.walk_check(label)[0]
+    shrunk = {k: (v, b.get(k)) for k, v in a.items()
+              if ("_bucket" in k or "_count" in k or "_sum" in k)
+              and b.get(k, -1.0) < v}
+    check(not shrunk, f"{label} histogram samples shrank: {shrunk}")
+    flight_seqs = [e.seq for e in cont.flight.snapshot(since_seq=cursor0)]
+    check(polled == flight_seqs == list(range(cursor0 + 1, cursor0 + 1
+                                              + len(polled))),
+          f"{label} /debug/flightrecorder?since= replayed {len(polled)} "
+          f"events ({len(set(polled))} distinct) of {len(flight_seqs)}")
+    polled_kinds = collections.Counter(
+        e.kind for e in cont.flight.snapshot(since_seq=cursor0))
+    check(polled_kinds["fail"] == 2 and polled_kinds["backpressure"] == 2
+          and polled_kinds["submit"] == len(answers) - 2,
+          f"{label} flight kinds of the burst {dict(polled_kinds)}")
+    launches = {chk.name: chk.launches}
+    if cont.weight_dtype == "int8":
+        check(qmm[0] == qmm[1] > 0 and qmm[0] % (7 * layers) == 0,
+              f"{label} quant_matmul {qmm[0]} launches, {qmm[1]} on the "
+              "tensor-core route")
+        launches["quant_matmul"] = qmm[0]
+
+    # the debug surface
+    st, body, _ = get_text(port, "/debug/spans", tok)
+    doc = json.loads(body) if st == 200 else {}
+    names = {e.get("name") for e in doc.get("traceEvents", [])}
+    procs = {e["args"].get("name") for e in doc.get("traceEvents", [])
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    want = {"server.complete", "engine.prefill", "engine.decode",
+            "engine.queue_wait", "engine.generate"}
+    check(st == 200 and want <= names and "engine-counters" in procs
+          and {"batch_occupancy", "queue_depth"} <= names,
+          f"{label} /debug/spans {st}: spans {sorted(names)[:20]}, "
+          f"processes {procs}")
+    st, body, _ = get_text(port, "/debug/slo", tok)
+    slo = json.loads(body) if st == 200 else {}
+    ttft = slo.get("objectives", {}).get("ttft", {})
+    check(st == 200 and list(slo["objectives"]) == ["ttft"]
+          and ttft["threshold_s"] == 2.0 and ttft["objective"] == 0.99
+          and all(w["total"] > 0 and w["burn_rate"] >= 0
+                  for w in ttft["windows"].values()),
+          f"{label} /debug/slo {st} {slo}")
+    summ = cont.stats_summary()
+    check(summ["n_slots"] == 8 and summ["block_size"] == 128
+          and (summ["tp_degree"], summ["mesh_devices"]) == (1, 1)
+          and summ["kv_blocks_free"] + summ["kv_blocks_in_use"]
+          == cont._pool.num_blocks - 1
+          and 0 <= summ["batch_occupancy"] <= 1
+          and summ["goodput_tokens_per_sec"] > 0
+          and 0 <= summ["prefix_hit_rate"] <= 1
+          and summ["kv_dtype"] == cont.kv_dtype and not summ["draining"]
+          and summ["cache_summary"]["fingerprints"],
+          f"{label} stats_summary {dict(summ, cache_summary='...')}")
+    unauth = {path: get_text(port, path)[0] for path in
+              ("/debug/spans", "/debug/slo", "/debug/flightrecorder")}
+    unauth["/debug/slo (wrong token)"] = get_text(port, "/debug/slo",
+                                                  "x" + tok)[0]
+    check(set(unauth.values()) == {401}, f"{label} without the token {unauth}")
+    st, body, _ = get_text(port, "/cache/summary")
+    check(st == 200 and json.loads(body)["serving"]["n_slots"] == 8,
+          f"{label} /cache/summary {st}")
+
+    # one host sync a decode window, with the instrumentation on
+    site = readback_site()
+    seq0 = cont.profiler.snapshot()[-1].seq
+    with sync_capture() as caught:
+        cont.serve(rng.integers(1, V, 512).tolist(), OBSERVE_NEW,
+                   timeout=900)
+    windows = sum(1 for r in cont.profiler.snapshot(since_seq=seq0)
+                  if r.phase == "decode")
+    sites = collections.Counter(
+        f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)
+        and "prototype" not in str(w.message))
+    instr = {s: n for s, n in sites.items() if s.split(":")[0] in (
+        "stepprof.py", "flightrecorder.py", "tracing.py", "server.py")}
+    check(sites[site] == windows > 0 and not instr,
+          f"{label} host syncs over one request: {dict(sites)} for "
+          f"{windows} decode windows (the readback at {site})")
+
+    # unchecked: what the instrumentation costs the host a window
+    prof = StepProfiler(n_slots=cont.n_slots, kv_stats=lambda: (
+        cont._pool.used_blocks, cont._pool.free_blocks))
+    fr = FlightRecorder(capacity=4096)
+    record_us = host_us(lambda: prof.record(
+        "decode", bucket=4, live_rows=8, live_tokens=32, padded_tokens=0,
+        start=0.0, end=1.0, steps=4), reps=2000)
+    note_us = host_us(lambda: fr.note(
+        "retire", queue_depth=cont._queue.qsize(),
+        kv_in_use=cont._pool.used_blocks, kv_free=cont._pool.free_blocks,
+        req=1, slot=0, tokens=OBSERVE_NEW, freed_blocks=5,
+        cancelled=False), reps=2000)
+    times = record.get("int8_times" if int8 else "serving_times", {})
+    decode_ms = times.get("decode_ms_per_token")
+    print(f"{label} {card}: GET /metrics ({len(families)} families, "
+          f"{len(a)} samples) served and parsed, the engine's counters "
+          f"equal ({'the flight ring whole, ' if whole_ring else ''}"
+          f"{ring['recorded']} events so far); a burst of {len(answers)} "
+          f"completions {dict(tally)}: every delta equal, {len(recs)} step "
+          f"records folded once ({decode_steps} decode steps x {layers} = "
+          f"{chk.name}'s {chk.launches} launches, within tolerance of its "
+          f"plain version, max |kernel - plain| {chk.max_err:.3e}, live "
+          f"splits {walk}"
+          + (f"; quant_matmul {qmm[0]} launches, all on the tensor-core "
+             "route" if cont.weight_dtype == "int8" else "")
+          + f"); {len(polled)} flight events replayed once by ?since=; "
+          f"/debug/spans, /debug/slo, stats_summary sane; 401 without the "
+          f"token {unauth}; host syncs over one request {dict(sites)} for "
+          f"{windows} decode windows")
+    print(f"{label} {card}, unchecked: a scrape {scrape_ms:.2f} ms; "
+          f"profiler.record {record_us:.2f} us + a flight note "
+          f"{note_us:.2f} us = {record_us + note_us:.2f} us the "
+          f"instrumentation adds to a decode window (predicted under 30); "
+          f"{'[20]' if int8 else '[16]'} decode on the instrumented server "
+          + (f"{decode_ms:.3f} ms per token per slot"
+             if decode_ms is not None else "not run"))
+    record["observe_" + cont.kv_dtype] = {
+        "families": len(families), "scrape_ms": scrape_ms,
+        "record_us": record_us, "note_us": note_us,
+        "answers": {f"{r}/{o}": n for (r, o), n in tally.items()},
+        "step_records": len(recs), "decode_steps": decode_steps,
+        "launches": launches, "max_err": chk.max_err, "split_walk": walk,
+        "flight_replayed": len(polled), "window_syncs": dict(sites),
+        "decode_windows": windows, "decode_ms_per_token": decode_ms,
+    }
     record.setdefault("phase_s", {})[label] = time.perf_counter() - t_phase
     return launches
 
@@ -4204,7 +4691,8 @@ def int8_phases(dev, record, card):
     t0 = time.perf_counter()
     srv, cont = server.build_server(
         ["--model", "llama-3-8b", "--random-init", "--port", "0",
-         "--host", "127.0.0.1", "--batch-slots", "8", "--kv-dtype", "int8",
+         "--host", "127.0.0.1", "--batch-slots", "8", *observe_flags(),
+         "--kv-dtype", "int8",
          "--weight-dtype", "int8"])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -4437,9 +4925,13 @@ def int8_phases(dev, record, card):
             dev, record, card, srv, cont,
             then=lambda dec_srv, dec: migrate.update(migrate_phase(
                 dev, record, card, srv, cont, dec_srv, dec)))
+        # (32b) on this server, after (31c)
+        observe = observe_phase(dev, record, card, srv, cont)
     finally:
         srv.stop()
         cont.stop()
+    entries[0]["observe_launches"] = observe["decode_attention_blocks_q8"]
+    entries[1]["observe_launches"] = observe["quant_matmul"]
     entries[0]["disagg_launches"] = launches["decode_attention_blocks_q8"]
     entries[1]["disagg_launches"] = launches["quant_matmul"]
     entries[0]["migrate_launches"] = migrate["decode_attention_blocks_q8"]
@@ -5604,9 +6096,11 @@ def masked_phase(dev, record, card):
 
 def spec_phases(dev, record, card):
     """Phases (25)-(28): verify windows on llama-3-8b bf16 at 8 slots, a
-    self-draft library engine (a) and the server with a seed-1 draft (b);
-    the draft groups and the side-car (26); the int8 verify server (27,
-    at SPEC_INT8_LAYERS of the preset's layers); times (28). Returns
+    self-draft library engine (a) and the server with a seed-1 draft (b),
+    both at SPEC_INT8_LAYERS of the preset's layers, with the plain
+    engine's streams at the same depth; the draft groups and the side-car
+    (26); the int8 verify server (27, at SPEC_INT8_LAYERS); times (28).
+    Returns
     nothing: #10, #11 and #12 keep their kernels-line entries from phases
     16 and 20."""
     import dataclasses
@@ -5624,8 +6118,11 @@ def spec_phases(dev, record, card):
     from kubeinfer_tpu_torch.inference.stepper import RowFlags, verify_window
 
     cfg = PRESETS["llama-3-8b"]
-    # the server's target: init_params(seed=0) in bf16
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    # the server's target, init_params(seed=0) in bf16, cut to
+    # SPEC_INT8_LAYERS for (a) as for (b) (a self draft's windows cost two
+    # forwards of the target's depth a step)
+    cfg_a = dataclasses.replace(cfg, num_hidden_layers=SPEC_INT8_LAYERS)
+    params = init_params(cfg_a, seed=0, dtype=torch.bfloat16, device=dev)
     V, layers, k = cfg.vocab_size, cfg.num_hidden_layers, 4
     rng = np.random.default_rng(25)
     prompts_a = [rng.integers(1, V, 512).tolist() for _ in range(8)]
@@ -5666,7 +6163,7 @@ def spec_phases(dev, record, card):
         return n
 
     # the plain engine's greedy streams (no draft) and its decode pace
-    e0 = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
+    e0 = ContinuousEngine(params, cfg_a, n_slots=8, cache_len=4096,
                           device=dev).start()
     try:
         with torch.inference_mode():
@@ -5682,8 +6179,8 @@ def spec_phases(dev, record, card):
     mark("[25] plain streams")
 
     # (25a) a library engine whose draft is the target itself
-    ea = ContinuousEngine(params, cfg, n_slots=8, cache_len=4096,
-                          spec_draft=(params, cfg), spec_k=k, device=dev)
+    ea = ContinuousEngine(params, cfg_a, n_slots=8, cache_len=4096,
+                          spec_draft=(params, cfg_a), spec_k=k, device=dev)
     with torch.inference_mode():
         times["window_a"] = timed_windows(
             ea, [rng.integers(1, V, 512).tolist() for _ in range(8)], 64)
@@ -5702,7 +6199,7 @@ def spec_phases(dev, record, card):
         finally:
             check(chk11.error is None and chk10.error is None,
                   f"{chk11.error} {chk10.error}")
-    check(chk11.calls > 0 and chk11.calls % layers == 0
+    check(chk11.calls > 0 and chk11.calls % cfg_a.num_hidden_layers == 0
           and chk10.calls == (k - 1) * chk11.calls
           and fa.decode_attention_blocks.launches == 0,
           f"(a) #11 {chk11.calls} calls, #10 {chk10.calls}")
@@ -5713,9 +6210,11 @@ def spec_phases(dev, record, card):
               "(a) tokens")
     cnt_a = spec_counters("[25a]", ea, reqs, before, k)
     div_a, tok_a = held_streams("[25a]", [r.out_tokens for r in reqs[:8]],
-                                plain_a, prompts_a, params, cfg, dev)
+                                plain_a, prompts_a, params, cfg_a, dev)
     sync_a = one_sync(ea)
-    print(f"[25a] ContinuousEngine(llama-3-8b bf16, 8 slots, cache 4096, "
+    print(f"[25a] ContinuousEngine(llama-3-8b bf16 at "
+          f"{cfg_a.num_hidden_layers} layers, 8 "
+          f"slots, cache 4096, "
           f"spec_draft = the target itself, spec_k {k}): 8 greedy + 2 "
           f"sampled 512-token prompts, 64 new: decode_attention_blocks at "
           f"T = {k + 1} on {chk11.calls} calls and decode_attention on the "
@@ -5799,8 +6298,15 @@ def spec_phases(dev, record, card):
     st = cont.scheduler_stats()
     d = {key: st[key] - before[key] for key in
          ("spec_draft_tokens", "spec_accepted_tokens", "spec_rollbacks")}
-    acc = sum(r["kubeinfer"]["spec_accepted"] for r in resps)
-    rb = sum(r["kubeinfer"]["spec_rollbacks"] for r in resps)
+    # each request's verify accounting rides its engine.decode span (as in
+    # the reference), found by the completion id's request id
+    _, body, _ = get_text(srv.port, "/debug/spans")
+    spans = {e["args"]["req"]: e["args"]
+             for e in json.loads(body)["traceEvents"]
+             if e.get("name") == "engine.decode" and "req" in e.get("args", {})}
+    rids = [int(r["id"].rsplit("-", 1)[1]) for r in resps]
+    acc = sum(spans[i]["kubeinfer.spec_accepted"] for i in rids)
+    rb = sum(spans[i]["kubeinfer.spec_rollbacks"] for i in rids)
     row_windows = d["spec_draft_tokens"] // k
     emitted = sum(len(o) - 1 for o in outs)
     check(acc == d["spec_accepted_tokens"] and rb == d["spec_rollbacks"]
@@ -5817,7 +6323,8 @@ def spec_phases(dev, record, card):
           f"{chk10.max_err:.3e}; live splits walked {walks_b[0]} and "
           f"{walks_b[1]}, equal to decode_split_walk's); counters {d} over "
           f"{row_windows} "
-          f"row-windows (the response fields sum to them); greedy streams "
+          f"row-windows (the requests' engine.decode spans sum to them); "
+          f"greedy streams "
           f"equal to the plain engine's but {div_b} (each at a near-tie of the "
           f"bf16 model); {sync_b} host sync per verify window")
     record["spec_b"] = {"counters": d, "row_windows": row_windows,
@@ -6784,7 +7291,7 @@ def disagg_probe() -> int:
     _build.build_all(["decode_split", "quant_matmul", "quant_matmul_tc"])
     record = {"card": card}
     argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
-            "--host", "127.0.0.1", "--batch-slots", "8"]
+            "--host", "127.0.0.1", "--batch-slots", "8", *observe_flags()]
     for flags in ([], ["--kv-dtype", "int8", "--weight-dtype", "int8"]):
         srv, cont = server.build_server(argv + flags)
         cont.start()
@@ -6825,7 +7332,7 @@ def migrate_probe() -> int:
     _build.build_all(["decode_split", "quant_matmul", "quant_matmul_tc"])
     record = {"card": card}
     argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
-            "--host", "127.0.0.1", "--batch-slots", "8"]
+            "--host", "127.0.0.1", "--batch-slots", "8", *observe_flags()]
     for flags in ([], ["--kv-dtype", "int8", "--weight-dtype", "int8"]):
         srv, cont = server.build_server(argv + flags)
         cont.start()
@@ -6857,7 +7364,51 @@ def migrate_probe() -> int:
     return 0
 
 
+def observe_probe() -> int:
+    """``--observe``: phase (32) alone (card only): builds the decode and
+    #15 libraries, then the bf16 server of (13) and the int8 server of
+    (17), with their observability flags, each in turn fresh."""
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.inference import server
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["decode_split", "quant_matmul", "quant_matmul_tc",
+                      "flash_prefill", "flash_prefill_tc"])
+    record = {"card": card}
+    argv = ["--model", "llama-3-8b", "--random-init", "--port", "0",
+            "--host", "127.0.0.1", "--batch-slots", "8", *observe_flags()]
+    for flags in ([], ["--kv-dtype", "int8", "--weight-dtype", "int8"]):
+        srv, cont = server.build_server(argv + flags)
+        cont.start()
+        srv.start()
+        try:
+            record.setdefault("launches", {}).update(
+                observe_phase(dev, record, card, srv, cont))
+        finally:
+            srv.stop()
+            cont.stop()
+        del srv, cont
+        gc.collect()
+        torch.cuda.empty_cache()
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "observe_probe.json").write_text(json.dumps(record, indent=1))
+    print(record["phase_s"])
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--observe"]:
+        sys.exit(observe_probe())
     if sys.argv[1:2] == ["--disagg"]:
         sys.exit(disagg_probe())
     if sys.argv[1:2] == ["--migrate"]:

@@ -72,14 +72,25 @@ reference:
   (``req.migrated``). ``submit(resume_tokens=...)`` finishes such a
   session on another engine.
 
-Waiting (named where it raises): a sharded layout; and the flight
-recorder, step profiler and racecheck wrappers of the reference.
+Instrumentation, as in the reference: a ``StepProfiler`` record per
+device dispatch (``self.profiler``), a ``FlightRecorder`` ring of the
+scheduler's decisions (``self.flight``, dumped to the log when
+``_fail_inflight`` fails waiters), the ``engine.*`` spans of each
+request's timeline, ``slo_burn()`` and ``stats_summary()``. None of it
+reads the device: the records take the host clock around the dispatches
+the scheduler already makes, and the decode and verify windows are timed
+by the stamps around their one readback.
+
+Waiting (named where it raises): a sharded layout. The reference's
+racecheck wrappers are not ported (the locks are plain ``threading``
+primitives).
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
+import logging
 import queue
 import threading
 from dataclasses import dataclass, field
@@ -121,7 +132,15 @@ from kubeinfer_tpu_torch.inference.weight_quant import (
     quantize_params,
 )
 from kubeinfer_tpu_torch.observability import tracing
+from kubeinfer_tpu_torch.observability.flightrecorder import FlightRecorder
 from kubeinfer_tpu_torch.observability.slo import SLOMonitor, SLOObjective
+from kubeinfer_tpu_torch.observability.stepprof import StepProfiler
+
+log = logging.getLogger(__name__)
+
+_TRACER = tracing.get_tracer("engine")
+# per-token events kept on one engine.decode span, as in the reference
+_MAX_TOKEN_EVENTS = 128
 
 # pool block width (tokens), as in the reference; engines whose
 # cache_len is smaller clamp down
@@ -386,7 +405,14 @@ class _Request:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0
+    t_done: float = 0.0
     token_times: list[float] = field(default_factory=list)
+    # True once a token time was interpolated inside a fused window (one
+    # clock read a window): engine.decode carries kubeinfer.interpolated
+    interpolated: bool = False
+    # the submitter's trace context (the scheduler thread has none): the
+    # parent of the request's engine.* spans
+    trace_parent: "tracing.SpanContext | None" = None
     # preemption: t_parked restarts the request's place in the
     # longest-pending-first order (a just-parked victim goes to the back
     # of the line); tokens_at_admit anchors the min_progress guard to the
@@ -481,6 +507,8 @@ class ContinuousEngine:
                  weight_dtype: str = "bf16",
                  queue_depth_limit: int = 0,
                  migration_chunk_blocks: int = 4,
+                 flight_capacity: int = 512,
+                 replica_name: str | None = None,
                  device=None) -> None:
         if layout is not None:
             raise ValueError(f"layout={layout!r} waits: {_WAITS['layout']}")
@@ -587,6 +615,22 @@ class ContinuousEngine:
         # waiting work (queue + holdover + parked) reaches the limit
         self.queue_depth_limit = int(queue_depth_limit)
         self._holdover: "collections.deque[_Request]" = collections.deque()
+        # one record per device dispatch, and the ring of scheduler
+        # decisions. The kv_stats callback reads the pool's host counters
+        # OUTSIDE the profiler lock (engine -> radix -> pool order)
+        self.profiler = StepProfiler(
+            n_slots=n_slots,
+            kv_stats=lambda: (self._pool.used_blocks,
+                              self._pool.free_blocks),
+            name="batching.StepProfiler._lock")
+        if flight_capacity < 1:
+            raise ValueError(
+                f"flight_capacity must be >= 1, got {flight_capacity}")
+        self.flight = FlightRecorder(capacity=flight_capacity,
+                                     name="batching.FlightRecorder._lock")
+        # the replica attr of this engine's spans (None adds none); the
+        # server names an unnamed engine after its model id
+        self.replica_name = replica_name
         self._slot_blocks: list[list[int]] = [[] for _ in range(n_slots)]
         # the host's copy of each slot's sampling settings (the device
         # keeps them in the SlotState): the sampling gates branch on it
@@ -712,12 +756,20 @@ class ContinuousEngine:
             depth = (self._queue.qsize() + len(self._holdover)
                      + len(self._parked))
             if depth >= self.queue_depth_limit:
+                # ledgered as submit -> backpressure -> fail, so a flight
+                # post-mortem sees why the request never reached a slot
                 req = _Request(list(prompt), max_new_tokens, eos_id,
                                temperature=temperature, top_k=top_k,
                                top_p=top_p, rep_penalty=repetition_penalty,
                                seed=seed)
                 req.t_submit = tracing.now()
                 req.failed = "shed"
+                self._note("submit", req=req.rid, prompt_tokens=len(prompt),
+                           max_new=max_new_tokens)
+                self._note("backpressure", req=req.rid,
+                           reason="queue_depth_limit", depth=depth,
+                           limit=self.queue_depth_limit)
+                self._note("fail", req=req.rid, reason="shed")
                 req.done.set()
                 raise EngineOverloadedError(
                     f"queue depth {depth} >= queue_depth_limit "
@@ -730,7 +782,16 @@ class ContinuousEngine:
             # a non-empty out_tokens is how the admit tells a resume (as
             # it tells a parked readmit); these were timed at the source
             req.out_tokens = rt
+        # the submitter's context, captured here: the scheduler thread's
+        # span stack is empty
+        ctx = tracing.current_context()
+        req.trace_parent = ctx if ctx is not None else \
+            tracing.new_root_context()
         req.t_submit = tracing.now()
+        # noted BEFORE the publish: once queued the scheduler may admit
+        # it, and its admit must not precede its submit in the ring
+        self._note("submit", req=req.rid, prompt_tokens=len(prompt),
+                   max_new=max_new_tokens)
         self._queue.put(req)
         return req
 
@@ -782,6 +843,8 @@ class ContinuousEngine:
                 return
             self._draining = True
             self._drained.clear()
+            # under the lock: drain_start precedes every migrate* event
+            self._note("drain_start")
 
     def undrain(self) -> None:
         """Resume admissions after a drain. Sessions already migrated are
@@ -793,6 +856,7 @@ class ContinuousEngine:
                 return
             self._draining = False
             self._drained.clear()
+            self._note("drain_end")
 
     def wait_drained(self, timeout_s: float = 30.0) -> bool:
         """Block until every live session reached a terminal state (done,
@@ -842,6 +906,7 @@ class ContinuousEngine:
                            scales_v=scales_v, start_block=start_block)
         with self._lock:
             self._imports.append(task)
+        self._note("import_staged", blocks=n)
         if not task.done.wait(timeout_s):
             # the scheduler may still service the task later: that only
             # warms the trie; the caller prefills locally
@@ -876,6 +941,7 @@ class ContinuousEngine:
             reason = "shape_mismatch"
         if reason is not None:
             task.reason = reason
+            self._note("import_reject", blocks=n, reason=reason)
             task.done.set()
             return
         start = task.start_block
@@ -891,6 +957,8 @@ class ContinuousEngine:
                     if matched:
                         self._pool.unref(matched)
                     task.reason = "missing_prefix"
+                    self._note("import_reject", blocks=n,
+                               reason=task.reason)
                     task.done.set()
                     return
                 shared = matched[:start]
@@ -900,6 +968,7 @@ class ContinuousEngine:
                 if shared:
                     self._pool.unref(shared)
                 task.reason = "backpressure"
+                self._note("import_reject", blocks=n, reason=task.reason)
                 task.done.set()
                 return
             fresh = self._pool.alloc(n)
@@ -921,11 +990,13 @@ class ContinuousEngine:
             # the insert covers the WHOLE chain so far (shared base + this
             # chunk); the trie takes its own reference per new node and
             # our holds return here
-            self._radix.insert(task.tokens, shared + fresh)
+            created = self._radix.insert(task.tokens, shared + fresh)
             self._pool.unref(shared + fresh)
         self.imports_total += 1
         self.imported_blocks_total += n
         task.imported = n
+        self._note("import", blocks=n, created_nodes=created,
+                   start_block=start)
         task.done.set()
 
     def kv_cache_stats(self) -> dict:
@@ -964,6 +1035,70 @@ class ContinuousEngine:
             "migrated": self.migrated_total,
             "migration_chunks": self.migration_chunks_total,
             "migration_blocks": self.migration_blocks_total,
+        }
+
+    def _span_ids(self, req: _Request) -> dict:
+        """The attrs every engine span carries: the request id under the
+        flight ring's ``req`` key, and the replica name when set."""
+        ids = {"req": req.rid}
+        if self.replica_name is not None:
+            ids["replica"] = self.replica_name
+        return ids
+
+    def _note(self, kind: str, **detail) -> None:
+        """A flight-recorder entry with the queue depth and the pool's
+        occupancy observed now (host counters under their own locks;
+        callable from any thread)."""
+        self.flight.note(kind, queue_depth=self._queue.qsize(),
+                         kv_in_use=self._pool.used_blocks,
+                         kv_free=self._pool.free_blocks, **detail)
+
+    def slo_burn(self) -> float:
+        """The worst burn rate over every objective and window of the
+        private SLO monitor; 0.0 without one or without traffic."""
+        if self._slo is None:
+            return 0.0
+        worst = 0.0
+        for per_window in self._slo.burn_rates().values():
+            for rate in per_window.values():
+                worst = max(worst, float(rate))
+        return worst
+
+    def stats_summary(self, window_s: float = 60.0) -> dict:
+        """One dict of plain JSON scalars summarising the replica (the
+        node agent's heartbeat, ``/cache/summary``): occupancy, queue
+        depth, goodput, pool blocks, prefix hit rate, drain state, burn.
+        Lockless reads: a torn read skews queue_depth by one."""
+        prof = self.profiler.summary(window_s=window_s)
+        kv = self.kv_cache_stats()
+        # parked rows count as waiting: they hold no slot
+        waiting = len(self._holdover) + len(self._parked)
+        lookups = kv["hits"] + kv["misses"]
+        return {
+            "n_slots": self.n_slots,
+            "block_size": self.block_size,
+            # the single-device layout; a sharded one waits for ROADMAP
+            # Queue 1 entry 10 (sharding.py / tp)
+            "tp_degree": 1,
+            "mesh_devices": 1,
+            "queue_depth": self._queue.qsize() + waiting,
+            "batch_occupancy": round(prof["batch_occupancy"], 6),
+            "goodput_tokens_per_sec": round(
+                prof["goodput_tokens_per_sec"], 6),
+            "padding_waste_frac": round(prof["padding_waste_frac"], 6),
+            "kv_blocks_free": kv["blocks_free"],
+            "kv_blocks_in_use": kv["blocks_in_use"],
+            "kv_dtype": self.kv_dtype,
+            "kv_pool_bytes": kv["pool_bytes"],
+            "weight_dtype": self.weight_dtype,
+            "model_param_bytes": self.model_param_bytes,
+            "prefix_hit_rate": round(
+                kv["hits"] / lookups if lookups else 0.0, 6),
+            "prefix_cached_tokens": kv["cached_tokens"],
+            "draining": bool(self._draining),
+            "slo_burn": round(self.slo_burn(), 6),
+            # capped at kv_blocks.SUMMARY_FINGERPRINT_BUDGET entries
+            "cache_summary": self._radix.summary(),
         }
 
     def prewarm_spec(self, group_sizes: tuple[int, ...] = (1,),
@@ -1010,13 +1145,16 @@ class ContinuousEngine:
             except queue.Empty:
                 break
             req.failed = "engine stopped before the request was served"
+            self._note("fail", req=req.rid, reason="engine stopped")
             req.done.set()
         self._fail_inflight()
 
     def _fail_inflight(self) -> None:
         """Fail every published in-flight request (slots, holdover,
         parked rows, staged plans, chunked prefills); shared by stop() and
-        the scheduler loop's epilogue."""
+        the scheduler loop's epilogue. When it failed any, it logs the
+        flight recorder's ring, the scheduler's last decisions."""
+        failed = 0
         with self._lock:
             held = list(self._holdover)
             self._holdover.clear()
@@ -1031,31 +1169,50 @@ class ContinuousEngine:
                 if req is not None:
                     self._slot_req[slot] = None
                     req.failed = "engine stopped mid-generation"
+                    self._note("fail", req=req.rid,
+                               reason="stopped mid-generation")
                     req.done.set()
+                    failed += 1
         for req in held:
             req.failed = "engine stopped before the request was served"
+            self._note("fail", req=req.rid, reason="stopped unserved")
             req.done.set()
+            failed += 1
         for req in parked:
             # partial output: a failure, never a truncated completion
             req.failed = "engine stopped mid-generation (stopped while " \
                          "parked)"
+            self._note("fail", req=req.rid, reason="stopped while parked")
             req.done.set()
+            failed += 1
         for req, _slot, kv_plan, _tokens in staged:
             table_row, _own, _reuse, total, _spec = kv_plan
             self._pool.unref([int(b) for b in table_row[:total]])
             req.failed = "engine stopped before the request was served"
+            self._note("fail", req=req.rid, reason="stopped while staged")
             req.done.set()
-        if group is not None:
-            for req in group[0]:
-                req.failed = "engine stopped mid-generation"
-                req.done.set()
+            failed += 1
         for task in imports:
             task.reason = "stopped"
             task.done.set()
+        if group is not None:
+            for req in group[0]:
+                req.failed = "engine stopped mid-generation"
+                self._note("fail", req=req.rid,
+                           reason="stopped mid spec-group")
+                req.done.set()
+                failed += 1
+        if failed:
+            # stop() and the loop's epilogue both sweep: only the one
+            # that found requests dumps
+            self._note("fail_inflight", failed=failed)
+            log.warning("engine stopped with %d in-flight request(s); "
+                        "flight recorder dump:\n%s", failed,
+                        self.flight.render())
 
     # -- scheduler --------------------------------------------------------
 
-    def _plan_kv(self, tokens: list[int], max_new: int):
+    def _plan_kv(self, tokens: list[int], max_new: int, rid: int = -1):
         """Host-side paged-admit plan: radix match -> capacity clamp ->
         evict/alloc. Returns ``(table_row, own_mask, reuse, total,
         spec_ok)`` or None when the pool cannot supply the fresh blocks.
@@ -1084,6 +1241,7 @@ class ContinuousEngine:
         spec_ok = (self.spec_draft is not None
                    and p + max_new + self.spec_k <= self.cache_len)
         total = -(-(p + max_new + self.spec_k) // bs) if spec_ok else plain
+        ev_before = self._radix.stats()["evictions"]
         if not self._radix.ensure_free(total - reuse):
             if spec_ok and total > plain and \
                     self._radix.ensure_free(plain - reuse):
@@ -1091,7 +1249,15 @@ class ContinuousEngine:
             else:
                 if shared:
                     self._pool.unref(shared)
+                self._note("backpressure", req=rid, prompt_tokens=p,
+                           need_blocks=total - reuse,
+                           free_blocks=self._pool.free_blocks,
+                           evictable_blocks=self._radix.evictable_blocks(),
+                           reason="pool pinned beyond eviction reach")
                 return None
+        evicted = self._radix.stats()["evictions"] - ev_before
+        if evicted:
+            self._note("evict", nodes=evicted, need_blocks=total - reuse)
         fresh = self._pool.alloc(total - reuse)
         self._radix.note_result(reuse)
         table_row = np.zeros(self.max_blocks, np.int32)
@@ -1110,6 +1276,9 @@ class ContinuousEngine:
         if not resumed:
             # first admission only: a readmit is not a queue exit
             req.t_admit = tracing.now()
+            _TRACER.record_span(
+                "engine.queue_wait", start=req.t_submit, end=req.t_admit,
+                parent=req.trace_parent, slot=slot, **self._span_ids(req))
             if self._slo is not None:
                 self._slo.observe("queue_wait", req.t_admit - req.t_submit,
                                   t=req.t_admit)
@@ -1175,12 +1344,24 @@ class ContinuousEngine:
         window = torch.tensor([task.tokens[task.pos:task.pos + C]],
                               dtype=torch.int64, device=self.device)
         table_row, own_idx = self._row_operands(task)
+        t0 = tracing.now()
         with torch.inference_mode():
             self._state = _prefill_chunk(self.params, self._state, window,
                                          task.pos, self.cfg, table_row,
                                          own_idx)
         task.pos += C
         self.chunks_total += 1
+        t1 = tracing.now()
+        with self._lock:
+            live_rows = sum(1 for r in self._slot_req if r is not None)
+        # every chunk token is live prompt work. No readback ends a chunk,
+        # so on the card the record times the host's issue of its
+        # launches, not the device's work (which the next readback waits)
+        self.profiler.record("chunk", bucket=C, live_rows=live_rows,
+                             live_tokens=C, padded_tokens=0, start=t0,
+                             end=t1)
+        self._note("chunk", req=task.req.rid, slot=task.slot, pos=task.pos,
+                   prompt_tokens=len(task.tokens))
 
     def _abort_prefill(self, task: _PrefillTask) -> None:
         """Drop a cancelled mid-chunk prefill (caller holds the lock): the
@@ -1191,15 +1372,22 @@ class ContinuousEngine:
         blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
         if blocks:
             self._pool.unref(blocks)
+        req.t_done = tracing.now()
+        self._note("retire", req=req.rid, slot=slot,
+                   tokens=len(req.out_tokens), freed_blocks=len(blocks),
+                   cancelled=True)
         req.done.set()
 
     def _finalize_admit(self, task: _PrefillTask) -> None:
         """Prefill the remaining suffix, sample the next token, and flip
-        the slot live (caller holds the lock)."""
+        the slot live (caller holds the lock). Its profiler record
+        brackets the admit's launches and the first token's readback, so
+        on the card it times the admit's device work too."""
         req, slot, tokens = task.req, task.slot, task.tokens
         p = len(tokens)
         start = task.pos
         suffix_len = p - start
+        t0 = tracing.now()
         T = _bucket(suffix_len)
         padded = np.zeros((1, T), np.int64)
         padded[0, :suffix_len] = tokens[start:]
@@ -1256,8 +1444,29 @@ class ContinuousEngine:
         # never had one here
         if not req.t_first:
             req.t_first = now
+        # the bucket's tail past the suffix is the padding
+        live_rows = sum(1 for r in self._slot_req if r is not None)
+        self.profiler.record("prefill", bucket=T, live_rows=live_rows,
+                             live_tokens=suffix_len,
+                             padded_tokens=T - suffix_len, start=t0, end=now)
         if task.resumed:
             self.resumed_total += 1
+            self._note("resume", req=req.rid, slot=slot, suffix_bucket=T,
+                       reuse_blocks=task.reuse, total_blocks=task.total,
+                       preemptions=req.preemptions)
+        else:
+            self._note("admit", req=req.rid, slot=slot, suffix_bucket=T,
+                       reuse_blocks=task.reuse, total_blocks=task.total)
+        # a fresh admit's prefill begins where engine.queue_wait ended
+        # (chunks included); a readmit's brackets the finalize only
+        sp = _TRACER.start_span(
+            "engine.prefill", parent=req.trace_parent,
+            start=t0 if task.resumed else req.t_admit, slot=slot,
+            prompt_tokens=p, bucket=T,
+            reused_tokens=task.reuse * self.block_size,
+            prefix_hit=task.reuse > 0, **self._span_ids(req))
+        sp.event("first-token", ts=now)
+        _TRACER.finish(sp, end=now)
         self._maybe_retire(slot)
 
     def _gather_pages(self, idx: torch.Tensor) -> dict:
@@ -1318,6 +1527,26 @@ class ContinuousEngine:
             # blocks also cached in the trie keep its reference
             self._pool.unref(blocks)
         self._deactivate(slot)
+        req.t_done = tracing.now()
+        cancelled = req.cancelled.is_set()
+        self._note("retire", req=req.rid, slot=slot,
+                   tokens=len(req.out_tokens), freed_blocks=len(blocks),
+                   cancelled=cancelled)
+        sp = _TRACER.start_span(
+            "engine.decode", parent=req.trace_parent,
+            start=req.t_first or req.t_done, slot=slot,
+            tokens=len(req.out_tokens), cancelled=cancelled,
+            **self._span_ids(req),
+            # token times inside a fused window are interpolated, not
+            # measured a step
+            **({"kubeinfer.interpolated": True} if req.interpolated
+               else {}),
+            **({"kubeinfer.spec_accepted": req.spec_accepted,
+                "kubeinfer.spec_rollbacks": req.spec_rollbacks}
+               if self.spec_draft is not None else {}))
+        for i, ts in enumerate(req.token_times[:_MAX_TOKEN_EVENTS]):
+            sp.event("token", ts=ts, i=i)
+        _TRACER.finish(sp, end=req.t_done)
         req.done.set()
 
     def _deactivate(self, slot: int) -> None:
@@ -1365,6 +1594,10 @@ class ContinuousEngine:
         req.preemptions += 1
         self.preempted_total += 1
         self._parked.append(req)
+        full = (len(req.prompt) + len(req.out_tokens) - 1) // self.block_size
+        self._note("preempt", req=req.rid, slot=slot,
+                   tokens=len(req.out_tokens), cached_blocks=full,
+                   parked=len(self._parked))
 
     def _pick_victim(self, pol: PreemptionPolicy) -> int | None:
         """The youngest-arrival decoding slot that has decoded at least
@@ -1433,7 +1666,10 @@ class ContinuousEngine:
             "block_size": self.block_size,
             "kv_dtype": self.kv_dtype,
         }
+        req.t_done = tracing.now()
         self.migrated_total += 1
+        self._note("migrate", req=req.rid, tokens=len(req.out_tokens),
+                   blocks=streamed)
         req.done.set()
 
     def _migrate_slot(self, slot: int, req: _Request, streamed: int) -> None:
@@ -1472,6 +1708,7 @@ class ContinuousEngine:
                 pending.append(req)
         for req in pending:
             if req.cancelled.is_set():
+                req.t_done = tracing.now()
                 req.done.set()
                 continue
             self._mark_migrated(req, streamed=0)
@@ -1512,12 +1749,16 @@ class ContinuousEngine:
             except Exception:  # the sink is injected code
                 # a broken sink must not wedge the drain: hand the session
                 # off with what already streamed
+                self._note("migrate_sink_error", req=req.rid, slot=slot,
+                           start_block=cursor)
                 self._migrate_slot(slot, req, cursor)
                 return
             with self._lock:
                 self._migrate_cursor[slot] = cursor + n
                 self.migration_chunks_total += 1
                 self.migration_blocks_total += n
+            self._note("migrate_chunk", req=req.rid, slot=slot,
+                       start_block=cursor, blocks=n)
             return
         if final is not None:
             self._migrate_slot(*final)
@@ -1615,6 +1856,7 @@ class ContinuousEngine:
             for r in reqs:
                 r.done.set()
             return
+        spec_t0 = tracing.now()
         try:
             done = self.speculative.step_group(g)
             out = self.speculative.finish_group(g) if done else None
@@ -1626,6 +1868,14 @@ class ContinuousEngine:
                 r.failed = f"speculative decode failed: {e}"
                 r.done.set()
             return
+        # a group's tokens count once it finishes; its earlier rounds
+        # record no live token but their time
+        emitted = (sum(min(int(out.lengths[b]), r.max_new)
+                       for b, r in enumerate(reqs))
+                   if out is not None else 0)
+        self.profiler.record("spec", bucket=len(reqs), live_rows=len(reqs),
+                             live_tokens=emitted, padded_tokens=0,
+                             start=spec_t0, end=tracing.now())
         if out is None:
             return
         with self._lock:
@@ -1640,6 +1890,11 @@ class ContinuousEngine:
             r.token_times.extend([now] * n)
             r.t_first = r.t_first or now
             self.spec_served += 1
+            r.t_done = now
+            # a group has no slot timeline: one span covers the residency
+            _TRACER.record_span(
+                "engine.spec_group", start=r.t_submit, end=now,
+                parent=r.trace_parent, tokens=n, group_size=len(reqs))
             r.done.set()
 
     def _place(self, req: _Request) -> bool:
@@ -1647,6 +1902,7 @@ class ContinuousEngine:
         a free slot; False puts it back at the front of the holdover (all
         slots busy or pool short)."""
         if req.cancelled.is_set():
+            req.t_done = tracing.now()
             req.done.set()
             return True
         if self._group_eligible(req):
@@ -1662,7 +1918,7 @@ class ContinuousEngine:
                 if self._slot_req[slot] is None:
                     tokens = req.prompt + req.out_tokens
                     kv_plan = self._plan_kv(
-                        tokens, req.max_new - len(req.out_tokens))
+                        tokens, req.max_new - len(req.out_tokens), rid=req.rid)
                     if kv_plan is None:
                         break  # pool backpressure: hold until a retire
                     self._admit(slot, req, kv_plan, tokens)
@@ -1701,6 +1957,7 @@ class ContinuousEngine:
                     table_row, _own, _reuse, total, _spec = kv_plan
                     self._pool.unref([int(b) for b in table_row[:total]])
                     if req.cancelled.is_set():
+                        req.t_done = tracing.now()
                         req.done.set()
                     else:
                         self._holdover.appendleft(req)
@@ -1728,6 +1985,7 @@ class ContinuousEngine:
             if req is None:
                 return
             if req.cancelled.is_set():
+                req.t_done = tracing.now()
                 req.done.set()
                 continue
             if self._group_eligible(req):
@@ -1739,7 +1997,8 @@ class ContinuousEngine:
             with self._lock:
                 tokens = req.prompt + req.out_tokens
                 kv_plan = self._plan_kv(tokens,
-                                        req.max_new - len(req.out_tokens))
+                                        req.max_new - len(req.out_tokens),
+                                        rid=req.rid)
                 if kv_plan is None:
                     self._holdover.appendleft(req)
                     return
@@ -1864,6 +2123,7 @@ class ContinuousEngine:
                 step_t = tracing.now()
                 self.windows_total += 1
                 self._steps_since_preempt += k
+                accepted = 0
                 with self._lock:
                     for j in range(k):
                         t_j = step_t0 + (j + 1) * (step_t - step_t0) / k
@@ -1875,7 +2135,17 @@ class ContinuousEngine:
                                 continue
                             req.out_tokens.append(int(toks[slot, j]))
                             req.token_times.append(t_j)
+                            if k > 1:
+                                req.interpolated = True
+                            accepted += 1
                             self._maybe_retire(slot)
+                # one record a window, from the stamps around its one
+                # readback: the rest of the n_slots x k tokens is padding
+                self.profiler.record(
+                    "decode", bucket=k, live_rows=len(budgets),
+                    live_tokens=accepted,
+                    padded_tokens=self.n_slots * k - accepted,
+                    start=step_t0, end=step_t, steps=k)
             self._step_prefill()  # at most one chunk per pass
             self._step_spec_group()  # a no-op without a live group
         if self._stop.is_set():
@@ -1886,7 +2156,11 @@ class ContinuousEngine:
         host's acceptance: each row emits its device-accepted prefix,
         truncated at EOS and at its budget. A truncation always lands on
         a retirement, so discarded device progress never reaches a row
-        that continues."""
+        that continues. One profiler record a window, bucket spec_k."""
+        with self._lock:
+            prefilling = {t.slot for t in self._prefills}
+            decode_rows = sum(1 for s, r in enumerate(self._slot_req)
+                              if r is not None and s not in prefilling)
         step_t0 = tracing.now()
         with torch.inference_mode():
             self._state, self._dstate, tokens = verify_window(
@@ -1900,6 +2174,7 @@ class ContinuousEngine:
         self.windows_total += 1
         self._steps_since_preempt += self.spec_k
         bs = self.block_size
+        accepted = 0
         with self._lock:
             for slot in range(self.n_slots):
                 req = self._slot_req[slot]
@@ -1923,6 +2198,9 @@ class ContinuousEngine:
                     req.out_tokens.append(int(row[j]))
                     req.token_times.append(
                         step_t0 + (j + 1) * (step_t - step_t0) / n_host)
+                if n_host > 1:
+                    req.interpolated = True
+                accepted += n_host
                 # n_dev = the accepted drafts + the bonus token
                 acc_d = n_dev - 1
                 self.spec_accepted_tokens += acc_d
@@ -1931,3 +2209,8 @@ class ContinuousEngine:
                     self.spec_rollbacks += 1
                     req.spec_rollbacks += 1
                 self._maybe_retire(slot)
+        self.profiler.record(
+            "verify", bucket=self.spec_k, live_rows=decode_rows,
+            live_tokens=accepted,
+            padded_tokens=self.n_slots * (self.spec_k + 1) - accepted,
+            start=step_t0, end=step_t, steps=self.spec_k)

@@ -33,6 +33,9 @@ from kubeinfer_tpu_torch.inference.model import (
     params_dtype,
     params_to,
 )
+from kubeinfer_tpu_torch.observability import tracing
+
+_TRACER = tracing.get_tracer("engine")
 
 PROMPT_BUCKETS = (
     16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
@@ -317,12 +320,13 @@ class Engine:
             return GenerationResult(np.zeros((0, 0), np.int32),
                                     np.zeros((0,), np.int32))
         B = len(prompts)
-        padded, lens, cache_len = prepare_prompts(
-            prompts, max_new_tokens, self.max_cache_len)
-        dev = self.device
-        prompt = torch.from_numpy(padded).to(dev)
-        prompt_len = torch.from_numpy(lens).to(dev)
-        with torch.inference_mode():
+        with _TRACER.span("engine.generate", batch=B,
+                          max_new=max_new_tokens), torch.inference_mode():
+            padded, lens, cache_len = prepare_prompts(
+                prompts, max_new_tokens, self.max_cache_len)
+            dev = self.device
+            prompt = torch.from_numpy(padded).to(dev)
+            prompt_len = torch.from_numpy(lens).to(dev)
             caches = make_caches(self.cfg, B, cache_len,
                                  params_dtype(self.params), dev)
             caches, next_logits = chunked_prefill(

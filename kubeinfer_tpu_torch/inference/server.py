@@ -25,10 +25,9 @@ pool, then admits warm; every failure falls back to a local prefill and
 counts its reason (``disagg_fallbacks``).
 
 Drain and live-session migration, as in the reference: ``POST
-/admin/drain`` (open, as a reference server with no bearer token is)
-stops admissions, and each live session streams its committed KV
-chunk by chunk into the same export cache (wire v1/v2 for chunk 0, v3
-after), then completes with ``finish_reason: "migrated"`` and
+/admin/drain`` stops admissions, and each live session streams its
+committed KV chunk by chunk into the same export cache (wire v1/v2 for
+chunk 0, v3 after), then completes with ``finish_reason: "migrated"`` and
 ``kubeinfer.migrated`` (its tokens so far). Another replica finishes it
 from a ``kubeinfer_resume: {tokens, kv_source}`` body: it chain-imports
 the streamed blocks from the source's ``/kv/blocks`` and decodes the
@@ -36,6 +35,20 @@ rest (route "resume"). A draining replica answers new work with 503
 ``draining``; ``--queue-depth-limit`` sheds with 503 ``overloaded`` and
 ``Retry-After``; ``--preemption-slo`` lets the batcher park rows for
 waiters whose queue wait burns its SLO.
+
+Observability, as in the reference: ``GET /metrics`` (Prometheus text,
+open) renders the serving collectors, refreshed from the engines'
+counters, the step profiler's records and the SLO monitor at scrape
+time; ``GET /cache/summary`` (open) serves the batcher's
+``stats_summary()``; ``GET /debug/spans?trace_id=`` (a Chrome trace with
+the engine's counter tracks), ``GET /debug/flightrecorder?since=`` and
+``GET /debug/slo`` need the bearer token of ``--debug-token-file`` when
+one is set, as ``POST /admin/drain`` does. ``--slo NAME:THRESHOLD_S:
+OBJECTIVE`` sets the server's SLO objectives, ``--flight-capacity`` the
+flight recorder's ring, ``--span-sample-every`` the span head sampling,
+and ``--tls-cert-file``/``--tls-key-file`` serve over TLS. Each
+completion carries ``kubeinfer: {route, ttft_ms, tpot_ms}`` as the
+server's own timeline saw it.
 
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
@@ -49,6 +62,9 @@ waiters whose queue wait burns its SLO.
     # "kubeinfer_resume": {"tokens": [...], "kv_source": "http://127.0.0.1:8001"}
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8001
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8002
+    # an SLO and a bearer token on /debug/*; then curl localhost:8000/metrics
+    python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
+        --slo ttft:2.0:0.99 --debug-token-file token.txt
 
 ``main(argv, device="cpu")`` runs the same server on the CPU (a
 rehearsal with ``--model tiny``).
@@ -57,13 +73,12 @@ rehearsal with ``--model tiny``).
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import logging
 import signal
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import torch
@@ -75,14 +90,357 @@ from kubeinfer_tpu_torch.inference.batching import (
     EngineOverloadedError,
     PreemptionPolicy,
 )
+from kubeinfer_tpu_torch.metrics.registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+)
+from kubeinfer_tpu_torch.observability import tracing
+from kubeinfer_tpu_torch.observability.slo import SLOMonitor, SLOObjective
+from kubeinfer_tpu_torch.utils.httpbase import (
+    BaseEndpointHandler,
+    token_matches,
+    wrap_server_tls,
+)
 
 log = logging.getLogger(__name__)
+
+_TRACER = tracing.get_tracer("inference-server")
+
+
+def _serving_metrics(registry: Registry):
+    """Serving-side collectors (vLLM exposes the equivalents; the
+    control plane's collector set lives in metrics/registry.py — these
+    are per-inference-server and ride its own /metrics endpoint)."""
+    return {
+        "requests": Counter(
+            "kubeinfer_inference_requests_total",
+            "Completion requests by outcome and decode route",
+            labels=("route", "outcome"), registry=registry,
+        ),
+        "prompt_tokens": Counter(
+            "kubeinfer_inference_prompt_tokens_total",
+            "Prompt tokens received", registry=registry,
+        ),
+        "completion_tokens": Counter(
+            "kubeinfer_inference_completion_tokens_total",
+            "Tokens generated", registry=registry,
+        ),
+        "latency": Histogram(
+            "kubeinfer_inference_request_seconds",
+            "End-to-end completion latency",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0),
+            labels=("route",), registry=registry,
+        ),
+        # per-request latency breakdown (the vLLM request-metrics plane
+        # equivalents): TTFT/queue-wait come from the batcher's own
+        # request timeline when the continuous route served the request
+        # (t_submit/t_admit/t_first, batching.py _Request); routes with
+        # no internal timeline degrade to end-to-end figures — same
+        # family, split by the route label
+        "ttft": Histogram(
+            "kubeinfer_inference_ttft_seconds",
+            "Time to first generated token (queue wait + admission + "
+            "prefill on the continuous route; end-to-end elsewhere)",
+            buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                     10.0, 30.0),
+            labels=("route",), registry=registry,
+        ),
+        "tpot": Histogram(
+            "kubeinfer_inference_time_per_output_token_seconds",
+            "Mean decode time per generated token after the first",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0),
+            labels=("route",), registry=registry,
+        ),
+        "queue_wait": Histogram(
+            "kubeinfer_inference_queue_wait_seconds",
+            "Submit-to-admission wait in the continuous batcher",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0,
+                     30.0),
+            labels=("route",), registry=registry,
+        ),
+        # speculation effectiveness, refreshed from the batcher's
+        # counters at scrape time
+        "spec_served": Gauge(
+            "kubeinfer_inference_spec_served_requests",
+            "Requests served via speculative draft groups",
+            registry=registry,
+        ),
+        "spec_accepted": Gauge(
+            "kubeinfer_inference_spec_accepted_drafts",
+            "Draft tokens accepted by the target across all groups",
+            registry=registry,
+        ),
+        # paged speculative decoding (batching.py verify windows, gated
+        # by --speculative-draft): the engine's monotonic ints convert
+        # to Prometheus counters by delta at scrape time under the kv
+        # lock, same discipline as the radix counters below; the ratio
+        # gauge is cumulative accepted/proposed so dashboards read the
+        # acceptance rate without a PromQL rate-quotient
+        "spec_draft_tokens": Counter(
+            "kubeinfer_spec_draft_tokens_total",
+            "Draft tokens proposed by paged verify windows",
+            registry=registry,
+        ),
+        "spec_accepted_tokens": Counter(
+            "kubeinfer_spec_accepted_tokens_total",
+            "Proposed draft tokens the target accepted at a window "
+            "boundary",
+            registry=registry,
+        ),
+        "spec_rollbacks": Counter(
+            "kubeinfer_spec_rollbacks_total",
+            "Verify windows that rejected at least one draft token "
+            "for some row",
+            registry=registry,
+        ),
+        "spec_acceptance_ratio": Gauge(
+            "kubeinfer_spec_acceptance_ratio",
+            "Cumulative accepted/proposed draft tokens (0 until the "
+            "first window)",
+            registry=registry,
+        ),
+        # paged-KV pool + radix prefix cache (batching.kv_cache_stats):
+        # gauges snapshot pool occupancy; the cache counters are
+        # Prometheus counters fed by delta at scrape time so restarts
+        # of the batcher never make them go backwards mid-series
+        "kv_blocks_in_use": Gauge(
+            "kubeinfer_kv_blocks_in_use",
+            "KV pool blocks referenced by live slots or the prefix cache",
+            registry=registry,
+        ),
+        "kv_blocks_free": Gauge(
+            "kubeinfer_kv_blocks_free",
+            "KV pool blocks on the free list",
+            registry=registry,
+        ),
+        # device layout of the continuous batcher (sharding.EngineLayout):
+        # capacity dashboards need the tp degree next to the pool gauges —
+        # a tp=4 replica's blocks_in_use counts LOGICAL blocks whose bytes
+        # are split 4 ways, so per-device headroom math divides by tp
+        "tp_degree": Gauge(
+            "kubeinfer_engine_tp_degree",
+            "Tensor-parallel degree of the serving engine's device "
+            "layout (1 = unsharded)",
+            registry=registry,
+        ),
+        "mesh_devices": Gauge(
+            "kubeinfer_mesh_devices",
+            "Devices in the serving mesh (1 when unsharded)",
+            registry=registry,
+        ),
+        "kv_shard_blocks_in_use": Gauge(
+            "kubeinfer_kv_shard_blocks_in_use",
+            "KV pool blocks referenced per tensor-parallel shard; block "
+            "indices are logical, so every shard references the same "
+            "block set and holds n_kv/tp heads of each",
+            labels=("shard",), registry=registry,
+        ),
+        "prefix_hits": Counter(
+            "kubeinfer_prefix_cache_hits_total",
+            "Admits that reused >= 1 cached prefix block",
+            registry=registry,
+        ),
+        "prefix_misses": Counter(
+            "kubeinfer_prefix_cache_misses_total",
+            "Admits that prefilled from token 0",
+            registry=registry,
+        ),
+        "prefix_evictions": Counter(
+            "kubeinfer_prefix_cache_evictions_total",
+            "Radix-cache nodes evicted (LRU) to free pool blocks",
+            registry=registry,
+        ),
+        # step-level engine efficiency (batching.StepProfiler): goodput
+        # separates "tokens the device produced for someone" from the
+        # padded work static shapes force; occupancy/padding-waste say
+        # WHY goodput moved (empty slots vs bucket padding). Gauges
+        # snapshot the profiler's sliding-window summary at scrape time.
+        "goodput": Gauge(
+            "kubeinfer_engine_goodput_tokens_per_second",
+            "Live (non-padding) tokens produced per second, sliding "
+            "window over profiler steps",
+            registry=registry,
+        ),
+        "occupancy": Gauge(
+            "kubeinfer_engine_batch_occupancy",
+            "Mean live-rows / n_slots over recent decode dispatches",
+            registry=registry,
+        ),
+        "padding_waste": Gauge(
+            "kubeinfer_engine_padding_waste_frac",
+            "Padded / (live + padded) tokens over recent dispatches",
+            registry=registry,
+        ),
+        "queue_depth": Gauge(
+            "kubeinfer_engine_queue_depth",
+            "Requests waiting for a slot (submit queue + holdover)",
+            registry=registry,
+        ),
+        "step_duration": Histogram(
+            "kubeinfer_engine_step_duration_seconds",
+            "Device dispatch wall time by phase (prefill/decode/spec)",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 5.0, 30.0),
+            labels=("phase",), registry=registry,
+        ),
+        "compiles": Counter(
+            "kubeinfer_engine_compiles_total",
+            "Device dispatches that hit a first-seen (phase, bucket) "
+            "shape (the first launch of a shape)",
+            registry=registry,
+        ),
+        # preemptive scheduling + chunked prefill (batching.py): the
+        # monotonic engine counters convert by delta at scrape time
+        # like the radix counters above; the depth gauges snapshot the
+        # scheduler's instantaneous backlog
+        "preemptions": Counter(
+            "kubeinfer_preemptions_total",
+            "Decoding rows parked (blocks cached to the radix trie) to "
+            "admit an SLO-pressured waiter",
+            registry=registry,
+        ),
+        "resumes": Counter(
+            "kubeinfer_preemption_resumes_total",
+            "Parked rows readmitted (radix warm-resume)",
+            registry=registry,
+        ),
+        "chunks": Counter(
+            "kubeinfer_prefill_chunks_total",
+            "Intermediate chunked-prefill dispatches (excludes the "
+            "finalizing bucket dispatch)",
+            registry=registry,
+        ),
+        "chunk_queue": Gauge(
+            "kubeinfer_prefill_chunk_queue_depth",
+            "Chunked prefills in flight (slot reserved, row not yet "
+            "decoding)",
+            registry=registry,
+        ),
+        "parked": Gauge(
+            "kubeinfer_parked_requests",
+            "Preempted requests awaiting readmission",
+            registry=registry,
+        ),
+        # SLO burn rates (observability/slo.py): burn 1.0 = spending
+        # budget exactly at the sustainable rate; the window label keeps
+        # the short/long pair an alerting rule needs in one series
+        "slo_burn": Gauge(
+            "kubeinfer_slo_burn_rate",
+            "Error-budget burn rate per objective and window",
+            labels=("slo", "window"), registry=registry,
+        ),
+        "slo_budget": Gauge(
+            "kubeinfer_slo_budget_remaining",
+            "Signed remaining budget fraction over the longest window",
+            labels=("slo",), registry=registry,
+        ),
+        # disaggregated prefill/decode (disagg/): the KV transfer plane
+        # observed from BOTH ends — direction=export counts blocks/bytes
+        # served at /kv/blocks, direction=import counts blocks/bytes
+        # landed via ContinuousEngine.import_prefix; fallbacks are the
+        # paths that degraded to local prefill (token-identical, so a
+        # fallback is a latency event, never a correctness one)
+        "kv_stream_blocks": Counter(
+            "kubeinfer_kv_stream_blocks_total",
+            "KV blocks streamed over the transfer plane",
+            labels=("direction",), registry=registry,
+        ),
+        "kv_stream_bytes": Counter(
+            "kubeinfer_kv_stream_bytes_total",
+            "Wire bytes streamed over the KV transfer plane",
+            labels=("direction",), registry=registry,
+        ),
+        "kv_stream_seconds": Histogram(
+            "kubeinfer_kv_stream_seconds",
+            "KV transfer-plane operation latency (export = serve the "
+            "blob; import = fetch + verify + scatter)",
+            buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                     1.0, 2.5, 5.0),
+            labels=("direction",), registry=registry,
+        ),
+        "disagg_fallbacks": Counter(
+            "kubeinfer_disagg_fallbacks_total",
+            "Disaggregated-prefill requests that fell back to local "
+            "prefill, by reason",
+            labels=("reason",), registry=registry,
+        ),
+        "kv_pool_bytes": Gauge(
+            "kubeinfer_kv_pool_bytes",
+            "Resident bytes of the paged KV pool (pages + quant scales "
+            "+ bf16 tail buffers), summed across the mesh",
+            registry=registry,
+        ),
+        "model_param_bytes": Gauge(
+            "kubeinfer_model_param_bytes",
+            "Resident bytes of the model parameters (int8 pages + f32 "
+            "scale planes under weight_dtype=int8), summed across the "
+            "mesh",
+            registry=registry,
+        ),
+        "requests_shed": Counter(
+            "kubeinfer_requests_shed_total",
+            "Completion requests refused at the admission door, by "
+            "reason (queue_depth_limit = graceful load shedding; the "
+            "client got 503 + Retry-After, never a queue slot)",
+            labels=("reason",), registry=registry,
+        ),
+        "kv_quant_blocks": Counter(
+            "kubeinfer_kv_quant_blocks_total",
+            "KV blocks quantized to int8 on commit (admit-time fills "
+            "plus decode/verify boundary crossings; imports excluded)",
+            registry=registry,
+        ),
+        # live-session migration (drain/evacuate/rebalance): sessions
+        # handed off with a resume prefix, chunks streamed while decode
+        # continued, and the export-cache evictions that tell an
+        # operator a slow importer is losing blobs between chunks.
+        # Fallbacks are the paths that degraded to (partial) re-prefill
+        # — token-identical by the determinism contract, so every one
+        # is a latency event, never a correctness one.
+        "migrations": Counter(
+            "kubeinfer_migrations_total",
+            "Live sessions completed as migrated (drain handed them to "
+            "the router with a resume prefix)",
+            registry=registry,
+        ),
+        "migration_chunks": Counter(
+            "kubeinfer_migration_chunks_total",
+            "KV chunks streamed out by drain passes while decode "
+            "continued on the source",
+            registry=registry,
+        ),
+        "migration_fallbacks": Counter(
+            "kubeinfer_migration_fallbacks_total",
+            "Migration resume paths that degraded to (partial) local "
+            "re-prefill, by reason",
+            labels=("reason",), registry=registry,
+        ),
+        "kv_export_evictions": Counter(
+            "kubeinfer_kv_export_evictions_total",
+            "Export-cache blobs evicted (entry cap or bytes budget) "
+            "before being pulled",
+            registry=registry,
+        ),
+        "draining": Gauge(
+            "kubeinfer_engine_draining_state",
+            "1 while the engine refuses new admissions (drain in "
+            "progress)",
+            registry=registry,
+        ),
+    }
+
 
 
 class InferenceServer:
     def __init__(self, engine, model_id: str, host: str = "127.0.0.1",
                  port: int = 8000, continuous=None, speculative=None,
-                 device=None, kv_export_budget_mb: float = 0.0) -> None:
+                 device=None, kv_export_budget_mb: float = 0.0,
+                 tls_cert: str = "", tls_key: str = "", token: str = "",
+                 slo=None) -> None:
         self.device = resolve_device(device)
         for e in (engine, continuous, speculative):
             if e is not None and e.device != self.device:
@@ -92,6 +450,12 @@ class InferenceServer:
         self.continuous = continuous  # ContinuousEngine | None
         self.speculative = speculative  # SpeculativeEngine | None
         self.model_id = model_id
+        # the bearer token of /debug/* and POST /admin/drain (empty =
+        # open); /metrics, /health and /cache/summary stay open
+        self._token = token
+        self.slo = slo if slo is not None else SLOMonitor()
+        self.registry = Registry()
+        self.metrics = _serving_metrics(self.registry)
         # disaggregated-prefill export staging: prefill-only completions
         # park their wire-encoded KV here, keyed by the deepest prefix
         # fingerprint, until a decode replica pulls it from /kv/blocks.
@@ -104,65 +468,88 @@ class InferenceServer:
             self.kv_exports = KVExportCache(
                 max_bytes=(int(kv_export_budget_mb * (1 << 20))
                            if kv_export_budget_mb > 0 else None))
-        # the transfer plane seen from both ends, per direction ("export":
-        # blobs served at /kv/blocks; "import": prefixes landed through
-        # import_prefix): blocks, wire bytes, and the seconds of the
-        # latest operations (export: serving the blob; import: fetch +
-        # verify + staged write); fallbacks to local prefill by reason.
-        # The export cache's evictions are ``kv_exports.stats()
-        # ["evictions"]``.
-        self.kv_stream_blocks: collections.Counter = collections.Counter()
-        self.kv_stream_bytes: collections.Counter = collections.Counter()
-        self.kv_stream_seconds = {
-            d: collections.deque(maxlen=1024) for d in ("export", "import")}
-        self.disagg_fallbacks: collections.Counter = collections.Counter()
-        # chain imports of migrated sessions that fell short, by reason (a
-        # partial import still counts its blocks above)
-        self.migration_fallbacks: collections.Counter = collections.Counter()
-        self._kv_lock = threading.Lock()
-        if self.kv_exports is not None:
             # the drain pass streams committed-KV chunks through this sink
             # (scheduler thread, off the engine lock) into the same cache
             # /kv/blocks serves, keyed by each chunk's deepest fingerprint
             continuous.migration_sink = self._export_migration_chunk
+            # engine spans name the replica the router registers
+            if continuous.replica_name is None:
+                continuous.replica_name = model_id
+        # the engines' last-seen monotonic counters (the delta-to-Counter
+        # conversion at scrape time) and the profiler's replay cursor,
+        # under one lock: concurrent scrapes never double-count
+        self._kv_last: dict[str, int] = {}
+        self._prof_seq = -1
+        self._kv_lock = threading.Lock()
         server = self
 
-        class Handler(BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
+        class Handler(BaseEndpointHandler):
+            def _authed(self) -> bool:
+                if not server._token:
+                    return True
+                return token_matches(self.headers.get("Authorization", ""),
+                                     server._token)
 
-            def log_message(self, fmt, *args):  # no per-request stderr
-                return
-
-            def respond(self, code: int, ctype: str, body,
-                        headers: dict | None = None) -> None:
-                data = body.encode() if isinstance(body, str) else body
-                self.send_response(code)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(data)))
-                for key, value in (headers or {}).items():
-                    self.send_header(key, value)
-                self.end_headers()
-                self.wfile.write(data)
+            def unauthorized(self) -> None:
+                self.respond(401, "application/json",
+                             json.dumps({"error": "unauthorized"}))
 
             def do_GET(self):
                 path = self.path.split("?", 1)[0]
+                if path.startswith("/debug/") and not self._authed():
+                    self.unauthorized()
+                    return
+                q = parse_qs(urlparse(self.path).query)
                 if path == "/health":
                     self.respond(200, "text/plain", "OK")
+                elif path == "/metrics":
+                    server._refresh_spec_metrics()
+                    self.respond(200, "text/plain; version=0.0.4",
+                                 server.registry.render())
                 elif path == "/v1/models":
                     self.respond(200, "application/json", json.dumps({
                         "object": "list",
                         "data": [{"id": server.model_id, "object": "model",
                                   "owned_by": "kubeinfer-tpu"}],
                     }))
+                elif path == "/cache/summary":
+                    # fingerprints are one-way hashes of block keys: no
+                    # prompt content is recoverable
+                    serving = (server.continuous.stats_summary()
+                               if server.continuous is not None else {})
+                    self.respond(200, "application/json", json.dumps(
+                        {"model": server.model_id, "serving": serving}))
                 elif path == "/kv/blocks":
-                    self.kv_blocks()
+                    self.kv_blocks(q)
+                elif path == "/debug/spans":
+                    # the recorded spans as Chrome trace events (open in
+                    # Perfetto), with the engine's counter tracks
+                    tid = (q.get("trace_id") or [None])[0]
+                    doc = tracing.RECORDER.to_chrome_trace(tid)
+                    server._merge_counter_tracks(doc)
+                    self.respond(200, "application/json", json.dumps(doc))
+                elif path == "/debug/flightrecorder":
+                    # ?since= is an exactly-once cursor: events with seq >
+                    # since only
+                    try:
+                        since = int((q.get("since") or ["-1"])[0])
+                    except ValueError:
+                        self.respond(400, "application/json", json.dumps(
+                            {"error": "since must be an integer seq"}))
+                        return
+                    fl = (server.continuous.flight.to_dict(since)
+                          if server.continuous is not None
+                          else {"capacity": 0, "recorded": 0, "events": []})
+                    self.respond(200, "application/json", json.dumps(fl))
+                elif path == "/debug/slo":
+                    self.respond(200, "application/json",
+                                 json.dumps(server.slo.snapshot()))
                 else:
                     self.respond(404, "text/plain", "not found\n")
 
-            def kv_blocks(self):
+            def kv_blocks(self, q):
                 """One exported prefix by content address (its deepest
                 rolling fingerprint); self-verifying on the wire."""
-                q = parse_qs(urlparse(self.path).query)
                 try:
                     fp = int((q.get("fp") or [""])[0])
                 except ValueError:
@@ -183,33 +570,53 @@ class InferenceServer:
                 except ValueError:
                     nblocks = 0
                 # counted BEFORE the write: the importer's next request
-                # may read the counts
-                server._count_stream("export", nblocks, len(blob))
+                # may scrape the counts
+                m = server.metrics
+                m["kv_stream_blocks"].inc("export", by=nblocks)
+                m["kv_stream_bytes"].inc("export", by=len(blob))
                 t0 = time.perf_counter()
                 self.respond(200, "application/octet-stream", blob)
-                with server._kv_lock:
-                    server.kv_stream_seconds["export"].append(
-                        time.perf_counter() - t0)
+                m["kv_stream_seconds"].observe("export",
+                                               time.perf_counter() - t0)
 
             def do_POST(self):
                 path = self.path.split("?", 1)[0]
                 n = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(n)
                 if path == "/admin/drain":
+                    # disruptive, so guarded by the /debug/* token
+                    if not self._authed():
+                        self.unauthorized()
+                        return
                     self.admin_drain(raw)
                     return
                 if path != "/v1/completions":
                     self.respond(404, "text/plain", "not found\n")
                     return
+                # joins the caller's trace when a traceparent came in
+                with _TRACER.span("http POST /v1/completions",
+                                  parent=self.trace_context()) as sp:
+                    self.completion(raw, sp)
+
+            def completion(self, raw: bytes, sp):
                 try:
-                    resp = server.complete(json.loads(raw or b"{}"))
+                    try:
+                        body = json.loads(raw or b"{}")
+                    except ValueError:
+                        # malformed JSON never reaches complete()
+                        server.metrics["requests"].inc("invalid", "invalid")
+                        raise
+                    resp = server.complete(body)
+                    sp.set(status=200)
                     self.respond(200, "application/json", json.dumps(resp))
                 except ValueError as e:
+                    sp.set(status=400)
                     self.respond(400, "application/json", json.dumps(
                         {"error": {"message": str(e),
                                    "type": "invalid_request_error"}}))
                 except EngineOverloadedError as e:
                     # a valid request with no queue room: back off and retry
+                    sp.set(status=503)
                     self.respond(503, "application/json", json.dumps(
                         {"error": {"message": str(e), "type": "overloaded"}}),
                         headers={"Retry-After": str(max(
@@ -217,10 +624,12 @@ class InferenceServer:
                 except EngineDrainingError as e:
                     # valid, but THIS replica will not take it: route
                     # elsewhere (no Retry-After, a drain does not recover)
+                    sp.set(status=503)
                     self.respond(503, "application/json", json.dumps(
                         {"error": {"message": str(e), "type": "draining"}}))
                 except Exception as e:  # keep the serving thread alive
                     log.exception("completion failed")
+                    sp.set(status=500)
                     self.respond(500, "application/json", json.dumps(
                         {"error": {"message": str(e),
                                    "type": "server_error"}}))
@@ -245,13 +654,105 @@ class InferenceServer:
                     return
                 self.respond(200, "application/json", json.dumps(resp))
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = wrap_server_tls(
+            ThreadingHTTPServer((host, port), Handler), tls_cert, tls_key)
         self._httpd.daemon_threads = True
         self._thread: threading.Thread | None = None
 
     @property
     def port(self) -> int:
         return self._httpd.server_address[1]
+
+    # -- scrape ---------------------------------------------------------------
+
+    def _refresh_spec_metrics(self) -> None:
+        """Scrape-time refresh of the collectors from the engines' own
+        counters: gauges snapshot; the monotonic engine counters convert
+        to Prometheus counters by delta, and the profiler's new records
+        feed the step histogram once each, under ``_kv_lock``. The SLO
+        gauges refresh without a continuous engine too."""
+        m = self.metrics
+        snap = self.slo.snapshot()
+        for name, obj in snap["objectives"].items():
+            for w, d in obj["windows"].items():
+                m["slo_burn"].set(name, f"{w}s", d["burn_rate"])
+            m["slo_budget"].set(name, obj["budget_remaining"])
+        eng = self.continuous
+        if eng is None:
+            return
+        m["spec_served"].set(eng.spec_served)
+        m["spec_accepted"].set(eng.spec_accepted)
+        stats = eng.kv_cache_stats()
+        m["kv_blocks_in_use"].set(stats["blocks_in_use"])
+        m["kv_blocks_free"].set(stats["blocks_free"])
+        m["kv_pool_bytes"].set(stats["pool_bytes"])
+        m["model_param_bytes"].set(eng.model_param_bytes)
+        summary = eng.stats_summary()
+        # the single-device layout (a sharded one waits for ROADMAP Queue
+        # 1 entry 10): one shard, holding every block
+        m["tp_degree"].set(summary["tp_degree"])
+        m["mesh_devices"].set(summary["mesh_devices"])
+        for shard in range(summary["tp_degree"]):
+            m["kv_shard_blocks_in_use"].set(str(shard),
+                                            stats["blocks_in_use"])
+        m["goodput"].set(summary["goodput_tokens_per_sec"])
+        m["occupancy"].set(summary["batch_occupancy"])
+        m["padding_waste"].set(summary["padding_waste_frac"])
+        m["queue_depth"].set(summary["queue_depth"])
+        m["draining"].set(1.0 if summary["draining"] else 0.0)
+        sched = eng.scheduler_stats()
+        m["chunk_queue"].set(sched["chunk_queue"])
+        m["parked"].set(sched["parked"])
+        with self._kv_lock:
+            # a zero delta still materializes the series (at 0)
+            for src, key, name in (
+                    (stats, "hits", "prefix_hits"),
+                    (stats, "misses", "prefix_misses"),
+                    (stats, "evictions", "prefix_evictions"),
+                    (stats, "quant_blocks", "kv_quant_blocks"),
+                    (sched, "preempted", "preemptions"),
+                    (sched, "resumed", "resumes"),
+                    (sched, "chunks", "chunks"),
+                    (sched, "spec_draft_tokens", "spec_draft_tokens"),
+                    (sched, "spec_accepted_tokens", "spec_accepted_tokens"),
+                    (sched, "spec_rollbacks", "spec_rollbacks"),
+                    (sched, "migrated", "migrations"),
+                    (sched, "migration_chunks", "migration_chunks")):
+                m[name].inc(by=src[key] - self._kv_last.get(key, 0))
+                self._kv_last[key] = src[key]
+            if self.kv_exports is not None:
+                ev = self.kv_exports.stats()["evictions"]
+                m["kv_export_evictions"].inc(
+                    by=ev - self._kv_last.get("export_evictions", 0))
+                self._kv_last["export_evictions"] = ev
+            # from the cumulative ints: a scrape between windows must not
+            # flap the gauge to 0/0
+            m["spec_acceptance_ratio"].set(
+                sched["spec_accepted_tokens"]
+                / max(sched["spec_draft_tokens"], 1))
+            m["compiles"].inc(by=0)
+            recs = eng.profiler.snapshot(since_seq=self._prof_seq)
+            for r in recs:
+                m["step_duration"].observe(r.phase, r.dur_s)
+                if r.compiled:
+                    m["compiles"].inc()
+            if recs:
+                self._prof_seq = recs[-1].seq
+
+    def _merge_counter_tracks(self, doc: dict) -> None:
+        """Append the engine's counter tracks (batch occupancy, padded
+        tokens, queue depth, kv blocks) to a Chrome trace as one more
+        process, ``engine-counters``. No-op without a continuous
+        engine."""
+        if self.continuous is None:
+            return
+        events = doc.get("traceEvents", [])
+        pid = max((e.get("pid", 0) for e in events), default=0) + 1
+        events.append({"ph": "M", "name": "process_name", "pid": pid,
+                       "tid": 0, "args": {"name": "engine-counters"}})
+        events.extend(self.continuous.profiler.counter_events(pid))
+        events.extend(self.continuous.flight.counter_events(pid))
+        doc["traceEvents"] = events
 
     # -- request handling --------------------------------------------------
 
@@ -271,24 +772,45 @@ class InferenceServer:
         return " ".join(str(i) for i in ids)
 
     def complete(self, body: dict) -> dict:
-        if not isinstance(body, dict):
-            raise ValueError("request body must be a JSON object")
+        # _complete names the route as soon as it picks one, so a failure
+        # during generation still counts under its route
+        route_box = {"route": "invalid"}
         t0 = time.perf_counter()
-        route, gen, req, more = self._complete(body)
-        ext = {"route": route,
-               "latency_ms": (time.perf_counter() - t0) * 1e3, **more}
-        if req is not None:
-            if req.t_first:  # (none for a session migrated unadmitted)
-                ext["ttft_ms"] = (req.t_first - req.t_submit) * 1e3
-            if self.continuous.spec_draft is not None:
-                # the verify route's per-request accounting (the
-                # reference records it on its engine.decode span)
-                ext["spec_accepted"] = req.spec_accepted
-                ext["spec_rollbacks"] = req.spec_rollbacks
-        ids_len = len(body["prompt"])
+        with _TRACER.span("server.complete", replica=self.model_id) as span:
+            try:
+                if not isinstance(body, dict):
+                    raise ValueError("request body must be a JSON object")
+                ids, gen = self._complete(body, route_box)
+            except ValueError:
+                self.metrics["requests"].inc(route_box["route"], "invalid")
+                raise
+            except Exception as e:
+                if isinstance(e, EngineOverloadedError):
+                    self.metrics["requests_shed"].inc("queue_depth_limit")
+                    outcome = "shed"
+                elif isinstance(e, EngineDrainingError):
+                    outcome = "draining"
+                else:
+                    outcome = "error"
+                self.metrics["requests"].inc(route_box["route"], outcome)
+                raise
+            finally:
+                span.set(route=route_box["route"])
+        route = route_box["route"]
+        dur = time.perf_counter() - t0
+        m = self.metrics
+        m["requests"].inc(route, "ok")
+        m["latency"].observe(route, dur)
+        m["prompt_tokens"].inc(by=len(ids))
+        m["completion_tokens"].inc(by=len(gen))
+        req = route_box.get("timing")
+        ttft, tpot = self._observe_breakdown(route, dur, len(gen), req)
+        ext = route_box.get("ext") or {}
         # no tokenizer, so no EOS: every completion runs to length, unless
         # a drain handed it off (its tokens are a prefix of the answer)
-        finish = "migrated" if "migrated" in ext else "length"
+        finish = "migrated" if ext.get("migrated") is not None else "length"
+        # the continuous routes' completion id carries the flight ring's
+        # request id (detail key "req")
         return {
             "id": "cmpl-kubeinfer" if req is None
             else f"cmpl-kubeinfer-{req.rid}",
@@ -301,14 +823,49 @@ class InferenceServer:
                 "finish_reason": finish,
             }],
             "usage": {
-                "prompt_tokens": ids_len,
+                "prompt_tokens": len(ids),
                 "completion_tokens": len(gen),
-                "total_tokens": ids_len + len(gen),
+                "total_tokens": len(ids) + len(gen),
             },
-            "kubeinfer": ext,
+            # the serving timeline as the SERVER saw it
+            "kubeinfer": {"route": route, "ttft_ms": round(ttft * 1e3, 3),
+                          "tpot_ms": round(tpot * 1e3, 3), **ext},
         }
 
-    def _complete(self, body: dict):
+    def _observe_breakdown(self, route: str, total_s: float, n_out: int,
+                           req=None) -> tuple[float, float]:
+        """The latency-breakdown histograms and the SLO monitor: the
+        continuous routes' request timeline (stamped by the scheduler)
+        gives queue wait, TTFT and TPOT; the other routes degrade to the
+        end-to-end time and its mean a token. Returns (ttft, tpot) s."""
+        m = self.metrics
+        ttft = total_s
+        decode_s = None
+        if req is not None and req.t_submit:
+            if req.t_admit:
+                wait = max(0.0, req.t_admit - req.t_submit)
+                m["queue_wait"].observe(route, wait)
+                self.slo.observe("queue_wait", wait)
+            end = req.t_done or req.t_submit + total_s
+            if req.t_first:
+                ttft = max(0.0, req.t_first - req.t_submit)
+                decode_s = max(0.0, end - req.t_first)
+            else:  # a draft group, or a session migrated unadmitted
+                ttft = max(0.0, end - req.t_submit)
+        m["ttft"].observe(route, ttft)
+        self.slo.observe("ttft", ttft)
+        if decode_s is not None and n_out > 1:
+            tpot = decode_s / (n_out - 1)
+        else:
+            tpot = total_s / max(1, n_out)
+        m["tpot"].observe(route, tpot)
+        self.slo.observe("tpot", tpot)
+        return ttft, tpot
+
+    def _complete(self, body: dict, route_box: dict):
+        """Route one completion; returns (prompt ids, generated tokens)
+        and leaves the route, the continuous request (``timing``) and the
+        ``kubeinfer`` extras (``ext``) in ``route_box``."""
         prompt = body.get("prompt")
         if prompt is None:
             raise ValueError("'prompt' is required")
@@ -354,9 +911,10 @@ class InferenceServer:
                 and self.continuous.fits(len(ids), max_tokens)):
             self._maybe_import_prefix(ids, kv_source)
         if max_tokens == 0:
-            return self._prefill_only(ids, kw)
+            return ids, self._prefill_only(ids, kw, route_box)
         if resume_tokens:
-            return self._resume(ids, max_tokens, resume_tokens, resume, kw)
+            return ids, self._resume(ids, max_tokens, resume_tokens, resume,
+                                     kw, route_box)
         if (self.speculative is not None and rep_penalty == 1.0
                 and self.speculative.fits(len(ids), max_tokens)
                 # a batcher with a speculative engine owns the draft-
@@ -364,27 +922,33 @@ class InferenceServer:
                 and not (self.continuous is not None
                          and self.continuous.speculative is not None
                          and self.continuous.fits(len(ids), max_tokens))):
+            route_box["route"] = "speculative"
             kw.pop("repetition_penalty")
             out = self.speculative.generate([ids], max_new_tokens=max_tokens,
                                             **kw)
-            return "speculative", out.tokens[0, : out.lengths[0]].tolist(), \
-                None, {}
+            return ids, out.tokens[0, : out.lengths[0]].tolist()
         if self.continuous is not None and self.continuous.fits(
                 len(ids), max_tokens):
+            route_box["route"] = "continuous"
             req = self.continuous.serve(ids, max_new_tokens=max_tokens, **kw)
-            return "continuous", list(req.out_tokens), req, self._ext(req)
+            self._ext(req, route_box)
+            return ids, list(req.out_tokens)
+        route_box["route"] = "engine"
         out = self.engine.generate([ids], max_new_tokens=max_tokens, **kw)
-        return "engine", out.tokens[0, : out.lengths[0]].tolist(), None, {}
+        return ids, out.tokens[0, : out.lengths[0]].tolist()
 
     @staticmethod
-    def _ext(req) -> dict:
-        """A continuous request's extra fields: ``migrated`` when the
+    def _ext(req, route_box: dict) -> None:
+        """A continuous request's timeline, and ``migrated`` when the
         engine drained under it (the router re-routes with these tokens
         as the resume prefix, pulling the chain from /kv/blocks)."""
-        return {"migrated": dict(req.migrated)} if req.migrated else {}
+        route_box["timing"] = req
+        if req.migrated is not None:
+            route_box["ext"] = {"migrated": dict(req.migrated)}
 
     def _resume(self, ids: list[int], max_tokens: int,
-                resume_tokens: list[int], resume: dict, kw: dict):
+                resume_tokens: list[int], resume: dict, kw: dict,
+                route_box: dict) -> list[int]:
         """Finish a migrated session: only the continuous batcher's
         position-folded key schedule reproduces the source's stream
         mid-generation. A tail the source already finished answers
@@ -394,8 +958,9 @@ class InferenceServer:
                 and self.continuous.fits(len(ids), max_tokens)):
             raise ValueError("kubeinfer_resume requires the continuous "
                              "batcher and a prompt that fits its cache")
+        route_box["route"] = "resume"
         if len(resume_tokens) >= max_tokens:
-            return "resume", resume_tokens[:max_tokens], None, {}
+            return resume_tokens[:max_tokens]
         src = resume.get("kv_source")
         if isinstance(src, str) and src:
             # the committed chain only: the newest token's KV never
@@ -404,9 +969,11 @@ class InferenceServer:
         req = self.continuous.serve(ids, max_new_tokens=max_tokens,
                                     resume_tokens=resume_tokens, **kw)
         # drained AGAIN mid-resume: migrated carries on to the next hop
-        return "resume", list(req.out_tokens), req, self._ext(req)
+        self._ext(req, route_box)
+        return list(req.out_tokens)
 
-    def _prefill_only(self, ids: list[int], kw: dict):
+    def _prefill_only(self, ids: list[int], kw: dict,
+                      route_box: dict) -> list[int]:
         """``max_tokens=0``, the prefill replica's role, outranking every
         other route (only the paged pool exports): the prompt runs through
         the continuous batcher's ordinary admit, and its committed pages
@@ -418,9 +985,10 @@ class InferenceServer:
                 "batcher and a prompt that fits its cache")
         from kubeinfer_tpu_torch.disagg.wire import WireError, encode_payload
 
+        route_box["route"] = "prefill"
         req = self.continuous.serve(ids, max_new_tokens=0, export_kv=True,
                                     **kw)
-        more = {}
+        route_box["timing"] = req
         exp = req.kv_export
         if exp is not None and self.kv_exports is not None:
             try:
@@ -436,18 +1004,18 @@ class InferenceServer:
             else:
                 fp = exp["fingerprints"][-1]
                 self.kv_exports.put(fp, blob)
-                more = {"kv_export": {"fingerprint": int(fp),
-                                      "blocks": len(exp["fingerprints"]),
-                                      "bytes": len(blob)}}
-        return "prefill", [], req, more
+                route_box["ext"] = {"kv_export": {
+                    "fingerprint": int(fp),
+                    "blocks": len(exp["fingerprints"]),
+                    "bytes": len(blob)}}
+        return []
 
-    def _count_stream(self, direction: str, blocks: int, nbytes: int,
-                      seconds: float | None = None) -> None:
-        with self._kv_lock:
-            self.kv_stream_blocks[direction] += blocks
-            self.kv_stream_bytes[direction] += nbytes
-            if seconds is not None:
-                self.kv_stream_seconds[direction].append(seconds)
+    def _count_import(self, imported: int, wire_bytes: int,
+                      t0: float) -> None:
+        m = self.metrics
+        m["kv_stream_blocks"].inc("import", by=imported)
+        m["kv_stream_bytes"].inc("import", by=wire_bytes)
+        m["kv_stream_seconds"].observe("import", time.perf_counter() - t0)
 
     def _maybe_import_prefix(self, ids: list[int], base_url: str) -> None:
         """Pull this prompt's exported KV prefix from ``base_url`` into
@@ -467,22 +1035,26 @@ class InferenceServer:
         if fps[-1] in set(eng.cache_summary().get("fingerprints", [])):
             return  # already warm locally
         t0 = time.perf_counter()
-        imported, reason, wire_bytes = import_remote_prefix(
-            eng, ids, base_url)
+        # the fetch + verify + staged write, under server.complete
+        with _TRACER.span("server.kv_import", kind="prefix",
+                          replica=self.model_id) as sp:
+            imported, reason, wire_bytes = import_remote_prefix(
+                eng, ids, base_url)
+            sp.set(blocks=imported,
+                   **({"fallback": reason} if reason else {}))
         if imported > 0:
-            self._count_stream("import", imported, wire_bytes,
-                               time.perf_counter() - t0)
+            self._count_import(imported, wire_bytes, t0)
         else:
-            with self._kv_lock:
-                self.disagg_fallbacks[reason or "unknown"] += 1
+            self.metrics["disagg_fallbacks"].inc(reason or "unknown")
 
     def _maybe_import_chain(self, tokens: list[int], base_url: str) -> None:
         """Chunked warm import of a migrated session's KV chain from the
         source replica before the resume admit. Best-effort: a failure
-        counts under ``migration_fallbacks``, and a partial import still
-        counts its blocks (the resume re-prefills only past the last
-        verified chunk). A chain whose deepest fingerprint the engine
-        already advertises (a bounce-back resume) is not fetched."""
+        counts under ``kubeinfer_migration_fallbacks_total``, and a
+        partial import still counts its blocks (the resume re-prefills
+        only past the last verified chunk). A chain whose deepest
+        fingerprint the engine already advertises (a bounce-back resume)
+        is not fetched."""
         from kubeinfer_tpu_torch.disagg.client import import_remote_chain
         from kubeinfer_tpu_torch.inference.kv_blocks import (
             prefix_fingerprints,
@@ -495,14 +1067,17 @@ class InferenceServer:
         if fps[-1] in set(eng.cache_summary().get("fingerprints", [])):
             return  # the whole chain is warm here already
         t0 = time.perf_counter()
-        imported, reason, wire_bytes = import_remote_chain(
-            eng, tokens, base_url, chunk_blocks=eng.migration_chunk_blocks)
+        with _TRACER.span("server.kv_import", kind="chain",
+                          replica=self.model_id) as sp:
+            imported, reason, wire_bytes = import_remote_chain(
+                eng, tokens, base_url,
+                chunk_blocks=eng.migration_chunk_blocks)
+            sp.set(blocks=imported,
+                   **({"fallback": reason} if reason else {}))
         if imported > 0:
-            self._count_stream("import", imported, wire_bytes,
-                               time.perf_counter() - t0)
+            self._count_import(imported, wire_bytes, t0)
         if reason is not None:
-            with self._kv_lock:
-                self.migration_fallbacks[reason] += 1
+            self.metrics["migration_fallbacks"].inc(reason)
 
     def _export_migration_chunk(self, chunk: dict) -> None:
         """The engine's migration sink (scheduler thread, off the engine
@@ -569,12 +1144,6 @@ _WAITING_FLAGS = {
     "tensor_parallel_size": (1, "slice 6: sharding.py / tp"),
     "sequence_parallel_size": (1, "slice 6: sp_engine.py + ring_attention.py"),
     "sp_min_prompt": (1024, "slice 6: sp_engine.py + ring_attention.py"),
-    "tls_cert_file": ("", "/metrics and the debug endpoints (TLS)"),
-    "tls_key_file": ("", "/metrics and the debug endpoints (TLS)"),
-    "debug_token_file": ("", "/metrics and the debug endpoints"),
-    "flight_capacity": (512, "/metrics and the debug endpoints"),
-    "span_sample_every": (1, "/metrics and the debug endpoints"),
-    "slo": ([], "/metrics and the debug endpoints"),
 }
 
 
@@ -636,16 +1205,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "when a waiter exceeds THRESHOLD_S and the "
                         "queue-wait burn rate reaches BURN_LIMIT (default "
                         "1.0); empty disables preemption")
+    p.add_argument("--tls-cert-file", default="",
+                   help="serve completions over TLS (PEM cert; key via "
+                        "--tls-key-file)")
+    p.add_argument("--tls-key-file", default="")
+    p.add_argument("--debug-token-file", default="",
+                   help="file holding the bearer token required on "
+                        "/debug/* (spans, flight recorder, SLO) and POST "
+                        "/admin/drain; empty leaves them open")
+    p.add_argument("--flight-capacity", type=int, default=512,
+                   help="flight-recorder ring size (scheduler decisions "
+                        "kept for /debug/flightrecorder)")
+    p.add_argument("--span-sample-every", type=int, default=1,
+                   help="record spans for 1 in N traces (head sampling, "
+                        "whole traces kept or dropped together; 1 = record "
+                        "all); every metric still counts every request")
+    p.add_argument("--slo", action="append", default=[],
+                   metavar="NAME:THRESHOLD_S:OBJECTIVE",
+                   help="SLO objective, repeatable (e.g. ttft:0.5:0.99 = "
+                        "99%% of requests see their first token in 500 "
+                        "ms); names: ttft, tpot, queue_wait. Default: the "
+                        "loose built-ins of observability/slo.py")
     # accepted and unused, as in the reference (vLLM flag parity)
     p.add_argument("--gpu-memory-utilization", type=float, default=0.9)
     for name, (default, _entry) in _WAITING_FLAGS.items():
-        flag = "--" + name.replace("_", "-")
-        if isinstance(default, bool):
-            p.add_argument(flag, action="store_true")
-        elif isinstance(default, list):
-            p.add_argument(flag, action="append", default=[])
-        else:
-            p.add_argument(flag, type=type(default), default=default)
+        p.add_argument("--" + name.replace("_", "-"), type=type(default),
+                       default=default)
     return p
 
 
@@ -669,6 +1254,18 @@ def build_server(argv: list[str] | None = None, device=None):
     if args.speculative_draft and not args.draft_model:
         raise SystemExit("--speculative-draft requires --draft-model (the "
                          "paged verify windows run the same draft weights)")
+    if args.span_sample_every != 1:
+        # process-global: every tracer of the process keeps or drops the
+        # same traces
+        tracing.set_span_sampling(args.span_sample_every)
+    debug_token = ""
+    if args.debug_token_file:
+        with open(args.debug_token_file, encoding="utf-8") as f:
+            debug_token = f.read().strip()
+    slo = None
+    if args.slo:
+        slo = SLOMonitor(
+            objectives=tuple(SLOObjective.parse(x) for x in args.slo))
     dcfg = None
     if args.draft_model:
         dcfg = PRESETS.get(args.draft_model)
@@ -716,6 +1313,7 @@ def build_server(argv: list[str] | None = None, device=None):
             preemption=preemption,
             queue_depth_limit=args.queue_depth_limit,
             migration_chunk_blocks=args.migration_chunk_blocks,
+            flight_capacity=args.flight_capacity,
             device=dev,
         )
         if args.prewarm_spec and speculative is not None:
@@ -728,7 +1326,10 @@ def build_server(argv: list[str] | None = None, device=None):
     srv = InferenceServer(engine, model_id=args.model, host=args.host,
                           port=args.port, continuous=continuous,
                           speculative=speculative, device=dev,
-                          kv_export_budget_mb=args.kv_export_budget_mb)
+                          kv_export_budget_mb=args.kv_export_budget_mb,
+                          tls_cert=args.tls_cert_file,
+                          tls_key=args.tls_key_file, token=debug_token,
+                          slo=slo)
     return srv, continuous
 
 

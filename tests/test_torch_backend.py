@@ -221,6 +221,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "kubeinfer_tpu_torch.manager.__main__, kubeinfer_tpu_torch.metrics, "
         "kubeinfer_tpu_torch.observability, "
         "kubeinfer_tpu_torch.observability.slo, "
+        "kubeinfer_tpu_torch.observability.stepprof, "
+        "kubeinfer_tpu_torch.observability.flightrecorder, "
         "kubeinfer_tpu_torch.resilience.faultpoints, "
         "kubeinfer_tpu_torch.router.scoring, kubeinfer_tpu_torch.utils, "
         "kubeinfer_tpu_torch.utils.httpbase\n"

@@ -518,14 +518,14 @@ def test_prefill_only_then_kv_blocks_fetch(fleet):
     ext = doc["kubeinfer"]["kv_export"]
     fps = prefix_fingerprints(p, BS)
     assert (ext["fingerprint"], ext["blocks"]) == (fps[-1], len(fps))
-    before = pre.kv_stream_blocks["export"]
+    before = pre.metrics["kv_stream_blocks"].value("export")
     payload = tclient.fetch_kv_blocks(url(pre), fps[-1])
     assert list(payload.fingerprints) == fps
-    assert pre.kv_stream_blocks["export"] == before + len(fps)
+    assert pre.metrics["kv_stream_blocks"].value("export") == before + len(fps)
     with urllib.request.urlopen(f"{url(pre)}/kv/blocks?fp={fps[-1]}",
                                 timeout=10) as r:
         assert len(r.read()) == ext["bytes"]
-    assert pre.kv_stream_bytes["export"] >= 2 * ext["bytes"]
+    assert pre.metrics["kv_stream_bytes"].value("export") >= 2 * ext["bytes"]
     # the reference client fetches and decodes the port's blob too
     jp = jclient.fetch_kv_blocks(url(pre), fps[-1])
     assert np.array_equal(jp.pages_k, payload.pages_k.numpy())
@@ -556,7 +556,7 @@ def test_kv_source_hook_imports_and_serves_parity(fleet, params, kw):
     status, doc = post(dec, body)
     assert status == 200 and doc["choices"][0]["tokens"] == expect
     assert dec_cont.imports_total == imports + 1
-    assert dec.kv_stream_blocks["import"] >= len(p) // BS
+    assert dec.metrics["kv_stream_blocks"].value("import") >= len(p) // BS
     # locally warm now: the repeat skips the fetch
     status, doc = post(dec, body)
     assert doc["choices"][0]["tokens"] == expect
@@ -575,7 +575,7 @@ def test_kv_source_unreachable_falls_back_locally(fleet, params):
                              "kubeinfer_kv_source": "http://127.0.0.1:9"})
     assert status == 200 and doc["kubeinfer"]["route"] == "continuous"
     assert doc["choices"][0]["tokens"] == expect
-    assert dec.disagg_fallbacks["fetch_error"] > 0
+    assert dec.metrics["disagg_fallbacks"].value("fetch_error") > 0
 
 
 @pytest.fixture

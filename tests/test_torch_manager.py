@@ -12,10 +12,12 @@ CPU is asked for. Every server binds port 0.
 from __future__ import annotations
 
 import os
+import queue
 import re
 import signal
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -267,11 +269,25 @@ def test_binary_serves_on_the_cpu_and_stops_on_sigterm():
         cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
         text=True,
     )
+    # stderr is read on a thread, so a manager that stays alive without
+    # logging cannot hold this test past its deadline (a bare readline()
+    # would block for good), and a chatty one never fills the pipe
+    lines: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stderr:
+            lines.put(line)
+
+    pumper = threading.Thread(target=pump, daemon=True)
+    pumper.start()
     try:
         health = None
         deadline = time.monotonic() + 60
         while health is None and time.monotonic() < deadline:
-            line = proc.stderr.readline()
+            try:
+                line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                break
             m = re.search(r"probes on :(\d+)", line)
             if m:
                 health = f"http://127.0.0.1:{m.group(1)}"
@@ -283,5 +299,6 @@ def test_binary_serves_on_the_cpu_and_stops_on_sigterm():
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.wait()
+            proc.wait(timeout=30)
+        pumper.join(10)  # the pipe is at its end once the process is
         proc.stderr.close()

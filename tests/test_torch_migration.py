@@ -26,7 +26,10 @@ The cases follow ``tests/test_migration.py::TestEngineDrain`` and
 No sleep stands in for synchronisation: a source engine holds its
 scheduler at a window boundary once the session has decoded a few
 tokens (``gated``) until the drain is flagged, so the drain always wins
-against the session's budget, and every wait has its own timeout.
+against the session's budget, and every wait has its own timeout. A
+failed test releases what it holds: the hold ends when the engine stops,
+and the HTTP round trip sets ``go`` and undrains its source in a
+``finally``, so the module's pair of servers starts every test clean.
 """
 
 from __future__ import annotations
@@ -58,7 +61,9 @@ from kubeinfer_tpu_torch.inference.kv_blocks import prefix_fingerprints
 JT, TT = JP["tiny"], TP["tiny"]
 BS = 16
 NEW = 64
-WAIT_S = 120  # a hung scheduler fails the test instead of the run
+# a hung scheduler fails the test instead of the run: each test takes 1-27
+# s under 6 xdist workers, a single wait a fraction of that
+WAIT_S = 60
 PKG = {"jax": (jb, jwire, jclient), "port": (tb, twire, tclient)}
 
 
@@ -82,7 +87,11 @@ def gated(cls, min_tokens):
             if any(r is not None and len(r.out_tokens) >= min_tokens
                    for r in self._slot_req):
                 self.ready.set()
-                self.go.wait(WAIT_S)
+                # a test that failed before setting go still stops its
+                # engine at once
+                for _ in range(int(WAIT_S / 0.01)):
+                    if self.go.wait(0.01) or self._stop.is_set():
+                        return
 
     return Gated
 
@@ -385,6 +394,7 @@ def pair(params):
         servers.append((srv, cont))
     yield servers
     for srv, cont in servers:
+        cont.go.set()
         srv.stop()
         cont.stop()
 
@@ -412,20 +422,31 @@ def test_drain_migrate_resume_roundtrip(pair, params):
         result["status"], result["doc"] = post(
             src, {"prompt": p, "max_tokens": n_new})
 
-    t = threading.Thread(target=client)
-    t.start()
-    assert src_cont.ready.wait(WAIT_S)
-    report = {}
-    drainer = threading.Thread(target=lambda: report.update(
-        post(src, {}, "/admin/drain")[1]))
-    drainer.start()
-    # the drain flag is up once the server called drain(); then the
-    # session may move again
-    assert wait_for(lambda: src_cont.draining)
-    src_cont.go.set()
-    drainer.join(WAIT_S)
-    t.join(WAIT_S)
-    assert not drainer.is_alive() and not t.is_alive()
+    t = threading.Thread(target=client, daemon=True)
+    try:
+        t.start()
+        assert src_cont.ready.wait(WAIT_S)
+        report = {}
+        drainer = threading.Thread(target=lambda: report.update(
+            post(src, {}, "/admin/drain")[1]), daemon=True)
+        drainer.start()
+        # the drain flag is up once the server called drain(); then the
+        # session may move again
+        assert wait_for(lambda: src_cont.draining)
+        src_cont.go.set()
+        drainer.join(WAIT_S)
+        t.join(WAIT_S)
+        assert not drainer.is_alive() and not t.is_alive()
+        roundtrip(src, src_cont, dst, dst_cont, p, n_new, expect, report,
+                  result)
+    finally:
+        # the module's source leaves this test released and undrained
+        src_cont.go.set()
+        src_cont.undrain()
+
+
+def roundtrip(src, src_cont, dst, dst_cont, p, n_new, expect, report,
+              result):
     assert report["drained"] and report["draining"]
     assert report["migrated"] == 1
     assert report["migration_chunks_total"] >= 1
@@ -453,9 +474,10 @@ def test_drain_migrate_resume_roundtrip(pair, params):
     assert doc["choices"][0]["tokens"] == expect
     assert doc["choices"][0]["finish_reason"] == "length"
     assert dst_cont.imports_total >= 1
-    assert dst.kv_stream_blocks["import"] >= mig["blocks"]
-    assert not dst.migration_fallbacks
-    assert src.kv_stream_blocks["export"] >= mig["blocks"]
+    assert dst.metrics["kv_stream_blocks"].value("import") >= mig["blocks"]
+    assert "kubeinfer_migration_fallbacks_total{" not in \
+        dst.registry.render()
+    assert src.metrics["kv_stream_blocks"].value("export") >= mig["blocks"]
 
     # rebalance epilogue: {"resume": true} rejoins the fleet
     status, report = post(src, {"resume": True}, "/admin/drain")
@@ -475,7 +497,7 @@ def test_resume_from_a_dead_source_counts_a_fallback(pair, params):
         "kubeinfer_resume": {"tokens": expect[:5],
                              "kv_source": "http://127.0.0.1:9"}})
     assert status == 200 and doc["choices"][0]["tokens"] == expect
-    assert dst.migration_fallbacks["fetch_error"] >= 1
+    assert dst.metrics["migration_fallbacks"].value("fetch_error") >= 1
 
 
 def test_degenerate_tail_resume_answers_directly(pair):

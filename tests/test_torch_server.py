@@ -50,7 +50,8 @@ def test_read_endpoints(served):
     assert call(srv, "/health") == (200, "OK")
     code, body = call(srv, "/v1/models")
     assert code == 200 and json.loads(body)["data"][0]["id"] == "tiny"
-    assert call(srv, "/metrics")[0] == 404
+    code, text = call(srv, "/metrics")
+    assert code == 200 and "kubeinfer_inference_requests_total" in text
 
 
 @pytest.mark.parametrize("kw", [{}, dict(temperature=0.7, top_k=5, seed=4)])
@@ -108,7 +109,9 @@ def test_unreachable_kv_source_falls_back_locally(served):
         resp = json.loads(body)
         assert code == 200 and resp["kubeinfer"]["route"] == "continuous"
         assert resp["choices"][0]["tokens"] == cont.generate(prompt, 4)
-        assert dict(srv.disagg_fallbacks) == {"fetch_error": 1}
+        assert [ln for ln in srv.registry.render().splitlines()
+                if ln.startswith("kubeinfer_disagg_fallbacks_total")] == [
+            'kubeinfer_disagg_fallbacks_total{reason="fetch_error"} 1']
         assert cont.imports_total == 0
     finally:
         srv.stop()
@@ -118,8 +121,11 @@ def test_unreachable_kv_source_falls_back_locally(served):
 @pytest.mark.parametrize("flags,msg", [
     (["--speculative-draft"], "speculative"),
     (["--tensor-parallel-size", "2"], "sharding.py"),
-    (["--debug-token-file", "/nonexistent"], "debug endpoints"),
-    (["--slo", "ttft:0.5:0.99"], "debug endpoints"),
+    # these two ids named the debug-endpoint flags, which no longer wait
+    pytest.param(["--sequence-parallel-size", "2"], "sp_engine.py",
+                 id="flags2-debug endpoints"),
+    pytest.param(["--sequence-parallel-size", "2", "--sp-min-prompt", "64"],
+                 "sp_engine.py", id="flags3-debug endpoints"),
 ])
 def test_main_refuses_waiting_flags(flags, msg):
     """Flags whose features wait exit naming the ROADMAP entry; so does
@@ -234,7 +240,9 @@ def test_speculative_flags_build_and_route():
 def test_batcher_owns_draft_traffic(verify):
     """With slots, the batcher owns the draft-eligible requests it fits:
     its draft groups, or with ``--speculative-draft`` its verify windows
-    (whose per-request accounting rides the response)."""
+    (whose per-request accounting rides the request's engine.decode span,
+    as in the reference; the response's ``kubeinfer`` object is the
+    reference's)."""
     flags = ["--model", "tiny", "--random-init", "--port", "0",
              "--batch-slots", "2", "--max-model-len", "128",
              "--draft-model", "tiny", "--prewarm-spec", "1,2"]
@@ -250,7 +258,21 @@ def test_batcher_owns_draft_traffic(verify):
         resp = json.loads(body)
         assert code == 200 and resp["kubeinfer"]["route"] == "continuous"
         assert len(resp["choices"][0]["tokens"]) == 6
-        assert ("spec_accepted" in resp["kubeinfer"]) == verify
+        assert sorted(resp["kubeinfer"]) == ["route", "tpot_ms", "ttft_ms"]
+        rid = int(resp["id"].rsplit("-", 1)[1])
+        code, body = call(srv, "/debug/spans")
+        events = json.loads(body)["traceEvents"]
+        spans = [e for e in events if e.get("name") == "engine.decode"
+                 and e.get("args", {}).get("req") == rid]
+        assert code == 200
+        if verify:
+            # a slot's decode span, with the verify accounting
+            assert len(spans) == 1
+            assert "kubeinfer.spec_accepted" in spans[0]["args"]
+        else:
+            # a draft group's residency is one engine.spec_group span
+            assert not spans
+            assert any(e.get("name") == "engine.spec_group" for e in events)
         if verify:
             assert cont.scheduler_stats()["spec_draft_tokens"] > 0
         else:
