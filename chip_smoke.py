@@ -269,7 +269,8 @@ times them. Phases:
       perturbed scores), a degenerate tail answers with no admit, and
       {"resume": true} undrains the source; #11 held on every call of
       both replicas. (31a), after (30a): a 2-slot ContinuousEngine on
-      (13)'s parameter tensors (cache 4096, blocks of 128, its 129-block
+      (13)'s parameter tensors, their first SPEC_INT8_LAYERS layers
+      (``--migrate`` keeps all 32) (cache 4096, blocks of 128, its 129-block
       pool, prefill chunks of 4) under PreemptionPolicy(0.0005, 0.5, 0.5,
       1, 1) and queue_depth_limit 5: 6 requests of 512 tokens (3 greedy,
       3 sampled; 32 new), one more shed at the door; parks and readmits,
@@ -307,6 +308,31 @@ times them. Phases:
       instrumentation on. Unchecked: a scrape's ms, the host us of a
       profiler record and a flight note. #11, #12 and #15 gain
       ``observe_launches`` in the kernels line;
+  (33) the node's model path (``agent_phase``), after (32) once the earlier
+      servers are freed: (33a) an HF checkpoint (``config.json`` and two
+      bf16 ``*.safetensors`` shards, written with json and numpy) of
+      ``init_params(llama-3-8b, seed=0)`` at full width and
+      ``AGENT_LAYERS`` = 4 layers (3.85 GB), ``load_pretrained`` onto the
+      card bitwise the tensors written, its int8 load bitwise
+      ``quantize_weight`` on the card, ``save_checkpoint`` then
+      ``restore_checkpoint`` bitwise for both trees; (33b) the manager
+      in-process and two ``python -m kubeinfer_tpu_torch.agent``
+      processes (node-0 bf16, node-1 int8; the probe sets their memory)
+      bring a ``runtime: native`` LLMService with a shared cache to
+      Running: one coordinator (its ``hub_download`` runs a
+      ``huggingface-cli`` shim that copies the checkpoint), one follower
+      (its files byte-equal to the coordinator's), the card's free memory
+      down by at least the weights each replica holds as it goes Ready
+      (the checkpoint's bytes in bf16, the int8 tree's in int8);
+      the bodies of (14) over HTTP on each spawned server; (33c) SIGTERM,
+      both agents exit 0, the serving ports close, the memory returns;
+      in-process servers on the same cache dirs take the same bodies with
+      #9-#12 and #15 held against their plain versions on every call,
+      their streams equal to the spawned servers' up to [25]'s near-tie
+      rule. Times, unchecked: the load, save and restore, the download,
+      the follower's sync, spawn to Ready, the first TTFT. The tick's #1-#8
+      and the in-process #9-#12 and #15 gain ``agent_launches`` in the
+      kernels line;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -321,7 +347,8 @@ line; the numbers go to chiprun_out/placement.json. ``--p50s`` prints the
 placement p50s of (4), (7) and (11) alone. ``--disagg`` runs (30a) and
 (30b) alone (chiprun_out/disagg_probe.json); ``--migrate`` runs (31) alone
 (chiprun_out/migrate_probe.json); ``--observe`` runs (32) alone on fresh
-servers (chiprun_out/observe_probe.json).
+servers (chiprun_out/observe_probe.json); ``--agent`` runs (33) alone
+(chiprun_out/agent_probe.json).
 """
 
 from __future__ import annotations
@@ -2427,6 +2454,8 @@ def serving_phases(dev, record, card):
     three attention kernels against their plain versions on inputs
     captured from it; the card against the CPU; times. Returns the
     kernels' entries of the ``kernels`` line."""
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
 
@@ -2681,8 +2710,13 @@ def serving_phases(dev, record, card):
                 dev, record, card, srv, cont, dec_srv, dec)))
         # (32a) on this server, after (31b)
         observe = observe_phase(dev, record, card, srv, cont)
-        preempt = preempt_phases(dev, record, card, cont.params, cfg,
-                                 cont.cache_len)
+        # at SPEC_INT8_LAYERS of the served layers: the whole run keeps
+        # inside its time limit with (33) added
+        preempt = preempt_phases(
+            dev, record, card, {**cont.params, "layers": cont.params[
+                "layers"][:SPEC_INT8_LAYERS]},
+            dataclasses.replace(cfg, num_hidden_layers=SPEC_INT8_LAYERS),
+            cont.cache_len)
     finally:
         srv.stop()
         cont.stop()
@@ -3210,7 +3244,8 @@ def held_pairs(label, got, want, jobs, params, cfg, dev):
 
 
 def preempt_phases(dev, record, card, params, cfg, cache_len):
-    """Phase (31a) and (31a2): SLO-aware preemption at full width and depth
+    """Phase (31a) and (31a2): SLO-aware preemption at full width (and the
+    depth of the tree given)
     on (13)'s parameter tensors: a 2-slot ContinuousEngine (``cache_len``,
     blocks of 128, its default pool, prefill chunks of 4 blocks) under the
     reference tests' aggressive policy, with a queue depth limit of 5.
@@ -6786,6 +6821,670 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
     record[f"spec_{kv_dtype}_card_vs_cpu"] = rec
 
 
+AGENT_LAYERS = 4  # (33): llama-3-8b width at 4 layers, about 3.85 GB bf16
+AGENT_TOKEN = "chip-smoke-agent-token"
+AGENT_SERVICE = "chip-smoke-native"
+AGENT_MODEL = "chip-smoke/llama-3-8b-4l"
+
+
+def card_memory():
+    """(free, total) bytes of card 0 from ``cudaMemGetInfo``: every
+    process's allocations count, the spawned servers' too."""
+    import torch
+
+    return torch.cuda.mem_get_info(0)
+
+
+def hf_config(cfg) -> dict:
+    """A llama ``config.json`` for ``cfg``."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "num_key_value_heads": cfg.num_key_value_heads,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "tie_word_embeddings": False, "hidden_act": "silu",
+            "torch_dtype": "bfloat16"}
+
+
+def hf_tensors(params) -> dict:
+    """The port's tree under HF llama names, each projection ``[out, in]``
+    as a torch checkpoint stores it, in layer order."""
+    out = {"model.embed_tokens.weight": params["embed_tokens"]}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        out[p + "input_layernorm.weight"] = layer["input_layernorm"]
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            out[p + f"self_attn.{n}.weight"] = layer[n].T
+        out[p + "post_attention_layernorm.weight"] = \
+            layer["post_attention_layernorm"]
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            out[p + f"mlp.{n}.weight"] = layer[n].T
+    out["model.norm.weight"] = params["norm"]
+    out["lm_head.weight"] = params["lm_head"].T
+    return out
+
+
+def write_shard(path, tensors) -> int:
+    """One ``.safetensors`` file written with json and numpy alone (the
+    card's machine has no ``safetensors``): the 8-byte little-endian
+    header length, the JSON header, then each bf16 buffer as its int16
+    bits, copied off the card one tensor at a time. Returns its bytes."""
+    import torch
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        check(t.dtype == torch.bfloat16, f"{name}: {t.dtype}, not bf16")
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).cpu().numpy().data)
+    return 8 + len(raw) + off
+
+
+def write_hf_checkpoint(root, params, cfg, shards=2) -> int:
+    """``config.json`` and ``shards`` bf16 shards of ``params`` split at
+    even bytes, in name order; returns the shards' bytes."""
+    root.mkdir(parents=True)
+    (root / "config.json").write_text(json.dumps(hf_config(cfg)))
+    tensors = hf_tensors(params)
+    total = sum(t.numel() * 2 for t in tensors.values())
+    parts, cur, acc = [], {}, 0
+    for name, t in tensors.items():
+        cur[name] = t
+        acc += t.numel() * 2
+        if acc >= total * (len(parts) + 1) / shards and len(parts) < \
+                shards - 1:
+            parts.append(cur)
+            cur = {}
+    parts.append(cur)
+    return sum(write_shard(root / f"model-{i + 1:05d}-of-{shards:05d}"
+                           ".safetensors", part)
+               for i, part in enumerate(parts))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    view = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32}.get(a.dtype)
+    return torch.equal(a.view(view), b.view(view)) if view else \
+        torch.equal(a, b)
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}.{i}")
+    else:
+        yield prefix, tree
+
+
+def trees_bitwise(got, want, what):
+    g, w = dict(tree_leaves(got)), dict(tree_leaves(want))
+    check(sorted(g) == sorted(w), f"{what}: leaves {sorted(g)} != "
+          f"{sorted(w)}")
+    bad = [n for n in w if not same_bits(g[n], w[n])]
+    check(not bad, f"{what}: {len(bad)} leaves differ, first {bad[:3]}")
+    return len(w)
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+
+
+def checkpoint_phase(dev, record, cfg, root):
+    """(33a): the checkpoint written from ``init_params(cfg, seed=0)``,
+    loaded bitwise (bf16; int8 against ``quantize_weight`` on the card),
+    saved and restored bitwise. Returns (the mirror dir, its bytes, the
+    bytes of the int8 tree a ``--weight-dtype int8`` server holds)."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference import checkpoint as ck
+    from kubeinfer_tpu_torch.inference import weights
+    from kubeinfer_tpu_torch.inference.config import ModelConfig
+    from kubeinfer_tpu_torch.inference.model import init_params
+    from kubeinfer_tpu_torch.inference.weight_quant import (
+        QUANT_LEAVES,
+        quantize_weight,
+    )
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    check(ModelConfig.from_hf_dict(hf_config(cfg)) == cfg,
+          "config.json does not round-trip the configuration")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    mirror = root / "mirror"
+    nbytes, write_s = timed(lambda: write_hf_checkpoint(mirror, params, cfg))
+    (got, gcfg), load_s = timed(lambda: weights.load_pretrained(
+        str(mirror), device=dev))
+    check(gcfg == cfg, f"load_pretrained's config {gcfg}")
+    n = trees_bitwise(got, params, "(33a) load_pretrained bf16")
+    del got
+    (q, _), q_load_s = timed(lambda: weights.load_pretrained(
+        str(mirror), weight_dtype="int8", device=dev))
+    nq = 0
+    for i, layer in enumerate(q["layers"]):
+        for name in QUANT_LEAVES:
+            want = quantize_weight(params["layers"][i][name])
+            check(same_bits(layer[name]["qw"], want["qw"])
+                  and same_bits(layer[name]["scale"], want["scale"]),
+                  f"(33a) int8 layer {i} {name}: codes or scales differ "
+                  "from quantize_weight on the card")
+            nq += 1
+        for name, leaf in layer.items():
+            if name not in QUANT_LEAVES:
+                check(same_bits(leaf, params["layers"][i][name]),
+                      f"(33a) int8 load: layer {i} {name} differs")
+    for name in ("embed_tokens", "norm", "lm_head"):
+        check(same_bits(q[name], params[name]), f"(33a) int8 load: {name}")
+    times = {}
+    for label, tree in (("bf16", params), ("int8", q)):
+        path = root / f"ck-{label}"
+        _, times[f"save_{label}_s"] = timed(
+            lambda: ck.save_checkpoint(str(path), tree, cfg, step=33))
+        (back, bcfg, step), times[f"restore_{label}_s"] = timed(
+            lambda: ck.restore_checkpoint(str(path), device=dev))
+        check(bcfg == cfg and step == 33, f"(33a) {label} restore meta")
+        trees_bitwise(back, tree, f"(33a) {label} save/restore")
+        times[f"{label}_bytes"] = tree_bytes(tree)
+        del back
+        shutil.rmtree(path)
+    int8_bytes = times["int8_bytes"]
+    del params, q
+    gb = nbytes / 1e9
+    print(f"[33a] llama-3-8b width at {cfg.num_hidden_layers} layers: "
+          f"{gb:.3f} GB of bf16 in 2 HF shards written in {write_s:.2f} s; "
+          f"load_pretrained onto the card {load_s:.2f} s ({gb / load_s:.2f}"
+          f" GB/s), {n} leaves bitwise the tensors written; int8 load "
+          f"{q_load_s:.2f} s, the codes and scales of {nq} projections "
+          f"bitwise quantize_weight's on the card; save/restore bitwise "
+          f"(bf16 {times['save_bf16_s']:.2f} s / "
+          f"{times['restore_bf16_s']:.2f} s, int8 "
+          f"{times['save_int8_s']:.2f} s / {times['restore_int8_s']:.2f} "
+          "s; warm page cache)")
+    record["agent_checkpoint"] = {
+        "bytes": nbytes, "write_s": write_s, "load_s": load_s,
+        "load_gb_s": gb / load_s, "int8_load_s": q_load_s, "leaves": n,
+        "int8_projections": nq, **times}
+    return mirror, nbytes, int8_bytes
+
+
+def agent_bodies(V, long=True):
+    """The bodies of (14): 4 greedy 512-token prompts (two share 256
+    tokens) and 1 sampled, 64 new; with ``long`` a 4100-token prompt (16
+    new) for the engine route. The sampled body keeps top_p at 1 (where
+    (14) has 0.9): [25]'s near-tie rule for a sampled stream
+    (``sampled_tie``) judges the top-k filter only."""
+    rng = np.random.default_rng(33)
+    shared = rng.integers(1, V, 256).tolist()
+    bodies = [dict(prompt=shared + rng.integers(1, V, 256).tolist(),
+                   max_tokens=64) for _ in range(2)]
+    bodies += [dict(prompt=rng.integers(1, V, 512).tolist(), max_tokens=64)
+               for _ in range(2)]
+    bodies.append(dict(prompt=rng.integers(1, V, 512).tolist(),
+                       max_tokens=64, temperature=0.8, top_k=50, top_p=1.0,
+                       seed=7))
+    if long:
+        bodies.append(dict(prompt=rng.integers(1, V, 4100).tolist(),
+                           max_tokens=16))
+    return bodies
+
+
+def port_open(port) -> bool:
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(0.5)
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def agent_phase(dev, record, card):
+    """Phase (33): the node's model path on the card. (33a) the checkpoint
+    (``checkpoint_phase``); (33b) the manager in-process (its device the
+    card) and two ``python -m kubeinfer_tpu_torch.agent`` processes
+    (node-0 bf16, node-1 ``--kv-dtype int8 --weight-dtype int8``) bring a
+    ``runtime: native`` LLMService with a shared cache to Running: the
+    coordinator's ``hub_download`` runs ``huggingface-cli`` (a shim first
+    on PATH that copies the mirror), the follower pulls from the
+    coordinator's model server, and each spawned server loads its node's
+    cache dir onto the card (the card's free memory, read in this
+    process, falls by at least the weights each holds as it goes Ready:
+    the checkpoint's bytes in bf16, the int8 tree's in int8); the bodies of (14) over HTTP, one at a time, on each
+    spawned server (the 4100-token prompt on the bf16 one only); (33c)
+    SIGTERM: both agents exit 0, the serving ports close, the memory
+    returns; then in-process servers built by
+    ``server.build_server(["--model", <the same cache dir>, ...])`` take
+    the same bodies with #11 (bf16), #12 and #15 (int8), #9 and #10 (the
+    engine route) held against their plain versions on every call and
+    counted; their streams equal the spawned servers' up to [25]'s
+    near-tie rule. Returns the launches: the tick's (#1-#8) while the
+    agents ran, and the in-process servers' (#9-#12, #15)."""
+    import dataclasses
+    import filecmp
+    import gc
+    import os
+    import signal
+    import threading
+
+    import torch
+
+    from kubeinfer_tpu_torch.agent.node_agent import model_cache_dir
+    from kubeinfer_tpu_torch.api.workload import NodeState
+    from kubeinfer_tpu_torch.controlplane.httpstore import RemoteStore
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.manager import Manager, ManagerConfig
+    from kubeinfer_tpu_torch.solver import kernels
+
+    t_phase = time.perf_counter()
+    cpu = dev.type == "cpu"  # a rehearsal: every process on the CPU
+    # every tokenizer lookup is of a local directory: never the hub
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    # the in-process servers' _load_tokenizer imports transformers (where
+    # it is installed) once for this process: imported meanwhile, on a
+    # thread, its seconds stay off (33c)
+    warm: dict = {}
+    warm_thread = threading.Thread(target=import_seconds,
+                                   args=("transformers", warm), daemon=True)
+    warm_thread.start()
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=AGENT_LAYERS)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-agent-"))
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    agents: list = []
+    mgr = None
+    try:
+        # (33b) the manager and the two agents, started first: their
+        # processes come up while (33a) runs (the probe's CUDA context in
+        # each is there before the card's free memory is first read)
+        mirror = root / "mirror"
+        bin_dir = root / "bin"
+        bin_dir.mkdir()
+        stamps = root / "download.json"
+        shim = bin_dir / "huggingface-cli"
+        shim.write_text(
+            f"#!{sys.executable}\n"
+            "import json, shutil, sys, time\n"
+            "t0 = time.time()\n"
+            "a = sys.argv[1:]\n"
+            "assert a[0] == 'download', a\n"
+            f"shutil.copytree({str(mirror)!r}, "
+            "a[a.index('--local-dir') + 1], dirs_exist_ok=True)\n"
+            f"open({str(stamps)!r}, 'w').write(json.dumps("
+            "[t0, time.time()]))\n")
+        shim.chmod(0o755)
+        (root / "token").write_text(AGENT_TOKEN)
+        reset_counts(kernels)
+        mgr = Manager(ManagerConfig(
+            store_bind_port=0, metrics_bind_port=0, health_bind_port=0,
+            auth_token=AGENT_TOKEN, tick_interval_s=0.3,
+            device="cpu" if cpu else None)).start()
+        remote = RemoteStore(mgr.store_address, token=AGENT_TOKEN)
+        ports = [free_port(), free_port()]
+        envs = []
+        for i, port in enumerate(ports):
+            extra = ["--kv-dtype int8 --weight-dtype int8"] if i else []
+            env = dict(
+                os.environ, PYTHONPATH=os.pathsep.join(
+                    [repo] + [p for p in os.environ.get(
+                        "PYTHONPATH", "").split(os.pathsep) if p]),
+                NODE_NAME=f"node-{i}", STORE_ADDR=mgr.store_address,
+                STORE_TOKEN_FILE=str(root / "token"),
+                MODEL_PATH=str(root / f"node-{i}"), GPU_CAPACITY="1",
+                AUTO_DETECT_ACCELERATORS="1", START_RUNTIMES="1",
+                HEARTBEAT_INTERVAL_S="0.3", LEASE_DURATION_S="2",
+                LEASE_RENEW_S="1", LEASE_RETRY_S="0.2",
+                VLLM_PORT=str(port), VLLM_HOST="127.0.0.1",
+                VLLM_HEALTH_TIMEOUT_S="120",
+                VLLM_EXTRA_ARGS=" ".join(extra + (["--device cpu"] if cpu
+                                                  else [])),
+                PATH=f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}")
+            envs.append(env)
+            with open(root / f"agent-{i}.log", "w") as log:
+                # its own session: the agent and the server it spawns are
+                # one process group, killed together in the finally below
+                agents.append(subprocess.Popen(
+                    [sys.executable, "-m", "kubeinfer_tpu_torch.agent"],
+                    cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        t_agents = time.perf_counter()
+        # (33a)
+        _, nbytes, int8_bytes = checkpoint_phase(dev, record, cfg, root)
+        # the weights each spawned server holds: node-0 the checkpoint's
+        # bf16 tensors, node-1 its int8 tree (codes, scales, bf16 rest)
+        held = {"node-0": nbytes, "node-1": int8_bytes}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter() - t_agents
+
+        total = card_memory()[1]
+
+        def probed():
+            got = {d["metadata"]["name"]: NodeState.from_dict(d)
+                   for d in remote.list("Node")}
+            return len(got) == 2 and all(
+                n.gpu_memory_bytes == total and n.gpu_capacity == 1
+                for n in got.values())
+
+        wait_until(probed, "both agents' heartbeats with the probed memory",
+                   timeout=120)
+        free0 = card_memory()[0]
+        caches = [pathlib.Path(model_cache_dir(str(root / f"node-{i}"),
+                                               AGENT_MODEL))
+                  for i in range(2)]
+        t_apply = time.time()
+        remote.create("LLMService", {
+            "apiVersion": "ai.kubeinfer-tpu.io/v1", "kind": "LLMService",
+            "metadata": {"name": AGENT_SERVICE, "namespace": "default"},
+            "spec": {"model": AGENT_MODEL, "replicas": 2,
+                     "gpuPerReplica": 1, "runtime": "native",
+                     "cacheStrategy": "shared", "gpuMemory": "8Gi",
+                     "schedulerPolicy": "jax-greedy"}})
+        ready, first_file, synced = [], {}, {}
+        deadline = time.time() + 240
+        while True:
+            now = time.time()
+            for i, c in enumerate(caches):
+                if i not in first_file and c.exists() and any(c.iterdir()):
+                    first_file[i] = now
+                if i not in synced and (c / ".kubeinfer-sync-complete"
+                                        ).exists():
+                    synced[i] = now
+            names = {d["metadata"]["name"] for d in remote.list("Workload")}
+            reps = remote.get("Workload", AGENT_SERVICE)["replicas"] \
+                if AGENT_SERVICE in names else []
+            failed = [r for r in reps if r.get("phase") == "Failed"]
+            if failed:
+                node = int(failed[0]["node"].rsplit("-", 1)[1])
+                failed_replica_tail(envs[node], caches[node], repo)
+                check(False, f"(33b) replica {failed[0]['index']} on "
+                      f"{failed[0]['node']} went Failed")
+            for r in reps:
+                if r.get("phase") == "Ready" and r["node"] not in [
+                        x[0] for x in ready]:
+                    ready.append((r["node"], now, card_memory()[0]))
+            phase = remote.get("LLMService", AGENT_SERVICE).get(
+                "status", {}).get("phase")
+            if len(ready) == 2 and phase == "Running":
+                break
+            check(now < deadline,
+                  f"(33b) the service did not reach Running: {reps}")
+            time.sleep(0.05)
+        running_s = time.time() - t_apply
+        check(sorted(r["node"] for r in reps) == ["node-0", "node-1"],
+              f"(33b) placement {[r['node'] for r in reps]}")
+        coord = [r for r in reps if r.get("podIP")]
+        check(len(coord) == 1, f"(33b) {len(coord)} coordinators")
+        c_node = int(coord[0]["node"].rsplit("-", 1)[1])
+        f_node = 1 - c_node
+        check(ready[0][0] == f"node-{c_node}",
+              "(33b) the follower was Ready before the coordinator")
+
+        def listing(d):
+            return sorted(str(p.relative_to(d)) for p in d.rglob("*")
+                          if p.is_file() and not p.name.startswith("."))
+
+        check(listing(caches[0]) == listing(caches[1]) == listing(mirror),
+              "(33b) the caches hold other files than the checkpoint's")
+        for name in listing(mirror):
+            check(filecmp.cmp(caches[c_node] / name, caches[f_node] / name,
+                              shallow=False),
+                  f"(33b) the follower's {name} differs from the "
+                  "coordinator's")
+        for k, (node, _, free) in enumerate(ready):
+            need = sum(held[n] for n, _, _ in ready[:k + 1])
+            check(free0 - free >= need,
+                  f"(33b) {k + 1} replicas Ready ({node} last) but the "
+                  f"card's free memory fell by {(free0 - free) / 1e9:.3f} "
+                  f"GB, under their {need / 1e9:.3f} GB of weights")
+        dl = json.loads(stamps.read_text())
+        times = {
+            "download_s": dl[1] - dl[0],
+            "coordinator_spawn_to_ready_s": ready[0][1] - dl[1],
+            "follower_sync_s": synced[f_node] - first_file[f_node],
+            "follower_spawn_to_ready_s": ready[1][1] - synced[f_node],
+            "apply_to_running_s": running_s,
+            "card_free_drop_gb": [(free0 - f) / 1e9 for _, _, f in ready],
+        }
+        # (between two polls on a small rehearsal: no rate)
+        times["follower_sync_gb_s"] = (
+            nbytes / 1e9 / times["follower_sync_s"]
+            if times["follower_sync_s"] > 0 else float("nan"))
+        print(f"[33b] {card}: the manager and 2 agents (node-{c_node} "
+              f"coordinator, node-{f_node} follower): the service Running "
+              f"{running_s:.1f} s after it was written; hub download (the "
+              f"shim's copy) {times['download_s']:.2f} s; the follower's "
+              f"sync {nbytes / 1e9:.3f} GB in {times['follower_sync_s']:.2f}"
+              f" s ({times['follower_sync_gb_s']:.3f} GB/s, first file to "
+              f"the sync marker, sha256 included); spawn to Ready: "
+              f"coordinator {times['coordinator_spawn_to_ready_s']:.1f} s, "
+              f"follower {times['follower_spawn_to_ready_s']:.1f} s; the "
+              f"card's free memory fell by "
+              f"{[round(x, 3) for x in times['card_free_drop_gb']]} GB as "
+              f"each went Ready ({ready[0][0]} first; the weights: bf16 "
+              f"{nbytes / 1e9:.3f} GB, int8 {int8_bytes / 1e9:.3f} GB); "
+              f"the follower's files byte-equal to the coordinator's; "
+              f"NodeStates report the probed {total / 2**30:.1f} GiB")
+
+        # the bodies of (14), one at a time, on each spawned server
+        V = cfg.vocab_size
+        spawned = {}
+        for i, port in enumerate(ports):
+            bodies = agent_bodies(V, long=i == 0)
+            t0 = time.perf_counter()
+            resps = [post_json(port, b) for b in bodies]
+            routes = [r["kubeinfer"]["route"] for r in resps]
+            check(routes == ["continuous"] * 5 + ["engine"] * (i == 0),
+                  f"(33b) node-{i} routes {routes}")
+            for b, r in zip(bodies, resps):
+                toks = r["choices"][0]["tokens"]
+                check(len(toks) == b["max_tokens"]
+                      and all(0 <= t < V for t in toks),
+                      f"(33b) node-{i}: tokens out of range")
+            spawned[i] = [r["choices"][0]["tokens"] for r in resps]
+            times[f"node{i}_ttft_ms"] = resps[0]["kubeinfer"]["ttft_ms"]
+            times[f"node{i}_http_s"] = time.perf_counter() - t0
+        tick = {name: getattr(kernels, name).launches
+                for name in TICK_LAUNCHES}
+        check(all(tick[k] > 0 for k in ROUND_KERNELS),
+              f"(33b) the tick did not run the pipelined loop: {tick}")
+        print(f"[33b] the bodies of (14) over HTTP, one at a time: node-0 "
+              f"(bf16) 5 on route continuous + 4100 tokens on route engine "
+              f"in {times['node0_http_s']:.1f} s, first TTFT "
+              f"{times['node0_ttft_ms']:.1f} ms; node-1 (int8) 5 in "
+              f"{times['node1_http_s']:.1f} s, first TTFT "
+              f"{times['node1_ttft_ms']:.1f} ms; the tick's launches while "
+              f"the agents ran {tick}")
+
+        # (33c) teardown
+        t0 = time.perf_counter()
+        for p in agents:
+            p.send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=60) for p in agents]
+        check(rcs == [0, 0], f"(33c) the agents exited {rcs}")
+        wait_until(lambda: not any(port_open(p) for p in ports),
+                   "(33c) the serving ports to close", timeout=30)
+        mgr.stop()
+        mgr = None
+        wait_until(lambda: card_memory()[0] >= free0 - (256 << 20),
+                   "(33c) the card's memory to return", timeout=30)
+        times["teardown_s"] = time.perf_counter() - t0
+        print(f"[33c] SIGTERM: both agents exited 0 in "
+              f"{times['teardown_s']:.1f} s, the serving ports closed, the "
+              f"card's free memory back to {card_memory()[0] / 1e9:.2f} GB "
+              f"(before the replicas: {free0 / 1e9:.2f} GB)")
+
+        # the same bodies on in-process servers over the same cache dirs
+        warm_thread.join(120)
+        times["transformers_import_s"] = warm.get("transformers")
+        launches = dict(tick)
+        for i in range(2):
+            launches.update(inprocess_check(
+                dev, times, caches[i], i, agent_bodies(V, long=i == 0),
+                spawned[i], cpu))
+        record["agent"] = {"times": times, "launches": launches,
+                           "checkpoint_s": t_a,
+                           "phase_s": time.perf_counter() - t_phase}
+        print(f"[33] {time.perf_counter() - t_phase:.1f} s ((33a) "
+              f"{t_a:.1f} s); launches {launches}")
+        return launches
+    finally:
+        for p in agents:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(p.pid, signal.SIGKILL)
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=10)
+        if mgr is not None:
+            mgr.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def inprocess_check(dev, times, cache, node, bodies, spawned, cpu):
+    """(33c) ``server.build_server`` on ``cache`` with the spawned server's
+    flags (node 1: int8), the same bodies one at a time with #11 (#12 and
+    #15) and, on the engine route, #9 and #10 held against their plain
+    versions on every call; the streams held to the spawned server's.
+    Returns the launches."""
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+
+    int8 = node == 1
+    flags = ["--kv-dtype", "int8", "--weight-dtype", "int8"] if int8 else []
+    t0 = time.perf_counter()
+    with Timed(server, "_load_tokenizer") as tok:
+        srv, cont = server.build_server(
+            ["--model", str(cache), "--port", "0", "--host", "127.0.0.1",
+             "--batch-slots", "8", *flags,
+             *(["--device", "cpu"] if cpu else [])], device=dev)
+    cont.start()
+    srv.start()
+    build_s = time.perf_counter() - t0
+    times[f"inproc{node}_tokenizer_s"] = sum(tok.ms) / 1e3
+    checks = [attention_check(fa, int8)]
+    if int8:
+        # the projections' f32 copies kept: 4 bytes a weight, 3.5 GB here
+        checks.append(CheckedMatmul(wq, keep_f32=True))
+    else:
+        checks.append(CheckedAttention(
+            fa, "flash_attention_ragged", fa.flash_attention_ragged_plain,
+            live=lambda q, k, v, off, ln: torch.ones(
+                q.shape[0], dtype=torch.bool, device=q.device),
+            weight=lambda q, k, v, off, ln: off))
+        checks.append(CheckedAttention(
+            fa, "decode_attention", fa.decode_attention_plain,
+            live=lambda q, k, v, ln: ln > 0, weight=lambda q, k, v, ln: 0,
+            walk=True, trim=True))
+    label = f"(33c) node-{node} {'int8' if int8 else 'bf16'}"
+    try:
+        with contextlib.ExitStack() as stack:
+            for c in checks:
+                stack.enter_context(c)
+            got = [post_json(srv.port, b)["choices"][0]["tokens"]
+                   for b in bodies]
+        out = {}
+        for c in checks:
+            if isinstance(c, CheckedMatmul):
+                c.all_tc(label)
+                out["quant_matmul"] = c.launches
+                continue
+            check(c.error is None, f"{label} {c.error}")
+            check(c.calls > 0 and c.launches == c.calls,
+                  f"{label} {c.name}: {c.launches} launches of "
+                  f"{c.calls} checked calls")
+            if c.walk:
+                c.walk_check(label)
+            if c.name == "flash_attention_ragged":
+                check(c.tc_launches == c.calls,
+                      f"{label} #9: {c.tc_launches} of {c.calls} calls on "
+                      "the tensor-core route")
+            out[c.name] = c.launches
+        jobs = [(b["prompt"], {k: v for k, v in b.items()
+                               if k not in ("prompt", "max_tokens")})
+                for b in bodies]
+        divs = held_pairs(label, spawned, got, jobs, cont.params, cont.cfg,
+                          dev)
+        times[f"inproc{node}_build_s"] = build_s
+        times[f"inproc{node}_divergences"] = divs
+        print(f"{label}: build_server on the cache dir {build_s:.1f} s "
+              f"(the tokenizer lookup {sum(tok.ms) / 1e3:.2f} s of it; "
+              f"transformers imported on a thread in "
+              f"{times.get('transformers_import_s')} s, None: absent); "
+              f"{len(bodies)} bodies, every call held against its plain "
+              f"version, launches {out}; streams equal to the spawned "
+              f"server's but for {divs} (near-ties by [25]'s rule)")
+        return out
+    finally:
+        srv.stop()
+        cont.stop()
+        del srv, cont
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def import_seconds(name, out):
+    """Import ``name``; ``out[name]`` = its seconds, None when it is not
+    installed or fails to import."""
+    import importlib
+
+    t0 = time.perf_counter()
+    try:
+        importlib.import_module(name)
+        out[name] = time.perf_counter() - t0
+    except Exception:
+        out[name] = None
+
+
+def failed_replica_tail(env, cache_dir, repo):
+    """A replica went Failed: the runtime sends its server's output to
+    /dev/null, so run the same command in the foreground for up to 60 s
+    and print the tail of its stderr."""
+    from kubeinfer_tpu_torch.agent.runtime import RuntimeConfig
+
+    args = RuntimeConfig.from_env({**env, "RUNTIME_KIND": "native",
+                                   "MODEL_PATH": str(cache_dir)}).build_args()
+    args[args.index("--port") + 1] = str(free_port())
+    try:
+        tail = subprocess.run(args, capture_output=True, text=True,
+                              timeout=60, cwd=repo, env=env).stderr
+    except subprocess.TimeoutExpired as e:
+        tail = e.stderr.decode(errors="replace") if isinstance(
+            e.stderr, bytes) else (e.stderr or "")
+    print(f"[33b] {' '.join(args)}: stderr tail:\n{tail[-4000:]}")
+
+
 def main(placement_only=False) -> int:
     """The whole smoke test; ``placement_only`` (``--placement``) stops
     after [12] (the solver's four libraries, the placement and route
@@ -7089,12 +7788,18 @@ def main(placement_only=False) -> int:
     auction_entry["tick_launches"] = tick_launches["auction_solve"]
     route_entry["tick_launches"] = tick_launches["route_pick"]
     serve_entries = int8_entries = train_entries = mask_entry = []
+    agent_launches = {}
     if not placement_only:
         serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
         int8_entries = phase("[17]-[20]", int8_phases, dev, record, card)
         train_entries = phase("[21]-[23]", train_phases, dev, record, card)
         mask_entry = [phase("[24], [28]", masked_phase, dev, record, card)]
         phase("[25]-[28]", spec_phases, dev, record, card)
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        agent_launches = phase("[33]", agent_phase, dev, record, card)
     for name, sec in phase_s.items():
         print(f"[s] {name}: {sec:.1f} s")
 
@@ -7117,6 +7822,9 @@ def main(placement_only=False) -> int:
                  "walk counts equal to mega_walk's",
     }, *round_entries, auction_entry, route_entry, *serve_entries,
         *int8_entries, *train_entries, *mask_entry]}
+    for entry in kline["kernels"]:
+        if entry["name"] in agent_launches:
+            entry["agent_launches"] = agent_launches[entry["name"]]
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -7406,7 +8114,35 @@ def observe_probe() -> int:
     return 0
 
 
+def agent_probe() -> int:
+    """``--agent``: phase (33) alone (card only): builds the libraries the
+    tick and the spawned and in-process servers launch, then runs
+    ``agent_phase``."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["mega_solve", "round_ops", "auction", "route_pick",
+                      "decode_split", "quant_matmul", "quant_matmul_tc",
+                      "flash_prefill", "flash_prefill_tc"])
+    record = {"card": card}
+    agent_phase(dev, record, card)
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "agent_probe.json").write_text(json.dumps(record, indent=1))
+    print(record["agent"]["phase_s"])
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--agent"]:
+        sys.exit(agent_probe())
     if sys.argv[1:2] == ["--observe"]:
         sys.exit(observe_probe())
     if sys.argv[1:2] == ["--disagg"]:

@@ -11,8 +11,16 @@ draft-eligible requests (no repetition penalty, fitting its cache with
 the k + 1 slack) that the batcher does not own (route "speculative");
 the batcher owns them through its draft groups, or, with
 ``--speculative-draft``, runs the draft inside its paged batch (verify
-windows). Prompts are token ids (no tokenizer). Routes whose engines
-wait answer 400 with the reason.
+windows). Routes whose engines wait answer 400 with the reason.
+
+``--model`` names a checkpoint directory (``config.json`` plus
+``*.safetensors``, what the node agent's model cache holds), read by
+``weights.load_pretrained``; with ``--random-init`` it names a preset
+instead. A ``--draft-model`` directory loads the same way. Token-id
+prompts always work; string prompts need tokenizer files next to the
+weights (``transformers``' ``AutoTokenizer``, imported only when a
+checkpoint is loaded; without it the server runs id-only, as the
+reference does), and with a tokenizer a completion stops at its EOS.
 
 Disaggregated prefill and decode, as in the reference: a request with
 ``max_tokens=0`` (the prefill replica's role) prefills through the
@@ -50,6 +58,7 @@ and ``--tls-cert-file``/``--tls-key-file`` serve over TLS. Each
 completion carries ``kubeinfer: {route, ttft_ms, tpot_ms}`` as the
 server's own timeline saw it.
 
+    python -m kubeinfer_tpu_torch.inference.server --model /models/meta-llama--Meta-Llama-3-8B
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
         --kv-dtype int8 --weight-dtype int8
@@ -66,8 +75,8 @@ server's own timeline saw it.
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
         --slo ttft:2.0:0.99 --debug-token-file token.txt
 
-``main(argv, device="cpu")`` runs the same server on the CPU (a
-rehearsal with ``--model tiny``).
+``main(argv, device="cpu")`` (or ``--device cpu``) runs the same server
+on the CPU (a rehearsal with ``--model tiny --random-init``).
 """
 
 from __future__ import annotations
@@ -440,7 +449,7 @@ class InferenceServer:
                  port: int = 8000, continuous=None, speculative=None,
                  device=None, kv_export_budget_mb: float = 0.0,
                  tls_cert: str = "", tls_key: str = "", token: str = "",
-                 slo=None) -> None:
+                 slo=None, tokenizer=None) -> None:
         self.device = resolve_device(device)
         for e in (engine, continuous, speculative):
             if e is not None and e.device != self.device:
@@ -450,6 +459,7 @@ class InferenceServer:
         self.continuous = continuous  # ContinuousEngine | None
         self.speculative = speculative  # SpeculativeEngine | None
         self.model_id = model_id
+        self.tokenizer = tokenizer  # an HF tokenizer, or None (id-only)
         # the bearer token of /debug/* and POST /admin/drain (empty =
         # open); /metrics, /health and /cache/summary stay open
         self._token = token
@@ -762,14 +772,24 @@ class InferenceServer:
                 raise ValueError("prompt list must contain token ids (ints)")
             return prompt
         if isinstance(prompt, str):
-            raise ValueError(
-                "string prompts require tokenizer files next to the model "
-                "weights; this server was started without them — send "
-                "token ids instead")
+            if self.tokenizer is None:
+                raise ValueError(
+                    "string prompts require tokenizer files next to the "
+                    "model weights; this server was started without them "
+                    "— send token ids instead")
+            return self.tokenizer.encode(prompt)
         raise ValueError("prompt must be a string or a list of token ids")
 
+    def _eos_id(self) -> int:
+        tok = self.tokenizer
+        if tok is not None and tok.eos_token_id is not None:
+            return int(tok.eos_token_id)
+        return -1
+
     def _decode(self, ids: list[int]) -> str:
-        return " ".join(str(i) for i in ids)
+        if self.tokenizer is None:
+            return " ".join(str(i) for i in ids)
+        return self.tokenizer.decode(ids)
 
     def complete(self, body: dict) -> dict:
         # _complete names the route as soon as it picks one, so a failure
@@ -806,9 +826,14 @@ class InferenceServer:
         req = route_box.get("timing")
         ttft, tpot = self._observe_breakdown(route, dur, len(gen), req)
         ext = route_box.get("ext") or {}
-        # no tokenizer, so no EOS: every completion runs to length, unless
-        # a drain handed it off (its tokens are a prefix of the answer)
-        finish = "migrated" if ext.get("migrated") is not None else "length"
+        # "stop" iff the sequence ended on EOS (the tokenizer's; none
+        # without one), "migrated" when a drain handed it off (its tokens
+        # are a prefix of the answer)
+        eos_id = self._eos_id()
+        stopped = eos_id >= 0 and bool(gen) and gen[-1] == eos_id
+        finish = "stop" if stopped else "length"
+        if ext.get("migrated") is not None:
+            finish = "migrated"
         # the continuous routes' completion id carries the flight ring's
         # request id (detail key "req")
         return {
@@ -885,7 +910,7 @@ class InferenceServer:
         if rep_penalty <= 0.0:
             raise ValueError("repetition_penalty must be > 0")
         seed = int(body.get("seed", 0))
-        eos_id = -1
+        eos_id = self._eos_id()
         # live-session resume: a drained source handed back its tokens so
         # far (and where to pull the streamed KV chain from)
         resume = body.get("kubeinfer_resume")
@@ -959,7 +984,10 @@ class InferenceServer:
             raise ValueError("kubeinfer_resume requires the continuous "
                              "batcher and a prompt that fits its cache")
         route_box["route"] = "resume"
-        if len(resume_tokens) >= max_tokens:
+        eos_id = kw["eos_id"]
+        if len(resume_tokens) >= max_tokens or (
+                eos_id >= 0 and resume_tokens[-1] == eos_id):
+            # the source finished before the hand-off completed
             return resume_tokens[:max_tokens]
         src = resume.get("kv_source")
         if isinstance(src, str) and src:
@@ -1150,14 +1178,20 @@ _WAITING_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="kubeinfer-torch-inference-server")
     p.add_argument("--model", required=True,
-                   help="preset name (with --random-init)")
+                   help="checkpoint directory (config.json + "
+                        "*.safetensors), or a preset name with "
+                        "--random-init")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--dtype", default="auto",
                    choices=["auto", "bfloat16", "float32"])
     p.add_argument("--max-model-len", type=int, default=0)
     p.add_argument("--random-init", action="store_true",
-                   help="serve a randomly initialized --model preset")
+                   help="serve a randomly initialized --model preset "
+                        "instead of loading a checkpoint")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default, the card; fails without one) "
+                        "or cpu (the plain PyTorch versions, for tests)")
     p.add_argument("--batch-slots", type=int, default=8,
                    help="continuous-batching decode slots (0 disables; "
                         "over-slot-width requests use the per-request "
@@ -1174,9 +1208,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="projection weight precision: int8 quantizes each "
                         "layer's projections as the layer is built")
     p.add_argument("--draft-model", default="",
-                   help="draft preset name (with --random-init; seeded 1) "
-                        "enabling speculative decoding; must share the "
-                        "target's vocabulary")
+                   help="draft checkpoint directory (a preset name with "
+                        "--random-init, seeded 1) enabling speculative "
+                        "decoding; must share the target's vocabulary")
     p.add_argument("--speculation-depth", type=int, default=4,
                    help="draft tokens proposed per verification round")
     p.add_argument("--speculative-draft", action="store_true",
@@ -1234,23 +1268,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _load_tokenizer(model_dir: str):
+    """The checkpoint's HF tokenizer, or None (id-only), as the
+    reference loads it: ``transformers`` is imported only here."""
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(model_dir)
+    except Exception as e:
+        log.warning("no tokenizer loaded from %s (%s); id-only mode",
+                    model_dir, e)
+        return None
+
+
 def build_server(argv: list[str] | None = None, device=None):
     """Parse flags, build the engines and the server (not started).
+    ``device`` (else ``--device``, else the card) places everything.
     Returns (server, continuous engine or None)."""
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.engine import Engine
     from kubeinfer_tpu_torch.inference.model import init_params
     from kubeinfer_tpu_torch.inference.speculative import SpeculativeEngine
+    from kubeinfer_tpu_torch.inference.weights import load_pretrained
 
     args = build_parser().parse_args(argv)
     for name, (default, entry) in _WAITING_FLAGS.items():
         if getattr(args, name) != default:
             raise SystemExit(f"--{name.replace('_', '-')} waits: ROADMAP "
                              f"Queue 1, {entry}")
-    if not args.random_init:
-        raise SystemExit("loading a checkpoint waits: ROADMAP Queue 1, "
-                         "checkpoint.py and load_pretrained; pass "
-                         "--random-init with a preset --model")
     if args.speculative_draft and not args.draft_model:
         raise SystemExit("--speculative-draft requires --draft-model (the "
                          "paged verify windows run the same draft weights)")
@@ -1267,33 +1312,46 @@ def build_server(argv: list[str] | None = None, device=None):
         slo = SLOMonitor(
             objectives=tuple(SLOObjective.parse(x) for x in args.slo))
     dcfg = None
-    if args.draft_model:
+    if args.draft_model and args.random_init:
         dcfg = PRESETS.get(args.draft_model)
         if dcfg is None:
             raise SystemExit(
                 f"--draft-model {args.draft_model!r} is not a preset (with "
-                "--random-init the draft must name one); loading a draft "
-                "checkpoint waits: ROADMAP Queue 1, checkpoint.py and "
-                "load_pretrained")
-    # --model may be a preset name or, when the agent passes its model
-    # cache directory, any path: the reference falls back to the CI-sized
-    # preset there
-    cfg = PRESETS.get(args.model)
-    if cfg is None:
-        log.info("--random-init: %r is not a preset; using 'tiny'",
-                 args.model)
-        cfg = PRESETS["tiny"]
-    dev = resolve_device(device)
+                "--random-init the draft must name one)")
+    dev = resolve_device(device if device is not None else args.device)
     dtype = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
              "float32": torch.float32}[args.dtype]
-    params = init_params(cfg, seed=0, dtype=dtype, device=dev,
-                         weight_dtype=args.weight_dtype)
+    tokenizer = None
+    if args.random_init:
+        # --model may be a preset name or, when the agent passes its
+        # model cache directory, any path: the reference falls back to
+        # the CI-sized preset there
+        cfg = PRESETS.get(args.model)
+        if cfg is None:
+            log.info("--random-init: %r is not a preset; using 'tiny'",
+                     args.model)
+            cfg = PRESETS["tiny"]
+        params = init_params(cfg, seed=0, dtype=dtype, device=dev,
+                             weight_dtype=args.weight_dtype)
+    else:
+        t0 = time.monotonic()
+        params, cfg = load_pretrained(args.model, dtype=dtype,
+                                      weight_dtype=args.weight_dtype,
+                                      device=dev)
+        log.info("loaded %s (%d layers, %s weights) in %.1fs", args.model,
+                 cfg.num_hidden_layers, args.weight_dtype,
+                 time.monotonic() - t0)
+        tokenizer = _load_tokenizer(args.model)
     max_cache = args.max_model_len or cfg.max_position_embeddings
     engine = Engine(params, cfg, max_cache_len=max_cache, device=dev)
     speculative = dparams = None
-    if dcfg is not None:
-        # seeded 1, as the reference draws its draft from PRNGKey(1)
-        dparams = init_params(dcfg, seed=1, dtype=dtype, device=dev)
+    if args.draft_model:
+        if dcfg is not None:
+            # seeded 1, as the reference draws its draft from PRNGKey(1)
+            dparams = init_params(dcfg, seed=1, dtype=dtype, device=dev)
+        else:
+            dparams, dcfg = load_pretrained(args.draft_model, dtype=dtype,
+                                            device=dev)
         speculative = SpeculativeEngine(
             params, cfg, dparams, dcfg, k=args.speculation_depth,
             max_cache_len=max_cache, device=dev)
@@ -1329,7 +1387,7 @@ def build_server(argv: list[str] | None = None, device=None):
                           kv_export_budget_mb=args.kv_export_budget_mb,
                           tls_cert=args.tls_cert_file,
                           tls_key=args.tls_key_file, token=debug_token,
-                          slo=slo)
+                          slo=slo, tokenizer=tokenizer)
     return srv, continuous
 
 

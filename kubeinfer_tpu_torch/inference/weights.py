@@ -6,13 +6,21 @@ Counterpart of ``kubeinfer_tpu/inference/weights.py``:
 to ``[in, out]``; with ``weight_dtype="int8"`` each projection is
 quantized as it is mapped), and ``params_from_reference`` carries over
 the JAX package's own parameter tree, given as numpy arrays, int8 leaves
-included. ``load_pretrained`` (safetensors) waits: ROADMAP Queue 1,
-``checkpoint.py`` / ``load_pretrained``.
+included. ``load_pretrained`` reads an HF snapshot directory
+(``config.json`` + ``*.safetensors``, what the coordinator's
+``huggingface-cli download`` drops into the model cache) with the
+module's own safetensors reader: each tensor is an ``np.memmap`` of its
+byte range, opened only when the mapping reaches it, so host memory
+holds about one tensor at a time. ``write_safetensors`` is the matching
+writer (``checkpoint.py`` saves through it).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import json
+import os
+import pathlib
+from typing import Iterator, Mapping
 
 import numpy as np
 import torch
@@ -22,14 +30,16 @@ from kubeinfer_tpu_torch.inference.config import ModelConfig
 from kubeinfer_tpu_torch.inference.model import Params
 from kubeinfer_tpu_torch.inference.weight_quant import quantize_weight
 
-_MOE = "ROADMAP Queue 1, slice 6: moe.py"
+_MOE = "ROADMAP Queue 1 entry 12: moe.py"
 
 
 def _to_tensor(a, device, dtype) -> torch.Tensor:
     """numpy / torch leaf -> tensor on ``device`` in ``dtype``. A numpy
     dtype torch cannot take (bfloat16) goes through float32, exactly."""
     if isinstance(a, torch.Tensor):
-        return a.detach().to(device=device, dtype=dtype)
+        # a copy always: a leaf never aliases its source (a memory-mapped
+        # checkpoint file, a caller's tensor)
+        return a.detach().to(device=device, dtype=dtype, copy=True)
     a = np.asarray(a)
     if a.dtype.kind != "f" or a.dtype.itemsize not in (4, 8):
         a = a.astype(np.float32)
@@ -61,10 +71,18 @@ def params_from_state_dict(
 
     def linear(name: str, quant: bool = False):
         w = get(name)
-        w = w.T if isinstance(w, torch.Tensor) else np.asarray(w).T
+        if isinstance(w, torch.Tensor):
+            # the [out, in] bytes cross to the device as they lie and are
+            # transposed there: a strided host copy of every projection
+            # would cost as much as the load itself
+            w = w.detach().to(dev).T
+            if quant and weight_dtype == "int8":
+                return quantize_weight(w.float())
+            return w.to(dtype).contiguous()  # [out,in]->[in,out]
+        w = np.asarray(w).T
         if quant and weight_dtype == "int8":
             return quantize_weight(_to_tensor(w, dev, torch.float32))
-        return _to_tensor(w, dev, dtype).contiguous()  # [out,in]->[in,out]
+        return _to_tensor(w, dev, dtype).contiguous()
 
     layers = []
     for i in range(cfg.num_hidden_layers):
@@ -119,3 +137,161 @@ def params_from_reference(tree, device=None, dtype=torch.float32) -> Params:
         return _to_tensor(node, dev, dtype)
 
     return conv(tree, "params")
+
+
+# safetensors dtype -> (numpy dtype of the stored bytes, torch dtype they
+# are viewed as); BF16 and the F8 types have no numpy dtype, so their
+# bytes are read as integers of the same width
+_ST_DTYPES = {
+    "BOOL": (np.dtype("bool"), torch.bool),
+    "U8": (np.dtype("u1"), torch.uint8),
+    "I8": (np.dtype("i1"), torch.int8),
+    "I16": (np.dtype("<i2"), torch.int16),
+    "U16": (np.dtype("<u2"), torch.uint16),
+    "F16": (np.dtype("<f2"), torch.float16),
+    "BF16": (np.dtype("<i2"), torch.bfloat16),
+    "I32": (np.dtype("<i4"), torch.int32),
+    "U32": (np.dtype("<u4"), torch.uint32),
+    "F32": (np.dtype("<f4"), torch.float32),
+    "I64": (np.dtype("<i8"), torch.int64),
+    "U64": (np.dtype("<u8"), torch.uint64),
+    "F64": (np.dtype("<f8"), torch.float64),
+    "F8_E4M3": (np.dtype("u1"), torch.float8_e4m3fn),
+    "F8_E5M2": (np.dtype("u1"), torch.float8_e5m2),
+}
+_ST_NAMES = {t: name for name, (_, t) in _ST_DTYPES.items()}
+
+
+def safetensors_index(path) -> dict[str, tuple]:
+    """Parse one ``.safetensors`` file's header: an 8-byte little-endian
+    header length, a JSON header ``{name: {dtype, shape, data_offsets}}``
+    (``__metadata__`` optional, skipped), then the raw buffers. Returns
+    ``{name: (dtype, shape, absolute byte offset)}``; raises
+    ``ValueError`` on an unknown dtype, a byte count that does not match
+    the shape, or a range past the end of the file."""
+    path = pathlib.Path(path)
+    size = path.stat().st_size
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path}: shorter than a safetensors header")
+        n = int.from_bytes(head, "little")
+        if 8 + n > size:
+            raise ValueError(f"{path}: header of {n} bytes runs past the "
+                             f"end of the file ({size} bytes)")
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    base = 8 + n
+    index = {}
+    for name, e in header.items():
+        dt = e.get("dtype")
+        if dt not in _ST_DTYPES:
+            raise ValueError(f"{path}: {name}: unknown dtype {dt!r}")
+        shape = tuple(int(x) for x in e["shape"])
+        lo, hi = (int(x) for x in e["data_offsets"])
+        want = int(np.prod(shape, dtype=np.int64)) * _ST_DTYPES[dt][0].itemsize
+        if lo < 0 or hi - lo != want:
+            raise ValueError(f"{path}: {name}: {hi - lo} bytes for shape "
+                             f"{list(shape)} {dt} ({want} expected)")
+        if base + hi > size:
+            raise ValueError(f"{path}: {name}: bytes [{lo}, {hi}) run past "
+                             f"the end of the file")
+        index[name] = (dt, shape, base + lo)
+    return index
+
+
+def map_tensor(path, dt: str, shape: tuple, offset: int) -> torch.Tensor:
+    """One tensor of a safetensors file as a CPU tensor over an
+    ``np.memmap`` of its bytes (copy-on-write: writes never reach the
+    file); pages are read as they are touched."""
+    np_dt, t_dt = _ST_DTYPES[dt]
+    n = int(np.prod(shape, dtype=np.int64))
+    if n == 0:
+        arr = np.empty(shape, np_dt)
+    else:
+        arr = np.memmap(path, dtype=np_dt, mode="c", offset=offset,
+                        shape=(n,)).reshape(shape)
+    t = torch.from_numpy(arr)
+    return t if t.dtype == t_dt else t.view(t_dt)
+
+
+def read_safetensors(path) -> dict[str, torch.Tensor]:
+    """Every tensor of one ``.safetensors`` file (memory-mapped)."""
+    return {name: map_tensor(path, *e)
+            for name, e in safetensors_index(path).items()}
+
+
+class _MappedShards(Mapping):
+    """name -> tensor over a snapshot's shards, each tensor mapped only
+    when it is asked for; a later shard's tensor replaces an earlier
+    one of the same name, as a dict filled in shard order would."""
+
+    def __init__(self, shards) -> None:
+        self._where: dict[str, tuple] = {}
+        for shard in shards:
+            for name, e in safetensors_index(shard).items():
+                self._where[name] = (shard, *e)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return map_tensor(*self._where[name])
+
+    def __contains__(self, name) -> bool:
+        return name in self._where
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._where)
+
+    def __len__(self) -> int:
+        return len(self._where)
+
+
+def write_safetensors(path, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Write ``tensors`` (any device) as one ``.safetensors`` file the
+    reader above and the ``safetensors`` package both read: the header
+    first (padded with spaces to 8 bytes), then each buffer in order,
+    copied to the host one tensor at a time."""
+    header: dict = {}
+    off = 0
+    for name, t in tensors.items():
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"{name}: no safetensors dtype for {t.dtype}")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + nbytes]}
+        off += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            h = t.detach().to("cpu").contiguous().view(-1)
+            if h.numel():
+                # numpy has no bf16 or f8: hand it their bits as integers
+                f.write(h.view(_BITS.get(h.dtype, h.dtype)).numpy().data)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+_BITS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
+         torch.float8_e5m2: torch.uint8}
+
+
+def load_pretrained(
+    model_dir: str, dtype=torch.bfloat16, weight_dtype: str = "bf16",
+    device=None,
+) -> tuple[Params, ModelConfig]:
+    """Load (params, config) from an HF snapshot directory: ``config.json``
+    through ``ModelConfig.from_hf_dict``, every ``*.safetensors`` shard in
+    sorted order through ``params_from_state_dict`` (each projection
+    moved to ``device`` as stored and transposed there; with
+    ``weight_dtype="int8"`` quantized there)."""
+    root = pathlib.Path(model_dir)
+    with open(root / "config.json", "r", encoding="utf-8") as f:
+        cfg = ModelConfig.from_hf_dict(json.load(f))
+    shards = sorted(root.glob("*.safetensors"))
+    if not shards:
+        raise FileNotFoundError(f"no *.safetensors under {model_dir}")
+    sd = _MappedShards(shards)
+    return params_from_state_dict(sd, cfg, dtype, weight_dtype,
+                                  device), cfg

@@ -225,9 +225,11 @@ def test_import_loads_no_jax_and_no_reference_module():
         "kubeinfer_tpu_torch.observability.flightrecorder, "
         "kubeinfer_tpu_torch.resilience.faultpoints, "
         "kubeinfer_tpu_torch.router.scoring, kubeinfer_tpu_torch.utils, "
-        "kubeinfer_tpu_torch.utils.httpbase\n"
+        "kubeinfer_tpu_torch.utils.httpbase, kubeinfer_tpu_torch.agent, "
+        "kubeinfer_tpu_torch.agent.__main__, kubeinfer_tpu_torch.ctl, "
+        "kubeinfer_tpu_torch.inference.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'kubeinfer_tpu', 'ml_dtypes')]\n"
+        "('jax', 'jaxlib', 'kubeinfer_tpu', 'ml_dtypes', 'safetensors')]\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run(
@@ -252,6 +254,7 @@ def _imported_names(path: pathlib.Path):
 def test_source_imports_stay_in_the_port(path):
     for name in _imported_names(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "kubeinfer_tpu", "ml_dtypes"), (
+        assert top not in ("jax", "jaxlib", "kubeinfer_tpu", "ml_dtypes",
+                           "safetensors"), (
             f"{path.name} imports {name}"
         )

@@ -2,7 +2,8 @@
 ``device="cpu"``, serving ``tiny``: the read endpoints answer, a fitting
 request rides the continuous batcher and an over-slot-width one the
 per-request engine, each returning its engine's own tokens; routes and
-flags that wait answer 400 or exit with the ROADMAP entry."""
+flags that wait answer 400 or exit with the ROADMAP entry. The load
+path (``--model <checkpoint dir>``) is ``tests/test_torch_load.py``'s."""
 
 from __future__ import annotations
 
@@ -168,7 +169,8 @@ def test_main_builds_quantized(flags):
 
 
 def test_main_builds_the_cpu_rehearsal():
-    with pytest.raises(SystemExit, match="load_pretrained"):
+    # without --random-init, --model names a checkpoint directory
+    with pytest.raises(FileNotFoundError, match="config.json"):
         ts.build_server(["--model", "tiny"], device="cpu")
     srv, cont = ts.build_server(
         ["--model", "tiny", "--random-init", "--port", "0",
@@ -283,6 +285,9 @@ def test_batcher_owns_draft_traffic(verify):
 
 
 def test_draft_directory_waits_for_load_pretrained(tmp_path):
-    with pytest.raises(SystemExit, match="load_pretrained"):
+    """With ``--random-init`` the draft must name a preset, as in the
+    reference; a draft directory loads without it
+    (``tests/test_torch_load.py``)."""
+    with pytest.raises(SystemExit, match="is not a preset"):
         ts.build_server(["--model", "tiny", "--random-init",
                          "--draft-model", str(tmp_path)], device="cpu")
