@@ -188,7 +188,8 @@ times them. Phases:
       backward, and the CUDA-core kernels on the same calls;
   (22) the training step on the card (flash route) against the CPU
       (dense route) at llama-3-8b widths cut to 1 layer, f32, tokens
-      [2, 513]: loss and every gradient leaf within tolerance; 8 steps
+      [2, 513]: loss and every gradient leaf within tolerance;
+      TRAIN_CHECK_STEPS (3) steps
       at lr 5e-2 lower the loss on both;
   (24) #9b on its entry: ``forward(params, tokens [1, 2048], cfg,
       attn_mask=packed, attn_fn=attention_auto)`` on llama-3-8b bf16 at
@@ -238,7 +239,9 @@ times them. Phases:
       (16)), a verify window's ms and tokens a row in (a) and (b),
       decode ms per emitted token per slot with and without a draft;
   (30) disaggregated prefill and decode, run on the server of (13) as
-      (30a) before it stops, and on the int8 server of (17) as (30b): its
+      (30a) before it stops, and as (30b) on a second server over the
+      first SPEC_INT8_LAYERS layers of the int8 server of (17)'s tensors
+      (``cut_server``; the whole run keeps inside its time limit): its
       engine is the prefill replica; a second ContinuousEngine and
       InferenceServer on the same parameter tensors (its own pool) is the
       decode replica. A 512-token greedy and a 600-token sampled prompt
@@ -279,7 +282,7 @@ times them. Phases:
       to the near-tie rule; (31a2) the same with the target as its own
       draft (spec_k 4): 4 greedy requests across preemption cycles, #11
       at T = 5 and #10 on the draft steps held on every call. (31c), on
-      the int8 server of (17) and (30b)'s decode replica: (31b) in int8
+      (30b)'s cut int8 server and its decode replica: (31b) in int8
       (wire v2 then v3, the pages and scales bitwise, #12 and #15 held on
       every call of both replicas). Times: the readmit admit beside a
       cold admit, request latency under preemption beside uncontended,
@@ -333,6 +336,38 @@ times them. Phases:
       the follower's sync, spawn to Ready, the first TTFT. The tick's #1-#8
       and the in-process #9-#12 and #15 gain ``agent_launches`` in the
       kernels line;
+  (34) the fleet router and the fleet plane (``fleet_phase``), inside
+      (30a)'s ``then`` after (31b), on the server of (13) (r0) and (30a)'s
+      decode replica (r1); every ``kernels.route_pick`` call through
+      ``CheckedPick`` (bitwise), every #11 call through
+      ``attention_check``. (34a) bench.py:fleet_storm_bench's plant (100
+      replicas, 4 draining, 4 stale, 2 dead; 32 families of 8 blocks of
+      32 tokens + 8; seed 23) on ``FleetRouter(device=cuda)`` through
+      ``update_replica``: 10,000 requests by ``route_batch(engine=
+      "solver")`` in chunks of 256 in parity, greedy and auction; parity
+      equal to the ``engine="python"`` decisions on every chunk (every
+      field) and the first chunk to per-request ``route()``, the skip
+      counters and replica gauge equal to the planted masks; per-request
+      us of route_batch (the match plane included) and of route(). (34b)
+      a RouterServer (storm window 20 ms) over HTTP: fleet_routing_bench's
+      shape (4 families of 256-token prefixes + 8, seed 17, planted 2 a
+      replica by direct posts, 12 shuffled requests of 4 new tokens in two
+      concurrent waves of 6): each on its family's replica with the
+      prefix's full blocks matched, hit rate 1.0, all 12 through the storm
+      solve, tokens equal to a direct post to the chosen replica; r1
+      drained and polled: 4 requests of its families go to r0,
+      skipped{r1, draining} up by 4; a 96-token session routed to r0,
+      drained mid-stream and resumed on r1 through kubeinfer_resume, its
+      stream equal to an undrained run up to (25)'s rule; a second
+      RouterServer (decode r1, prefill r0, threshold 256): a 600-token
+      prompt takes the two-phase route, one import, its stream bitwise a
+      warm admit's. (34c) loadgen's Poisson schedule (seed 29, 12 requests
+      at 2 req/s) replayed open-loop through the router's ``forward``, a
+      FleetView on both engines' rings (each drain exactly once), one
+      ledger per request over tracing.RECORDER with its phases summing to
+      its end to end, tail attribution naming a phase and a replica;
+      TTFT p50/p99 and an envelope point. route_pick and #11 gain
+      ``fleet_launches`` in the kernels line;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -348,7 +383,8 @@ placement p50s of (4), (7) and (11) alone. ``--disagg`` runs (30a) and
 (30b) alone (chiprun_out/disagg_probe.json); ``--migrate`` runs (31) alone
 (chiprun_out/migrate_probe.json); ``--observe`` runs (32) alone on fresh
 servers (chiprun_out/observe_probe.json); ``--agent`` runs (33) alone
-(chiprun_out/agent_probe.json).
+(chiprun_out/agent_probe.json); ``--fleet`` runs (34) alone on the
+server of (13) and a decode replica (chiprun_out/fleet_probe.json).
 """
 
 from __future__ import annotations
@@ -357,6 +393,7 @@ import atexit
 import collections
 import contextlib
 import json
+import math
 import pathlib
 import secrets
 import shutil
@@ -380,6 +417,13 @@ CPU_CHECK_LAYERS = 1
 # (the preset has 32): [13]-[20] serve at full depth, and a quarter here
 # keeps the whole run near 750 s with [32] added
 SPEC_INT8_LAYERS = 8
+# steps of (22)'s training run on each side (the loss falls from the
+# first; the CPU's f32 steps are most of (21)-(23)), and new tokens of
+# each row of (25) and (27)'s card-against-CPU verify runs (both still
+# cross a block edge); both cut to keep the whole run well inside its
+# time limit with (34) added
+TRAIN_CHECK_STEPS = 3
+SPEC_CHECK_NEW = 12
 
 
 def build_request(J, N, seed=0, gang_fraction=0.0):
@@ -1336,13 +1380,21 @@ def auction_phases(dev, kernels, record, card, big=(4096, 4096),
     }
 
 
-def storm_batch(n_replicas=100, families=32, block_size=32,
-                prefix_blocks=8, tail=8, batch=256, seed=23):
-    """bench.py:fleet_storm_bench's planted fleet and its first batch of
-    requests, with no router object: the planes FleetRouter.route_batch
-    hands the route solve (dead and draining replicas masked out, stale
-    ones flagged, pressure = queue depth / slots, KV headroom)."""
-    from kubeinfer_tpu_torch.solver.routing import build_match_plane
+def storm_plant(n_replicas=100, n_requests=256, families=32, block_size=32,
+                prefix_blocks=8, tail=8, seed=23, fps=None):
+    """bench.py:fleet_storm_bench's planted fleet and requests: real
+    summaries (3 families a replica at a seeded depth), seeded queue depths
+    and KV fill, 4 draining, 4 stale (15 s old) and 2 dead (40 s old)
+    replicas; each request a family's 8-block prefix and 8 tail tokens.
+    ``fps`` is the fingerprint chain (the port's
+    ``kv_blocks.prefix_fingerprints`` unless given). Returns (replicas,
+    requests, dead, draining, stale): each replica (name, serving stats,
+    age in s) as ``FleetRouter.update_replica`` takes them, the masks as
+    sets of replica indices."""
+    if fps is None:
+        from kubeinfer_tpu_torch.inference.kv_blocks import (
+            prefix_fingerprints as fps,
+        )
 
     rng = np.random.default_rng(seed)
     prefixes = [rng.integers(0, 50_000, prefix_blocks * block_size).tolist()
@@ -1350,34 +1402,57 @@ def storm_batch(n_replicas=100, families=32, block_size=32,
     draining = set(rng.choice(n_replicas, 4, replace=False).tolist())
     stale = set(rng.choice(n_replicas, 4, replace=False).tolist())
     dead = set(rng.choice(n_replicas, 2, replace=False).tolist())
-    fp_sets = []
+    replicas = []
+    for i in range(n_replicas):
+        chain: set[int] = set()
+        for k in range(3):
+            fam = (i + k * 11) % families
+            depth = int(rng.integers(2, prefix_blocks + 1))
+            chain.update(fps(prefixes[fam][: depth * block_size],
+                             block_size))
+        replicas.append((f"r{i:03d}", {  # zero-padded: name == column order
+            "queue_depth": int(rng.integers(0, 5)), "n_slots": 2,
+            "kv_blocks_free": int(rng.integers(8, 64)),
+            "kv_blocks_in_use": int(rng.integers(0, 32)),
+            "draining": i in draining,
+            "cache_summary": {"fingerprints": sorted(chain), "version": 1,
+                              "block_size": block_size},
+        }, 40.0 if i in dead else (15.0 if i in stale else 0.0)))
+    requests = [prefixes[int(rng.integers(0, families))]
+                + rng.integers(0, 50_000, tail).tolist()
+                for _ in range(n_requests)]
+    return replicas, requests, dead, draining, stale
+
+
+def storm_batch(batch=256, **plant):
+    """``storm_plant``'s fleet and its first batch of requests, with no
+    router object: the planes FleetRouter.route_batch hands the route
+    solve (dead and draining replicas masked out, stale ones flagged,
+    pressure = queue depth / slots, KV headroom)."""
+    from kubeinfer_tpu_torch.solver.routing import build_match_plane
+
+    replicas, requests, dead, draining, stale = storm_plant(
+        n_requests=batch, **plant)
+    n_replicas = len(replicas)
+    fp_sets = [frozenset(st["cache_summary"]["fingerprints"])
+               for _, st, _ in replicas]
+    sizes = [st["cache_summary"]["block_size"] for _, st, _ in replicas]
     ok = np.zeros(n_replicas, bool)
     st = np.zeros(n_replicas, bool)
     pressure = np.zeros(n_replicas, np.float32)
     slots = np.ones(n_replicas, np.float32)
     headroom = np.ones(n_replicas, np.float32)
-    for i in range(n_replicas):
-        fps: set[int] = set()
-        for k in range(3):
-            fam = (i + k * 11) % families
-            depth = int(rng.integers(2, prefix_blocks + 1))
-            fps.update(prefix_fingerprints(
-                prefixes[fam][: depth * block_size], block_size))
-        fp_sets.append(frozenset(fps))
-        qd = int(rng.integers(0, 5))
-        free, used = int(rng.integers(8, 64)), int(rng.integers(0, 32))
+    for i, (_, stats, _) in enumerate(replicas):
         if i in dead or i in draining:
             continue
         ok[i], st[i] = True, i in stale
-        pressure[i], slots[i] = qd / 2.0, 2.0
+        pressure[i] = stats["queue_depth"] / stats["n_slots"]
+        slots[i] = stats["n_slots"]
+        free, used = stats["kv_blocks_free"], stats["kv_blocks_in_use"]
         headroom[i] = free / (free + used)
-    requests = [prefixes[int(rng.integers(0, families))]
-                + rng.integers(0, 50_000, tail).tolist()
-                for _ in range(batch)]
 
     def planes():
-        match = build_match_plane(requests, fp_sets,
-                                  [block_size] * n_replicas)
+        match = build_match_plane(requests, fp_sets, sizes)
         return np.where(ok[None, :], match, -1).astype(np.int32)
 
     return planes, (pressure, st, slots, headroom)
@@ -1409,7 +1484,9 @@ class CheckedPick:
     the kernel's result on. Keeps the largest inputs it saw. While it
     stands in, the wrapper's ``route_pick.launches += 1`` resolves to this
     object's ``launches``, so the checking launches stay off the
-    wrapper's own count."""
+    wrapper's own count. ``check_s`` sums the host seconds of the checks
+    alone (the plain pick and the compare, timed once the kernel has
+    finished), for callers that time the checked path without them."""
 
     def __init__(self, kernels):
         self.kernel, self.plain = kernels.route_pick, kernels.route_pick_plain
@@ -1417,9 +1494,15 @@ class CheckedPick:
         self.calls = 0
         self.max_err = 0.0
         self.largest = None
+        self.check_s = 0.0
 
     def __call__(self, match, bias, active):
+        import torch
+
         got = self.kernel(match, bias, active)
+        if match.is_cuda:
+            torch.cuda.synchronize(match.device)
+        t0 = time.perf_counter()
         want = self.plain(match, bias, active)
         for g, w in zip(got, want):
             check(torch_equal(g, w),
@@ -1430,6 +1513,7 @@ class CheckedPick:
         if self.largest is None or match.numel() > self.largest[0].numel():
             self.largest = (match, bias, active)
         self.calls += 1
+        self.check_s += time.perf_counter() - t0
         return got
 
 
@@ -2700,14 +2784,18 @@ def serving_phases(dev, record, card):
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     # (30a) disaggregated prefill and decode, this server the prefill side;
-    # (31b) drains it onto (30a)'s decode replica; (31a) preempts on its
-    # parameter tensors
-    migrate = {}
+    # (31b) drains it onto (30a)'s decode replica; (34) routes over both;
+    # (31a) preempts on its parameter tensors
+    migrate, fleet = {}, {}
+
+    def then(dec_srv, dec):
+        migrate.update(migrate_phase(dev, record, card, srv, cont, dec_srv,
+                                     dec))
+        fleet.update(fleet_phase(dev, record, card, srv, cont, dec_srv,
+                                 dec))
+
     try:
-        launches = disagg_phase(
-            dev, record, card, srv, cont,
-            then=lambda dec_srv, dec: migrate.update(migrate_phase(
-                dev, record, card, srv, cont, dec_srv, dec)))
+        launches = disagg_phase(dev, record, card, srv, cont, then=then)
         # (32a) on this server, after (31b)
         observe = observe_phase(dev, record, card, srv, cont)
         # at SPEC_INT8_LAYERS of the served layers: the whole run keeps
@@ -2722,6 +2810,7 @@ def serving_phases(dev, record, card):
         cont.stop()
     entries[2]["observe_launches"] = observe["decode_attention_blocks"]
     entries[2]["disagg_launches"] = launches["decode_attention_blocks"]
+    entries[2]["fleet_launches"] = fleet["decode_attention_blocks"]
     entries[1]["migrate_launches"] = preempt["decode_attention"]
     entries[2]["migrate_launches"] = (preempt["decode_attention_blocks"]
                                       + migrate["decode_attention_blocks"])
@@ -2818,6 +2907,33 @@ def attention_check(fa, int8):
         weight=lambda q, kp, vp, tbl, ln: (int((tbl[:, 0] != 0).sum()),
                                            int(ln.sum())), walk=True,
         trim=True)
+
+
+def cut_server(dev, srv, cont, layers):
+    """A second InferenceServer + ContinuousEngine (started) with ``cont``'s
+    settings and ``srv``'s debug token on the first ``layers`` layers of
+    ``cont``'s parameter tensors (shared, not copied): (30b) and (31c)'s
+    prefill replica and migration source."""
+    import dataclasses
+
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.engine import Engine
+
+    params = {**cont.params, "layers": cont.params["layers"][:layers]}
+    cfg = dataclasses.replace(cont.cfg, num_hidden_layers=layers)
+    cut = ContinuousEngine(
+        params, cfg, n_slots=cont.n_slots, cache_len=cont.cache_len,
+        block_size=cont.block_size,
+        prefill_chunk_blocks=cont.chunk_tokens // cont.block_size,
+        kv_dtype=cont.kv_dtype, weight_dtype=cont.weight_dtype,
+        migration_chunk_blocks=cont.migration_chunk_blocks,
+        device=dev).start()
+    cut_srv = server.InferenceServer(
+        Engine(params, cfg, max_cache_len=srv.engine.max_cache_len,
+               device=dev), f"{srv.model_id}-{layers}l", host="127.0.0.1",
+        port=0, continuous=cut, device=dev, token=srv._token).start()
+    return cut_srv, cut
 
 
 def decode_replica(dev, pre_srv, pre):
@@ -3166,25 +3282,37 @@ def sampled_tie(label, got, want, prompt, kw, params, cfg, dev):
     request on another route) first at output i, held to [25]'s rule on
     the sampler's own decision. The sampler's scores are the tempered
     logits plus the request's gumbel noise (key fold_in(key(seed),
-    len(prompt) + i)) over the top-k kept tokens, and it may draw any of
+    len(prompt) + i)) over the filtered tokens, and it may draw any of
     those, so a position's allowance is 2 x the served forward's largest
-    error on the scores of the tokens the f32 filter keeps + GAP_ULP; the
-    envelope is the largest over both streams, all under teacher-forced
-    forwards of the same weights. Held where the two tokens' f32 scores
-    differ by no more than the envelope, or where either token lies
-    within the envelope (in logits) of the f32 filter's edge (kept, and
-    that close above the (k+1)-th largest logit; or dropped, and that
-    close below the k-th): a near-tie of the filter, which one route's
-    bf16 logits may cross. top_p stays 1 here. Returns (i, the f32 score
-    gap, the envelope)."""
+    error on the tempered scores of the tokens the f32 top-k filter keeps
+    + GAP_ULP; the envelope is the largest over both streams, all under
+    teacher-forced forwards of the same weights. Held where the two
+    tokens' f32 scores differ by no more than the envelope, or where
+    either token lies within the envelope of one of the f32 filter's
+    edges, which one route's bf16 logits may cross:
+
+    - the top-k edge (in logits, envelope x temperature): kept, and that
+      close above the (k+1)-th largest logit; or dropped, and that close
+      below the k-th;
+    - the nucleus (top_p) edge: with every tempered score moved by at
+      most half the envelope, a token's cumulative probability of the
+      tokens ranked above it can reach [lo, hi]: lo = the mass of the
+      tokens surely above it (scores more than the envelope higher,
+      surely kept by top-k) over the largest normalizer (every token
+      top-k may keep) times e^-envelope; hi = the mass of every token
+      that may rank above it over the smallest normalizer times
+      e^envelope. The token is at the cut where lo < top_p <= hi: the
+      nucleus may keep it on one route and drop it on the other.
+
+    Returns (i, the f32 score gap, the envelope)."""
     import torch
 
     from kubeinfer_tpu_torch.inference import prng
     from kubeinfer_tpu_torch.inference.engine import filter_logits
 
-    check(float(kw.get("top_p", 1.0)) == 1.0, f"{label} top_p unsupported")
     i = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
     T, k = float(kw["temperature"]), int(kw.get("top_k", 0))
+    top_p = float(kw.get("top_p", 1.0))
     temp = torch.full((), T, dtype=torch.float32, device=dev)
     envelope, rows = 0.0, None
     for stream in (got, want):
@@ -3194,27 +3322,54 @@ def sampled_tie(label, got, want, prompt, kw, params, cfg, dev):
             prng.key(int(kw.get("seed", 0)), device=dev)[None].expand(n, 2),
             len(prompt) + torch.arange(n, device=dev))
         noise = prng.gumbel(keys, (V,))
-        keep = torch.isfinite(filter_logits(l32 / temp, k, 1.0))
-        err = torch.where(keep, (l16 - l32).abs() / temp, 0.0)
+        kept_k = torch.isfinite(filter_logits(l32 / temp, k, 1.0))
+        err = torch.where(kept_k, (l16 - l32).abs() / temp, 0.0)
         envelope = max(envelope, 2 * float(err.amax()) + GAP_ULP)
         if rows is None:  # the shared prefix: row i is the same in both
-            rows = (l32[i], noise[i], keep[i])
-    l32, noise, keep = rows
+            keep = torch.isfinite(filter_logits(l32[i] / temp, k, top_p))
+            rows = (l32[i], noise[i], kept_k[i], keep)
+    l32, noise, kept_k, keep = rows
     x, y = got[i], want[i]
     gap = abs(float((l32[x] - l32[y]) / temp + noise[x] - noise[y]))
-    edge = {}  # token: its f32 logit's distance from the filter's edge
+    edge = {}  # token: its f32 logit's distance from the top-k edge
     if k >= 1:
         top = l32.topk(k + 1).values
         for t in (x, y):
-            edge[t] = float(l32[t] - top[k] if keep[t] else top[k - 1]
+            edge[t] = float(l32[t] - top[k] if kept_k[t] else top[k - 1]
                             - l32[t])
-    held = gap <= envelope or any(d <= envelope * T for d in edge.values())
+    nucleus = {}  # token: (lo, hi) of its cumulative probability above it
+    if top_p < 1.0:
+        sc = (l32 / temp).double()
+        e = envelope
+        if k >= 1:
+            top_s = sc.topk(k + 1).values
+            may = sc >= top_s[k - 1] - e  # top-k may keep it
+            sure = sc > top_s[k] + e  # top-k keeps it on any route
+        else:
+            may = sure = torch.ones_like(sc, dtype=torch.bool)
+        w = torch.exp(sc - sc.max())
+        for t in (x, y):
+            here = torch.zeros_like(may)
+            here[t] = True
+            above_sure = float(w[sure & (sc > sc[t] + e)].sum())
+            above_may = float(w[may & (sc >= sc[t] - e) & ~here].sum())
+            z_max = float(w[may | here].sum())
+            z_min = float(w[sure | here].sum())
+            nucleus[t] = (above_sure / z_max * math.exp(-e),
+                          above_may / z_min * math.exp(e))
+    held = (gap <= envelope
+            or any(d <= envelope * T for d in edge.values())
+            or any(lo < top_p <= hi for lo, hi in nucleus.values()))
     print(f"{label} sampled divergence at output {i}: the two tokens' f32 "
           f"scores differ by {gap:.5f}, the largest allowance of the two "
           f"streams {envelope:.5f}; their f32 logits' distance from the "
           f"top-{k} edge (kept above the (k+1)-th, dropped below the k-th) "
           f"{ {t: round(d, 5) for t, d in edge.items()} }, kept "
-          f"{[bool(keep[t]) for t in (x, y)]}")
+          f"{[bool(keep[t]) for t in (x, y)]}"
+          + (f"; the mass ranked above each, as far as the envelope may "
+             f"move it, against top_p {top_p}: "
+             f"{ {t: (round(lo, 5), round(hi, 5)) for t, (lo, hi) in nucleus.items()} }"
+             if nucleus else ""))
     check(held, f"{label} a sampled stream leaves the other route's where "
           f"the sampler's f32 decision is not within the bf16 model's error")
     return i, gap, envelope
@@ -3801,6 +3956,429 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
     return launches
 
 
+# phase (34): the fleet router and the fleet plane
+FLEET_REQUESTS = 10_000  # (34a): fleet_storm_bench's requests
+FLEET_CHUNK = 256  # (34a): route_batch's batch, as the bench's
+FLEET_MIGRATE_NEW = 96  # (34b): new tokens of the re-routed session
+
+
+def fleet_plant(router, n_requests=FLEET_REQUESTS, n_replicas=100,
+                fps=None):
+    """``storm_plant``'s fleet (bench.py:fleet_storm_bench's) planted into
+    ``router`` through ``add_replica`` and ``update_replica`` with real
+    summaries. Returns the requests and the planted (dead, draining,
+    stale) name sets."""
+    replicas, requests, *masks = storm_plant(n_replicas, n_requests,
+                                             fps=fps)
+    for name, stats, age_s in replicas:
+        router.add_replica(name, f"http://{name}:8000")
+        router.update_replica(name, stats, age_s=age_s)
+    return requests, *({f"r{i:03d}" for i in m} for m in masks)
+
+
+def fleet_storm(dev, chk):
+    """(34a): fleet_storm_bench's decisions on ``FleetRouter(device=dev)``
+    (a SimulatedClock keeps the planted ages): the 10,000 requests by
+    ``route_batch(engine="solver")`` in chunks of 256 in the three modes,
+    every pick through ``chk``; the parity decisions equal to the
+    ``engine="python"`` decisions on every chunk (every field), the first
+    chunk's also to per-request ``route()``; the skip counters and the
+    replica gauge equal to the planted masks. Times: per-request us of
+    ``route_batch`` in each mode (chunk wall / chunk size, the match plane
+    included, p50 over chunks after the first) and of one ``route()``."""
+    from kubeinfer_tpu_torch.router import FleetRouter
+    from kubeinfer_tpu_torch.utils.clock import SimulatedClock
+
+    router = FleetRouter(clock=SimulatedClock(start=1000.0).now, device=dev)
+    requests, dead, draining, stale = fleet_plant(router)
+    chunks = [requests[i:i + FLEET_CHUNK]
+              for i in range(0, len(requests), FLEET_CHUNK)]
+    route_us, singles = [], []
+    for t in chunks[0]:
+        t0 = time.perf_counter()
+        singles.append(router.route(t))
+        route_us.append((time.perf_counter() - t0) * 1e6)
+    # a chunk's us: its wall time less the checks' (chk.check_s), so the
+    # plain pick and the compare of every launch stay out of the number;
+    # each launch still ends in a sync before its check
+    us, checked_us, decided, launches = {}, {}, {}, {}
+    for mode in ("parity", "greedy", "auction"):
+        n0, out, us[mode], checked_us[mode] = chk.launches, [], [], []
+        for c in chunks:
+            c0, t0 = chk.check_s, time.perf_counter()
+            out += router.route_batch(c, engine="solver", mode=mode)
+            wall = time.perf_counter() - t0
+            checked_us[mode].append(wall * 1e6 / len(c))
+            us[mode].append((wall - (chk.check_s - c0)) * 1e6 / len(c))
+        decided[mode], launches[mode] = out, chk.launches - n0
+    python_us, bad = [], []
+    for n, c in enumerate(chunks):
+        t0 = time.perf_counter()
+        py = router.route_batch(c, engine="python")
+        python_us.append((time.perf_counter() - t0) * 1e6 / len(c))
+        if py != decided["parity"][n * FLEET_CHUNK:(n + 1) * FLEET_CHUNK]:
+            bad.append(n)
+    check(not bad, f"(34a) parity decisions differ from the python "
+          f"engine's on chunks {bad}")
+    check(decided["parity"][:len(singles)] == singles,
+          "(34a) the first chunk's parity decisions differ from route()'s")
+    check(all(d is not None for ds in decided.values() for d in ds),
+          "(34a) a request left unrouted")
+    check(all(d.stale == (d.replica in stale) for ds in decided.values()
+              for d in ds), "(34a) a decision's stale flag")
+    n_decided = len(singles) + 4 * len(requests)
+    skipped = router.metrics["skipped"]
+    wrong = [(v.name, reason, skipped.value(v.name, reason))
+             for v in router.replicas()
+             for reason, want in (
+                 ("dead", n_decided if v.name in dead else 0),
+                 ("draining", n_decided if v.name in draining - dead
+                  else 0),
+                 ("breaker", 0), ("failed", 0))
+             if skipped.value(v.name, reason) != want]
+    check(not wrong, f"(34a) skip counters against the planted masks: "
+          f"{wrong[:6]}")
+    gauge = {state: router.metrics["replicas"].value(state)
+             for state in ("alive", "stale", "dead", "draining")}
+    n_stale = len(stale - dead - draining)
+    want_gauge = {"alive": 100 - len(dead | draining) - n_stale,
+                  "stale": n_stale, "dead": len(dead),
+                  "draining": len(draining - dead)}
+    check(gauge == want_gauge, f"(34a) replica gauge {gauge}, planted "
+          f"{want_gauge}")
+    routed = {m: router.metrics["solver_routed"].value(m)
+              for m in ("parity", "greedy", "auction", "python")}
+    check(all(n == len(requests) for n in routed.values()),
+          f"(34a) solver_routed {routed}")
+    p50 = {m: statistics.median(v[1:]) for m, v in us.items()}
+    checked_p50 = {m: statistics.median(v[1:]) for m, v in checked_us.items()}
+    route_p50 = statistics.median(route_us)
+    python_p50 = statistics.median(python_us[1:])
+    used = {m: len({d.replica for d in ds}) for m, ds in decided.items()}
+    hits = sum(not d.fallback for d in decided["parity"])
+    print(f"(34a) fleet_storm_bench's plant on FleetRouter(device="
+          f"{dev.type}): "
+          f"100 replicas ({len(dead)} dead, {len(draining - dead)} "
+          f"draining, {n_stale} stale), {len(requests)} requests in "
+          f"{len(chunks)} chunks of <= {FLEET_CHUNK}: parity decisions "
+          f"equal to the python engine's on every chunk and the first "
+          f"chunk's to route()'s (every field); skip counters and the "
+          f"replica gauge equal to the planted masks; route_pick launches "
+          f"{launches}, each bitwise equal to route_pick_plain; replicas "
+          f"used {used}; affinity hits {hits} of {len(requests)}")
+    print(f"(34a) per-request us of route_batch, match plane included, "
+          f"the checks' own time taken out, p50 over chunks "
+          f"2-{len(chunks)}: parity {p50['parity']:.2f}, "
+          f"greedy {p50['greedy']:.2f}, auction {p50['auction']:.2f} "
+          f"(with the checks {rounded(list(checked_p50.values()))}); "
+          f"engine='python' {python_p50:.2f}; one route() call p50 "
+          f"{route_p50:.2f} us (over the first chunk's {len(singles)})")
+    return {"route_batch_us_p50": p50, "route_batch_us": us,
+            "checked_us_p50": checked_p50, "checked_us": checked_us,
+            "python_us_p50": python_p50, "route_us_p50": route_p50,
+            "route_us": route_us, "launches": launches,
+            "replicas_used": used, "affinity_hits": hits,
+            "skip_gauge": gauge}
+
+
+def fleet_http(dev, srv, cont, dec_srv, dec):
+    """(34b): a RouterServer (storm window 20 ms) in front of r0 = ``srv``
+    and r1 = ``dec_srv``: affinity in fleet_routing_bench's shape, the
+    draining skip, a migration re-route and, on a second RouterServer,
+    the two-phase route. Returns (the numbers, the affinity router's
+    server, its router, the second server)."""
+    import threading
+
+    from kubeinfer_tpu_torch.router import FleetRouter, RouterServer
+
+    cfg, bs = cont.cfg, cont.block_size
+    V = cfg.vocab_size
+    ports = {"r0": srv.port, "r1": dec_srv.port}
+    router = FleetRouter(device=dev)
+    for name, port in ports.items():
+        router.add_replica(name, f"http://127.0.0.1:{port}")
+    rs = RouterServer(router, port=0, storm_window_s=0.02).start(poll=False)
+    router2 = FleetRouter(device=dev)
+    router2.add_replica("d", f"http://127.0.0.1:{dec_srv.port}")
+    router2.add_prefill_replica("p", f"http://127.0.0.1:{srv.port}")
+    rs2 = RouterServer(router2, port=0, prefill_threshold=256).start(
+        poll=False)
+    out, marks, t_mark = {}, {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    # affinity: 4 families of 256-token prefixes planted 2 a replica by
+    # direct posts, then 12 shuffled requests in two concurrent waves
+    rng = np.random.default_rng(17)
+    prefixes = [rng.integers(1, V, 256).tolist() for _ in range(4)]
+    home = {f: f"r{f % 2}" for f in range(4)}
+    for f, p in enumerate(prefixes):
+        post_json(ports[home[f]], dict(prompt=p, max_tokens=4))
+    check(rs.poll_once() == 2, "(34b) a replica did not answer the poll")
+    order = [f for f in range(4) for _ in range(3)]
+    rng.shuffle(order)
+    bodies = [dict(prompt=prefixes[f] + rng.integers(1, V, 8).tolist(),
+                   max_tokens=4) for f in order]
+    t0 = time.perf_counter()
+    docs = in_threads(lambda b: post_json(rs.port, b), bodies[:6])
+    docs += in_threads(lambda b: post_json(rs.port, b), bodies[6:])
+    out["affinity_s"] = time.perf_counter() - t0
+    mark("plant and route")
+    got = [(d["kubeinfer"]["replica"], d["kubeinfer"]["match_blocks"])
+           for d in docs]
+    want = [(home[f], 256 // bs) for f in order]
+    check(got == want, f"(34b) replica and match_blocks {got}, planted "
+          f"{want}")
+    check(router.affinity_hit_rate == 1.0,
+          f"(34b) affinity hit rate {router.affinity_hit_rate}")
+    storm = router.metrics["solver_routed"].value("parity")
+    check(storm == len(bodies), f"(34b) {storm} of {len(bodies)} first "
+          "placements took the storm solve")
+    direct = [post_json(ports[r], b)["choices"][0]["tokens"]
+              for (r, _), b in zip(got, bodies)]
+    check([d["choices"][0]["tokens"] for d in docs] == direct,
+          "(34b) a routed completion differs from a direct post of its "
+          "body to the chosen replica")
+    out["ttft_ms"] = [d["kubeinfer"]["ttft_ms"] for d in docs]
+    mark("direct posts")
+
+    # the draining skip: r1 drained and polled, 4 of its families' requests
+    dec.drain()
+    check(rs.poll_once() == 2, "(34b) a replica did not answer the poll")
+    skip0 = router.metrics["skipped"].value("r1", "draining")
+    drain_ms, to = [], []
+    r1_fams = [f for f in range(4) if home[f] == "r1"]
+    for n in range(4):
+        body = dict(prompt=prefixes[r1_fams[n % 2]]
+                    + rng.integers(1, V, 8).tolist(), max_tokens=4)
+        t0 = time.perf_counter()
+        to.append(post_json(rs.port, body)["kubeinfer"]["replica"])
+        drain_ms.append((time.perf_counter() - t0) * 1e3)
+    skips = router.metrics["skipped"].value("r1", "draining") - skip0
+    dec.undrain()
+    check(rs.poll_once() == 2, "(34b) a replica did not answer the poll")
+    check(to == ["r0"] * 4 and skips == 4, f"(34b) during r1's drain the "
+          f"requests went to {to}, skipped{{r1, draining}} grew by {skips}")
+    out["draining_ms"] = drain_ms
+    mark("draining skip")
+
+    # migration re-route: the session lands on r0 (both idle, no match:
+    # the lower name), r0 drains mid-stream, the router resumes it on r1
+    mig = dict(prompt=rng.integers(1, V, 600).tolist(),
+               max_tokens=FLEET_MIGRATE_NEW)
+    res, imp0, res0 = {}, dec.imports_total, \
+        router.metrics["migration_resumes"].value("r1")
+    th = threading.Thread(target=lambda: res.update(
+        doc=post_json(rs.port, mig)), daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    wait_until(lambda: any(r is not None and len(r.out_tokens) >= 16
+                           for r in cont._slot_req),
+               "the routed session decoding on r0")
+    status, report, _ = post_path(srv.port, "/admin/drain", {},
+                                  token=OBSERVE_TOKEN)
+    th.join(300)
+    out["migrate_s"] = time.perf_counter() - t0
+    status2, _, _ = post_path(srv.port, "/admin/drain", {"resume": True},
+                              token=OBSERVE_TOKEN)
+    check(status == 200 and status2 == 200 and report.get("migrated") == 1,
+          f"(34b) the drain of r0 answered {status} {report}")
+    doc = res.get("doc") or {}
+    ext = doc.get("kubeinfer", {})
+    full = doc["choices"][0]["tokens"]
+    check(ext.get("replica") == "r1" and ext.get("resume_hops") == 1
+          and doc["choices"][0]["finish_reason"] == "length"
+          and len(full) == FLEET_MIGRATE_NEW
+          and dec.imports_total > imp0
+          and router.metrics["migration_resumes"].value("r1") == res0 + 1,
+          f"(34b) the re-routed session: {ext}, "
+          f"{doc['choices'][0]['finish_reason']}, {len(full)} tokens")
+    mark("migration")
+    ref = post_json(dec_srv.port, mig)["choices"][0]["tokens"]
+    mark("undrained run")
+    out["migrate_divergences"] = held_pairs(
+        "(34b) the re-routed session against an undrained run:", [full],
+        [ref], [(mig["prompt"], {})], cont.params, cfg, dev)
+    mark("near-tie")
+
+    # the two-phase route: 600 tokens, prefill on srv, decode on dec
+    check(rs2.poll_once() == 2, "(34b) a replica did not answer the poll")
+    two = dict(prompt=rng.integers(1, V, 600).tolist(), max_tokens=16)
+    imp0 = dec.imports_total
+    t0 = time.perf_counter()
+    doc = post_json(rs2.port, two)
+    out["two_phase_ms"] = (time.perf_counter() - t0) * 1e3
+    check(doc["kubeinfer"]["replica"] == "d"
+          and dec.imports_total - imp0 == 1
+          and router2.metrics["prefill_routed"].value("p") == 1
+          and not router2.metrics["disagg_fallbacks"].value(
+              "prefill_unreachable"),
+          f"(34b) two-phase: {doc['kubeinfer']}, imports "
+          f"{dec.imports_total - imp0}")
+    # held as (30a) holds an imported stream: bitwise a warm admit's over
+    # the same pages (the prefill replica's own, which it exported)
+    warm = post_json(srv.port, two)["choices"][0]["tokens"]
+    check(doc["choices"][0]["tokens"] == warm, "(34b) the two-phase stream "
+          "differs from a warm admit's on the prefill replica")
+    out["two_phase_ttft_ms"] = doc["kubeinfer"]["ttft_ms"]
+    mark("two-phase")
+    out["split_s"] = marks
+    return out, rs, router, rs2
+
+
+def fleet_plane(rs, cont, dec, V):
+    """(34c): a Poisson schedule (seed 29, 12 requests at 2 req/s,
+    fleet_envelope_bench's length families) replayed open-loop through
+    the affinity router's ``forward``, a FleetView on both replicas'
+    profiler and flight rings, the ledgers over tracing.RECORDER."""
+    from kubeinfer_tpu_torch.observability import fleetview, loadgen, tracing
+
+    sched = loadgen.make_schedule("poisson", rate=2.0, n_requests=12,
+                                  seed=29, long_frac=0.1, long_new=16,
+                                  short_new=4)
+    fv = fleetview.FleetView()
+    fv.register("r0", cont)
+    fv.register("r1", dec)
+    drains = [fv.drain()]  # the rings' history before the replay
+
+    def post(body):
+        code, payload = rs.forward(json.dumps(body).encode())
+        if code != 200:
+            raise RuntimeError(f"HTTP {code}: {payload[:200]!r}")
+        return json.loads(payload)
+
+    def on_dispatch():
+        # the views age out (dead past 30 s) without the poller thread:
+        # refresh them on every arrival, as fleet_envelope_bench does
+        rs.poll_once()
+        drains.append(fv.drain())
+
+    check(rs.poll_once() == 2, "(34c) a replica did not answer the poll")
+    tracing.RECORDER.clear()
+    res = loadgen.replay(sched, post, V, max_workers=16,
+                         on_dispatch=on_dispatch)
+    drains.append(fv.drain())
+    check(fv.drain() == {"r0": (0, 0), "r1": (0, 0)},
+          "(34c) a drain after the last found records again")
+    for name in ("r0", "r1"):
+        for what, recs, col in (("steps", fv.steps(name), 0),
+                                ("flights", fv.flights(name), 1)):
+            seqs = [r.seq for r in recs]
+            check(seqs == list(range(seqs[0], seqs[0] + len(seqs)))
+                  and sum(d[name][col] for d in drains) == len(seqs),
+                  f"(34c) {name}'s {what} not drained exactly once")
+    check(res.errors() == 0 and len(res.completed()) == 12,
+          f"(34c) {res.errors()} errors, {len(res.completed())} completed: "
+          f"{sorted({r.error for r in res.records if not r.ok})}")
+    ledgers = fleetview.build_ledgers(tracing.RECORDER.snapshot())
+    check(len(ledgers) == 12 and {led.trace_id for led in ledgers}
+          == {r.trace_id for r in res.records},
+          f"(34c) {len(ledgers)} ledgers for 12 requests")
+    worst = max(abs(sum(led.phase_s.values()) + led.other_s - led.e2e_s)
+                * 1e3 for led in ledgers)
+    check(worst <= 1e-6, f"(34c) a ledger's phases sum {worst} ms off its "
+          "end to end")
+    tail = fleetview.tail_attribution(ledgers)
+    check(bool(tail["by_phase"]) and bool(tail["by_replica"]),
+          f"(34c) tail attribution {tail}")
+    point = fleetview.envelope_point(sched.offered_req_per_s(), res)
+    return {"ttft_ms_p50": res.ttft_ms_percentile(50.0),
+            "ttft_ms_p99": res.ttft_ms_percentile(99.0),
+            "ledgers": len(ledgers), "worst_sum_ms": worst, "tail": tail,
+            "envelope_point": point.to_dict(),
+            "steps": {n: len(fv.steps(n)) for n in ("r0", "r1")},
+            "flights": {n: len(fv.flights(n)) for n in ("r0", "r1")},
+            "checksum": sched.checksum(), "late": res.late_dispatches}
+
+
+def fleet_phase(dev, record, card, srv, cont, dec_srv, dec):
+    """Phase (34): the fleet router and the fleet plane on the bf16 server
+    of (13) (r0) and (30a)'s decode replica (r1), inside ``disagg_phase``'s
+    ``then`` after (31b): (34a) ``fleet_storm``, (34b) ``fleet_http``,
+    (34c) ``fleet_plane``. Every ``kernels.route_pick`` call goes through
+    ``CheckedPick`` (bitwise against ``route_pick_plain``), every #11 call
+    through ``attention_check``; both counts must be above 0. Leaves
+    ``srv`` undrained. Returns the launch counts."""
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.solver import kernels
+
+    t_phase = time.perf_counter()
+    marks, t_mark = {}, [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    chk = CheckedPick(kernels)
+    chk11 = attention_check(fa, False)
+    orig = kernels.route_pick
+    kernels.route_pick = chk
+    rs = rs2 = None
+    try:
+        with chk11:
+            try:
+                storm = fleet_storm(dev, chk)
+                mark("(34a)")
+                http, rs, router, rs2 = fleet_http(dev, srv, cont, dec_srv,
+                                                   dec)
+                mark("(34b)")
+                plane = fleet_plane(rs, cont, dec, cont.cfg.vocab_size)
+                mark("(34c)")
+            finally:
+                check(chk11.error is None, str(chk11.error))
+    finally:
+        kernels.route_pick = orig
+        for server in (rs, rs2):
+            if server is not None:
+                server.stop()
+    launches = {"route_pick": chk.launches,
+                "decode_attention_blocks": chk11.launches}
+    check(chk.launches > 0 and chk11.launches > 0
+          and chk11.launches == chk11.calls,
+          f"(34) launches {launches}, #11 calls {chk11.calls}")
+    walk = chk11.walk_check("(34)")[0]
+    p50 = statistics.median
+    print(f"(34b) {card}: over HTTP in front of r0 (the (13) server) and r1 "
+          f"((30a)'s decode replica), storm window 20 ms: 12 affinity "
+          f"requests (4 families of 256 + 8 tokens, 2 waves of 6) all on "
+          f"their family's replica with 2 blocks matched, hit rate 1.0, "
+          f"all 12 through the storm solve, tokens equal to direct posts "
+          f"(TTFT p50 {p50(http['ttft_ms']):.2f} ms); during r1's drain 4 "
+          f"requests skipped it for r0, {rounded(http['draining_ms'])} ms "
+          f"each; a {FLEET_MIGRATE_NEW}-token session drained on r0 "
+          f"mid-stream and finished on r1 ({http['migrate_s']:.2f} s, "
+          f"divergences from an undrained run "
+          f"{http['migrate_divergences']}); a 600-token two-phase request "
+          f"{http['two_phase_ms']:.1f} ms (TTFT {http['two_phase_ttft_ms']:.2f}"
+          f" ms), one import, its stream bitwise a warm admit's")
+    print(f"(34c) {card}: 12 Poisson requests at 2 req/s (seed 29) replayed "
+          f"open-loop through the router: TTFT p50 "
+          f"{plane['ttft_ms_p50']:.2f} ms, p99 {plane['ttft_ms_p99']:.2f} ms; "
+          f"{plane['ledgers']} ledgers, phases + residual within "
+          f"{plane['worst_sum_ms']:.2e} ms of end to end; tail "
+          f"{plane['tail']['by_phase']} on {plane['tail']['by_replica']}; "
+          f"drained exactly once (steps {plane['steps']}, flight events "
+          f"{plane['flights']}); envelope point {plane['envelope_point']}")
+    print(f"(34) route_pick: {chk.calls} calls bitwise equal to "
+          f"route_pick_plain; #11: {chk11.calls} calls within tolerance, "
+          f"max |kernel - plain| {chk11.max_err:.3e}, live splits {walk}; "
+          f"launches {launches}")
+    record["fleet"] = {"storm": storm, "http": http, "plane": plane,
+                       "launches": launches, "pick_calls": chk.calls,
+                       "max_err_11": chk11.max_err, "split_walk": walk,
+                       "split_s": marks}
+    record.setdefault("phase_s", {})["(34)"] = time.perf_counter() - t_phase
+    print(f"(34) seconds: {rounded(list(marks.values()))} "
+          f"({', '.join(marks)}); (34b) "
+          f"{rounded(list(http['split_s'].values()))} "
+          f"({', '.join(http['split_s'])})")
+    return launches
+
+
 # phase (32): /metrics and the debug endpoints on the instrumented servers
 OBSERVE_NEW = 33  # new tokens of each (32) request: windows of 4 and 8
 
@@ -3921,7 +4499,8 @@ def observe_phase(dev, record, card, srv, cont):
         check(not off, f"{label} flight events against the engine: {off}")
 
     # the burst, every #11 (#12) call checked and counted; #15, held on
-    # this server's calls in [17], [18], (30b) and (31c), is counted here
+    # this server's calls in [17] and [18] and on its cut's in (30b) and
+    # (31c), is counted here
     chk = attention_check(fa, int8)
     qmm0 = (wq.quant_matmul.launches, wq.quant_matmul.tc_launches)
     answers = []  # (status, body) of every completion
@@ -4952,15 +5531,25 @@ def int8_phases(dev, record, card):
                                tag="[20]"),
                    time_qmm(dev, wq, chk15, card, counts,
                             engine.params["layers"][0], record)]
-    # (30b) disaggregated prefill and decode on the int8 server; (31c)
-    # drains it onto (30b)'s decode replica
+    # (30b) disaggregated prefill and decode on the int8 server's first
+    # SPEC_INT8_LAYERS layers (a second server on its tensors: the whole
+    # run keeps inside its time limit with (34) added); (31c) drains it
+    # onto (30b)'s decode replica
     migrate = {}
     try:
-        launches = disagg_phase(
-            dev, record, card, srv, cont,
-            then=lambda dec_srv, dec: migrate.update(migrate_phase(
-                dev, record, card, srv, cont, dec_srv, dec)))
-        # (32b) on this server, after (31c)
+        cut_srv, cut = cut_server(dev, srv, cont, SPEC_INT8_LAYERS)
+        try:
+            launches = disagg_phase(
+                dev, record, card, cut_srv, cut,
+                then=lambda dec_srv, dec: migrate.update(migrate_phase(
+                    dev, record, card, cut_srv, cut, dec_srv, dec)))
+        finally:
+            cut_srv.stop()
+            cut.stop()
+        del cut_srv, cut
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (32b) on the full-depth server
         observe = observe_phase(dev, record, card, srv, cont)
     finally:
         srv.stop()
@@ -5556,8 +6145,8 @@ def train_card_vs_cpu(dev, record):
     layers, tokens [2, 513], on the card (the flash route: #13, #14) and
     on the CPU (the dense route): the loss within 1e-5 relative and
     every gradient leaf within 1e-4 of its largest |value| (two routes,
-    sums in another order); then 8 steps at lr 5e-2 on each side, which
-    must lower the loss on both."""
+    sums in another order); then TRAIN_CHECK_STEPS steps at lr 5e-2 on
+    each side, which must lower the loss on both."""
     import dataclasses
 
     import torch
@@ -5603,7 +6192,7 @@ def train_card_vs_cpu(dev, record):
     for side, (params, tk) in sides.items():
         curve = []
         t0 = time.perf_counter()
-        for _ in range(8):
+        for _ in range(TRAIN_CHECK_STEPS):
             _, loss = train.train_step(params, tk, cfg, lr=5e-2)
             curve.append(float(loss))
         curves[side] = curve
@@ -5613,7 +6202,8 @@ def train_card_vs_cpu(dev, record):
           f"[2, 513]: loss "
           f"card (flash route) {lc:.6f}, CPU (dense route) {lh:.6f} (rel "
           f"{rel_loss:.2e}); gradients within {worst:.2e} of each leaf's "
-          f"largest value; 8 steps at lr 5e-2: card {curves['card']}, CPU "
+          f"largest value; {TRAIN_CHECK_STEPS} steps at lr 5e-2: card "
+          f"{curves['card']}, CPU "
           f"{curves['cpu']} (host {out['cpu_s'] + out['cpu_steps_s']:.1f} s)")
     record["train_card_vs_cpu"] = {"loss_card": lc, "loss_cpu": lh,
                                    "rel_loss": rel_loss,
@@ -6782,7 +7372,8 @@ def spec_card_vs_cpu(dev, record, kv_dtype):
                                 weight_dtype=kv_dtype, spec_draft=(d, dcfg),
                                 spec_k=4, device=device).start()
         try:
-            out = in_threads(lambda i: cont.generate(prompts[i], 20,
+            out = in_threads(lambda i: cont.generate(prompts[i],
+                                                     SPEC_CHECK_NEW,
                                                      **kws[i]), [0, 1])
         finally:
             cont.stop()
@@ -7032,9 +7623,8 @@ def checkpoint_phase(dev, record, cfg, root):
 def agent_bodies(V, long=True):
     """The bodies of (14): 4 greedy 512-token prompts (two share 256
     tokens) and 1 sampled, 64 new; with ``long`` a 4100-token prompt (16
-    new) for the engine route. The sampled body keeps top_p at 1 (where
-    (14) has 0.9): [25]'s near-tie rule for a sampled stream
-    (``sampled_tie``) judges the top-k filter only."""
+    new) for the engine route. The sampled body is (14)'s (top_k 50,
+    top_p 0.9): ``sampled_tie`` judges both filters' edges."""
     rng = np.random.default_rng(33)
     shared = rng.integers(1, V, 256).tolist()
     bodies = [dict(prompt=shared + rng.integers(1, V, 256).tolist(),
@@ -7042,7 +7632,7 @@ def agent_bodies(V, long=True):
     bodies += [dict(prompt=rng.integers(1, V, 512).tolist(), max_tokens=64)
                for _ in range(2)]
     bodies.append(dict(prompt=rng.integers(1, V, 512).tolist(),
-                       max_tokens=64, temperature=0.8, top_k=50, top_p=1.0,
+                       max_tokens=64, temperature=0.8, top_k=50, top_p=0.9,
                        seed=7))
     if long:
         bodies.append(dict(prompt=rng.integers(1, V, 4100).tolist(),
@@ -7800,6 +8390,8 @@ def main(placement_only=False) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         agent_launches = phase("[33]", agent_phase, dev, record, card)
+        route_entry["fleet_launches"] = record["fleet"]["launches"][
+            "route_pick"]
     for name, sec in phase_s.items():
         print(f"[s] {name}: {sec:.1f} s")
 
@@ -8072,6 +8664,49 @@ def migrate_probe() -> int:
     return 0
 
 
+def fleet_probe() -> int:
+    """``--fleet``: phase (34) alone (card only): builds the route pick and
+    decode libraries, then the bf16 server of (13) with a decode replica
+    beside it, and runs ``fleet_phase`` over both."""
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+    from kubeinfer_tpu_torch.inference import server
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["route_pick", "decode_split"])
+    record = {"card": card}
+    srv, cont = server.build_server(
+        ["--model", "llama-3-8b", "--random-init", "--port", "0", "--host",
+         "127.0.0.1", "--batch-slots", "8", *observe_flags()])
+    cont.start()
+    srv.start()
+    try:
+        dec_srv, dec = decode_replica(dev, srv, cont)
+        try:
+            fleet_phase(dev, record, card, srv, cont, dec_srv, dec)
+        finally:
+            dec_srv.stop()
+            dec.stop()
+    finally:
+        srv.stop()
+        cont.stop()
+    del srv, cont
+    gc.collect()
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "fleet_probe.json").write_text(json.dumps(record, indent=1))
+    print(record["phase_s"])
+    print(card)
+    return 0
+
+
 def observe_probe() -> int:
     """``--observe``: phase (32) alone (card only): builds the decode and
     #15 libraries, then the bf16 server of (13) and the int8 server of
@@ -8149,6 +8784,8 @@ if __name__ == "__main__":
         sys.exit(disagg_probe())
     if sys.argv[1:2] == ["--migrate"]:
         sys.exit(migrate_probe())
+    if sys.argv[1:2] == ["--fleet"]:
+        sys.exit(fleet_probe())
     if sys.argv[1:2] == ["--tie-probe"]:
         sys.exit(tie_probe([int(a) for a in sys.argv[2:]] or [25]))
     if sys.argv[1:2] == ["--qmm"]:

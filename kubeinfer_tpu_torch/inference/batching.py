@@ -2050,7 +2050,11 @@ class ContinuousEngine:
                 busy = any(r is not None for r in self._slot_req)
                 idle = (not busy and self._spec_group is None
                         and not self._parked)
-                have_holdover = bool(self._holdover)
+                # plans staged during the window that retired every live
+                # row are pending work too: blocking on the queue would
+                # leave them waiting for the next arrival (the reference
+                # does, kubeinfer_tpu/inference/batching.py:2815)
+                have_holdover = bool(self._holdover) or bool(self._staged)
             if idle:
                 if self._draining:
                     # the drain sweeps the queue itself and flips _drained

@@ -1,10 +1,14 @@
 """Request-scoped observability: tracing, trace-context propagation,
 Chrome trace export, step-level engine profiling (``stepprof.py``), the
 scheduler flight recorder (``flightrecorder.py``) and SLO burn-rate
-monitoring (``slo.py``): copies of ``kubeinfer_tpu/observability``'s
-modules of the same names. The fleet plane (``loadgen``, ``fleetview``
-and the package's ``__main__``) is not ported: its only consumer is the
-fleet bench."""
+monitoring (``slo.py``), and the fleet plane: trace-driven load
+generation (``loadgen.py``) and cross-replica request ledgers, merged
+traces and envelope analytics (``fleetview.py``); copies of
+``kubeinfer_tpu/observability``'s modules of the same names. As in the
+reference, ``loadgen`` and ``fleetview`` are not re-exported from the
+package root: import the submodules. ``python -m
+kubeinfer_tpu_torch.observability`` writes one traced request's Chrome
+trace (``__main__.py``)."""
 
 from kubeinfer_tpu_torch.observability.tracing import (
     RECORDER,

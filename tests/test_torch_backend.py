@@ -227,7 +227,13 @@ def test_import_loads_no_jax_and_no_reference_module():
         "kubeinfer_tpu_torch.router.scoring, kubeinfer_tpu_torch.utils, "
         "kubeinfer_tpu_torch.utils.httpbase, kubeinfer_tpu_torch.agent, "
         "kubeinfer_tpu_torch.agent.__main__, kubeinfer_tpu_torch.ctl, "
-        "kubeinfer_tpu_torch.inference.checkpoint\n"
+        "kubeinfer_tpu_torch.inference.checkpoint, "
+        "kubeinfer_tpu_torch.router, kubeinfer_tpu_torch.router.core, "
+        "kubeinfer_tpu_torch.router.server, "
+        "kubeinfer_tpu_torch.router.__main__, "
+        "kubeinfer_tpu_torch.observability.loadgen, "
+        "kubeinfer_tpu_torch.observability.fleetview, "
+        "kubeinfer_tpu_torch.observability.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubeinfer_tpu', 'ml_dtypes', 'safetensors')]\n"
         "print(','.join(bad))\n"

@@ -209,3 +209,27 @@ def test_threads_submitting_together(params):
     st = eng.kv_cache_stats()
     assert st["hits"] + st["misses"] == 8
     assert st["blocks_in_use"] == st["nodes"]
+
+
+def test_request_planned_in_the_last_window_is_admitted(params):
+    """A request that arrives while the last live row's final window is in
+    flight is planned (staged) in that window; once the row retires, the
+    idle scheduler admits it without waiting for another arrival."""
+    _, tp = params
+    late = []
+
+    class Late(TC):
+        def _plan_admissions(self):
+            if not late and any(r is not None for r in self._slot_req):
+                late.append(self.submit([7, 8, 9], 3))
+            super()._plan_admissions()
+
+    eng = Late(tp, TP["tiny"], n_slots=2, cache_len=64, block_size=16,
+               device="cpu").start()
+    try:
+        first = eng.serve([1, 2, 3, 4], 3, timeout=60)
+        assert len(first.out_tokens) == 3 and late
+        assert late[0].done.wait(10), "the staged request was not admitted"
+        assert not late[0].failed and len(late[0].out_tokens) == 3
+    finally:
+        eng.stop()
