@@ -337,8 +337,10 @@ times them. Phases:
       and the in-process #9-#12 and #15 gain ``agent_launches`` in the
       kernels line;
   (34) the fleet router and the fleet plane (``fleet_phase``), inside
-      (30a)'s ``then`` after (31b), on the server of (13) (r0) and (30a)'s
-      decode replica (r1); every ``kernels.route_pick`` call through
+      (30a)'s ``then`` after (31b), on two replicas over the first 8
+      layers of (13)'s weights (``fleet_on_cut``: ``cut_server`` (r0) and
+      a decode replica beside it (r1), as (30b) and (31c));
+      every ``kernels.route_pick`` call through
       ``CheckedPick`` (bitwise), every #11 call through
       ``attention_check``. (34a) bench.py:fleet_storm_bench's plant (100
       replicas, 4 draining, 4 stale, 2 dead; 32 families of 8 blocks of
@@ -356,7 +358,7 @@ times them. Phases:
       prefix's full blocks matched, hit rate 1.0, all 12 through the storm
       solve, tokens equal to a direct post to the chosen replica; r1
       drained and polled: 4 requests of its families go to r0,
-      skipped{r1, draining} up by 4; a 96-token session routed to r0,
+      skipped{r1, draining} up by 4; a 48-token session routed to r0,
       drained mid-stream and resumed on r1 through kubeinfer_resume, its
       stream equal to an undrained run up to (25)'s rule; a second
       RouterServer (decode r1, prefill r0, threshold 256): a 600-token
@@ -368,6 +370,22 @@ times them. Phases:
       its end to end, tail attribution naming a phase and a replica;
       TTFT p50/p99 and an envelope point. route_pick and #11 gain
       ``fleet_launches`` in the kernels line;
+  (35) tensor parallelism on one card (``tp_phase``): llama-3-8b at full
+      width cut to 8 layers (``init_params(seed=0)``), the tp ranks
+      repeated ``cuda:0`` devices. (35a) the bf16 ``ContinuousEngine`` at
+      tp=1 and tp=2 on 4 greedy and 1 sampled 512-token prompts (32 new):
+      tp=2 equal to tp=1 up to (25)'s near-tie rule, every #11 call held
+      to its plain version on its shard and tallied by rank; decode ms a
+      token a slot at both. (35b) the same on the int8 pool and weights,
+      #12 and every #15 call held, #15's device time at each shard shape
+      beside the whole one. (35c) tp=8 (one KV head a rank), a 16-token
+      prompt. (35d) ``build_server([... "--tensor-parallel-size", "2",
+      "--draft-model", ..., "--speculative-draft"], mesh=...)`` over HTTP:
+      a verify-window request (#11 at T = 5 a rank) and an 8180-token
+      engine-route request (#9 and #10 a rank), both against tp=1, every
+      call held; the tp gauges read 2; on one card a tp=2 server without a
+      mesh raises. #9-#12 and #15 gain ``tp_launches`` in the kernels
+      line;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -384,7 +402,8 @@ placement p50s of (4), (7) and (11) alone. ``--disagg`` runs (30a) and
 (chiprun_out/migrate_probe.json); ``--observe`` runs (32) alone on fresh
 servers (chiprun_out/observe_probe.json); ``--agent`` runs (33) alone
 (chiprun_out/agent_probe.json); ``--fleet`` runs (34) alone on the
-server of (13) and a decode replica (chiprun_out/fleet_probe.json).
+server of (13) and a decode replica (chiprun_out/fleet_probe.json);
+``--tp`` runs (35) alone (chiprun_out/tp_probe.json).
 """
 
 from __future__ import annotations
@@ -2245,6 +2264,9 @@ class CheckedAttention:
         self.max_err = 0.0
         self.heaviest = None
         self.error = None  # a failure on the scheduler thread, kept here
+        # (35): {data_ptr of a tp rank's pool piece: rank}; the calls are
+        # then tallied by the rank whose pool they read
+        self.ranks, self.per_rank = None, collections.Counter()
 
     def __enter__(self):
         setattr(self.fa, self.name, self)
@@ -2262,6 +2284,8 @@ class CheckedAttention:
         return got, want
 
     def __call__(self, *args):
+        if self.ranks is not None:
+            self.per_rank[self.ranks.get(args[1].data_ptr(), -1)] += 1
         if self.walk:
             import torch
 
@@ -2784,15 +2808,15 @@ def serving_phases(dev, record, card):
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     # (30a) disaggregated prefill and decode, this server the prefill side;
-    # (31b) drains it onto (30a)'s decode replica; (34) routes over both;
+    # (31b) drains it onto (30a)'s decode replica; (34) routes over two
+    # replicas on this server's first SPEC_INT8_LAYERS layers;
     # (31a) preempts on its parameter tensors
     migrate, fleet = {}, {}
 
     def then(dec_srv, dec):
         migrate.update(migrate_phase(dev, record, card, srv, cont, dec_srv,
                                      dec))
-        fleet.update(fleet_phase(dev, record, card, srv, cont, dec_srv,
-                                 dec))
+        fleet.update(fleet_on_cut(dev, record, card, srv, cont))
 
     try:
         launches = disagg_phase(dev, record, card, srv, cont, then=then)
@@ -2817,7 +2841,7 @@ def serving_phases(dev, record, card):
     return entries
 
 
-DISAGG_NEW = 64  # new tokens of each decode-replica request in (30)
+DISAGG_NEW = 48  # new tokens of each decode-replica request in (30)
 
 
 def pool_blocks(cont, tokens):
@@ -3959,7 +3983,7 @@ def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
 # phase (34): the fleet router and the fleet plane
 FLEET_REQUESTS = 10_000  # (34a): fleet_storm_bench's requests
 FLEET_CHUNK = 256  # (34a): route_batch's batch, as the bench's
-FLEET_MIGRATE_NEW = 96  # (34b): new tokens of the re-routed session
+FLEET_MIGRATE_NEW = 48  # (34b): new tokens of the re-routed session
 
 
 def fleet_plant(router, n_requests=FLEET_REQUESTS, n_replicas=100,
@@ -4294,10 +4318,28 @@ def fleet_plane(rs, cont, dec, V):
             "checksum": sched.checksum(), "late": res.late_dispatches}
 
 
+def fleet_on_cut(dev, record, card, srv, cont):
+    """(34) on ``cut_server``'s replica of ``srv`` over the first
+    SPEC_INT8_LAYERS layers of ``cont``'s parameter tensors (r0) and a
+    decode replica beside it (r1): its checked #11 paces it, so the depth
+    is cut, as (30b) and (31c)'s. Returns ``fleet_phase``'s launches."""
+    csrv, ccont = cut_server(dev, srv, cont, SPEC_INT8_LAYERS)
+    try:
+        dec_srv, dec = decode_replica(dev, csrv, ccont)
+        try:
+            return fleet_phase(dev, record, card, csrv, ccont, dec_srv, dec)
+        finally:
+            dec_srv.stop()
+            dec.stop()
+    finally:
+        csrv.stop()
+        ccont.stop()
+
+
 def fleet_phase(dev, record, card, srv, cont, dec_srv, dec):
-    """Phase (34): the fleet router and the fleet plane on the bf16 server
-    of (13) (r0) and (30a)'s decode replica (r1), inside ``disagg_phase``'s
-    ``then`` after (31b): (34a) ``fleet_storm``, (34b) ``fleet_http``,
+    """Phase (34): the fleet router and the fleet plane on two bf16
+    replicas (r0, r1; ``fleet_on_cut``: (13)'s weights at SPEC_INT8_LAYERS
+    layers), inside ``disagg_phase``'s ``then`` after (31b): (34a) ``fleet_storm``, (34b) ``fleet_http``,
     (34c) ``fleet_plane``. Every ``kernels.route_pick`` call goes through
     ``CheckedPick`` (bitwise against ``route_pick_plain``), every #11 call
     through ``attention_check``; both counts must be above 0. Leaves
@@ -4342,8 +4384,9 @@ def fleet_phase(dev, record, card, srv, cont, dec_srv, dec):
           f"(34) launches {launches}, #11 calls {chk11.calls}")
     walk = chk11.walk_check("(34)")[0]
     p50 = statistics.median
-    print(f"(34b) {card}: over HTTP in front of r0 (the (13) server) and r1 "
-          f"((30a)'s decode replica), storm window 20 ms: 12 affinity "
+    print(f"(34b) {card}: over HTTP in front of r0 and r1 ((13)'s weights "
+          f"at {cont.cfg.num_hidden_layers} layers), storm window 20 ms: 12 "
+          f"affinity "
           f"requests (4 families of 256 + 8 tokens, 2 waves of 6) all on "
           f"their family's replica with 2 blocks matched, hit rate 1.0, "
           f"all 12 through the storm solve, tokens equal to direct posts "
@@ -5197,6 +5240,10 @@ class CheckedMatmul:
         self.heaviest = None
         self.error = None
         self.pending = []  # (err, ok, x shape, qw shape) not yet read back
+        # (35): {data_ptr of a tp rank's int8 codes: rank}; the calls are
+        # then tallied by rank and by (M, K, N)
+        self.ranks, self.per_rank = None, collections.Counter()
+        self.shapes = collections.Counter()
 
     def __enter__(self):
         self.wq.quant_matmul = self
@@ -5229,6 +5276,9 @@ class CheckedMatmul:
 
         route = ("tc" if self.wq.qmm_route(x, qw) else
                  "f32" if x.dtype == torch.float32 else "mma")
+        if self.ranks is not None:
+            self.per_rank[self.ranks.get(qw.data_ptr(), -1)] += 1
+            self.shapes[(x.numel() // x.shape[-1], *qw.shape)] += 1
         got = self.kernel(x, qw, scale)
         err, ok = matmul_err(got, self.plain_of(x, qw, scale))
         self.pending.append((err, ok, tuple(x.shape), tuple(qw.shape)))
@@ -8378,7 +8428,7 @@ def main(placement_only=False) -> int:
     auction_entry["tick_launches"] = tick_launches["auction_solve"]
     route_entry["tick_launches"] = tick_launches["route_pick"]
     serve_entries = int8_entries = train_entries = mask_entry = []
-    agent_launches = {}
+    agent_launches = tp_launches = {}
     if not placement_only:
         serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
         int8_entries = phase("[17]-[20]", int8_phases, dev, record, card)
@@ -8392,6 +8442,9 @@ def main(placement_only=False) -> int:
         agent_launches = phase("[33]", agent_phase, dev, record, card)
         route_entry["fleet_launches"] = record["fleet"]["launches"][
             "route_pick"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_launches = phase("(35)", tp_phase, dev, record, card)
     for name, sec in phase_s.items():
         print(f"[s] {name}: {sec:.1f} s")
 
@@ -8417,6 +8470,8 @@ def main(placement_only=False) -> int:
     for entry in kline["kernels"]:
         if entry["name"] in agent_launches:
             entry["agent_launches"] = agent_launches[entry["name"]]
+        if entry["name"] in tp_launches:
+            entry["tp_launches"] = tp_launches[entry["name"]]
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -8666,8 +8721,8 @@ def migrate_probe() -> int:
 
 def fleet_probe() -> int:
     """``--fleet``: phase (34) alone (card only): builds the route pick and
-    decode libraries, then the bf16 server of (13) with a decode replica
-    beside it, and runs ``fleet_phase`` over both."""
+    decode libraries, then the bf16 server of (13), and runs
+    ``fleet_on_cut`` over it."""
     import gc
 
     import torch
@@ -8688,12 +8743,7 @@ def fleet_probe() -> int:
     cont.start()
     srv.start()
     try:
-        dec_srv, dec = decode_replica(dev, srv, cont)
-        try:
-            fleet_phase(dev, record, card, srv, cont, dec_srv, dec)
-        finally:
-            dec_srv.stop()
-            dec.stop()
+        fleet_on_cut(dev, record, card, srv, cont)
     finally:
         srv.stop()
         cont.stop()
@@ -8749,6 +8799,404 @@ def observe_probe() -> int:
     return 0
 
 
+TP_LAYERS = 8  # (35): llama-3-8b width at 8 of its 32 layers
+TP_NEW = 32  # new tokens of each (35a)/(35b) request
+TP8_NEW = 16  # (35c): new tokens of the tp=8 request
+TP_ENGINE_PROMPT = 8180  # (35d): past the batcher's 4096 and the draft's
+TP_KERNELS = ("flash_attention_ragged", "decode_attention",
+              "decode_attention_blocks", "decode_attention_blocks_q8",
+              "quant_matmul")
+
+
+def tp_engine(cfg, params, tp, kv, dev):
+    """(35)'s continuous engine: [13]'s slot geometry (8 slots over a
+    4096-token row, blocks of 128), at tp=1 on ``dev`` or over ``tp``
+    ranks of cuda:0 (``EngineLayout.build(tp, ["cuda:0"] * tp)``),
+    started."""
+    from kubeinfer_tpu_torch.inference.batching import ContinuousEngine
+    from kubeinfer_tpu_torch.inference.sharding import EngineLayout
+
+    return ContinuousEngine(
+        params, cfg, n_slots=8, cache_len=4096, block_size=128,
+        prefill_chunk_blocks=4, kv_dtype=kv, weight_dtype=kv,
+        layout=EngineLayout.build(tp, ["cuda:0"] * tp) if tp > 1 else None,
+        device=None if tp > 1 else dev).start()
+
+
+def tp_serve(cont, jobs, new):
+    """The jobs' streams, all in flight together."""
+    return in_threads(lambda j: cont.generate(j[0], new, timeout=600, **j[1]),
+                      jobs)
+
+
+def pool_ranks(cont):
+    """{data_ptr of a tp rank's pool piece: rank} over every layer."""
+    return {p.data_ptr(): r for c in cont._state.caches_k
+            for r, p in enumerate(c)}
+
+
+def code_ranks(sp):
+    """{data_ptr of a tp rank's int8 codes: rank} over every leaf."""
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+
+    return {leaf["qw"].data_ptr(): r for r, shard in enumerate(sp.shards)
+            for layer in shard["layers"] for leaf in layer.values()
+            if wq.is_quant_leaf(leaf)}
+
+
+def tp_phase(dev, record, card):
+    """Phase (35): tensor parallelism on one H100, llama-3-8b at full width
+    cut to ``TP_LAYERS`` layers, ``init_params(seed=0)``, the tp ranks
+    repeated ``cuda:0`` devices (the port's single-process mesh; two cards
+    are not measured).
+
+    - (35a) bf16 ``ContinuousEngine`` at tp=1 and tp=2 on [14]'s kind of
+      traffic (four greedy 512-token prompts and a sampled one, TP_NEW new
+      tokens): the tp=2 streams the tp=1 ones up to [25]'s near-tie rule
+      (``held_pairs``), every #11 call held to its plain version on its
+      shard, launches tallied by the rank whose pool they read; decode ms
+      a token a slot at both.
+    - (35b) the same on the int8 pool with int8 weights: #12 and every
+      #15 call held on their shards; #15's device time at each shard
+      shape beside the tp=1 shape.
+    - (35c) tp=8 bf16 (n_kv == tp: one KV head a rank), one greedy
+      16-token prompt.
+    - (35d) ``build_server([... "--tensor-parallel-size", "2",
+      "--draft-model", ...], mesh=...)`` over HTTP: a verify-window
+      request (#11 at T = k + 1 a rank) and an engine-route request (#9,
+      #10 a rank), both against tp=1, and the tp gauges; a tp=2 server
+      without a mesh on one card raises.
+
+    Returns {kernel: launches on the tp path}."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.engine import Engine
+    from kubeinfer_tpu_torch.inference.model import init_params
+    from kubeinfer_tpu_torch.inference.sharding import make_inference_mesh
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=TP_LAYERS)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(35)
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)
+    jobs = [(rng.integers(1, V, 512).tolist(), {}) for _ in range(4)]
+    jobs.append((rng.integers(1, V, 512).tolist(), sampled))
+    timed = [rng.integers(1, V, 512).tolist() for _ in range(4)]
+    short = rng.integers(1, V, 16).tolist()
+    long_prompt = rng.integers(1, V, TP_ENGINE_PROMPT).tolist()
+    launches = collections.Counter()
+    out = record["tp"] = {"layers": TP_LAYERS, "card": card}
+    marks = out["phase_s"] = {}
+
+    def mark(name, t0):
+        marks[name] = time.perf_counter() - t0
+
+    for kv in ("bf16", "int8"):
+        tag = "(35a)" if kv == "bf16" else "(35b)"
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                             weight_dtype=kv)
+        one = tp_engine(cfg, params, 1, kv, dev)
+        try:
+            with torch.inference_mode():
+                want = tp_serve(one, jobs, TP_NEW)
+                ms1 = decode_ms_per_token(one, timed, TP_NEW)
+                want8 = one.generate(short, TP8_NEW) if kv == "bf16" else None
+        finally:
+            one.stop()
+        del one
+        two = tp_engine(cfg, params, 2, kv, dev)
+        chk = attention_check(fa, kv == "int8")
+        chk.ranks = pool_ranks(two)
+        mm = CheckedMatmul(wq) if kv == "int8" else contextlib.nullcontext()
+        if kv == "int8":
+            mm.ranks = code_ranks(two.params)
+        try:
+            with torch.inference_mode(), chk, mm:
+                try:
+                    got = tp_serve(two, jobs, TP_NEW)
+                finally:
+                    check(chk.error is None, f"{tag} {chk.error}")
+                    if kv == "int8":
+                        check(mm.verify() is None, f"{tag} {mm.error}")
+            walks = chk.walk_check(tag)
+            with torch.inference_mode():
+                ms2 = decode_ms_per_token(two, timed, TP_NEW)
+        finally:
+            two.stop()
+        per_rank = [chk.per_rank[r] for r in range(2)]
+        check(chk.per_rank[-1] == 0 and per_rank[0] == per_rank[1] > 0
+              and chk.launches == chk.calls == sum(per_rank),
+              f"{tag} {chk.name}: {chk.launches} launches, {chk.calls} "
+              f"calls, by rank {dict(chk.per_rank)}")
+        launches[chk.name] += chk.launches
+        divs = held_pairs(tag, got, want, jobs, params, cfg, dev)
+        entry = out[kv] = {
+            chk.name: {"launches": chk.launches, "per_rank": per_rank,
+                       "max_err": chk.max_err, "split_walk": walks},
+            "decode_ms_per_token_slot": {"tp1": ms1, "tp2": ms2},
+            "divergences": divs}
+        print(f"{tag} {card}: llama-3-8b width, {TP_LAYERS} layers, {kv} "
+              f"pool and weights, tp=2 over cuda:0 twice: 4 greedy + 1 "
+              f"sampled 512-token prompts, {TP_NEW} new: streams equal to "
+              f"tp=1 but {divs} (near-ties held); {chk.name} {chk.launches} "
+              f"launches, {per_rank} a rank, every call within tolerance of "
+              f"its plain version on its shard (max err {chk.max_err:.3e}),"
+              f" split-K walk {walks[0]} = decode_split_walk's; decode ms a "
+              f"token a slot: tp=1 {ms1:.2f}, tp=2 {ms2:.2f}")
+        if kv == "int8":
+            mm_ranks = [mm.per_rank[r] for r in range(2)]
+            check(mm.per_rank[-1] == 0 and mm_ranks[0] == mm_ranks[1] > 0
+                  and mm.launches == mm.calls == sum(mm_ranks),
+                  f"{tag} #15: {mm.launches} launches, by rank "
+                  f"{dict(mm.per_rank)}")
+            launches["quant_matmul"] += mm.launches
+            # #15's device time at the decode window's M (8 slots) on each
+            # shard shape, beside the tp=1 shape of the same projection
+            rows = []
+            layer0 = [two.params.shards[0]["layers"][0], params["layers"][0]]
+            for name in ("q_proj", "k_proj", "o_proj", "gate_proj",
+                         "down_proj"):
+                pair = []
+                for leaf in (layer0[0][name], layer0[1][name]):
+                    K, N = leaf["qw"].shape
+                    x = torch.randn((8, K), dtype=torch.bfloat16, device=dev)
+                    ms = device_ms(lambda: wq.quant_matmul(x, leaf["qw"],
+                                                           leaf["scale"]))
+                    pair.append({"K": K, "N": N, "ms": ms,
+                                 "tc": wq.qmm_route(x, leaf["qw"]),
+                                 "bound_ms": qmm_bound(8, N, K, 2)[0]})
+                rows.append({"leaf": name, "tp2": pair[0], "tp1": pair[1]})
+            entry["quant_matmul"] = {
+                "launches": mm.launches, "per_rank": mm_ranks,
+                "max_err": mm.max_err, "routes": dict(mm.routes),
+                "shapes": {f"{m}x{k}x{n}": c
+                           for (m, k, n), c in sorted(mm.shapes.items())},
+                "device_ms_m8": rows}
+            print(f"{tag} #15 {mm.launches} launches, {mm_ranks} a rank, "
+                  f"routes {dict(mm.routes)}, every call within tolerance "
+                  f"(max err {mm.max_err:.3e}); device ms at M 8, shard "
+                  f"(tp=2) / whole (tp=1): " + "; ".join(
+                      f"{r['leaf']} {r['tp2']['K']}x{r['tp2']['N']} "
+                      f"{r['tp2']['ms']:.4f}{' tc' if r['tp2']['tc'] else ''}"
+                      f" / {r['tp1']['K']}x{r['tp1']['N']} "
+                      f"{r['tp1']['ms']:.4f}" for r in rows))
+        del two
+        mark(tag, t0)
+        if kv == "bf16":
+            t0 = time.perf_counter()
+            # (35c) tp=8: one KV head a rank
+            eight = tp_engine(cfg, params, 8, kv, dev)
+            chk8 = attention_check(fa, False)
+            chk8.ranks = pool_ranks(eight)
+            try:
+                with torch.inference_mode(), chk8:
+                    try:
+                        got8 = eight.generate(short, TP8_NEW)
+                    finally:
+                        check(chk8.error is None, f"(35c) {chk8.error}")
+                with torch.inference_mode():
+                    ms8 = decode_ms_per_token(eight, timed[:1], TP8_NEW)
+            finally:
+                eight.stop()
+            del eight
+            per8 = [chk8.per_rank[r] for r in range(8)]
+            check(chk8.per_rank[-1] == 0 and len(set(per8)) == 1
+                  and per8[0] > 0 and chk8.launches == sum(per8),
+                  f"(35c) #11 by rank {dict(chk8.per_rank)}")
+            launches[chk8.name] += chk8.launches
+            divs8 = held_pairs("(35c)", [got8], [want8], [(short, {})],
+                               params, cfg, dev)
+            out["tp8"] = {"launches": chk8.launches, "per_rank": per8,
+                          "max_err": chk8.max_err, "divergences": divs8,
+                          "decode_ms_per_token_slot": ms8}
+            print(f"(35c) tp=8 over cuda:0 eight times (one KV head a "
+                  f"rank): a 16-token prompt, {TP8_NEW} new: equal to tp=1 "
+                  f"but {divs8}; #11 {chk8.launches} launches, {per8[0]} a "
+                  f"rank, within tolerance (max err {chk8.max_err:.3e}); "
+                  f"decode ms a token (one slot live) {ms8:.2f}")
+            mark("(35c)", t0)
+            out["all_reduce"] = all_reduce_cost(dev)
+            t0 = time.perf_counter()
+            tp_server_check(dev, out, launches, cfg, params, jobs[0][0],
+                            want[0], long_prompt)
+            mark("(35d)", t0)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if torch.cuda.device_count() < 2:
+        try:
+            server.build_server(["--model", "tiny", "--random-init",
+                                 "--tensor-parallel-size", "2"])
+        except ValueError as e:
+            check("needs 2 devices, have 1" in str(e), f"(35) {e}")
+            print(f"(35) --tensor-parallel-size 2 without a mesh on one "
+                  f"card: ValueError({e})")
+        else:
+            check(False, "(35) a tp=2 server on one card without a mesh "
+                  "did not raise")
+    check(all(launches[k] > 0 for k in TP_KERNELS),
+          f"(35) a kernel of the tp path never launched: {dict(launches)}")
+    out["launches"] = dict(launches)
+    marks["(35)"] = time.perf_counter() - t_phase
+    print(f"(35) tp launches {dict(launches)}; times {marks}")
+    return dict(launches)
+
+
+def all_reduce_cost(dev):
+    """``sharding.all_reduce`` of two bf16 partials at a decode step's
+    [8, 1, 4096] and a 512-token admit's [1, 512, 4096]: device ms (a CUDA
+    graph of 20) and the host's us a call, printed and returned."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference.sharding import all_reduce
+
+    rows = {}
+    for shape in ((8, 1, 4096), (1, 512, 4096)):
+        parts = [torch.randn(shape, dtype=torch.bfloat16, device=dev)
+                 for _ in range(2)]
+        rows["x".join(map(str, shape))] = {
+            "device_ms": device_ms(lambda: all_reduce(parts)),
+            "host_us": host_us(lambda: all_reduce(parts))}
+    print(f"(35) sharding.all_reduce of two bf16 partials (f32 sum, one "
+          f"cast): {rows}")
+    return rows
+
+
+def tp_server_check(dev, out, launches, cfg, params, prompt, want,
+                    long_prompt):
+    """(35d): the tp=2 server over a mesh of cuda:0 twice, built from the
+    flags with (35)'s cut swapped in for the llama-3-8b preset, the draft
+    the same cut seeded 1 and riding the batch (``--speculative-draft``):
+    a greedy 512-token request on the verify route and a
+    ``TP_ENGINE_PROMPT``-token request on the engine route, together over
+    HTTP, every #9, #10 and #11 call held to its plain version; the
+    streams against tp=1 (``want``, and the tp=1 ``Engine`` here); the
+    gauges."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.engine import Engine
+    from kubeinfer_tpu_torch.inference.sharding import make_inference_mesh
+
+    with torch.inference_mode():
+        want_long = Engine(params, cfg, max_cache_len=8192,
+                           device=dev).generate([long_prompt], 8)
+    want_long = want_long.tokens[0].tolist()
+    mesh = make_inference_mesh(tp=2, sp=1, dp=1, devices=["cuda:0"] * 2)
+    full = PRESETS["llama-3-8b"]
+    PRESETS["llama-3-8b"] = cfg
+    try:
+        srv, cont = server.build_server(
+            ["--model", "llama-3-8b", "--random-init", "--port", "0",
+             "--host", "127.0.0.1", "--batch-slots", "4",
+             "--tensor-parallel-size", "2", "--draft-model", "llama-3-8b",
+             "--speculative-draft", "--speculation-depth", "4"], mesh=mesh)
+    finally:
+        PRESETS["llama-3-8b"] = full
+    cont.start()
+    srv.start()
+    chk9 = CheckedAttention(
+        fa, "flash_attention_ragged", fa.flash_attention_ragged_plain,
+        live=lambda q, k, v, off, ln: torch.ones(q.shape[0], dtype=torch.bool,
+                                                 device=q.device),
+        weight=lambda q, k, v, off, ln: off)
+    chk10 = CheckedAttention(
+        fa, "decode_attention", fa.decode_attention_plain,
+        live=lambda q, k, v, ln: ln > 0, weight=lambda q, k, v, ln: 0,
+        walk=True, trim=True)
+    chk11 = attention_check(fa, False)
+    chk11.ranks = pool_ranks(cont)
+    bodies = [dict(prompt=prompt, max_tokens=TP_NEW),
+              dict(prompt=long_prompt, max_tokens=8)]
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode(), chk9, chk10, chk11:
+            try:
+                resps = in_threads(lambda b: post_json(srv.port, b), bodies)
+            finally:
+                for c in (chk9, chk10, chk11):
+                    check(c.error is None, f"(35d) {c.error}")
+        http_s = time.perf_counter() - t0
+        _, text, _ = get_text(srv.port, "/metrics")
+        sched = cont.scheduler_stats()
+    finally:
+        srv.stop()
+        cont.stop()
+    gauges = metric_samples(text)
+    routes = [r["kubeinfer"]["route"] for r in resps]
+    check(routes == ["continuous", "engine"], f"(35d) routes {routes}")
+    check(gauges.get("kubeinfer_engine_tp_degree") == 2.0
+          and gauges.get("kubeinfer_mesh_devices") == 2.0,
+          "(35d) the tp gauges")
+    check(sched["spec_draft_tokens"] > 0 and sched["windows"] > 0,
+          f"(35d) no verify window ran: {sched}")
+    walks = {c.name: c.walk_check("(35d)") for c in (chk10, chk11)}
+    check(chk9.calls > 0 and chk9.tc_launches == chk9.calls
+          and chk10.calls > 0 and chk11.calls > 0
+          and chk11.per_rank[0] == chk11.per_rank[1] > 0,
+          f"(35d) #9 {chk9.calls} calls ({chk9.tc_launches} on tensor "
+          f"cores), #10 {chk10.calls}, #11 by rank {dict(chk11.per_rank)}")
+    toks = [r["choices"][0]["tokens"] for r in resps]
+    divs = held_pairs("(35d)", toks, [want, want_long],
+                      [(prompt, {}), (long_prompt, {})], params, cfg, dev)
+    for c in (chk9, chk10, chk11):
+        launches[c.name] += c.launches
+    out["server"] = {
+        "routes": routes, "http_s": http_s, "divergences": divs,
+        "spec": {k: sched[k] for k in ("spec_draft_tokens",
+                                       "spec_accepted_tokens", "windows")},
+        "launches": {c.name: c.launches for c in (chk9, chk10, chk11)},
+        "per_rank_11": [chk11.per_rank[0], chk11.per_rank[1]],
+        "max_err": {c.name: c.max_err for c in (chk9, chk10, chk11)},
+        "gauges": {k: gauges[k] for k in ("kubeinfer_engine_tp_degree",
+                                          "kubeinfer_mesh_devices")}}
+    print(f"(35d) build_server(--tensor-parallel-size 2, --draft-model, "
+          f"--speculative-draft, mesh=cuda:0 twice) over HTTP in "
+          f"{http_s:.1f} s: routes {routes}, streams equal to tp=1 but "
+          f"{divs}; #9 {chk9.launches} launches ({chk9.tc_launches} tensor "
+          f"cores), #10 {chk10.launches} (the engine route's ranks and the "
+          f"replicated draft's propose steps), #11 {chk11.launches} "
+          f"({[chk11.per_rank[0], chk11.per_rank[1]]} a rank, verify "
+          f"windows at T = 5), every call within tolerance; split-K walks "
+          f"{walks}; verify counters {out['server']['spec']}; gauges "
+          f"{out['server']['gauges']}")
+
+
+def tp_probe() -> int:
+    """``--tp``: phase (35) alone (card only): builds the libraries of the
+    tp path, then runs ``tp_phase``."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["decode_split", "quant_matmul", "quant_matmul_tc",
+                      "flash_prefill", "flash_prefill_tc"])
+    record = {"card": card}
+    tp_phase(dev, record, card)
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "tp_probe.json").write_text(json.dumps(record, indent=1))
+    print(record["tp"]["phase_s"])
+    print(card)
+    return 0
+
+
 def agent_probe() -> int:
     """``--agent``: phase (33) alone (card only): builds the libraries the
     tick and the spawned and in-process servers launch, then runs
@@ -8786,6 +9234,8 @@ if __name__ == "__main__":
         sys.exit(migrate_probe())
     if sys.argv[1:2] == ["--fleet"]:
         sys.exit(fleet_probe())
+    if sys.argv[1:2] == ["--tp"]:
+        sys.exit(tp_probe())
     if sys.argv[1:2] == ["--tie-probe"]:
         sys.exit(tie_probe([int(a) for a in sys.argv[2:]] or [25]))
     if sys.argv[1:2] == ["--qmm"]:

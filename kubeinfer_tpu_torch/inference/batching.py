@@ -1,7 +1,6 @@
 """Continuous batching: requests join and leave a shared decode batch.
 
-Counterpart of ``kubeinfer_tpu/inference/batching.py``, restricted to the
-tp=1 engine:
+Counterpart of ``kubeinfer_tpu/inference/batching.py``:
 
 - A fixed pool of B decode **slots** over a shared PAGED KV pool
   (per-layer ``[num_blocks, block_size, n_kv, D]`` tensors and an
@@ -81,9 +80,21 @@ reads the device: the records take the host clock around the dispatches
 the scheduler already makes, and the decode and verify windows are timed
 by the stamps around their one readback.
 
-Waiting (named where it raises): a sharded layout. The reference's
-racecheck wrappers are not ported (the locks are plain ``threading``
-primitives).
+Tensor parallelism, as in the reference (``layout=EngineLayout(tp,
+mesh)``, ``sharding.py``): the params are sharded per the Megatron specs
+and the pool split along ``n_kv`` over the tp ranks, every block whole on
+every rank, so block ids, the tables and every host structure stay those
+of tp=1. One process and this one scheduler thread drive every rank: the
+admit gathers, forwards and writes back each rank's heads, the windows
+run ``model.forward`` over the sharded params (the kernels per rank),
+imports split the wire's pages along ``n_kv`` and exports concatenate
+the ranks' pieces, so the wire bytes are tp=1's. A draft on the verify
+route is replicated (one plain copy on the first rank's device), as the
+reference replicates it. ``tp == 1`` is meshless and runs the
+single-device tensors and code path.
+
+The reference's racecheck wrappers are not ported (the locks are plain
+``threading`` primitives).
 """
 
 from __future__ import annotations
@@ -116,6 +127,14 @@ from kubeinfer_tpu_torch.inference.model import (
     params_dtype,
     params_to,
 )
+from kubeinfer_tpu_torch.inference.sharding import (
+    EngineLayout,
+    Sharded,
+    ShardedParams,
+    rank_piece,
+    same_device,
+    unshard_params,
+)
 from kubeinfer_tpu_torch.inference.stepper import (
     WINDOW_BUCKETS,
     DraftState,
@@ -146,9 +165,9 @@ _MAX_TOKEN_EVENTS = 128
 # cache_len is smaller clamp down
 DEFAULT_BLOCK_SIZE = 128
 
-_WAITS = {
-    "layout": "ROADMAP Queue 1, slice 6: sharding.py / tp",
-}
+def _on(t: torch.Tensor, rank_state: SlotState) -> torch.Tensor:
+    """``t`` on a rank state's pool device (the same tensor there)."""
+    return t.to(rank_state.caches_k[0].device)
 
 
 def _gather_view(state: SlotState, table_row: torch.Tensor):
@@ -156,7 +175,17 @@ def _gather_view(state: SlotState, table_row: torch.Tensor):
     gathered through its table (a copy: the forward writes into it).
     Under the int8 pool the views dequantize the committed blocks into
     the tails' dtype, and are slices of one [2, L, M, bs, n_kv, D]
-    tensor, returned second (None under the bf16 pool)."""
+    tensor, returned second (None under the bf16 pool). Under tp each
+    rank gathers its heads: the views are ``Sharded`` along n_kv."""
+    if state.sharded:
+        per = [_gather_view(rs, _on(table_row, rs))
+               for rs in state.rank_states()]
+        caches = [(Sharded([p[0][l][0] for p in per], -2),
+                   Sharded([p[0][l][1] for p in per], -2))
+                  for l in range(len(per[0][0]))]
+        view = None if per[0][1] is None else Sharded([p[1] for p in per],
+                                                      -2)
+        return caches, view
     nb, bs, n_kv, D = state.caches_k[0].shape
     S = table_row.shape[0] * bs
     if state.quantized:
@@ -177,7 +206,13 @@ def _put_owned(state: SlotState, caches, table_row: torch.Tensor,
                own_idx: torch.Tensor) -> None:
     """Write the row's updated view back into the pool, IN PLACE, for
     the blocks this admit owns only: shared prefix blocks are never
-    rewritten (copy-on-write), the null padding is left alone."""
+    rewritten (copy-on-write), the null padding is left alone. Under tp
+    each rank writes its heads."""
+    if state.sharded:
+        for r, rs in enumerate(state.rank_states()):
+            _put_owned(rs, [rank_piece(c, r) for c in caches],
+                       _on(table_row, rs), _on(own_idx, rs))
+        return
     nb, bs, n_kv, D = state.caches_k[0].shape
     M = table_row.shape[0]
     blocks = table_row[own_idx]
@@ -191,11 +226,30 @@ def _put_quantized(state: SlotState, view: torch.Tensor,
     """Quantize-on-commit of the int8 pool, IN PLACE: the blocks
     ``table_row[own_idx]`` of the row's updated view [2, L, M, bs, n_kv,
     D] are quantized (``quantize_blocks``, per block) into the pages and
-    scales of every layer at once."""
+    scales of every layer at once; under tp each rank its heads (the
+    scales are per kv head, so the codes are tp=1's)."""
+    if state.sharded:
+        for rs, v in zip(state.rank_states(), view):
+            _put_quantized(rs, v, _on(table_row, rs), _on(own_idx, rs))
+        return
     blocks = table_row[own_idx]
     qv, sv = quantize_blocks(view[:, :, own_idx])
     state.q8_pages[:, :, blocks] = qv
     state.q8_scales[:, :, blocks] = sv
+
+
+def _seed_tail(state: SlotState, view: torch.Tensor, block: int,
+               slot: int) -> None:
+    """The int8 admit's tail seed, IN PLACE: logical block ``block`` of
+    the row's updated view into the slot's tail slot 0, zeroed spill room
+    in slot 1 (each rank its heads under tp)."""
+    if state.sharded:
+        for rs, v in zip(state.rank_states(), view):
+            _seed_tail(rs, v, block, slot)
+        return
+    t0 = view[:, :, block]
+    state.q8_tails[:, :, slot] = torch.stack([t0, torch.zeros_like(t0)],
+                                             dim=2)
 
 
 def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
@@ -246,9 +300,8 @@ def _admit_slot(params: Params, state: SlotState, suffix: torch.Tensor,
         _put_quantized(state, view, table_row, own_idx)
         # the partial block (clipped: prompt_len // bs == M only for a row
         # that fills its table and never decodes) and zeroed spill room
-        t0 = view[:, :, min(prompt_len // bs, table_row.shape[0] - 1)]
-        state.q8_tails[:, :, slot] = torch.stack(
-            [t0, torch.zeros_like(t0)], dim=2)
+        _seed_tail(state, view, min(prompt_len // bs, table_row.shape[0] - 1),
+                   slot)
     # the slot's row of every field, in place
     state.tables[slot] = table_row
     state.last_token[slot] = first
@@ -487,11 +540,39 @@ class _ImportTask:
     reason: str | None = None
 
 
+def _land_pages(state: SlotState, idx: torch.Tensor, pk, pv, sk, sv) -> None:
+    """Write imported pages ``[L, n, bs, n_kv, D]`` (and the int8 pool's
+    scales ``[L, n, n_kv]``) on the pool's device into the pool blocks
+    ``idx``, IN PLACE."""
+    if state.quantized:
+        state.q8_pages[0][:, idx] = pk  # in place; the views follow
+        state.q8_pages[1][:, idx] = pv
+        state.q8_scales[0][:, idx] = sk
+        state.q8_scales[1][:, idx] = sv
+    else:
+        for l in range(len(state.caches_k)):
+            state.caches_k[l][idx] = pk[l]  # in place
+            state.caches_v[l][idx] = pv[l]
+
+
+def _pages_of(state: SlotState, idx: torch.Tensor) -> dict:
+    """The pool blocks ``idx`` on the host (see ``_gather_pages``)."""
+    if state.quantized:
+        pages = state.q8_pages[:, :, idx].cpu()
+        scales = state.q8_scales[:, :, idx].cpu()
+        return {"pages_k": pages[0], "pages_v": pages[1],
+                "scales_k": scales[0], "scales_v": scales[1]}
+    return {
+        "pages_k": torch.stack([ck[idx] for ck in state.caches_k]).cpu(),
+        "pages_v": torch.stack([cv[idx] for cv in state.caches_v]).cpu(),
+    }
+
+
 class ContinuousEngine:
     """Slot-scheduled generation on one device (``device=None``: the CUDA
-    card, raising when there is none): ``submit()`` from any thread; a
-    single scheduler thread admits requests into free slots and steps the
-    shared decode batch."""
+    card, raising when there is none), or on the tp ranks of ``layout``:
+    ``submit()`` from any thread; a single scheduler thread admits
+    requests into free slots and steps the shared decode batch."""
 
     def __init__(self, params: Params, cfg: ModelConfig,
                  n_slots: int = 8, cache_len: int = 1024,
@@ -510,8 +591,18 @@ class ContinuousEngine:
                  flight_capacity: int = 512,
                  replica_name: str | None = None,
                  device=None) -> None:
-        if layout is not None:
-            raise ValueError(f"layout={layout!r} waits: {_WAITS['layout']}")
+        # the device layout (sharding.EngineLayout): tp=1 (the default) is
+        # meshless, and every placement below is the single-device one
+        if layout is None:
+            layout = EngineLayout()
+        elif not isinstance(layout, EngineLayout):
+            raise TypeError(f"layout must be a sharding.EngineLayout, got "
+                            f"{type(layout).__name__}")
+        self.layout = layout
+        layout.check_model(cfg)
+        if isinstance(params, ShardedParams) and not layout.sharded:
+            raise ValueError("sharded params need the EngineLayout of their "
+                             "mesh")
         for name, value in (("kv_dtype", kv_dtype),
                             ("weight_dtype", weight_dtype)):
             if value not in ("bf16", "int8"):
@@ -528,8 +619,18 @@ class ContinuousEngine:
                 "weight_dtype='bf16' but params are weight-quantized "
                 "(dequantize_params first, or pass weight_dtype='int8')")
         self.weight_dtype = weight_dtype
-        self.device = resolve_device(device)
-        self.params = params_to(params, self.device)
+        if layout.sharded:
+            # the first tp rank's device holds the replicated state
+            first = layout.devices[0]
+            if device is not None and not same_device(resolve_device(device),
+                                                      first):
+                raise ValueError(f"layout's first rank is on {first}, "
+                                 f"engine asked for {device}")
+            self.device = first
+            self.params = layout.shard_params(params, cfg)
+        else:
+            self.device = resolve_device(device)
+            self.params = params_to(params, self.device)
         self.model_param_bytes = param_bytes(self.params)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -673,6 +774,10 @@ class ContinuousEngine:
             if spec_k + 1 > cache_len:
                 raise ValueError(f"spec_k {spec_k} leaves no room in "
                                  f"cache_len {cache_len}")
+            if isinstance(dparams, ShardedParams):
+                # the draft replicates under tp, as in the reference: one
+                # plain copy on the first rank's device
+                dparams = unshard_params(dparams)
             self._dparams = params_to(dparams, self.device)
             self._dcfg = dcfg
             self._dstate = init_draft_state(
@@ -683,11 +788,12 @@ class ContinuousEngine:
         # pool (the admit's full blocks and the decode windows' tail
         # commits), counted on the host as the reference counts them
         self.quant_blocks_total = 0
-        self._state = init_slot_state(
+        self._state = layout.shard_state(init_slot_state(
             cfg, n_slots, cache_len, params_dtype(self.params), num_blocks,
-            self.block_size, kv_dtype=kv_dtype, device=self.device)
+            self.block_size, kv_dtype=kv_dtype, device=self.device))
         st = self._state
-        # pages, plus scales and tails under the int8 pool
+        # pages, plus scales and tails under the int8 pool, summed over the
+        # tp ranks
         self.kv_pool_bytes = param_bytes([
             *st.caches_k, *st.caches_v, *st.scales_k, *st.scales_v,
             *st.tails_k, *st.tails_v])
@@ -928,7 +1034,7 @@ class ContinuousEngine:
         st = self._state
         n = int(task.pages_k.shape[1])
         L = len(st.caches_k)
-        _nb, bs, n_kv, D = st.caches_k[0].shape
+        _nb, bs, n_kv, D = st.caches_k[0].shape  # logical under tp
         want = (L, n, bs, n_kv, D)
         pool_dt = st.caches_k[0].dtype
         reason = None
@@ -974,18 +1080,25 @@ class ContinuousEngine:
             fresh = self._pool.alloc(n)
         dev = self.device
         idx = torch.tensor(fresh, dtype=torch.long, device=dev)
+        sk = sv = None
+        if st.quantized:
+            sk, sv = task.scales_k.float(), task.scales_v.float()
         with torch.inference_mode():
-            pk = task.pages_k.to(dev)
-            pv = task.pages_v.to(dev)
-            if st.quantized:
-                st.q8_pages[0][:, idx] = pk  # in place; the views follow
-                st.q8_pages[1][:, idx] = pv
-                st.q8_scales[0][:, idx] = task.scales_k.to(dev, torch.float32)
-                st.q8_scales[1][:, idx] = task.scales_v.to(dev, torch.float32)
+            if st.sharded:
+                # each rank lands its heads' slice of the wire's pages
+                pks = st.caches_k[0].split(task.pages_k)
+                pvs = st.caches_v[0].split(task.pages_v)
+                if st.quantized:
+                    sk, sv = st.scales_k[0].split(sk), st.scales_v[0].split(sv)
+                for r, rs in enumerate(st.rank_states()):
+                    _land_pages(rs, _on(idx, rs), pks[r], pvs[r],
+                                None if sk is None else sk[r],
+                                None if sv is None else sv[r])
             else:
-                for l in range(L):
-                    st.caches_k[l][idx] = pk[l]  # in place
-                    st.caches_v[l][idx] = pv[l]
+                _land_pages(st, idx, task.pages_k.to(dev),
+                            task.pages_v.to(dev),
+                            sk if sk is None else sk.to(dev),
+                            sv if sv is None else sv.to(dev))
         with self._lock:
             # the insert covers the WHOLE chain so far (shared base + this
             # chunk); the trie takes its own reference per new node and
@@ -1077,10 +1190,11 @@ class ContinuousEngine:
         return {
             "n_slots": self.n_slots,
             "block_size": self.block_size,
-            # the single-device layout; a sharded one waits for ROADMAP
-            # Queue 1 entry 10 (sharding.py / tp)
-            "tp_degree": 1,
-            "mesh_devices": 1,
+            # the device layout, advertised so a fleet router or a
+            # capacity dashboard can tell a tp replica's pool shard from a
+            # single-device pool of the same logical block count
+            "tp_degree": self.layout.tp,
+            "mesh_devices": self.layout.mesh_devices,
             "queue_depth": self._queue.qsize() + waiting,
             "batch_occupancy": round(prof["batch_occupancy"], 6),
             "goodput_tokens_per_sec": round(
@@ -1474,18 +1588,17 @@ class ContinuousEngine:
         gathered on the device, one device-to-host copy per side (the
         int8 pool's pages and scales of both sides in one gather each).
         Returns ``pages_k``/``pages_v`` ``[L, n, bs, n_kv, D]``, and
-        ``scales_k``/``scales_v`` ``[L, n, n_kv]`` under the int8 pool."""
+        ``scales_k``/``scales_v`` ``[L, n, n_kv]`` under the int8 pool.
+        Under tp each rank's pieces are concatenated along n_kv on the
+        host: the wire bytes are tp=1's."""
         st = self._state
         with torch.inference_mode():
-            if st.quantized:
-                pages = st.q8_pages[:, :, idx].cpu()
-                scales = st.q8_scales[:, :, idx].cpu()
-                return {"pages_k": pages[0], "pages_v": pages[1],
-                        "scales_k": scales[0], "scales_v": scales[1]}
-            return {
-                "pages_k": torch.stack([ck[idx] for ck in st.caches_k]).cpu(),
-                "pages_v": torch.stack([cv[idx] for cv in st.caches_v]).cpu(),
-            }
+            if not st.sharded:
+                return _pages_of(st, idx)
+            parts = [_pages_of(rs, _on(idx, rs)) for rs in st.rank_states()]
+            return {key: torch.cat([p[key] for p in parts],
+                                   dim=-2 if key.startswith("pages") else -1)
+                    for key in parts[0]}
 
     def _capture_export(self, req: _Request, tokens: list[int],
                         idx: torch.Tensor) -> None:

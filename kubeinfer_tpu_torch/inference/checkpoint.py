@@ -14,7 +14,11 @@ is orbax's (a JAX library). The port keeps its own: a directory holding
 A save is written into a temporary sibling directory and renamed into
 place when complete, so a path that exists holds a whole checkpoint.
 Restore is lossless: leaves come back in the dtypes they were saved in,
-int8 codes and f32 scales included (never re-quantized).
+int8 codes and f32 scales included (never re-quantized). With ``mesh``
+the leaves go straight from the mapped file to the tp ranks per
+``sharding.param_specs``: each rank gets its own shard of every sharded
+leaf (``sharding.ShardedParams``), and the whole tree never lands on a
+device.
 """
 
 from __future__ import annotations
@@ -29,14 +33,12 @@ import tempfile
 from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference.config import ModelConfig
 from kubeinfer_tpu_torch.inference.model import Params
+from kubeinfer_tpu_torch.inference.sharding import shard_params
 from kubeinfer_tpu_torch.inference.weight_quant import params_weight_dtype
 from kubeinfer_tpu_torch.inference.weights import (
     read_safetensors,
     write_safetensors,
 )
-
-_TP = "ROADMAP Queue 1 entry 10: sharding.py / tp"
-
 
 def _flatten(node, prefix: str, out: dict) -> dict:
     if isinstance(node, dict):
@@ -102,20 +104,27 @@ def restore_checkpoint(
     path: str, mesh=None, device=None,
 ) -> tuple[Params, ModelConfig, int]:
     """Restore (params, config, step) onto ``device`` (the card by
-    default). ``mesh`` (a sharded restore) waits for the port's tp."""
-    if mesh is not None:
-        raise NotImplementedError(f"a sharded restore (mesh=): {_TP}")
+    default), or with ``mesh`` (a ``sharding.Mesh``) onto its tp ranks,
+    each rank reading its own shard of every leaf; then ``device`` is
+    not used."""
     root = pathlib.Path(path).absolute()
     if not (root / "meta.json").exists():
         raise FileNotFoundError(f"no checkpoint at {root} (meta.json)")
     meta = json.loads((root / "meta.json").read_text())
     cfg = ModelConfig(**meta["config"])
-    dev = resolve_device(device)
-    params = _unflatten({
-        name: t.to(dev, copy=True)
-        for name, t in read_safetensors(root / "params.safetensors").items()})
+    mapped = read_safetensors(root / "params.safetensors")
+    if mesh is not None:
+        # mapped host views: shard_params copies each rank's piece to its
+        # device
+        params = _unflatten(dict(mapped))
+    else:
+        dev = resolve_device(device)
+        params = _unflatten({name: t.to(dev, copy=True)
+                             for name, t in mapped.items()})
     if meta.get("weight_dtype", "bf16") != params_weight_dtype(params):
         raise ValueError(f"{root}: meta.json says weight_dtype "
                          f"{meta.get('weight_dtype')!r}, the tensors "
                          f"{params_weight_dtype(params)!r}")
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg)
     return params, cfg, int(meta["step"])

@@ -8,6 +8,11 @@ reference binds it), and the decode loop (``stepper.decode_scan``,
 kernel #10) steps every row at its own offset. ``jax.lax.scan`` over chunks and over steps is a
 Python loop here; the tokens are read back once per ``generate``.
 
+Over tensor-parallel params (``sharding.ShardedParams``, as the server
+builds them under ``--tensor-parallel-size``) the dense caches split along
+``n_kv`` over the tp ranks (``make_caches(devices=...)``) and #9 and #10
+run on each rank's heads.
+
 Sampling is the reference's, noise included: threefry keys from
 ``prng`` (bit-equal to ``jax.random``), gumbel-argmax over filtered,
 tempered logits. The reference's ``lax.cond`` fast paths (top-k, top-p,
@@ -22,17 +27,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference import flash_attention as fa
 from kubeinfer_tpu_torch.inference import prng
 from kubeinfer_tpu_torch.inference.config import ModelConfig
 from kubeinfer_tpu_torch.inference.model import (
     Params,
+    engine_device,
     forward,
-    lm_head_matrix,
+    lm_logits,
     params_dtype,
     params_to,
+    rank_devices,
 )
+from kubeinfer_tpu_torch.inference.sharding import Sharded
 from kubeinfer_tpu_torch.observability import tracing
 
 _TRACER = tracing.get_tracer("engine")
@@ -207,7 +214,9 @@ def prefill_attn(c0: int, prompt_len: torch.Tensor):
     ``(s <= c0 + t) & (s < prompt_len[b])`` derived in the kernel."""
 
     def attn_fn(q, k, v, _mask):
-        return fa.flash_attention_ragged(q, k, v, c0, prompt_len)
+        # under tp, once a rank: the lengths follow q to its device
+        return fa.flash_attention_ragged(q, k, v, c0,
+                                         prompt_len.to(q.device))
 
     return attn_fn
 
@@ -254,11 +263,21 @@ def chunked_prefill(params: Params, prompt: torch.Tensor,
         idx = torch.clamp(last - c0, 0, C - 1)
         next_hidden = torch.where(in_chunk[:, None], hidden[rows, idx],
                                   next_hidden)
-    next_logits = (next_hidden @ lm_head_matrix(params, cfg)).float()
+    next_logits = lm_logits(params, next_hidden, cfg)
     return caches, next_logits
 
 
-def make_caches(cfg: ModelConfig, B: int, cache_len: int, dtype, device):
+def make_caches(cfg: ModelConfig, B: int, cache_len: int, dtype, device,
+                devices=None):
+    """Zeroed dense per-row caches, one (k, v) pair a layer; with
+    ``devices`` (the tp ranks' of sharded params) each side is
+    ``Sharded`` along n_kv, rank r's heads on ``devices[r]``."""
+    if devices is not None:
+        shape = (B, cache_len, cfg.num_key_value_heads // len(devices),
+                 cfg.head_dim)
+        return [tuple(Sharded([torch.zeros(shape, dtype=dtype, device=d)
+                               for d in devices], -2) for _ in range(2))
+                for _ in range(cfg.num_hidden_layers)]
     shape = (B, cache_len, cfg.num_key_value_heads, cfg.head_dim)
     return [
         (torch.zeros(shape, dtype=dtype, device=device),
@@ -292,11 +311,12 @@ def prepare_prompts(prompts: list[list[int]], max_new_tokens: int,
 
 class Engine:
     """Generation front-end over a loaded model on one device
-    (``device=None``: the CUDA card, raising when there is none)."""
+    (``device=None``: the CUDA card, raising when there is none), or over
+    sharded params on their tp ranks (``device`` the first rank's)."""
 
     def __init__(self, params: Params, cfg: ModelConfig,
                  max_cache_len: int = 0, device=None) -> None:
-        self.device = resolve_device(device)
+        self.device = engine_device(params, device)
         self.params = params_to(params, self.device)
         self.cfg = cfg
         self.max_cache_len = max_cache_len or cfg.max_position_embeddings
@@ -328,7 +348,8 @@ class Engine:
             prompt = torch.from_numpy(padded).to(dev)
             prompt_len = torch.from_numpy(lens).to(dev)
             caches = make_caches(self.cfg, B, cache_len,
-                                 params_dtype(self.params), dev)
+                                 params_dtype(self.params), dev,
+                                 rank_devices(self.params))
             caches, next_logits = chunked_prefill(
                 self.params, prompt, prompt_len, self.cfg, caches,
                 prefill_chunk_for(B, int(padded.shape[1])),

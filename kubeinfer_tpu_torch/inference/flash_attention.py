@@ -72,7 +72,11 @@ bind as the reference's do: the wrapper where the reference's guard
 holds on the tensors' device, else the dense ``model.attention`` over
 ``mask`` (the paged ones over ``gather_block_kv`` /
 ``dequant_gather_block_kv`` of the pools); every CPU tensor goes
-dense. ``attention_auto``
+dense. Each router keeps the reference's ``gspmd`` flag, which pins the
+dense branch (GSPMD cannot split a Pallas call); the port's tensor
+parallel engine (``sharding.py``) calls the routers once per tp rank on
+that rank's heads with ``gspmd=False``, so #10, #11 and #12 run on every
+shard. ``attention_auto``
 is the reference's drop-in for ``forward(attn_fn=...)``: #9b where
 ``flash_available`` holds, the dense ``model.attention`` elsewhere.
 ``FlashCausalDiff`` (``flash_attention_causal_diff``) is the reference's
@@ -83,6 +87,7 @@ no-cache path where ``flash_available`` holds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -662,9 +667,25 @@ def _check_head(name, q, D):
                          f"{tuple(q.shape)}")
 
 
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(dev: torch.device):
+    """The context to call a launcher in for tensors on ``dev``. The
+    launchers act on the current CUDA device (``cudaGetDevice``,
+    ``cudaFuncSetAttribute``, the launch itself), and the tensor parallel
+    engine drives every rank from one thread, so a rank on another card
+    launches under ``torch.cuda.device(dev)``; a null context when
+    ``dev`` is already current (one device query of host time)."""
+    if torch._C._cuda_getDevice() == dev.index:
+        return _CURRENT
+    return torch.cuda.device(dev)
+
+
 def _launch(lib, fn: str, *args) -> None:
-    """Call one launcher; tensors and the stream cross as c_void_p,
-    floats as c_float, ints as c_int. A nonzero cudaError_t raises."""
+    """Call one launcher under its tensors' device; tensors and the
+    stream cross as c_void_p, floats as c_float, ints as c_int. A nonzero
+    cudaError_t raises."""
     conv = []
     for a in args:
         if a is None:  # a null pointer
@@ -676,8 +697,9 @@ def _launch(lib, fn: str, *args) -> None:
         else:
             conv.append(int(a))
     dev = next(a for a in args if isinstance(a, torch.Tensor)).device
-    err = getattr(lib, fn)(
-        *conv, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with on_device(dev):
+        err = getattr(lib, fn)(*conv, ctypes.c_void_p(
+            torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
 
@@ -729,10 +751,12 @@ def _split_launch(wrapper, lib, fn, q, operands, n_kv, S_total, C, ints):
     walked = wrapper.walk_counter
     if walked is not None:
         _check("walk_counter", walked, torch.int32, (1,), dev, align=4)
-    err = getattr(lib, fn)(
-        *(t.data_ptr() for t in operands), out.data_ptr(), ws.data_ptr(),
-        tickets.data_ptr(), None if walked is None else walked.data_ptr(),
-        *ints, C, 1.0 / float(D) ** 0.5, _DTYPES[q.dtype], stream)
+    with on_device(dev):
+        err = getattr(lib, fn)(
+            *(t.data_ptr() for t in operands), out.data_ptr(),
+            ws.data_ptr(), tickets.data_ptr(),
+            None if walked is None else walked.data_ptr(), *ints, C,
+            1.0 / float(D) ** 0.5, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
     wrapper.launches += 1
@@ -1146,26 +1170,34 @@ def _dense_decode(q, k, v, mask):
     return attention(q, k, v, mask)
 
 
-def decode_attention_auto(q, k, v, lengths, mask=None):
+def decode_attention_auto(q, k, v, lengths, mask=None, gspmd=False):
     """Decode-step attention, the reference's router: #10
     (``decode_attention``) iff T == 1 and ``decode_flash_available(S, D)``
     holds on q's device, else the dense ``model.attention`` over ``mask``.
-    ``lengths`` and ``mask`` must describe the same live set."""
-    if q.shape[1] == 1 and decode_flash_available(k.shape[1], q.shape[3],
-                                                  q.device):
+    ``lengths`` and ``mask`` must describe the same live set.
+
+    ``gspmd=True`` pins the dense branch, as the reference's flag does
+    for a caller tracing under a sharded jit (GSPMD cannot split a Pallas
+    call over heads). The port's sharded engine calls every router per
+    tp rank on plain local tensors with ``gspmd=False``, so the kernels
+    run on each rank's heads."""
+    if not gspmd and q.shape[1] == 1 and decode_flash_available(
+            k.shape[1], q.shape[3], q.device):
         return decode_attention(q, k, v, lengths)
     return _dense_decode(q, k, v, mask)
 
 
 def decode_attention_blocks_auto(q, k_pool, v_pool, block_tables, lengths,
-                                 mask=None):
+                                 mask=None, gspmd=False):
     """Paged decode-step attention, the reference's router: #11
     (``decode_attention_blocks``, any T >= 1) iff
     ``decode_blocks_available(bs, D)`` holds on q's device, else the
     dense ``model.attention`` over ``mask`` on both pools gathered
-    through the tables. ``mask`` must be s <= lengths[b] - T + t. The
-    reference's tp > 1 route (``gspmd=True``) waits with sharding.py."""
-    if decode_blocks_available(k_pool.shape[1], q.shape[3], q.device):
+    through the tables. ``mask`` must be s <= lengths[b] - T + t.
+    ``gspmd=True`` pins the gather + dense branch (the reference's
+    sharded route; see ``decode_attention_auto``)."""
+    if not gspmd and decode_blocks_available(k_pool.shape[1], q.shape[3],
+                                             q.device):
         return decode_attention_blocks(q, k_pool, v_pool, block_tables,
                                        lengths)
     return _dense_decode(q, gather_block_kv(k_pool, block_tables),
@@ -1179,12 +1211,10 @@ def decode_attention_blocks_q8_auto(q, k_pool, v_pool, k_scales, v_scales,
     (``decode_attention_blocks_q8``) under #11's guard, else the dense
     ``model.attention`` over ``mask`` on ``dequant_gather_block_kv`` of
     both pools, with the tail base max(lengths - T, 0) // bs both routes
-    derive."""
-    if gspmd:
-        raise NotImplementedError(
-            "the GSPMD route: ROADMAP Queue 1, slice 6: sharding.py / tp")
+    derive. ``gspmd=True`` pins the dense branch (see
+    ``decode_attention_auto``)."""
     bs = k_pool.shape[1]
-    if decode_blocks_available(bs, q.shape[3], q.device):
+    if not gspmd and decode_blocks_available(bs, q.shape[3], q.device):
         return decode_attention_blocks_q8(q, k_pool, v_pool, k_scales,
                                           v_scales, k_tail, v_tail,
                                           block_tables, lengths)

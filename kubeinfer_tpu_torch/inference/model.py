@@ -20,9 +20,19 @@ Every projection goes through ``weight_quant.wq_dot``: a plain leaf is
 ``x @ w``, an int8 leaf (``init_params(weight_dtype="int8")``) kernel
 #15.
 
+Tensor parallelism (``sharding.py``): ``forward`` over
+``sharding.ShardedParams`` runs each tp rank's ``n_q / tp`` query heads,
+``n_kv / tp`` KV heads and ``F / tp`` MLP lanes on its own device against
+its own KV pieces (``sharding.Sharded``). The replicated norm output goes
+to each rank, the ``o_proj`` and ``down_proj`` partials meet in
+``sharding.all_reduce`` on the first rank's device, and a separate
+``lm_head``'s logits are gathered along the vocabulary
+(``sharding.gather_vocab``); tied embeddings give the full logits there.
+
 Not ported here (each raises ``NotImplementedError`` naming the ROADMAP
-entry that ports it): mixture-of-experts layers and manual tensor
-parallelism.
+entry that ports it): mixture-of-experts layers, and the manual tp of a
+``shard_map`` body (``tp_axis``), which only the sequence-parallel engine
+uses.
 """
 
 from __future__ import annotations
@@ -34,12 +44,21 @@ import torch.nn.functional as F
 
 from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference.config import ModelConfig
+from kubeinfer_tpu_torch.inference.sharding import (
+    Sharded,
+    ShardedParams,
+    all_reduce,
+    gather_vocab,
+    rank_piece,
+    same_device,
+)
 from kubeinfer_tpu_torch.inference.weight_quant import quantize_layer, wq_dot
 
 Params = dict[str, Any]
 
 _MOE = "ROADMAP Queue 1, slice 6: moe.py"
-_TP = "ROADMAP Queue 1, slice 6: sharding.py / tp"
+_TP = ("ROADMAP Queue 1 entry 11: sp_engine.py + ring_attention.py (the "
+       "per-device body of a shard_map)")
 
 
 # --- initialization --------------------------------------------------------
@@ -110,7 +129,12 @@ def init_params(
 
 def param_bytes(params: Params) -> int:
     """Bytes of every tensor in the tree (int8 codes and their scales
-    under weight quantization)."""
+    under weight quantization); of sharded params or tensors, the logical
+    tree's (``ShardedParams.nbytes``, every piece of a ``Sharded``)."""
+    if isinstance(params, ShardedParams):
+        return params.nbytes()
+    if isinstance(params, Sharded):
+        return sum(p.numel() * p.element_size() for p in params)
     if isinstance(params, dict):
         return sum(param_bytes(v) for v in params.values())
     if isinstance(params, list):
@@ -120,7 +144,13 @@ def param_bytes(params: Params) -> int:
 
 def params_to(params: Params, device) -> Params:
     """The same tree with every tensor on ``device`` (no copy where it
-    already lives there)."""
+    already lives there). Sharded params stay where their mesh placed
+    them; ``device`` must be their first rank's."""
+    if isinstance(params, ShardedParams):
+        if not same_device(device, params.device):
+            raise ValueError(f"params sharded from {params.device}, "
+                             f"asked for {device}")
+        return params
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, list):
@@ -129,7 +159,27 @@ def params_to(params: Params, device) -> Params:
 
 
 def params_dtype(params: Params) -> torch.dtype:
+    if isinstance(params, ShardedParams):
+        params = params.shards[0]
     return params["norm"].dtype
+
+
+def engine_device(params: Params, device) -> torch.device:
+    """The device an engine over ``params`` runs on: ``device`` resolved
+    (None: the card); for sharded params their first rank's device, which
+    ``device``, when given, must name."""
+    if isinstance(params, ShardedParams):
+        if device is not None and not same_device(resolve_device(device),
+                                                  params.device):
+            raise ValueError(f"params sharded from {params.device}, engine "
+                             f"asked for {device}")
+        return params.device
+    return resolve_device(device)
+
+
+def rank_devices(params: Params) -> list | None:
+    """The tp ranks' devices of sharded params, else None."""
+    return params.devices if isinstance(params, ShardedParams) else None
 
 
 # --- building blocks -------------------------------------------------------
@@ -260,32 +310,14 @@ def _write_cache(ck: torch.Tensor, new: torch.Tensor, cache_offset,
         ck[:, start:start + T] = new  # in place
 
 
-def decoder_layer(
-    layer: Params,
-    x: torch.Tensor,  # [B, T, H]
-    cos: torch.Tensor,
-    sin: torch.Tensor,
-    mask,
-    cfg: ModelConfig,
-    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-    cache_offset=0,
-    attn_fn=attention,
-    tp_axis: str | None = None,
-    block_tables: torch.Tensor | None = None,
-):
-    """One pre-norm block; returns (x, kv cache or None). With a cache,
-    the step's K/V are written into it in place (see ``_write_cache``)
-    and attention reads the whole cache."""
-    if tp_axis is not None:
-        raise NotImplementedError(f"manual tensor parallelism: {_TP}")
-    if "moe" in layer:
-        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
-    B, T, _ = x.shape
+def _attn_out(layer: Params, h: torch.Tensor, cos, sin, mask,
+              cfg: ModelConfig, n_q: int, n_kv: int, kv_cache, cache_offset,
+              attn_fn, block_tables) -> torch.Tensor:
+    """The attention half of a block after its norm: q/k/v of ``n_q`` and
+    ``n_kv`` heads (a tp rank's share under tp), the cache write, the
+    attention and ``o_proj`` (a rank's partial under tp)."""
+    B, T, _ = h.shape
     D = cfg.head_dim
-    n_q = cfg.num_attention_heads
-    n_kv = cfg.num_key_value_heads
-    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps,
-                 offset=cfg.rmsnorm_offset)
     q = wq_dot(h, layer["q_proj"])
     k = wq_dot(h, layer["k_proj"])
     v = wq_dot(h, layer["v_proj"])
@@ -313,11 +345,92 @@ def decoder_layer(
         k, v = ck, cv
 
     attn = attn_fn(q, k, v, mask)
-    x = x + wq_dot(attn.reshape(B, T, n_q * D), layer["o_proj"])
+    return wq_dot(attn.reshape(B, T, n_q * D), layer["o_proj"])
+
+
+def _mlp_out(layer: Params, h: torch.Tensor, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """The MLP half after its norm (a tp rank's lanes and partial under
+    tp)."""
+    gate = _mlp_act(cfg)(wq_dot(h, layer["gate_proj"]))
+    return wq_dot(gate * wq_dot(h, layer["up_proj"]), layer["down_proj"])
+
+
+def decoder_layer(
+    layer: Params,
+    x: torch.Tensor,  # [B, T, H]
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask,
+    cfg: ModelConfig,
+    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache_offset=0,
+    attn_fn=attention,
+    tp_axis: str | None = None,
+    block_tables: torch.Tensor | None = None,
+):
+    """One pre-norm block; returns (x, kv cache or None). With a cache,
+    the step's K/V are written into it in place (see ``_write_cache``)
+    and attention reads the whole cache."""
+    if tp_axis is not None:
+        raise NotImplementedError(f"manual tensor parallelism: {_TP}")
+    if "moe" in layer:
+        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
+    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps,
+                 offset=cfg.rmsnorm_offset)
+    x = x + _attn_out(layer, h, cos, sin, mask, cfg,
+                      cfg.num_attention_heads, cfg.num_key_value_heads,
+                      kv_cache, cache_offset, attn_fn, block_tables)
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps,
                  offset=cfg.rmsnorm_offset)
-    gate = _mlp_act(cfg)(wq_dot(h, layer["gate_proj"]))
-    x = x + wq_dot(gate * wq_dot(h, layer["up_proj"]), layer["down_proj"])
+    x = x + _mlp_out(layer, h, cfg)
+    return x, kv_cache
+
+
+def _on_ranks(t, devices) -> list:
+    """``t`` on each rank's device (the same object where it already
+    lives there; a non-tensor passes through)."""
+    if not isinstance(t, torch.Tensor):
+        return [t] * len(devices)
+    moved: dict = {}
+    out = []
+    for d in devices:
+        if same_device(d, t.device):
+            out.append(t)
+        else:
+            key = str(d)
+            if key not in moved:
+                moved[key] = t.to(d)
+            out.append(moved[key])
+    return out
+
+
+def _tp_layer(params: ShardedParams, i: int, x: torch.Tensor, ops: list,
+              cfg: ModelConfig, kv_cache, attn_fn):
+    """Block ``i`` over the tp ranks: the replicated norm output to each
+    rank, each rank's heads and lanes on its device, the two
+    all-reduces on the first rank's device. ``ops[r]`` holds (cos, sin,
+    mask, cache_offset, block_tables) on rank r's device."""
+    tp = params.tp
+    devs = params.devices
+    first = params.shards[0]["layers"][i]
+    if "moe" in first:
+        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
+    n_q, n_kv = cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp
+    h = rms_norm(x, first["input_layernorm"], cfg.rms_norm_eps,
+                 offset=cfg.rmsnorm_offset)
+    parts = []
+    for r, (dev, hr) in enumerate(zip(devs, _on_ranks(h, devs))):
+        cos, sin, mask, offset, tables = ops[r]
+        cache = None if kv_cache is None else rank_piece(kv_cache, r)
+        parts.append(_attn_out(params.shards[r]["layers"][i], hr, cos, sin,
+                               mask, cfg, n_q, n_kv, cache, offset,
+                               attn_fn, tables))
+    x = x + all_reduce(parts)
+    h = rms_norm(x, first["post_attention_layernorm"], cfg.rms_norm_eps,
+                 offset=cfg.rmsnorm_offset)
+    x = x + all_reduce([_mlp_out(params.shards[r]["layers"][i], hr, cfg)
+                        for r, hr in enumerate(_on_ranks(h, devs))])
     return x, kv_cache
 
 
@@ -380,27 +493,40 @@ def forward(
         attn_fn = attention
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = params["embed_tokens"][tokens]
+    sharded = isinstance(params, ShardedParams)
+    # replicated leaves: rank 0's copies, on the first rank's device
+    tree = params.shards[0] if sharded else params
+    if sharded:
+        devs = params.devices
+        ops = list(zip(*(_on_ranks(t, devs) for t in (
+            cos, sin, attn_mask, cache_offset, block_tables))))
+    x = tree["embed_tokens"][tokens]
     if cfg.scale_embeddings:
         # Gemma: the sqrt(H) normalizer is cast to the activation dtype
         # before the multiply, as in the HF reference
         x = x * float(torch.tensor(float(cfg.hidden_size) ** 0.5,
                                    dtype=x.dtype))
     new_caches = [] if kv_caches is not None else None
-    for i, layer in enumerate(params["layers"]):
+    for i, layer in enumerate(tree["layers"]):
         cache = kv_caches[i] if kv_caches is not None else None
-        x, cache = decoder_layer(
-            layer, x, cos, sin, attn_mask, cfg, kv_cache=cache,
-            cache_offset=cache_offset, attn_fn=attn_fn, tp_axis=tp_axis,
-            block_tables=block_tables,
-        )
+        if sharded:
+            if tp_axis is not None:
+                raise NotImplementedError(
+                    f"manual tensor parallelism: {_TP}")
+            x, cache = _tp_layer(params, i, x, ops, cfg, cache, attn_fn)
+        else:
+            x, cache = decoder_layer(
+                layer, x, cos, sin, attn_mask, cfg, kv_cache=cache,
+                cache_offset=cache_offset, attn_fn=attn_fn, tp_axis=tp_axis,
+                block_tables=block_tables,
+            )
         if new_caches is not None:
             new_caches.append(cache)
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps,
+    x = rms_norm(x, tree["norm"], cfg.rms_norm_eps,
                  offset=cfg.rmsnorm_offset)
     if return_hidden:
         return x, new_caches
-    return (x @ lm_head_matrix(params, cfg)).float(), new_caches
+    return lm_logits(params, x, cfg), new_caches
 
 
 def lm_head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -408,3 +534,17 @@ def lm_head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_word_embeddings:
         return params["embed_tokens"].T
     return params["lm_head"]
+
+
+def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """f32 logits of post-norm hidden states ``x`` [..., H]. Under tp a
+    separate head is vocabulary-sharded: each rank's slice of the logits,
+    gathered in rank order on the first rank's device; a tied head is
+    the replicated embedding, on the first rank's device."""
+    if not isinstance(params, ShardedParams):
+        return (x @ lm_head_matrix(params, cfg)).float()
+    if cfg.tie_word_embeddings:
+        return (x @ params.shards[0]["embed_tokens"].T).float()
+    return gather_vocab([(xr @ shard["lm_head"]).float() for shard, xr in
+                         zip(params.shards, _on_ranks(x, params.devices))])

@@ -58,6 +58,15 @@ and ``--tls-cert-file``/``--tls-key-file`` serve over TLS. Each
 completion carries ``kubeinfer: {route, ttft_ms, tpot_ms}`` as the
 server's own timeline saw it.
 
+Tensor parallelism, as in the reference: ``--tensor-parallel-size N``
+builds one ``(dp=1, tp=N, sp=1)`` mesh (``sharding.make_inference_mesh``:
+N visible cards, or N ranks on the CPU with ``--device cpu``), shards the
+params and the draft onto it, and gives the batcher, the per-request
+engine and the draft that one mesh (``EngineLayout``). ``build_server``
+also takes a ``mesh`` from an in-process caller: a mesh of N ranks over
+one card runs the sharded path there. ``--sequence-parallel-size`` and
+``--sp-min-prompt`` wait for ROADMAP Queue 1 entry 11.
+
     python -m kubeinfer_tpu_torch.inference.server --model /models/meta-llama--Meta-Llama-3-8B
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
@@ -71,6 +80,10 @@ server's own timeline saw it.
     # "kubeinfer_resume": {"tokens": [...], "kv_source": "http://127.0.0.1:8001"}
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8001
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init --port 8002
+    # tensor parallel over two cards (the gauges kubeinfer_engine_tp_degree
+    # and kubeinfer_mesh_devices read 2)
+    python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
+        --tensor-parallel-size 2
     # an SLO and a bearer token on /debug/*; then curl localhost:8000/metrics
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init \
         --slo ttft:2.0:0.99 --debug-token-file token.txt
@@ -99,6 +112,7 @@ from kubeinfer_tpu_torch.inference.batching import (
     EngineOverloadedError,
     PreemptionPolicy,
 )
+from kubeinfer_tpu_torch.inference.sharding import EngineLayout, shard_params
 from kubeinfer_tpu_torch.metrics.registry import (
     Counter,
     Gauge,
@@ -698,8 +712,9 @@ class InferenceServer:
         m["kv_pool_bytes"].set(stats["pool_bytes"])
         m["model_param_bytes"].set(eng.model_param_bytes)
         summary = eng.stats_summary()
-        # the single-device layout (a sharded one waits for ROADMAP Queue
-        # 1 entry 10): one shard, holding every block
+        # one series per tp shard, all the same logical count: the pool's
+        # bookkeeping is layout-agnostic, so a shard's referenced blocks
+        # are the pool's
         m["tp_degree"].set(summary["tp_degree"])
         m["mesh_devices"].set(summary["mesh_devices"])
         for shard in range(summary["tp_degree"]):
@@ -1169,9 +1184,8 @@ class InferenceServer:
 # the reference's other flags, their defaults, and the ROADMAP entry that
 # ports each; a non-default value exits naming it
 _WAITING_FLAGS = {
-    "tensor_parallel_size": (1, "slice 6: sharding.py / tp"),
-    "sequence_parallel_size": (1, "slice 6: sp_engine.py + ring_attention.py"),
-    "sp_min_prompt": (1024, "slice 6: sp_engine.py + ring_attention.py"),
+    "sequence_parallel_size": (1, "entry 11: sp_engine.py + ring_attention.py"),
+    "sp_min_prompt": (1024, "entry 11: sp_engine.py + ring_attention.py"),
 }
 
 
@@ -1189,6 +1203,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random-init", action="store_true",
                    help="serve a randomly initialized --model preset "
                         "instead of loading a checkpoint")
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="shard the model over this many tp ranks (visible "
+                        "cards; CPU ranks with --device cpu)")
     p.add_argument("--device", default=None,
                    help="cuda (the default, the card; fails without one) "
                         "or cpu (the plain PyTorch versions, for tests)")
@@ -1281,10 +1298,40 @@ def _load_tokenizer(model_dir: str):
         return None
 
 
-def build_server(argv: list[str] | None = None, device=None):
+def _tp_mesh(tp: int, dev: torch.device, mesh):
+    """The serving mesh of ``--tensor-parallel-size`` ``tp`` (None at
+    tp=1): ``mesh`` when a caller gave one, else ``tp`` CPU ranks for the
+    CPU, else ``tp`` visible cards (raising when there are fewer)."""
+    from kubeinfer_tpu_torch.inference.sharding import (
+        make_inference_mesh,
+        same_device,
+    )
+
+    if tp < 1:
+        raise SystemExit(f"--tensor-parallel-size must be >= 1, got {tp}")
+    if mesh is None:
+        if tp == 1:
+            return None
+        if dev.type == "cpu":
+            return make_inference_mesh(tp=tp, sp=1, dp=1,
+                                       devices=[dev] * tp)
+        return make_inference_mesh(tp=tp, sp=1, dp=1)
+    if mesh.shape.get("tp") != tp or mesh.size != tp:
+        raise ValueError(f"--tensor-parallel-size {tp} but the mesh is "
+                         f"{mesh.shape}")
+    if not same_device(mesh.axis_devices("tp")[0], dev):
+        raise ValueError(f"the mesh starts on {mesh.axis_devices('tp')[0]}, "
+                         f"the server runs on {dev}")
+    return mesh
+
+
+def build_server(argv: list[str] | None = None, device=None, mesh=None):
     """Parse flags, build the engines and the server (not started).
-    ``device`` (else ``--device``, else the card) places everything.
-    Returns (server, continuous engine or None)."""
+    ``device`` (else ``--device``, else the card) places everything;
+    under ``--tensor-parallel-size N`` the params shard over ``mesh``
+    (a ``sharding.Mesh`` with N tp ranks starting on that device), or
+    over N ranks the flags name when no mesh is given. Returns (server,
+    continuous engine or None)."""
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.engine import Engine
     from kubeinfer_tpu_torch.inference.model import init_params
@@ -1319,6 +1366,9 @@ def build_server(argv: list[str] | None = None, device=None):
                 f"--draft-model {args.draft_model!r} is not a preset (with "
                 "--random-init the draft must name one)")
     dev = resolve_device(device if device is not None else args.device)
+    mesh = _tp_mesh(args.tensor_parallel_size, dev, mesh)
+    if mesh is not None:
+        dev = mesh.axis_devices("tp")[0]
     dtype = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
              "float32": torch.float32}[args.dtype]
     tokenizer = None
@@ -1343,6 +1393,12 @@ def build_server(argv: list[str] | None = None, device=None):
                  time.monotonic() - t0)
         tokenizer = _load_tokenizer(args.model)
     max_cache = args.max_model_len or cfg.max_position_embeddings
+    layout = None
+    if mesh is not None:
+        # one mesh for the batcher, the per-request engine and the draft
+        layout = EngineLayout(tp=args.tensor_parallel_size, mesh=mesh)
+        layout.check_model(cfg)
+        params = shard_params(params, mesh, cfg)
     engine = Engine(params, cfg, max_cache_len=max_cache, device=dev)
     speculative = dparams = None
     if args.draft_model:
@@ -1352,6 +1408,10 @@ def build_server(argv: list[str] | None = None, device=None):
         else:
             dparams, dcfg = load_pretrained(args.draft_model, dtype=dtype,
                                             device=dev)
+        if mesh is not None:
+            # the draft shards onto the same mesh (the batcher's verify
+            # route replicates it, as the reference's does)
+            dparams = shard_params(dparams, mesh, dcfg)
         speculative = SpeculativeEngine(
             params, cfg, dparams, dcfg, k=args.speculation_depth,
             max_cache_len=max_cache, device=dev)
@@ -1372,6 +1432,7 @@ def build_server(argv: list[str] | None = None, device=None):
             queue_depth_limit=args.queue_depth_limit,
             migration_chunk_blocks=args.migration_chunk_blocks,
             flight_capacity=args.flight_capacity,
+            layout=layout,
             device=dev,
         )
         if args.prewarm_spec and speculative is not None:

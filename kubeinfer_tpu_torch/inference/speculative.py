@@ -25,6 +25,8 @@ the tokens are.
 The prefills go through ``engine.chunked_prefill`` (kernel #9 on the card
 where ``flash_available`` holds); the rounds' forwards use the dense
 ``model.attention`` over the per-row caches, as the reference does.
+Target and draft may be sharded on one tp mesh, as the server builds
+them (``sharding.ShardedParams``; both caches split along n_kv).
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference import prng
 from kubeinfer_tpu_torch.inference.config import ModelConfig
 from kubeinfer_tpu_torch.inference.engine import (
@@ -46,9 +47,11 @@ from kubeinfer_tpu_torch.inference.engine import (
 )
 from kubeinfer_tpu_torch.inference.model import (
     Params,
+    engine_device,
     forward,
     params_dtype,
     params_to,
+    rank_devices,
 )
 from kubeinfer_tpu_torch.inference.stepper import (
     RowFlags,
@@ -85,8 +88,10 @@ def _prefill_state(params, dparams, prompt, prompt_len, cfg, dcfg, max_new,
     path, which then run the same ``_one_round``."""
     B, T = prompt.shape
     dev = prompt.device
-    tcaches = make_caches(cfg, B, cache_len, params_dtype(params), dev)
-    dcaches = make_caches(dcfg, B, cache_len, params_dtype(dparams), dev)
+    tcaches = make_caches(cfg, B, cache_len, params_dtype(params), dev,
+                          rank_devices(params))
+    dcaches = make_caches(dcfg, B, cache_len, params_dtype(dparams), dev,
+                          rank_devices(dparams))
     tcaches, t_logits = chunked_prefill(params, prompt, prompt_len, cfg,
                                         tcaches, prefill_chunk)
     dcaches, _ = chunked_prefill(dparams, prompt, prompt_len, dcfg, dcaches,
@@ -205,7 +210,8 @@ def _vector_warp(B, temperature, top_k, top_p, device):
 @dataclass
 class SpeculativeEngine:
     """Generation with draft-model speculation on one device
-    (``device=None``: the CUDA card, raising when there is none).
+    (``device=None``: the CUDA card, raising when there is none), or over
+    target and draft sharded on one mesh (``device`` the first rank's).
     ``generate`` matches Engine.generate's greedy output token for token;
     ``k`` is the speculation depth."""
 
@@ -228,7 +234,7 @@ class SpeculativeEngine:
             raise ValueError(f"speculation depth k must be >= 1, got {self.k}")
         if not self.max_cache_len:
             self.max_cache_len = self.cfg.max_position_embeddings
-        self.device = resolve_device(self.device)
+        self.device = engine_device(self.params, self.device)
         self.params = params_to(self.params, self.device)
         self.draft_params = params_to(self.draft_params, self.device)
 

@@ -1,6 +1,13 @@
 """The decode stepper shared by the serving paths.
 
-Counterpart of ``kubeinfer_tpu/inference/stepper.py`` (tp=1):
+Counterpart of ``kubeinfer_tpu/inference/stepper.py``. Under tensor
+parallelism (``sharding.EngineLayout``) the params are
+``sharding.ShardedParams`` and the slot state's pool fields hold
+``sharding.Sharded`` per-rank pieces along ``n_kv``; every function here
+runs unchanged over them: ``model.forward`` runs each rank's heads
+against its pieces through the same routers (the tables and lengths the
+attention closures capture follow ``q`` to its rank's device), sampling
+runs once on the gathered logits, and the int8 commit runs per rank.
 
 - :func:`step_forward` is the one-token forward of a length-ragged batch.
   The dense route (per-row ``[B, S, ...]`` caches, the per-request
@@ -51,6 +58,7 @@ from kubeinfer_tpu_torch.inference.engine import (
 )
 from kubeinfer_tpu_torch.inference.kv_blocks import quantize_blocks
 from kubeinfer_tpu_torch.inference.model import Params, forward
+from kubeinfer_tpu_torch.inference.sharding import Sharded
 
 __all__ = [
     "SlotState", "init_slot_state", "sample_rows", "step_forward",
@@ -106,6 +114,31 @@ class SlotState:
     @property
     def quantized(self) -> bool:
         return self.q8_pages is not None
+
+    @property
+    def sharded(self) -> bool:
+        """The pool is split over tp ranks (``EngineLayout.shard_state``)."""
+        return isinstance(self.caches_k[0], Sharded)
+
+    def rank_states(self) -> list["SlotState"]:
+        """One state a tp rank: the pool fields hold that rank's pieces,
+        every other field is this state's own tensor (on the first rank's
+        device). ``[self]`` when the pool is whole."""
+        if not self.sharded:
+            return [self]
+
+        def pick(xs, r):
+            return [x[r] for x in xs]
+
+        return [dataclasses.replace(
+            self, caches_k=pick(self.caches_k, r),
+            caches_v=pick(self.caches_v, r), scales_k=pick(self.scales_k, r),
+            scales_v=pick(self.scales_v, r), tails_k=pick(self.tails_k, r),
+            tails_v=pick(self.tails_v, r),
+            q8_pages=None if self.q8_pages is None else self.q8_pages[r],
+            q8_scales=None if self.q8_scales is None else self.q8_scales[r],
+            q8_tails=None if self.q8_tails is None else self.q8_tails[r])
+            for r in range(len(self.caches_k[0]))]
 
 
 def init_slot_state(cfg: ModelConfig, n_slots: int, cache_len: int, dtype,
@@ -205,23 +238,27 @@ def step_forward(params: Params, cfg: ModelConfig, tok: torch.Tensor,
     then (the guard reads shapes alone, once a call, on the host)."""
     lengths = (offset + 1).to(torch.int32)
     dev = tok.device
+    # under tp the closures run once a rank, on its device: the tables
+    # and lengths follow q there (the same tensors on one device)
     if block_tables is None:
         kernel = fa.decode_flash_available(cache_len, cfg.head_dim, dev)
 
         def attn_fn(q, k, v, mask):
-            return fa.decode_attention_auto(q, k, v, lengths, mask)
+            return fa.decode_attention_auto(q, k, v, lengths.to(q.device),
+                                            mask)
     else:
         kernel = fa.decode_blocks_available(
             cache_len // block_tables.shape[1], cfg.head_dim, dev)
         quantized = bool(kv_caches) and isinstance(kv_caches[0][0], tuple)
 
         def attn_fn(q, kc, vc, mask):
+            tables, lens = block_tables.to(q.device), lengths.to(q.device)
             if quantized:  # (pages, scales, tail) triples: #12
                 return fa.decode_attention_blocks_q8_auto(
-                    q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2],
-                    block_tables, lengths, mask)
-            return fa.decode_attention_blocks_auto(q, kc, vc, block_tables,
-                                                   lengths, mask)
+                    q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2], tables,
+                    lens, mask)
+            return fa.decode_attention_blocks_auto(q, kc, vc, tables, lens,
+                                                   mask)
     mask = None if kernel else (
         torch.arange(cache_len, device=dev)[None, None, :]
         < lengths[:, None, None])  # [B, 1, S]
@@ -256,7 +293,14 @@ def _commit_full_tails(pages, scales, tails, tables, old_off, new_off, keep,
     duplicate indices of inactive rows (all naming null block 0) write
     identical values. ``pages`` [..., NB, bs, n_kv, D], ``scales`` [...,
     NB, n_kv] and ``tails`` [..., B, 2, bs, n_kv, D] share their leading
-    (K/V, layer) dims: one set of ops covers them all."""
+    (K/V, layer) dims: one set of ops covers them all. Under tp each is a
+    ``Sharded``, and each rank commits its pieces on its device."""
+    if isinstance(pages, Sharded):
+        for p, s, t in zip(pages, scales, tails):
+            d = p.device
+            _commit_full_tails(p, s, t, tables.to(d), old_off.to(d),
+                               new_off.to(d), keep.to(d), block_size)
+        return
     B = old_off.shape[0]
     M = tables.shape[1]
     P = pages.view(-1, *pages.shape[-4:])
@@ -443,12 +487,13 @@ def verify_window(params: Params, state: SlotState, dparams: Params,
         # both routes derive the window's tail base (lengths - T) // bs
         def attn_fn(q, kc, vc, mask):
             return fa.decode_attention_blocks_q8_auto(
-                q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2], state.tables,
-                lengths, mask)
+                q, kc[0], vc[0], kc[1], vc[1], kc[2], vc[2],
+                state.tables.to(q.device), lengths.to(q.device), mask)
     else:
         def attn_fn(q, kp, vp, mask):
-            return fa.decode_attention_blocks_auto(q, kp, vp, state.tables,
-                                                   lengths, mask)
+            return fa.decode_attention_blocks_auto(
+                q, kp, vp, state.tables.to(q.device), lengths.to(q.device),
+                mask)
     # the reference's dense-route mask, built only where the kernel's
     # guard fails
     mask = None if fa.decode_blocks_available(

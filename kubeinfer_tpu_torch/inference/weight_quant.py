@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from kubeinfer_tpu_torch.inference import flash_attention as fa
 from kubeinfer_tpu_torch.inference.kv_blocks import device_scalar
+from kubeinfer_tpu_torch.inference.sharding import ShardedParams
 
 # the projections that route through the fused kernel
 QUANT_LEAVES = (
@@ -91,7 +92,10 @@ def quantize_layer(layer: dict, tile: int = DEFAULT_TILE) -> dict:
 
 def params_weight_dtype(params: dict) -> str:
     """``"int8"`` when any projection leaf is quantized, else ``"bf16"``
-    (the axis name, not a torch dtype)."""
+    (the axis name, not a torch dtype); of sharded params, their rank
+    trees'."""
+    if isinstance(params, ShardedParams):
+        params = params.shards[0]
     for layer in params.get("layers", ()):
         for name in QUANT_LEAVES:
             if is_quant_leaf(layer.get(name)):
@@ -102,7 +106,12 @@ def params_weight_dtype(params: dict) -> str:
 def quantize_params(params: dict, tile: int = DEFAULT_TILE) -> dict:
     """Quantize the projection leaves of a whole tree. Raises on a tree
     that is already quantized: scales re-derived from int8 codes would be
-    silently wrong."""
+    silently wrong. Sharded params are refused too: a row-parallel
+    leaf's scale is the absmax over every rank's rows, so quantize the
+    plain tree before sharding it."""
+    if isinstance(params, ShardedParams):
+        raise ValueError("quantize params before sharding them (a "
+                         "row-parallel scale spans every rank's rows)")
     if params_weight_dtype(params) == "int8":
         raise ValueError("params already weight-quantized "
                          "(double-quantize guard)")
@@ -245,8 +254,9 @@ def _tc_workspace(dev, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def _call(lib, fn: str, *args) -> None:
-    err = getattr(lib, fn)(*args)
+def _call(lib, fn: str, dev, *args) -> None:
+    with fa.on_device(dev):
+        err = getattr(lib, fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn} failed: {lib.error_string(err)}")
 
@@ -290,18 +300,18 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
             ws = _tc_workspace(dev, stream, splits * M * N).data_ptr()
             tickets = fa._split_tickets(
                 dev, stream, -(-M // rows) * -(-N // TC_BN)).data_ptr()
-        _call(lib, "quant_matmul_tc_launch", x2.data_ptr(), qw.data_ptr(),
-              scale.data_ptr(), out.data_ptr(), ws, tickets, M, N, K, rows,
-              splits, per, stream)
+        _call(lib, "quant_matmul_tc_launch", dev, x2.data_ptr(),
+              qw.data_ptr(), scale.data_ptr(), out.data_ptr(), ws, tickets,
+              M, N, K, rows, splits, per, stream)
         quant_matmul.tc_launches += 1
     else:
         splits = k_splits(M, N, K) if x.dtype == torch.bfloat16 else 1
         # the split-K partial sums, reduced in split order by a second pass
         ws = torch.empty((splits, M, N) if splits > 1 else (1,),
                          dtype=torch.float32, device=dev)
-        _call(lib, "quant_matmul_launch", x2.data_ptr(), qw.data_ptr(),
-              scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
-              splits, fa._DTYPES[x.dtype], stream)
+        _call(lib, "quant_matmul_launch", dev, x2.data_ptr(),
+              qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
+              ws.data_ptr(), M, N, K, splits, fa._DTYPES[x.dtype], stream)
     quant_matmul.launches += 1
     return out.reshape(*lead, N)
 
@@ -310,9 +320,18 @@ quant_matmul.launches = 0
 quant_matmul.tc_launches = 0
 
 
-def wq_dot(x: torch.Tensor, w) -> torch.Tensor:
+def wq_dot(x: torch.Tensor, w, *, gspmd: bool = False) -> torch.Tensor:
     """``x @ w`` for a projection leaf that may be plain or quantized:
-    the one call site of every projection in ``model.decoder_layer``."""
+    the one call site of every projection in ``model.decoder_layer``.
+    ``gspmd=True`` is the reference's flag for a caller under a sharded
+    jit: the dense route (``quant_matmul_plain``), no kernel. The port's
+    tensor parallel forward calls it per tp rank on that rank's shard
+    with ``gspmd=False``, so #15 runs on every shard (column-parallel
+    leaves carry their out-axis slice of ``qw`` and ``scale``,
+    row-parallel ones their in-axis slice of ``qw`` and the whole
+    ``scale``)."""
     if is_quant_leaf(w):
+        if gspmd:
+            return quant_matmul_plain(x, w["qw"], w["scale"])
         return quant_matmul(x, w["qw"], w["scale"])
     return x @ w

@@ -212,7 +212,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "kubeinfer_tpu_torch._build\n"
         "from kubeinfer_tpu_torch.inference import batching, config, "
         "engine, flash_attention, kv_blocks, model, prng, server, "
-        "stepper, weights\n"
+        "sharding, stepper, weights\n"
         "import kubeinfer_tpu_torch.api, kubeinfer_tpu_torch.controller, "
         "kubeinfer_tpu_torch.controlplane.httpstore, "
         "kubeinfer_tpu_torch.controlplane.replica, "

@@ -147,11 +147,22 @@ def test_weight_dtype_guard(params):
 
 
 def test_waiting_features_raise(params):
-    """A sharded layout still waits; preemption and drain() are accepted
-    (the drain of an idle engine completes, and undrain() reopens it)."""
+    """A layout that is not an ``EngineLayout`` raises a type error, and a
+    real one serves; preemption and drain() are accepted (the drain of an
+    idle engine completes, and undrain() reopens it)."""
+    from kubeinfer_tpu_torch.inference.sharding import EngineLayout
+
     _, tp = params
-    with pytest.raises(ValueError, match="layout"):
+    with pytest.raises(TypeError, match="layout"):
         TC(tp, TP["tiny"], cache_len=64, device="cpu", layout=object())
+    eng = TC(tp, TP["tiny"], n_slots=2, cache_len=64, device="cpu",
+             layout=EngineLayout.build(2, ["cpu"] * 2)).start()
+    try:
+        assert eng.generate([1, 2, 3], 4) == TC(
+            tp, TP["tiny"], n_slots=2, cache_len=64, device="cpu").start(
+            ).generate([1, 2, 3], 4)
+    finally:
+        eng.stop()
     pol = PreemptionPolicy(threshold_s=0.25)
     eng = TC(tp, TP["tiny"], cache_len=64, device="cpu", preemption=pol)
     assert eng.preemption is pol and eng.scheduler_stats()["preempted"] == 0

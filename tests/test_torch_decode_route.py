@@ -148,7 +148,9 @@ def test_paged_routers_bind_as_the_reference(monkeypatch, spies):
 
 def test_routers_refuse_what_they_cannot_route(spies):
     """A dense route reached without the mask raises (the router never
-    guesses one); the GSPMD route waits with sharding."""
+    guesses one); ``gspmd=True`` (the reference's sharded route) takes the
+    dense branch on each router where the kernel's guard holds, and
+    launches no kernel."""
     q, k = torch.zeros((1, 1, 2, 16)), torch.zeros((1, 64, 1, 16))
     with pytest.raises(ValueError, match="mask"):
         tfa.decode_attention_auto(q, k, k, t([5]).int())
@@ -158,10 +160,29 @@ def test_routers_refuse_what_they_cannot_route(spies):
             tail, t([[1]]).int(), t([5]).int())
     with pytest.raises(ValueError, match="mask"):
         tfa.decode_attention_blocks_q8_auto(*args)
-    with pytest.raises(NotImplementedError):
-        tfa.decode_attention_blocks_q8_auto(
-            *args, torch.ones((1, 1, 16), dtype=torch.bool), gspmd=True)
     assert spies == []
+    # shapes every kernel's guard admits (bs 128, D 64)
+    q, k = torch.zeros((1, 1, 2, 64)), torch.zeros((1, 128, 1, 64))
+    pages = torch.zeros((2, 128, 1, 64), dtype=torch.int8)
+    tail = torch.zeros((1, 2, 128, 1, 64))
+    args = (q, pages, pages, torch.ones((2, 1)), torch.ones((2, 1)), tail,
+            tail, t([[1]]).int(), t([5]).int())
+    with pytest.raises(ValueError, match="mask"):
+        tfa.decode_attention_blocks_q8_auto(*args, gspmd=True)
+    mask = torch.ones((1, 1, 128), dtype=torch.bool)
+    tfa.decode_attention_auto(q, k, k, t([5]).int(), mask, gspmd=True)
+    tfa.decode_attention_blocks_auto(q, pages.float(), pages.float(),
+                                     t([[1]]).int(), t([5]).int(), mask,
+                                     gspmd=True)
+    tfa.decode_attention_blocks_q8_auto(*args, mask, gspmd=True)
+    assert spies == [("dense", (1, 128, 1, 64), (1, 1, 128))] * 3
+    # without the flag the same calls take the kernels
+    tfa.decode_attention_auto(q, k, k, t([5]).int(), mask)
+    tfa.decode_attention_blocks_auto(q, pages.float(), pages.float(),
+                                     t([[1]]).int(), t([5]).int(), mask)
+    tfa.decode_attention_blocks_q8_auto(*args, mask)
+    assert spies[3:] == [("decode_attention",), ("decode_attention_blocks",),
+                         ("decode_attention_blocks_q8",)]
 
 
 def _small_cfg(D):

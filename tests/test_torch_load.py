@@ -271,10 +271,36 @@ def test_save_restore_lossless_and_meta_matches(tmp_path, weight_dtype,
 
 
 def test_restore_refusals(tmp_path):
+    """A missing checkpoint raises; a sharded restore (``mesh=``) gives
+    each tp rank its shard of the saved tree, and a mesh whose tp does
+    not divide a sharded dim raises."""
+    from kubeinfer_tpu_torch.inference.model import init_params
+    from kubeinfer_tpu_torch.inference.sharding import (
+        make_inference_mesh,
+        unshard_params,
+    )
+
     with pytest.raises(FileNotFoundError):
         tck.restore_checkpoint(str(tmp_path / "nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 10"):
-        tck.restore_checkpoint(str(tmp_path), mesh=object(), device="cpu")
+    cfg = TCfg(**dataclasses.asdict(reference_tree("bf16", jnp.float32)[1]))
+    params = init_params(cfg, seed=3, device="cpu")
+    tck.save_checkpoint(str(tmp_path / "ck"), params, cfg, step=5)
+    mesh = make_inference_mesh(tp=2, devices=["cpu"] * 2)
+    got, gcfg, step = tck.restore_checkpoint(str(tmp_path / "ck"),
+                                             mesh=mesh)
+    assert (gcfg, step, got.tp) == (cfg, 5, 2)
+    q = params["layers"][0]["q_proj"]
+    w = q.shape[1] // 2
+    assert torch.equal(got.shards[1]["layers"][0]["q_proj"], q[:, w:])
+    assert got.shards[1]["layers"][0]["q_proj"].is_contiguous()
+    full = unshard_params(got)
+    for name in ("embed_tokens", "norm"):
+        assert torch.equal(full[name], params[name])
+    assert torch.equal(full["layers"][1]["down_proj"],
+                       params["layers"][1]["down_proj"])
+    with pytest.raises(ValueError, match="divide"):
+        tck.restore_checkpoint(str(tmp_path / "ck"), mesh=make_inference_mesh(
+            tp=3, devices=["cpu"] * 3))
 
 
 def test_train_step_after_restore(tmp_path):

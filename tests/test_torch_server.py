@@ -121,7 +121,11 @@ def test_unreachable_kv_source_falls_back_locally(served):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--speculative-draft"], "speculative"),
-    (["--tensor-parallel-size", "2"], "sharding.py"),
+    # this id named --tensor-parallel-size, which no longer waits: with
+    # it given, the sequence-parallel flag is still the one refused
+    pytest.param(["--tensor-parallel-size", "2", "--sequence-parallel-size",
+                  "2"], "sequence-parallel-size waits: ROADMAP Queue 1, "
+                 "entry 11", id="flags1-sharding.py"),
     # these two ids named the debug-endpoint flags, which no longer wait
     pytest.param(["--sequence-parallel-size", "2"], "sp_engine.py",
                  id="flags2-debug endpoints"),
