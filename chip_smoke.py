@@ -238,10 +238,12 @@ times them. Phases:
       CUDA-core kernel on the same call, #11 and #12 at T = 5 (as in
       (16)), a verify window's ms and tokens a row in (a) and (b),
       decode ms per emitted token per slot with and without a draft;
-  (30) disaggregated prefill and decode, run on the server of (13) as
-      (30a) before it stops, and as (30b) on a second server over the
-      first SPEC_INT8_LAYERS layers of the int8 server of (17)'s tensors
-      (``cut_server``; the whole run keeps inside its time limit): its
+  (30) disaggregated prefill and decode, run as (30a) on a second
+      server over the first SPEC_INT8_LAYERS layers of the bf16 server of
+      (13)'s tensors before that server stops, and as (30b) on one over
+      the first SPEC_INT8_LAYERS layers of the int8 server of (17)'s
+      tensors (``cut_server``; the whole run keeps inside its time
+      limit): its
       engine is the prefill replica; a second ContinuousEngine and
       InferenceServer on the same parameter tensors (its own pool) is the
       decode replica. A 512-token greedy and a 600-token sampled prompt
@@ -260,7 +262,7 @@ times them. Phases:
       kernels line's #11, #12 and #15 entries gain ``disagg_launches``;
   (31) preemption, drain and live-session migration. (31b), before (30a)'s
       decode replica stops: a 600-token greedy and a 600-token sampled
-      session (80 new each) on the server of (13); once each decoded 48
+      session (80 new each) on (30a)'s cut server; once each decoded 48
       tokens, POST /admin/drain: both complete with finish_reason
       "migrated" after streaming their committed blocks (a 4-block v1
       chunk, then v3) into the export cache, new work answers 503
@@ -386,6 +388,23 @@ times them. Phases:
       call held; the tp gauges read 2; on one card a tp=2 server without a
       mesh raises. #9-#12 and #15 gain ``tp_launches`` in the kernels
       line;
+  (36) sequence, pipeline and expert parallelism on one card
+      (``sp_moe_phase``), the ranks repeated ``cuda:0`` devices: (36a)
+      sp=2 at llama-3-8b width cut to 8 layers, a greedy and a sampled
+      (top_p 0.9) 2048-token prompt through ``SPEngine.generate`` against
+      ``Engine.generate`` up to the near-tie rules, every #10 call held,
+      the handed-off caches against ``chunked_prefill``'s, one layer's
+      ring attention against the dense at [1, 2048, 32, 128]; (36b) sp=2
+      x tp=2, #10 equal on both tp ranks, streams equal to (36a)'s;
+      (36c) the ``--sequence-parallel-size 2 --sp-min-prompt 1024
+      --draft-model`` server over HTTP, route "sp" by ``/metrics``; (36e)
+      ``pipeline_forward`` at pp 2 and 4, M 2 and 4, against the dense
+      forward; (36d) mixtral-8x7b width cut to 4 layers in the continuous
+      engine (#11 bf16, tp=2 against tp=1, #12 and #15 int8 with the
+      experts bf16), a 4100-token engine request (#9, #10), the MoE
+      block's share of a decode step, ``moe_block_ep`` at ep 2 and 8, the
+      card against the CPU at 1 layer in f32. #10 gains ``sp_launches``,
+      #9-#12 and #15 ``moe_launches`` in the kernels line;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -403,7 +422,8 @@ placement p50s of (4), (7) and (11) alone. ``--disagg`` runs (30a) and
 servers (chiprun_out/observe_probe.json); ``--agent`` runs (33) alone
 (chiprun_out/agent_probe.json); ``--fleet`` runs (34) alone on the
 server of (13) and a decode replica (chiprun_out/fleet_probe.json);
-``--tp`` runs (35) alone (chiprun_out/tp_probe.json).
+``--tp`` runs (35) alone (chiprun_out/tp_probe.json); ``--sp`` runs
+(36) alone (chiprun_out/sp_probe.json).
 """
 
 from __future__ import annotations
@@ -433,9 +453,10 @@ ROUND_KERNELS = ("fence", "bid", "accept")
 # time, and one layer keeps the whole run near 750 s
 CPU_CHECK_LAYERS = 1
 # depth of the verify engines and servers in [25a], [25b], [25c] and [27]
-# (the preset has 32): [13]-[20] serve at full depth, and a quarter here
-# keeps the whole run near 750 s with [32] added
-SPEC_INT8_LAYERS = 8
+# and of ``cut_server``'s replicas ((30), (31b), (31c), (34); the preset
+# has 32): [13]-[20] serve at full depth; an eighth here keeps the whole
+# run well inside its time limit with (36) added
+SPEC_INT8_LAYERS = 4
 # steps of (22)'s training run on each side (the loss falls from the
 # first; the CPU's f32 steps are most of (21)-(23)), and new tokens of
 # each row of (25) and (27)'s card-against-CPU verify runs (both still
@@ -2563,6 +2584,7 @@ def serving_phases(dev, record, card):
     captured from it; the card against the CPU; times. Returns the
     kernels' entries of the ``kernels`` line."""
     import dataclasses
+    import gc
 
     import torch
     import torch.nn.functional as F
@@ -2807,20 +2829,32 @@ def serving_phases(dev, record, card):
         "engine_decode_busy_ms_per_token": eng_dec[1],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    # (30a) disaggregated prefill and decode, this server the prefill side;
-    # (31b) drains it onto (30a)'s decode replica; (34) routes over two
-    # replicas on this server's first SPEC_INT8_LAYERS layers;
-    # (31a) preempts on its parameter tensors
+    # (30a) disaggregated prefill and decode on this server's first
+    # SPEC_INT8_LAYERS layers (a second server on its tensors, as (30b):
+    # the whole run keeps inside its time limit with (36) added), the cut
+    # server the prefill side; (31b) drains it onto (30a)'s decode
+    # replica; (34) routes over two replicas on this server's first
+    # SPEC_INT8_LAYERS layers; (31a) preempts on its parameter tensors
     migrate, fleet = {}, {}
 
-    def then(dec_srv, dec):
-        migrate.update(migrate_phase(dev, record, card, srv, cont, dec_srv,
-                                     dec))
-        fleet.update(fleet_on_cut(dev, record, card, srv, cont))
-
     try:
-        launches = disagg_phase(dev, record, card, srv, cont, then=then)
-        # (32a) on this server, after (31b)
+        cut_srv, cut = cut_server(dev, srv, cont, SPEC_INT8_LAYERS)
+
+        def then(dec_srv, dec):
+            migrate.update(migrate_phase(dev, record, card, cut_srv, cut,
+                                         dec_srv, dec))
+            fleet.update(fleet_on_cut(dev, record, card, srv, cont))
+
+        try:
+            launches = disagg_phase(dev, record, card, cut_srv, cut,
+                                    then=then)
+        finally:
+            cut_srv.stop()
+            cut.stop()
+        del cut_srv, cut
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (32a) on the full-depth server, after (31b)
         observe = observe_phase(dev, record, card, srv, cont)
         # at SPEC_INT8_LAYERS of the served layers: the whole run keeps
         # inside its time limit with (33) added
@@ -3301,7 +3335,25 @@ def wait_until(cond, what, timeout=300.0):
         time.sleep(0.002)
 
 
-def sampled_tie(label, got, want, prompt, kw, params, cfg, dev):
+def scan_noise(seed, n, V, dev):
+    """The gumbel noise ``stepper.decode_scan`` adds to a one-row
+    request's scores [n, V]: output 0 from the first key of
+    ``split(PRNGKey(seed))``, output i from the (i - 1)-th of
+    ``split(rest, n - 1)`` (the per-request engines' schedule; the
+    batcher folds the position into the key instead)."""
+    import torch
+
+    from kubeinfer_tpu_torch.inference import prng
+
+    k0, rest = prng.split(prng.PRNGKey(seed, dev))
+    rows = [prng.gumbel(k0, (1, V))[0]]
+    if n > 1:
+        keys = prng.split(rest, n - 1)
+        rows += [prng.gumbel(keys[j], (1, V))[0] for j in range(n - 1)]
+    return torch.stack(rows)
+
+
+def sampled_tie(label, got, want, prompt, kw, params, cfg, dev, scan=False):
     """A sampled bf16 stream (``got``) that leaves ``want`` (the same
     request on another route) first at output i, held to [25]'s rule on
     the sampler's own decision. The sampler's scores are the tempered
@@ -3310,7 +3362,9 @@ def sampled_tie(label, got, want, prompt, kw, params, cfg, dev):
     those, so a position's allowance is 2 x the served forward's largest
     error on the tempered scores of the tokens the f32 top-k filter keeps
     + GAP_ULP; the envelope is the largest over both streams, all under
-    teacher-forced forwards of the same weights. Held where the two
+    teacher-forced forwards of the same weights (``scan``: the noise of
+    ``decode_scan``'s key schedule, ``scan_noise``, for a request of the
+    per-request engines). Held where the two
     tokens' f32 scores differ by no more than the envelope, or where
     either token lies within the envelope of one of the f32 filter's
     edges, which one route's bf16 logits may cross:
@@ -3342,10 +3396,13 @@ def sampled_tie(label, got, want, prompt, kw, params, cfg, dev):
     for stream in (got, want):
         l16, l32 = forced_logits(params, cfg, prompt, stream, dev)
         n, V = l32.shape
-        keys = prng.fold_in(
-            prng.key(int(kw.get("seed", 0)), device=dev)[None].expand(n, 2),
-            len(prompt) + torch.arange(n, device=dev))
-        noise = prng.gumbel(keys, (V,))
+        if scan:
+            noise = scan_noise(int(kw.get("seed", 0)), n, V, dev)
+        else:
+            keys = prng.fold_in(
+                prng.key(int(kw.get("seed", 0)), device=dev)[None].expand(
+                    n, 2), len(prompt) + torch.arange(n, device=dev))
+            noise = prng.gumbel(keys, (V,))
         kept_k = torch.isfinite(filter_logits(l32 / temp, k, 1.0))
         err = torch.where(kept_k, (l16 - l32).abs() / temp, 0.0)
         envelope = max(envelope, 2 * float(err.amax()) + GAP_ULP)
@@ -3399,7 +3456,7 @@ def sampled_tie(label, got, want, prompt, kw, params, cfg, dev):
     return i, gap, envelope
 
 
-def held_pairs(label, got, want, jobs, params, cfg, dev):
+def held_pairs(label, got, want, jobs, params, cfg, dev, scan=False):
     """Each stream of ``got`` equal to the same request's in ``want`` (the
     same budget), or leaving it first at a near-tie: [25]'s rule for a
     greedy stream (``held_streams``), ``sampled_tie`` for a sampled one.
@@ -3413,7 +3470,7 @@ def held_pairs(label, got, want, jobs, params, cfg, dev):
             continue
         if kw.get("temperature", 0.0) > 0:
             sampled_tie(f"{label} request {n}:", g, w, p, kw, params, cfg,
-                        dev)
+                        dev, scan=scan)
         else:
             held_streams(f"{label} request {n}:", [g], [w], [p], params,
                          cfg, dev)
@@ -3688,8 +3745,8 @@ def preempt_phases(dev, record, card, params, cfg, cache_len):
 
 
 def migrate_phase(dev, record, card, src_srv, src, dst_srv, dst):
-    """Phase (31b) on the bf16 server of (13) with (30a)'s decode replica
-    as the target, or (31c) on the int8 server of (17) with (30b)'s: a
+    """Phase (31b) on (30a)'s cut bf16 server with (30a)'s decode replica
+    as the target, or (31c) on (30b)'s cut int8 server with (30b)'s: a
     600-token greedy and a 600-token sampled session (80 new each) on
     the source; once each decoded 48 tokens, ``POST /admin/drain``: the
     sessions stream their committed blocks (a 4-block v1/v2 chunk, then
@@ -8428,7 +8485,7 @@ def main(placement_only=False) -> int:
     auction_entry["tick_launches"] = tick_launches["auction_solve"]
     route_entry["tick_launches"] = tick_launches["route_pick"]
     serve_entries = int8_entries = train_entries = mask_entry = []
-    agent_launches = tp_launches = {}
+    agent_launches = tp_launches = sp_launches = moe_launches = {}
     if not placement_only:
         serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
         int8_entries = phase("[17]-[20]", int8_phases, dev, record, card)
@@ -8445,6 +8502,10 @@ def main(placement_only=False) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tp_launches = phase("(35)", tp_phase, dev, record, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp_launches, moe_launches = phase("(36)", sp_moe_phase, dev, record,
+                                          card)
     for name, sec in phase_s.items():
         print(f"[s] {name}: {sec:.1f} s")
 
@@ -8472,6 +8533,10 @@ def main(placement_only=False) -> int:
             entry["agent_launches"] = agent_launches[entry["name"]]
         if entry["name"] in tp_launches:
             entry["tp_launches"] = tp_launches[entry["name"]]
+        if entry["name"] in sp_launches:
+            entry["sp_launches"] = sp_launches[entry["name"]]
+        if entry["name"] in moe_launches:
+            entry["moe_launches"] = moe_launches[entry["name"]]
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -8819,7 +8884,7 @@ def tp_engine(cfg, params, tp, kv, dev):
     return ContinuousEngine(
         params, cfg, n_slots=8, cache_len=4096, block_size=128,
         prefill_chunk_blocks=4, kv_dtype=kv, weight_dtype=kv,
-        layout=EngineLayout.build(tp, ["cuda:0"] * tp) if tp > 1 else None,
+        layout=EngineLayout.build(tp, [dev] * tp) if tp > 1 else None,
         device=None if tp > 1 else dev).start()
 
 
@@ -9197,6 +9262,615 @@ def tp_probe() -> int:
     return 0
 
 
+SP_LAYERS = 8  # (36a)-(36c), (36e): llama-3-8b width at 8 of its 32 layers
+SP_PROMPT = 2048  # (36a)-(36c): the sp requests' prompt
+SP_NEW = 32  # new tokens of each sp request
+MOE_LAYERS = 4  # (36d): mixtral-8x7b width at 4 of its 32 layers
+MOE_NEW = 32  # new tokens of each (36d) batcher request
+MOE_ENGINE_PROMPT = 4100  # (36d): past the batcher's 4096
+HANDOFF_REL = 2.0 ** -4  # (36a): handed-off K/V against chunked_prefill's
+PP_REL = 2.0 ** -4  # (36e): pp logits against the dense forward's
+
+
+def decode10_check(fa):
+    """The stand-in that holds #10 against its plain version on every
+    call, on the whole tiles the live rows reach, split-K walk counted."""
+    import torch
+
+    return CheckedAttention(
+        fa, "decode_attention", fa.decode_attention_plain,
+        live=lambda q, k, v, ln: ln > 0, weight=lambda q, k, v, ln: 0,
+        walk=True, trim=True)
+
+
+def rel_err(got, want):
+    """(max |got - want|, that over max |want|) in f32."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    return err, err / max(float(w.abs().max()), 1e-30)
+
+
+def sp_streams(spe, jobs, new):
+    return [spe.generate([p], new, **kw).tokens[0].tolist()
+            for p, kw in jobs]
+
+
+def sp_moe_phase(dev, record, card):
+    """Phase (36): sequence, expert and pipeline parallelism on one H100,
+    the ranks repeated ``cuda:0`` devices (one process, one card).
+
+    - (36a) sp=2: llama-3-8b width cut to ``SP_LAYERS`` layers
+      (``init_params(seed=0)``, bf16), ``SPEngine.generate`` on a greedy
+      and a sampled (top_p 0.9) ``SP_PROMPT``-token prompt, ``SP_NEW``
+      new tokens, against ``Engine.generate`` on the same params up to
+      the near-tie rules (``held_pairs``); every #10 call held to its
+      plain version; the handed-off caches against ``chunked_prefill``'s;
+      one layer's ``ring_attention`` against the dense causal attention
+      at [1, 2048, 32, 128]; sp prefill, chunked prefill, ring and
+      handoff times, decode ms a token.
+    - (36b) sp=2 x tp=2 over four ranks: the same prompts, #10 on each tp
+      rank (launches equal), streams equal to (36a)'s up to near-ties; a
+      mesh naming more cards than there are raises.
+    - (36c) ``build_server([... "--sequence-parallel-size", "2",
+      "--sp-min-prompt", "1024", "--draft-model", ...], mesh=...)`` over
+      HTTP: the ``SP_PROMPT`` request routes "sp" (by ``/metrics``) and
+      equals (36a)'s stream; a 512-token request takes the batcher.
+    - (36e) ``pipeline_forward`` on (36a)'s params at pp 2 and 4, M 2 and
+      4, tokens [4, 512], against ``forward(attn_fn=attention)``.
+    - (36d) mixtral-8x7b width cut to ``MOE_LAYERS`` layers: the
+      continuous engine at [13]'s slot geometry on 4 greedy + 1 sampled
+      512-token prompts, ``MOE_NEW`` new: bf16 with every #11 call held,
+      tp=2 streams against tp=1, a ``MOE_ENGINE_PROMPT``-token engine
+      request (#9, #10 held), the MoE block's share of a decode step,
+      ``moe_block_ep`` at ep 2 and 8 against ``moe_block``, the int8 pool
+      and weights (#12, every #15 call held, the experts bf16), and the
+      card against the CPU at 1 layer in f32.
+
+    Returns ({kernel: launches on the sp path}, {kernel: launches on the
+    MoE path})."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.inference import model as tm
+    from kubeinfer_tpu_torch.inference import server
+    from kubeinfer_tpu_torch.inference import sp_engine
+    from kubeinfer_tpu_torch.inference import weight_quant as wq
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.engine import (
+        Engine,
+        chunked_prefill,
+        make_caches,
+        prefill_chunk_for,
+        prepare_prompts,
+    )
+    from kubeinfer_tpu_torch.inference.moe import (
+        make_ep_mesh,
+        moe_block,
+        moe_block_ep,
+    )
+    from kubeinfer_tpu_torch.inference.pipeline import (
+        make_pp_mesh,
+        pipeline_forward,
+    )
+    from kubeinfer_tpu_torch.inference.ring_attention import ring_attention
+    from kubeinfer_tpu_torch.inference.sharding import (
+        Sharded,
+        make_inference_mesh,
+        shard_params,
+    )
+    from kubeinfer_tpu_torch.inference.stepper import step_forward
+
+    t_phase = time.perf_counter()
+    out = record["sp_moe"] = {"card": card, "sp_layers": SP_LAYERS,
+                              "moe_layers": MOE_LAYERS}
+    marks = out["phase_s"] = {}
+    sp_launches, moe_launches = collections.Counter(), collections.Counter()
+
+    def mark(name, t0):
+        marks[name] = time.perf_counter() - t0
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    # (36a) sp=2
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=SP_LAYERS)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(36)
+    jobs = [(rng.integers(1, V, SP_PROMPT).tolist(), {}),
+            (rng.integers(1, V, SP_PROMPT).tolist(),
+             dict(temperature=0.8, top_p=0.9, seed=7))]
+    params = tm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        eng = Engine(params, cfg, max_cache_len=8192, device=dev)
+        want = [eng.generate([p], SP_NEW, **kw).tokens[0].tolist()
+                for p, kw in jobs]
+        mesh = make_inference_mesh(tp=1, sp=2, dp=1, devices=[dev] * 2)
+        spe = sp_engine.SPEngine(params, cfg, mesh, max_cache_len=8192,
+                                 min_prompt=1024)
+        chk = decode10_check(fa)
+        with chk:
+            try:
+                got = sp_streams(spe, jobs, SP_NEW)
+            finally:
+                check(chk.error is None, f"(36a) {chk.error}")
+        walk = chk.walk_check("(36a)")
+        check(chk.launches == chk.calls == SP_LAYERS * (SP_NEW - 1)
+              * len(jobs), f"(36a) #10 {chk.launches} launches, "
+              f"{chk.calls} calls")
+        sp_launches["decode_attention"] += chk.launches
+        divs = held_pairs("(36a)", got, want, jobs, params, cfg, dev,
+                      scan=True)
+        # the handoff against chunked_prefill's caches, and the times
+        padded, lens, cache_len = prepare_prompts([jobs[0][0]], SP_NEW, 8192)
+        prompt = torch.from_numpy(padded).to(dev)
+        plen = torch.from_numpy(lens).to(dev)
+        (caches, logits), sp_ms = synced(lambda: sp_engine.sp_prefill(
+            params, prompt, plen, cfg, mesh, ranks=spe.ranks))
+        (caches, logits), sp_ms = synced(lambda: sp_engine.sp_prefill(
+            params, prompt, plen, cfg, mesh, ranks=spe.ranks))
+        ref = make_caches(cfg, 1, cache_len, torch.bfloat16, dev)
+        C = prefill_chunk_for(1, padded.shape[1])
+        (ref, ref_logits), chunk_ms = synced(lambda: chunked_prefill(
+            params, prompt, plen, cfg, ref, C))
+        L = int(lens[0])
+        layer_rel = [max(rel_err(k[:, :L], rk[:, :L])[1],
+                         rel_err(v[:, :L], rv[:, :L])[1])
+                     for (k, v), (rk, rv) in zip(caches, ref)]
+        logit_err = rel_err(logits, ref_logits)
+        check(max(layer_rel) <= HANDOFF_REL,
+              f"(36a) handed-off K/V off chunked_prefill's: {layer_rel}")
+        T_loc = padded.shape[1] // 2
+        local = [[(k[:, s * T_loc:(s + 1) * T_loc].contiguous(),
+                   v[:, s * T_loc:(s + 1) * T_loc].contiguous())
+                  for k, v in caches] for s in range(2)]
+        handoff_ms = cuda_ms(lambda: [
+            (sp_engine._expand(k, cache_len), sp_engine._expand(v, cache_len))
+            for k, v in sp_engine.handoff(local, [dev])], reps=5)
+        # one layer's ring against the dense causal attention
+        g = torch.Generator(device=dev)
+        g.manual_seed(36)
+        q, k, v = (torch.randn((1, SP_PROMPT, n, cfg.head_dim), generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for n in (cfg.num_attention_heads,
+                             cfg.num_key_value_heads,
+                             cfg.num_key_value_heads))
+        qs, ks, vs = (list(x.split(SP_PROMPT // 2, dim=1))
+                      for x in (q, k, v))
+        ring = torch.cat(ring_attention(qs, ks, vs), dim=1)
+        mask = tm.causal_mask(SP_PROMPT, dev)[None]
+        dense = tm.attention(q, k, v, mask)
+        ring_err, ring_ok = attn_err(ring, dense, torch.ones(
+            1, dtype=torch.bool, device=dev))
+        check(ring_ok, f"(36a) ring attention off the dense: {ring_err}")
+        ring_ms = cuda_ms(lambda: ring_attention(qs, ks, vs), reps=5)
+        dense_ms = cuda_ms(lambda: tm.attention(q, k, v, mask), reps=5)
+        del q, k, v, qs, ks, vs, ring, dense, local, caches, ref
+        _, gen_ms = synced(lambda: spe.generate([jobs[0][0]], SP_NEW))
+    decode_ms = (gen_ms - sp_ms) / (SP_NEW - 1)
+    out["sp2"] = {"launches": chk.launches, "max_err": chk.max_err,
+                  "split_walk": walk, "divergences": divs,
+                  "handoff_layer_rel": layer_rel, "next_logits_err":
+                  logit_err, "sp_prefill_ms": sp_ms,
+                  "chunked_prefill_ms": chunk_ms, "handoff_ms": handoff_ms,
+                  "ring_err": ring_err, "ring_ms": ring_ms,
+                  "dense_attention_ms": dense_ms, "generate_ms": gen_ms,
+                  "decode_ms_per_token": decode_ms}
+    print(f"(36a) {card}: llama-3-8b width, {cfg.num_hidden_layers} "
+          f"layers, bf16, sp=2 over cuda:0 twice: a greedy and a sampled (top_p 0.9) "
+          f"{SP_PROMPT}-token prompt, {SP_NEW} new: SPEngine equal to "
+          f"Engine but {divs} (near-ties held); #10 {chk.launches} launches,"
+          f" every call within tolerance of its plain version (max err "
+          f"{chk.max_err:.3e}), split-K walk {walk[0]}; handed-off K/V "
+          f"against chunked_prefill's, largest error over the largest value "
+          f"per layer {[round(x, 5) for x in layer_rel]} (<= {HANDOFF_REL}),"
+          f" next logits {logit_err[0]:.4f} abs; ring attention at [1, "
+          f"{SP_PROMPT}, 32, 128] against the dense causal: max err "
+          f"{ring_err:.3e}; sp prefill {sp_ms:.1f} ms beside chunked "
+          f"{chunk_ms:.1f} (host ms to sync); ring {ring_ms:.3f} ms, dense "
+          f"{dense_ms:.3f} (CUDA events over calls); handoff (concatenate "
+          f"and widen, every layer) {handoff_ms:.3f} ms; decode "
+          f"{decode_ms:.2f} ms a token")
+    mark("(36a)", t0)
+
+    # (36b) sp=2 x tp=2
+    t0 = time.perf_counter()
+    mesh4 = make_inference_mesh(tp=2, sp=2, dp=1, devices=[dev] * 4)
+    spe4 = sp_engine.SPEngine(shard_params(params, mesh4, cfg), cfg, mesh4,
+                              max_cache_len=8192, min_prompt=1024)
+    chk4 = decode10_check(fa)
+    chk4.ranks = {}
+    expand = sp_engine._expand
+
+    def tallied(c, cache_len):
+        # the decode caches' pieces, each tallied by its tp rank
+        w = expand(c, cache_len)
+        if isinstance(w, Sharded):
+            chk4.ranks.update({p.data_ptr(): r for r, p in enumerate(w)})
+        return w
+
+    sp_engine._expand = tallied
+    try:
+        with torch.inference_mode(), chk4:
+            try:
+                got4 = sp_streams(spe4, jobs, SP_NEW)
+            finally:
+                check(chk4.error is None, f"(36b) {chk4.error}")
+    finally:
+        sp_engine._expand = expand
+    walk4 = chk4.walk_check("(36b)")
+    per_rank = [chk4.per_rank[r] for r in range(2)]
+    check(chk4.per_rank[-1] == 0 and per_rank[0] == per_rank[1]
+          == SP_LAYERS * (SP_NEW - 1) * len(jobs)
+          and chk4.launches == chk4.calls == sum(per_rank),
+          f"(36b) #10 {chk4.launches} launches, by rank "
+          f"{dict(chk4.per_rank)}")
+    sp_launches["decode_attention"] += chk4.launches
+    divs4 = held_pairs("(36b)", got4, got, jobs, params, cfg, dev,
+                      scan=True)
+    del spe4
+    if torch.cuda.device_count() < 2:
+        try:
+            make_inference_mesh(tp=1, sp=2, dp=1)
+        except ValueError as e:
+            check(f"needs 2 devices, have {torch.cuda.device_count()}"
+                  in str(e), f"(36b) {e}")
+        else:
+            check(False, "(36b) an sp=2 mesh of the visible cards on one "
+                  "card did not raise")
+    out["sp2tp2"] = {"launches": chk4.launches, "per_rank": per_rank,
+                     "max_err": chk4.max_err, "split_walk": walk4,
+                     "divergences": divs4}
+    print(f"(36b) sp=2 x tp=2 over cuda:0 four times: the same prompts, "
+          f"streams equal to (36a)'s but {divs4}; #10 {chk4.launches} "
+          f"launches, {per_rank} a tp rank, every call within tolerance "
+          f"(max err {chk4.max_err:.3e}); an sp=2 mesh of the visible "
+          f"cards on one card raises")
+    mark("(36b)", t0)
+
+    # (36c) the server, a self draft beside the sp route
+    t0 = time.perf_counter()
+    full = PRESETS["llama-3-8b"]
+    PRESETS["llama-3-8b"] = cfg
+    try:
+        srv, cont = server.build_server(
+            ["--model", "llama-3-8b", "--random-init", "--port", "0",
+             "--host", "127.0.0.1", "--batch-slots", "4",
+             "--sequence-parallel-size", "2", "--sp-min-prompt", "1024",
+             "--draft-model", "llama-3-8b"], mesh=mesh)
+    finally:
+        PRESETS["llama-3-8b"] = full
+    cont.start()
+    srv.start()
+    short = rng.integers(1, V, 512).tolist()
+    chk10 = decode10_check(fa)
+    chk11 = attention_check(fa, False)
+    try:
+        with torch.inference_mode(), chk10, chk11:
+            try:
+                resps = [post_json(srv.port, dict(prompt=p, max_tokens=n))
+                         for p, n in ((jobs[0][0], SP_NEW), (short, 16))]
+            finally:
+                for c in (chk10, chk11):
+                    check(c.error is None, f"(36c) {c.error}")
+        _, text, _ = get_text(srv.port, "/metrics")
+    finally:
+        srv.stop()
+        cont.stop()
+    routes = [r["kubeinfer"]["route"] for r in resps]
+    check(routes[0] == "sp" and routes[1] in ("continuous", "speculative"),
+          f"(36c) routes {routes}")
+    sp_reqs = [ln for ln in text.splitlines()
+               if ln.startswith("kubeinfer_inference_requests_total")
+               and 'route="sp"' in ln]
+    check(len(sp_reqs) == 1 and 'outcome="ok"' in sp_reqs[0]
+          and float(sp_reqs[0].split()[-1]) == 1.0,
+          f"(36c) /metrics: {sp_reqs}")
+    check(len(resps[1]["choices"][0]["tokens"]) == 16,
+          "(36c) the 512-token request's tokens")
+    # the 512-token request rides the batcher's draft groups (dense
+    # rounds; #11 only where a row decodes on its own)
+    check(chk10.calls >= SP_LAYERS * (SP_NEW - 1),
+          f"(36c) #10 {chk10.calls} calls, #11 {chk11.calls}")
+    divs_c = held_pairs("(36c)", [resps[0]["choices"][0]["tokens"]],
+                        [got[0]], jobs[:1], params, cfg, dev)
+    sp_launches["decode_attention"] += chk10.launches
+    out["server"] = {"routes": routes, "metrics": sp_reqs,
+                     "divergences": divs_c,
+                     "launches": {c.name: c.launches for c in (chk10, chk11)}}
+    print(f"(36c) build_server(--sequence-parallel-size 2, --sp-min-prompt "
+          f"1024, --draft-model, mesh=cuda:0 twice) over HTTP: routes "
+          f"{routes}, {sp_reqs}; the {SP_PROMPT}-token stream equal to "
+          f"(36a)'s but {divs_c}; #10 {chk10.launches} launches, #11 "
+          f"{chk11.launches}, every call within tolerance")
+    del srv, cont
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("(36c)", t0)
+
+    # (36e) pipeline parallelism on (36a)'s params
+    t0 = time.perf_counter()
+    toks = torch.from_numpy(rng.integers(1, V, (4, 512))).to(dev)
+    with torch.inference_mode():
+        dense, _ = tm.forward(params, toks, cfg, attn_fn=tm.attention)
+        dense_fwd_ms = cuda_ms(lambda: tm.forward(params, toks, cfg,
+                                                  attn_fn=tm.attention),
+                               reps=3)
+        pp_rows = {}
+        for pp in (2, 4):
+            pmesh = make_pp_mesh(pp, [dev] * pp)
+            for M in (2, 4):
+                lg = pipeline_forward(params, toks, cfg, pmesh, M)
+                err = rel_err(lg, dense)
+                same = float((lg.argmax(-1) == dense.argmax(-1)).float()
+                             .mean())
+                check(err[1] <= PP_REL, f"(36e) pp={pp} M={M}: logits off "
+                      f"the dense forward's by {err}")
+                pp_rows[f"pp{pp}_m{M}"] = {
+                    "max_err": err[0], "rel": err[1], "argmax_equal": same,
+                    "ms": cuda_ms(lambda: pipeline_forward(
+                        params, toks, cfg, pmesh, M), reps=3)}
+                del lg
+    out["pp"] = {"rows": pp_rows, "dense_forward_ms": dense_fwd_ms}
+    print(f"(36e) pipeline_forward at llama-3-8b width, {SP_LAYERS} layers, "
+          f"tokens [4, 512], against forward(attn_fn=attention) "
+          f"({dense_fwd_ms:.2f} ms): " + "; ".join(
+              f"{k} max err {r['max_err']:.4f} ({r['rel']:.5f} of the "
+              f"largest logit, <= {PP_REL}), argmax equal "
+              f"{r['argmax_equal']:.4f}, {r['ms']:.2f} ms"
+              for k, r in pp_rows.items()))
+    del dense, params, eng, spe
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("(36e)", t0)
+
+    # (36d) Mixtral served
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(PRESETS["mixtral-8x7b"],
+                               num_hidden_layers=MOE_LAYERS)
+    MV = mcfg.vocab_size
+    mjobs = [(rng.integers(1, MV, 512).tolist(), {}) for _ in range(4)]
+    mjobs.append((rng.integers(1, MV, 512).tolist(),
+                  dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)))
+    timed = [rng.integers(1, MV, 512).tolist() for _ in range(4)]
+    mp = tm.init_params(mcfg, seed=0, dtype=torch.bfloat16, device=dev)
+    expert_gb = sum(layer["moe"][k].numel() * 2 for layer in mp["layers"]
+                    for k in ("gate_proj", "up_proj", "down_proj")) / 1e9
+    one = tp_engine(mcfg, mp, 1, "bf16", dev)
+    chk11 = attention_check(fa, False)
+    try:
+        with torch.inference_mode(), chk11:
+            try:
+                mwant = tp_serve(one, mjobs, MOE_NEW)
+            finally:
+                check(chk11.error is None, f"(36d) {chk11.error}")
+        with torch.inference_mode():
+            mms = decode_ms_per_token(one, timed, 16)
+    finally:
+        one.stop()
+    del one
+    walk11 = chk11.walk_check("(36d)")
+    check(chk11.launches == chk11.calls > 0, f"(36d) #11 {chk11.calls}")
+    moe_launches["decode_attention_blocks"] += chk11.launches
+    two = tp_engine(mcfg, mp, 2, "bf16", dev)
+    chk2 = attention_check(fa, False)
+    chk2.ranks = pool_ranks(two)
+    try:
+        with torch.inference_mode(), chk2:
+            try:
+                mgot = tp_serve(two, mjobs, MOE_NEW)
+            finally:
+                check(chk2.error is None, f"(36d) tp=2 {chk2.error}")
+    finally:
+        two.stop()
+    del two
+    per2 = [chk2.per_rank[r] for r in range(2)]
+    check(chk2.per_rank[-1] == 0 and per2[0] == per2[1] > 0
+          and chk2.launches == sum(per2),
+          f"(36d) tp=2 #11 by rank {dict(chk2.per_rank)}")
+    moe_launches["decode_attention_blocks"] += chk2.launches
+    mdivs = held_pairs("(36d) tp=2", mgot, mwant, mjobs, mp, mcfg, dev)
+    # the engine route past the batcher's row
+    long_prompt = rng.integers(1, MV, MOE_ENGINE_PROMPT).tolist()
+    chk9 = CheckedAttention(
+        fa, "flash_attention_ragged", fa.flash_attention_ragged_plain,
+        live=lambda q, k, v, off, ln: torch.ones(q.shape[0], dtype=torch.bool,
+                                                 device=q.device),
+        weight=lambda q, k, v, off, ln: off)
+    chk10 = decode10_check(fa)
+    with torch.inference_mode(), chk9, chk10:
+        try:
+            Engine(mp, mcfg, max_cache_len=8192, device=dev).generate(
+                [long_prompt], 8)
+        finally:
+            for c in (chk9, chk10):
+                check(c.error is None, f"(36d) engine route {c.error}")
+    bucket = prepare_prompts([long_prompt], 8, 8192)[0].shape[1]
+    chunks = bucket // prefill_chunk_for(1, bucket)
+    check(chk9.calls == chunks * MOE_LAYERS
+          and chk9.tc_launches == chk9.calls
+          and chk10.calls == 7 * MOE_LAYERS,
+          f"(36d) engine route #9 {chk9.calls} calls ({chk9.tc_launches} "
+          f"tensor cores), #10 {chk10.calls}")
+    moe_launches["flash_attention_ragged"] += chk9.launches
+    moe_launches["decode_attention"] += chk10.launches
+    # the MoE block's share of a decode step's device time (engine route,
+    # 8 rows at 512 positions)
+    with torch.inference_mode():
+        caches = make_caches(mcfg, 8, 1024, torch.bfloat16, dev)
+        tok = torch.ones(8, dtype=torch.long, device=dev)
+        off = torch.full((8,), 512, dtype=torch.int32, device=dev)
+        step_wall, step_busy, _ = device_profile(
+            lambda: step_forward(mp, mcfg, tok, off, caches, 1024))
+        moe0 = mp["layers"][0]["moe"]
+        h8 = torch.randn((8, 1, mcfg.hidden_size), device=dev).to(
+            torch.bfloat16)
+        moe_ms = device_ms(lambda: moe_block(moe0, h8, 2))
+        del caches
+        # expert parallelism against the dense block
+        ep_rows = {}
+        for ep in (2, 8):
+            emesh = make_ep_mesh(ep, [dev] * ep)
+            for shape in ((8, 1, mcfg.hidden_size),
+                          (1, 512, mcfg.hidden_size)):
+                x = torch.randn(shape, device=dev).to(torch.bfloat16)
+                want_x = moe_block(moe0, x, 2)
+                got_x = moe_block_ep(moe0, x, emesh, 2)
+                err, ok = attn_err(got_x, want_x, torch.ones(
+                    shape[0], dtype=torch.bool, device=dev))
+                check(ok, f"(36d) moe_block_ep ep={ep} {shape}: {err}")
+                ep_rows[f"ep{ep}_{'x'.join(map(str, shape))}"] = {
+                    "max_err": err,
+                    "ms": cuda_ms(lambda: moe_block_ep(moe0, x, emesh, 2),
+                                  reps=5),
+                    "moe_block_ms": cuda_ms(lambda: moe_block(moe0, x, 2),
+                                            reps=5)}
+    share = MOE_LAYERS * moe_ms / step_busy if step_busy else None
+    del mp, moe0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the int8 pool and weights: the experts stay bf16
+    p8 = tm.init_params(mcfg, seed=0, dtype=torch.bfloat16, device=dev,
+                        weight_dtype="int8")
+    check(all(wq.is_quant_leaf(layer[n]) for layer in p8["layers"]
+              for n in ("q_proj", "k_proj", "v_proj", "o_proj"))
+          and all(layer["moe"][n].dtype == torch.bfloat16
+                  for layer in p8["layers"] for n in layer["moe"]),
+          "(36d) int8: the attention projections int8, the experts bf16")
+    eng8 = tp_engine(mcfg, p8, 1, "int8", dev)
+    chk12 = attention_check(fa, True)
+    mm = CheckedMatmul(wq)
+    try:
+        with torch.inference_mode(), chk12, mm:
+            try:
+                got8 = tp_serve(eng8, mjobs, MOE_NEW)
+            finally:
+                check(chk12.error is None, f"(36d) int8 {chk12.error}")
+                check(mm.verify() is None, f"(36d) int8 {mm.error}")
+    finally:
+        eng8.stop()
+    del eng8, p8
+    routes8 = mm.all_tc("(36d) int8")
+    check(all(len(g) == MOE_NEW for g in got8), "(36d) int8 streams")
+    check(chk12.launches == chk12.calls > 0, f"(36d) #12 {chk12.calls}")
+    moe_launches["decode_attention_blocks_q8"] += chk12.launches
+    moe_launches["quant_matmul"] += mm.launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the card against the CPU, 1 layer in f32
+    c1 = dataclasses.replace(mcfg, num_hidden_layers=1)
+    p32 = tm.init_params(c1, seed=0, dtype=torch.float32, device=dev)
+    short2 = [rng.integers(1, MV, n).tolist() for n in (24, 32)]
+    # tp=2 against tp=1 in f32: bf16 routing flips between the served and
+    # the f32 forward (a router near-tie picks other experts) widen the
+    # bf16 allowance above, so the batcher is held here in f32 too
+    f32_jobs = [(p, {}) for p, _ in mjobs[:4]]
+
+    def f32_serve(tp):
+        e = tp_engine(c1, p32, tp, "bf16", dev)
+        c = attention_check(fa, False)
+        try:
+            with torch.inference_mode(), c:
+                try:
+                    return tp_serve(e, f32_jobs, 16), c
+                finally:
+                    check(c.error is None, f"(36d) f32 tp={tp} {c.error}")
+        finally:
+            e.stop()
+
+    w32, c1_chk = f32_serve(1)
+    g32, c2_chk = f32_serve(2)
+    for c in (c1_chk, c2_chk):
+        check(c.launches == c.calls > 0, f"(36d) f32 #11 {c.calls}")
+        moe_launches["decode_attention_blocks"] += c.launches
+    tp_f32 = f32_streams("(36d) tp=2 against tp=1, f32, 1 layer", g32, w32,
+                         [p for p, _ in f32_jobs], p32, c1, dev)
+    t_cpu = time.perf_counter()
+    with torch.inference_mode():
+        on_card = Engine(p32, c1, device=dev).generate(short2, 8)
+        on_cpu = Engine(tm.params_to(p32, "cpu"), c1,
+                        device="cpu").generate(short2, 8)
+    cpu_s = time.perf_counter() - t_cpu
+    f32_divs = f32_streams("(36d) card vs CPU", on_card.tokens.tolist(),
+                           on_cpu.tokens.tolist(), short2, p32, c1, dev)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe"] = {"expert_gb": expert_gb, "divergences_tp2": mdivs,
+                  "launches": dict(moe_launches),
+                  "per_rank_11_tp2": per2, "split_walk_11": walk11,
+                  "max_err": {c.name: c.max_err for c in
+                              (chk11, chk9, chk10, chk12)},
+                  "qmm": {"max_err": mm.max_err, "routes": routes8},
+                  "decode_ms_per_token_slot": mms,
+                  "step_busy_ms": step_busy, "step_wall_ms": step_wall,
+                  "moe_block_ms": moe_ms, "moe_share": share,
+                  "ep": ep_rows, "card_vs_cpu": {"f32": f32_divs,
+                                                 "s": cpu_s},
+                  "tp2_f32": tp_f32}
+    print(f"(36d) mixtral-8x7b width, {MOE_LAYERS} layers ({expert_gb:.2f} "
+          f"GB of bf16 experts), [13]'s slot geometry, 4 greedy + 1 sampled "
+          f"512-token prompts, {MOE_NEW} new: bf16 #11 {chk11.launches} "
+          f"launches, every call within tolerance; tp=2 over cuda:0 twice "
+          f"equal to tp=1 but {mdivs}, #11 {per2} a rank; the "
+          f"{MOE_ENGINE_PROMPT}-token engine route #9 {chk9.launches} "
+          f"(tensor cores), #10 {chk10.launches}, held; int8 #12 "
+          f"{chk12.launches}, #15 {mm.launches} ({routes8}), every call "
+          f"held, the experts bf16; tp=2 against tp=1 at 1 layer f32 "
+          f"{tp_f32}; card vs CPU at 1 layer f32 "
+          f"{f32_divs} ({cpu_s:.1f} s); decode {mms:.2f} ms a token a slot; "
+          f"a decode step (engine route, 8 rows) busy {step_busy:.3f} ms, "
+          f"the MoE block {moe_ms:.4f} ms a layer (share "
+          f"{share if share is None else round(share, 3)}); moe_block_ep: "
+          + "; ".join(f"{k} err {r['max_err']:.3e} {r['ms']:.3f} ms "
+                      f"(moe_block {r['moe_block_ms']:.3f})"
+                      for k, r in ep_rows.items()))
+    mark("(36d)", t0)
+    for name, n in (("decode_attention", sp_launches["decode_attention"]),):
+        check(n > 0, f"(36) {name} never launched on the sp path")
+    check(all(moe_launches[k] > 0 for k in TP_KERNELS),
+          f"(36) a kernel of the MoE path never launched: "
+          f"{dict(moe_launches)}")
+    out["sp_launches"] = dict(sp_launches)
+    marks["(36)"] = time.perf_counter() - t_phase
+    print(f"(36) sp launches {dict(sp_launches)}, moe launches "
+          f"{dict(moe_launches)}; times {marks}")
+    return dict(sp_launches), dict(moe_launches)
+
+
+def sp_probe() -> int:
+    """``--sp``: phase (36) alone (card only): builds the libraries of the
+    sp and MoE paths, then runs ``sp_moe_phase``; writes
+    ``chiprun_out/sp_probe.json``."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["decode_split", "quant_matmul", "quant_matmul_tc",
+                      "flash_prefill", "flash_prefill_tc"])
+    record = {"card": card}
+    sp_moe_phase(dev, record, card)
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "sp_probe.json").write_text(json.dumps(record, indent=1))
+    print(record["sp_moe"]["phase_s"])
+    print(card)
+    return 0
+
+
 def agent_probe() -> int:
     """``--agent``: phase (33) alone (card only): builds the libraries the
     tick and the spawned and in-process servers launch, then runs
@@ -9234,6 +9908,8 @@ if __name__ == "__main__":
         sys.exit(migrate_probe())
     if sys.argv[1:2] == ["--fleet"]:
         sys.exit(fleet_probe())
+    if sys.argv[1:2] == ["--sp"]:
+        sys.exit(sp_probe())
     if sys.argv[1:2] == ["--tp"]:
         sys.exit(tp_probe())
     if sys.argv[1:2] == ["--tie-probe"]:

@@ -22,17 +22,28 @@ Every projection goes through ``weight_quant.wq_dot``: a plain leaf is
 
 Tensor parallelism (``sharding.py``): ``forward`` over
 ``sharding.ShardedParams`` runs each tp rank's ``n_q / tp`` query heads,
-``n_kv / tp`` KV heads and ``F / tp`` MLP lanes on its own device against
-its own KV pieces (``sharding.Sharded``). The replicated norm output goes
-to each rank, the ``o_proj`` and ``down_proj`` partials meet in
+``n_kv / tp`` KV heads and ``F / tp`` MLP lanes (every expert's, in a
+mixture-of-experts layer) on its own device against its own KV pieces
+(``sharding.Sharded``). The replicated norm output goes to each rank,
+the ``o_proj`` and ``down_proj`` (or expert-weighted) partials meet in
 ``sharding.all_reduce`` on the first rank's device, and a separate
 ``lm_head``'s logits are gathered along the vocabulary
 (``sharding.gather_vocab``); tied embeddings give the full logits there.
+The reference's ``tp_axis``/``tp_size`` (the manual tp of a
+``shard_map`` body, which sees local shards) keep their names: set over
+sharded params of that tp they run the same sharded layer.
 
-Not ported here (each raises ``NotImplementedError`` naming the ROADMAP
-entry that ports it): mixture-of-experts layers, and the manual tp of a
-``shard_map`` body (``tp_axis``), which only the sequence-parallel engine
-uses.
+Sequence parallelism (``sp_forward``): the reference runs each sp
+device's whole forward in a ``shard_map`` body and meets the others in
+ring attention. One process cannot run the ranks side by side, so the
+port's sp forward is layer-major: each layer computes every sp rank's
+q/k/v (and, under tp, every tp rank's heads of it), then the ring over
+the sp ranks' blocks (``ring_attention``; a tp rank rings its own head
+shard), then each rank's ``o_proj`` and MLP. ``_parallel_layer`` is that
+body, and the tp forward is its one-sp-rank case.
+
+Mixture-of-experts layers (Mixtral) carry a ``moe`` subtree and run
+``moe.moe_block`` in place of the dense MLP.
 """
 
 from __future__ import annotations
@@ -44,6 +55,8 @@ import torch.nn.functional as F
 
 from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference.config import ModelConfig
+from kubeinfer_tpu_torch.inference.moe import init_moe_params, moe_block
+from kubeinfer_tpu_torch.inference.ring_attention import ring_attention
 from kubeinfer_tpu_torch.inference.sharding import (
     Sharded,
     ShardedParams,
@@ -55,10 +68,6 @@ from kubeinfer_tpu_torch.inference.sharding import (
 from kubeinfer_tpu_torch.inference.weight_quant import quantize_layer, wq_dot
 
 Params = dict[str, Any]
-
-_MOE = "ROADMAP Queue 1, slice 6: moe.py"
-_TP = ("ROADMAP Queue 1 entry 11: sp_engine.py + ring_attention.py (the "
-       "per-device body of a shard_map)")
 
 
 # --- initialization --------------------------------------------------------
@@ -81,8 +90,6 @@ def init_params(
     leaves the tree plain."""
     if weight_dtype not in ("bf16", "int8"):
         raise ValueError(f"weight_dtype must be bf16|int8: {weight_dtype!r}")
-    if cfg.num_local_experts > 0:
-        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -106,10 +113,14 @@ def init_params(
             "k_proj": dense((H, kv_dim)),
             "v_proj": dense((H, kv_dim)),
             "o_proj": dense((q_dim, H)),
-            "gate_proj": dense((H, Fd)),
-            "up_proj": dense((H, Fd)),
-            "down_proj": dense((Fd, H)),
         }
+        if cfg.num_local_experts > 0:  # Mixtral family: routed MLP
+            layer["moe"] = init_moe_params(gen, H, Fd, cfg.num_local_experts,
+                                           dtype=dtype, device=dev)
+        else:
+            layer["gate_proj"] = dense((H, Fd))
+            layer["up_proj"] = dense((H, Fd))
+            layer["down_proj"] = dense((Fd, H))
         if cfg.qkv_bias:  # Qwen2 family
             layer["q_bias"] = torch.zeros((q_dim,), dtype=dtype, device=dev)
             layer["k_bias"] = torch.zeros((kv_dim,), dtype=dtype, device=dev)
@@ -125,6 +136,33 @@ def init_params(
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense((H, V))
     return params
+
+
+def layer_param_template(cfg: ModelConfig) -> dict:
+    """The key structure of ONE decoder layer (None leaves), the
+    reference's: dense or ``moe`` MLP, qkv biases. Spec builders that
+    cannot afford real params (``pipeline.stack_stage_params``' check)
+    map over this instead of a hard-coded key list."""
+    layer: dict = {
+        "input_layernorm": None,
+        "post_attention_layernorm": None,
+        "q_proj": None,
+        "k_proj": None,
+        "v_proj": None,
+        "o_proj": None,
+    }
+    if cfg.num_local_experts > 0:
+        layer["moe"] = {"router": None, "gate_proj": None, "up_proj": None,
+                        "down_proj": None}
+    else:
+        layer["gate_proj"] = None
+        layer["up_proj"] = None
+        layer["down_proj"] = None
+    if cfg.qkv_bias:
+        layer["q_bias"] = None
+        layer["k_bias"] = None
+        layer["v_bias"] = None
+    return layer
 
 
 def param_bytes(params: Params) -> int:
@@ -310,12 +348,10 @@ def _write_cache(ck: torch.Tensor, new: torch.Tensor, cache_offset,
         ck[:, start:start + T] = new  # in place
 
 
-def _attn_out(layer: Params, h: torch.Tensor, cos, sin, mask,
-              cfg: ModelConfig, n_q: int, n_kv: int, kv_cache, cache_offset,
-              attn_fn, block_tables) -> torch.Tensor:
-    """The attention half of a block after its norm: q/k/v of ``n_q`` and
-    ``n_kv`` heads (a tp rank's share under tp), the cache write, the
-    attention and ``o_proj`` (a rank's partial under tp)."""
+def _qkv(layer: Params, h: torch.Tensor, cos, sin, cfg: ModelConfig,
+         n_q: int, n_kv: int):
+    """q/k/v of ``n_q`` and ``n_kv`` heads (a tp rank's share under tp)
+    from the normed ``h``, RoPE applied to q and k."""
     B, T, _ = h.shape
     D = cfg.head_dim
     q = wq_dot(h, layer["q_proj"])
@@ -327,31 +363,51 @@ def _attn_out(layer: Params, h: torch.Tensor, cos, sin, mask,
         v = v + layer["v_bias"]
     q = apply_rope(q.reshape(B, T, n_q, D), cos, sin)
     k = apply_rope(k.reshape(B, T, n_kv, D), cos, sin)
-    v = v.reshape(B, T, n_kv, D)
+    return q, k, v.reshape(B, T, n_kv, D)
 
-    if kv_cache is not None:
-        ck, cv = kv_cache
-        if isinstance(ck, tuple):
-            # the int8 pool: (pages, scales, tail) per side; the paired
-            # attn_fn unpacks the triples
-            if block_tables is None or getattr(cache_offset, "ndim", 0) != 1:
-                raise ValueError("the int8 pool is written through block "
-                                 "tables at per-row offsets")
-            _write_tail(ck[2], k, cache_offset)
-            _write_tail(cv[2], v, cache_offset)
-        else:
-            _write_cache(ck, k, cache_offset, block_tables)
-            _write_cache(cv, v, cache_offset, block_tables)
-        k, v = ck, cv
 
+def _write_kv(kv_cache, k, v, cache_offset, block_tables):
+    """Write the step's K/V into ``kv_cache`` (IN PLACE) and return what
+    the attention reads: the caches, or (k, v) without a cache."""
+    if kv_cache is None:
+        return k, v
+    ck, cv = kv_cache
+    if isinstance(ck, tuple):
+        # the int8 pool: (pages, scales, tail) per side; the paired
+        # attn_fn unpacks the triples
+        if block_tables is None or getattr(cache_offset, "ndim", 0) != 1:
+            raise ValueError("the int8 pool is written through block "
+                             "tables at per-row offsets")
+        _write_tail(ck[2], k, cache_offset)
+        _write_tail(cv[2], v, cache_offset)
+    else:
+        _write_cache(ck, k, cache_offset, block_tables)
+        _write_cache(cv, v, cache_offset, block_tables)
+    return ck, cv
+
+
+def _attn_out(layer: Params, h: torch.Tensor, cos, sin, mask,
+              cfg: ModelConfig, kv_cache, cache_offset, attn_fn,
+              block_tables) -> torch.Tensor:
+    """The attention half of a block after its norm: q/k/v, the cache
+    write, the attention and ``o_proj``."""
+    B, T, _ = h.shape
+    n_q = cfg.num_attention_heads
+    q, k, v = _qkv(layer, h, cos, sin, cfg, n_q, cfg.num_key_value_heads)
+    k, v = _write_kv(kv_cache, k, v, cache_offset, block_tables)
     attn = attn_fn(q, k, v, mask)
-    return wq_dot(attn.reshape(B, T, n_q * D), layer["o_proj"])
+    return wq_dot(attn.reshape(B, T, n_q * cfg.head_dim), layer["o_proj"])
 
 
 def _mlp_out(layer: Params, h: torch.Tensor, cfg: ModelConfig
              ) -> torch.Tensor:
     """The MLP half after its norm (a tp rank's lanes and partial under
-    tp)."""
+    tp): the gated MLP, or the ``moe`` block (every expert's lanes of the
+    rank; the replicated router sees the whole ``h``, so the gating is
+    the same on every rank and one all-reduce after the expert-weighted
+    sum completes it)."""
+    if "moe" in layer:  # Mixtral family
+        return moe_block(layer["moe"], h, top_k=cfg.num_experts_per_tok)
     gate = _mlp_act(cfg)(wq_dot(h, layer["gate_proj"]))
     return wq_dot(gate * wq_dot(h, layer["up_proj"]), layer["down_proj"])
 
@@ -367,20 +423,23 @@ def decoder_layer(
     cache_offset=0,
     attn_fn=attention,
     tp_axis: str | None = None,
+    tp_size: int = 1,
     block_tables: torch.Tensor | None = None,
 ):
     """One pre-norm block; returns (x, kv cache or None). With a cache,
     the step's K/V are written into it in place (see ``_write_cache``)
-    and attention reads the whole cache."""
+    and attention reads the whole cache. ``tp_axis`` (the reference's
+    manual tp of one device's shards) needs every rank's layer to meet
+    in the all-reduce: run it through ``forward`` over sharded params."""
     if tp_axis is not None:
-        raise NotImplementedError(f"manual tensor parallelism: {_TP}")
-    if "moe" in layer:
-        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
+        raise ValueError(
+            f"tp_axis={tp_axis!r} (tp_size={tp_size}) runs over "
+            "sharding.ShardedParams in forward; decoder_layer takes one "
+            "plain layer")
     h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps,
                  offset=cfg.rmsnorm_offset)
-    x = x + _attn_out(layer, h, cos, sin, mask, cfg,
-                      cfg.num_attention_heads, cfg.num_key_value_heads,
-                      kv_cache, cache_offset, attn_fn, block_tables)
+    x = x + _attn_out(layer, h, cos, sin, mask, cfg, kv_cache, cache_offset,
+                      attn_fn, block_tables)
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps,
                  offset=cfg.rmsnorm_offset)
     x = x + _mlp_out(layer, h, cfg)
@@ -405,33 +464,63 @@ def _on_ranks(t, devices) -> list:
     return out
 
 
-def _tp_layer(params: ShardedParams, i: int, x: torch.Tensor, ops: list,
-              cfg: ModelConfig, kv_cache, attn_fn):
-    """Block ``i`` over the tp ranks: the replicated norm output to each
-    rank, each rank's heads and lanes on its device, the two
-    all-reduces on the first rank's device. ``ops[r]`` holds (cos, sin,
-    mask, cache_offset, block_tables) on rank r's device."""
-    tp = params.tp
-    devs = params.devices
-    first = params.shards[0]["layers"][i]
-    if "moe" in first:
-        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
-    n_q, n_kv = cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp
-    h = rms_norm(x, first["input_layernorm"], cfg.rms_norm_eps,
-                 offset=cfg.rmsnorm_offset)
-    parts = []
-    for r, (dev, hr) in enumerate(zip(devs, _on_ranks(h, devs))):
-        cos, sin, mask, offset, tables = ops[r]
-        cache = None if kv_cache is None else rank_piece(kv_cache, r)
-        parts.append(_attn_out(params.shards[r]["layers"][i], hr, cos, sin,
-                               mask, cfg, n_q, n_kv, cache, offset,
-                               attn_fn, tables))
-    x = x + all_reduce(parts)
-    h = rms_norm(x, first["post_attention_layernorm"], cfg.rms_norm_eps,
-                 offset=cfg.rmsnorm_offset)
-    x = x + all_reduce([_mlp_out(params.shards[r]["layers"][i], hr, cfg)
-                        for r, hr in enumerate(_on_ranks(h, devs))])
-    return x, kv_cache
+def _rank_tree(params) -> Params:
+    """The tree whose replicated leaves a forward reads: rank 0's."""
+    return params.shards[0] if isinstance(params, ShardedParams) else params
+
+
+def _rank_layers(params, i: int) -> list:
+    """Layer ``i`` of each tp rank (one entry for plain params)."""
+    if isinstance(params, ShardedParams):
+        return [s["layers"][i] for s in params.shards]
+    return [params["layers"][i]]
+
+
+def _reduce(parts: list) -> torch.Tensor:
+    """The tp ranks' partials summed (one rank: its own)."""
+    return parts[0] if len(parts) == 1 else all_reduce(parts)
+
+
+def _parallel_layer(ranks: list, i: int, xs: list, ops: list,
+                    cfg: ModelConfig, caches: list, attend) -> list:
+    """Block ``i`` layer-major over sp ranks x tp ranks. ``ranks[s]`` are
+    sp rank s's params (plain, or sharded over its tp group), ``xs[s]``
+    its activations on its first device, ``ops[s][r]`` (cos, sin, mask,
+    cache_offset, block_tables) on tp rank r's device, ``caches[s]`` its
+    layer-``i`` cache entry or None. Every (s, r) computes its q/k/v and
+    writes its cache; ``attend(qs, ks, vs, masks)`` (one tp rank's, a
+    list over s each) gives every sp rank's attention output; the
+    ``o_proj`` and MLP partials meet in one all-reduce each per sp
+    rank."""
+    S = len(xs)
+    tp = len(ops[0])
+    n_q = cfg.num_attention_heads // tp
+    n_kv = cfg.num_key_value_heads // tp
+    layers = [_rank_layers(p, i) for p in ranks]
+    devs = [[o[0].device for o in ops[s]] for s in range(S)]
+    qkv = []
+    for s, x in enumerate(xs):
+        h = rms_norm(x, layers[s][0]["input_layernorm"], cfg.rms_norm_eps,
+                     offset=cfg.rmsnorm_offset)
+        row = []
+        for r, hr in enumerate(_on_ranks(h, devs[s])):
+            cos, sin, _, offset, tables = ops[s][r]
+            q, k, v = _qkv(layers[s][r], hr, cos, sin, cfg, n_q, n_kv)
+            cache = None if caches[s] is None else rank_piece(caches[s], r)
+            row.append((q, *_write_kv(cache, k, v, offset, tables)))
+        qkv.append(row)
+    attn = [attend(*([qkv[s][r][j] for s in range(S)] for j in range(3)),
+                   [ops[s][r][2] for s in range(S)]) for r in range(tp)]
+    out = []
+    for s, x in enumerate(xs):
+        B, T, _ = x.shape
+        x = x + _reduce([wq_dot(attn[r][s].reshape(B, T, n_q * cfg.head_dim),
+                                layers[s][r]["o_proj"]) for r in range(tp)])
+        h = rms_norm(x, layers[s][0]["post_attention_layernorm"],
+                     cfg.rms_norm_eps, offset=cfg.rmsnorm_offset)
+        out.append(x + _reduce([_mlp_out(layers[s][r], hr, cfg) for r, hr
+                                in enumerate(_on_ranks(h, devs[s]))]))
+    return out
 
 
 # --- full forward ----------------------------------------------------------
@@ -439,6 +528,17 @@ def _tp_layer(params: ShardedParams, i: int, x: torch.Tensor, ops: list,
 
 def causal_mask(T: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((T, T), dtype=torch.bool, device=device))
+
+
+def embed(tree: Params, tokens: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+    """The token embeddings; Gemma's sqrt(H) normalizer is cast to the
+    activation dtype before the multiply, as in the HF reference."""
+    x = tree["embed_tokens"][tokens]
+    if cfg.scale_embeddings:
+        x = x * float(torch.tensor(float(cfg.hidden_size) ** 0.5,
+                                   dtype=x.dtype))
+    return x
 
 
 def forward(
@@ -451,6 +551,7 @@ def forward(
     cache_offset=0,
     attn_fn=None,
     tp_axis: str | None = None,
+    tp_size: int = 1,
     return_hidden: bool = False,
     block_tables: torch.Tensor | None = None,
 ):
@@ -466,9 +567,19 @@ def forward(
     ``attn_mask``. A caller that binds an ``attn_fn`` which derives its
     own mask (the kernel routers) may pass ``attn_mask=None`` with
     caches; the reference builds the dense mask there and lets XLA drop
-    it."""
+    it.
+
+    ``tp_axis``/``tp_size`` are the reference's manual tp: set, they need
+    ``ShardedParams`` of ``tp == tp_size``, and run the same sharded
+    layers that sharded params run without them."""
     B, T = tokens.shape
     dev = tokens.device
+    sharded = isinstance(params, ShardedParams)
+    if tp_axis is not None and not (sharded and params.tp == tp_size):
+        raise ValueError(
+            f"tp_axis={tp_axis!r} with tp_size={tp_size} needs params "
+            f"sharded over tp={tp_size} (sharding.shard_params); got "
+            + (f"tp={params.tp}" if sharded else "plain params"))
     if positions is None:
         base = torch.arange(T, dtype=torch.int64, device=dev)[None, :]
         if getattr(cache_offset, "ndim", 0) == 1:
@@ -493,31 +604,25 @@ def forward(
         attn_fn = attention
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    sharded = isinstance(params, ShardedParams)
     # replicated leaves: rank 0's copies, on the first rank's device
-    tree = params.shards[0] if sharded else params
+    tree = _rank_tree(params)
     if sharded:
-        devs = params.devices
-        ops = list(zip(*(_on_ranks(t, devs) for t in (
-            cos, sin, attn_mask, cache_offset, block_tables))))
-    x = tree["embed_tokens"][tokens]
-    if cfg.scale_embeddings:
-        # Gemma: the sqrt(H) normalizer is cast to the activation dtype
-        # before the multiply, as in the HF reference
-        x = x * float(torch.tensor(float(cfg.hidden_size) ** 0.5,
-                                   dtype=x.dtype))
+        ops = [list(zip(*(_on_ranks(t, params.devices) for t in (
+            cos, sin, attn_mask, cache_offset, block_tables))))]
+
+        def attend(qs, ks, vs, masks):
+            return [attn_fn(qs[0], ks[0], vs[0], masks[0])]
+    x = embed(tree, tokens, cfg)
     new_caches = [] if kv_caches is not None else None
     for i, layer in enumerate(tree["layers"]):
         cache = kv_caches[i] if kv_caches is not None else None
         if sharded:
-            if tp_axis is not None:
-                raise NotImplementedError(
-                    f"manual tensor parallelism: {_TP}")
-            x, cache = _tp_layer(params, i, x, ops, cfg, cache, attn_fn)
+            x = _parallel_layer([params], i, [x], ops, cfg, [cache],
+                                attend)[0]
         else:
             x, cache = decoder_layer(
                 layer, x, cos, sin, attn_mask, cfg, kv_cache=cache,
-                cache_offset=cache_offset, attn_fn=attn_fn, tp_axis=tp_axis,
+                cache_offset=cache_offset, attn_fn=attn_fn,
                 block_tables=block_tables,
             )
         if new_caches is not None:
@@ -527,6 +632,39 @@ def forward(
     if return_hidden:
         return x, new_caches
     return lm_logits(params, x, cfg), new_caches
+
+
+def sp_forward(ranks: list, tokens: list, cfg: ModelConfig,
+               kv_caches: list | None = None) -> list:
+    """The sequence-parallel forward, layer-major: ``tokens[s]`` [B, T_loc]
+    is sp rank s's block (global positions ``s*T_loc + t``) on its first
+    device, ``ranks[s]`` its params (plain, or sharded over its tp
+    group), ``kv_caches[s]`` its local dense caches [B, T_loc, n_kv(/tp),
+    D] a layer (``Sharded`` under tp), written at offset 0. Attention is
+    ``ring_attention`` over the sp ranks, once for each tp rank's heads.
+    Returns each rank's post-norm hidden states [B, T_loc, H]."""
+    B, T_loc = tokens[0].shape
+    ops, xs = [], []
+    for s, (p, tok) in enumerate(zip(ranks, tokens)):
+        pos = s * T_loc + torch.arange(T_loc, dtype=torch.int64,
+                                       device=tok.device)
+        cos, sin = rope_tables(pos[None, :].expand(B, T_loc), cfg.head_dim,
+                               cfg.rope_theta)
+        devs = (p.devices if isinstance(p, ShardedParams)
+                else [tok.device])
+        ops.append([(c, sn, None, 0, None) for c, sn in
+                    zip(_on_ranks(cos, devs), _on_ranks(sin, devs))])
+        xs.append(embed(_rank_tree(p), tok, cfg))
+
+    def attend(qs, ks, vs, _masks):
+        return ring_attention(qs, ks, vs)
+
+    for i in range(cfg.num_hidden_layers):
+        caches = ([None] * len(xs) if kv_caches is None
+                  else [c[i] for c in kv_caches])
+        xs = _parallel_layer(ranks, i, xs, ops, cfg, caches, attend)
+    return [rms_norm(x, _rank_tree(p)["norm"], cfg.rms_norm_eps,
+                     offset=cfg.rmsnorm_offset) for p, x in zip(ranks, xs)]
 
 
 def lm_head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:

@@ -64,8 +64,16 @@ N visible cards, or N ranks on the CPU with ``--device cpu``), shards the
 params and the draft onto it, and gives the batcher, the per-request
 engine and the draft that one mesh (``EngineLayout``). ``build_server``
 also takes a ``mesh`` from an in-process caller: a mesh of N ranks over
-one card runs the sharded path there. ``--sequence-parallel-size`` and
-``--sp-min-prompt`` wait for ROADMAP Queue 1 entry 11.
+one card runs the sharded path there.
+
+Sequence parallelism, as in the reference: ``--sequence-parallel-size N``
+makes that one mesh ``(dp=1, tp, sp=N)`` and builds an ``SPEngine`` on
+the (possibly tp-sharded) params; a prompt of at least
+``--sp-min-prompt`` tokens takes route ``"sp"`` (after export and
+resume, ahead of speculative decoding and the batcher): its prefill
+rings over the sp ranks and its decode runs the per-request engine's
+loop on the handed-off KV. ``--weight-dtype int8`` with sp > 1 exits, as
+in the reference.
 
     python -m kubeinfer_tpu_torch.inference.server --model /models/meta-llama--Meta-Llama-3-8B
     python -m kubeinfer_tpu_torch.inference.server --model llama-3-8b --random-init
@@ -461,17 +469,18 @@ def _serving_metrics(registry: Registry):
 class InferenceServer:
     def __init__(self, engine, model_id: str, host: str = "127.0.0.1",
                  port: int = 8000, continuous=None, speculative=None,
-                 device=None, kv_export_budget_mb: float = 0.0,
+                 sp=None, device=None, kv_export_budget_mb: float = 0.0,
                  tls_cert: str = "", tls_key: str = "", token: str = "",
                  slo=None, tokenizer=None) -> None:
         self.device = resolve_device(device)
-        for e in (engine, continuous, speculative):
+        for e in (engine, continuous, speculative, sp):
             if e is not None and e.device != self.device:
                 raise ValueError(f"engine on {e.device}, server on "
                                  f"{self.device}")
         self.engine = engine
         self.continuous = continuous  # ContinuousEngine | None
         self.speculative = speculative  # SpeculativeEngine | None
+        self.sp = sp  # SPEngine | None (sequence-parallel long prompts)
         self.model_id = model_id
         self.tokenizer = tokenizer  # an HF tokenizer, or None (id-only)
         # the bearer token of /debug/* and POST /admin/drain (empty =
@@ -955,6 +964,13 @@ class InferenceServer:
         if resume_tokens:
             return ids, self._resume(ids, max_tokens, resume_tokens, resume,
                                      kw, route_box)
+        if self.sp is not None and self.sp.fits(len(ids), max_tokens):
+            # a long prompt rings its prefill over the mesh's sp ranks and
+            # decodes from the handed-off KV; below --sp-min-prompt the
+            # collective traffic is not worth it
+            route_box["route"] = "sp"
+            out = self.sp.generate([ids], max_new_tokens=max_tokens, **kw)
+            return ids, out.tokens[0, : out.lengths[0]].tolist()
         if (self.speculative is not None and rep_penalty == 1.0
                 and self.speculative.fits(len(ids), max_tokens)
                 # a batcher with a speculative engine owns the draft-
@@ -1181,14 +1197,6 @@ class InferenceServer:
         self._httpd.server_close()
 
 
-# the reference's other flags, their defaults, and the ROADMAP entry that
-# ports each; a non-default value exits naming it
-_WAITING_FLAGS = {
-    "sequence_parallel_size": (1, "entry 11: sp_engine.py + ring_attention.py"),
-    "sp_min_prompt": (1024, "entry 11: sp_engine.py + ring_attention.py"),
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="kubeinfer-torch-inference-server")
     p.add_argument("--model", required=True,
@@ -1206,6 +1214,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensor-parallel-size", type=int, default=1,
                    help="shard the model over this many tp ranks (visible "
                         "cards; CPU ranks with --device cpu)")
+    p.add_argument("--sequence-parallel-size", type=int, default=1,
+                   help="shard long-prompt prefill over this many mesh "
+                        "ranks via ring attention (sp_engine.py); "
+                        "requests below --sp-min-prompt keep the normal "
+                        "routes")
+    p.add_argument("--sp-min-prompt", type=int, default=1024,
+                   help="minimum prompt length (tokens) routed through "
+                        "the sequence-parallel engine")
     p.add_argument("--device", default=None,
                    help="cuda (the default, the card; fails without one) "
                         "or cpu (the plain PyTorch versions, for tests)")
@@ -1279,9 +1295,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "loose built-ins of observability/slo.py")
     # accepted and unused, as in the reference (vLLM flag parity)
     p.add_argument("--gpu-memory-utilization", type=float, default=0.9)
-    for name, (default, _entry) in _WAITING_FLAGS.items():
-        p.add_argument("--" + name.replace("_", "-"), type=type(default),
-                       default=default)
     return p
 
 
@@ -1298,10 +1311,11 @@ def _load_tokenizer(model_dir: str):
         return None
 
 
-def _tp_mesh(tp: int, dev: torch.device, mesh):
-    """The serving mesh of ``--tensor-parallel-size`` ``tp`` (None at
-    tp=1): ``mesh`` when a caller gave one, else ``tp`` CPU ranks for the
-    CPU, else ``tp`` visible cards (raising when there are fewer)."""
+def _serving_mesh(tp: int, sp: int, dev: torch.device, mesh):
+    """The serving mesh of ``--tensor-parallel-size`` ``tp`` and
+    ``--sequence-parallel-size`` ``sp`` (None when both are 1): ``mesh``
+    when a caller gave one, else ``tp * sp`` CPU ranks for the CPU, else
+    ``tp * sp`` visible cards (raising when there are fewer)."""
     from kubeinfer_tpu_torch.inference.sharding import (
         make_inference_mesh,
         same_device,
@@ -1309,15 +1323,19 @@ def _tp_mesh(tp: int, dev: torch.device, mesh):
 
     if tp < 1:
         raise SystemExit(f"--tensor-parallel-size must be >= 1, got {tp}")
+    if sp < 1:
+        raise SystemExit(f"--sequence-parallel-size must be >= 1, got {sp}")
     if mesh is None:
-        if tp == 1:
+        if tp == sp == 1:
             return None
         if dev.type == "cpu":
-            return make_inference_mesh(tp=tp, sp=1, dp=1,
-                                       devices=[dev] * tp)
-        return make_inference_mesh(tp=tp, sp=1, dp=1)
-    if mesh.shape.get("tp") != tp or mesh.size != tp:
-        raise ValueError(f"--tensor-parallel-size {tp} but the mesh is "
+            return make_inference_mesh(tp=tp, sp=sp, dp=1,
+                                       devices=[dev] * (tp * sp))
+        return make_inference_mesh(tp=tp, sp=sp, dp=1)
+    if (mesh.shape.get("tp") != tp or mesh.shape.get("sp", 1) != sp
+            or mesh.size != tp * sp):
+        raise ValueError(f"--tensor-parallel-size {tp} and "
+                         f"--sequence-parallel-size {sp} but the mesh is "
                          f"{mesh.shape}")
     if not same_device(mesh.axis_devices("tp")[0], dev):
         raise ValueError(f"the mesh starts on {mesh.axis_devices('tp')[0]}, "
@@ -1330,8 +1348,10 @@ def build_server(argv: list[str] | None = None, device=None, mesh=None):
     ``device`` (else ``--device``, else the card) places everything;
     under ``--tensor-parallel-size N`` the params shard over ``mesh``
     (a ``sharding.Mesh`` with N tp ranks starting on that device), or
-    over N ranks the flags name when no mesh is given. Returns (server,
-    continuous engine or None)."""
+    over N ranks the flags name when no mesh is given; under
+    ``--sequence-parallel-size`` that mesh's sp ranks serve the long
+    prompts (``SPEngine``). Returns (server, continuous engine or
+    None)."""
     from kubeinfer_tpu_torch.inference.config import PRESETS
     from kubeinfer_tpu_torch.inference.engine import Engine
     from kubeinfer_tpu_torch.inference.model import init_params
@@ -1339,10 +1359,10 @@ def build_server(argv: list[str] | None = None, device=None, mesh=None):
     from kubeinfer_tpu_torch.inference.weights import load_pretrained
 
     args = build_parser().parse_args(argv)
-    for name, (default, entry) in _WAITING_FLAGS.items():
-        if getattr(args, name) != default:
-            raise SystemExit(f"--{name.replace('_', '-')} waits: ROADMAP "
-                             f"Queue 1, {entry}")
+    if args.weight_dtype == "int8" and args.sequence_parallel_size > 1:
+        # the reference's SP engine has no quantized-leaf path either
+        raise SystemExit("--weight-dtype int8 does not compose with "
+                         "--sequence-parallel-size > 1 yet")
     if args.speculative_draft and not args.draft_model:
         raise SystemExit("--speculative-draft requires --draft-model (the "
                          "paged verify windows run the same draft weights)")
@@ -1366,7 +1386,8 @@ def build_server(argv: list[str] | None = None, device=None, mesh=None):
                 f"--draft-model {args.draft_model!r} is not a preset (with "
                 "--random-init the draft must name one)")
     dev = resolve_device(device if device is not None else args.device)
-    mesh = _tp_mesh(args.tensor_parallel_size, dev, mesh)
+    mesh = _serving_mesh(args.tensor_parallel_size,
+                         args.sequence_parallel_size, dev, mesh)
     if mesh is not None:
         dev = mesh.axis_devices("tp")[0]
     dtype = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -1394,11 +1415,18 @@ def build_server(argv: list[str] | None = None, device=None, mesh=None):
         tokenizer = _load_tokenizer(args.model)
     max_cache = args.max_model_len or cfg.max_position_embeddings
     layout = None
-    if mesh is not None:
-        # one mesh for the batcher, the per-request engine and the draft
+    if args.tensor_parallel_size > 1:
+        # one mesh for the batcher, the per-request engine, the draft and
+        # the sp engine
         layout = EngineLayout(tp=args.tensor_parallel_size, mesh=mesh)
         layout.check_model(cfg)
         params = shard_params(params, mesh, cfg)
+    sp_engine = None
+    if args.sequence_parallel_size > 1:
+        from kubeinfer_tpu_torch.inference.sp_engine import SPEngine
+
+        sp_engine = SPEngine(params, cfg, mesh, max_cache_len=max_cache,
+                             min_prompt=args.sp_min_prompt)
     engine = Engine(params, cfg, max_cache_len=max_cache, device=dev)
     speculative = dparams = None
     if args.draft_model:
@@ -1408,7 +1436,7 @@ def build_server(argv: list[str] | None = None, device=None, mesh=None):
         else:
             dparams, dcfg = load_pretrained(args.draft_model, dtype=dtype,
                                             device=dev)
-        if mesh is not None:
+        if layout is not None:
             # the draft shards onto the same mesh (the batcher's verify
             # route replicates it, as the reference's does)
             dparams = shard_params(dparams, mesh, dcfg)
@@ -1444,7 +1472,7 @@ def build_server(argv: list[str] | None = None, device=None, mesh=None):
                      time.monotonic() - t0)
     srv = InferenceServer(engine, model_id=args.model, host=args.host,
                           port=args.port, continuous=continuous,
-                          speculative=speculative, device=dev,
+                          speculative=speculative, sp=sp_engine, device=dev,
                           kv_export_budget_mb=args.kv_export_budget_mb,
                           tls_cert=args.tls_cert_file,
                           tls_key=args.tls_key_file, token=debug_token,

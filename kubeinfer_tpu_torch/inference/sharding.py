@@ -38,15 +38,17 @@ and the sharded engine calls them with ``gspmd=False``. The kernels' launch
 helpers make each rank's card the current CUDA device for its launch
 (``flash_attention.on_device``), since one thread drives every rank.
 
-Kept for the reference's names and its parity tests, with no caller in
-the serving path yet: the chip-grid walk of :func:`order_devices_ici`
-(a ``torch.device`` has no ``coords``, so cards keep their enumeration
-order), :func:`make_axis_mesh` (for the pp/ep constructors of entry 12),
-:func:`forward_tensor_parallel`, and the mixture-of-experts specs of
-:func:`param_specs` (the MoE layers raise until entry 12).
+Sequence parallelism (``forward_sequence_parallel``, and
+``sp_engine.py`` for serving) runs on the same mesh: sp rank s's tp group
+is ``devices[0, :, s]`` (:func:`sp_rank_params` places its copy of the
+params there, or shares rank 0's where the devices are the same), and
+``model.sp_forward`` rings the K/V blocks over the sp ranks.
 
-Not ported here: sequence parallelism (``forward_sequence_parallel``,
-``param_specs_replicated``), which raise naming ROADMAP Queue 1 entry 11.
+Kept for the reference's names and its parity tests, with no caller in
+the serving path: the chip-grid walk of :func:`order_devices_ici` (a
+``torch.device`` has no ``coords``, so cards keep their enumeration
+order), :func:`make_axis_mesh` (the pp and ep constructors),
+:func:`forward_tensor_parallel` and :func:`param_specs_replicated`.
 """
 
 from __future__ import annotations
@@ -57,8 +59,6 @@ import numpy as np
 import torch
 
 from kubeinfer_tpu_torch.inference.config import ModelConfig
-
-_SP = "ROADMAP Queue 1 entry 11: sp_engine.py + ring_attention.py"
 
 Params = dict
 
@@ -181,8 +181,9 @@ def make_axis_mesh(axis_name: str, n: int, devices=None) -> Mesh:
 
 def param_specs(cfg: ModelConfig) -> Params:
     """The partition spec tree matching ``init_params``' layout
-    (Megatron tp), the reference's; the MoE branch is data only (the port
-    raises for MoE layers, ROADMAP Queue 1 entry 12)."""
+    (Megatron tp), the reference's. A MoE layer's experts split like the
+    dense MLP (every expert's ``F / tp`` lanes a rank) with the router
+    replicated; expert parallelism over ``ep`` is ``moe.moe_block_ep``."""
     layer = {
         "input_layernorm": P(),
         "post_attention_layernorm": P(),
@@ -561,9 +562,62 @@ def forward_tensor_parallel(params, tokens: torch.Tensor, cfg: ModelConfig,
     return logits
 
 
-def forward_sequence_parallel(params, tokens, cfg, mesh):
-    raise NotImplementedError(f"sequence parallelism: {_SP}")
+def sp_rank_params(params, mesh: Mesh, cfg: ModelConfig) -> list:
+    """Each sp rank's params on its tp group ``devices[0, :, s]``: plain
+    params (tp == 1) or ``ShardedParams`` on the mesh's sp rank 0 (placed
+    here when plain). A rank whose devices are rank 0's shares its
+    tensors; another gets its own copy."""
+    from kubeinfer_tpu_torch.inference.model import params_to
+
+    tp = mesh.shape.get("tp", 1)
+    if tp > 1:
+        params = shard_params(params, mesh, cfg)
+    out = [params]
+    for s in range(1, mesh.shape["sp"]):
+        sub = Mesh(mesh.devices[:1, :, s:s + 1], mesh.axis_names)
+        devs = sub.axis_devices("tp")
+        if all(same_device(a, b) for a, b in
+               zip(devs, mesh.axis_devices("tp"))):
+            out.append(params)
+        elif tp > 1:
+            out.append(ShardedParams(
+                mesh=sub, specs=params.specs,
+                shards=tuple(params_to(sh, d)
+                             for sh, d in zip(params.shards, devs))))
+        else:
+            out.append(params_to(params, devs[0]))
+    return out
 
 
-def param_specs_replicated(cfg, params):
-    raise NotImplementedError(f"sequence parallelism: {_SP}")
+def forward_sequence_parallel(params, tokens: torch.Tensor,
+                              cfg: ModelConfig, mesh: Mesh) -> torch.Tensor:
+    """Causal LM logits [B, T, V] f32 with the SEQUENCE split over the
+    mesh's ``sp`` ranks, on the first rank's device: each rank embeds its
+    block at global positions, ``model.sp_forward`` runs the layers
+    layer-major with ring attention, each rank's head runs on its block
+    (tp inside each sp rank where the mesh has tp > 1). T must divide by
+    sp."""
+    from kubeinfer_tpu_torch.inference.model import lm_logits, sp_forward
+
+    B, T = tokens.shape
+    sp = mesh.shape["sp"]
+    if T % sp:
+        raise ValueError(f"sequence length {T} must divide by sp={sp}")
+    T_loc = T // sp
+    ranks = sp_rank_params(params, mesh, cfg)
+    first = mesh.devices[0, 0, 0]
+    blocks = [tokens[:, s * T_loc:(s + 1) * T_loc].to(mesh.devices[0, 0, s])
+              for s in range(sp)]
+    hidden = sp_forward(ranks, blocks, cfg)
+    return torch.cat([lm_logits(p, x, cfg).to(first)
+                      for p, x in zip(ranks, hidden)], dim=1)
+
+
+def param_specs_replicated(cfg: ModelConfig, params: Params) -> Params:
+    """The all-replicated spec tree of ``params`` (every leaf ``P()``),
+    the reference's in_specs of its sp ``shard_map``."""
+    if isinstance(params, dict):
+        return {k: param_specs_replicated(cfg, v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [param_specs_replicated(cfg, v) for v in params]
+    return P()

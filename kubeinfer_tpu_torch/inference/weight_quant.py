@@ -4,8 +4,9 @@ dequantizing matmul (kernel #15).
 Counterpart of ``kubeinfer_tpu/inference/weight_quant.py``. A quantized
 leaf is the dict ``{"qw": int8[in, out], "scale": f32[out]}`` in place of
 the plain ``[in, out]`` projection. Only the seven projections of a
-decoder layer quantize (``QUANT_LEAVES``); embeddings, norms, biases and
-the vocabulary head stay in the load dtype.
+decoder layer quantize (``QUANT_LEAVES``); embeddings, norms, biases,
+the vocabulary head and a Mixtral layer's ``moe`` subtree (router and
+expert stacks) stay in the load dtype, as in the reference.
 
 Quantization is symmetric absmax per out-column tile of ``DEFAULT_TILE``
 columns (zero-padded, so a ragged last tile reduces over zeros that
@@ -81,7 +82,7 @@ def is_quant_leaf(v) -> bool:
 
 def quantize_layer(layer: dict, tile: int = DEFAULT_TILE) -> dict:
     """A new layer dict with every ``QUANT_LEAVES`` member quantized;
-    norms and biases pass through."""
+    norms, biases and the ``moe`` subtree pass through."""
     out = dict(layer)
     for name in QUANT_LEAVES:
         w = layer.get(name)

@@ -3,10 +3,12 @@
 Counterpart of ``kubeinfer_tpu/inference/weights.py``:
 ``params_from_state_dict`` maps a llama-family HF state dict onto
 ``model.py``'s tree (torch Linear ``[out, in]`` weights transposed once
-to ``[in, out]``; with ``weight_dtype="int8"`` each projection is
-quantized as it is mapped), and ``params_from_reference`` carries over
-the JAX package's own parameter tree, given as numpy arrays, int8 leaves
-included. ``load_pretrained`` reads an HF snapshot directory
+to ``[in, out]``; with ``weight_dtype="int8"`` each attention and dense
+MLP projection is quantized as it is mapped; Mixtral's router and
+experts, ``block_sparse_moe.gate`` and ``experts.{e}.w1/w3/w2``, stack
+into the ``moe`` subtree in the load dtype), and
+``params_from_reference`` carries over the JAX package's own parameter
+tree, given as numpy arrays, int8 leaves included. ``load_pretrained`` reads an HF snapshot directory
 (``config.json`` + ``*.safetensors``, what the coordinator's
 ``huggingface-cli download`` drops into the model cache) with the
 module's own safetensors reader: each tensor is an ``np.memmap`` of its
@@ -29,8 +31,6 @@ from kubeinfer_tpu_torch.device import resolve_device
 from kubeinfer_tpu_torch.inference.config import ModelConfig
 from kubeinfer_tpu_torch.inference.model import Params
 from kubeinfer_tpu_torch.inference.weight_quant import quantize_weight
-
-_MOE = "ROADMAP Queue 1 entry 12: moe.py"
 
 
 def _to_tensor(a, device, dtype) -> torch.Tensor:
@@ -56,8 +56,6 @@ def params_from_state_dict(
     projection reaches the device."""
     if weight_dtype not in ("bf16", "int8"):
         raise ValueError(f"weight_dtype must be bf16|int8: {weight_dtype!r}")
-    if cfg.num_local_experts > 0:
-        raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
     dev = resolve_device(device)
 
     def get(name: str):
@@ -95,10 +93,26 @@ def params_from_state_dict(
             "k_proj": linear(f"{p}.self_attn.k_proj.weight", True),
             "v_proj": linear(f"{p}.self_attn.v_proj.weight", True),
             "o_proj": linear(f"{p}.self_attn.o_proj.weight", True),
-            "gate_proj": linear(f"{p}.mlp.gate_proj.weight", True),
-            "up_proj": linear(f"{p}.mlp.up_proj.weight", True),
-            "down_proj": linear(f"{p}.mlp.down_proj.weight", True),
         }
+        if cfg.num_local_experts > 0:
+            # Mixtral naming: block_sparse_moe.gate is the router,
+            # experts.{e}.w1/w3/w2 are gate/up/down, stacked on a leading
+            # E axis (moe.py's layout); the experts stay in the load dtype
+            m = f"{p}.block_sparse_moe"
+            E = range(cfg.num_local_experts)
+            layer["moe"] = {
+                "router": linear(f"{m}.gate.weight"),
+                "gate_proj": torch.stack(
+                    [linear(f"{m}.experts.{e}.w1.weight") for e in E]),
+                "up_proj": torch.stack(
+                    [linear(f"{m}.experts.{e}.w3.weight") for e in E]),
+                "down_proj": torch.stack(
+                    [linear(f"{m}.experts.{e}.w2.weight") for e in E]),
+            }
+        else:
+            layer["gate_proj"] = linear(f"{p}.mlp.gate_proj.weight", True)
+            layer["up_proj"] = linear(f"{p}.mlp.up_proj.weight", True)
+            layer["down_proj"] = linear(f"{p}.mlp.down_proj.weight", True)
         if cfg.qkv_bias:  # Qwen2 family
             layer["q_bias"] = vec(f"{p}.self_attn.q_proj.bias")
             layer["k_bias"] = vec(f"{p}.self_attn.k_proj.bias")
@@ -129,8 +143,6 @@ def params_from_reference(tree, device=None, dtype=torch.float32) -> Params:
                             np.asarray(node["qw"], np.int8).copy()).to(dev),
                         "scale": _to_tensor(node["scale"], dev,
                                             torch.float32)}
-            if path.endswith("moe"):
-                raise NotImplementedError(f"mixture-of-experts layers: {_MOE}")
             return {k: conv(v, f"{path}.{k}") for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v, f"{path}.{i}") for i, v in enumerate(node)]

@@ -176,12 +176,23 @@ def test_load_pretrained_f32(ckpt):
 
 
 def test_mixtral_raises_naming_entry_12(tmp_path):
+    """A Mixtral checkpoint is read with its expert naming (parity:
+    ``tests/test_torch_moe.py``); one whose expert tensor is missing
+    raises the reference's ``KeyError`` naming it."""
     d = {**hf_config("llama"), "model_type": "mixtral",
          "num_local_experts": 4}
     (tmp_path / "config.json").write_text(json.dumps(d))
-    tw.write_safetensors(tmp_path / "model.safetensors",
-                         {"x": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 12"):
+    cfg = JCfg.from_hf_dict(d)
+    tree = jax.tree.map(np.asarray, j_init(
+        dataclasses.replace(cfg, num_local_experts=0), jax.random.PRNGKey(0)))
+    # the dense MLP's names where the experts' belong
+    save_file({k: np.ascontiguousarray(v, np.float32) for k, v in
+               hf_state_dict(tree, cfg, "model.").items()},
+              str(tmp_path / "model.safetensors"))
+    want = "block_sparse_moe.gate.weight"
+    with pytest.raises(KeyError, match=want):
+        jw.load_pretrained(str(tmp_path), dtype=jnp.float32)
+    with pytest.raises(KeyError, match=want):
         tw.load_pretrained(str(tmp_path), device="cpu")
 
 

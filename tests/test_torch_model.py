@@ -220,14 +220,31 @@ def test_params_from_state_dict_matches_reference(name):
 
 
 def test_waiting_features_raise():
-    moe = tc.ModelConfig(**dict(SMALL, num_local_experts=2))
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        tm.init_params(moe, device="cpu")
+    """MoE layers and the manual tp names are ported: a MoE init has the
+    reference's tree shapes (parity: ``tests/test_torch_moe.py``), and
+    ``tp_axis`` raises only where its shards are missing or the sizes
+    disagree; a bad weight dtype still raises."""
+    kw = dict(SMALL, num_local_experts=2)
+    moe = tm.init_params(tc.ModelConfig(**kw), device="cpu")
+    ref = jm.init_params(jc.ModelConfig(**kw), jax.random.PRNGKey(0))
+    assert [tuple(x.shape) for x in moe["layers"][0]["moe"].values()] == \
+        [tuple(x.shape) for x in ref["layers"][0]["moe"].values()]
     with pytest.raises(ValueError, match="weight_dtype"):
         tw.params_from_state_dict({}, tc.PRESETS["tiny"],
                                   weight_dtype="fp8", device="cpu")
-    tp = tm.init_params(tc.PRESETS["tiny"], device="cpu")
-    # a shard_map body's manual tp waits with the sequence-parallel engine
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        tm.forward(tp, torch.zeros((1, 2), dtype=torch.long),
-                   tc.PRESETS["tiny"], tp_axis="tp")
+    from kubeinfer_tpu_torch.inference import sharding as ts
+
+    tiny = tc.PRESETS["tiny"]
+    plain = tm.init_params(tiny, device="cpu")
+    toks = torch.zeros((1, 2), dtype=torch.long)
+    with pytest.raises(ValueError, match="needs params sharded over tp=1"):
+        tm.forward(plain, toks, tiny, tp_axis="tp")
+    sharded = ts.shard_params(plain, ts.make_inference_mesh(
+        tp=2, sp=1, dp=1, devices=["cpu"] * 2), tiny)
+    with pytest.raises(ValueError, match="tp=4 .* got tp=2"):
+        tm.forward(sharded, toks, tiny, tp_axis="tp", tp_size=4)
+    with pytest.raises(ValueError, match="decoder_layer takes one plain"):
+        tm.decoder_layer(plain["layers"][0], None, None, None, None, tiny,
+                         tp_axis="tp", tp_size=2)
+    got, _ = tm.forward(sharded, toks, tiny, tp_axis="tp", tp_size=2)
+    assert torch.equal(got, tm.forward(sharded, toks, tiny)[0])

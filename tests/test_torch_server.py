@@ -121,20 +121,24 @@ def test_unreachable_kv_source_falls_back_locally(served):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--speculative-draft"], "speculative"),
-    # this id named --tensor-parallel-size, which no longer waits: with
-    # it given, the sequence-parallel flag is still the one refused
+    # these three ids named flags that waited for a ROADMAP entry; the
+    # sequence-parallel flags are served now (tests/test_torch_sp.py),
+    # and what the server refuses of them exits with its reason
     pytest.param(["--tensor-parallel-size", "2", "--sequence-parallel-size",
-                  "2"], "sequence-parallel-size waits: ROADMAP Queue 1, "
-                 "entry 11", id="flags1-sharding.py"),
-    # these two ids named the debug-endpoint flags, which no longer wait
-    pytest.param(["--sequence-parallel-size", "2"], "sp_engine.py",
-                 id="flags2-debug endpoints"),
-    pytest.param(["--sequence-parallel-size", "2", "--sp-min-prompt", "64"],
-                 "sp_engine.py", id="flags3-debug endpoints"),
+                  "2", "--weight-dtype", "int8"],
+                 "--weight-dtype int8 does not compose with "
+                 "--sequence-parallel-size > 1 yet", id="flags1-sharding.py"),
+    pytest.param(["--sequence-parallel-size", "2", "--weight-dtype", "int8"],
+                 "does not compose", id="flags2-debug endpoints"),
+    pytest.param(["--sequence-parallel-size", "0", "--sp-min-prompt", "64"],
+                 "--sequence-parallel-size must be >= 1",
+                 id="flags3-debug endpoints"),
 ])
 def test_main_refuses_waiting_flags(flags, msg):
-    """Flags whose features wait exit naming the ROADMAP entry; so does
-    ``--speculative-draft`` without the ``--draft-model`` it runs."""
+    """Flag combinations the server refuses exit with the reference's
+    reason: ``--weight-dtype int8`` with sequence parallelism, an sp
+    size below 1, ``--speculative-draft`` without the ``--draft-model``
+    it runs."""
     with pytest.raises(SystemExit, match=msg):
         ts.build_server(["--model", "tiny", "--random-init", *flags],
                         device="cpu")

@@ -234,13 +234,22 @@ def test_forward_tensor_parallel_matches_reference(kw, tp):
 
 
 def test_forward_refuses_split_heads():
-    _, tparams = carried(TINY, 4)
+    jp, tparams = carried(TINY, 4)
     with pytest.raises(ValueError, match="num_key_value_heads=2"):
         ts.forward_tensor_parallel(
             tparams, torch.zeros((1, 4), dtype=torch.long), TCfg(**TINY),
             ts.make_inference_mesh(tp=4, sp=1, devices=CPU))
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        ts.forward_sequence_parallel(None, None, None, None)
+    # the sequence-parallel forward's door is the reference's
+    toks = torch.zeros((1, 6), dtype=torch.long)
+    with pytest.raises(ValueError) as want:
+        js.forward_sequence_parallel(
+            jp, jnp.zeros((1, 6), jnp.int32), JCfg(**TINY),
+            js.make_inference_mesh(tp=1, sp=4))
+    with pytest.raises(ValueError) as got:
+        ts.forward_sequence_parallel(
+            tparams, toks, TCfg(**TINY),
+            ts.make_inference_mesh(tp=1, sp=4, devices=CPU))
+    assert str(got.value) == str(want.value)
 
 
 def close(got, want):
