@@ -405,6 +405,25 @@ times them. Phases:
       block's share of a decode step, ``moe_block_ep`` at ep 2 and 8, the
       card against the CPU at 1 layer in f32. #10 gains ``sp_launches``,
       #9-#12 and #15 ``moe_launches`` in the kernels line;
+  (37) the multi-process runtime and the sharded solve
+      (``distributed_phase``): (37a) ``solver.sharded.solve_sharded`` in
+      one process over repeated ``cuda:0`` ranks, [4]'s 10k x 1k and
+      [7]'s 10k x 20k on (jobs, nodes) meshes (2, 1) and (2, 2), and a
+      10% churn re-solve whose preemption repair reads columns of the
+      sharded field: bitwise equal to ``solve_greedy(accel="pallas")`` on
+      the card, every fence, bid and accept call of every shard held to
+      its plain version (``CheckedOps``), calls tallied by rank, the bytes
+      that cross ranks a round, sharded and unsharded times; (37b) two OS
+      processes on ``cuda:0`` joined over gloo (by argument), the 10k x
+      1k solve on the global mesh in each, bitwise equal to (37a)'s, each
+      round split into kernel and collective time (the parent builds
+      round_ops before it starts them; each has a timeout); (37c)
+      ``sharded_train_step`` at tp=2 on llama-3-8b width cut to 4 layers,
+      bf16, tokens [1, 2049]: #13 and #14 on each rank's heads, step 1's
+      calls held to their plain versions, the loss against ``train_step``
+      at tp=1, replicated copies equal after 3 steps; (37d)
+      ``sp_train_step`` at sp=2, the same. #2-#6, #13 and #14 gain
+      ``dist_launches`` in the kernels line;
   (8) the ``kernels`` JSON line (fifteen entries), printed last of all
       phases, after each phase's seconds (lines "[s] ...").
 
@@ -423,7 +442,8 @@ servers (chiprun_out/observe_probe.json); ``--agent`` runs (33) alone
 (chiprun_out/agent_probe.json); ``--fleet`` runs (34) alone on the
 server of (13) and a decode replica (chiprun_out/fleet_probe.json);
 ``--tp`` runs (35) alone (chiprun_out/tp_probe.json); ``--sp`` runs
-(36) alone (chiprun_out/sp_probe.json).
+(36) alone (chiprun_out/sp_probe.json); ``--distributed`` runs (37) alone
+(chiprun_out/distributed_probe.json).
 """
 
 from __future__ import annotations
@@ -433,6 +453,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import pathlib
 import secrets
 import shutil
@@ -8486,6 +8507,7 @@ def main(placement_only=False) -> int:
     route_entry["tick_launches"] = tick_launches["route_pick"]
     serve_entries = int8_entries = train_entries = mask_entry = []
     agent_launches = tp_launches = sp_launches = moe_launches = {}
+    dist_launches = {}
     if not placement_only:
         serve_entries = phase("[13]-[16]", serving_phases, dev, record, card)
         int8_entries = phase("[17]-[20]", int8_phases, dev, record, card)
@@ -8506,6 +8528,9 @@ def main(placement_only=False) -> int:
         torch.cuda.empty_cache()
         sp_launches, moe_launches = phase("(36)", sp_moe_phase, dev, record,
                                           card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist_launches = phase("(37)", distributed_phase, dev, record, card)
     for name, sec in phase_s.items():
         print(f"[s] {name}: {sec:.1f} s")
 
@@ -8537,6 +8562,8 @@ def main(placement_only=False) -> int:
             entry["sp_launches"] = sp_launches[entry["name"]]
         if entry["name"] in moe_launches:
             entry["moe_launches"] = moe_launches[entry["name"]]
+        if entry["name"] in dist_launches:
+            entry["dist_launches"] = dist_launches[entry["name"]]
     record.update(kline)
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -9897,7 +9924,488 @@ def agent_probe() -> int:
     return 0
 
 
+DIST_LAYERS = 4  # (37c), (37d): llama-3-8b width at 4 of its 32 layers
+DIST_T = 2048  # (37c), (37d): tokens [1, DIST_T + 1]
+DIST_LOSS_REL = 2.0 ** -7  # (37c), (37d): loss against the dense bf16 step
+DIST_WORKER_S = 120  # (37b): a worker still running then is killed
+DIST_BUDGET_S = 75.0  # (37) as a whole, in the whole run's 1200 s
+DIST_MESHES = {"2x1": (2, 1), "2x2": (2, 2)}  # (37a): (jobs, nodes)
+DIST_SHAPES = {"10kx1k": (10000, 1000, 0), "10kx20k": (10000, 20000, 5)}
+DIST_FIELDS = ("node", "gpu_free", "mem_free", "rounds", "placed")
+
+
+def rank_bytes(field) -> int:
+    """Bytes a sharded solve's positions hand on a round: each one's
+    fence minima (f32, its nodes) and (prim, alt) words (i32, its
+    jobs)."""
+    n = field.rows[0].stop - field.rows[0].start
+    j = field.cols[0].stop - field.cols[0].start
+    return field.mesh.size * (4 * n + 8 * j)
+
+
+def event_p50(fn, reps):
+    """p50 ms of ``fn`` over ``reps`` calls after a warmup, each call
+    between two CUDA events."""
+    import torch
+
+    fn()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def sync(dev) -> None:
+    """Wait for ``dev``'s work (a CUDA card's; the CPU's is done)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def assignment_hex(out) -> dict:
+    return {k: getattr(out, k).cpu().numpy().tobytes().hex()
+            for k in DIST_FIELDS}
+
+
+class RoundClock:
+    """(37b) worker: each round's time split into its round kernels'
+    (the per-shard ops, each call fenced by synchronize) and its
+    collectives' (``distributed.all_gather``, the same). A round starts
+    at its fence call."""
+
+    def __init__(self, kernels, distributed, dev):
+        self.k, self.dist, self.dev = kernels, distributed, dev
+        self.rounds: list = []
+        self.real_gather = distributed.all_gather
+
+    def _timed(self, fn, slot):
+        def run(*a, **kw):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(self.dev)
+            if self.rounds:
+                self.rounds[-1][slot] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def ops(self):
+        from kubeinfer_tpu_torch.solver.core import RoundOps
+
+        fence = self._timed(self.k.fence, 0)
+
+        def fence_round(*a, **kw):
+            self.rounds.append([0.0, 0.0])
+            return fence(*a, **kw)
+        return RoundOps(fence_round, self._timed(self.k.bid, 0),
+                        self._timed(self.k.accept, 0))
+
+    @contextlib.contextmanager
+    def installed(self):
+        self.dist.all_gather = self._timed(self.real_gather, 1)
+        try:
+            yield self
+        finally:
+            self.dist.all_gather = self.real_gather
+
+
+def dist_worker(rank: int, nprocs: int, port: int, out_path: str,
+                device: str = "cuda") -> int:
+    """(37b): one of two processes on ``cuda:0`` (``backend="gloo"``):
+    joins the group, loads the round kernels built by the parent, solves
+    [4]'s 10k x 1k sharded over the jobs axis, then once more with each
+    round's kernel and collective time split; writes its assignment and
+    times to ``out_path``. ``device`` is "cuda" on the card ("cpu" for a
+    rehearsal)."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build, distributed
+    from kubeinfer_tpu_torch.solver import kernels, sharded
+
+    dev = torch.device(device)
+    lib = _build.BUILD_DIR / "libround_ops.so"
+    on_card = dev.type == "cuda"
+    if on_card:
+        check(lib.exists(), f"{lib} was not built before the workers started")
+        mtime = lib.stat().st_mtime
+    cfg = distributed.DistributedConfig(f"127.0.0.1:{port}", rank, nprocs,
+                                        (0,))
+    t0 = time.perf_counter()
+    check(distributed.initialize(cfg, backend="gloo", device=device),
+          "did not join")
+    join_s = time.perf_counter() - t0
+    mesh = distributed.global_mesh()
+    check(mesh.shape == {"jobs": nprocs, "nodes": 1}, f"mesh {mesh.shape}")
+    J, N, seed = DIST_SHAPES["10kx1k"]
+    p, _ = problem_of(build_request(J, N, seed), dev)
+    reset_counts(kernels)
+    out = sharded.solve_sharded(p, mesh)
+    launches = round_counts(kernels)
+    if on_card:
+        check(lib.stat().st_mtime == mtime, "a worker rebuilt round_ops")
+        check(all(launches.values()), f"worker launches {launches}")
+    ms = []
+    for _ in range(3):
+        sync(dev)
+        t1 = time.perf_counter()
+        sharded.solve_sharded(p, mesh)
+        sync(dev)
+        ms.append((time.perf_counter() - t1) * 1e3)
+    clock = RoundClock(kernels, distributed, dev)
+    with clock.installed():
+        again = sharded.solve_sharded(p, mesh, ops=clock.ops())
+    check(assignment_hex(again) == assignment_hex(out),
+          "the timed solve differs")
+    result = {"rank": rank, "backend": torch.distributed.get_backend(),
+              "assignment": assignment_hex(out), "launches": launches,
+              "join_s": join_s, "solve_ms": ms, "rounds_ms": clock.rounds,
+              "jax_imported": "jax" in sys.modules}
+    torch.distributed.destroy_process_group()
+    pathlib.Path(out_path).write_text(json.dumps(result))
+    return 0
+
+
+def dist_solves(dev, kernels, card):
+    """(37a): the sharded solve in one process over repeated ``cuda:0``
+    ranks, every round op of every shard held to its plain version
+    (``CheckedOps``), against the unsharded card solve; the churn
+    re-solve's preemption repair reads columns of the sharded field.
+    Returns (record, launches on the sharded solves, want 10k x 1k)."""
+    import torch
+
+    from kubeinfer_tpu_torch.scheduler import SolveRequest
+    from kubeinfer_tpu_torch.solver import sharded
+    from kubeinfer_tpu_torch.solver.core import solve_greedy
+
+    rec: dict = {}
+    problems, wants = {}, {}
+    for name, (J, N, seed) in DIST_SHAPES.items():
+        req = build_request(J, N, seed)
+        p, perm = problem_of(req, dev)
+        problems[name] = p
+        wants[name] = solve_greedy(p, accel="pallas", device=dev)
+        if name == "10kx1k":
+            # the churn base: 36 GPUs a node, so the jobs oversubscribe
+            # the cluster and new high-priority jobs find low-priority
+            # incumbents seated (the preemption repair's case)
+            tight = SolveRequest(**{**req.__dict__,
+                                    "node_gpu_free": np.full(N, 36.0,
+                                                             np.float32)})
+            pt, perm = problem_of(tight, dev)
+            current = np.empty(J, np.int32)
+            current[perm] = solve_greedy(pt, accel="pallas", device=dev
+                                         ).node[:J].cpu().numpy()
+            pc, _ = problem_of(churned(tight, current, seed=37), dev)
+            problems["10kx1k_churn"] = pc
+            wants["10kx1k_churn"] = solve_greedy(pc, accel="pallas", device=dev)
+    runs = [(name, mesh) for name in DIST_SHAPES for mesh in DIST_MESHES]
+    runs.append(("10kx1k_churn", "2x2"))
+    fields, columns = [], []
+    real_field, real_col = sharded.sharded_field, sharded.ShardedField.column
+    sharded.sharded_field = (
+        lambda *a, **kw: fields.append(real_field(*a, **kw)) or fields[-1])
+    sharded.ShardedField.column = (
+        lambda self, j: columns.append(int(j)) or real_col(self, j))
+    chks = []
+    try:
+        reset_counts(kernels)
+        for name, mname in runs:
+            ja, na = DIST_MESHES[mname]
+            mesh = sharded.make_mesh(ja * na, ja, na,
+                                     devices=[dev] * (ja * na))
+            chk = CheckedOps(kernels)
+            n_cols = len(columns)
+            got = sharded.solve_sharded(problems[name], mesh, ops=chk.ops())
+            f = fields[-1][1].S
+            for k in DIST_FIELDS:
+                check(torch.equal(getattr(got, k), getattr(wants[name], k)),
+                      f"(37a) {name} on {mname}: {k} differs from the "
+                      "unsharded card solve")
+            by_rank = {f"{op}@{','.join(map(str, pos))}": n
+                       for (op, *pos), n in sorted(f.tally.items())}
+            rounds = int(got.rounds)
+            rec[f"{name}@{mname}"] = {
+                "placed": int(got.placed), "rounds": rounds,
+                "calls_by_rank": by_rank, "checked_calls": dict(chk.calls),
+                "max_err": dict(chk.max_err),
+                "bytes_per_round": rank_bytes(f),
+                "column_reads": len(columns) - n_cols}
+            chks.append(chk)
+        launches = round_counts(kernels)
+    finally:
+        sharded.sharded_field = real_field
+        sharded.ShardedField.column = real_col
+    check(rec["10kx1k_churn@2x2"]["column_reads"] > 0,
+          "(37a) the churn solve's preemption repair read no column")
+    for key, r in rec.items():
+        print(f"(37a) {key}: placed {r['placed']} rounds {r['rounds']}, "
+              f"bitwise equal to solve_greedy(accel='pallas') on the card; "
+              f"every call held bitwise to its plain version "
+              f"{r['checked_calls']}; calls by rank {r['calls_by_rank']}; "
+              f"{r['bytes_per_round']} bytes cross ranks a round; preemption"
+              f" repair column reads {r['column_reads']}")
+    # p50s, CUDA events, the kernels' own ops
+    times = {}
+    for name in DIST_SHAPES:
+        p = problems[name]
+        times[f"{name}@1"] = event_p50(
+            lambda: solve_greedy(p, accel="pallas", device=dev), reps=5)
+        for mname, (ja, na) in DIST_MESHES.items():
+            mesh = sharded.make_mesh(ja * na, ja, na,
+                                     devices=[dev] * (ja * na))
+            times[f"{name}@{mname}"] = event_p50(
+                lambda: sharded.solve_sharded(p, mesh), reps=5)
+    print(f"(37a) {card}: solve ms (p50 of 5 after a warmup, each call "
+          f"between CUDA events; @1 the unsharded solve): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    rec["times_ms"] = times
+    return rec, launches, wants["10kx1k"]
+
+
+def dist_processes(dev, want, card):
+    """(37b): two OS processes on ``cuda:0`` over gloo, each solving the
+    10k x 1k problem on the global mesh (jobs axis 2); each assignment
+    bitwise (37a)'s unsharded one."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    paths = [out_dir / f"dist_worker_{r}.json" for r in range(2)]
+    for path in paths:
+        path.unlink(missing_ok=True)
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+         "2", str(port), str(paths[r]), dev.type], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            left = max(DIST_WORKER_S - (time.perf_counter() - t0), 1.0)
+            outs.append(proc.communicate(timeout=left)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    wall_s = time.perf_counter() - t0
+    results = []
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0 and paths[r].exists(),
+              f"(37b) worker {r} failed (rc {proc.returncode}):\n{out[-4000:]}")
+        results.append(json.loads(paths[r].read_text()))
+    want_hex = assignment_hex(want)
+    for res in results:
+        check(res["assignment"] == want_hex,
+              f"(37b) worker {res['rank']}'s assignment differs")
+        check(res["backend"] == "gloo" and not res["jax_imported"],
+              f"(37b) worker {res['rank']}: {res['backend']}, jax "
+              f"{res['jax_imported']}")
+        split = [(round(k, 3), round(c, 3)) for k, c in res["rounds_ms"]]
+        print(f"(37b) {card}: worker {res['rank']} (backend "
+              f"{res['backend']}, given by argument; joined in "
+              f"{res['join_s']:.2f} s): assignment bitwise (37a)'s; "
+              f"launches {res['launches']}; solve ms {res['solve_ms']}; per "
+              f"round (kernel ms, collective ms), synchronized: {split}")
+    print(f"(37b) two workers in {wall_s:.1f} s of wall time")
+    return {"workers": results, "wall_s": wall_s}
+
+
+def dist_train(dev, fa, card):
+    """(37c) ``sharded_train_step`` at tp=2 over ``["cuda:0"] * 2`` and
+    (37d) ``sp_train_step`` at sp=2, on llama-3-8b width cut to
+    ``DIST_LAYERS`` layers (bf16, tokens [1, DIST_T + 1]); both against
+    ``train_step`` at tp=1 on the same params and tokens. Returns
+    (record, {#13/#14 wrapper: launches on the tp steps})."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from kubeinfer_tpu_torch.inference import sharding, train
+    from kubeinfer_tpu_torch.inference.config import PRESETS
+    from kubeinfer_tpu_torch.inference.model import init_params
+
+    cfg = dataclasses.replace(PRESETS["llama-3-8b"],
+                              num_hidden_layers=DIST_LAYERS)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(37)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                           (1, DIST_T + 1))).to(dev)
+    # the dense step (tp=1) on its own copy of the same params, then
+    # its time over two more steps
+    dense = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    _, loss_dense = train.train_step(dense, tokens, cfg, lr=1e-3)
+    loss_dense = float(loss_dense)
+    dense_ms = []
+    for _ in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        _, loss = train.train_step(dense, tokens, cfg, lr=1e-3)
+        float(loss)
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (37c)
+    mesh = sharding.make_inference_mesh(tp=2, sp=1, dp=1,
+                                        devices=[dev] * 2)
+    tp_params = sharding.shard_params(params, mesh, cfg)
+    del params
+    step = train.sharded_train_step(mesh, cfg)
+    plains = {"flash_ragged_lse": fa.flash_ragged_lse_plain,
+              "flash_bwd_dq": fa.flash_bwd_dq_plain,
+              "flash_bwd_dkv": fa.flash_bwd_dkv_plain}
+    chks = {n: CheckedTrain(fa, n, p) for n, p in plains.items()}
+    with chks["flash_ragged_lse"], chks["flash_bwd_dq"], \
+            chks["flash_bwd_dkv"]:
+        _, loss1 = step(tp_params, tokens)
+        loss1 = float(loss1)
+    heads = chks["flash_ragged_lse"].first[0].shape[2]
+    n_q = cfg.num_attention_heads // 2
+    for n, c in chks.items():
+        check(c.calls == 2 * DIST_LAYERS,
+              f"(37c) {n} ran {c.calls} times, not once a layer on each of "
+              "the 2 tp ranks")
+    check(heads == n_q, f"(37c) #13 took {heads} heads, not {n_q}")
+    launches = {n: c.launches for n, c in chks.items()}
+    for n in chks:
+        getattr(fa, n).launches = 0
+    step_ms = []
+    for _ in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        _, loss = step(tp_params, tokens)
+        float(loss)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    for n in chks:
+        launches[n] += getattr(fa, n).launches
+    check(launches == dict.fromkeys(chks, 3 * 2 * DIST_LAYERS),
+          f"(37c) launches over 3 steps {launches}")
+    rel = abs(loss1 - loss_dense) / abs(loss_dense)
+    check(rel <= DIST_LOSS_REL, f"(37c) tp=2 loss {loss1} vs tp=1 "
+          f"{loss_dense} (rel {rel})")
+    copies = 0
+    for (spec, a), (_, b) in zip(
+            sharding._leaves(tp_params.specs, tp_params.shards[0]),
+            sharding._leaves(tp_params.specs, tp_params.shards[1])):
+        if "tp" not in spec:
+            check(a is b or torch.equal(a, b),
+                  "(37c) a replicated leaf's copies differ after 3 steps")
+            copies += 1
+    print(f"(37c) {card}: sharded_train_step tp=2 over cuda:0 twice, "
+          f"llama-3-8b width at {DIST_LAYERS} layers, bf16, tokens "
+          f"[1, {DIST_T + 1}]: loss {loss1} vs train_step tp=1 {loss_dense} "
+          f"(rel {rel:.2e} <= {DIST_LOSS_REL}); step 1 with "
+          + ", ".join(f"{n} on {c.calls} calls (max |kernel - plain| "
+                      f"{c.max_err:.3e})" for n, c in chks.items())
+          + f" within tolerance, each on {n_q} heads of a rank; launches "
+          f"over 3 steps {launches}; {copies} replicated leaves equal on "
+          f"both ranks; step ms {[round(x, 1) for x in step_ms]}, the "
+          f"dense step's {[round(x, 1) for x in dense_ms]}")
+    rec = {"tp_loss": loss1, "dense_loss": loss_dense, "tp_rel": rel,
+           "tp_step_ms": step_ms, "tp_launches": launches,
+           "dense_step_ms": dense_ms}
+    del tp_params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (37d) on fresh params (the same seed)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    smesh = sharding.make_inference_mesh(tp=1, sp=2, devices=[dev] * 2)
+    sstep = train.sp_train_step(smesh, cfg)
+    counts0 = {n: getattr(fa, n).launches for n in chks}
+    sp_ms, sp_losses = [], []
+    for _ in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        _, loss = sstep(params, tokens)
+        sp_losses.append(float(loss))
+        sp_ms.append((time.perf_counter() - t0) * 1e3)
+    srel = abs(sp_losses[0] - loss_dense) / abs(loss_dense)
+    check(srel <= DIST_LOSS_REL and all(np.isfinite(sp_losses)),
+          f"(37d) sp=2 loss {sp_losses[0]} vs tp=1 {loss_dense}")
+    ring = {n: getattr(fa, n).launches - counts0[n] for n in chks}
+    print(f"(37d) {card}: sp_train_step sp=2 over cuda:0 twice, same width"
+          f" and depth: loss {sp_losses[0]} vs train_step {loss_dense} "
+          f"(rel {srel:.2e} <= {DIST_LOSS_REL}); losses {sp_losses}; the "
+          f"ring is "
+          f"plain PyTorch (flash launches {ring}); step ms "
+          f"{[round(x, 1) for x in sp_ms]}")
+    rec.update(sp_losses=sp_losses, sp_rel=srel, sp_step_ms=sp_ms)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def distributed_phase(dev, record, card):
+    """Phase (37): the multi-process runtime and the sharded solve on one
+    H100 (one process over repeated ``cuda:0`` ranks, and two processes
+    sharing the card over gloo), then the tp and sp training steps.
+    Returns {kernel: launches on (37)'s main paths}."""
+    from kubeinfer_tpu_torch.inference import flash_attention as fa
+    from kubeinfer_tpu_torch.solver import kernels
+
+    t0 = time.perf_counter()
+    rec, launches, want = dist_solves(dev, kernels, card)
+    rec["processes"] = dist_processes(dev, want, card)
+    rec["train"], train_launches = dist_train(dev, fa, card)
+    launches.update(train_launches)
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t0
+    record["distributed"] = rec
+    print(f"(37) launches {launches}; {rec['phase_s']:.1f} s")
+    check(rec["phase_s"] <= DIST_BUDGET_S,
+          f"(37) took {rec['phase_s']:.1f} s, past its {DIST_BUDGET_S} s")
+    return launches
+
+
+def distributed_probe() -> int:
+    """``--distributed``: phase (37) alone (card only): builds the round
+    and training libraries, then runs ``distributed_phase``; writes
+    ``chiprun_out/distributed_probe.json``."""
+    import torch
+
+    from kubeinfer_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    _build.build_all(["round_ops", "flash_prefill", "flash_prefill_tc",
+                      "flash_backward", "flash_backward_tc"])
+    record = {"card": card}
+    distributed_phase(dev, record, card)
+    out_dir = pathlib.Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "distributed_probe.json").write_text(
+        json.dumps(record, indent=1))
+    print(record["distributed"]["phase_s"])
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), *sys.argv[5:7]))
+    if sys.argv[1:2] == ["--distributed"]:
+        sys.exit(distributed_probe())
     if sys.argv[1:2] == ["--agent"]:
         sys.exit(agent_probe())
     if sys.argv[1:2] == ["--observe"]:

@@ -126,13 +126,23 @@ def same_device(a, b) -> bool:
 
 class Mesh:
     """The port's device mesh: an array of ``torch.device``s with named
-    axes (``shape[axis]``, ``size``, ``axis_names``, ``devices``)."""
+    axes (``shape[axis]``, ``size``, ``axis_names``, ``devices``).
+    ``owners`` holds, per position, the ``torch.distributed`` rank of the
+    process that holds its tensors (all 0 for a one-process mesh); a
+    position's device is as that process names it."""
 
-    def __init__(self, devices: np.ndarray, axis_names: tuple) -> None:
+    def __init__(self, devices: np.ndarray, axis_names: tuple,
+                 owners: np.ndarray | None = None) -> None:
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-D devices for axes "
                              f"{axis_names}")
+        if owners is None:
+            owners = np.zeros(devices.shape, dtype=np.int64)
+        if owners.shape != devices.shape:
+            raise ValueError(f"owners {owners.shape} for devices "
+                             f"{devices.shape}")
         self.devices = devices
+        self.owners = owners
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(axis_names, devices.shape))
         self.size = int(devices.size)
@@ -597,6 +607,14 @@ def forward_sequence_parallel(params, tokens: torch.Tensor,
     layer-major with ring attention, each rank's head runs on its block
     (tp inside each sp rank where the mesh has tp > 1). T must divide by
     sp."""
+    return sp_rank_logits(sp_rank_params(params, mesh, cfg), tokens, cfg,
+                          mesh)
+
+
+def sp_rank_logits(ranks: list, tokens: torch.Tensor, cfg: ModelConfig,
+                   mesh: Mesh) -> torch.Tensor:
+    """``forward_sequence_parallel`` over sp rank params already placed
+    (``sp_rank_params``), as the sp training step holds them."""
     from kubeinfer_tpu_torch.inference.model import lm_logits, sp_forward
 
     B, T = tokens.shape
@@ -604,7 +622,6 @@ def forward_sequence_parallel(params, tokens: torch.Tensor,
     if T % sp:
         raise ValueError(f"sequence length {T} must divide by sp={sp}")
     T_loc = T // sp
-    ranks = sp_rank_params(params, mesh, cfg)
     first = mesh.devices[0, 0, 0]
     blocks = [tokens[:, s * T_loc:(s + 1) * T_loc].to(mesh.devices[0, 0, s])
               for s in range(sp)]

@@ -21,6 +21,7 @@ import signal
 import sys
 import threading
 
+from kubeinfer_tpu_torch import distributed
 from kubeinfer_tpu_torch.manager import Manager, ManagerConfig, load_token
 
 
@@ -139,10 +140,11 @@ def main(argv: list[str] | None = None) -> int:
         device=args.device,
     )
 
-    # The reference joins the JAX multi-host runtime here
-    # (distributed.initialize()). The port has no multi-host solve yet:
-    # ROADMAP.md Queue 1 entry 13 ports distributed.py onto
-    # torch.distributed, and this call comes back with it.
+    # Join the multi-process runtime when the fleet env is present (no-op
+    # single-process; a partial env raises here, at start): before any
+    # solve, so a sharded solve's mesh spans every process. See
+    # kubeinfer_tpu_torch/distributed.py.
+    distributed.initialize(device=args.device)
 
     stop = threading.Event()
 

@@ -85,21 +85,26 @@ class Assignment:
     placed: torch.Tensor  # i32 0-d, placed valid jobs
 
 
-def _static_cost_t(p: Problem, w: ScoreWeights) -> torch.Tensor:
-    """[N, J] cost terms that don't depend on remaining capacity. The cache
-    hit is a gather (``cached[:, model_id]``) where the reference used a
-    one-hot matmul; both select exactly one bit per (node, job)."""
+def _static_cost_t(p: Problem, w: ScoreWeights, rows: slice = slice(None),
+                   cols: slice = slice(None)) -> torch.Tensor:
+    """[N, J] cost terms that don't depend on remaining capacity, or the
+    block of them at node ``rows`` and job ``cols`` (each entry the same
+    bits as in the whole). The cache hit is a gather
+    (``cached[:, model_id]``) where the reference used a one-hot matmul;
+    both select exactly one bit per (node, job)."""
     jobs, nodes = p.jobs, p.nodes
     N = nodes.valid.shape[0]
-    hit = nodes.cached[:, jobs.model_id.long()]  # [N, J] bool
+    cur = jobs.current_node[cols]
+    hit = nodes.cached[rows][:, jobs.model_id[cols].long()]  # [n, j] bool
     cost = w.cache * (1.0 - hit.to(torch.float32))
-    n_idx = torch.arange(N, dtype=torch.int32, device=p.device)
-    has_home = jobs.current_node >= 0
-    moved = has_home[None, :] & (jobs.current_node[None, :] != n_idx[:, None])
+    n_idx = torch.arange(N, dtype=torch.int32, device=p.device)[rows]
+    has_home = cur >= 0
+    moved = has_home[None, :] & (cur[None, :] != n_idx[:, None])
     cost = cost + w.move * moved.to(torch.float32)
-    home = jobs.current_node.clamp(0, N - 1).long()
+    home = cur.clamp(0, N - 1).long()
     pref = torch.where(has_home, nodes.topology[home], -1)
-    topo_miss = (pref[None, :] >= 0) & (pref[None, :] != nodes.topology[:, None])
+    topo_miss = (pref[None, :] >= 0) & (
+        pref[None, :] != nodes.topology[rows][:, None])
     return cost + w.topology * topo_miss.to(torch.float32)
 
 
@@ -150,11 +155,13 @@ def _prank_dense(neg_p: torch.Tensor) -> torch.Tensor:
     )
 
 
-def tie_noise_hash(N: int, J: int, device: torch.device) -> torch.Tensor:
+def tie_noise_hash(N: int, J: int, device: torch.device, n0: int = 0,
+                   j0: int = 0) -> torch.Tensor:
     """The reference's fmix-style int32 hash over (node, job), in PyTorch's
-    wrapping int32 arithmetic (arithmetic >>): bit-identical to it."""
-    n = torch.arange(N, dtype=torch.int32, device=device)[:, None]
-    j = torch.arange(J, dtype=torch.int32, device=device)[None, :]
+    wrapping int32 arithmetic (arithmetic >>): bit-identical to it. The
+    [N, J] block starts at global node ``n0`` and job ``j0``."""
+    n = torch.arange(n0, n0 + N, dtype=torch.int32, device=device)[:, None]
+    j = torch.arange(j0, j0 + J, dtype=torch.int32, device=device)[None, :]
     h = n * -1640531527 + j * 40503
     h = h ^ (h >> 13)
     h = h * -1274126529
@@ -240,11 +247,13 @@ def _node_sums(node_of, gpu, mem, nodes):
 
 @dataclass
 class CostField:
-    """What the mega loop reads, fixed for one solve: the resident cost
+    """What the round loops read, fixed for one solve: the resident cost
     field S, the accept key, the fence rank, the fit-pressure weights and
-    the static quantization constants."""
+    the static quantization constants. A sharded solve
+    (``solver/sharded.py``) holds S as per-shard blocks and brings the
+    round ops that read them (``ops``); every other field stays whole."""
 
-    S: torch.Tensor  # f32[N, J] node-major
+    S: torch.Tensor  # f32[N, J] node-major, or a sharded field's blocks
     key: torch.Tensor  # i32[J]
     rankf: torch.Tensor  # f32[J] class-compressed fence rank
     v_g: torch.Tensor  # f32[N]
@@ -253,6 +262,13 @@ class CostField:
     q_lo: float
     q_scale: float
     q_max: float
+    ops: "RoundOps | None" = None  # the round ops S needs, if any
+
+    def column(self, j: torch.Tensor) -> torch.Tensor:
+        """f32[N] column ``S[:, j]`` (a sharded S assembles it)."""
+        if isinstance(self.S, torch.Tensor):
+            return self.S[:, j]
+        return self.S.column(j)
 
     def run(self, fn, jobs, asg, rank, may, gf_eff, mf, max_rounds):
         """Call ``fn`` (``kernels.mega_solve`` or ``kernels.mega_rounds``)
@@ -299,8 +315,9 @@ def run_rounds(
     bids, then a second-chance pass in which the first pass's losers bid
     their alternate node against the updated capacities — except
     incumbents whose primary was their home. The loop condition is one
-    host sync per round."""
-    ops = ops or RoundOps(kernels.fence, kernels.bid, kernels.accept)
+    host sync per round. A field that brings its own ops (a sharded one)
+    runs them."""
+    ops = f.ops or ops or RoundOps(kernels.fence, kernels.bid, kernels.accept)
     N = gpu_free.shape[0]
     # the accept kernel's accumulators, one for every accept call of the
     # solve: each call leaves the next one's half zeroed
@@ -363,15 +380,39 @@ def resolve_accel(accel: str, J: int, N: int) -> str:
     return "pallas"
 
 
-def cost_field(p: Problem, weights: ScoreWeights) -> CostField:
+def cost_block(p: Problem, weights: ScoreWeights, v_g: torch.Tensor,
+               v_m: torch.Tensor, rows: slice = slice(None),
+               cols: slice = slice(None)) -> torch.Tensor:
+    """The block of S at node ``rows`` and job ``cols`` on ``p``'s device:
+    static cost + tie noise (hashed at the global (n, j)) minus the
+    rank-1 fit term, each entry the same bits as in the whole S."""
+    N = p.nodes.valid.shape[0]
+    J = p.jobs.valid.shape[0]
+    n0, n1, _ = rows.indices(N)
+    j0, j1, _ = cols.indices(J)
+    static_cost = _static_cost_t(p, weights, rows, cols)
+    h = tie_noise_hash(n1 - n0, j1 - j0, p.device, n0, j0)
+    base_noise = max(weights.noise, _MIN_TIE_NOISE) * (
+        (h & 0x7FFFFF).to(torch.float32) * (8.0 / float(1 << 23)) - 2.0
+    )
+    del h
+    return (
+        static_cost
+        + base_noise
+        - v_g[rows, None] * p.jobs.gpu_demand[None, cols]
+        - v_m[rows, None] * p.jobs.mem_demand[None, cols]
+    )
+
+
+def cost_field(p: Problem, weights: ScoreWeights,
+               with_S: bool = True) -> CostField:
     """Build the round-invariant state of a solve
     (kubeinfer_tpu/solver/core.py:498-629): dense priority rank and
     four-class fence rank, tie noise, S, quantization constants and
-    accept key."""
+    accept key. ``with_S=False`` leaves S None, for a caller that builds
+    it in blocks (``cost_block``)."""
     jobs, nodes = p.jobs, p.nodes
-    J = jobs.valid.shape[0]
     N = nodes.valid.shape[0]
-    static_cost = _static_cost_t(p, weights)
     inv_gpu_cap, inv_mem_cap = _inv_capacity(nodes)
 
     neg_p = torch.where(jobs.valid, -jobs.priority, float("inf"))
@@ -386,21 +427,11 @@ def cost_field(p: Problem, weights: ScoreWeights) -> CostField:
     crank = crank.clamp_max(_FENCE_CLASSES - 1)
     rankf = torch.where(jobs.valid, crank.to(torch.float32), RANK_INF)
 
-    h = tie_noise_hash(N, J, p.device)
-    base_noise = max(weights.noise, _MIN_TIE_NOISE) * (
-        (h & 0x7FFFFF).to(torch.float32) * (8.0 / float(1 << 23)) - 2.0
-    )
-    del h
     # the best-fit term w*(free[n]-d[j])/cap[n] splits into a per-round [N]
     # vector (from live capacity) and this round-invariant rank-1 product
     v_g = weights.fit_gpu * inv_gpu_cap
     v_m = weights.fit_mem * inv_mem_cap
-    S = (
-        static_cost
-        + base_noise
-        - v_g[:, None] * jobs.gpu_demand[None, :]
-        - v_m[:, None] * jobs.mem_demand[None, :]
-    )
+    S = cost_block(p, weights, v_g, v_m) if with_S else None
     node_idx_bits, q_lo, q_scale, q_max = quant_constants(N, weights)
     return CostField(
         S, accept_key(prank, jobs.gpu_demand), rankf, v_g, v_m,
@@ -455,15 +486,27 @@ def solve_greedy(
     preemption repair; it is inert without incumbents."""
     dev = resolve_device(device)
     p = p.to(dev)
+    J = p.jobs.valid.shape[0]
+    N = p.nodes.valid.shape[0]
+    accel = resolve_accel(accel, J, N)
+    if accel == "mega" and mega_window(N, J) is None:
+        raise ValueError(f"accel='mega' but no mega window for N={N} J={J}")
+    return greedy_on_field(p, cost_field(p, weights), accel, max_rounds,
+                           seeded)
+
+
+def greedy_on_field(p: Problem, f: CostField, accel: str, max_rounds: int,
+                    seeded: bool) -> Assignment:
+    """The greedy solve of ``p`` (on its device) over the field ``f``:
+    seeding, the main loop ``accel`` names, the preemption repair, the
+    gang repair and the fill. Every host branch reads values every rank
+    of a sharded solve holds the same (the whole [J] and [N] vectors)."""
+    dev = p.device
     jobs, nodes = p.jobs, p.nodes
     J = jobs.valid.shape[0]
     N = nodes.valid.shape[0]
-    accel = resolve_accel(accel, J, N)
     W = mega_window(N, J)
-    if accel == "mega" and W is None:
-        raise ValueError(f"accel='mega' but no mega window for N={N} J={J}")
-    f = cost_field(p, weights)
-    S, key, rankf = f.S, f.key, f.rankf
+    key, rankf = f.key, f.rankf
     asg_init, gf_seed, mf_seed, seated = seed_incumbents(p, seeded)
 
     def mega(asg, rank_, may, gf_eff, mf_, rounds_cap):
@@ -518,7 +561,7 @@ def solve_greedy(
             )
             if not bool(can.any()):  # host sync: nothing reclaimable
                 break
-            n_star = torch.where(can, S[:, j_star], 3.4e38).argmin()
+            n_star = torch.where(can, f.column(j_star), 3.4e38).argmin()
             unseat = victim & (jobs.current_node == n_star)
             ever = ever | unseat
             assigned = torch.where(unseat, -1, assigned)

@@ -451,6 +451,22 @@ def bid_group_size(N: int) -> int:
     return 1
 
 
+def slice_group_size(n: int, group_size: int | None) -> int:
+    """The group size a bid over ``n`` nodes folds by. ``None`` is
+    ``bid_group_size(n)``. Otherwise ``group_size`` is the rule of the
+    whole node axis, and the ``n`` nodes are one of its equal slices: a
+    slice that holds whole groups folds by them, and a slice inside one
+    group is one group of its own (its alternate is the combine's, across
+    slices). Any other split would cut a group across slices unevenly,
+    and raises."""
+    if group_size is None:
+        return bid_group_size(n)
+    if group_size < 1 or (n % group_size and group_size % n):
+        raise ValueError(f"a slice of {n} nodes neither holds whole bid "
+                         f"groups of {group_size} nor lies inside one")
+    return min(group_size, n)
+
+
 def round_bids(
     S: torch.Tensor,  # f32[N, J] resident cost field
     u: torch.Tensor,  # f32[N] live best-fit pressure
@@ -466,12 +482,13 @@ def round_bids(
     q_scale: float,
     q_max: float,
     node_idx_bits: int,
+    group_size: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One pass over S -> (primary, alternate) packed i32 bids per job
     (``core._round_bids_jnp``). The primary is the job's least packed
     ``(quantized cost << node_idx_bits) | node`` over the nodes it may
     bid; the alternate is the least bid outside the primary's node group
-    (``bid_group_size``). BIG (i32 max) means no bid."""
+    (``slice_group_size(N, group_size)``). BIG (i32 max) means no bid."""
     N, J = S.shape
     dev = S.device
     big = torch.tensor(_I32MAX, dtype=torch.int32, device=dev)
@@ -487,7 +504,7 @@ def round_bids(
     )
     q = torch.clamp((S + u[:, None] - q_lo) * q_scale, 0.0, q_max)
     packed = torch.where(allowed, (q.to(torch.int32) << node_idx_bits) | n_col, big)
-    groups = N // bid_group_size(N)
+    groups = N // slice_group_size(N, group_size)
     if groups == N:  # odd N: exclude the primary itself
         prim = packed.amin(dim=0)
         alt = torch.where(packed == prim[None, :], big, packed).amin(dim=0)
@@ -691,7 +708,7 @@ fence.walk_counter = None
 
 def bid(
     S, u, gf, mf, d, md, rankf_eff, minrank, current_node, *,
-    q_lo, q_scale, q_max, node_idx_bits,
+    q_lo, q_scale, q_max, node_idx_bits, group_size=None,
 ):
     """``round_bids`` on the tensors' device: for CUDA tensors one launch
     of the bid kernel of ``csrc/round_ops.cu``, which reads S only where
@@ -701,13 +718,14 @@ def bid(
     the same launch. ``prim`` and ``alt`` are the two columns of one
     [J, 2] tensor.
     Where ``bid.walk_counter`` holds an int64 CUDA tensor of two elements,
-    the launch adds ``bid_walk``'s entries and walks to them."""
+    the launch adds ``bid_walk``'s entries and walks to them.
+    ``group_size`` is as in ``round_bids`` (a node slice's)."""
     lib = _kernel_lib(S, "bid", "round_ops")
     if lib is None:
         return round_bids(
             S, u, gf, mf, d, md, rankf_eff, minrank, current_node,
             q_lo=q_lo, q_scale=q_scale, q_max=q_max,
-            node_idx_bits=node_idx_bits,
+            node_idx_bits=node_idx_bits, group_size=group_size,
         )
     N, J = S.shape
     dev = S.device
@@ -727,7 +745,7 @@ def bid(
     out = torch.full((J, 2), _I32MAX, dtype=torch.int32, device=dev)
     _launch(
         lib, "bid_launch", S, u, gf, mf, d, md, rankf_eff, minrank,
-        current_node, out, walked, N, J, bid_group_size(N),
+        current_node, out, walked, N, J, slice_group_size(N, group_size),
         int(node_idx_bits), float(q_lo), float(q_scale), float(q_max),
     )
     bid.launches += 1

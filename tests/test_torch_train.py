@@ -30,6 +30,7 @@ from kubeinfer_tpu.inference import init_params as jinit
 from kubeinfer_tpu.inference import train as jtrain
 from kubeinfer_tpu_torch.inference import flash_attention as tfa
 from kubeinfer_tpu_torch.inference import model as tm
+from kubeinfer_tpu_torch.inference import sharding as tsh
 from kubeinfer_tpu_torch.inference import train as ttrain
 from kubeinfer_tpu_torch.inference.config import PRESETS
 from kubeinfer_tpu_torch.inference.weights import params_from_reference
@@ -199,10 +200,131 @@ def test_sgd_matches_reference(dtype):
 
 
 def test_unsupported_trees_and_steps_raise():
-    params = tm.init_params(CFG, seed=0, device="cpu", weight_dtype="int8")
+    """An int8 tree has no gradient: every step raises on it, and the
+    sharded step also on a batch that does not split over dp."""
+    def int8_tree():
+        return tm.init_params(CFG, seed=0, device="cpu", weight_dtype="int8")
+
+    toks = torch.from_numpy(tokens(4))
     with pytest.raises(ValueError, match="int8"):
-        ttrain.train_step(params, torch.from_numpy(tokens()), CFG)
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 13"):
-        ttrain.sharded_train_step(None, CFG)
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 13"):
-        ttrain.sp_train_step(None, CFG)
+        ttrain.train_step(int8_tree(), toks, CFG)
+    mesh = tsh.make_inference_mesh(tp=2, sp=1, dp=4, devices=CPU8)
+    with pytest.raises(ValueError, match="int8"):
+        ttrain.sp_train_step(tsh.make_inference_mesh(tp=1, sp=2,
+                                                     devices=CPU8[:2]),
+                             CFG)(int8_tree(), toks)
+    with pytest.raises(ValueError, match="int8"):
+        ttrain.sharded_train_step(mesh, CFG)(int8_tree(), toks)
+    dense = tm.init_params(CFG, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="divide by dp=4"):
+        ttrain.sharded_train_step(mesh, CFG)(dense, torch.from_numpy(
+            tokens(2)))
+
+
+# --- the parallel steps (kubeinfer_tpu/inference/train.py:72-130) ----------
+#
+# Against the reference's on its 8 virtual CPU devices, at ``tiny``: the
+# loss within 2e-5 and every updated leaf within 5e-6 absolute and 1e-4
+# relative (the reference's own bounds, tests/test_inference_train.py:
+# 52-54 and :97-100: the same math, sums in another order).
+
+CPU8 = ["cpu"] * 8
+
+
+def batch_np(B, T, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, CFG.vocab_size, (B, T)).astype(np.int32)
+
+
+def assert_leaves_close(got_tree, want_tree):
+    want = ttrain._leaves(port_params(jax.tree.map(np.asarray, want_tree)))
+    got = ttrain._leaves(got_tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), w.numpy(), atol=5e-6,
+                                   rtol=1e-4)
+
+
+def test_sharded_train_step_matches_reference():
+    """dp=4 x tp=2: the loss and the updated tree of one step."""
+    from kubeinfer_tpu.inference import sharding as jsh
+
+    toks = batch_np(4, 17, 2)
+    tree = jax.tree.map(np.asarray, jinit(JCFG, jax.random.PRNGKey(1)))
+    jmesh = jsh.make_inference_mesh(tp=2, sp=1, dp=4)
+    jparams = jsh.shard_params(jax.tree.map(jnp.asarray, tree), jmesh, JCFG)
+    jtoks = jax.device_put(jnp.asarray(toks), jax.sharding.NamedSharding(
+        jmesh, jax.sharding.PartitionSpec("dp", None)))
+    want_tree, want_loss = jtrain.sharded_train_step(jmesh, JCFG)(jparams,
+                                                                   jtoks)
+
+    mesh = tsh.make_inference_mesh(tp=2, sp=1, dp=4, devices=CPU8)
+    params = tsh.shard_params(port_params(tree), mesh, CFG)
+    before = [x for s in params.shards for x in ttrain._leaves(s)]
+    out, loss = ttrain.sharded_train_step(mesh, CFG)(params,
+                                                     torch.from_numpy(toks))
+    assert out is params  # updated in place, on its placement
+    assert all(a is b for a, b in zip(
+        [x for s in out.shards for x in ttrain._leaves(s)], before))
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=2e-5,
+                               atol=2e-5)
+    assert_leaves_close(tsh.unshard_params(out), want_tree)
+
+
+def test_sp_train_step_matches_reference():
+    """sp=2: the loss and the updated tree of one step at lr 1e-2 (the
+    reference's ``test_sp_step_decreases_loss`` rate)."""
+    from kubeinfer_tpu.inference import sharding as jsh
+
+    toks = batch_np(2, 17, 1)
+    tree = jax.tree.map(np.asarray, jinit(JCFG, jax.random.PRNGKey(1)))
+    jmesh = jsh.make_inference_mesh(tp=1, sp=2)
+    want_tree, want_loss = jtrain.sp_train_step(jmesh, JCFG, lr=1e-2)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(toks))
+
+    mesh = tsh.make_inference_mesh(tp=1, sp=2, devices=CPU8[:2])
+    params = port_params(tree)
+    out, loss = ttrain.sp_train_step(mesh, CFG, lr=1e-2)(
+        params, torch.from_numpy(toks))
+    assert out is params
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=2e-5,
+                               atol=2e-5)
+    assert_leaves_close(out, want_tree)
+    # the sp loss is the dense loss of the same tree
+    dense = ttrain.causal_lm_loss(out, torch.from_numpy(toks), CFG)
+    sp_loss = ttrain.sp_causal_lm_loss(out, torch.from_numpy(toks), CFG,
+                                       mesh)
+    np.testing.assert_allclose(float(sp_loss), float(dense), rtol=1e-5)
+
+
+def test_replicated_copies_stay_equal():
+    """Rank 1 holding its own copies of the replicated leaves (as ranks
+    on two cards do): 3 sharded steps keep every copy equal to rank 0's,
+    and the tree equal, bitwise, to the one whose ranks share them."""
+    mesh = tsh.make_inference_mesh(tp=2, sp=1, dp=1, devices=CPU8[:2])
+    toks = torch.from_numpy(batch_np(2, 17, 3))
+    shared = tsh.shard_params(tm.init_params(CFG, seed=2, device="cpu"),
+                              mesh, CFG)
+    specs = shared.specs
+    split = tsh.ShardedParams(mesh=mesh, specs=specs, shards=tuple(
+        tsh._map2(lambda s, x: x.clone(), specs, shard)
+        for shard in shared.shards))
+    step = ttrain.sharded_train_step(mesh, CFG, lr=5e-2)
+    losses = []
+    for _ in range(3):
+        shared, l_shared = step(shared, toks)
+        split, l_split = step(split, toks)
+        losses.append(float(l_split))
+        assert float(l_shared) == float(l_split)
+    assert losses[-1] < losses[0]
+    pairs0 = tsh._leaves(specs, split.shards[0])
+    pairs1 = tsh._leaves(specs, split.shards[1])
+    copies = 0
+    for (spec, a), (_, b) in zip(pairs0, pairs1):
+        if "tp" not in spec:
+            assert a is not b and torch.equal(a, b)
+            copies += 1
+    assert copies > 0
+    for x, y in zip(ttrain._leaves(tsh.unshard_params(split)),
+                    ttrain._leaves(tsh.unshard_params(shared))):
+        assert torch.equal(x, y)
